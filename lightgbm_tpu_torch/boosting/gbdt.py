@@ -1,0 +1,526 @@
+"""GBDT: the synchronous boosting loop.
+
+Port of the synchronous path of ``lightgbm_tpu/boosting/gbdt.py``
+(``GBDT::TrainOneIter``, `gbdt.cpp:333-413`): boost-from-average, gradients,
+bagging, feature sampling, one tree per class, shrinkage, score updates for
+the training and validation sets, metric output with early-stopping
+bookkeeping, and model text.  The scores live on the booster's device as
+(K, N_pad) float32; the training score is updated from the learner's leaf
+partition, the validation scores by a device traversal of the new tree over
+the validation set's bin codes.  ``Booster.predict`` walks the host trees
+(``Tree.predict``, numpy).  The JAX package's pipelined and fused iteration
+paths produce the same model text and come with a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..binning import kEpsilon
+from ..config import Config
+from ..dataset import Dataset, _ConstructedDataset, upload
+from ..learner_compact import CompactTreeLearner, create_tree_learner
+from ..metrics import Metric
+from ..objectives import ObjectiveFunction, create_objective
+from ..tree import Tree
+
+K_MODEL_VERSION = "v2"
+
+
+class ScoreUpdater:
+    """Running raw scores for one dataset (`src/boosting/score_updater.hpp`),
+    (K, N_pad) float32 on ``device``."""
+
+    def __init__(self, data: _ConstructedDataset, num_class: int,
+                 device: torch.device):
+        self.data = data
+        self.device = device
+        self.num_class = num_class
+        self.num_data = data.num_data
+        score = np.zeros((num_class, data.num_data_padded), dtype=np.float32)
+        self.has_init_score = False
+        init = data.metadata.init_score
+        if init is not None:
+            self.has_init_score = True
+            init = np.asarray(init, dtype=np.float32)
+            if len(init) == self.num_data * num_class:
+                score[:, :self.num_data] = init.reshape(num_class,
+                                                        self.num_data)
+            else:
+                score[:, :self.num_data] = init[None, :self.num_data]
+        self.score = upload(score, device)
+
+    def add_constant(self, val: float, class_id: int) -> None:
+        self.score[class_id] += float(np.float32(val))
+
+    def add_by_leaf_id(self, leaf_values: torch.Tensor,
+                       leaf_id: torch.Tensor, class_id: int) -> None:
+        """Train-side update: the (shrunk, float32) leaf values gathered by
+        the learner's final leaf partition (`score_updater.hpp:74-96`)."""
+        self.score[class_id] += leaf_values[leaf_id]
+
+    def add_by_tree(self, tree: Tree, class_id: int) -> None:
+        """Valid-side update: traverse the tree over this dataset's bin
+        codes on the device (`score_updater.hpp:97-105`)."""
+        if tree.num_leaves <= 1:
+            self.add_constant(float(tree.leaf_value[0]), class_id)
+            return
+        self.score[class_id] += traverse_tree_binned(self.data, tree,
+                                                     self.device)
+
+    def np_score(self) -> np.ndarray:
+        """(n, K) raw scores on the host (unpadded)."""
+        s = self.score[:, :self.num_data].cpu().numpy()
+        return s.T if self.num_class > 1 else s[0]
+
+
+def traverse_tree_binned(data: _ConstructedDataset, tree: Tree,
+                         device: torch.device) -> torch.Tensor:
+    """Inner-bin traversal (``NumericalDecisionInner``, `tree.h:233-249`) of
+    every row of a binned dataset; returns each row's leaf value (float32).
+    The per-node arrays go to the device in one non-blocking upload."""
+    ni = tree.num_leaves - 1
+    num_bin, missing, default_bin, _ = data.feature_meta_arrays()
+    feat = tree.split_feature_inner[:ni].astype(np.int64)
+    nodes = np.stack([
+        feat, tree.threshold_in_bin[:ni], missing[feat], default_bin[feat],
+        num_bin[feat] - 1, (tree.decision_type[:ni] & 2) != 0,
+        tree.left_child[:ni], tree.right_child[:ni]]).astype(np.int64)
+    nodes = upload(nodes, device)
+    leaf_value = upload(tree.leaf_value[:tree.num_leaves].astype(np.float32),
+                        device)
+    feat_d, thr, mt, dbin, nanbin, dleft, left, right = nodes
+    bins = data.device_bins(device)
+    n = bins.shape[1]
+    rows = torch.arange(n, device=device)
+    node = torch.zeros(n, dtype=torch.int64, device=device)
+    for _ in range(int(tree.leaf_depth[:tree.num_leaves].max())):
+        nd = torch.clamp(node, min=0)        # leaves are encoded negative
+        fv = bins[feat_d[nd], rows].to(torch.int64)
+        m = mt[nd]
+        is_missing = ((m == 1) & (fv == dbin[nd])) | \
+                     ((m == 2) & (fv == nanbin[nd]))
+        go_left = torch.where(is_missing, dleft[nd] != 0, fv <= thr[nd])
+        nxt = torch.where(go_left, left[nd], right[nd])
+        node = torch.where(node < 0, node, nxt)
+    leaf = torch.where(node < 0, ~node, 0)
+    return leaf_value[leaf]
+
+
+class GBDT:
+    """Reference `src/boosting/gbdt.h:24`: the synchronous loop."""
+
+    name = "gbdt"
+
+    def __init__(self, cfg: Config, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.iter_ = 0
+        self.models: List[Tree] = []
+        self.train_data: Optional[_ConstructedDataset] = None
+        self.objective: Optional[ObjectiveFunction] = None
+        self.num_tree_per_iteration = 1
+        self.shrinkage_rate = cfg.learning_rate
+        self.max_feature_idx = 0
+        self.label_idx = 0
+        self.feature_names: List[str] = []
+        self.feature_infos: List[str] = []
+        self.learner: Optional[CompactTreeLearner] = None
+        self.train_score: Optional[ScoreUpdater] = None
+        self.valid_scores: List[ScoreUpdater] = []
+        self.valid_names: List[str] = []
+        self.training_metrics: List[Metric] = []
+        self.valid_metrics: List[List[Metric]] = []
+        self.best_score: List[List[float]] = []
+        self.best_iter: List[List[int]] = []
+        self.best_msg: List[List[str]] = []
+        self.class_need_train: List[bool] = []
+        # the JAX package's host draws, so the bag and feature masks are the
+        # same numbers in both packages
+        self._bag_rng = np.random.RandomState(cfg.bagging_seed)
+        self._feat_rng = np.random.RandomState(cfg.feature_fraction_seed)
+        self.average_output = False
+        self.pandas_categorical = None
+        self.eval_history: Dict[str, Dict[str, List[float]]] = {}
+        self.host_syncs = 0     # blocking reads of scores by the loop
+
+    # -- GBDT::Init (`gbdt.cpp:45-137`) -------------------------------------
+
+    def init(self, train_data: Dataset, objective: Optional[ObjectiveFunction],
+             training_metrics: Sequence[Metric] = (), histogram=None) -> None:
+        data = train_data.constructed
+        self.train_data = data
+        self.objective = objective
+        self.num_tree_per_iteration = (
+            objective.num_model_per_iteration if objective is not None
+            else max(self.cfg.num_class, 1))
+        if objective is not None:
+            objective.init(data.metadata, data.num_data, data.num_data_padded)
+        self.learner = create_tree_learner(self.cfg, data, self.device,
+                                           histogram)
+        self.train_score = ScoreUpdater(data, self.num_tree_per_iteration,
+                                        self.device)
+        self.training_metrics = list(training_metrics)
+        self.max_feature_idx = data.num_total_features - 1
+        self.feature_names = list(data.feature_names)
+        self.feature_infos = feature_infos(data.bin_mappers,
+                                           data.used_feature_map,
+                                           data.num_total_features)
+        self.class_need_train = [
+            objective.class_need_train(k) if objective is not None else True
+            for k in range(self.num_tree_per_iteration)]
+        self.num_data = data.num_data
+        base = np.zeros(data.num_data_padded, dtype=np.float32)
+        base[:data.num_data] = 1.0
+        self._bag_mask = upload(base, self.device)   # 0 on padded rows
+        self._full_fmask = torch.ones(data.num_used_features,
+                                      dtype=torch.bool, device=self.device)
+
+    def add_valid_data(self, valid_data: Dataset, name: str,
+                       metrics: Sequence[Metric]) -> None:
+        data = valid_data.constructed
+        self.valid_scores.append(ScoreUpdater(data, self.num_tree_per_iteration,
+                                              self.device))
+        self.valid_names.append(name)
+        self.valid_metrics.append(list(metrics))
+        self.best_score.append([-math.inf] * len(metrics))
+        self.best_iter.append([0] * len(metrics))
+        self.best_msg.append([""] * len(metrics))
+
+    # -- bagging and feature sampling ---------------------------------------
+
+    def _bagging(self, iter_: int) -> None:
+        """`gbdt.cpp:180-241`: a fresh bag every ``bagging_freq`` rounds."""
+        cfg = self.cfg
+        if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0 \
+                and iter_ % cfg.bagging_freq == 0:
+            n = self.num_data
+            bag_cnt = int(cfg.bagging_fraction * n)
+            idx = self._bag_rng.choice(n, bag_cnt, replace=False)
+            mask = np.zeros(self.train_data.num_data_padded, dtype=np.float32)
+            mask[idx] = 1.0
+            self._bag_mask = upload(mask, self.device)
+
+    def _feature_sample(self) -> torch.Tensor:
+        """Per-tree feature_fraction sampling (`serial_tree_learner.cpp:255-283`)."""
+        f = self.train_data.num_used_features
+        frac = self.cfg.feature_fraction
+        if frac >= 1.0:
+            return self._full_fmask
+        used = max(1, int(round(f * frac)))
+        idx = self._feat_rng.choice(f, used, replace=False)
+        mask = np.zeros(f, dtype=bool)
+        mask[idx] = True
+        return upload(mask, self.device)
+
+    # -- one boosting iteration (`gbdt.cpp:333-413`) -------------------------
+
+    def train_one_iter(self) -> bool:
+        """Returns True when training cannot continue (no splittable leaves)."""
+        init_scores = [self._boost_from_average(k)
+                       for k in range(self.num_tree_per_iteration)]
+        grads = [self.objective.get_gradients(self.train_score.score[k], k)
+                 for k in range(self.num_tree_per_iteration)]
+        self._bagging(self.iter_)
+        should_continue = False
+        for k, (grad, hess) in enumerate(grads):
+            new_tree = Tree(2)
+            if self.class_need_train[k] \
+                    and self.train_data.num_used_features > 0:
+                new_tree, leaf_id, leaf_out = self.learner.train(
+                    grad, hess, self._bag_mask, self._feature_sample())
+            if new_tree.num_leaves > 1:
+                should_continue = True
+                new_tree.apply_shrinkage(self.shrinkage_rate)
+                # the host tree's leaf values are float32(f32 output * rate
+                # in float64); the same numbers are formed on the device
+                lv = (torch.nan_to_num(leaf_out.to(torch.float32), nan=0.0)
+                      .to(torch.float64) * self.shrinkage_rate) \
+                    .to(torch.float32)
+                self.train_score.add_by_leaf_id(lv, leaf_id, k)
+                for vs in self.valid_scores:
+                    vs.add_by_tree(new_tree, k)
+                if abs(init_scores[k]) > kEpsilon:
+                    new_tree.leaf_value[:new_tree.num_leaves] += init_scores[k]
+                    new_tree.shrinkage = 1.0
+            elif len(self.models) < self.num_tree_per_iteration:
+                # constant tree for the never-trained / unsplittable case
+                if not self.class_need_train[k] and self.objective is not None:
+                    output = self.objective.boost_from_score(k)
+                else:
+                    output = init_scores[k]
+                new_tree = Tree(2)
+                new_tree.num_leaves = 1
+                new_tree.leaf_value[0] = output
+                self.train_score.add_constant(output, k)
+                for vs in self.valid_scores:
+                    vs.add_constant(output, k)
+            self.models.append(new_tree)
+        if not should_continue:
+            import warnings
+            warnings.warn("Stopped training because there are no more leaves "
+                          "that meet the split requirements")
+            if len(self.models) > self.num_tree_per_iteration:
+                del self.models[-self.num_tree_per_iteration:]
+            return True
+        self.iter_ += 1
+        return False
+
+    def _boost_from_average(self, class_id: int) -> float:
+        """`gbdt.cpp:309-331`."""
+        if self.models or self.train_score.has_init_score \
+                or self.objective is None:
+            return 0.0
+        if not (self.cfg.boost_from_average
+                or self.train_data.num_used_features == 0):
+            return 0.0
+        init_score = self.objective.boost_from_score(class_id)
+        if abs(init_score) > kEpsilon:
+            self.train_score.add_constant(init_score, class_id)
+            for vs in self.valid_scores:
+                vs.add_constant(init_score, class_id)
+            return init_score
+        return 0.0
+
+    # -- eval / early stop (`gbdt.cpp:432-533`) ------------------------------
+
+    def eval_and_check_early_stopping(self, log=None) -> bool:
+        msg = self.output_metric(self.iter_, log)
+        if msg:
+            if log:
+                log(f"Early stopping at iteration {self.iter_}, the best "
+                    f"iteration round is "
+                    f"{self.iter_ - self.cfg.early_stopping_round}")
+            drop = self.cfg.early_stopping_round * self.num_tree_per_iteration
+            del self.models[-drop:]
+            return True
+        return False
+
+    def output_metric(self, iter_: int, log=None) -> str:
+        cfg = self.cfg
+        need_output = (iter_ % cfg.metric_freq) == 0
+        ret = ""
+        msg_lines: List[str] = []
+        if need_output:
+            for m in self.training_metrics:
+                for name, val in m.eval(self.metric_score(self.train_score),
+                                        self.objective):
+                    line = f"Iteration:{iter_}, training {name} : {val:g}"
+                    if log:
+                        log(line)
+                    self.eval_history.setdefault("training", {}).setdefault(
+                        name, []).append(val)
+                    if cfg.early_stopping_round > 0:
+                        msg_lines.append(line)
+        meet = []
+        if need_output or cfg.early_stopping_round > 0:
+            for i, metrics in enumerate(self.valid_metrics):
+                for j, m in enumerate(metrics):
+                    results = m.eval(self.metric_score(self.valid_scores[i]),
+                                     self.objective)
+                    dname = self.valid_names[i]
+                    for name, val in results:
+                        line = f"Iteration:{iter_}, valid_{i+1} {name} : {val:g}"
+                        if need_output and log:
+                            log(line)
+                        self.eval_history.setdefault(dname, {}).setdefault(
+                            name, []).append(val)
+                        if cfg.early_stopping_round > 0:
+                            msg_lines.append(line)
+                    if not ret and cfg.early_stopping_round > 0:
+                        factor = 1.0 if m.is_higher_better else -1.0
+                        cur = factor * results[-1][1]
+                        if cur > self.best_score[i][j]:
+                            self.best_score[i][j] = cur
+                            self.best_iter[i][j] = iter_
+                            meet.append((i, j))
+                        elif iter_ - self.best_iter[i][j] \
+                                >= cfg.early_stopping_round:
+                            ret = self.best_msg[i][j]
+        for i, j in meet:
+            self.best_msg[i][j] = "\n".join(msg_lines)
+        return ret
+
+    def metric_score(self, updater: ScoreUpdater) -> np.ndarray:
+        """Host copy of a score updater's scores (one blocking read)."""
+        self.host_syncs += 1
+        return updater.np_score()
+
+    # -- prediction (host traversal) -----------------------------------------
+
+    def _num_models_for(self, num_iteration: int) -> int:
+        if num_iteration <= 0:
+            return len(self.models)
+        return min(len(self.models),
+                   num_iteration * self.num_tree_per_iteration)
+
+    def predict_raw(self, X: np.ndarray, num_iteration: int = -1
+                    ) -> np.ndarray:
+        X = np.ascontiguousarray(X, dtype=np.float64)
+        k = self.num_tree_per_iteration
+        out = np.zeros((X.shape[0], k), dtype=np.float64)
+        for i in range(self._num_models_for(num_iteration)):
+            out[:, i % k] += self.models[i].predict(X)
+        return out[:, 0] if k == 1 else out
+
+    def predict(self, X: np.ndarray, num_iteration: int = -1,
+                raw_score: bool = False, pred_leaf: bool = False
+                ) -> np.ndarray:
+        if pred_leaf:
+            X = np.ascontiguousarray(X, dtype=np.float64)
+            return np.stack([self.models[i].predict_leaf_index(X) for i in
+                             range(self._num_models_for(num_iteration))],
+                            axis=1)
+        raw = self.predict_raw(X, num_iteration)
+        if raw_score or self.objective is None:
+            return raw
+        return self.objective.convert_output(raw)
+
+    @property
+    def num_iterations_trained(self) -> int:
+        return len(self.models) // max(self.num_tree_per_iteration, 1)
+
+    # -- serialization (`gbdt_model_text.cpp:244-341`) -----------------------
+
+    def save_model_to_string(self, start_iteration: int = 0,
+                             num_iteration: int = -1) -> str:
+        out = [self.name]
+        out.append(f"version={K_MODEL_VERSION}")
+        out.append(f"num_class={max(self.cfg.num_class, 1)}")
+        out.append(f"num_tree_per_iteration={self.num_tree_per_iteration}")
+        out.append(f"label_index={self.label_idx}")
+        out.append(f"max_feature_idx={self.max_feature_idx}")
+        if self.objective is not None:
+            out.append(f"objective={self.objective.to_string()}")
+        if self.average_output:
+            out.append("average_output")
+        out.append("feature_names=" + " ".join(self.feature_names))
+        out.append("feature_infos=" + " ".join(self.feature_infos))
+
+        num_used = len(self.models)
+        total_iter = num_used // max(self.num_tree_per_iteration, 1)
+        start_iteration = min(max(start_iteration, 0), total_iter)
+        if num_iteration > 0:
+            num_used = min((start_iteration + num_iteration)
+                           * self.num_tree_per_iteration, num_used)
+        start_model = start_iteration * self.num_tree_per_iteration
+        tree_strs = []
+        for i in range(start_model, num_used):
+            s = f"Tree={i - start_model}\n" + self.models[i].to_string() + "\n"
+            tree_strs.append(s)
+        out.append("tree_sizes=" + " ".join(str(len(s)) for s in tree_strs))
+        out.append("")
+        body = "\n".join(out) + "\n" + "".join(tree_strs)
+        body += "end of trees\n"
+        imps = self.feature_importance("split")
+        pairs = [(int(v), self.feature_names[i])
+                 for i, v in enumerate(imps) if v > 0]
+        pairs.sort(key=lambda p: -p[0])
+        body += "\nfeature importances:\n"
+        for v, name in pairs:
+            body += f"{name}={v}\n"
+        import json as _json
+        body += "\npandas_categorical:%s\n" % _json.dumps(
+            self.pandas_categorical, default=str)
+        return body
+
+    def save_model_to_file(self, filename: str, start_iteration: int = 0,
+                           num_iteration: int = -1) -> None:
+        """Atomic write: a temporary file in the target directory, then
+        ``os.replace``."""
+        import os
+        import tempfile
+
+        s = self.save_model_to_string(start_iteration, num_iteration)
+        d = os.path.dirname(os.path.abspath(filename))
+        fd, tmp = tempfile.mkstemp(
+            prefix=os.path.basename(filename) + ".", suffix=".tmp", dir=d)
+        try:
+            with os.fdopen(fd, "w") as fh:
+                fh.write(s)
+            os.replace(tmp, filename)
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+
+    def load_model_from_string(self, s: str) -> "GBDT":
+        """`gbdt_model_text.cpp:343-440`."""
+        for line in s.rsplit("\n", 3)[1:]:
+            if line.startswith("pandas_categorical:"):
+                import json as _json
+                try:
+                    self.pandas_categorical = _json.loads(
+                        line[len("pandas_categorical:"):])
+                except ValueError:
+                    self.pandas_categorical = None
+        lines, trees_part = s.split("tree_sizes=", 1)
+        header: Dict[str, str] = {}
+        for line in lines.strip().split("\n"):
+            if "=" in line:
+                k, v = line.split("=", 1)
+                header[k] = v
+            elif line.strip() == "average_output":
+                self.average_output = True
+        self.num_tree_per_iteration = int(header.get("num_tree_per_iteration",
+                                                     1))
+        self.cfg.num_class = int(header.get("num_class", 1))
+        self.label_idx = int(header.get("label_index", 0))
+        self.max_feature_idx = int(header.get("max_feature_idx", 0))
+        self.feature_names = header.get("feature_names", "").split()
+        self.feature_infos = header.get("feature_infos", "").split()
+        if "objective" in header and self.objective is None:
+            self.cfg.objective = _objective_from_string(header["objective"],
+                                                        self.cfg)
+            self.objective = create_objective(self.cfg, self.device)
+        self.models = []
+        body = trees_part.split("\n", 1)[1]
+        for block in body.split("Tree=")[1:]:
+            tree_txt = block.split("\n\n")[0]
+            tree_txt = tree_txt.split("end of trees")[0]
+            tree_txt = tree_txt.split("\n", 1)[1]  # drop the tree index line
+            self.models.append(Tree.from_string(tree_txt))
+        self.iter_ = len(self.models) // max(self.num_tree_per_iteration, 1)
+        return self
+
+    def feature_importance(self, importance_type: str = "split",
+                           num_iteration: int = -1) -> np.ndarray:
+        out = np.zeros(self.max_feature_idx + 1, dtype=np.float64)
+        for i in range(self._num_models_for(num_iteration)):
+            t = self.models[i]
+            for nd in range(t.num_leaves - 1):
+                if importance_type == "split":
+                    out[t.split_feature[nd]] += 1.0
+                else:
+                    out[t.split_feature[nd]] += max(t.split_gain[nd], 0.0)
+        return out
+
+
+def feature_infos(bin_mappers, used_feature_map,
+                  num_total_features: int) -> List[str]:
+    """``feature_infos`` strings: [min:max] per used numerical feature,
+    ``none`` for the unused ones."""
+    out = ["none"] * num_total_features
+    for k, m in enumerate(bin_mappers):
+        out[int(used_feature_map[k])] = f"[{m.min_val:g}:{m.max_val:g}]"
+    return out
+
+
+def _objective_from_string(s: str, cfg: Config) -> str:
+    parts = s.split()
+    name = parts[0]
+    for tok in parts[1:]:
+        if ":" in tok:
+            k, v = tok.split(":", 1)
+            try:
+                setattr(cfg, k, type(getattr(cfg, k, 0.0))(v))
+            except (TypeError, ValueError):
+                pass
+    return {"xentropy": "cross_entropy", "xentlambda": "cross_entropy_lambda"
+            }.get(name, name)

@@ -1,0 +1,445 @@
+"""Compacted tree learner: leaf-wise growth over leaf-contiguous rows.
+
+Port of ``lightgbm_tpu/learner_compact.py:CompactTPUTreeLearner``.  The row
+payloads (packed bin words, weight channels, row ids, leaf ids) are kept
+permuted so that the rows of leaf ``l`` live at ``[start[l], start[l] +
+size[l])``; a split partitions only its parent's window and the smaller
+child's histogram is built through ``ops/hist_packed.py``, the sibling's by
+subtraction from the parent (`serial_tree_learner.cpp:371-385`).  Split
+semantics are the JAX package's: both call ``find_best_splits``.
+
+What changes in eager torch:
+
+  * The tree is a Python loop over split steps, not a jitted ``while_loop``
+    with ``lax.switch`` over power-of-two window buckets (the buckets exist
+    only because XLA needs static shapes).  Each step slices its windows
+    directly, rounded up to the histogram kernel's 1024-row quantum.
+  * Each step reads ONE small packed tensor to the host: the best leaf, its
+    window start and size, its best split (feature, threshold, flags) and
+    whether its gain is positive (``do``, which is also the loop condition).
+    That is one host sync per split; ``host_syncs`` counts them.  Because the
+    smaller child's window position is only known on the device after the
+    partition, its histogram runs over the parent's window with the weights
+    masked to the smaller child's leaf id, so no second sync is needed.
+  * The partition keeps both JAX modes as semantics.  Windows whose size
+    bucket is above ``tpu_sort_cutoff`` are physically compacted by a stable
+    cumsum partition and one gather per lane (the one-bit-key ``lax.sort``);
+    smaller windows are frozen and only the leaf-id lane is rewritten (mask
+    mode), children sharing the parent's window.
+  * ``gpu_use_dp`` keeps the plain float64 histogram, as the JAX package keeps
+    dp off its Pallas kernel.  Otherwise the histogram is the ``histogram``
+    argument, by default the kernel wrapper ``build_histogram_packed``; the
+    tests and the chip check pass ``build_histogram_packed_plain`` to grow
+    the same tree through the plain version.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .binning import MISSING_NAN, MISSING_ZERO
+from .config import MASKED, Config, not_ported
+from .dataset import _ConstructedDataset, _round_up
+from .learner import NUM_REC_FIELDS, TreeLearner
+from .ops.hist_packed import (ROW_QUANTUM, build_histogram_packed,
+                              build_histogram_packed_plain, pack_bin_words)
+from .tree import Tree
+
+# fused per-leaf state columns (acc dtype)
+LF_SUM_G, LF_SUM_H, LF_CNT, LF_OUT, LF_DEPTH, LF_MIN_C, LF_MAX_C = range(7)
+NUM_LF = 7
+# fused per-leaf best-candidate columns (acc dtype)
+CF_GAIN, CF_LSG, CF_LSH, CF_LCNT, CF_RSG, CF_RSH, CF_RCNT, CF_LOUT, \
+    CF_ROUT = range(9)
+NUM_CF = 9
+# int candidate columns; flags bit0 = default_left
+CI_FEAT, CI_THR, CI_FLAGS = range(3)
+NUM_CI = 3
+# record fields known on the host (REC_VALID .. REC_DEFAULT_LEFT)
+NUM_HOST_REC = 5
+
+
+@dataclass
+class CompactState:
+    """One tree's device state; the tensors are updated in place."""
+    bins_p: torch.Tensor     # (Fw, N) int32 packed bins, permuted by leaf
+    w_p: torch.Tensor        # (3, N) f32 (g*bag, h*bag, bag), permuted
+    rid_p: torch.Tensor      # (N,) int64 original row id at each position
+    lid_p: torch.Tensor      # (N,) int32 leaf id at each position
+    leaf_i: torch.Tensor     # (L, 2) int64 [window start, window size]
+    leaf_f: torch.Tensor     # (L, NUM_LF) acc sums/cnt/output/depth/bounds
+    hist_pool: torch.Tensor  # (L, F, B, 3) acc
+    cand_f: torch.Tensor     # (L, NUM_CF) acc per-leaf best split floats
+    cand_i: torch.Tensor     # (L, NUM_CI) int64 feature/threshold/flags
+    rec_f: torch.Tensor      # (L-1, NUM_REC_FIELDS) f32 per-split records
+    rec_i: torch.Tensor      # (L-1, 2) int64 exact bagged left/right counts
+
+
+HistogramFn = Callable[..., torch.Tensor]
+
+
+class CompactTreeLearner(TreeLearner):
+    """Leaf-wise learner with leaf-contiguous row compaction (see the module
+    docstring)."""
+
+    def __init__(self, cfg: Config, data: _ConstructedDataset,
+                 device: torch.device,
+                 histogram: Optional[HistogramFn] = None):
+        super().__init__(cfg, data, device)
+        self.n_pad = int(data.num_data_padded)
+        self._bundle = data.bundle
+        if self._bundle is not None:
+            bu = self._bundle
+            f_pad = _round_up(bu.num_groups, data.FEATURE_TILE)
+            self._hist_cols = bu.num_groups
+            self._hist_nbins = int(max(self.num_bins_padded,
+                                       bu.max_group_bin))
+            idx, valid, fix = bu.unbundle_maps(
+                self.num_features, self.num_bins_padded, self._hist_nbins,
+                self.np_num_bin)
+            self._ub_idx = torch.from_numpy(idx.astype(np.int64)).to(device)
+            self._ub_valid = torch.from_numpy(valid).to(device)
+            self._ub_fix = torch.from_numpy(fix).to(device)
+        else:
+            f_pad = data.bins.shape[0]       # padded to a multiple of 8
+            self._hist_cols = self.num_features
+            self._hist_nbins = self.num_bins_padded
+        if self._hist_nbins > 256:
+            raise not_ported(f"{self._hist_nbins}-bin data (bin codes past a "
+                             f"byte do not pack)", MASKED)
+        self.fw = f_pad // 4
+        # window size buckets of the JAX learner, smallest..largest (= N):
+        # a window is physically compacted when its bucket is above
+        # tpu_sort_cutoff, and frozen (mask mode) otherwise
+        mw = max(int(cfg.tpu_min_window), 1024)
+        mw = 1 << (mw - 1).bit_length()
+        sizes = []
+        s0 = mw
+        while s0 < self.n_pad:
+            sizes.append(s0)
+            s0 *= 2
+        sizes.append(self.n_pad)
+        self._win_sizes = sizes
+        if cfg.tpu_hist_precision not in ("bf16x2", "bf16x3", "highest"):
+            raise ValueError(f"tpu_hist_precision must be one of "
+                             f"['bf16x2', 'bf16x3', 'highest'], got "
+                             f"{cfg.tpu_hist_precision}")
+        self._sort_cutoff = int(cfg.tpu_sort_cutoff)
+        self._acc = torch.float64 if self.hist_dp else torch.float32
+        self.histogram = histogram or build_histogram_packed
+        if device.type == "cuda" and self.n_pad % ROW_QUANTUM:
+            raise ValueError(f"on the CUDA card the padded row count must be "
+                             f"a multiple of {ROW_QUANTUM}; set "
+                             f"tpu_row_block to a multiple of {ROW_QUANTUM}")
+        self._bins_packed: Optional[torch.Tensor] = None
+        self.host_syncs = 0          # blocking device->host reads so far
+        self._all_features = torch.ones(self.num_features, dtype=torch.bool,
+                                        device=device)
+
+    # -- packed bins ---------------------------------------------------------
+
+    def bins_packed(self) -> torch.Tensor:
+        """(Fw, N) int32 packed bin words (bundle codes under EFB) on the
+        learner's device, built once."""
+        if self._bins_packed is None:
+            if self._bundle is not None:
+                src = torch.from_numpy(self._bundle.encode(self.data)) \
+                    .to(self.device)
+            else:
+                src = self.data.device_bins(self.device)
+            self._bins_packed = pack_bin_words(src)
+        return self._bins_packed
+
+    def _bucket(self, cnt: int) -> int:
+        """Smallest window bucket >= cnt."""
+        for s in self._win_sizes:
+            if s >= cnt:
+                return s
+        return self._win_sizes[-1]
+
+    # -- windowed histogram --------------------------------------------------
+
+    def _window_hist(self, st: CompactState, start: int, cnt: int,
+                     leaf) -> torch.Tensor:
+        """Histogram of the rows of ``leaf`` (a device scalar; None = every
+        row) inside the window ``[start, start + cnt)``, over that window
+        rounded up to the kernel's row quantum."""
+        n = self.n_pad
+        size = min(_round_up(max(cnt, 1), ROW_QUANTUM), n)
+        sa = min(start, n - size)
+        words = st.bins_p[:, sa:sa + size]
+        w = st.w_p[:, sa:sa + size]
+        if leaf is not None:
+            w = w * (st.lid_p[sa:sa + size] == leaf)
+        if self.hist_dp:
+            h = build_histogram_packed_plain(words, w,
+                                             num_bins=self._hist_nbins,
+                                             dp=True)
+        else:
+            h = self.histogram(words, w, num_bins=self._hist_nbins)
+        return h[:self._hist_cols]
+
+    # -- EFB unbundling ------------------------------------------------------
+
+    def _unbundle_hist(self, hist_g, sum_g, sum_h, cnt):
+        """(K, G, Bg, 3) bundle histograms -> (K, F, Bf, 3) per-feature view;
+        each bundled member's default-bin entry is rebuilt from the leaf
+        totals (``Dataset::FixHistogram``)."""
+        k = hist_g.shape[0]
+        flat = hist_g.reshape(k, -1, 3)
+        view = flat[:, self._ub_idx]
+        view = view * self._ub_valid[..., None].to(view.dtype)
+        totals = torch.stack([sum_g, sum_h, cnt], -1).to(view.dtype)
+        dflt = totals[:, None, :] - torch.sum(view, dim=2)
+        bins = torch.arange(view.shape[2], device=view.device)
+        bsel = (bins[None, :] == self.f_default_bin[:, None]) \
+            & self._ub_fix[:, None]
+        return torch.where(bsel[..., None], dflt[:, :, None, :], view)
+
+    # -- per-leaf candidates -------------------------------------------------
+
+    def _cand_rows(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(K, ...) histograms -> per-leaf best rows ((K, NUM_CF) acc,
+        (K, NUM_CI) int64); argmax over features, lowest index winning ties
+        (`serial_tree_learner.cpp:505-520`)."""
+        if self._bundle is not None:
+            hist = self._unbundle_hist(hist, sum_g, sum_h, cnt)
+        c = self._feature_cands(hist, sum_g, sum_h, cnt, feature_mask)
+        best_f = torch.argmax(c.gain, dim=-1)                     # (K,)
+
+        def pick(a):
+            return torch.gather(a, -1, best_f[:, None]).squeeze(-1)
+
+        gain = pick(c.gain)
+        if depth_ok is not True:
+            gain = torch.where(depth_ok, gain, float("-inf"))
+        cf = torch.stack([
+            gain.to(self._acc), pick(c.left_sum_g), pick(c.left_sum_h),
+            pick(c.left_cnt), pick(c.right_sum_g), pick(c.right_sum_h),
+            pick(c.right_cnt), pick(c.left_output), pick(c.right_output)],
+            dim=-1).to(self._acc)
+        ci = torch.stack([best_f, pick(c.threshold).to(torch.int64),
+                          pick(c.default_left).to(torch.int64)], dim=-1)
+        return cf, ci
+
+    # -- root ----------------------------------------------------------------
+
+    def _init_root(self, grad, hess, bag, feature_mask) -> CompactState:
+        n, L, acc, dev = self.n_pad, self.num_leaves, self._acc, self.device
+        w = torch.stack([grad * bag, hess * bag, bag]).to(torch.float32)
+        st = CompactState(
+            bins_p=self.bins_packed().clone(), w_p=w,
+            rid_p=torch.arange(n, device=dev),
+            lid_p=torch.zeros(n, dtype=torch.int32, device=dev),
+            leaf_i=torch.zeros((L, 2), dtype=torch.int64, device=dev),
+            leaf_f=torch.zeros((L, NUM_LF), dtype=acc, device=dev),
+            hist_pool=torch.zeros((L, self._hist_cols, self._hist_nbins, 3),
+                                  dtype=acc, device=dev),
+            cand_f=torch.zeros((L, NUM_CF), dtype=acc, device=dev),
+            cand_i=torch.zeros((L, NUM_CI), dtype=torch.int64, device=dev),
+            rec_f=torch.zeros((L - 1, NUM_REC_FIELDS), dtype=torch.float32,
+                              device=dev),
+            rec_i=torch.zeros((L - 1, 2), dtype=torch.int64, device=dev))
+        root_hist = self._window_hist(st, 0, n, None)
+        sum_g = (grad * bag).to(acc).sum()
+        sum_h = (hess * bag).to(acc).sum()
+        cnt = bag.to(acc).sum()
+        md = int(self.cfg.max_depth)
+        depth_ok = True if md <= 0 else md > 0
+        cf, ci = self._cand_rows(root_hist[None], sum_g[None], sum_h[None],
+                                 cnt[None], feature_mask, depth_ok)
+        st.leaf_i[0, 1] = n
+        st.leaf_f[:, LF_MIN_C] = float("-inf")
+        st.leaf_f[:, LF_MAX_C] = float("inf")
+        st.leaf_f[0, :LF_OUT] = torch.stack([sum_g, sum_h, cnt])
+        st.hist_pool[0] = root_hist
+        st.cand_f[:, CF_GAIN] = float("-inf")
+        st.cand_f[0] = cf[0]
+        st.cand_i[0] = ci[0]
+        return st
+
+    # -- one split -----------------------------------------------------------
+
+    def _split_step(self, st: CompactState, feature_mask, leaf: int,
+                    s: int, c: int, feat: int, thr: int, flags: int,
+                    new_leaf: int) -> None:
+        dev = self.device
+        dleft = bool(flags & 1)
+        crow_f = st.cand_f[leaf].clone()
+        lrow_f = st.leaf_f[leaf].clone()
+
+        # ---- partition the parent's window (DataPartition::Split): the
+        # decision on the split feature (NumericalDecisionInner,
+        # `tree.h:233-249`) from its byte lane
+        col = int(self._bundle.f_gcol[feat]) if self._bundle is not None \
+            else feat
+        word = st.bins_p[col // 4, s:s + c]
+        frow = (word >> (8 * (col % 4))) & 0xFF
+        if self._bundle is not None and self._bundle.f_bundled[feat]:
+            # bundle code -> this feature's bin (out-of-range codes mean
+            # another member was active: this feature sits at its default)
+            d = int(self.np_default_bin[feat])
+            r = frow - int(self._bundle.f_off[feat])
+            in_r = (r >= 0) & (r < int(self.np_num_bin[feat]) - 1)
+            frow = torch.where(in_r, r + (r >= d).to(r.dtype), d)
+        mt = int(self.np_missing[feat])
+        go_left = frow <= thr
+        if mt == MISSING_ZERO:
+            go_left = torch.where(frow == int(self.np_default_bin[feat]),
+                                  dleft, go_left)
+        elif mt == MISSING_NAN:
+            go_left = torch.where(frow == int(self.np_num_bin[feat]) - 1,
+                                  dleft, go_left)
+        bag = st.w_p[2, s:s + c] > 0.5
+        sort_mode = self._bucket(c) > self._sort_cutoff
+        if sort_mode:
+            # stable partition: left rows first, then right, each in order
+            cl = torch.cumsum(go_left, 0)
+            lc_w = cl[-1]
+            pos = torch.arange(c, device=dev)
+            dest = torch.where(go_left, cl - 1, lc_w + pos - cl)
+            perm = torch.empty_like(dest).scatter_(0, dest, pos)
+            st.bins_p[:, s:s + c] = st.bins_p[:, s:s + c].index_select(1, perm)
+            st.w_p[:, s:s + c] = st.w_p[:, s:s + c].index_select(1, perm)
+            st.rid_p[s:s + c] = st.rid_p[s:s + c].index_select(0, perm)
+            st.lid_p[s:s + c] = torch.where(pos >= lc_w, new_leaf, leaf)
+            lc_bag = (go_left & bag).sum()
+            c_bag = bag.sum()
+        else:
+            lid_w = st.lid_p[s:s + c]
+            in_seg = lid_w == leaf
+            st.lid_p[s:s + c] = torch.where(in_seg & ~go_left, new_leaf,
+                                            lid_w)
+            lc_bag = (in_seg & go_left & bag).sum()
+            c_bag = (in_seg & bag).sum()
+
+        # ---- smaller-child histogram + sibling subtraction; the smaller
+        # child is chosen by BAGGED counts like the reference
+        left_smaller = lc_bag <= (c_bag - lc_bag)
+        small_leaf = torch.where(left_smaller, leaf, new_leaf)
+        hist_small = self._window_hist(st, s, c, small_leaf)
+        hist_large = st.hist_pool[leaf] - hist_small
+        hist_left = torch.where(left_smaller, hist_small, hist_large)
+        hist_right = torch.where(left_smaller, hist_large, hist_small)
+        st.hist_pool[leaf] = hist_left
+        st.hist_pool[new_leaf] = hist_right
+
+        # ---- children bookkeeping
+        child_depth = lrow_f[LF_DEPTH] + 1.0
+        lout, rout = crow_f[CF_LOUT], crow_f[CF_ROUT]
+        pmin, pmax = lrow_f[LF_MIN_C], lrow_f[LF_MAX_C]
+        st.leaf_f[leaf] = torch.stack([crow_f[CF_LSG], crow_f[CF_LSH],
+                                       crow_f[CF_LCNT], lout, child_depth,
+                                       pmin, pmax])
+        st.leaf_f[new_leaf] = torch.stack([crow_f[CF_RSG], crow_f[CF_RSH],
+                                           crow_f[CF_RCNT], rout, child_depth,
+                                           pmin, pmax])
+        if sort_mode:
+            st.leaf_i[leaf, 0] = s
+            st.leaf_i[leaf, 1] = lc_w
+            st.leaf_i[new_leaf, 0] = lc_w + s
+            st.leaf_i[new_leaf, 1] = c - lc_w
+        else:
+            st.leaf_i[new_leaf, 0] = s
+            st.leaf_i[new_leaf, 1] = c
+
+        # ---- children's best splits, both in one batched scan
+        md = int(self.cfg.max_depth)
+        depth_ok = True if md <= 0 else child_depth < md
+        cf, ci = self._cand_rows(
+            torch.stack([hist_left, hist_right]),
+            torch.stack([crow_f[CF_LSG], crow_f[CF_RSG]]),
+            torch.stack([crow_f[CF_LSH], crow_f[CF_RSH]]),
+            torch.stack([crow_f[CF_LCNT], crow_f[CF_RCNT]]),
+            feature_mask, depth_ok)
+        st.cand_f[leaf] = cf[0]
+        st.cand_f[new_leaf] = cf[1]
+        st.cand_i[leaf] = ci[0]
+        st.cand_i[new_leaf] = ci[1]
+
+        # ---- record for host tree assembly (the host-known fields
+        # REC_VALID..REC_DEFAULT_LEFT are filled in on the host)
+        step = new_leaf - 1
+        st.rec_f[step, NUM_HOST_REC:NUM_REC_FIELDS - 1] = torch.stack([
+            crow_f[CF_GAIN], lout, rout, crow_f[CF_LCNT], crow_f[CF_RCNT],
+            lrow_f[LF_OUT], lrow_f[LF_CNT], crow_f[CF_LSH], crow_f[CF_RSH],
+            crow_f[CF_LSG], crow_f[CF_RSG]]).to(torch.float32)
+        st.rec_i[step] = torch.stack([lc_bag, c_bag - lc_bag])
+
+    # -- whole tree ----------------------------------------------------------
+
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
+             feature_mask: Optional[torch.Tensor] = None):
+        """Grow one tree; returns (records (L-1, 17) f32 numpy, exact bagged
+        counts (L-1, 2) int64 numpy, leaf id per original row (N,) int64
+        tensor, leaf outputs (L,) acc tensor)."""
+        if feature_mask is None:
+            feature_mask = self._all_features
+        st = self._init_root(grad, hess, bag, feature_mask)
+        host_rec: List[Tuple[int, int, int, int]] = []
+        num_leaves = 1
+        while num_leaves < self.num_leaves:
+            # (index_select, not tensor indexing: a 0-d index tensor would
+            # be read to the host)
+            best = torch.argmax(st.cand_f[:, CF_GAIN]).view(1)
+            head = torch.cat([
+                best, st.leaf_i.index_select(0, best)[0],
+                st.cand_i.index_select(0, best)[0],
+                (st.cand_f.index_select(0, best)[0, CF_GAIN] > 0.0).view(1)])
+            leaf, s, c, feat, thr, flags, do = head.tolist()
+            self.host_syncs += 1
+            if not do:
+                break
+            self._split_step(st, feature_mask, leaf, s, c, feat, thr, flags,
+                             num_leaves)
+            host_rec.append((leaf, feat, thr, flags & 1))
+            num_leaves += 1
+        leaf_id = torch.empty_like(st.rid_p)
+        leaf_id[st.rid_p] = st.lid_p.to(torch.int64)
+        out = torch.cat([st.rec_f.to(torch.float64),
+                         st.rec_i.to(torch.float64)], dim=1).cpu().numpy()
+        self.host_syncs += 1
+        rec_f = out[:, :NUM_REC_FIELDS].astype(np.float32)
+        rec_i = out[:, NUM_REC_FIELDS:].astype(np.int64)
+        if host_rec:
+            hr = np.asarray(host_rec, dtype=np.float32)
+            rec_f[:len(host_rec), 0] = 1.0
+            rec_f[:len(host_rec), 1:NUM_HOST_REC] = hr
+        return rec_f, rec_i, leaf_id, st.leaf_f[:, LF_OUT]
+
+    def train(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
+              feature_mask: Optional[torch.Tensor] = None):
+        """Build one tree; returns (host Tree with unit shrinkage, leaf id
+        per original row, leaf outputs) — the last two on the device."""
+        rec_f, rec_i, leaf_id, leaf_out = self.grow(grad, hess, bag,
+                                                    feature_mask)
+        return self.assemble_host(rec_f, rec_i), leaf_id, leaf_out
+
+
+def create_tree_learner(cfg: Config, data: _ConstructedDataset,
+                        device: torch.device,
+                        histogram: Optional[HistogramFn] = None
+                        ) -> CompactTreeLearner:
+    """(tree_learner, tpu_learner) -> learner, as
+    ``lightgbm_tpu.learner_compact.create_tree_learner``.  The frontier-wave
+    learner is not ported yet: ``auto`` and ``wave`` route to the compact
+    learner, which grows the same trees; ``masked`` raises."""
+    mode = cfg.tpu_learner
+    if mode == "masked":
+        raise not_ported("tpu_learner=masked", MASKED)
+    if mode in ("auto", "wave"):
+        if int(getattr(cfg, "verbosity", 1)) >= 1:
+            print(f"[lightgbm_tpu_torch] tpu_learner={mode}: the "
+                  f"frontier-wave learner is not ported yet; using the "
+                  f"sequential compact learner (identical trees)")
+    elif mode != "compact":
+        raise ValueError(f"tpu_learner must be one of auto, wave, compact, "
+                         f"masked; got {mode!r}")
+    if data.max_num_bin > 256:
+        raise not_ported(f"max_num_bin={data.max_num_bin} > 256", MASKED)
+    return CompactTreeLearner(cfg, data, device, histogram)

@@ -1,0 +1,144 @@
+"""Packed bin words and the packed-word histogram (CUDA kernel + plain torch).
+
+Port of the packed part of ``lightgbm_tpu/ops/hist_pallas.py``:
+
+  * ``pack_bin_words`` / ``unpack_bin_words`` — four uint8 bin codes per int32
+    word, feature ``4k+s`` in byte ``s`` of word ``k`` (bitwise as the JAX
+    package; a code >= 128 in byte 3 makes the word negative, so unpacking
+    masks with ``& 0xFF`` after the arithmetic shift);
+  * ``build_histogram_packed`` — the compact learner's histogram,
+    ``hist[4k+s, b, c] = sum_r [byte_s(words[k, r]) == b] * w[c, r]``.  On a
+    CUDA tensor it launches the hand-written Hopper kernel
+    ``csrc/hist_packed.cu`` (design, bound and precision in that file's
+    header); on a CPU tensor it runs ``build_histogram_packed_plain``, the
+    plain torch version the kernel is held against.  There is no fallback
+    from one to the other.
+
+The kernel accumulates true float32 whatever ``tpu_hist_precision`` says: the
+bf16 term split (``bf16x2``/``bf16x3``) is a TPU MXU mechanism and is not
+carried over, so the key keeps its validation but no longer changes numbers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import native
+from .histogram import build_histogram_onehot
+
+#: the kernel's row-window granularity (window sizes are multiples of it)
+ROW_QUANTUM = 1024
+#: pass-1 blocks aimed for per launch (about four per SM of an H100); fixed,
+#: so the launch geometry and with it every sum's order depend only on shapes
+_TARGET_BLOCKS = 528
+
+
+def pack_bin_words(bins: torch.Tensor) -> torch.Tensor:
+    """(F, N) uint8 bin codes -> (F/4, N) int32 words (F a multiple of 4)."""
+    f, n = bins.shape
+    if f % 4:
+        raise ValueError(f"feature count {f} is not a multiple of 4")
+    if bins.dtype != torch.uint8:
+        raise ValueError(f"packable bins must be uint8, got {bins.dtype}")
+    b = bins.to(torch.int64).view(f // 4, 4, n)
+    words = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    # two's-complement wrap into int32, spelled out (byte 3 >= 128 -> < 0)
+    words = words - ((words >> 31) & 1) * (1 << 32)
+    return words.to(torch.int32)
+
+
+def unpack_bin_words(words: torch.Tensor, num_features: int) -> torch.Tensor:
+    """(Fw, S) int32 words -> (num_features, S) int32 bin codes."""
+    fw, s = words.shape
+    parts = [(words >> (8 * i)) & 0xFF for i in range(4)]
+    return torch.stack(parts, dim=1).reshape(fw * 4, s)[:num_features]
+
+
+def build_histogram_packed_plain(words: torch.Tensor, w: torch.Tensor, *,
+                                 num_bins: int, dp: bool = False
+                                 ) -> torch.Tensor:
+    """Plain torch version: unpack, then ``index_add_`` in float32 (float64
+    with ``dp``).  Returns (4*Fw, num_bins, 3)."""
+    fw = words.shape[0]
+    return build_histogram_onehot(unpack_bin_words(words, 4 * fw), w,
+                                  num_bins=num_bins, dp=dp)
+
+
+def _geometry(fw: int, s: int):
+    """(nchunks, chunk rows) of pass 1: about ``_TARGET_BLOCKS`` blocks, at
+    most one chunk per ``ROW_QUANTUM`` rows, chunks a multiple of 256 rows
+    (one step of the block's eight warps)."""
+    nchunks = max(1, min(s // ROW_QUANTUM, -(-_TARGET_BLOCKS // fw)))
+    chunk = -(-s // nchunks)
+    chunk = -(-chunk // 256) * 256
+    return -(-s // chunk), chunk
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = native.load("hist_packed")
+        lib.lgbt_hist_packed.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.lgbt_hist_packed.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def build_histogram_packed(words: torch.Tensor, w: torch.Tensor, *,
+                           num_bins: int) -> torch.Tensor:
+    """hist[4k+s, b, c] = sum_r [byte_s(words[k, r]) == b] * w[c, r].
+
+    words : (Fw, S) int32 — a window view is taken as it is (row offset in
+            the data pointer, row stride from ``stride(0)``); rows must be
+            contiguous and S a multiple of 1024.
+    w     : (3, S) float32 (g*bag, h*bag, bag), rows contiguous.
+    Returns (4*Fw, num_bins, 3) float32.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (counted in ``build_histogram_packed.
+    launches``) or raise.
+    """
+    if words.device.type == "cpu" and w.device.type == "cpu":
+        return build_histogram_packed_plain(words, w, num_bins=num_bins)
+    if words.device.type != "cuda" or w.device != words.device:
+        raise ValueError(f"words and w must both lie on one CUDA device "
+                         f"(got {words.device} and {w.device})")
+    if words.dtype != torch.int32 or words.dim() != 2 or words.stride(1) != 1:
+        raise ValueError("words must be a 2-D int32 tensor with contiguous "
+                         "rows")
+    fw, s = words.shape
+    if w.dtype != torch.float32 or tuple(w.shape) != (3, s) \
+            or w.stride(1) != 1:
+        raise ValueError(f"w must be a (3, {s}) float32 tensor with "
+                         f"contiguous rows, got {tuple(w.shape)} {w.dtype}")
+    if s < ROW_QUANTUM or s % ROW_QUANTUM:
+        raise ValueError(f"window length {s} is not a positive multiple of "
+                         f"{ROW_QUANTUM}")
+    if not 1 <= num_bins <= 256 or fw < 1:
+        raise ValueError(f"need 1 <= num_bins <= 256 and Fw >= 1, got "
+                         f"num_bins={num_bins}, Fw={fw}")
+    nchunks, chunk = _geometry(fw, s)
+    e = 4 * num_bins * 3
+    partial = torch.empty(fw * nchunks * e, dtype=torch.float32,
+                          device=words.device)
+    out = torch.empty((4 * fw, num_bins, 3), dtype=torch.float32,
+                      device=words.device)
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = _lib().lgbt_hist_packed(
+        words.data_ptr(), words.stride(0), w.data_ptr(), w.stride(0), fw, s,
+        num_bins, nchunks, chunk, partial.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"hist_packed kernel launch failed: CUDA error "
+                           f"{err}")
+    build_histogram_packed.launches += 1
+    return out
+
+
+build_histogram_packed.launches = 0

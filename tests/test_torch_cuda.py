@@ -1,0 +1,125 @@
+"""The port's CUDA kernel on the card (``cuda`` marker; skipped without one).
+
+The kernel has no CPU mode, so these tests run only where a CUDA device is
+present; each decides that inside the ``cuda_device`` fixture.  They need
+torch, numpy and the port only, so the card's machine runs them without
+JAX installed:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest -m cuda
+
+(``--noconftest`` skips the suite's conftest, which imports JAX.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.ops.hist_packed import (
+    build_histogram_packed, build_histogram_packed_plain, pack_bin_words)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hist_packed kernel has no CPU "
+                    "mode (its plain version is tested on the CPU)")
+    return torch.device("cuda", 0)
+
+
+def _inputs(dev, fw, n, b, seed, dyadic):
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, b, size=(4 * fw, n)).astype(np.uint8)
+    words = pack_bin_words(torch.from_numpy(codes).to(dev))
+    bag = (rng.rand(n) < 0.8).astype(np.float32)
+    if dyadic:
+        g = rng.randint(-16, 17, n) / 16.0
+        h = rng.randint(0, 17, n) / 16.0
+    else:
+        g, h = rng.randn(n), rng.rand(n)
+    w = np.stack([g * bag, h * bag, bag]).astype(np.float32)
+    return words, torch.from_numpy(w).to(dev)
+
+
+@pytest.mark.parametrize("fw,n,b", [(1, 1024, 2), (2, 4096, 63),
+                                    (8, 65536, 255), (3, 7168, 256)])
+def test_kernel_bitwise_on_dyadic_inputs(cuda_device, fw, n, b):
+    words, w = _inputs(cuda_device, fw, n, b, fw + n, dyadic=True)
+    k = build_histogram_packed(words, w, num_bins=b)
+    p = build_histogram_packed_plain(words, w, num_bins=b)
+    assert k.shape == (4 * fw, b, 3)
+    assert torch.equal(k, p)
+
+
+def test_kernel_skewed_bins_and_dropped_codes(cuda_device):
+    """Most rows in one bin (32-lane groups summed by one leader), and codes
+    at or past num_bins, which both versions drop."""
+    rng = np.random.RandomState(9)
+    n = 8192
+    codes = np.where(rng.rand(8, n) < 0.9, 3,
+                     rng.randint(0, 256, (8, n))).astype(np.uint8)
+    words = pack_bin_words(torch.from_numpy(codes).to(cuda_device))
+    g = rng.randint(-16, 17, n) / 16.0
+    w = torch.from_numpy(np.stack([g, np.abs(g), np.ones(n)])
+                         .astype(np.float32)).to(cuda_device)
+    for b in (4, 63, 256):
+        k = build_histogram_packed(words, w, num_bins=b)
+        p = build_histogram_packed_plain(words, w, num_bins=b)
+        assert torch.equal(k, p), b
+
+
+def test_kernel_window_views_and_relaunch(cuda_device):
+    words, w = _inputs(cuda_device, 8, 1 << 16, 255, 3, dyadic=False)
+    before = build_histogram_packed.launches
+    for off, size in ((0, 1024), (777, 2048), (12345, 8192)):
+        wv, ww = words[:, off:off + size], w[:, off:off + size]
+        k1 = build_histogram_packed(wv, ww, num_bins=255)
+        k2 = build_histogram_packed(wv, ww, num_bins=255)
+        p = build_histogram_packed_plain(wv, ww, num_bins=255)
+        assert torch.equal(k1, k2)
+        # float32 sums in other orders: bound by the channel's mass
+        atol = 1e-5 * ww.abs().sum(dim=1)
+        assert bool(((k1 - p).abs() <= 1e-5 * p.abs() + atol).all())
+    assert build_histogram_packed.launches == before + 6
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    words, w = _inputs(cuda_device, 2, 4096, 63, 5, dyadic=True)
+    with pytest.raises(ValueError):
+        build_histogram_packed(words[:, :1000], w[:, :1000], num_bins=63)
+    with pytest.raises(ValueError):
+        build_histogram_packed(words, w.double(), num_bins=63)
+    with pytest.raises(ValueError):
+        build_histogram_packed(words, w, num_bins=300)
+    with pytest.raises(ValueError):
+        build_histogram_packed(words.cpu(), w, num_bins=63)
+
+
+def test_training_on_card_matches_cpu(cuda_device):
+    rng = np.random.RandomState(0)
+    X = rng.randn(9000, 12)
+    X[rng.rand(9000) < 0.1, 3] = np.nan
+    # columns 8..11 mutually exclusive: EFB bundles them
+    X[:, 8:] = 0.0
+    owner = rng.randint(8, 12, 9000)
+    X[np.arange(9000), owner] = rng.rand(9000) + 0.5
+    y = (X[:, 0] + np.nan_to_num(X[:, 3]) + X[:, 8]
+         + 0.5 * rng.randn(9000) > 0).astype(float)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+             "verbosity": -1, "device_type": dev, "tpu_learner": "compact",
+             "metric": "auc,binary_logloss", "bagging_fraction": 0.8,
+             "bagging_freq": 1}
+        ds = lt.Dataset(X[:8192], label=y[:8192], params=p)
+        dv = ds.create_valid(X[8192:], label=y[8192:])
+        ev = {}
+        bst = lt.train(p, ds, 4, valid_sets=[dv], evals_result=ev,
+                       verbose_eval=False)
+        assert bst.gbdt.train_data.bundle is not None
+        out[dev] = ev["valid_0"]
+    for m in ("auc", "binary_logloss"):
+        np.testing.assert_allclose(out["cuda"][m], out["cpu"][m], rtol=0,
+                                   atol=1e-4)
