@@ -8,25 +8,50 @@ Run from the root of a checkout: the kernels are built from its sources
 torch, numpy and ``lightgbm_tpu_torch`` only.  Phases, each printing one JSON
 line and each raising (exit code 1) on any failure:
 
-  device  card name and power limit (nvidia-smi), torch, kernel build times
-  kernel  packed histogram kernel vs its plain torch version at full width
-          (Fw=8, N=1,000,448, 255 bins): bitwise on dyadic inputs at the full
-          window and at a strided window view, within rtol=1e-5 and
-          atol=1e-5*sum|w| on random float32 (summation order), bitwise
-          equal across two launches
-  tree    one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
-          rows, grown through the kernel and through the plain histogram:
-          records bitwise equal
-  train   lightgbm_tpu_torch.train at the bench width (1M x 28, 255 leaves,
-          255 bins, 5 iterations, 100,000 held-out rows): launch count equal
-          to the sum over trees of (1 + splits), device residency, training
-          logloss falling every iteration, held-out AUC, seconds per
-          iteration, host syncs per tree, peak device memory, Booster.predict
-          agreeing with the device-side held-out scores
-  small   a small input trained on the card and on the CPU (the path the
-          tests hold against lightgbm_tpu): held-out metrics within 1e-4
-  timing  kernel, plain-version and library (index_add_) times from CUDA
-          events, L2 flushed before each launch, beside the byte bound
+  device     card name and power limit (nvidia-smi), torch, the four kernel
+             builds (one nvcc each, started together)
+  kernel     packed histogram kernel vs its plain torch version at full width
+             (Fw=8, N=1,000,448, 255 bins): bitwise on dyadic inputs at the
+             full window and at a strided window view, within rtol=1e-5 and
+             atol=1e-5*sum|w| on random float32 (summation order), bitwise
+             equal across two launches
+  segments   segment histogram kernel vs its plain version at the same width
+             over 64 members tiling a wave (unaligned starts, four frozen
+             spans shared by two members each): bitwise on dyadic inputs,
+             on random float32 within rtol=1e-5 and an atol of 1e-5 times
+             each bin's own sum of |w|, bitwise across two launches
+  partition  partition kernel vs its plain version at the same width, 64
+             windows with random split flags: bitwise on every lane,
+             NaN and negative-zero weight bits included
+  scan       split-scan kernel vs its plain version at K=128, F=28, B=255:
+             every field exact on dyadic histograms; on random float32 every
+             field bitwise equal to the plain version run on the CPU (whose
+             cumulative sums the kernel's carries reproduce), and against the
+             plain version on the card (another summation order) the gain
+             within 1e-3 of the pre-shift gain, threshold and default_left
+             equal wherever the best two candidates differ by more than that
+  tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
+             rows, grown by the compact learner through the kernel and
+             through the plain histogram: records bitwise equal
+  wave_tree  the same tree grown by the wave learner through its four
+             kernels, by the wave learner through every plain version, and by
+             the compact learner: records, counts and leaf ids bitwise equal
+  train      lightgbm_tpu_torch.train with tpu_learner=compact at the bench
+             width (1M x 28, 255 leaves, 255 bins, 5 iterations, 100,000
+             held-out rows): launch count equal to the sum over trees of
+             (1 + splits), device residency, training logloss falling every
+             iteration, held-out AUC, seconds per iteration, host syncs per
+             tree, peak device memory, Booster.predict agreeing with the
+             device-side held-out scores
+  wave_train the same with the default tpu_learner (auto -> the wave
+             learner): launches per kernel equal to the calls the learner
+             recorded, host syncs, waves and stall events per tree, held-out
+             AUC within 1e-4 of the compact phase's
+  small      a small input trained on the card and on the CPU (the path the
+             tests hold against lightgbm_tpu): held-out metrics within 1e-4
+  timing     each kernel's, its plain version's and (where one PyTorch call
+             computes the same function) the library call's times from CUDA
+             events, L2 flushed before each launch, beside the bound
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -44,7 +69,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("device", "kernel", "tree", "train", "small", "timing")
+PHASES = ("device", "kernel", "segments", "partition", "scan", "tree",
+          "wave_tree", "train", "wave_train", "small", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -53,6 +79,19 @@ TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "learning_rate": 0.1, "min_data_in_leaf": 20,
                 "verbosity": -1, "metric": "auc,binary_logloss",
                 "tpu_learner": "compact"}
+#: the main path's params: TRAIN_PARAMS with the default tpu_learner (auto)
+WAVE_PARAMS = {k: v for k, v in TRAIN_PARAMS.items() if k != "tpu_learner"}
+SCAN_K = 128
+KERNEL_SOURCES = {
+    "hist_packed": ("lightgbm_tpu_torch/csrc/hist_packed.cu",
+                    "lightgbm_tpu/ops/hist_pallas.py:315"),
+    "hist_segments": ("lightgbm_tpu_torch/csrc/hist_segments.cu",
+                      "lightgbm_tpu/ops/hist_pallas.py:452"),
+    "partition": ("lightgbm_tpu_torch/csrc/partition.cu",
+                  "lightgbm_tpu/ops/partition_pallas.py:377"),
+    "split_scan": ("lightgbm_tpu_torch/csrc/split_scan.cu",
+                   "lightgbm_tpu/ops/scan_pallas.py:185"),
+}
 
 
 def emit(obj) -> None:
@@ -109,7 +148,7 @@ def phase_device(ctx) -> None:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     ctx["smi"] = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    native.build_all(["hist_packed"])
+    native.build_all(native.KERNELS)
     emit({"phase": "device", "nvidia_smi": ctx["smi"],
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -167,6 +206,320 @@ def phase_kernel(ctx) -> None:
     emit(out)
 
 
+def same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN equal to NaN."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def wave_members(rng, n: int):
+    """64 members tiling one wave over n rows: 56 disjoint windows with
+    unaligned starts (sortable members' smaller children) and 4 frozen
+    6,000-row spans, each shared by two members told apart by leaf id.
+    Returns (lid (n,), start, cnt, leaf) as numpy arrays."""
+    frozen, span = 4, 6000
+    tail = n - frozen * span
+    cuts = np.sort(rng.choice(np.arange(1, tail), 55, replace=False))
+    bounds = np.concatenate([[0], cuts, [tail]])
+    lid = np.full(n, 9999, np.int32)
+    start, cnt, leaf = [], [], []
+    for i in range(56):
+        s, e = int(bounds[i]), int(bounds[i + 1])
+        lid[s:e] = 100 + i
+        start.append(s)
+        cnt.append(e - s)
+        leaf.append(100 + i)
+    for j in range(frozen):
+        s = tail + j * span
+        a, b = 200 + 2 * j, 201 + 2 * j
+        lid[s:s + span] = np.where(rng.rand(span) < 0.5, a, b)
+        for lf in (a, b):
+            start.append(s)
+            cnt.append(span)
+            leaf.append(lf)
+    return lid, np.asarray(start), np.asarray(cnt), np.asarray(leaf)
+
+
+def segments_inputs(seed: int, dyadic: bool):
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(seed)
+    from lightgbm_tpu_torch.ops.hist_packed import pack_bin_words
+
+    codes = rng.randint(0, NUM_BINS, size=(4 * FW, N_FULL)).astype(np.uint8)
+    words = pack_bin_words(torch.from_numpy(codes).to(dev))
+    lid, start, cnt, leaf = wave_members(rng, N_FULL)
+    if dyadic:
+        g, h, bag = dyadic_weights(rng, N_FULL, N_FULL, dev)
+    else:
+        bag = torch.from_numpy((rng.rand(N_FULL) < 0.8).astype(np.float32)) \
+            .to(dev)
+        g = torch.from_numpy(rng.randn(N_FULL).astype(np.float32)).to(dev)
+        h = torch.from_numpy(rng.rand(N_FULL).astype(np.float32)).to(dev)
+    w = torch.stack([g * bag, h * bag, bag]).contiguous()
+    t = [torch.from_numpy(a).to(dev) for a in (lid, start, cnt, leaf)]
+    return words, w, t[0], t[1], t[2], t[3], int(cnt.max())
+
+
+def phase_segments(ctx) -> None:
+    from lightgbm_tpu_torch.ops.hist_segments import (
+        build_histogram_segments, build_histogram_segments_plain)
+
+    out = {"phase": "segments", "Fw": FW, "N": N_FULL, "num_bins": NUM_BINS,
+           "members": 64}
+    for tag, dyadic in (("dyadic", True), ("random", False)):
+        words, w, lid, start, cnt, leaf, mx = segments_inputs(3, dyadic)
+        k = build_histogram_segments(words, w, lid, start, cnt, leaf,
+                                     num_bins=NUM_BINS, max_cnt=mx)
+        k2 = build_histogram_segments(words, w, lid, start, cnt, leaf,
+                                      num_bins=NUM_BINS, max_cnt=mx)
+        p = build_histogram_segments_plain(words, w, lid, start, cnt, leaf,
+                                           num_bins=NUM_BINS)
+        check(torch.equal(k, k2), f"segments {tag}: two launches differ")
+        err = (k - p).abs()
+        if dyadic:
+            check(torch.equal(k, p), f"segments dyadic: kernel != plain (max "
+                  f"diff {err.max().item()})")
+        else:
+            # float32 sums in two orders: each bin's rounding error is
+            # bounded by the bin's own absolute mass, so the limit is set
+            # per bin (a dropped or misrouted row moves its bin by far more)
+            mass = build_histogram_segments_plain(
+                words, w.abs(), lid, start, cnt, leaf, num_bins=NUM_BINS)
+            lim = 1e-5 * p.abs() + 1e-5 * mass
+            check(bool((err <= lim).all()),
+                  f"segments random: kernel vs plain beyond rtol=1e-5, "
+                  f"atol=1e-5*(the bin's sum of |w|) (max diff "
+                  f"{err.max().item()})")
+            nz = lim > 0
+            out["random_worst_err_to_limit"] = (err[nz] / lim[nz]).max() \
+                .item()
+            ctx["err_segments"] = err.max().item()
+        out[tag] = {"max_abs_err": err.max().item(), "relaunch_bitwise": True,
+                    "max_member_rows": mx}
+    torch.cuda.synchronize()
+    emit(out)
+
+
+def partition_inputs(seed: int):
+    """Random lanes (NaN and negative-zero weights included), 64 disjoint
+    windows with random split flags, and dest computed as the wave learner
+    computes it (window start + the row's rank among its side's rows)."""
+    from lightgbm_tpu_torch.ops.partition import exclusive_cumsum
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(seed)
+    n = N_FULL
+    bins = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1, size=(FW, n),
+                                        dtype=np.int64).astype(np.int32))
+    w = rng.randn(3, n).astype(np.float32)
+    w[0, rng.rand(n) < 0.01] = np.nan
+    w[1, rng.rand(n) < 0.01] = -0.0
+    cuts = np.sort(rng.choice(np.arange(1, n), 128, replace=False))
+    win_s, win_e = cuts[0::2], cuts[1::2]          # 64 windows, gaps between
+    wid = np.full(n, -1, np.int64)
+    for i, (s, e) in enumerate(zip(win_s, win_e)):
+        wid[s:e] = i
+    go = rng.rand(n) < rng.rand()
+    sort_r = wid >= 0
+    gl = torch.from_numpy(sort_r & go)
+    gr = torch.from_numpy(sort_r & ~go)
+    cl, cr = exclusive_cumsum(gl), exclusive_cumsum(gr)
+    ps = torch.from_numpy(win_s)
+    lc = torch.from_numpy(np.array([(go[s:e]).sum() for s, e in
+                                    zip(win_s, win_e)]))
+    base_l = torch.cat([ps - cl[ps], torch.zeros(1, dtype=torch.int64)])
+    base_r = torch.cat([ps + lc - cr[ps], torch.zeros(1, dtype=torch.int64)])
+    widt = torch.from_numpy(np.where(wid < 0, 64, wid))
+    dest = torch.where(torch.from_numpy(sort_r),
+                       torch.where(torch.from_numpy(go),
+                                   base_l[widt] + cl, base_r[widt] + cr),
+                       torch.arange(n)).to(torch.int32)
+    lanes = (bins, torch.from_numpy(w), torch.arange(n, dtype=torch.int64),
+             torch.from_numpy(rng.randint(0, 1145, n).astype(np.int32)),
+             dest)
+    return [t.to(dev).contiguous() for t in lanes]
+
+
+def phase_partition(ctx) -> None:
+    from lightgbm_tpu_torch.ops.partition import (apply_partition,
+                                                  apply_partition_plain)
+
+    bins, w, rid, lid, dest = partition_inputs(4)
+    n = N_FULL
+    check(torch.equal(torch.sort(dest.long()).values,
+                      torch.arange(n, device=dest.device)),
+          "partition input: dest is not a permutation")
+    k = apply_partition(bins, w, rid, lid, dest)
+    p = apply_partition_plain(bins, w, rid, lid, dest)
+    names = ("bins", "w_bits", "rid", "lid")
+    kv = (k[0], k[1].view(torch.int32), k[2], k[3])
+    pv = (p[0], p[1].view(torch.int32), p[2], p[3])
+    for name, a, b in zip(names, kv, pv):
+        check(torch.equal(a, b), f"partition: lane {name} differs from the "
+              f"plain version")
+    moved = int((dest != torch.arange(n, device=dest.device,
+                                      dtype=torch.int32)).sum())
+    torch.cuda.synchronize()
+    ctx["err_partition"] = 0.0
+    emit({"phase": "partition", "Fw": FW, "N": n, "windows": 64,
+          "rows_moved": moved, "lanes_bitwise": list(names),
+          "nan_weights": int(torch.isnan(w).sum()),
+          "negative_zero_weights": int((w.view(torch.int32)
+                                        == -2 ** 31).sum())})
+
+
+def scan_inputs(seed: int, dyadic: bool, k: int = SCAN_K, f: int = FEATURES,
+                b: int = NUM_BINS):
+    """A (K, F, B, 3) histogram cube with mixed missing types.  Dyadic: the
+    fixture of tests/test_partition.py at the bench width (leaf totals need
+    not match the bins; every sum is exact).  Random: the histograms of
+    4,096 random rows per leaf, so every feature's bins sum to the leaf
+    totals, as in training."""
+    rng = np.random.RandomState(seed)
+    num_bin = rng.randint(2, b + 1, size=f).astype(np.int32)
+    missing = rng.randint(0, 3, size=f).astype(np.int32)
+    default_bin = (rng.randint(0, 100, size=f) % num_bin).astype(np.int32)
+    if dyadic:
+        gen = (lambda s: (rng.randint(-(1 << 12), 1 << 12, size=s) / 64.0)
+               .astype(np.float32))
+        hg = gen((k, f, b))
+        hh = np.abs(gen((k, f, b))) + 0.25
+        hc = rng.randint(0, 50, size=(k, f, b)).astype(np.float32)
+        hist = np.stack([hg, hh, hc], axis=-1)
+        hist *= (np.arange(b)[None, :] < num_bin[:, None])[None, :, :, None]
+        sum_g = hist[..., 0].sum(axis=(1, 2)) / f
+        sum_h = hist[..., 1].sum(axis=(1, 2)) / f
+        cnt = hist[..., 2].sum(axis=(1, 2)) / f
+    else:
+        rows = 4096
+        w = np.stack([rng.randn(k, rows), rng.rand(k, rows),
+                      np.ones((k, rows))]).astype(np.float32)
+        codes = (rng.rand(k, f, rows) * num_bin[None, :, None]) \
+            .astype(np.int64)
+        flat = ((np.arange(k)[:, None, None] * f
+                 + np.arange(f)[None, :, None]) * b + codes).reshape(-1)
+        hist = np.stack([np.bincount(
+            flat, weights=np.broadcast_to(w[c][:, None, :], codes.shape)
+            .reshape(-1), minlength=k * f * b) for c in range(3)], -1) \
+            .reshape(k, f, b, 3).astype(np.float32)
+        sum_g, sum_h, cnt = w.astype(np.float64).sum(axis=2)
+    fmask = rng.rand(f) < 0.9
+    return [torch.from_numpy(np.asarray(a)) for a in
+            (hist, sum_g.astype(np.float32), sum_h.astype(np.float32),
+             cnt.astype(np.float32), num_bin, missing, default_bin, fmask)]
+
+
+SCAN_KW = dict(lambda_l1=0.1, lambda_l2=0.5, max_delta_step=0.0,
+               min_data_in_leaf=3, min_sum_hessian_in_leaf=1e-3,
+               min_gain_to_split=0.0)
+
+
+def threshold_gains(hist, sum_g, sum_h, cnt, num_bin, missing, default_bin,
+                    *, lambda_l1, lambda_l2, max_delta_step, min_data_in_leaf,
+                    min_sum_hessian_in_leaf, min_gain_to_split):
+    """(K, F, 2B) gains at every threshold of both missing directions
+    (missing-left, then missing-right) before the leaf's gain shift is taken
+    off; -inf where a threshold is not evaluated, infeasible or not above
+    the shift.  The split scan takes its maximum over these; the scan phase
+    uses them to tell a clear best threshold from a near tie.  Written from
+    the scan's rules in lightgbm_tpu_torch/ops/split.py, in its order of
+    operations."""
+    from lightgbm_tpu_torch.binning import (MISSING_NAN, MISSING_NONE,
+                                            MISSING_ZERO)
+    from lightgbm_tpu_torch.ops.split import K_EPSILON, leaf_split_gain
+
+    dt = hist.dtype
+    t = torch.arange(hist.shape[-2], device=hist.device)[None, :]   # (1, B)
+    nb, d = num_bin[:, None], default_bin[:, None]                  # (F, 1)
+    zero = (missing == MISSING_ZERO)[:, None]
+    nan = (missing == MISSING_NAN)[:, None]
+    two = ((num_bin > 2) & (missing != MISSING_NONE))[:, None]
+    tg = sum_g.to(dt)[:, None, None]
+    th = sum_h.to(dt)[:, None, None] + 2.0 * K_EPSILON
+    tn = cnt.to(dt)[:, None, None]
+    par = (lambda_l1, lambda_l2, max_delta_step)
+    shift = leaf_split_gain(tg, th, *par) + min_gain_to_split
+
+    def gains(lg, lh, lc, rg, rh, rc, ok):
+        ok = ok & (lc >= min_data_in_leaf) & (rc >= min_data_in_leaf) \
+            & (lh >= min_sum_hessian_in_leaf) & (rh >= min_sum_hessian_in_leaf)
+        g = leaf_split_gain(lg, lh, *par) + leaf_split_gain(rg, rh, *par)
+        return torch.where(ok & (g > shift), g, float("-inf"))
+
+    def after(x):                                   # sum over bins > t
+        c = torch.flip(torch.cumsum(torch.flip(x, [-1]), -1), [-1])
+        return torch.cat([c[..., 1:], torch.zeros_like(c[..., :1])], -1)
+
+    # missing-left: right sums by suffix, left = total - right
+    keep = (~((two & zero & (t == d)) | (two & nan & (t >= nb - 1))
+              | (t >= nb))).to(dt)
+    rg, rh, rc = (after(hist[..., c] * keep) for c in range(3))
+    rh = rh + K_EPSILON
+    ok = (t <= torch.where(two & nan, nb - 3, nb - 2)) \
+        & ~(two & zero & (t == d - 1))
+    left = gains(tg - rg, th - rh, tn - rc, rg, rh, rc, ok)
+    # missing-right (two-scan features only): left sums by prefix
+    keep = (~((zero & (t == d)) | (nan & (t >= nb - 1)) | (t >= nb))).to(dt)
+    lg, lh, lc = (torch.cumsum(hist[..., c] * keep, -1) for c in range(3))
+    lh = lh + K_EPSILON
+    ok = two & (t <= nb - 2) & ~(zero & (t == d))
+    right = gains(lg, lh, lc, tg - lg, th - lh, tn - lc, ok)
+    return torch.cat([left, right], -1)
+
+
+def phase_scan(ctx) -> None:
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+    from lightgbm_tpu_torch.ops.split import find_best_splits
+
+    dev = torch.device("cuda", 0)
+    out = {"phase": "scan", "K": SCAN_K, "F": FEATURES, "B": NUM_BINS}
+    for tag, dyadic in (("dyadic", True), ("random", False)):
+        kw = dict(SCAN_KW, lambda_l1=0.0) if dyadic else SCAN_KW
+        cpu = scan_inputs(5 if dyadic else 6, dyadic)
+        args = [t.to(dev) for t in cpu]
+        k = find_best_splits_batched(*args, **kw)
+        p = find_best_splits(*args, **kw)
+        pc = find_best_splits(*cpu, **kw)
+        fields = k._fields
+        cpu_same = all(same(getattr(k, fl).cpu(), getattr(pc, fl))
+                       for fl in fields)
+        check(cpu_same, f"scan {tag}: kernel differs from the plain version "
+              f"run on the CPU")
+        if dyadic:
+            for fl in fields:
+                check(same(getattr(k, fl), getattr(p, fl)),
+                      f"scan dyadic: field {fl} differs from the plain "
+                      f"version")
+            out[tag] = {"fields_exact": True, "cpu_plain_bitwise": True}
+            continue
+        # the card's plain version sums in another float32 order: hessian
+        # prefix sums near 2,000 then carry ~1e-3 absolute error, and a
+        # small child's hessian sum ~1e-4 relative (two orders measured on
+        # the CPU differ by up to 1.2e-4 of the pre-shift gain on this
+        # fixture).  Compare the gain to 1e-3 of the pre-shift gain, and the
+        # choice wherever the best two candidates are further apart
+        tg = threshold_gains(*args[:7], **kw)                 # (K, F, 2B)
+        top2 = torch.topk(tg, 2, dim=-1).values
+        scale = 1e-3 * top2[..., 0].abs()
+        fin = torch.isfinite(p.gain)
+        check(torch.equal(fin, torch.isfinite(k.gain)),
+              "scan random: infeasible features differ")
+        gerr = (k.gain - p.gain).abs()
+        check(bool((gerr[fin] <= scale[fin]).all()),
+              f"scan random: gain beyond 1e-3 of the pre-shift gain (max "
+              f"diff {gerr[fin].max().item()})")
+        clear = fin & (top2[..., 0] - top2[..., 1] > scale)
+        for fl in ("threshold", "default_left"):
+            check(torch.equal(getattr(k, fl)[clear], getattr(p, fl)[clear]),
+                  f"scan random: {fl} differs at a clear best candidate")
+        ctx["err_scan"] = gerr[fin].max().item()
+        out[tag] = {"gain_max_abs_err": ctx["err_scan"],
+                    "clear_candidates": int(clear.sum()),
+                    "feasible": int(fin.sum()), "cpu_plain_bitwise": True}
+    torch.cuda.synchronize()
+    emit(out)
+
+
 def _dataset(ctx):
     """The 1M-row training set and the 100,000-row held-out set, binned
     once and shared by the tree and train phases."""
@@ -217,16 +570,61 @@ def phase_tree(ctx) -> None:
           "bin_s": ctx["bin_s"]})
 
 
-def phase_train(ctx) -> None:
+def phase_wave_tree(ctx) -> None:
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+    from lightgbm_tpu_torch.learner_wave import (PLAIN_KERNELS,
+                                                 WaveTreeLearner)
+
+    dev = torch.device("cuda", 0)
+    ds, _ = _dataset(ctx)
+    data = ds.constructed
+    g, h, bag = dyadic_weights(np.random.RandomState(1),
+                               data.num_data_padded, data.num_data, dev)
+    growers = {
+        "wave_kernels": lambda: WaveTreeLearner(
+            Config.from_params(WAVE_PARAMS), data, dev),
+        "wave_plain": lambda: WaveTreeLearner(
+            Config.from_params(WAVE_PARAMS), data, dev, PLAIN_KERNELS),
+        "compact": lambda: CompactTreeLearner(
+            Config.from_params(TRAIN_PARAMS), data, dev)}
+    res, info = {}, {}
+    for tag, make in growers.items():
+        learner = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[tag] = learner.grow(g, h, bag)
+        torch.cuda.synchronize()
+        info[tag] = {"grow_s": time.perf_counter() - t0,
+                     "host_syncs": learner.host_syncs}
+        if tag.startswith("wave"):
+            info[tag].update(learner.tree_stats[-1])
+    rk, ik, lk, ok = res["wave_kernels"]
+    splits = int((rk[:, 0] > 0.5).sum())
+    check(splits == 254, f"the dyadic wave tree made {splits} splits, not 254")
+    for tag in ("wave_plain", "compact"):
+        r, i, lid, out = res[tag]
+        check(np.array_equal(rk, r) and np.array_equal(ik, i),
+              f"wave tree records differ from the {tag} tree")
+        check(torch.equal(lk, lid), f"leaf ids differ from the {tag} tree")
+        check(torch.equal(ok.to(torch.float32), out.to(torch.float32)),
+              f"leaf outputs differ from the {tag} tree")
+    emit({"phase": "wave_tree", "splits": splits, "records_bitwise": True,
+          "growers": info})
+
+
+def _train_run(ctx, params, tag, counters):
+    """Train 5 iterations at the bench width with ``params``; ``counters``
+    maps kernel names to their wrappers, whose launch counts are set to 0
+    just before the run and read just after.  Checks and returns the
+    phase's result dict."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.metrics import create_metric
-    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
 
     ds, dv = _dataset(ctx)
     iters = 5
     evals, t_iter, train_ll = {}, [], []
-    logloss = create_metric("binary_logloss", lt.Config.from_params(
-        TRAIN_PARAMS))
+    logloss = create_metric("binary_logloss", lt.Config.from_params(params))
     logloss.init(ds.constructed.metadata, ds.constructed.num_data)
     marks = {}
 
@@ -243,26 +641,20 @@ def phase_train(ctx) -> None:
     after.order = 100
 
     torch.cuda.reset_peak_memory_stats()
-    build_histogram_packed.launches = 0          # counts of the main path
-    bst = lt.train(TRAIN_PARAMS, ds, iters, valid_sets=[dv],
+    for fn in counters.values():                 # counts of the main path
+        fn.launches = 0
+    bst = lt.train(params, ds, iters, valid_sets=[dv],
                    valid_names=["heldout"], evals_result=evals,
                    verbose_eval=False, callbacks=[before, after])
-    launches = build_histogram_packed.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     trees = bst.gbdt.models
-    want = sum(1 + t.num_leaves - 1 for t in trees)
     check(len(trees) == iters, f"{len(trees)} trees, want {iters}")
-    check(launches == want, f"kernel launches {launches} != sum over trees "
-          f"of (1 + splits) = {want}")
+    for name, n in launches.items():
+        check(n > 0, f"{tag}: kernel {name} was not launched on the path")
     learner = bst.gbdt.learner
     check(learner.bins_packed().is_cuda and bst.gbdt.train_score.score.is_cuda,
           "bins or scores are not on the card")
-    st = learner._init_root(
-        *[x for x in bst.gbdt.objective.get_gradients(
-            bst.gbdt.train_score.score[0])], bst.gbdt._bag_mask,
-        learner._all_features)
-    check(st.w_p.is_cuda and st.hist_pool.is_cuda and st.bins_p.is_cuda,
-          "weights or histogram pool are not on the card")
     check(all(b < a for a, b in zip(train_ll, train_ll[1:])),
           f"training logloss did not fall every iteration: {train_ll}")
     auc = evals["heldout"]["auc"]
@@ -274,18 +666,81 @@ def phase_train(ctx) -> None:
           "predictions are not finite of shape (100000,)")
     diff = float(np.abs(pred - 1.0 / (1.0 + np.exp(-dev_score))).max())
     check(diff < 1e-5, f"Booster.predict vs device held-out scores: {diff}")
-    syncs_per_tree = learner.host_syncs / len(trees)
-    ctx["launches"] = launches
-    emit({"phase": "train", "iterations": iters, "trees_leaves":
-          [t.num_leaves for t in trees], "kernel_launches": launches,
-          "launches_expected": want, "train_logloss": train_ll,
-          "heldout_auc": auc,
-          "heldout_logloss": evals["heldout"]["binary_logloss"],
-          "s_per_iter": t_iter, "s_per_iter_after_first":
-          float(np.mean(t_iter[1:])), "host_syncs_per_tree": syncs_per_tree,
-          "loop_score_reads": bst.gbdt.host_syncs,
-          "peak_device_bytes": peak, "predict_vs_device_max_diff": diff,
-          "device": str(learner.device)})
+    grads = bst.gbdt.objective.get_gradients(bst.gbdt.train_score.score[0])
+    return bst, learner, grads, {
+        "phase": tag, "iterations": iters,
+        "trees_leaves": [t.num_leaves for t in trees],
+        "kernel_launches": launches, "train_logloss": train_ll,
+        "heldout_auc": auc,
+        "heldout_logloss": evals["heldout"]["binary_logloss"],
+        "s_per_iter": t_iter,
+        "s_per_iter_after_first": float(np.mean(t_iter[1:])),
+        "host_syncs_per_tree": learner.host_syncs / len(trees),
+        "loop_score_reads": bst.gbdt.host_syncs,
+        "peak_device_bytes": peak, "predict_vs_device_max_diff": diff,
+        "device": str(learner.device)}
+
+
+def phase_train(ctx) -> None:
+    from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
+
+    bst, learner, grads, out = _train_run(
+        ctx, TRAIN_PARAMS, "train", {"hist_packed": build_histogram_packed})
+    check(type(learner) is CompactTreeLearner, "compact was not selected")
+    launches = out["kernel_launches"]["hist_packed"]
+    want = sum(1 + t.num_leaves - 1 for t in bst.gbdt.models)
+    check(launches == want, f"kernel launches {launches} != sum over trees "
+          f"of (1 + splits) = {want}")
+    st = learner._init_root(*grads, bst.gbdt._bag_mask,
+                            learner._all_features)
+    check(st.w_p.is_cuda and st.hist_pool.is_cuda and st.bins_p.is_cuda,
+          "weights or histogram pool are not on the card")
+    ctx["launches_compact"] = launches
+    ctx["auc_compact"] = out["heldout_auc"]
+    out["launches_expected"] = want
+    emit(out)
+
+
+def phase_wave_train(ctx) -> None:
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.partition import apply_partition
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+
+    counters = {"hist_packed": build_histogram_packed,
+                "hist_segments": build_histogram_segments,
+                "partition": apply_partition,
+                "split_scan": find_best_splits_batched}
+    bst, learner, grads, out = _train_run(ctx, WAVE_PARAMS, "wave_train",
+                                          counters)
+    check(type(learner) is WaveTreeLearner,
+          "tpu_learner=auto did not select the wave learner")
+    check(out["kernel_launches"] == learner.kernel_calls,
+          f"kernel launches {out['kernel_launches']} != the calls the "
+          f"learner recorded {learner.kernel_calls}")
+    st = learner._init_root_wave(*grads, bst.gbdt._bag_mask,
+                                 learner._all_features)
+    lanes = {"bins_p": st.bins_p, "w_p": st.w_p, "rid_p": st.rid_p,
+             "lid_p": st.lid_p, "hist_pool": st.hist_pool,
+             "node_i": st.node_i, "node_f": st.node_f, "cand_f": st.cand_f,
+             "cand_i": st.cand_i, "split_m": st.split_m,
+             "spare": st.spare[0]}
+    off = [k for k, v in lanes.items() if not v.is_cuda]
+    check(not off, f"lanes not on the card: {off}")
+    stats = learner.tree_stats
+    for key in ("waves", "stall_events", "stall_splits", "replay_passes",
+                "host_syncs"):
+        out[key + "_per_tree"] = [s[key] for s in stats]
+    if "auc_compact" in ctx:
+        gap = abs(out["heldout_auc"][-1] - ctx["auc_compact"][-1])
+        check(gap < 1e-4, f"held-out AUC {out['heldout_auc'][-1]} is "
+              f"{gap} from the compact learner's")
+        out["auc_gap_to_compact"] = gap
+    out["lanes_on_card"] = sorted(lanes)
+    ctx["launches_wave"] = out["kernel_launches"]
+    emit(out)
 
 
 def phase_small(ctx) -> None:
@@ -309,10 +764,117 @@ def phase_small(ctx) -> None:
           "cpu": out["cpu"], "max_metric_diff": worst})
 
 
+def _bound(nbytes: float, flops: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _time_segments(flush) -> dict:
+    from lightgbm_tpu_torch.ops.hist_packed import unpack_bin_words
+    from lightgbm_tpu_torch.ops.hist_segments import (
+        build_histogram_segments, build_histogram_segments_plain)
+
+    words, w, lid, start, cnt, leaf, mx = segments_inputs(7, False)
+    dev = words.device
+    reps = 20
+    ms = cuda_ms(lambda: build_histogram_segments(
+        words, w, lid, start, cnt, leaf, num_bins=NUM_BINS, max_cnt=mx),
+        reps, flush)
+    plain_ms = cuda_ms(lambda: build_histogram_segments_plain(
+        words, w, lid, start, cnt, leaf, num_bins=NUM_BINS), 3, flush)
+    # the library call: one index_add_ over the members' matching rows, with
+    # the flat (member, feature, bin) indices formed beforehand
+    rows, members = [], []
+    for m, (s, c, lf) in enumerate(zip(start.tolist(), cnt.tolist(),
+                                       leaf.tolist())):
+        r = torch.arange(s, s + c, device=dev)
+        r = r[lid[r] == lf]
+        rows.append(r)
+        members.append(torch.full_like(r, m))
+    rows, members = torch.cat(rows), torch.cat(members)
+    codes = unpack_bin_words(words.index_select(1, rows), 4 * FW) \
+        .to(torch.int64)                                  # (4Fw, R)
+    fo = torch.arange(4 * FW, device=dev)[:, None]
+    flat = ((members[None, :] * 4 * FW + fo) * NUM_BINS + codes).reshape(-1)
+    src = w.index_select(1, rows).t().unsqueeze(0) \
+        .expand(4 * FW, rows.numel(), 3).reshape(-1, 3).contiguous()
+    k = start.numel()
+    lib_ms = cuda_ms(lambda: torch.zeros(
+        k * 4 * FW * NUM_BINS, 3, device=dev).index_add_(0, flat, src),
+        reps, flush)
+    # the bytes the function needs: lid once for each row of the union of
+    # the member ranges (frozen members share theirs), words and weights
+    # once for each row that matches its member's leaf, the output once
+    edge = torch.zeros(words.shape[1] + 1, dtype=torch.int64, device=dev)
+    one = torch.ones_like(start, dtype=torch.int64)
+    edge.index_add_(0, start.long(), one)
+    edge.index_add_(0, (start + cnt).long(), -one)
+    union_rows = int((torch.cumsum(edge[:-1], 0) > 0).sum())
+    matching = int(rows.numel())
+    nbytes = (union_rows * 4 + matching * (FW * 4 + 3 * 4)
+              + k * 4 * FW * NUM_BINS * 3 * 4)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, members=k,
+                member_rows=int(cnt.sum()), union_rows=union_rows,
+                matching_rows=matching,
+                **_bound(nbytes, matching * 4 * FW * 3))
+
+
+def _time_partition(flush) -> dict:
+    from lightgbm_tpu_torch.ops.partition import (apply_partition,
+                                                  apply_partition_plain)
+
+    bins, w, rid, lid, dest = partition_inputs(8)
+    out = tuple(torch.empty_like(t) for t in (bins, w, rid, lid))
+    reps = 20
+    ms = cuda_ms(lambda: apply_partition(bins, w, rid, lid, dest, out=out),
+                 reps, flush)
+    plain_ms = cuda_ms(lambda: apply_partition_plain(bins, w, rid, lid, dest,
+                                                     out=out), reps, flush)
+    # the library call: one index_copy_ of every lane stacked as int32 rows
+    # (Fw words, 3 weight bit patterns, rid as two halves, lid)
+    stacked = torch.cat([bins, w.view(torch.int32),
+                         rid.view(torch.int32).view(-1, 2).t(),
+                         lid[None, :]]).contiguous()
+    target = torch.empty_like(stacked)
+    d64 = dest.to(torch.int64)
+    lib_ms = cuda_ms(lambda: target.index_copy_(1, d64, stacked), reps,
+                     flush)
+    n = N_FULL
+    nbytes = n * (FW + 3 + 2 + 1) * 4 * 2 + n * 4
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **_bound(nbytes, 0))
+
+
+def _time_scan(flush) -> dict:
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+    from lightgbm_tpu_torch.ops.split import find_best_splits
+
+    dev = torch.device("cuda", 0)
+    args = [t.to(dev) for t in scan_inputs(9, False)]
+    reps = 20
+    ms = cuda_ms(lambda: find_best_splits_batched(*args, **SCAN_KW), reps,
+                 flush)
+    plain_ms = cuda_ms(lambda: find_best_splits(
+        *args, **SCAN_KW), reps, flush)
+    cells = SCAN_K * FEATURES * NUM_BINS
+    nbytes = cells * 3 * 4 + SCAN_K * 8 * FEATURES * 4
+    # per bin and direction: 3 cumulative adds, 3 subtractions, two leaf
+    # outputs and two leaf gains (about 34 float operations)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                library="no single PyTorch call computes this function",
+                **_bound(nbytes, cells * 2 * 40))
+
+
 def phase_timing(ctx) -> None:
     from lightgbm_tpu_torch.ops.hist_packed import (
         build_histogram_packed, build_histogram_packed_plain, pack_bin_words,
         unpack_bin_words)
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.partition import apply_partition
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(2)
@@ -325,7 +887,9 @@ def phase_timing(ctx) -> None:
         torch.from_numpy(rng.rand(N_FULL).astype(np.float32)).to(dev) * bag,
         bag])
     flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
-    launches_before = build_histogram_packed.launches
+    wrappers = (build_histogram_packed, build_histogram_segments,
+                apply_partition, find_best_splits_batched)
+    launches_before = [fn.launches for fn in wrappers]
     rows = {}
     for tag, s in (("full", N_FULL), ("65536", 65_536)):
         wv, ww = words[:, :s], w[:, :s]
@@ -351,11 +915,53 @@ def phase_timing(ctx) -> None:
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations", "bytes": in_bytes + out_bytes,
                      "achieved_GBps": (in_bytes + out_bytes) / ms / 1e6}
-    build_histogram_packed.launches = launches_before
+    others = {"hist_segments": _time_segments(flush),
+              "partition": _time_partition(flush),
+              "split_scan": _time_scan(flush)}
+    for fn, n in zip(wrappers, launches_before):
+        fn.launches = n
     ctx["timing"] = rows
+    ctx["timing_others"] = others
     emit({"phase": "timing", "kernel": "hist_packed", "Fw": FW,
           "num_bins": NUM_BINS, "windows": rows,
           "nvidia_smi": ctx.get("smi")})
+    emit({"phase": "timing", "kernels": others, "nvidia_smi": ctx.get("smi")})
+
+
+def kernels_line(ctx) -> dict:
+    """The per-kernel summary: launches from the main path's run (the wave
+    learner's training), times and bounds from the timing phase."""
+    t = dict(ctx["timing_others"])
+    t["hist_packed"] = ctx["timing"]["full"]
+    compare = {
+        "hist_packed": "dyadic inputs bitwise; two launches bitwise; random "
+                       "float32 within rtol=1e-5, atol=1e-5*sum|w|",
+        "hist_segments": "dyadic inputs bitwise; two launches bitwise; "
+                         "random float32 within rtol=1e-5, atol=1e-5 "
+                         "times each bin's sum of |w|",
+        "partition": "every lane bitwise (NaN, -0.0 weight bits included)",
+        "split_scan": "dyadic: every field exact; random float32: bitwise "
+                      "equal to the CPU plain version; vs the card plain "
+                      "version gain within 1e-3 of the pre-shift gain, "
+                      "choice equal at clear candidates"}
+    err = {"hist_packed": ctx.get("max_abs_err"),
+           "hist_segments": ctx.get("err_segments"),
+           "partition": ctx.get("err_partition"),
+           "split_scan": ctx.get("err_scan")}
+    out = []
+    for name in ("hist_packed", "hist_segments", "partition", "split_scan"):
+        src, replaces = KERNEL_SOURCES[name]
+        row = t[name]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces,
+                    "launches": ctx["launches_wave"][name],
+                    "max_abs_err": err[name], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"],
+                    "compare": compare[name]})
+    out[0]["launches_compact_train"] = ctx.get("launches_compact")
+    return {"kernels": out}
 
 
 def main() -> int:
@@ -379,19 +985,8 @@ def main() -> int:
     for name in PHASES:
         if name in phases:
             globals()[f"phase_{name}"](ctx)
-    if "train" in phases and "timing" in phases:
-        t = ctx["timing"]["full"]
-        emit({"kernels": [{
-            "name": "hist_packed", "route": "cuda",
-            "source": "lightgbm_tpu_torch/csrc/hist_packed.cu",
-            "replaces": "lightgbm_tpu/ops/hist_pallas.py:315",
-            "launches": ctx["launches"],
-            "max_abs_err": ctx.get("max_abs_err"),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "compare": "dyadic inputs bitwise; two launches bitwise; random "
-                       "float32 within rtol=1e-5, atol=1e-5*sum|w|"}]})
+    if "wave_train" in phases and "timing" in phases:
+        emit(kernels_line(ctx))
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

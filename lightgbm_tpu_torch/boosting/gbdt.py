@@ -151,7 +151,7 @@ class GBDT:
     # -- GBDT::Init (`gbdt.cpp:45-137`) -------------------------------------
 
     def init(self, train_data: Dataset, objective: Optional[ObjectiveFunction],
-             training_metrics: Sequence[Metric] = (), histogram=None) -> None:
+             training_metrics: Sequence[Metric] = ()) -> None:
         data = train_data.constructed
         self.train_data = data
         self.objective = objective
@@ -160,8 +160,7 @@ class GBDT:
             else max(self.cfg.num_class, 1))
         if objective is not None:
             objective.init(data.metadata, data.num_data, data.num_data_padded)
-        self.learner = create_tree_learner(self.cfg, data, self.device,
-                                           histogram)
+        self.learner = create_tree_learner(self.cfg, data, self.device)
         self.train_score = ScoreUpdater(data, self.num_tree_per_iteration,
                                         self.device)
         self.training_metrics = list(training_metrics)

@@ -868,6 +868,7 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md Queue A: {item})")
 
 
+OPENING = "the wave learner's opening levels"
 BREADTH = "objective, metric and feature breadth"
 VARIANTS = "boosting variants"
 QUANT = "quantized gradients"

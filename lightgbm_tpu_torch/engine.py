@@ -23,16 +23,12 @@ from .objectives import create_objective
 
 
 class Booster:
-    """User-facing booster handle (`python-package/lightgbm/basic.py:1577`).
-
-    ``histogram`` replaces the learner's histogram function (for example
-    with ``ops.hist_packed.build_histogram_packed_plain``); it is an explicit
-    argument for tests and the chip check, not a config key."""
+    """User-facing booster handle (`python-package/lightgbm/basic.py:1577`)."""
 
     def __init__(self, params: Optional[Dict] = None,
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
-                 model_str: Optional[str] = None, histogram=None):
+                 model_str: Optional[str] = None):
         params = dict(params or {})
         self.params = params
         self.cfg = Config.from_params(params)
@@ -48,7 +44,7 @@ class Booster:
             train_metrics = []
             if self.cfg.is_provide_training_metric:
                 train_metrics = self._make_metrics(train_set)
-            self.gbdt.init(train_set, objective, train_metrics, histogram)
+            self.gbdt.init(train_set, objective, train_metrics)
         elif model_file is not None:
             with open(model_file) as fh:
                 self.gbdt.load_model_from_string(fh.read())
@@ -160,16 +156,15 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
           valid_sets: Optional[Sequence[Dataset]] = None,
           valid_names: Optional[Sequence[str]] = None,
           evals_result: Optional[Dict] = None, verbose_eval=True,
-          callbacks: Optional[List[Callable]] = None,
-          histogram=None) -> Booster:
+          callbacks: Optional[List[Callable]] = None) -> Booster:
     """`python-package/lightgbm/engine.py:19-245` semantics for the ported
-    subset; ``histogram`` as in ``Booster``."""
+    subset."""
     params = dict(params or {})
     if "num_iterations" not in params and num_boost_round is not None:
         params["num_iterations"] = num_boost_round
     num_boost_round = Config.from_params(params).num_iterations
     train_set.params = {**params, **(train_set.params or {})}
-    booster = Booster(params=params, train_set=train_set, histogram=histogram)
+    booster = Booster(params=params, train_set=train_set)
 
     for i, vs in enumerate(valid_sets or []):
         if vs is train_set:

@@ -422,24 +422,43 @@ class CompactTreeLearner(TreeLearner):
 
 
 def create_tree_learner(cfg: Config, data: _ConstructedDataset,
-                        device: torch.device,
-                        histogram: Optional[HistogramFn] = None
-                        ) -> CompactTreeLearner:
+                        device: torch.device) -> CompactTreeLearner:
     """(tree_learner, tpu_learner) -> learner, as
-    ``lightgbm_tpu.learner_compact.create_tree_learner``.  The frontier-wave
-    learner is not ported yet: ``auto`` and ``wave`` route to the compact
-    learner, which grows the same trees; ``masked`` raises."""
+    ``lightgbm_tpu.learner_compact.create_tree_learner``: ``auto`` and
+    ``wave`` pick the frontier-wave learner where it is eligible and the
+    compact learner otherwise (with the JAX package's message), ``compact``
+    the compact learner; ``masked`` raises."""
+    import warnings
+
+    from .learner_wave import WaveTreeLearner, wave_ineligible_reason
+
     mode = cfg.tpu_learner
     if mode == "masked":
         raise not_ported("tpu_learner=masked", MASKED)
-    if mode in ("auto", "wave"):
-        if int(getattr(cfg, "verbosity", 1)) >= 1:
-            print(f"[lightgbm_tpu_torch] tpu_learner={mode}: the "
-                  f"frontier-wave learner is not ported yet; using the "
-                  f"sequential compact learner (identical trees)")
-    elif mode != "compact":
+    if mode not in ("auto", "wave", "compact"):
         raise ValueError(f"tpu_learner must be one of auto, wave, compact, "
                          f"masked; got {mode!r}")
+    explicit = mode != "auto"
+    verbose = int(getattr(cfg, "verbosity", 1))
+    if mode == "auto":
+        mode = "wave"
+    if mode == "wave" and cfg.forcedsplits_filename:
+        if verbose >= 1:
+            print("[lightgbm_tpu_torch] forcedsplits_filename set: using the "
+                  "sequential compact learner (identical trees)")
+        mode = "compact"
+    if mode == "wave":
+        reason = wave_ineligible_reason(cfg, data)
+        if reason is None:
+            return WaveTreeLearner(cfg, data, device)
+        mode = "compact"
+        if explicit:
+            warnings.warn(f"tpu_learner=wave was requested but is ineligible "
+                          f"({reason}); falling back to the sequential "
+                          f"compact learner")
+        elif verbose >= 1:
+            print(f"[lightgbm_tpu_torch] wave learner ineligible ({reason}); "
+                  f"using the sequential compact learner")
     if data.max_num_bin > 256:
         raise not_ported(f"max_num_bin={data.max_num_bin} > 256", MASKED)
-    return CompactTreeLearner(cfg, data, device, histogram)
+    return CompactTreeLearner(cfg, data, device)

@@ -25,6 +25,11 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: per-source additions: the split scan's gain arithmetic must round after
+#: every operation, as the plain torch version does (no fused multiply-add)
+EXTRA_FLAGS: Dict[str, List[str]] = {"split_scan": ["-fmad=false"]}
+#: every kernel source of the port
+KERNELS = ("hist_packed", "hist_segments", "partition", "split_scan")
 
 #: seconds each library took to build in this process (0.0 = reused)
 BUILD_SECONDS: Dict[str, float] = {}
@@ -47,9 +52,13 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+def _flags(name: str) -> List[str]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -61,7 +70,7 @@ def _start_build(name: str):
     fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so.tmp",
                                dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [find_nvcc(), *_flags(name), "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()

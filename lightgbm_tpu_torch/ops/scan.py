@@ -1,0 +1,127 @@
+"""Batched best-split scan of the wave learner (CUDA kernel + plain torch).
+
+Port of ``lightgbm_tpu/ops/scan_pallas.py:find_best_splits_batched``: the
+best numerical threshold of every (leaf, feature) of a ``(K, F, B, 3)``
+float32 histogram cube, as ``SplitCandidates`` with the post-shift gain and
+``K_EPSILON`` conventions of ``ops/split.py:find_best_splits`` (and of
+``scan_pallas.py:236-248``).  The histograms arrive already unbundled and
+FixHistogram'd, as in the JAX package.
+
+On a CUDA tensor ``find_best_splits_batched`` launches the hand-written
+Hopper kernel ``csrc/split_scan.cu`` (design and bound in that file's
+header) and finishes with the same torch operations ``find_best_splits``
+ends with; on a CPU tensor it runs the plain version,
+``ops/split.py:find_best_splits`` with its batch axis and both
+missing-direction scans.  The kernel is float32 only: ``gpu_use_dp`` keeps
+the plain float64 path, as the JAX package gates its scan kernel off in dp.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import native
+from .split import (K_EPSILON, K_MIN_SCORE, SplitCandidates,
+                    find_best_splits, leaf_split_gain)
+
+#: output planes: raw gain, threshold, default_left, lg, lh(+eps), lc, lo, ro
+N_OUT = 8
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = native.load("split_scan")
+        lib.lgbt_split_scan.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.lgbt_split_scan.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
+                             sum_hessians: torch.Tensor,
+                             num_data: torch.Tensor, num_bin: torch.Tensor,
+                             missing_type: torch.Tensor,
+                             default_bin: torch.Tensor,
+                             feature_mask: torch.Tensor, *,
+                             lambda_l1: float = 0.0, lambda_l2: float = 0.0,
+                             max_delta_step: float = 0.0,
+                             min_data_in_leaf: int = 20,
+                             min_sum_hessian_in_leaf: float = 1e-3,
+                             min_gain_to_split: float = 0.0
+                             ) -> SplitCandidates:
+    """hist (K, F, B, 3) float32, leaf totals (K,), feature metadata (F,),
+    feature_mask (F,) or (K, F) bool -> (K, F)-batched ``SplitCandidates``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``find_best_splits_batched.launches``) or raise."""
+    kw = dict(lambda_l1=lambda_l1, lambda_l2=lambda_l2,
+              max_delta_step=max_delta_step,
+              min_data_in_leaf=min_data_in_leaf,
+              min_sum_hessian_in_leaf=min_sum_hessian_in_leaf,
+              min_gain_to_split=min_gain_to_split)
+    if hist.device.type == "cpu":
+        return find_best_splits(hist, sum_gradients, sum_hessians, num_data,
+                                num_bin, missing_type, default_bin,
+                                feature_mask, **kw)
+    dev = hist.device
+    if dev.type != "cuda":
+        raise ValueError(f"hist must lie on the CPU or a CUDA device, not "
+                         f"{dev}")
+    if hist.dtype != torch.float32 or hist.dim() != 4 or hist.shape[-1] != 3:
+        raise ValueError(f"hist must be a (K, F, B, 3) float32 tensor, got "
+                         f"{hist.dtype} {tuple(hist.shape)}")
+    k, f, b, _ = hist.shape
+    if not 1 <= b <= 256 or k < 1 or f < 1:
+        raise ValueError(f"need K, F >= 1 and 1 <= B <= 256, got {k, f, b}")
+    meta = [t.to(torch.int32).contiguous() for t in
+            (num_bin, missing_type, default_bin)]
+    if any(t.shape != (f,) or t.device != dev for t in meta):
+        raise ValueError("feature metadata must be (F,) on the hist's device")
+    dt = hist.dtype
+    total_g = sum_gradients.to(dt)
+    total_h = sum_hessians.to(dt) + 2.0 * K_EPSILON
+    total_n = num_data.to(dt)
+    gain_shift = leaf_split_gain(total_g, total_h, lambda_l1, lambda_l2,
+                                 max_delta_step)
+    min_gain_shift = gain_shift + min_gain_to_split
+    tot = torch.stack([total_g, total_h, total_n, min_gain_shift], 1) \
+        .contiguous()
+    if tot.shape != (k, 4) or tot.device != dev:
+        raise ValueError("leaf totals must be (K,) on the hist's device")
+    hist = hist.contiguous()
+    out = torch.empty((k, N_OUT, f), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().lgbt_split_scan(
+        hist.data_ptr(), tot.data_ptr(), meta[0].data_ptr(),
+        meta[1].data_ptr(), meta[2].data_ptr(), k, f, b, float(lambda_l1),
+        float(lambda_l2), float(max_delta_step), int(max_delta_step > 0.0),
+        float(min_data_in_leaf), float(min_sum_hessian_in_leaf),
+        out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"split_scan kernel launch failed: CUDA error "
+                           f"{err}")
+    find_best_splits_batched.launches += 1
+    best_g = out[:, 0]
+    lg_b, lh_b, lc_b = out[:, 3], out[:, 4], out[:, 5]
+    tg, th, tn = total_g[:, None], total_h[:, None], total_n[:, None]
+    invalid = torch.isneginf(best_g) | ~feature_mask
+    return SplitCandidates(
+        gain=torch.where(invalid, K_MIN_SCORE,
+                         best_g - min_gain_shift[:, None]),
+        threshold=out[:, 1].round().to(torch.int32),
+        default_left=out[:, 2] > 0.5,
+        left_sum_g=lg_b, left_sum_h=lh_b - K_EPSILON, left_cnt=lc_b,
+        right_sum_g=tg - lg_b, right_sum_h=th - lh_b - K_EPSILON,
+        right_cnt=tn - lc_b, left_output=out[:, 6], right_output=out[:, 7])
+
+
+find_best_splits_batched.launches = 0

@@ -1,6 +1,6 @@
-"""The port's CUDA kernel on the card (``cuda`` marker; skipped without one).
+"""The port's CUDA kernels on the card (``cuda`` marker; skipped without one).
 
-The kernel has no CPU mode, so these tests run only where a CUDA device is
+The kernels have no CPU mode, so these tests run only where a CUDA device is
 present; each decides that inside the ``cuda_device`` fixture.  They need
 torch, numpy and the port only, so the card's machine runs them without
 JAX installed:
@@ -24,8 +24,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the hist_packed kernel has no CPU "
-                    "mode (its plain version is tested on the CPU)")
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU "
+                    "mode (their plain versions are tested on the CPU)")
     return torch.device("cuda", 0)
 
 
@@ -123,3 +123,113 @@ def test_training_on_card_matches_cpu(cuda_device):
     for m in ("auc", "binary_logloss"):
         np.testing.assert_allclose(out["cuda"][m], out["cpu"][m], rtol=0,
                                    atol=1e-4)
+
+
+def test_segments_kernel_bitwise_on_dyadic_inputs(cuda_device):
+    from lightgbm_tpu_torch.ops.hist_segments import (
+        build_histogram_segments, build_histogram_segments_plain)
+
+    words, w = _inputs(cuda_device, 2, 8192, 63, 11, dyadic=True)
+    rng = np.random.RandomState(12)
+    lid = torch.from_numpy(rng.randint(0, 3, 8192).astype(np.int32)) \
+        .to(cuda_device)
+    # unaligned windows, one span shared by leaves 1 and 2
+    start = torch.tensor([0, 1000, 1000, 5001], device=cuda_device)
+    cnt = torch.tensor([999, 3000, 3000, 3191], device=cuda_device)
+    leaf = torch.tensor([0, 1, 2, 0], device=cuda_device)
+    lid[:999] = 0
+    lid[5001:] = 0
+    k = build_histogram_segments(words, w, lid, start, cnt, leaf,
+                                 num_bins=63, max_cnt=3191)
+    k2 = build_histogram_segments(words, w, lid, start, cnt, leaf,
+                                  num_bins=63, max_cnt=3191)
+    p = build_histogram_segments_plain(words, w, lid, start, cnt, leaf,
+                                       num_bins=63)
+    assert k.shape == (4, 8, 63, 3)
+    assert torch.equal(k, p) and torch.equal(k, k2)
+
+
+def test_partition_kernel_is_the_plain_permutation(cuda_device):
+    from lightgbm_tpu_torch.ops.partition import (apply_partition,
+                                                  apply_partition_plain)
+
+    rng = np.random.RandomState(13)
+    n = 5000
+    bins = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, (3, n))
+                            .astype(np.int32)).to(cuda_device)
+    w = torch.from_numpy(rng.randn(3, n).astype(np.float32)).to(cuda_device)
+    w[0, :7] = float("nan")
+    w[1, 7:14] = -0.0
+    rid = torch.arange(n, device=cuda_device)
+    lid = torch.from_numpy(rng.randint(0, 99, n).astype(np.int32)) \
+        .to(cuda_device)
+    dest = torch.from_numpy(rng.permutation(n).astype(np.int32)) \
+        .to(cuda_device)
+    before = apply_partition.launches
+    k = apply_partition(bins, w, rid, lid, dest)
+    p = apply_partition_plain(bins, w, rid, lid, dest)
+    assert apply_partition.launches == before + 1
+    assert torch.equal(k[0], p[0]) and torch.equal(k[2], p[2])
+    assert torch.equal(k[1].view(torch.int32), p[1].view(torch.int32))
+    assert torch.equal(k[3], p[3])
+    with pytest.raises(ValueError):
+        apply_partition(bins, w, rid, lid, dest.to(torch.int64))
+
+
+def test_partition_kernel_fails_loudly_on_out_of_range_dest(cuda_device):
+    """A dest outside [0, N) traps the kernel (the plain version's
+    index_copy_ raises); a trap spoils the CUDA context, so it runs in a
+    child process."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from lightgbm_tpu_torch.ops.partition import apply_partition\n"
+        "d, n = torch.device('cuda', 0), 1024\n"
+        "dest = torch.arange(n, dtype=torch.int32, device=d)\n"
+        "dest[5] = n\n"
+        "apply_partition(torch.zeros(2, n, dtype=torch.int32, device=d),\n"
+        "                torch.zeros(3, n, device=d),\n"
+        "                torch.arange(n, device=d),\n"
+        "                torch.zeros(n, dtype=torch.int32, device=d), dest)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode != 0 and "no error" not in proc.stdout
+    assert "CUDA" in proc.stderr, proc.stderr[-2000:]
+
+
+def test_scan_kernel_equals_plain_on_dyadic_and_cpu_on_random(cuda_device):
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+    from lightgbm_tpu_torch.ops.split import find_best_splits
+
+    rng = np.random.RandomState(14)
+    k, f, b = 5, 7, 40
+    hist = np.stack([rng.randint(-256, 256, (k, f, b)) / 16.0,
+                     rng.randint(1, 64, (k, f, b)) / 16.0,
+                     rng.randint(0, 30, (k, f, b)).astype(float)],
+                    -1).astype(np.float32)
+    nb = rng.randint(2, b + 1, f).astype(np.int32)
+    hist *= (np.arange(b)[None, :] < nb[:, None])[None, :, :, None]
+    cpu = [torch.from_numpy(a) for a in (
+        hist, hist[..., 0].sum((1, 2)) / f, hist[..., 1].sum((1, 2)) / f,
+        hist[..., 2].sum((1, 2)) / f, nb,
+        rng.randint(0, 3, f).astype(np.int32),
+        (rng.randint(0, 99, f) % nb).astype(np.int32), np.ones(f, bool))]
+    kw = dict(lambda_l2=0.5, min_data_in_leaf=3)
+    for dyadic in (True, False):
+        if not dyadic:
+            cpu[0] = cpu[0] + torch.from_numpy(
+                rng.randn(k, f, b, 3).astype(np.float32) * 1e-3)
+        dev = [t.to(cuda_device) for t in cpu]
+        got = find_best_splits_batched(*dev, **kw)
+        ref = find_best_splits(*(dev if dyadic else cpu), **kw)
+        for fld in got._fields:
+            a = getattr(got, fld).cpu()
+            r = getattr(ref, fld).cpu()
+            assert bool(((a == r) | (torch.isnan(a) & torch.isnan(r)))
+                        .all()), fld

@@ -128,12 +128,15 @@ def test_text_file_input_raises(tmp_path):
 
 @pytest.mark.parametrize("mode", ["auto", "wave", "compact"])
 def test_learner_routing_to_compact(mode, capsys):
+    """``compact`` selects the compact learner; ``auto`` and ``wave`` the
+    frontier-wave learner, which is eligible here, without a message."""
     from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
 
     X, y = _problem()
     params = {"objective": "binary", "device_type": "cpu", "num_leaves": 4,
               "tpu_learner": mode, "verbosity": 1}
     bst = lt.train(params, lt.Dataset(X, label=y), 1, verbose_eval=False)
-    assert type(bst.gbdt.learner) is CompactTreeLearner
-    said = "frontier-wave learner is not ported" in capsys.readouterr().out
-    assert said == (mode != "compact")
+    want = CompactTreeLearner if mode == "compact" else WaveTreeLearner
+    assert type(bst.gbdt.learner) is want
+    assert "lightgbm_tpu_torch" not in capsys.readouterr().out

@@ -1,0 +1,127 @@
+"""Port segment histograms vs lightgbm_tpu's Pallas segment kernel.
+
+The same numpy words, weights, leaf ids and member windows go through
+``lightgbm_tpu.ops.hist_pallas.build_histogram_segments`` (``nterms=0``,
+Pallas interpret mode, set up as ``tests/test_wave.py`` does: one chunk per
+row block a member's window touches) and the port's
+``ops/hist_segments.py`` (its plain version on CPU tensors).  On dyadic
+weights every float32 sum is exact whatever its order, so the two must be
+bitwise equal; on random float32 weights they agree within rtol=1e-5 and
+an atol of 1e-5 times each bin's own sum of |w| (the two sum in different
+orders).  Members start at
+unaligned rows and two pairs share a frozen span, told apart by leaf id.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lightgbm_tpu.ops.hist_pallas import (build_histogram_segments as
+                                          jax_segments, pack_bin_words)
+from lightgbm_tpu_torch.ops.hist_segments import (
+    build_histogram_segments, build_histogram_segments_plain,
+    segment_geometry)
+
+N, F, B, RB = 4096, 8, 64, 512
+# (start, count, leaf): disjoint windows at unaligned starts, then two
+# frozen spans each shared by two members
+MEMBERS = [(100, 700, 5), (1000, 900, 9), (2500, 1000, 11),
+           (3500, 300, 20), (3500, 300, 21), (3800, 296, 30),
+           (3800, 296, 31)]
+
+
+def _inputs(dyadic: bool, seed: int = 31):
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, B, (F, N)).astype(np.uint8)
+    if dyadic:
+        w = (rng.randint(-64, 65, (3, N)) / 16.0).astype(np.float32)
+    else:
+        w = rng.randn(3, N).astype(np.float32)
+    lid = np.zeros(N, np.int32)
+    for s, c, leaf in MEMBERS:
+        if leaf in (20, 30):         # the frozen spans: two leaves mixed
+            lid[s:s + c] = np.where(rng.rand(c) < 0.5, leaf, leaf + 1)
+        elif leaf not in (21, 31):
+            lid[s:s + c] = leaf
+    return bins, w, lid
+
+
+def _jax(bins, w, lid):
+    slot_t, block_t, leaf_t = [], [], []
+    for k, (s, c, leaf) in enumerate(MEMBERS):
+        for blk in range(s // RB, (s + c - 1) // RB + 1):
+            slot_t.append(k)
+            block_t.append(blk)
+            leaf_t.append(leaf)
+    k = len(MEMBERS)
+    while len(slot_t) < N // RB + 2 * k:
+        slot_t.append(k)
+        block_t.append(0)
+        leaf_t.append(-1)
+    out = jax_segments(
+        pack_bin_words(jnp.asarray(bins)), jnp.asarray(w), jnp.asarray(lid),
+        jnp.asarray(slot_t, dtype=jnp.int32),
+        jnp.asarray(block_t, dtype=jnp.int32),
+        jnp.asarray(leaf_t, dtype=jnp.int32),
+        num_bins=B, n_slots=k, row_block=RB, nterms=0, interpret=True)
+    return np.asarray(out)
+
+
+def _port(bins, w, lid, fn=build_histogram_segments, **kw):
+    from lightgbm_tpu_torch.ops.hist_packed import pack_bin_words as pack
+
+    s, c, leaf = (torch.tensor([m[i] for m in MEMBERS]) for i in range(3))
+    return fn(pack(torch.from_numpy(bins)), torch.from_numpy(w),
+              torch.from_numpy(lid), s, c, leaf, num_bins=B,
+              max_cnt=int(c.max()), **kw)
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_plain_segments_equal_jax_kernel(dyadic):
+    bins, w, lid = _inputs(dyadic)
+    want = _jax(bins, w, lid)
+    got = _port(bins, w, lid).numpy()
+    assert got.shape == want.shape == (len(MEMBERS), F, B, 3)
+    if dyadic:
+        np.testing.assert_array_equal(got, want)
+    else:
+        # each bin's rounding error is bounded by the bin's own |w| mass
+        mass = _port(bins, np.abs(w), lid).numpy()
+        assert (np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-5 * mass).all()
+
+
+def test_members_see_only_their_rows():
+    """Each member's histogram is the bincount of its own rows: the frozen
+    pairs split their span by leaf id, rows past a count are not read."""
+    bins, w, lid = _inputs(True, seed=5)
+    got = _port(bins, w, lid).numpy()
+    for k, (s, c, leaf) in enumerate(MEMBERS):
+        rows = np.arange(s, s + c)[lid[s:s + c] == leaf]
+        for f in range(F):
+            for ch in range(3):
+                ref = np.bincount(bins[f, rows], weights=w[ch, rows],
+                                  minlength=B)
+                np.testing.assert_array_equal(got[k, f, :, ch],
+                                              ref.astype(np.float32))
+
+
+def test_dp_and_wrapper_route():
+    bins, w, lid = _inputs(False, seed=9)
+    wrapped = _port(bins, w, lid)
+    plain = _port(bins, w, lid, fn=build_histogram_segments_plain)
+    assert torch.equal(wrapped, plain)
+    dp = _port(bins, w, lid, fn=build_histogram_segments_plain, dp=True)
+    assert dp.dtype == torch.float64
+    np.testing.assert_allclose(dp.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("fw,k,mx", [(8, 1, 1_000_448), (8, 64, 15_000),
+                                     (8, 64, 300), (1, 3, 1), (30, 128,
+                                                               8192)])
+def test_segment_geometry_covers_every_row(fw, k, mx):
+    nchunks, chunk = segment_geometry(fw, k, mx)
+    assert chunk % 256 == 0 and chunk >= 256
+    assert nchunks * chunk >= mx > (nchunks - 1) * chunk
+    assert nchunks <= -(-528 // (fw * k))

@@ -1,0 +1,267 @@
+"""Port frontier-wave learner vs lightgbm_tpu's WaveTPUTreeLearner.
+
+One tree from the same numpy float32 gradients, hessians and 90% bag
+(``tests/test_torch_learner.py``: values on a 2**-20 grid, so float64 sums
+are exact in any order) goes through both packages with ``gpu_use_dp``.  The
+records (pop order, leaf numbering, every float), the exact bagged counts,
+the leaf id of every row and the leaf outputs must be EXACTLY equal, and
+equal to the port's compact learner on the same inputs.  The JAX learner
+runs with ``tpu_wave_defer_sorts=False`` (the flow its TPU partition mode
+runs, which the port implements) except in one case that keeps its
+defaults.  The cases cover stall batches 1 and 4 (each with replay stalls),
+a narrow wave, sortable and frozen members, feature sampling,
+regularization with ``max_depth``, EFB bundles and a budget that runs out
+of positive gains early.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu as lj
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu.config import Config as JConfig
+from lightgbm_tpu.learner_wave import WaveTPUTreeLearner
+from lightgbm_tpu.learner_wave import \
+    wave_transient_bytes as jax_wave_bytes
+from lightgbm_tpu_torch.config import Config as TConfig
+from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+from lightgbm_tpu_torch.learner_wave import (PLAIN_KERNELS, WaveTreeLearner,
+                                             wave_transient_bytes)
+from test_torch_learner import _grads, _problem
+
+CPU = torch.device("cpu")
+BASE = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
+        "min_data_in_leaf": 10, "tpu_min_window": 1024, "verbosity": -1,
+        "gpu_use_dp": True}
+JAX_FLOW = {"tpu_wave_defer_sorts": False}
+
+# name: (params, JAX-only params, feature fraction, keep the NaN column).
+# A NaN-typed feature in a leaf without NaN rows gives the missing-left and
+# missing-right scans the same split, and the two packages break that tie
+# by the last bits of their gain arithmetic (ROADMAP.md Queue C, also
+# between their compact learners), so the larger trees drop the NaN column.
+CASES = {
+    "defaults": ({}, JAX_FLOW, None, True),
+    "jax_defaults": ({}, {}, None, True),
+    "stall1_sorted": ({"tpu_wave_stall_batch": 1, "tpu_sort_cutoff": 0,
+                       "tpu_wave_sort_cutoff": 0, "num_leaves": 31,
+                       "tpu_wave_overshoot": 0.0}, JAX_FLOW, None, False),
+    "stall1_frozen": ({"tpu_wave_stall_batch": 1, "tpu_wave_width": 8,
+                       "num_leaves": 31, "tpu_wave_overshoot": 0.0},
+                      JAX_FLOW, None, False),
+    "stall4_narrow": ({"tpu_wave_width": 4, "num_leaves": 31}, JAX_FLOW,
+                      None, False),
+    "stall4_mixed_features": ({"tpu_wave_sort_cutoff": 512,
+                               "tpu_sort_cutoff": 256, "num_leaves": 63},
+                              JAX_FLOW, 0.7, False),
+    "regularized_depth_exhausted": ({"max_depth": 5, "num_leaves": 63,
+                                     "min_data_in_leaf": 150,
+                                     "lambda_l1": 0.1, "lambda_l2": 1.0,
+                                     "max_delta_step": 0.5,
+                                     "min_gain_to_split": 0.01,
+                                     "min_sum_hessian_in_leaf": 0.5,
+                                     "tpu_wave_sort_cutoff": 512},
+                                    JAX_FLOW, None, True),
+}
+
+
+def _grow(params, jax_extra, frac=None, nan=True, efb=False, seed=0):
+    X, y = _problem(seed, efb)
+    if not nan:
+        X[:, 2] = np.nan_to_num(X[:, 2])
+    dj = lj.Dataset(X, label=y, params=params).construct().constructed
+    dt = lt.Dataset(X, label=y, params=dict(params, device_type="cpu")) \
+        .construct().constructed
+    assert (dj.bundle is not None) == efb == (dt.bundle is not None)
+    g, h, b = _grads(seed, y, dj.num_data_padded)
+    f = dt.num_used_features
+    fmask = np.ones(f, bool)
+    if frac is not None:
+        rng = np.random.RandomState(seed + 7)
+        fmask[:] = False
+        fmask[rng.choice(f, max(1, int(round(f * frac))), replace=False)] = \
+            True
+    rj = WaveTPUTreeLearner(JConfig.from_params(dict(params, **jax_extra)),
+                            dj).train_async(jnp.asarray(g), jnp.asarray(h),
+                                            jnp.asarray(b),
+                                            jnp.asarray(fmask))
+    args = [torch.from_numpy(a) for a in (g, h, b, fmask)]
+    wave = WaveTreeLearner(TConfig.from_params(params), dt, CPU)
+    rw = wave.grow(*args)
+    rc = CompactTreeLearner(TConfig.from_params(params), dt, CPU).grow(*args)
+    return rj, rw, rc, wave
+
+
+def _check(rj, rw, rc):
+    rec_j, cnt_j, _, leaf_j, out_j = (np.asarray(a) for a in rj)
+    rf, ri, leaf_t, out_t = rw
+    np.testing.assert_array_equal(rf, rec_j)
+    np.testing.assert_array_equal(ri, cnt_j)
+    np.testing.assert_array_equal(leaf_t.numpy(), leaf_j)
+    np.testing.assert_array_equal(out_t.to(torch.float32).numpy(), out_j)
+    # the compact learner grows the same tree (its unused record rows are
+    # zeros, the wave learner's repeat the root's with REC_VALID = 0)
+    nv = int((rf[:, 0] > 0.5).sum())
+    assert nv == int((rc[0][:, 0] > 0.5).sum())
+    np.testing.assert_array_equal(rf[:nv], rc[0][:nv])
+    np.testing.assert_array_equal(ri[:nv], rc[1][:nv])
+    assert torch.equal(leaf_t, rc[2])
+    assert torch.equal(out_t, rc[3])
+    return nv
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_dp_records_equal_jax_wave_and_compact(name):
+    extra, jax_extra, frac, nan = CASES[name]
+    params = dict(BASE, **extra)
+    rj, rw, rc, wave = _grow(params, jax_extra, frac, nan)
+    nv = _check(rj, rw, rc)
+    stats = wave.tree_stats[-1]
+    budget = wave.budget
+    if name == "regularized_depth_exhausted":
+        assert 0 < nv < budget
+    else:
+        assert nv >= budget // 2
+    if name.startswith("stall"):
+        assert stats["stall_events"] > 0          # the replay corrected
+    if "sorted" in name or "mixed" in name:
+        assert wave.kernel_calls["partition"] > 0
+    if "frozen" in name or name == "defaults":
+        assert wave.kernel_calls["partition"] == 0
+    # one read per wave (plus the one that ended the growth), one per
+    # replay pass, one for the records
+    reads = stats["waves"] + stats["replay_passes"] + 1
+    assert stats["host_syncs"] in (reads, reads + 1)
+
+
+def test_dp_records_equal_with_efb_bundles():
+    rj, rw, rc, wave = _grow(BASE, JAX_FLOW, efb=True, seed=3)
+    assert wave._bundle is not None
+    _check(rj, rw, rc)
+
+
+def test_f32_wave_equals_compact_and_plain_kernels():
+    """Without dp: the wave learner through its kernel functions (the plain
+    versions on the CPU) and through PLAIN_KERNELS, and the compact learner,
+    grow the same records."""
+    X, y = _problem(1)
+    params = dict(BASE, gpu_use_dp=False, num_leaves=31,
+                  tpu_wave_sort_cutoff=512, tpu_sort_cutoff=256)
+    dt = lt.Dataset(X, label=y, params=dict(params, device_type="cpu")) \
+        .construct().constructed
+    g, h, b = (torch.from_numpy(a) for a in _grads(1, y, dt.num_data_padded))
+    cfg = TConfig.from_params(params)
+    wave = WaveTreeLearner(cfg, dt, CPU)
+    a = wave.grow(g, h, b)
+    p = WaveTreeLearner(cfg, dt, CPU, PLAIN_KERNELS).grow(g, h, b)
+    c = CompactTreeLearner(cfg, dt, CPU).grow(g, h, b)
+    np.testing.assert_array_equal(a[0], p[0])
+    assert torch.equal(a[2], p[2])
+    nv = int((a[0][:, 0] > 0.5).sum())
+    assert nv == 30
+    np.testing.assert_array_equal(a[0][:, :5], c[0][:, :5])
+    np.testing.assert_array_equal(a[1], c[1])
+    assert torch.equal(a[2], c[2])
+    np.testing.assert_allclose(a[0], c[0], rtol=1e-5, atol=1e-6)
+    calls = wave.kernel_calls
+    assert calls["hist_packed"] == 1 and calls["partition"] > 0
+    assert calls["hist_segments"] == calls["split_scan"] - 1 > 0
+
+
+def test_sizing_equals_jax():
+    for over in ({}, {"num_leaves": 255}, {"tpu_wave_stall_batch": 1},
+                 {"tpu_wave_width": 8, "tpu_wave_vec_cap": 4096}):
+        p = dict(BASE, **over)
+        a = wave_transient_bytes(TConfig.from_params(p), 1_000_448, 32, 255)
+        b = jax_wave_bytes(JConfig.from_params(p), 1_000_448, 32, 255)
+        assert a == b, over
+    X, y = _problem(0)
+    params = dict(BASE, num_leaves=255)
+    dt = lt.Dataset(X, label=y, params=dict(params, device_type="cpu")) \
+        .construct().constructed
+    wave = WaveTreeLearner(TConfig.from_params(params), dt, CPU)
+    assert (wave.M, wave.H, wave.grow_budget, wave.W) == (1145, 574, 254, 64)
+
+
+# ---------------------------------------------------------------------------
+# Routing and end to end.
+# ---------------------------------------------------------------------------
+
+
+def _small(n=1000, f=5, seed=2):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f)
+    y = (X[:, 0] + 0.3 * rng.randn(n) > 0).astype(np.float64)
+    return X, y
+
+
+@pytest.mark.parametrize("mode,want", [("auto", WaveTreeLearner),
+                                       ("wave", WaveTreeLearner),
+                                       ("compact", CompactTreeLearner)])
+def test_routing(mode, want):
+    X, y = _small()
+    p = {"objective": "binary", "device_type": "cpu", "num_leaves": 7,
+         "verbosity": -1, "tpu_learner": mode}
+    bst = lt.train(p, lt.Dataset(X, label=y), 1, verbose_eval=False)
+    assert type(bst.gbdt.learner) is want
+
+
+def test_ineligible_wave_falls_back_with_the_jax_message(capsys):
+    X, y = _small()
+    p = {"objective": "binary", "device_type": "cpu", "num_leaves": 7,
+         "verbosity": 1, "tpu_wave_max_bytes": 1}
+    bst = lt.train(p, lt.Dataset(X, label=y), 1, verbose_eval=False)
+    assert type(bst.gbdt.learner) is CompactTreeLearner
+    assert "wave learner ineligible" in capsys.readouterr().out
+    with pytest.warns(UserWarning, match="tpu_learner=wave was requested"):
+        lt.train(dict(p, tpu_learner="wave"), lt.Dataset(X, label=y), 1,
+                 verbose_eval=False)
+
+
+@pytest.mark.parametrize("extra", [{"tpu_wave_open_levels": 5}])
+def test_unported_wave_settings_raise(extra):
+    X, y = _small()
+    p = {"objective": "binary", "device_type": "cpu", "num_leaves": 7,
+         "verbosity": -1, **extra}
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue A: the wave learner's opening"):
+        lt.train(p, lt.Dataset(X, label=y), 1, verbose_eval=False)
+
+
+def test_end_to_end_default_learner_matches_jax():
+    """``train`` with the default tpu_learner in both packages (the wave
+    learner in each), L2 objective in dp: the same split structure, leaf
+    values and predictions within 1e-5."""
+    rng = np.random.RandomState(7)
+    n = 3000
+    X = rng.randn(n, 8)
+    X[rng.rand(n) < 0.1, 2] = np.nan
+    y = (X[:, 0] * 1.5 + np.nan_to_num(X[:, 2]) * X[:, 4]
+         + 0.5 * rng.randn(n)).astype(np.float32)
+    X = X.astype(np.float32)
+    params = {"objective": "regression", "num_leaves": 31, "max_bin": 63,
+              "learning_rate": 0.2, "min_data_in_leaf": 20, "verbosity": -1,
+              "metric": "l2", "gpu_use_dp": True, "bagging_fraction": 0.8,
+              "bagging_freq": 1, "bagging_seed": 5}
+    out = []
+    for lib, p in ((lj, params), (lt, dict(params, device_type="cpu"))):
+        ds = lib.Dataset(X[:2400], label=y[:2400], params=p)
+        bst = lib.train(p, ds, 3, verbose_eval=False)
+        out.append((bst, bst.predict(X[2400:])))
+    (bj, pj), (bt, pt) = out
+    assert type(bj.gbdt.learner) is WaveTPUTreeLearner
+    assert type(bt.gbdt.learner) is WaveTreeLearner
+    assert len(bj.gbdt.models) == len(bt.gbdt.models) == 3
+    for tj, tt in zip(bj.gbdt.models, bt.gbdt.models):
+        nl = tj.num_leaves
+        assert nl == tt.num_leaves > 1
+        np.testing.assert_array_equal(tt.split_feature[:nl - 1],
+                                      tj.split_feature[:nl - 1])
+        np.testing.assert_array_equal(tt.threshold_in_bin[:nl - 1],
+                                      tj.threshold_in_bin[:nl - 1])
+        np.testing.assert_array_equal(tt.leaf_count[:nl], tj.leaf_count[:nl])
+        np.testing.assert_allclose(tt.leaf_value[:nl], tj.leaf_value[:nl],
+                                   rtol=0, atol=1e-5)
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-5)
