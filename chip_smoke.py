@@ -8,7 +8,7 @@ Run from the root of a checkout: the kernels are built from its sources
 torch, numpy and ``lightgbm_tpu_torch`` only.  Phases, each printing one JSON
 line and each raising (exit code 1) on any failure:
 
-  device     card name and power limit (nvidia-smi), torch, the four kernel
+  device     card name and power limit (nvidia-smi), torch, the six kernel
              builds (one nvcc each, started together)
   kernel     packed histogram kernel vs its plain torch version at full width
              (Fw=8, N=1,000,448, 255 bins): bitwise on dyadic inputs at the
@@ -30,12 +30,28 @@ line and each raising (exit code 1) on any failure:
              plain version on the card (another summation order) the gain
              within 1e-3 of the pre-shift gain, threshold and default_left
              equal wherever the best two candidates differ by more than that
+  multislot  multislot histogram kernel (the level-wise opening's) vs its
+             plain version on the full-width rows, a slot per row in root
+             order (slot K and -1 dropped): bitwise on dyadic inputs at K = 1,
+             3, 16 and 64 slots; at K = 16 on random float32 within
+             rtol=1e-5 and an atol of 1e-5 times each bin's own sum of |w|,
+             bitwise across two launches, and the quant mode bitwise
+  fused_scan fused child-scan kernel vs the unfused path at K=64, F=28,
+             B=255 over a 574-slot histogram pool: on quant-grid histograms
+             every field and both pool rows bitwise equal to the plain
+             version on the card and on the CPU; on random float32 bitwise
+             equal to the learner's unfused step on the card (torch
+             subtraction and fix_histogram, then the split-scan kernel)
   tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
              rows, grown by the compact learner through the kernel and
              through the plain histogram: records bitwise equal
   wave_tree  the same tree grown by the wave learner through its four
              kernels, by the wave learner through every plain version, and by
              the compact learner: records, counts and leaf ids bitwise equal
+  opening_tree one full-width 255-leaf tree of the default learner with
+             tpu_wave_open_levels=5 and boost_from_average=false (round-1
+             gradients are exact): model text equal to the opening off, five
+             opening levels through the multislot kernel
   train      lightgbm_tpu_torch.train with tpu_learner=compact at the bench
              width (1M x 28, 255 leaves, 255 bins, 5 iterations, 100,000
              held-out rows): launch count equal to the sum over trees of
@@ -47,11 +63,18 @@ line and each raising (exit code 1) on any failure:
              learner): launches per kernel equal to the calls the learner
              recorded, host syncs, waves and stall events per tree, held-out
              AUC within 1e-4 of the compact phase's
+  quant_train the wave_train run with tpu_quantized_grad=on and
+             tpu_wave_open_levels=5, the path of the multislot and fused
+             kernels and of the histograms' quant modes: launches per kernel
+             (quant-mode launches too) equal to the learner's calls, held-out
+             AUC within 1e-3 of wave_train's, one tree fused against unfused
+             bitwise, quantize_gradients on the card bitwise equal to the CPU
   small      a small input trained on the card and on the CPU (the path the
              tests hold against lightgbm_tpu): held-out metrics within 1e-4
-  timing     each kernel's, its plain version's and (where one PyTorch call
-             computes the same function) the library call's times from CUDA
-             events, L2 flushed before each launch, beside the bound
+  timing     each of the six kernels', its plain version's and (where one
+             PyTorch call computes the same function) the library call's
+             times from CUDA events, L2 flushed before each launch, beside
+             the bound
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -69,8 +92,9 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("device", "kernel", "segments", "partition", "scan", "tree",
-          "wave_tree", "train", "wave_train", "small", "timing")
+PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
+          "fused_scan", "tree", "wave_tree", "opening_tree", "train",
+          "wave_train", "quant_train", "small", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -81,7 +105,13 @@ TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
                 "tpu_learner": "compact"}
 #: the main path's params: TRAIN_PARAMS with the default tpu_learner (auto)
 WAVE_PARAMS = {k: v for k, v in TRAIN_PARAMS.items() if k != "tpu_learner"}
+#: this slice's path: quantized gradients with the level-wise opening
+QUANT_PARAMS = dict(WAVE_PARAMS, tpu_quantized_grad="on",
+                    tpu_wave_open_levels=5)
 SCAN_K = 128
+MULTI_K = 16        # slots at the 5th opening level
+FUSED_K = 64        # members of a full growth wave
+POOL_H = 574        # the bench configuration's histogram pool slots
 KERNEL_SOURCES = {
     "hist_packed": ("lightgbm_tpu_torch/csrc/hist_packed.cu",
                     "lightgbm_tpu/ops/hist_pallas.py:315"),
@@ -91,6 +121,10 @@ KERNEL_SOURCES = {
                   "lightgbm_tpu/ops/partition_pallas.py:377"),
     "split_scan": ("lightgbm_tpu_torch/csrc/split_scan.cu",
                    "lightgbm_tpu/ops/scan_pallas.py:185"),
+    "hist_multislot": ("lightgbm_tpu_torch/csrc/hist_multislot.cu",
+                       "lightgbm_tpu/ops/hist_pallas.py:584"),
+    "fused_scan": ("lightgbm_tpu_torch/csrc/fused_scan.cu",
+                   "lightgbm_tpu/ops/scan_pallas.py:298"),
 }
 
 
@@ -520,6 +554,187 @@ def phase_scan(ctx) -> None:
     emit(out)
 
 
+def multislot_inputs(seed: int, kind: str, k: int):
+    """Full-width packed rows, weights and a slot per row in root order, as
+    an opening level sees them: slots 0..K-1, K and -1 (rows of leaves the
+    level does not split) dropped.  ``kind``: dyadic, quant (the integer
+    grids times powers of two) or random float32."""
+    from lightgbm_tpu_torch.ops.hist_packed import pack_bin_words
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, NUM_BINS, size=(4 * FW, N_FULL)).astype(np.uint8)
+    words = pack_bin_words(torch.from_numpy(codes).to(dev))
+    if kind == "dyadic":
+        g, h, bag = dyadic_weights(rng, N_FULL, N_FULL, dev)
+    else:
+        bag = torch.from_numpy((rng.rand(N_FULL) < 0.9).astype(np.float32)) \
+            .to(dev)
+        if kind == "quant":
+            g = rng.randint(-7, 8, N_FULL) * 2.0 ** -6
+            h = rng.randint(0, 16, N_FULL) * 2.0 ** -8
+        else:
+            g, h = rng.randn(N_FULL), rng.rand(N_FULL)
+        g, h = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                for a in (g, h))
+    w = torch.stack([g * bag, h * bag, bag]).contiguous()
+    slot = rng.randint(-1, k + 1, N_FULL).astype(np.int32)
+    return words, w, torch.from_numpy(slot).to(dev)
+
+
+def phase_multislot(ctx) -> None:
+    from lightgbm_tpu_torch.ops.hist_multislot import (
+        build_histogram_multislot, build_histogram_multislot_plain)
+
+    out = {"phase": "multislot", "Fw": FW, "N": N_FULL,
+           "num_bins": NUM_BINS}
+    for k in (1, 3, MULTI_K, 64):
+        words, w, slot = multislot_inputs(20 + k, "dyadic", k)
+        a = build_histogram_multislot(words, w, slot, num_bins=NUM_BINS,
+                                      n_slots=k)
+        p = build_histogram_multislot_plain(words, w, slot,
+                                            num_bins=NUM_BINS, n_slots=k)
+        check(torch.equal(a, p), f"multislot dyadic K={k}: kernel != plain "
+              f"(max diff {(a - p).abs().max().item()})")
+        out[f"dyadic_K{k}_bitwise"] = True
+    k = MULTI_K
+    words, w, slot = multislot_inputs(41, "random", k)
+    a = build_histogram_multislot(words, w, slot, num_bins=NUM_BINS,
+                                  n_slots=k)
+    a2 = build_histogram_multislot(words, w, slot, num_bins=NUM_BINS,
+                                   n_slots=k)
+    p = build_histogram_multislot_plain(words, w, slot, num_bins=NUM_BINS,
+                                        n_slots=k)
+    check(torch.equal(a, a2), "multislot random: two launches differ")
+    mass = build_histogram_multislot_plain(words, w.abs(), slot,
+                                           num_bins=NUM_BINS, n_slots=k)
+    err = (a - p).abs()
+    lim = 1e-5 * p.abs() + 1e-5 * mass
+    check(bool((err <= lim).all()),
+          f"multislot random: kernel vs plain beyond rtol=1e-5, atol=1e-5*"
+          f"(the bin's sum of |w|) (max diff {err.max().item()})")
+    nz = lim > 0
+    out["random_K16"] = {"max_abs_err": err.max().item(),
+                         "worst_err_to_limit": (err[nz] / lim[nz]).max()
+                         .item(), "relaunch_bitwise": True}
+    ctx["err_multislot"] = err.max().item()
+    words, w, slot = multislot_inputs(42, "quant", k)
+    a = build_histogram_multislot(words, w, slot, num_bins=NUM_BINS,
+                                  n_slots=k, quant=True)
+    p = build_histogram_multislot_plain(words, w, slot, num_bins=NUM_BINS,
+                                        n_slots=k, quant=True)
+    check(torch.equal(a, p), "multislot quant: kernel != plain")
+    check(torch.equal(a[..., 2], a[..., 1]),
+          "multislot quant: channel 2 is not the hessian lane's sum")
+    out["quant_K16_bitwise"] = True
+    torch.cuda.synchronize()
+    emit(out)
+
+
+def fused_inputs(seed: int, exact: bool, k: int = FUSED_K,
+                 f: int = FEATURES, b: int = NUM_BINS, h: int = POOL_H):
+    """One growth wave's fused step at the bench width: smaller-child and
+    sibling histograms (quant-grid values when ``exact``, else random
+    float32; the count channel the hessian times 4.0), the pool with each
+    member's parent in its own slot, fresh right-child slots, the child
+    totals (feature 0's sums, interleaved [l0, r0, ...]) and the feature
+    metadata.  Returns CPU tensors."""
+    rng = np.random.RandomState(seed)
+    num_bin = rng.randint(2, b + 1, size=f).astype(np.int32)
+    missing = rng.randint(0, 3, size=f).astype(np.int32)
+    default_bin = (rng.randint(0, 100, size=f) % num_bin).astype(np.int32)
+    bm = (np.arange(b)[None, :] < num_bin[:, None])[None, :, :, None]
+
+    def hist():
+        if exact:
+            g = rng.randint(-7 * 400, 7 * 400 + 1, (k, f, b)) * 2.0 ** -6
+            hh = rng.randint(0, 15 * 400 + 1, (k, f, b)) * 2.0 ** -8
+        else:
+            g = rng.randn(k, f, b) * 20
+            hh = rng.rand(k, f, b) * 20
+        return (np.stack([g, hh, hh * 4.0], -1) * bm).astype(np.float32)
+
+    h_small, h_other = hist(), hist()
+    left_small = rng.rand(k) < 0.5
+    lsm = left_small[:, None, None, None]
+    hl = np.where(lsm, h_small, h_other)
+    hr = np.where(lsm, h_other, h_small)
+    tot = np.stack([hl[:, 0].astype(np.float64).sum(1),
+                    hr[:, 0].astype(np.float64).sum(1)], 1) \
+        .reshape(2 * k, 3).astype(np.float32)
+    slots = rng.permutation(h)
+    ph, rh = slots[:k].astype(np.int64), slots[k:2 * k].astype(np.int64)
+    pool = rng.randn(h, f, b, 3).astype(np.float32)
+    pool[ph] = h_small + h_other
+    fmask = rng.rand(f) < 0.9
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (h_small, pool, ph, rh, left_small, tot[:, 0], tot[:, 1],
+             tot[:, 2], num_bin, missing, default_bin, fmask)]
+
+
+def unfused_step(h_small, pool, ph, rh, left_small, sg2, sh2, n2, num_bin,
+                 missing, default_bin, fmask, **kw):
+    """The wave learner's unfused step on the card: torch subtraction,
+    selection and pool writes, ``fix_histogram``, the split-scan kernel."""
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+    from lightgbm_tpu_torch.ops.split import fix_histogram
+
+    k = h_small.shape[0]
+    h_large = pool.index_select(0, ph) - h_small
+    lsm = left_small.view(k, 1, 1, 1)
+    hl = torch.where(lsm, h_small, h_large)
+    hr = torch.where(lsm, h_large, h_small)
+    pool.index_copy_(0, ph, hl)
+    pool.index_copy_(0, rh, hr)
+    h2 = torch.stack([hl, hr], 1).reshape((2 * k,) + hl.shape[1:])
+    h2 = fix_histogram(h2, sg2, sh2, n2, default_bin)
+    return find_best_splits_batched(h2, sg2, sh2, n2, num_bin, missing,
+                                    default_bin, fmask, **kw)
+
+
+def phase_fused_scan(ctx) -> None:
+    from lightgbm_tpu_torch.ops.fused_scan import (fused_child_scans,
+                                                   fused_child_scans_plain)
+
+    dev = torch.device("cuda", 0)
+    kw = dict(SCAN_KW, lambda_l1=0.0)
+    out = {"phase": "fused_scan", "K": FUSED_K, "F": FEATURES,
+           "B": NUM_BINS, "pool_slots": POOL_H}
+    for tag, exact in (("quant_grid", True), ("random", False)):
+        cpu = fused_inputs(30 + exact, exact)
+        args = [t.to(dev) for t in cpu]
+        pools = {n: args[1].clone() for n in ("kernel", "ref")}
+        k = fused_child_scans(args[0], pools["kernel"], *args[2:], **kw)
+        if exact:
+            ref = fused_child_scans_plain(args[0], pools["ref"], *args[2:],
+                                          **kw)
+            pool_cpu = cpu[1].clone()
+            ref_cpu = fused_child_scans_plain(cpu[0], pool_cpu, *cpu[2:],
+                                              **kw)
+            check(all(same(getattr(k, fl).cpu(), getattr(ref_cpu, fl))
+                      for fl in k._fields),
+                  "fused quant-grid: kernel differs from the plain version "
+                  "run on the CPU")
+            check(torch.equal(pools["kernel"].cpu(), pool_cpu),
+                  "fused quant-grid: pool differs from the CPU plain version")
+        else:
+            ref = unfused_step(args[0], pools["ref"], *args[2:], **kw)
+        for fl in k._fields:
+            check(same(getattr(k, fl), getattr(ref, fl)),
+                  f"fused {tag}: field {fl} differs from the "
+                  f"{'plain version' if exact else 'unfused step'}")
+        check(torch.equal(pools["kernel"], pools["ref"]),
+              f"fused {tag}: pool rows differ")
+        fin = torch.isfinite(k.gain)
+        out[tag] = {"fields_bitwise": True, "pool_bitwise": True,
+                    "feasible": int(fin.sum()),
+                    "against": "plain version (card and CPU)" if exact
+                    else "unfused step (card)"}
+    ctx["err_fused"] = 0.0
+    torch.cuda.synchronize()
+    emit(out)
+
+
 def _dataset(ctx):
     """The 1M-row training set and the 100,000-row held-out set, binned
     once and shared by the tree and train phases."""
@@ -611,6 +826,38 @@ def phase_wave_tree(ctx) -> None:
               f"leaf outputs differ from the {tag} tree")
     emit({"phase": "wave_tree", "splits": splits, "records_bitwise": True,
           "growers": info})
+
+
+def phase_opening_tree(ctx) -> None:
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops.hist_multislot import \
+        build_histogram_multislot
+
+    ds, _ = _dataset(ctx)
+    # round 1 without boost_from_average: gradients +-0.5 and hessians 0.25,
+    # so every float32 histogram sum is exact whatever its order
+    p = dict(WAVE_PARAMS, boost_from_average=False, metric="none")
+    text, info = {}, {}
+    for tag, extra in (("off", {}), ("open5", {"tpu_wave_open_levels": 5})):
+        n0 = build_histogram_multislot.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(dict(p, **extra), ds, 1, verbose_eval=False)
+        torch.cuda.synchronize()
+        learner = bst.gbdt.learner
+        text[tag] = bst.model_to_string()
+        info[tag] = dict(learner.tree_stats[0], train_s=time.perf_counter()
+                         - t0, multislot_launches=
+                         build_histogram_multislot.launches - n0,
+                         leaves=bst.gbdt.models[0].num_leaves)
+    check(info["open5"]["open_levels"] == 5,
+          f"the opening ran {info['open5']['open_levels']} levels, not 5")
+    check(info["open5"]["multislot_launches"] == 5,
+          "the opening did not launch the multislot kernel once per level")
+    check(info["open5"]["leaves"] == 255, "the opening tree is not full")
+    check(text["off"] == text["open5"],
+          "model text with the opening differs from the opening off")
+    emit({"phase": "opening_tree", "model_text_equal": True, "runs": info})
 
 
 def _train_run(ctx, params, tag, counters):
@@ -717,9 +964,10 @@ def phase_wave_train(ctx) -> None:
                                           counters)
     check(type(learner) is WaveTreeLearner,
           "tpu_learner=auto did not select the wave learner")
-    check(out["kernel_launches"] == learner.kernel_calls,
+    calls = learner.kernel_calls
+    check(out["kernel_launches"] == {n: calls[n] for n in counters},
           f"kernel launches {out['kernel_launches']} != the calls the "
-          f"learner recorded {learner.kernel_calls}")
+          f"learner recorded {calls}")
     st = learner._init_root_wave(*grads, bst.gbdt._bag_mask,
                                  learner._all_features)
     lanes = {"bins_p": st.bins_p, "w_p": st.w_p, "rid_p": st.rid_p,
@@ -740,6 +988,82 @@ def phase_wave_train(ctx) -> None:
         out["auc_gap_to_compact"] = gap
     out["lanes_on_card"] = sorted(lanes)
     ctx["launches_wave"] = out["kernel_launches"]
+    ctx["auc_wave"] = out["heldout_auc"]
+    emit(out)
+
+
+def phase_quant_train(ctx) -> None:
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+    from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
+    from lightgbm_tpu_torch.ops.hist_multislot import \
+        build_histogram_multislot
+    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.partition import apply_partition
+    from lightgbm_tpu_torch.ops.quant import quantize_gradients
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+
+    counters = {"hist_packed": build_histogram_packed,
+                "hist_segments": build_histogram_segments,
+                "partition": apply_partition,
+                "split_scan": find_best_splits_batched,
+                "hist_multislot": build_histogram_multislot,
+                "fused_scan": fused_child_scans}
+    quant_modes = {"hist_packed_quant": build_histogram_packed,
+                   "hist_segments_quant": build_histogram_segments,
+                   "hist_multislot_quant": build_histogram_multislot}
+    for fn in quant_modes.values():
+        fn.quant_launches = 0
+    bst, learner, grads, out = _train_run(ctx, QUANT_PARAMS, "quant_train",
+                                          counters)
+    quant = {name: fn.quant_launches for name, fn in quant_modes.items()}
+    check(type(learner) is WaveTreeLearner and learner._quant
+          and learner._use_fused and learner.open_levels == 5,
+          "quant_train did not run the quantized wave learner with the "
+          "fused kernel and five opening levels")
+    calls = learner.kernel_calls
+    check(out["kernel_launches"] == {n: calls[n] for n in counters},
+          f"kernel launches {out['kernel_launches']} != the calls the "
+          f"learner recorded {calls}")
+    check(quant == {n: calls[n] for n in quant_modes} and all(quant.values()),
+          f"quant-mode launches {quant} != the learner's {calls}")
+    stats = learner.tree_stats
+    for key in ("open_levels", "waves", "stall_events", "stall_splits",
+                "replay_passes", "host_syncs"):
+        out[key + "_per_tree"] = [s[key] for s in stats]
+    out["quant_mode_launches"] = quant
+    if "auc_wave" in ctx:
+        gap = abs(out["heldout_auc"][-1] - ctx["auc_wave"][-1])
+        check(gap <= 1e-3, f"quantized held-out AUC {out['heldout_auc'][-1]}"
+              f" is {gap} from the float32 wave learner's")
+        out["auc_gap_to_wave_f32"] = gap
+    # one more tree from the last gradients, fused against unfused
+    data, bag = bst.gbdt.train_data, bst.gbdt._bag_mask
+    cfg = Config.from_params(QUANT_PARAMS)
+    res = {}
+    for fused in (True, False):
+        ln = WaveTreeLearner(cfg, data, learner.device)
+        ln._use_fused = fused
+        res[fused] = (ln.grow(*grads, bag), ln.kernel_calls["fused_scan"])
+    (ra, ia, la, oa), na = res[True]
+    (rb, ib, lb, ob), nb = res[False]
+    check(na > 0 and nb == 0, "the fused comparison did not use one kernel")
+    check(np.array_equal(ra, rb) and np.array_equal(ia, ib)
+          and torch.equal(la, lb) and torch.equal(oa, ob),
+          "one tree fused against unfused: records differ")
+    out["fused_vs_unfused_tree_bitwise"] = True
+    # the card's quantization equals the CPU's bit for bit
+    gb = (grads[0] * bag).to(torch.float32)
+    hb = (grads[1] * bag).to(torch.float32)
+    qd = quantize_gradients(gb, hb, bag, 0, gb.abs().max(), hb.max())
+    qc = quantize_gradients(gb.cpu(), hb.cpu(), bag.cpu(), 0,
+                            gb.abs().max().cpu(), hb.max().cpu())
+    check(all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+              for a, b in zip(qd, qc)),
+          "quantize_gradients on the card differs from the CPU")
+    out["quantize_card_vs_cpu_bitwise"] = True
+    ctx["launches_quant"] = dict(out["kernel_launches"], **quant)
     emit(out)
 
 
@@ -868,10 +1192,74 @@ def _time_scan(flush) -> dict:
                 **_bound(nbytes, cells * 2 * 40))
 
 
+def _time_multislot(flush) -> dict:
+    from lightgbm_tpu_torch.ops.hist_multislot import (
+        build_histogram_multislot, build_histogram_multislot_plain)
+    from lightgbm_tpu_torch.ops.hist_packed import unpack_bin_words
+
+    k = MULTI_K
+    words, w, slot = multislot_inputs(43, "random", k)
+    dev = words.device
+    reps = 20
+    ms = cuda_ms(lambda: build_histogram_multislot(
+        words, w, slot, num_bins=NUM_BINS, n_slots=k), reps, flush)
+    plain_ms = cuda_ms(lambda: build_histogram_multislot_plain(
+        words, w, slot, num_bins=NUM_BINS, n_slots=k), 3, flush)
+    # the library call: one index_add_ over the rows in a slot, with the
+    # flat (slot, column, bin) indices formed beforehand
+    rows = torch.nonzero((slot >= 0) & (slot < k)).squeeze(1)
+    codes = unpack_bin_words(words.index_select(1, rows), 4 * FW) \
+        .to(torch.int64)                                  # (4Fw, R)
+    fo = torch.arange(4 * FW, device=dev)[:, None]
+    flat = ((slot.index_select(0, rows).to(torch.int64)[None, :] * 4 * FW
+             + fo) * NUM_BINS + codes).reshape(-1)
+    src = w.index_select(1, rows).t().unsqueeze(0) \
+        .expand(4 * FW, rows.numel(), 3).reshape(-1, 3).contiguous()
+    lib_ms = cuda_ms(lambda: torch.zeros(
+        k * 4 * FW * NUM_BINS, 3, device=dev).index_add_(0, flat, src),
+        reps, flush)
+    # the bytes the function needs: every row's slot, words and weights of
+    # the rows in a slot, the output once
+    matching = int(rows.numel())
+    nbytes = (N_FULL * 4 + matching * (FW * 4 + 3 * 4)
+              + k * 4 * FW * NUM_BINS * 3 * 4)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, slots=k,
+                matching_rows=matching,
+                **_bound(nbytes, matching * 4 * FW * 3))
+
+
+def _time_fused(flush) -> dict:
+    from lightgbm_tpu_torch.ops.fused_scan import (fused_child_scans,
+                                                   fused_child_scans_plain)
+
+    dev = torch.device("cuda", 0)
+    args = [t.to(dev) for t in fused_inputs(33, False)]
+    kw = dict(SCAN_KW, lambda_l1=0.0)
+    reps = 20
+    # each launch rewrites the members' pool rows in place; the values
+    # drift between launches, the work does not
+    ms = cuda_ms(lambda: fused_child_scans(*args, **kw), reps, flush)
+    plain_ms = cuda_ms(lambda: fused_child_scans_plain(*args, **kw), reps,
+                       flush)
+    k, f, b = FUSED_K, FEATURES, NUM_BINS
+    cells = k * f * b
+    # read h_small and the parents, write both children; the totals and
+    # the 2K planes
+    nbytes = 4 * cells * 3 * 4 + 2 * k * 5 * 4 + 2 * k * 8 * f * 4
+    # per cell: 3 subtractions, 6 pairwise adds for the two fixes, then two
+    # children's scans at the split scan's 2 x 40 operations per bin
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                library="no single PyTorch call computes this function",
+                members=k, **_bound(nbytes, cells * (3 + 6 + 2 * 80)))
+
+
 def phase_timing(ctx) -> None:
     from lightgbm_tpu_torch.ops.hist_packed import (
         build_histogram_packed, build_histogram_packed_plain, pack_bin_words,
         unpack_bin_words)
+    from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
+    from lightgbm_tpu_torch.ops.hist_multislot import \
+        build_histogram_multislot
     from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
     from lightgbm_tpu_torch.ops.partition import apply_partition
     from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
@@ -888,7 +1276,8 @@ def phase_timing(ctx) -> None:
         bag])
     flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
     wrappers = (build_histogram_packed, build_histogram_segments,
-                apply_partition, find_best_splits_batched)
+                apply_partition, find_best_splits_batched,
+                build_histogram_multislot, fused_child_scans)
     launches_before = [fn.launches for fn in wrappers]
     rows = {}
     for tag, s in (("full", N_FULL), ("65536", 65_536)):
@@ -917,7 +1306,9 @@ def phase_timing(ctx) -> None:
                      "achieved_GBps": (in_bytes + out_bytes) / ms / 1e6}
     others = {"hist_segments": _time_segments(flush),
               "partition": _time_partition(flush),
-              "split_scan": _time_scan(flush)}
+              "split_scan": _time_scan(flush),
+              "hist_multislot": _time_multislot(flush),
+              "fused_scan": _time_fused(flush)}
     for fn, n in zip(wrappers, launches_before):
         fn.launches = n
     ctx["timing"] = rows
@@ -943,18 +1334,38 @@ def kernels_line(ctx) -> dict:
         "split_scan": "dyadic: every field exact; random float32: bitwise "
                       "equal to the CPU plain version; vs the card plain "
                       "version gain within 1e-3 of the pre-shift gain, "
-                      "choice equal at clear candidates"}
+                      "choice equal at clear candidates",
+        "hist_multislot": "dyadic inputs bitwise at K=1, 3, 16, 64; two "
+                          "launches bitwise; quant mode bitwise; random "
+                          "float32 within rtol=1e-5, atol=1e-5 times each "
+                          "bin's sum of |w|",
+        "fused_scan": "quant-grid inputs: every field and both pool rows "
+                      "bitwise equal to the plain version (card and CPU); "
+                      "random float32: bitwise equal to the unfused step"}
     err = {"hist_packed": ctx.get("max_abs_err"),
            "hist_segments": ctx.get("err_segments"),
            "partition": ctx.get("err_partition"),
-           "split_scan": ctx.get("err_scan")}
+           "split_scan": ctx.get("err_scan"),
+           "hist_multislot": ctx.get("err_multislot"),
+           "fused_scan": ctx.get("err_fused")}
+    quant = ctx.get("launches_quant", {})
     out = []
-    for name in ("hist_packed", "hist_segments", "partition", "split_scan"):
+    for name in KERNEL_SOURCES:
         src, replaces = KERNEL_SOURCES[name]
         row = t[name]
+        # each kernel's launches on the path that runs it: the default
+        # (float32) wave learner for the first four, the quantized wave
+        # learner with the opening for the two this slice ported
+        path = "wave_train" if name in ctx["launches_wave"] \
+            else "quant_train"
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces,
-                    "launches": ctx["launches_wave"][name],
+                    "launches": (ctx["launches_wave"] if path == "wave_train"
+                                 else quant)[name],
+                    "launches_path": path,
+                    "launches_quant_train": quant.get(name),
+                    "quant_mode_launches_quant_train":
+                        quant.get(name + "_quant"),
                     "max_abs_err": err[name], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
@@ -985,7 +1396,7 @@ def main() -> int:
     for name in PHASES:
         if name in phases:
             globals()[f"phase_{name}"](ctx)
-    if "wave_train" in phases and "timing" in phases:
+    if all(p in phases for p in ("wave_train", "quant_train", "timing")):
         emit(kernels_line(ctx))
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

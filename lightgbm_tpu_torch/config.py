@@ -868,10 +868,8 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md Queue A: {item})")
 
 
-OPENING = "the wave learner's opening levels"
 BREADTH = "objective, metric and feature breadth"
 VARIANTS = "boosting variants"
-QUANT = "quantized gradients"
 PARALLEL = "multi-GPU and multi-host"
 SURFACE = "predict and the user surface"
 MASKED = "the masked learner"
@@ -887,8 +885,6 @@ def check_supported(cfg: Config) -> None:
         raise not_ported("reg_sqrt", BREADTH)
     if cfg.boosting != "gbdt":
         raise not_ported(f"boosting={cfg.boosting}", VARIANTS)
-    if cfg.tpu_quantized_grad == "on":
-        raise not_ported("tpu_quantized_grad=on", QUANT)
     if cfg.tree_learner != "serial" or cfg.num_machines > 1 \
             or cfg.num_hosts > 1 or cfg.elastic:
         raise not_ported(f"tree_learner={cfg.tree_learner} and multi-host "

@@ -12,6 +12,9 @@
 //           window's first row plus the row stride N, so no copy is made
 //   w     : (3, S) float32 rows (g*bag, h*bag, bag), with its own row stride
 //   out   : (4*Fw, nbins, 3) float32; codes >= nbins are dropped
+//   quant : the quantized-gradient mode (_expand_terms_quant / _reduce_quant
+//           of the TPU kernel): channel 2 accumulates lane 1 (h), not lane
+//           2 (bag); the caller rescales it into a count
 //
 // Design.  Pass 1 runs a (Fw, nchunks) grid: each block reads ONE word lane
 // over a chunk of rows, 32 consecutive rows per warp step, so every load of
@@ -48,7 +51,8 @@ constexpr int kStage = 32 * 3;  // one warp step's (g, h, c) per lane
 __global__ void __launch_bounds__(kThreads)
 hist_packed_partial(const int32_t* __restrict__ words, long long words_stride,
                     const float* __restrict__ w, long long w_stride, int S,
-                    int chunk, int nbins, float* __restrict__ partial) {
+                    int chunk, int nbins, int quant,
+                    float* __restrict__ partial) {
   extern __shared__ float smem[];
   const int E = 4 * nbins * 3;
   float* hist = smem;                      // kWarps * E
@@ -66,7 +70,7 @@ hist_packed_partial(const int32_t* __restrict__ words, long long words_stride,
   const int32_t* lane_words = words + (long long)k * words_stride;
   const float* wg = w;
   const float* wh = w + w_stride;
-  const float* wc = w + 2 * w_stride;
+  const float* wc = quant ? wh : w + 2 * w_stride;
   const int r0 = ch * chunk;
   const int r1 = min(S, r0 + chunk);
 
@@ -146,8 +150,9 @@ extern "C" {
 // floats of scratch, `out` 4*Fw*nbins*3 floats.  Returns cudaGetLastError()
 // after the launches (0 = both launched).
 int lgbt_hist_packed(const void* words, long long words_stride, const void* w,
-                     long long w_stride, int fw, int S, int nbins, int nchunks,
-                     int chunk, void* partial, void* out, void* stream) {
+                     long long w_stride, int fw, int S, int nbins, int quant,
+                     int nchunks, int chunk, void* partial, void* out,
+                     void* stream) {
   const long long smem = smem_bytes(nbins);
   cudaError_t err = cudaFuncSetAttribute(
       hist_packed_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -156,7 +161,7 @@ int lgbt_hist_packed(const void* words, long long words_stride, const void* w,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   hist_packed_partial<<<dim3(fw, nchunks), kThreads, smem, st>>>(
       static_cast<const int32_t*>(words), words_stride,
-      static_cast<const float*>(w), w_stride, S, chunk, nbins,
+      static_cast<const float*>(w), w_stride, S, chunk, nbins, quant,
       static_cast<float*>(partial));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

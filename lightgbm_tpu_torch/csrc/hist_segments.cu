@@ -16,6 +16,8 @@
 //   start, cnt, leaf : (K,) int32 per member (device arrays: the learner does
 //           not read the windows back to the host)
 //   out   : (K, 4*Fw, nbins, 3) float32; codes >= nbins are dropped
+//   quant : the quantized-gradient mode, as in hist_packed.cu: channel 2
+//           accumulates lane 1 (h), not lane 2 (bag)
 //
 // Member ranges may start at any row and may overlap (frozen members share
 // their parent's span and are told apart by their leaf id).
@@ -60,7 +62,7 @@ hist_segments_partial(const int32_t* __restrict__ words,
                       const int32_t* __restrict__ start,
                       const int32_t* __restrict__ cnt,
                       const int32_t* __restrict__ leaf, int chunk, int nbins,
-                      float* __restrict__ partial) {
+                      int quant, float* __restrict__ partial) {
   const int k = blockIdx.x;
   const int m = blockIdx.y;
   const int ch = blockIdx.z;
@@ -82,7 +84,7 @@ hist_segments_partial(const int32_t* __restrict__ words,
   const int32_t* lane_words = words + (long long)k * n;
   const float* wg = w;
   const float* wh = w + n;
-  const float* wc = w + 2 * n;
+  const float* wc = quant ? wh : w + 2 * n;
   const int32_t my_leaf = leaf[m];
   const long long r0 = (long long)start[m] + off;
   long long r1 = (long long)start[m] + c_m;
@@ -179,8 +181,9 @@ extern "C" {
 // cudaGetLastError() after the launches (0 = both launched).
 int lgbt_hist_segments(const void* words, const void* w, const void* lid,
                        long long n, int fw, const void* start, const void* cnt,
-                       const void* leaf, int kmem, int nbins, int nchunks,
-                       int chunk, void* partial, void* out, void* stream) {
+                       const void* leaf, int kmem, int nbins, int quant,
+                       int nchunks, int chunk, void* partial, void* out,
+                       void* stream) {
   const long long smem = smem_bytes(nbins);
   cudaError_t err = cudaFuncSetAttribute(
       hist_segments_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -191,7 +194,7 @@ int lgbt_hist_segments(const void* words, const void* w, const void* lid,
       static_cast<const int32_t*>(words), static_cast<const float*>(w),
       static_cast<const int32_t*>(lid), n, static_cast<const int32_t*>(start),
       static_cast<const int32_t*>(cnt), static_cast<const int32_t*>(leaf),
-      chunk, nbins, static_cast<float*>(partial));
+      chunk, nbins, quant, static_cast<float*>(partial));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int E = 4 * nbins * 3;

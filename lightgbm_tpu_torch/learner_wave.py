@@ -51,11 +51,26 @@ What changes in eager torch (the function is ported, not the TPU mechanism):
   * ``gpu_use_dp`` keeps the plain float64 histograms and scan, as the JAX
     package keeps its kernels off in dp; the partition kernel still runs (a
     permutation does not care about precision).
+  * The level-wise opening (``tpu_wave_open_levels``): the first levels
+    split with no row moving (level d at width min(2**d, W)); each level's
+    smaller-child histograms come from one multislot pass over every row
+    (``ops/hist_multislot.py``), a slot per row from the leaf id.  One
+    materialization then moves every row to its leaf's window through the
+    partition kernel, in the order of the JAX package's stable sort on
+    window starts, and the growth waves carry on in partition mode.
+  * Quantized gradients (``tpu_quantized_grad=on``, ``ops/quant.py``): per
+    tree the bagged gradients are rounded stochastically onto integer grids
+    with power-of-two scales; the histograms sum the dequantized lanes with
+    the count channel carried by the hessian lane, rescaled to effective
+    rows; growth waves fold subtraction, pool writes, FixHistogram and both
+    children's scans into one fused kernel (``ops/fused_scan.py``; not with
+    EFB bundles, and not in stall corrections, as in the JAX package); leaf
+    outputs are renewed from the retained float32 gradients.  ``on`` with
+    ``gpu_use_dp`` or too many rows trains unquantized and keeps the reason
+    in ``_quant_reason``, as the JAX package does.
 
-Not ported here, and raised loudly: the level-wise opening
-(``tpu_wave_open_levels > 0``, with its multislot histogram kernel); the
-quantized gradients, telemetry counters and constrained or categorical
-splits that no learner of the port carries yet raise at the entry point
+Telemetry counters and constrained or categorical splits, which no learner
+of the port carries yet, raise at the entry point
 (``config.check_supported``).
 """
 
@@ -69,27 +84,32 @@ import numpy as np
 import torch
 
 from .binning import MISSING_NAN, MISSING_ZERO
-from .config import OPENING, Config, not_ported
+from .config import Config
 from .dataset import _ConstructedDataset, _round_up, upload
-from .learner import NUM_REC_FIELDS, _FeatCand
+from .learner import (NUM_REC_FIELDS, REC_LEFT_OUT, REC_RIGHT_OUT,
+                      _FeatCand)
 from .learner_compact import (CF_GAIN, CF_LCNT, CF_LOUT, CF_LSG, CF_LSH,
                               CF_RCNT, CF_ROUT, CF_RSG, CF_RSH, CI_FEAT,
                               CI_FLAGS, CI_THR, LF_CNT, LF_DEPTH, LF_MAX_C,
                               LF_MIN_C, LF_OUT, NUM_CF, NUM_CI, NUM_LF,
                               CompactTreeLearner)
+from .ops.fused_scan import fused_child_scans, fused_child_scans_plain
+from .ops.hist_multislot import (build_histogram_multislot,
+                                 build_histogram_multislot_plain)
 from .ops.hist_packed import (build_histogram_packed,
                               build_histogram_packed_plain)
 from .ops.hist_segments import (build_histogram_segments,
                                 build_histogram_segments_plain)
 from .ops.partition import (apply_partition, apply_partition_plain,
                             exclusive_cumsum)
+from .ops.quant import quant_ineligible_reason, quantize_gradients
 from .ops.scan import find_best_splits_batched
-from .ops.split import find_best_splits
+from .ops.split import calculate_leaf_output, find_best_splits
 
 
 @dataclass(frozen=True)
 class WaveKernels:
-    """The four kernel functions the wave learner calls.  The defaults are
+    """The six kernel functions the wave learner calls.  The defaults are
     the wrappers (kernel on a CUDA tensor, plain version on a CPU tensor);
     ``PLAIN_KERNELS`` grows the same tree through the plain versions on any
     device."""
@@ -97,12 +117,16 @@ class WaveKernels:
     segments: Callable = build_histogram_segments
     partition: Callable = apply_partition
     scan: Callable = find_best_splits_batched
+    multislot: Callable = build_histogram_multislot
+    fused: Callable = fused_child_scans
 
 
 PLAIN_KERNELS = WaveKernels(build_histogram_packed_plain,
                             build_histogram_segments_plain,
                             apply_partition_plain,
-                            find_best_splits)
+                            find_best_splits,
+                            build_histogram_multislot_plain,
+                            fused_child_scans_plain)
 
 # rows of the per-member parameter table the decide pass gathers from
 (P_WIDX, P_SHIFT, P_MT, P_DB, P_NB, P_BOFF, P_BND, P_THR, P_DLEFT, P_LSLOT,
@@ -144,15 +168,6 @@ def _resolve_overshoot(cfg: Config, local_rows: int) -> float:
     return ov
 
 
-def check_wave_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for the level-wise opening, the one
-    wave-learner setting this slice does not carry (``check_supported`` in
-    ``config.py`` covers the settings no learner of the port carries)."""
-    if int(cfg.tpu_wave_open_levels) > 0:
-        raise not_ported("tpu_wave_open_levels > 0 (the level-wise opening "
-                         "and its multislot histogram kernel)", OPENING)
-
-
 @dataclass
 class WaveState:
     """One tree's device state (updated in place) and its host counters."""
@@ -185,7 +200,6 @@ class WaveTreeLearner(CompactTreeLearner):
     def __init__(self, cfg: Config, data: _ConstructedDataset,
                  device: torch.device,
                  kernels: WaveKernels = WaveKernels()):
-        check_wave_supported(cfg)
         super().__init__(cfg, data, device, histogram=kernels.packed)
         self.kernels = kernels
         self._init_wave_dims(cfg)
@@ -205,9 +219,20 @@ class WaveTreeLearner(CompactTreeLearner):
         # per-feature decode columns P_WIDX..P_BND of the member table
         self._feat_tab = torch.from_numpy(tab).to(device)
         self._pos = torch.arange(self.n_pad, dtype=torch.int32, device=device)
-        #: calls this learner made to each kernel function, over all trees
+        #: calls this learner made to each kernel function, over all trees;
+        #: the ``_quant`` entries count the quant-mode calls a second time
         self.kernel_calls = {"hist_packed": 0, "hist_segments": 0,
-                             "partition": 0, "split_scan": 0}
+                             "partition": 0, "split_scan": 0,
+                             "hist_multislot": 0, "fused_scan": 0,
+                             "hist_packed_quant": 0,
+                             "hist_segments_quant": 0,
+                             "hist_multislot_quant": 0}
+        #: growth waves run the fused child-scan kernel
+        #: (``ops/fused_scan.py``): quantized gradients without EFB bundles,
+        #: as ``learner_wave.py:_fused_ok``.  The JAX package's 4 MB VMEM
+        #: gate has no counterpart: the kernel holds one (feature, 256-bin)
+        #: row per block, and every histogram here has at most 256 bins
+        self._use_fused = self._quant and self._bundle is None
         #: per tree: waves, stall events, stall splits, replay passes, syncs
         self.tree_stats: List[Dict[str, int]] = []
 
@@ -225,6 +250,21 @@ class WaveTreeLearner(CompactTreeLearner):
         self._extras_cap = _stall_extras_cap(self.budget)
         vc = int(getattr(cfg, "tpu_wave_vec_cap", -1))
         self._vec_cap = self._VEC_CAP if vc <= 0 else vc
+        # level-wise opening depth: the first open_levels levels split
+        # without moving rows (-1 = auto = 0, as in the JAX package)
+        ol = int(getattr(cfg, "tpu_wave_open_levels", -1))
+        self.open_levels = max(0, min(ol, (self.budget + 1).bit_length() - 1))
+        # quantized gradients (ops/quant.py): "on" quantizes where the
+        # config is eligible and otherwise trains unquantized, keeping the
+        # reason; "auto" stays off (the JAX package's gate)
+        qg = str(getattr(cfg, "tpu_quantized_grad", "auto"))
+        reason = quant_ineligible_reason(self.n_pad, self.hist_dp)
+        self._quant = qg == "on" and reason is None
+        if qg != "on" and reason is None:
+            reason = f"tpu_quantized_grad={qg} (quantization is opt-in)"
+        self._quant_reason = None if self._quant else reason
+        self._q_scales = None      # (sg, sh) of the current tree
+        self._q_raw = None         # (gb, hb) float32, kept for the renewal
         corr = _correction_reserve(cfg, self.budget)
         self.M = 1 + 2 * (self.grow_budget + corr)
         self.H = self.grow_budget + corr + 2
@@ -254,7 +294,27 @@ class WaveTreeLearner(CompactTreeLearner):
 
     def _init_root_wave(self, grad, hess, bag, feature_mask) -> WaveState:
         n, M, H, acc, dev = self.n_pad, self.M, self.H, self._acc, self.device
-        w = torch.stack([grad * bag, hess * bag, bag]).to(torch.float32)
+        if self._quant:
+            # per-tree quantization (``learner_wave.py:429-463``): the lanes
+            # carry the dequantized gq*sg, hq*sh; the count channel carries
+            # the hessian mass over the mean mass per bagged row, m
+            gb = (grad * bag).to(torch.float32)
+            hb = (hess * bag).to(torch.float32)
+            gd, hd, sg, sh = quantize_gradients(gb, hb, bag, 0,
+                                                gb.abs().max(), hb.max())
+            self._q_scales = (sg, sh)
+            self._q_raw = (gb, hb)
+            w = torch.stack([gd, hd, bag.to(torch.float32)])
+            q_tot = torch.stack([gd.to(acc).sum(), hd.to(acc).sum(),
+                                 bag.to(acc).sum()])
+            inv_sh = 1.0 / sh
+            mbar = torch.clamp(q_tot[1] * inv_sh, min=1.0) \
+                / torch.clamp(q_tot[2], min=1.0)
+            q_cnt = inv_sh / mbar
+            self._q_rescale = torch.stack([torch.ones_like(q_cnt),
+                                           torch.ones_like(q_cnt), q_cnt])
+        else:
+            w = torch.stack([grad * bag, hess * bag, bag]).to(torch.float32)
         bins = self.bins_packed().clone()
         rid = torch.arange(n, device=dev)
         lid = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -272,14 +332,21 @@ class WaveTreeLearner(CompactTreeLearner):
             cnt_i=torch.zeros((M, 2), **i64),
             hist_pool=torch.zeros((H, self._hist_cols, self._hist_nbins, 3),
                                   dtype=acc, device=dev),
-            stats={"waves": 0, "stall_events": 0, "stall_splits": 0,
-                   "replay_passes": 0})
+            stats={"waves": 0, "open_levels": 0, "stall_events": 0,
+                   "stall_splits": 0, "replay_passes": 0})
         if not self.hist_dp:
             self.kernel_calls["hist_packed"] += 1
+            self.kernel_calls["hist_packed_quant"] += int(self._quant)
         root_hist = self._window_hist(st, 0, n, None)
-        sum_g = (grad * bag).to(acc).sum()
-        sum_h = (hess * bag).to(acc).sum()
-        cnt = bag.to(acc).sum()
+        if self._quant:
+            # root totals from the dequantized lanes, the count on the
+            # count channel's scale
+            sum_g, sum_h = q_tot[0], q_tot[1]
+            cnt = (sum_h * q_cnt).to(acc)
+        else:
+            sum_g = (grad * bag).to(acc).sum()
+            sum_h = (hess * bag).to(acc).sum()
+            cnt = bag.to(acc).sum()
         cf, ci = self._cand_rows(root_hist[None], sum_g[None], sum_h[None],
                                  cnt[None], feature_mask, True)
         st.node_i[0, 1] = n
@@ -324,29 +391,61 @@ class WaveTreeLearner(CompactTreeLearner):
         return mi, go_left, row
 
     def _member_hists(self, st: WaveState, start, cnt, leaf, max_cnt: int):
-        """Histograms of K members' rows in one call (plain float64 in dp)."""
+        """Histograms of K members' rows in one call (plain float64 in dp;
+        the count channel rescaled in quant mode)."""
         if self.hist_dp:
             h = build_histogram_segments_plain(
                 st.bins_p, st.w_p, st.lid_p, start, cnt, leaf,
                 num_bins=self._hist_nbins, dp=True)
-        else:
-            self.kernel_calls["hist_segments"] += 1
-            h = self.kernels.segments(st.bins_p, st.w_p, st.lid_p, start,
-                                      cnt, leaf, num_bins=self._hist_nbins,
-                                      max_cnt=max_cnt)
-        return h[:, :self._hist_cols]
+            return h[:, :self._hist_cols]
+        self.kernel_calls["hist_segments"] += 1
+        self.kernel_calls["hist_segments_quant"] += int(self._quant)
+        h = self.kernels.segments(st.bins_p, st.w_p, st.lid_p, start, cnt,
+                                  leaf, num_bins=self._hist_nbins,
+                                  max_cnt=max_cnt, quant=self._quant)
+        return self._quant_count(h[:, :self._hist_cols])
+
+    def _opening_hists(self, st: WaveState, sm_slot, k: int):
+        """Smaller-child histograms of one opening level
+        (``learner_wave.py:_opening_hists``): no row has moved, so one
+        multislot pass over all rows, the slot of a row the member whose
+        smaller child holds it (K for every other row)."""
+        slot_of = torch.full((self.M,), k, dtype=torch.int32,
+                             device=self.device)
+        slot_of[sm_slot] = torch.arange(k, dtype=torch.int32,
+                                        device=self.device)
+        slot = slot_of.index_select(0, st.lid_p)
+        if self.hist_dp:
+            h = build_histogram_multislot_plain(
+                st.bins_p, st.w_p, slot, num_bins=self._hist_nbins,
+                n_slots=k, dp=True)
+            return h[:, :self._hist_cols]
+        self.kernel_calls["hist_multislot"] += 1
+        self.kernel_calls["hist_multislot_quant"] += int(self._quant)
+        h = self.kernels.multislot(st.bins_p, st.w_p, slot,
+                                   num_bins=self._hist_nbins, n_slots=k,
+                                   quant=self._quant)
+        return self._quant_count(h[:, :self._hist_cols])
 
     def _split_members(self, st: WaveState, wi: torch.Tensor,
                        widths: Sequence[int], sortable: Sequence[bool],
-                       feature_mask) -> None:
+                       feature_mask, opening: bool = False,
+                       fused: bool = False) -> None:
         """Split the K frontier leaves ``wi`` at their best candidates, as
-        one growth wave (``learner_wave.py:_wave_body``) or one replay
-        correction (``_stall_split`` / ``_stall_split_batch``): decide,
-        partition the sortable windows (the others freeze: children share
-        the parent's span), smaller-child histograms in one call, sibling
-        subtraction, pool writes, and the 2K children's bookkeeping with one
-        batched scan.  ``widths`` are the members' window widths as the host
-        read them; ``sortable`` is decided on the host."""
+        one growth wave (``learner_wave.py:_wave_body``), one opening level
+        (``opening``) or one replay correction (``_stall_split`` /
+        ``_stall_split_batch``): decide, partition the sortable windows (the
+        others freeze: children share the parent's span), smaller-child
+        histograms in one call, sibling subtraction, pool writes, and the 2K
+        children's bookkeeping with one batched scan.  ``widths`` are the
+        members' window widths as the host read them; ``sortable`` is
+        decided on the host.
+
+        An opening level moves no row: every member's children get logical
+        windows, the leaf ids are rewritten, and the smaller children's
+        histograms come from one multislot pass over all rows.  ``fused``
+        (a quantized growth wave) folds subtraction, pool writes,
+        FixHistogram and both children's scans into one kernel."""
         dev, acc = self.device, self._acc
         k = wi.shape[0]
         nn, ns = st.num_nodes, st.num_splits
@@ -382,8 +481,9 @@ class WaveTreeLearner(CompactTreeLearner):
                                                   row[P_RSLOT]), st.lid_p)
 
         # ---- stable partition of the sortable windows: dest = the child
-        # window's start + the row's rank among its side's rows
-        if any(sortable):
+        # window's start + the row's rank among its side's rows (an opening
+        # level defers every move to _materialize)
+        if any(sortable) and not opening:
             sort_r = row[P_SORT] == 1
             gl = sort_r & go_left
             gr = sort_r & ~go_left
@@ -412,21 +512,18 @@ class WaveTreeLearner(CompactTreeLearner):
         ri = torch.stack([torch.where(srt, ps + lc_w, ps),
                           torch.where(srt, cw - lc_w, cw)], 1)
 
-        # ---- smaller-child histograms (by bagged counts) + subtraction
+        # ---- smaller-child histograms (by bagged counts)
         left_small = lc_bag <= (c_bag - lc_bag)
         sm_slot = torch.where(left_small, lslot, rslot)
-        sm_start = torch.where(srt & ~left_small, ps + lc_w, ps)
-        sm_cnt = torch.where(srt, torch.where(left_small, lc_w, cw - lc_w),
-                             cw)
-        h_small = self._member_hists(st, sm_start, sm_cnt, sm_slot,
-                                     max(widths))
+        if opening:
+            h_small = self._opening_hists(st, sm_slot, k)
+        else:
+            sm_start = torch.where(srt & ~left_small, ps + lc_w, ps)
+            sm_cnt = torch.where(srt, torch.where(left_small, lc_w,
+                                                  cw - lc_w), cw)
+            h_small = self._member_hists(st, sm_start, sm_cnt, sm_slot,
+                                         max(widths))
         ph = st.hslot.index_select(0, wi)
-        h_large = st.hist_pool.index_select(0, ph) - h_small
-        lsm = left_small.view(k, 1, 1, 1)
-        hl = torch.where(lsm, h_small, h_large)
-        hr = torch.where(lsm, h_large, h_small)
-        st.hist_pool.index_copy_(0, ph, hl)
-        st.hist_pool[1 + ns:1 + ns + k] = hr
         rh = 1 + ns + ar
 
         # ---- children bookkeeping, their best splits in one batched scan
@@ -438,10 +535,27 @@ class WaveTreeLearner(CompactTreeLearner):
         cd = pnf[:, LF_DEPTH] + 1.0
         md = int(self.cfg.max_depth)
         depth_ok = True if md <= 0 else i2(cd < md, cd < md)
-        cf2, ci2 = self._cand_rows(
-            i2(hl, hr), i2(pcf[:, CF_LSG], pcf[:, CF_RSG]),
-            i2(pcf[:, CF_LSH], pcf[:, CF_RSH]),
-            i2(pcf[:, CF_LCNT], pcf[:, CF_RCNT]), feature_mask, depth_ok)
+        sums2 = (i2(pcf[:, CF_LSG], pcf[:, CF_RSG]),
+                 i2(pcf[:, CF_LSH], pcf[:, CF_RSH]),
+                 i2(pcf[:, CF_LCNT], pcf[:, CF_RCNT]))
+        if fused:
+            kw = {k_: v for k_, v in self._split_kwargs.items()
+                  if k_ != "skip_missing_scan"}
+            self.kernel_calls["fused_scan"] += 1
+            cands = self.kernels.fused(
+                h_small, st.hist_pool, ph, rh, left_small, *sums2,
+                self.f_num_bin, self.f_missing, self.f_default_bin,
+                feature_mask, **kw)
+            cf2, ci2 = self._pack_cands(cands, depth_ok)
+        else:
+            h_large = st.hist_pool.index_select(0, ph) - h_small
+            lsm = left_small.view(k, 1, 1, 1)
+            hl = torch.where(lsm, h_small, h_large)
+            hr = torch.where(lsm, h_large, h_small)
+            st.hist_pool.index_copy_(0, ph, hl)
+            st.hist_pool[1 + ns:1 + ns + k] = hr
+            cf2, ci2 = self._cand_rows(i2(hl, hr), *sums2, feature_mask,
+                                       depth_ok)
         pmin, pmax = pnf[:, LF_MIN_C], pnf[:, LF_MAX_C]
         lf_l = torch.stack([pcf[:, CF_LSG], pcf[:, CF_LSH], pcf[:, CF_LCNT],
                             pcf[:, CF_LOUT], cd, pmin, pmax], 1)
@@ -462,25 +576,64 @@ class WaveTreeLearner(CompactTreeLearner):
 
     # -- growth --------------------------------------------------------------
 
+    def _select(self, st: WaveState, width: int):
+        """The next wave's members: the top-``width`` frontier leaves by
+        (gain desc, slot asc), read to the host with their window widths
+        (one host read).  Returns (member count, the members' slots, their
+        widths)."""
+        nn = st.num_nodes
+        g = torch.where(st.split_m[:nn], float("-inf"),
+                        st.cand_f[:nn, CF_GAIN])
+        gv, order = torch.sort(g, descending=True, stable=True)
+        wi = order[:width]
+        head = torch.cat([(gv[:width] > 0.0).sum().view(1),
+                          st.node_i.index_select(0, wi)[:, 1]]).tolist()
+        self.host_syncs += 1
+        k = max(0, min(int(head[0]), self.grow_budget - st.num_splits))
+        return k, wi[:k], head[1:1 + k]
+
+    def _open(self, st: WaveState, feature_mask) -> None:
+        """The level-wise opening (``learner_wave.py:1836-1844``): level d
+        splits up to min(2**d, W) leaves without moving rows, then one
+        materialization compacts every window.  A level with nothing to
+        split ends the opening (every later level would be a no-op)."""
+        opened = False
+        for d in range(self.open_levels):
+            k, wi, widths = self._select(st, min(1 << d, self.W))
+            if k <= 0:
+                break
+            self._split_members(st, wi, widths, [True] * k, feature_mask,
+                                opening=True)
+            st.stats["waves"] += 1
+            st.stats["open_levels"] += 1
+            opened = True
+        if opened:
+            self._materialize(st)
+
+    def _materialize(self, st: WaveState) -> None:
+        """Move every row to its leaf's logical window
+        (``learner_wave.py:_materialize_sort``): the stable order of the
+        rows' window starts, the permutation the JAX package's stable sort
+        on keys 2 * start produces, through the partition kernel."""
+        start = st.node_i[:, 0].index_select(0, st.lid_p)
+        perm = torch.sort(start, stable=True).indices
+        dest = torch.empty_like(self._pos).index_copy_(0, perm, self._pos)
+        self.kernel_calls["partition"] += 1
+        lanes = self.kernels.partition(st.bins_p, st.w_p, st.rid_p,
+                                       st.lid_p, dest, out=st.spare)
+        st.spare = (st.bins_p, st.w_p, st.rid_p, st.lid_p)
+        st.bins_p, st.w_p, st.rid_p, st.lid_p = lanes
+
     def _grow_waves(self, st: WaveState, feature_mask) -> None:
         """Growth waves until the budget is spent or no frontier gain is
         positive; one host read per wave."""
         while st.num_splits < self.grow_budget:
-            nn = st.num_nodes
-            g = torch.where(st.split_m[:nn], float("-inf"),
-                            st.cand_f[:nn, CF_GAIN])
-            gv, order = torch.sort(g, descending=True, stable=True)
-            wi = order[:self.W]
-            head = torch.cat([(gv[:self.W] > 0.0).sum().view(1),
-                              st.node_i.index_select(0, wi)[:, 1]]).tolist()
-            self.host_syncs += 1
-            k = min(int(head[0]), self.grow_budget - st.num_splits)
+            k, wi, widths = self._select(st, self.W)
             if k <= 0:
                 return
-            widths = head[1:1 + k]
-            self._split_members(st, wi[:k], widths,
+            self._split_members(st, wi, widths,
                                 [c > self._wave_cutoff for c in widths],
-                                feature_mask)
+                                feature_mask, fused=self._use_fused)
             st.stats["waves"] += 1
 
     # -- exact greedy replay -------------------------------------------------
@@ -568,8 +721,28 @@ class WaveTreeLearner(CompactTreeLearner):
         dev, budget = self.device, self.budget
         syncs0 = self.host_syncs
         st = self._init_root_wave(grad, hess, bag, feature_mask)
+        self._open(st, feature_mask)
         self._grow_waves(st, feature_mask)
         final, refidx, pops, parent = self._replay(st, feature_mask)
+
+        # ---- map every speculative leaf to its final ancestor
+        nn = st.num_nodes
+        fin = np.zeros(nn, bool)
+        fin[list(final)] = True
+        anc = np.where(fin, np.arange(nn), parent)
+        for _ in range(max(1, (nn - 1).bit_length())):
+            anc = anc[anc]
+        slot2ref = upload(np.where(fin[anc], refidx[anc], 0), dev)
+        leaf_id = torch.empty_like(st.rid_p)
+        leaf_id[st.rid_p] = slot2ref.index_select(0, st.lid_p)
+        fslots = np.flatnonzero(fin)
+        leaf_out = torch.zeros(self.num_leaves, dtype=self._acc, device=dev)
+        leaf_out[upload(refidx[fslots], dev)] = st.node_f.index_select(
+            0, upload(fslots, dev))[:, LF_OUT]
+        renewed = None
+        if self._quant:
+            renewed, has_h = self._renew_leaf_outputs(leaf_id)
+            leaf_out = torch.where(has_h, renewed, leaf_out)
 
         # ---- records in pop order (rows past the pops repeat slot 0 with
         # REC_VALID = 0, as the JAX package emits them)
@@ -587,7 +760,16 @@ class WaveTreeLearner(CompactTreeLearner):
         out = torch.cat([st.cand_i.index_select(0, ndt).to(torch.float64),
                          vals.to(torch.float64),
                          st.cnt_i.index_select(0, ndt).to(torch.float64)],
-                        1).cpu().numpy()
+                        1)
+        if renewed is not None:
+            # the renewed outputs ride the same read
+            lv = torch.stack([renewed.to(torch.float64),
+                              has_h.to(torch.float64)])
+            flat = torch.cat([out.reshape(-1), lv.reshape(-1)]).cpu().numpy()
+            lv = flat[out.numel():].reshape(2, self.num_leaves)
+            out = flat[:out.numel()].reshape(tuple(out.shape))
+        else:
+            out = out.cpu().numpy()
         self.host_syncs += 1
         rec_f = np.zeros((budget, NUM_REC_FIELDS), np.float32)
         rec_f[:len(pops), 0] = 1.0
@@ -599,24 +781,46 @@ class WaveTreeLearner(CompactTreeLearner):
         rec_f[:, NUM_REC_FIELDS - 1] = \
             (out[:, CI_FLAGS].astype(np.int64) & 2) >> 1
         rec_i = out[:, NUM_CI + 11:].astype(np.int64)
-
-        # ---- map every speculative leaf to its final ancestor
-        nn = st.num_nodes
-        fin = np.zeros(nn, bool)
-        fin[list(final)] = True
-        anc = np.where(fin, np.arange(nn), parent)
-        for _ in range(max(1, (nn - 1).bit_length())):
-            anc = anc[anc]
-        slot2ref = upload(np.where(fin[anc], refidx[anc], 0), dev)
-        leaf_id = torch.empty_like(st.rid_p)
-        leaf_id[st.rid_p] = slot2ref.index_select(0, st.lid_p)
-        fslots = np.flatnonzero(fin)
-        leaf_out = torch.zeros(self.num_leaves, dtype=self._acc, device=dev)
-        leaf_out[upload(refidx[fslots], dev)] = st.node_f.index_select(
-            0, upload(fslots, dev))[:, LF_OUT]
+        if renewed is not None:
+            # pop i's left child keeps leaf number ref[i], its right child
+            # is number i + 1 (``learner_wave.py:1966-1978``)
+            val, has = lv[0].astype(np.float32), lv[1] > 0.5
+            L = self.num_leaves
+            vp = np.arange(budget) < len(pops)
+            lref = np.clip(ref, 0, L - 1)
+            rref = np.minimum(np.arange(budget) + 1, L - 1)
+            rec_f[:, REC_LEFT_OUT] = np.where(vp & has[lref], val[lref],
+                                              rec_f[:, REC_LEFT_OUT])
+            rec_f[:, REC_RIGHT_OUT] = np.where(vp & has[rref], val[rref],
+                                               rec_f[:, REC_RIGHT_OUT])
         st.stats["host_syncs"] = self.host_syncs - syncs0
         self.tree_stats.append(st.stats)
         return rec_f, rec_i, leaf_id, leaf_out
+
+    def _renew_leaf_outputs(self, leaf_id: torch.Tensor):
+        """Leaf-output renewal of the quantized recipe
+        (``learner_wave.py:1926-1965``): per-leaf sums of the retained
+        float32 gradients over the final leaves, each row rounded onto a
+        power-of-two grid so the sums are exact integers, then the leaf
+        outputs.  Returns (outputs (L,) float32, whether a leaf has hessian
+        mass (L,))."""
+        gb, hb = self._q_raw
+        sg, sh = self._q_scales
+        self._q_raw = None
+        kb = max(30 - int(self.n_pad - 1).bit_length(), 1)
+        qg = sg * (2.0 ** (3 - kb))       # sg * GMAX <= sg * 2**3
+        qh = sh * (2.0 ** (4 - kb))       # sh * HMAX <= sh * 2**4
+        L = self.num_leaves
+        lgh = torch.zeros((2, L), dtype=torch.int64, device=self.device)
+        lgh[0].index_add_(0, leaf_id, torch.round(gb / qg).to(torch.int64))
+        lgh[1].index_add_(0, leaf_id, torch.round(hb / qh).to(torch.int64))
+        lg = lgh[0].to(torch.float32) * qg
+        lh = lgh[1].to(torch.float32) * qh
+        has_h = lh > 0.0
+        kw = self._split_kwargs
+        out = calculate_leaf_output(lg, lh, kw["lambda_l1"], kw["lambda_l2"],
+                                    kw["max_delta_step"]).to(torch.float32)
+        return torch.where(has_h, out, 0.0), has_h
 
 
 def wave_transient_bytes(cfg: Config, n_pad: int, f_pad: int, b: int

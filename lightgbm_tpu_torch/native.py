@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, then
-loaded with ``ctypes``.  The hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.  Nothing is built when
-a module is imported: the first kernel launch builds its library, and
-``build_all`` builds several in parallel (one ``nvcc`` process per source).
+loaded with ``ctypes``.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an unchanged
+one is reused.  Nothing is built when a module is imported: the first kernel
+launch builds its library, and ``build_all`` builds several in parallel (one
+``nvcc`` process per source).
 """
 
 from __future__ import annotations
@@ -25,11 +26,13 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-#: per-source additions: the split scan's gain arithmetic must round after
+#: per-source additions: the split scans' gain arithmetic must round after
 #: every operation, as the plain torch version does (no fused multiply-add)
-EXTRA_FLAGS: Dict[str, List[str]] = {"split_scan": ["-fmad=false"]}
+EXTRA_FLAGS: Dict[str, List[str]] = {"split_scan": ["-fmad=false"],
+                                     "fused_scan": ["-fmad=false"]}
 #: every kernel source of the port
-KERNELS = ("hist_packed", "hist_segments", "partition", "split_scan")
+KERNELS = ("hist_packed", "hist_segments", "partition", "split_scan",
+           "hist_multislot", "fused_scan")
 
 #: seconds each library took to build in this process (0.0 = reused)
 BUILD_SECONDS: Dict[str, float] = {}
@@ -58,6 +61,8 @@ def _flags(name: str) -> List[str]:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        src += hdr.read_bytes()
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,0 +1,146 @@
+"""Per-slot histograms of the level-wise opening (CUDA kernel + plain torch).
+
+Port of ``lightgbm_tpu/ops/hist_pallas.py:build_histogram_multislot``: K
+histograms in ONE pass over the full row axis,
+
+    out[j, 4k+s, b, c] = sum over r with slot[r] == j of
+                         [byte_s(words[k, r]) == b] * w[c, r]
+
+where a slot outside [0, K) contributes nowhere.  The wave learner's opening
+levels run it once per level: no row has moved yet, so the smaller children
+of a level's members are told apart by a slot per row, not by windows.
+``quant=True`` is the quantized-gradient mode of ``hist_packed``: channel 2
+sums lane 1 (h) instead of lane 2 (bag).
+
+On a CUDA tensor ``build_histogram_multislot`` launches the hand-written
+Hopper kernel ``csrc/hist_multislot.cu`` (design and bound in that file's
+header); on a CPU tensor it runs ``build_histogram_multislot_plain``, the
+plain torch version the kernel is held against.  The TPU kernel's bin
+one-hot and slot one-hot are MXU mechanism and are not carried over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import native
+from .hist_packed import quant_lanes, unpack_bin_words
+
+#: pass-1 blocks aimed for per launch (about four per SM of an H100); fixed,
+#: so the launch geometry and every sum's order depend only on shapes
+_TARGET_BLOCKS = 528
+#: slots per block group (csrc/hist_multislot.cu: kGroup)
+_GROUP = 16
+
+
+def build_histogram_multislot_plain(words: torch.Tensor, w: torch.Tensor,
+                                    slot: torch.Tensor, *, num_bins: int,
+                                    n_slots: int, dp: bool = False,
+                                    quant: bool = False) -> torch.Tensor:
+    """Plain torch version: one ``index_add_`` over flat (slot, feature,
+    bin) indices, rows of other slots routed to a dropped overflow slot and
+    codes past ``num_bins`` to a dropped overflow bin.  Returns (K, 4*Fw,
+    num_bins, 3), float64 with ``dp``."""
+    fw, n = words.shape
+    f = 4 * fw
+    acc = torch.float64 if dp else torch.float32
+    if quant:
+        w = quant_lanes(w)
+    codes = torch.clamp(unpack_bin_words(words, f).to(torch.int64),
+                        max=num_bins)                          # (F, N)
+    s = slot.to(torch.int64)
+    s = torch.where((s >= 0) & (s < n_slots), s, n_slots)
+    feat = torch.arange(f, dtype=torch.int64, device=words.device)
+    idx = ((s[None, :] * f + feat[:, None]) * (num_bins + 1) + codes) \
+        .reshape(-1)
+    src = w.to(acc).t().unsqueeze(0).expand(f, n, 3).reshape(f * n, 3)
+    out = torch.zeros((n_slots + 1) * f * (num_bins + 1), 3, dtype=acc,
+                      device=words.device)
+    out.index_add_(0, idx, src)
+    return out.view(n_slots + 1, f, num_bins + 1, 3)[:n_slots, :, :num_bins]
+
+
+def multislot_geometry(fw: int, k: int, n: int):
+    """(nchunks, chunk rows) of pass 1: about ``_TARGET_BLOCKS`` blocks over
+    the (word, slot group, chunk) grid, chunks of at least 1024 rows and a
+    multiple of 256."""
+    groups = -(-k // _GROUP)
+    nchunks = max(1, min(-(-n // 1024), -(-_TARGET_BLOCKS // (fw * groups))))
+    chunk = -(-n // nchunks)
+    chunk = -(-chunk // 256) * 256
+    return -(-n // chunk), chunk
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = native.load("hist_multislot")
+        lib.lgbt_hist_multislot.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.lgbt_hist_multislot.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def build_histogram_multislot(words: torch.Tensor, w: torch.Tensor,
+                              slot: torch.Tensor, *, num_bins: int,
+                              n_slots: int, quant: bool = False
+                              ) -> torch.Tensor:
+    """Per-slot histograms over every row (see the module docstring).
+
+    words : (Fw, N) int32, w (3, N) float32, slot (N,) int32, contiguous
+    n_slots : K >= 1; quant : channel 2 sums lane 1 (h) instead of lane 2
+    Returns (K, 4*Fw, num_bins, 3) float32.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (counted in
+    ``build_histogram_multislot.launches``, the quant-mode launches also in
+    ``.quant_launches``) or raise.
+    """
+    args = (words, w, slot)
+    if all(t.device.type == "cpu" for t in args):
+        return build_histogram_multislot_plain(
+            words, w, slot, num_bins=num_bins, n_slots=n_slots, quant=quant)
+    dev = words.device
+    if dev.type != "cuda" or any(t.device != dev for t in args):
+        raise ValueError("words, w and slot must all lie on one CUDA device")
+    if words.dim() != 2 or words.dtype != torch.int32:
+        raise ValueError("words must be a 2-D int32 tensor")
+    fw, n = words.shape
+    if w.dtype != torch.float32 or tuple(w.shape) != (3, n) \
+            or slot.dtype != torch.int32 or tuple(slot.shape) != (n,):
+        raise ValueError(f"w must be (3, {n}) float32 and slot ({n},) int32")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("words, w and slot must be contiguous")
+    if not 1 <= num_bins <= 256 or fw < 1 or n_slots < 1:
+        raise ValueError(f"need 1 <= num_bins <= 256, Fw >= 1 and K >= 1, "
+                         f"got num_bins={num_bins}, Fw={fw}, K={n_slots}")
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"{n} rows do not fit int32 row indices")
+    nchunks, chunk = multislot_geometry(fw, n_slots, n)
+    e = 4 * num_bins * 3
+    partial = torch.empty(fw * n_slots * nchunks * e, dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((n_slots, 4 * fw, num_bins, 3), dtype=torch.float32,
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().lgbt_hist_multislot(
+        words.data_ptr(), w.data_ptr(), slot.data_ptr(), n, fw, n_slots,
+        num_bins, int(quant), nchunks, chunk, partial.data_ptr(),
+        out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"hist_multislot kernel launch failed: CUDA error "
+                           f"{err}")
+    build_histogram_multislot.launches += 1
+    build_histogram_multislot.quant_launches += int(quant)
+    return out
+
+
+build_histogram_multislot.launches = 0
+build_histogram_multislot.quant_launches = 0

@@ -7,7 +7,10 @@ Port of the packed part of ``lightgbm_tpu/ops/hist_pallas.py``:
     package; a code >= 128 in byte 3 makes the word negative, so unpacking
     masks with ``& 0xFF`` after the arithmetic shift);
   * ``build_histogram_packed`` — the compact learner's histogram,
-    ``hist[4k+s, b, c] = sum_r [byte_s(words[k, r]) == b] * w[c, r]``.  On a
+    ``hist[4k+s, b, c] = sum_r [byte_s(words[k, r]) == b] * w[c, r]``, with
+    the quantized-gradient mode of ``_expand_terms_quant`` /
+    ``_reduce_quant`` (``quant=True``: channel 2 sums lane 1, the hessian,
+    not lane 2, the bag; the wave learner rescales it into a count).  On a
     CUDA tensor it launches the hand-written Hopper kernel
     ``csrc/hist_packed.cu`` (design, bound and precision in that file's
     header); on a CPU tensor it runs ``build_histogram_packed_plain``, the
@@ -56,12 +59,19 @@ def unpack_bin_words(words: torch.Tensor, num_features: int) -> torch.Tensor:
     return torch.stack(parts, dim=1).reshape(fw * 4, s)[:num_features]
 
 
+def quant_lanes(w: torch.Tensor) -> torch.Tensor:
+    """The lanes a quant-mode histogram sums: (g, h, h)."""
+    return torch.stack([w[0], w[1], w[1]])
+
+
 def build_histogram_packed_plain(words: torch.Tensor, w: torch.Tensor, *,
-                                 num_bins: int, dp: bool = False
-                                 ) -> torch.Tensor:
+                                 num_bins: int, dp: bool = False,
+                                 quant: bool = False) -> torch.Tensor:
     """Plain torch version: unpack, then ``index_add_`` in float32 (float64
     with ``dp``).  Returns (4*Fw, num_bins, 3)."""
     fw = words.shape[0]
+    if quant:
+        w = quant_lanes(w)
     return build_histogram_onehot(unpack_bin_words(words, 4 * fw), w,
                                   num_bins=num_bins, dp=dp)
 
@@ -86,27 +96,30 @@ def _lib():
         lib.lgbt_hist_packed.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.lgbt_hist_packed.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 def build_histogram_packed(words: torch.Tensor, w: torch.Tensor, *,
-                           num_bins: int) -> torch.Tensor:
+                           num_bins: int, quant: bool = False
+                           ) -> torch.Tensor:
     """hist[4k+s, b, c] = sum_r [byte_s(words[k, r]) == b] * w[c, r].
 
     words : (Fw, S) int32 — a window view is taken as it is (row offset in
             the data pointer, row stride from ``stride(0)``); rows must be
             contiguous and S a multiple of 1024.
     w     : (3, S) float32 (g*bag, h*bag, bag), rows contiguous.
+    quant : channel 2 sums lane 1 (h) instead of lane 2.
     Returns (4*Fw, num_bins, 3) float32.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (counted in ``build_histogram_packed.
-    launches``) or raise.
+    launches``, the quant-mode launches also in ``.quant_launches``) or raise.
     """
     if words.device.type == "cpu" and w.device.type == "cpu":
-        return build_histogram_packed_plain(words, w, num_bins=num_bins)
+        return build_histogram_packed_plain(words, w, num_bins=num_bins,
+                                            quant=quant)
     if words.device.type != "cuda" or w.device != words.device:
         raise ValueError(f"words and w must both lie on one CUDA device "
                          f"(got {words.device} and {w.device})")
@@ -133,12 +146,15 @@ def build_histogram_packed(words: torch.Tensor, w: torch.Tensor, *,
     stream = torch.cuda.current_stream(words.device).cuda_stream
     err = _lib().lgbt_hist_packed(
         words.data_ptr(), words.stride(0), w.data_ptr(), w.stride(0), fw, s,
-        num_bins, nchunks, chunk, partial.data_ptr(), out.data_ptr(), stream)
+        num_bins, int(quant), nchunks, chunk, partial.data_ptr(),
+        out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hist_packed kernel launch failed: CUDA error "
                            f"{err}")
     build_histogram_packed.launches += 1
+    build_histogram_packed.quant_launches += int(quant)
     return out
 
 
 build_histogram_packed.launches = 0
+build_histogram_packed.quant_launches = 0

@@ -8,6 +8,8 @@ call builds the histogram of every wave member's rows,
                          [byte_s(words[k, r]) == b] * w[c, r]
 
 so a wave's smaller-child histograms cost one launch, not one per member.
+``quant=True`` is the quantized-gradient mode of ``hist_packed``: channel 2
+sums lane 1 (h) instead of lane 2 (bag).
 Member ranges may start at any row and may overlap: frozen members share
 their parent's span and are told apart by the leaf id.  The TPU kernel's
 scalar-prefetched chunk list (``learner_wave.py:1152-1195``) and its grid
@@ -27,7 +29,7 @@ import ctypes
 import torch
 
 from .. import native
-from .hist_packed import build_histogram_packed_plain
+from .hist_packed import build_histogram_packed_plain, quant_lanes
 
 #: pass-1 blocks aimed for per launch (about four per SM of an H100); fixed,
 #: so the launch geometry and every sum's order depend only on shapes
@@ -40,12 +42,15 @@ def build_histogram_segments_plain(words: torch.Tensor, w: torch.Tensor,
                                    lid: torch.Tensor, start: torch.Tensor,
                                    cnt: torch.Tensor, leaf: torch.Tensor, *,
                                    num_bins: int, max_cnt: int = 0,
-                                   dp: bool = False) -> torch.Tensor:
+                                   dp: bool = False, quant: bool = False
+                                   ) -> torch.Tensor:
     """Plain torch version: one masked ``index_add_`` histogram per member
     (the windows are read to the host; ``max_cnt`` is not needed).  Returns
     (K, 4*Fw, num_bins, 3), float64 with ``dp``."""
     fw = words.shape[0]
     acc = torch.float64 if dp else torch.float32
+    if quant:
+        w = quant_lanes(w)
     k = start.shape[0]
     out = torch.zeros((k, 4 * fw, num_bins, 3), dtype=acc,
                       device=words.device)
@@ -84,8 +89,8 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.lgbt_hist_segments.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -94,22 +99,25 @@ def _lib():
 def build_histogram_segments(words: torch.Tensor, w: torch.Tensor,
                              lid: torch.Tensor, start: torch.Tensor,
                              cnt: torch.Tensor, leaf: torch.Tensor, *,
-                             num_bins: int, max_cnt: int) -> torch.Tensor:
+                             num_bins: int, max_cnt: int,
+                             quant: bool = False) -> torch.Tensor:
     """Histograms of K members' rows (see the module docstring).
 
     words : (Fw, N) int32, w (3, N) float32, lid (N,) int32, all contiguous
     start, cnt, leaf : (K,) integer tensors on the same device
     max_cnt : an upper bound on every ``cnt[m]``, known on the host; it
               sizes the launch (rows past a member's count are never read)
+    quant : channel 2 sums lane 1 (h) instead of lane 2.
     Returns (K, 4*Fw, num_bins, 3) float32.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (counted in
-    ``build_histogram_segments.launches``) or raise.
+    ``build_histogram_segments.launches``, the quant-mode launches also in
+    ``.quant_launches``) or raise.
     """
     args = (words, w, lid, start, cnt, leaf)
     if all(t.device.type == "cpu" for t in args):
         return build_histogram_segments_plain(words, w, lid, start, cnt,
                                               leaf, num_bins=num_bins,
-                                              max_cnt=max_cnt)
+                                              max_cnt=max_cnt, quant=quant)
     dev = words.device
     if dev.type != "cuda" or any(t.device != dev for t in args):
         raise ValueError("words, w, lid and the member arrays must all lie "
@@ -141,13 +149,15 @@ def build_histogram_segments(words: torch.Tensor, w: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().lgbt_hist_segments(
         words.data_ptr(), w.data_ptr(), lid.data_ptr(), n, fw,
-        s32.data_ptr(), c32.data_ptr(), l32.data_ptr(), k, num_bins, nchunks,
-        chunk, partial.data_ptr(), out.data_ptr(), stream)
+        s32.data_ptr(), c32.data_ptr(), l32.data_ptr(), k, num_bins,
+        int(quant), nchunks, chunk, partial.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hist_segments kernel launch failed: CUDA error "
                            f"{err}")
     build_histogram_segments.launches += 1
+    build_histogram_segments.quant_launches += int(quant)
     return out
 
 
 build_histogram_segments.launches = 0
+build_histogram_segments.quant_launches = 0

@@ -47,6 +47,36 @@ def _lib():
     return _LIB
 
 
+def leaf_totals(sum_gradients, sum_hessians, num_data, dt, *, lambda_l1,
+                lambda_l2, max_delta_step, min_gain_to_split):
+    """(total_g, total_h + 2*K_EPSILON, total_n, min_gain_shift) of a batch
+    of leaves in ``dt``, as ``find_best_splits`` forms them."""
+    total_g = sum_gradients.to(dt)
+    total_h = sum_hessians.to(dt) + 2.0 * K_EPSILON
+    total_n = num_data.to(dt)
+    gain_shift = leaf_split_gain(total_g, total_h, lambda_l1, lambda_l2,
+                                 max_delta_step)
+    return total_g, total_h, total_n, gain_shift + min_gain_to_split
+
+
+def candidates_from_planes(out, total_g, total_h, total_n, min_gain_shift,
+                           feature_mask) -> SplitCandidates:
+    """A kernel's (K, N_OUT, F) planes -> ``SplitCandidates``, with the same
+    torch operations ``find_best_splits`` ends with."""
+    best_g = out[:, 0]
+    lg_b, lh_b, lc_b = out[:, 3], out[:, 4], out[:, 5]
+    tg, th, tn = total_g[:, None], total_h[:, None], total_n[:, None]
+    invalid = torch.isneginf(best_g) | ~feature_mask
+    return SplitCandidates(
+        gain=torch.where(invalid, K_MIN_SCORE,
+                         best_g - min_gain_shift[:, None]),
+        threshold=out[:, 1].round().to(torch.int32),
+        default_left=out[:, 2] > 0.5,
+        left_sum_g=lg_b, left_sum_h=lh_b - K_EPSILON, left_cnt=lc_b,
+        right_sum_g=tg - lg_b, right_sum_h=th - lh_b - K_EPSILON,
+        right_cnt=tn - lc_b, left_output=out[:, 6], right_output=out[:, 7])
+
+
 def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
                              sum_hessians: torch.Tensor,
                              num_data: torch.Tensor, num_bin: torch.Tensor,
@@ -86,13 +116,10 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
             (num_bin, missing_type, default_bin)]
     if any(t.shape != (f,) or t.device != dev for t in meta):
         raise ValueError("feature metadata must be (F,) on the hist's device")
-    dt = hist.dtype
-    total_g = sum_gradients.to(dt)
-    total_h = sum_hessians.to(dt) + 2.0 * K_EPSILON
-    total_n = num_data.to(dt)
-    gain_shift = leaf_split_gain(total_g, total_h, lambda_l1, lambda_l2,
-                                 max_delta_step)
-    min_gain_shift = gain_shift + min_gain_to_split
+    total_g, total_h, total_n, min_gain_shift = leaf_totals(
+        sum_gradients, sum_hessians, num_data, hist.dtype,
+        lambda_l1=lambda_l1, lambda_l2=lambda_l2,
+        max_delta_step=max_delta_step, min_gain_to_split=min_gain_to_split)
     tot = torch.stack([total_g, total_h, total_n, min_gain_shift], 1) \
         .contiguous()
     if tot.shape != (k, 4) or tot.device != dev:
@@ -110,18 +137,8 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
         raise RuntimeError(f"split_scan kernel launch failed: CUDA error "
                            f"{err}")
     find_best_splits_batched.launches += 1
-    best_g = out[:, 0]
-    lg_b, lh_b, lc_b = out[:, 3], out[:, 4], out[:, 5]
-    tg, th, tn = total_g[:, None], total_h[:, None], total_n[:, None]
-    invalid = torch.isneginf(best_g) | ~feature_mask
-    return SplitCandidates(
-        gain=torch.where(invalid, K_MIN_SCORE,
-                         best_g - min_gain_shift[:, None]),
-        threshold=out[:, 1].round().to(torch.int32),
-        default_left=out[:, 2] > 0.5,
-        left_sum_g=lg_b, left_sum_h=lh_b - K_EPSILON, left_cnt=lc_b,
-        right_sum_g=tg - lg_b, right_sum_h=th - lh_b - K_EPSILON,
-        right_cnt=tn - lc_b, left_output=out[:, 6], right_output=out[:, 7])
+    return candidates_from_planes(out, total_g, total_h, total_n,
+                                  min_gain_shift, feature_mask)
 
 
 find_best_splits_batched.launches = 0

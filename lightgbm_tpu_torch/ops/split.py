@@ -84,6 +84,40 @@ def _split_gains(lg, lh, rg, rh, l1, l2, mds):
     return gain, lo, ro
 
 
+def pairwise_bin_sum(x: torch.Tensor) -> torch.Tensor:
+    """(..., B, C) -> (..., C): the sum over bins as a pairwise tree over B
+    padded with zeros to a power of two, ``x[i] + x[i + half]`` at every
+    level.  Its order is fixed on every device, so the card's fused
+    child-scan kernel (``csrc/fused_scan.cu``) reproduces it bit for bit."""
+    b = x.shape[-2]
+    p = 1 << max(b - 1, 0).bit_length()
+    if p > b:
+        pad = x.new_zeros(x.shape[:-2] + (p - b, x.shape[-1]))
+        x = torch.cat([x, pad], -2)
+    while p > 1:
+        p //= 2
+        x = x[..., :p, :] + x[..., p:2 * p, :]
+    return x[..., 0, :]
+
+
+def fix_histogram(hist: torch.Tensor, sum_g: torch.Tensor,
+                  sum_h: torch.Tensor, cnt: torch.Tensor,
+                  default_bin: torch.Tensor) -> torch.Tensor:
+    """``Dataset::FixHistogram`` (`src/io/dataset.cpp:923-941`): every
+    feature with ``default_bin > 0`` gets its default-bin entry rebuilt as
+    leaf totals minus the other bins (summed by ``pairwise_bin_sum``).
+    hist (K, F, B, 3), totals (K,), default_bin (F,)."""
+    dt = hist.dtype
+    b = hist.shape[-2]
+    db = default_bin
+    dbm = (torch.arange(b, device=hist.device)[None, :] == db[:, None]) \
+        & (db[:, None] > 0)                                       # (F, B)
+    totals = torch.stack([sum_g, sum_h, cnt], -1).to(dt)          # (K, 3)
+    others = pairwise_bin_sum(torch.where(dbm[..., None], 0.0, hist))
+    fixed = totals[..., None, :] - others                         # (K, F, 3)
+    return torch.where(dbm[..., None], fixed[..., None, :], hist)
+
+
 def _take(a, t):
     return torch.gather(a, -1, t.unsqueeze(-1)).squeeze(-1)
 

@@ -1,12 +1,15 @@
 """Where one boosting iteration of the PyTorch port spends its time on the card.
 
     python3 profiling/profile_torch_iteration.py [--learner wave|compact]
-        [--rows 1000000] [--iters 1] [--out reports/profile_torch_iteration.json]
+        [--quant] [--open-levels N] [--rows 1000000] [--iters 1]
+        [--out reports/profile_torch_iteration.json]
 
 Trains the bench workload (bench.py's Higgs-shaped data, 28 features, 255
 leaves, 255 bins, binary) with ``lightgbm_tpu_torch`` on ``cuda:0`` through
 the chosen learner (``wave``: the default ``tpu_learner=auto`` path;
-``compact``: the sequential learner): two warm-up iterations, then
+``compact``: the sequential learner; ``--quant`` sets
+``tpu_quantized_grad=on`` and ``--open-levels N`` ``tpu_wave_open_levels=N``
+for the wave learner): two warm-up iterations, then
 ``--iters`` iterations under ``torch.profiler`` (CPU and CUDA activities).
 Writes one JSON file with the card's name and power limit (nvidia-smi), the
 wall time, the device busy time over the profiled iterations (sum of CUDA
@@ -43,6 +46,10 @@ def main() -> int:
     ap.add_argument("--learner", choices=sorted(LEARNERS), default="wave")
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--iters", type=int, default=1)
+    ap.add_argument("--quant", action="store_true",
+                    help="tpu_quantized_grad=on")
+    ap.add_argument("--open-levels", type=int, default=0,
+                    help="tpu_wave_open_levels")
     ap.add_argument("--out", default="reports/profile_torch_iteration.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -53,7 +60,9 @@ def main() -> int:
     logit = (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] * 0.5 + np.sin(X[:, 3])
              + 0.5 * rng.randn(args.rows))
     y = (logit > 0).astype(np.float64)
-    params = dict(PARAMS, tpu_learner=LEARNERS[args.learner])
+    params = dict(PARAMS, tpu_learner=LEARNERS[args.learner],
+                  tpu_quantized_grad="on" if args.quant else "auto",
+                  tpu_wave_open_levels=args.open_levels)
     bst = lt.Booster(params, lt.Dataset(X, label=y, params=params))
     for _ in range(2):
         bst.update()
@@ -88,7 +97,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     out = {
         "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "learner": args.learner,
+        "learner": args.learner, "quant": args.quant,
+        "open_levels": args.open_levels,
         "learner_class": type(learner).__name__, "rows": args.rows,
         "iters": args.iters, "splits": splits, "wall_s": wall,
         "s_per_iter": wall / args.iters,
@@ -105,7 +115,8 @@ def main() -> int:
                         "self_device_ms": dev_us(e) / 1e3}
                        for e in by_dev if dev_us(e) > 0],
     }
-    for key in ("waves", "stall_events", "stall_splits", "replay_passes"):
+    for key in ("open_levels", "waves", "stall_events", "stall_splits",
+                "replay_passes"):
         stats = getattr(learner, "tree_stats", [])[stats0:]
         if stats:
             out[key + "_per_tree"] = [s[key] for s in stats]
@@ -113,7 +124,8 @@ def main() -> int:
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps({k: out[k] for k in (
-        "nvidia_smi", "learner", "rows", "s_per_iter", "device_busy_s",
+        "nvidia_smi", "learner", "quant", "open_levels", "rows",
+        "s_per_iter", "device_busy_s",
         "device_idle_share", "cuda_events_per_iter", "cuda_events_per_split",
         "host_syncs_per_tree") + tuple(k for k in out if k.endswith(
             "_per_tree") and k != "host_syncs_per_tree")}))

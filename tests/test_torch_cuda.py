@@ -233,3 +233,121 @@ def test_scan_kernel_equals_plain_on_dyadic_and_cpu_on_random(cuda_device):
             r = getattr(ref, fld).cpu()
             assert bool(((a == r) | (torch.isnan(a) & torch.isnan(r)))
                         .all()), fld
+
+
+def _quant_weights(dev, n, seed):
+    rng = np.random.RandomState(seed)
+    bag = (rng.rand(n) < 0.8).astype(np.float32)
+    g = rng.randint(-7, 8, n) * 2.0 ** -5 * bag
+    h = rng.randint(0, 16, n) * 2.0 ** -7 * bag
+    return torch.from_numpy(np.stack([g, h, bag]).astype(np.float32)).to(dev)
+
+
+def test_quant_modes_of_packed_and_segments_bitwise(cuda_device):
+    from lightgbm_tpu_torch.ops.hist_segments import (
+        build_histogram_segments, build_histogram_segments_plain)
+
+    words, _ = _inputs(cuda_device, 2, 8192, 63, 21, dyadic=True)
+    w = _quant_weights(cuda_device, 8192, 22)
+    k = build_histogram_packed(words, w, num_bins=63, quant=True)
+    p = build_histogram_packed_plain(words, w, num_bins=63, quant=True)
+    assert torch.equal(k, p) and torch.equal(k[..., 2], k[..., 1])
+    lid = torch.zeros(8192, dtype=torch.int32, device=cuda_device)
+    lid[4000:] = 1
+    start = torch.tensor([100, 4000], device=cuda_device)
+    cnt = torch.tensor([3900, 4192], device=cuda_device)
+    leaf = torch.tensor([0, 1], device=cuda_device)
+    before = build_histogram_segments.quant_launches
+    k = build_histogram_segments(words, w, lid, start, cnt, leaf,
+                                 num_bins=63, max_cnt=4192, quant=True)
+    p = build_histogram_segments_plain(words, w, lid, start, cnt, leaf,
+                                       num_bins=63, quant=True)
+    assert torch.equal(k, p)
+    assert build_histogram_segments.quant_launches == before + 1
+
+
+@pytest.mark.parametrize("k_slots", [1, 3, 8, 17])
+def test_multislot_kernel_bitwise_and_quant(cuda_device, k_slots):
+    """Slot counts that run each warp layout: a slot with several warps'
+    copies (1, 3), a warp per slot (8), two slot groups (17)."""
+    from lightgbm_tpu_torch.ops.hist_multislot import (
+        build_histogram_multislot, build_histogram_multislot_plain)
+
+    n = 20480
+    words, w = _inputs(cuda_device, 3, n, 200, k_slots, dyadic=True)
+    rng = np.random.RandomState(k_slots)
+    slot = torch.from_numpy(rng.randint(-1, k_slots + 1, n)
+                            .astype(np.int32)).to(cuda_device)
+    for quant, ww in ((False, w), (True, _quant_weights(cuda_device, n, 3))):
+        a = build_histogram_multislot(words, ww, slot, num_bins=200,
+                                      n_slots=k_slots, quant=quant)
+        b = build_histogram_multislot(words, ww, slot, num_bins=200,
+                                      n_slots=k_slots, quant=quant)
+        p = build_histogram_multislot_plain(words, ww, slot, num_bins=200,
+                                            n_slots=k_slots, quant=quant)
+        assert a.shape == (k_slots, 12, 200, 3)
+        assert torch.equal(a, p) and torch.equal(a, b)
+
+
+def _fused_case(dev, exact, seed, k=5, f=6, b=70, h=16):
+    rng = np.random.RandomState(seed)
+    nb = rng.randint(3, b + 1, f).astype(np.int32)
+    mt = rng.randint(0, 3, f).astype(np.int32)
+    db = (rng.randint(0, 99, f) % nb).astype(np.int32)
+    bm = (np.arange(b)[None, :] < nb[:, None])[None, :, :, None]
+
+    def hist():
+        if exact:
+            g = rng.randint(-280, 281, (k, f, b)) * 2.0 ** -6
+            hh = rng.randint(0, 601, (k, f, b)) * 2.0 ** -8
+        else:
+            g, hh = rng.randn(k, f, b) * 5, rng.rand(k, f, b) * 5
+        return (np.stack([g, hh, hh * 3.0], -1) * bm).astype(np.float32)
+
+    hs, ho = hist(), hist()
+    ls = rng.rand(k) < 0.5
+    hl = np.where(ls[:, None, None, None], hs, ho)
+    hr = np.where(ls[:, None, None, None], ho, hs)
+    tot = np.stack([hl[:, 0].sum(1), hr[:, 0].sum(1)], 1).reshape(2 * k, 3)
+    slots = rng.permutation(h)
+    pool = rng.randn(h, f, b, 3).astype(np.float32)
+    pool[slots[:k]] = hs + ho
+    arrs = (hs, pool, slots[:k], slots[k:2 * k], ls, tot[:, 0], tot[:, 1],
+            tot[:, 2], nb, mt, db, np.ones(f, bool))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_fused_kernel_equals_plain_and_unfused_step(cuda_device, exact):
+    """Quant-grid histograms: every field and both pool rows bitwise equal
+    to the plain version.  Random float32: bitwise equal to the learner's
+    unfused step (torch subtraction and fix_histogram, then the split-scan
+    kernel), whose bin sums the kernel takes in the same order."""
+    from lightgbm_tpu_torch.ops.fused_scan import (fused_child_scans,
+                                                   fused_child_scans_plain)
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+    from lightgbm_tpu_torch.ops.split import fix_histogram
+
+    args = _fused_case(cuda_device, exact, 31 + exact)
+    kw = dict(lambda_l2=0.5, min_data_in_leaf=3)
+    pk, pr = args[1].clone(), args[1].clone()
+    before = fused_child_scans.launches
+    got = fused_child_scans(args[0], pk, *args[2:], **kw)
+    assert fused_child_scans.launches == before + 1
+    if exact:
+        ref = fused_child_scans_plain(args[0], pr, *args[2:], **kw)
+    else:
+        hs, _, ph, rh, ls, sg, sh, sn, nb, mt, db, fm = args
+        k = hs.shape[0]
+        hp = pr.index_select(0, ph) - hs
+        lsm = ls.view(k, 1, 1, 1)
+        hl, hr = torch.where(lsm, hs, hp), torch.where(lsm, hp, hs)
+        pr.index_copy_(0, ph, hl)
+        pr.index_copy_(0, rh, hr)
+        h2 = fix_histogram(torch.stack([hl, hr], 1).reshape(
+            (2 * k,) + hl.shape[1:]), sg, sh, sn, db)
+        ref = find_best_splits_batched(h2, sg, sh, sn, nb, mt, db, fm, **kw)
+    for fld in got._fields:
+        a, r = getattr(got, fld), getattr(ref, fld)
+        assert bool(((a == r) | (torch.isnan(a) & torch.isnan(r))).all()), fld
+    assert torch.equal(pk, pr)

@@ -102,7 +102,7 @@ def test_device_rule_cpu_and_alias():
     {"boosting": "dart"},
     {"boosting": "goss"},
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
-    {"tpu_quantized_grad": "on"},
+    {"snapshot_freq": 1},
     {"tree_learner": "data"},
     {"tpu_learner": "masked"},
     {"forcedsplits_filename": "forced.json"},

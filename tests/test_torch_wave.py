@@ -220,14 +220,27 @@ def test_ineligible_wave_falls_back_with_the_jax_message(capsys):
                  verbose_eval=False)
 
 
-@pytest.mark.parametrize("extra", [{"tpu_wave_open_levels": 5}])
+@pytest.mark.parametrize("extra", [
+    {"tpu_wave_open_levels": 5}, {"tpu_wave_open_levels": 1},
+    {"tpu_wave_open_levels": 8, "tpu_quantized_grad": "on"}])
 def test_unported_wave_settings_raise(extra):
+    """The level-wise opening and quantized gradients, once refused here,
+    now train through the wave learner: every level splits, then one
+    materialization."""
     X, y = _small()
-    p = {"objective": "binary", "device_type": "cpu", "num_leaves": 7,
+    p = {"objective": "binary", "device_type": "cpu", "num_leaves": 8,
          "verbosity": -1, **extra}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue A: the wave learner's opening"):
-        lt.train(p, lt.Dataset(X, label=y), 1, verbose_eval=False)
+    bst = lt.train(p, lt.Dataset(X, label=y), 2, verbose_eval=False)
+    learner = bst.gbdt.learner
+    levels = min(extra["tpu_wave_open_levels"], 3)  # capped: log2(leaves)
+    assert type(learner) is WaveTreeLearner
+    assert learner.open_levels == levels
+    assert all(s["open_levels"] == levels for s in learner.tree_stats)
+    assert learner.kernel_calls["hist_multislot"] == 2 * levels
+    assert learner._quant == ("tpu_quantized_grad" in extra)
+    assert learner.kernel_calls["hist_multislot_quant"] == \
+        (2 * levels if learner._quant else 0)
+    assert len(bst.gbdt.models) == 2
 
 
 def test_end_to_end_default_learner_matches_jax():
@@ -265,3 +278,175 @@ def test_end_to_end_default_learner_matches_jax():
         np.testing.assert_allclose(tt.leaf_value[:nl], tj.leaf_value[:nl],
                                    rtol=0, atol=1e-5)
     np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Quantized gradients and the level-wise opening.
+# ---------------------------------------------------------------------------
+
+F32 = dict(BASE, gpu_use_dp=False, min_data_in_leaf=20,
+           tpu_wave_sort_cutoff=512, tpu_sort_cutoff=256)
+# the JAX learner runs its batched (and, under quant, fused) scan kernels
+# in interpret mode on the CPU
+JAX_SCAN = dict(JAX_FLOW, tpu_wave_pallas_scan="on")
+
+
+def _dyadic_grads(y, n_pad, seed=0):
+    """Gradients on a 2**-8 grid: every float32 histogram sum is exact."""
+    g, h, b = _grads(seed, y, n_pad)
+    return (np.round(g * 256) / 256).astype(np.float32), \
+        (np.round(h * 256) / 256 + 1 / 256).astype(np.float32) * (b > 0), b
+
+
+def _grow_f32(params, dyadic=False, seed=0):
+    """One tree of each package on the same float32 inputs (no dp)."""
+    X, y = _problem(seed)
+    X[:, 2] = np.nan_to_num(X[:, 2])
+    dj = lj.Dataset(X, label=y, params=params).construct().constructed
+    dt = lt.Dataset(X, label=y, params=dict(params, device_type="cpu")) \
+        .construct().constructed
+    n_pad = dj.num_data_padded
+    g, h, b = _dyadic_grads(y, n_pad, seed) if dyadic \
+        else _grads(seed, y, n_pad)
+    jl = WaveTPUTreeLearner(JConfig.from_params(dict(params, **JAX_SCAN)),
+                            dj)
+    rj = jl.train_async(jnp.asarray(g), jnp.asarray(h), jnp.asarray(b))
+    wave = WaveTreeLearner(TConfig.from_params(params), dt, CPU)
+    rw = wave.grow(*(torch.from_numpy(a) for a in (g, h, b)))
+    return jl, rj, wave, rw
+
+
+@pytest.mark.parametrize("open_levels", [0, 5])
+def test_quant_tree_equals_jax(open_levels):
+    """Quant on (and with the opening): the same float32 gradients
+    quantize to the same lanes, so the structure and the exact counts are
+    equal; the renewed leaf values agree within 1e-6 (the count channel's
+    FixHistogram sums are not exact, so its float fields may differ in the
+    last bits)."""
+    params = dict(F32, tpu_quantized_grad="on",
+                  tpu_wave_open_levels=open_levels)
+    jl, rj, wave, rw = _grow_f32(params)
+    assert jl._quant and jl._use_fused and wave._quant and wave._use_fused
+    rec_j, cnt_j, _, leaf_j, out_j = (np.asarray(a) for a in rj)
+    rf, ri, leaf_t, out_t = rw
+    nv = int((rf[:, 0] > 0.5).sum())
+    assert nv == int((rec_j[:, 0] > 0.5).sum()) == wave.budget
+    np.testing.assert_array_equal(rf[:, :5], rec_j[:, :5])
+    np.testing.assert_array_equal(rf[:, -1], rec_j[:, -1])
+    np.testing.assert_array_equal(ri, cnt_j)
+    np.testing.assert_array_equal(leaf_t.numpy(), leaf_j)
+    np.testing.assert_allclose(out_t.numpy(), out_j, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(rf, rec_j, rtol=1e-5, atol=1e-6)
+    calls = wave.kernel_calls
+    stats = wave.tree_stats[-1]
+    assert calls["fused_scan"] == stats["waves"] - stats["open_levels"] > 0
+    assert calls["hist_packed_quant"] == 1
+    assert calls["hist_multislot_quant"] == stats["open_levels"] \
+        == wave.open_levels == min(open_levels, 3)
+    assert calls["hist_segments_quant"] == calls["hist_segments"] > 0
+
+
+def test_f32_opening_tree_equals_jax_dyadic():
+    """Float32 with the opening on dyadic gradients: records exact."""
+    params = dict(F32, tpu_wave_open_levels=3)
+    _, rj, wave, rw = _grow_f32(params, dyadic=True)
+    rec_j, cnt_j, _, leaf_j, out_j = (np.asarray(a) for a in rj)
+    rf, ri, leaf_t, out_t = rw
+    np.testing.assert_array_equal(rf, rec_j)
+    np.testing.assert_array_equal(ri, cnt_j)
+    np.testing.assert_array_equal(leaf_t.numpy(), leaf_j)
+    np.testing.assert_array_equal(out_t.numpy(), out_j)
+    assert wave.tree_stats[-1]["open_levels"] == 3
+    assert wave.kernel_calls["hist_multislot"] == 3
+    assert wave.kernel_calls["fused_scan"] == 0
+
+
+def _port_booster(params, X, y, rounds, fused=True):
+    ds = lt.Dataset(X, label=y, params=params)
+    bst = lt.Booster(params, ds)
+    if not fused:
+        bst.gbdt.learner._use_fused = False
+    for _ in range(rounds):
+        bst.update()
+    return bst
+
+
+def _auc(y, s):
+    order = np.argsort(s, kind="stable")
+    r = np.empty(len(s))
+    r[order] = np.arange(1, len(s) + 1)
+    npos = int((y == 1).sum())
+    return (r[y == 1].sum() - npos * (npos + 1) / 2) / (npos * (len(y)
+                                                                - npos))
+
+
+QP = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 5,
+      "verbosity": -1, "device_type": "cpu"}
+
+
+def test_fused_equals_unfused_four_rounds():
+    rng = np.random.RandomState(0)
+    X = rng.randn(512, 6)
+    y = (X[:, 0] + 0.5 * X[:, 1] > 0).astype(float)
+    p = dict(QP, tpu_quantized_grad="on")
+    fused = _port_booster(p, X, y, 4)
+    unf = _port_booster(p, X, y, 4, fused=False)
+    assert fused.gbdt.learner._use_fused and not unf.gbdt.learner._use_fused
+    assert fused.gbdt.learner.kernel_calls["fused_scan"] > 0
+    assert unf.gbdt.learner.kernel_calls["fused_scan"] == 0
+    assert fused.model_to_string() == unf.model_to_string()
+    np.testing.assert_array_equal(fused.predict(X), unf.predict(X))
+
+
+def test_opening_equals_no_opening_dyadic_first_tree():
+    """Round 1 of binary logloss without boost_from_average: gradients
+    +-0.5 and hessians 0.25, exact float32 sums in any order, so the
+    opening changes nothing in the model."""
+    rng = np.random.RandomState(3)
+    X = rng.randn(3000, 8)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.randn(3000) > 0) \
+        .astype(float)
+    p = dict(QP, num_leaves=63, min_data_in_leaf=20, max_bin=63,
+             boost_from_average=False)
+    a = _port_booster(p, X, y, 1)
+    b = _port_booster(dict(p, tpu_wave_open_levels=5), X, y, 1)
+    assert b.gbdt.learner.open_levels == 5
+    assert b.gbdt.learner.tree_stats[0]["open_levels"] == 5
+    assert a.model_to_string() == b.model_to_string()
+
+
+def test_quant_auc_within_contract():
+    rng = np.random.RandomState(0)
+    X = rng.randn(1024, 8)
+    y = (X[:, 0] + 0.5 * X[:, 1] + 0.2 * rng.randn(1024) > 0).astype(float)
+    f32 = _port_booster(QP, X, y, 20)
+    qnt = _port_booster(dict(QP, tpu_quantized_grad="on"), X, y, 20)
+    assert qnt.gbdt.learner._quant and not f32.gbdt.learner._quant
+    a_f, a_q = _auc(y, f32.predict(X)), _auc(y, qnt.predict(X))
+    assert a_f > 0.9
+    assert abs(a_f - a_q) <= 1e-3, (a_f, a_q)
+
+
+def test_quant_gate_silences_follow_jax():
+    """``on`` with dp trains float32 sums in dp and keeps the reason;
+    ``auto`` stays off; the compact learner never quantizes; bundled data
+    quantizes without the fused kernel."""
+    X, y = _small()
+    p = dict(QP, num_leaves=7)
+    auto = _port_booster(p, X, y, 1).gbdt.learner
+    assert not auto._quant and "opt-in" in auto._quant_reason
+    on = _port_booster(dict(p, tpu_quantized_grad="on"), X, y, 1)
+    assert on.gbdt.learner._quant and on.gbdt.learner._quant_reason is None
+    dp = _port_booster(dict(p, tpu_quantized_grad="on", gpu_use_dp=True),
+                       X, y, 1).gbdt.learner
+    assert not dp._quant and "hist_dp" in dp._quant_reason
+    cmp = _port_booster(dict(p, tpu_quantized_grad="on",
+                             tpu_learner="compact"), X, y, 1).gbdt.learner
+    assert type(cmp) is CompactTreeLearner and not cmp._quant
+    Xe, ye = _problem(3, efb=True)
+    bnd = _port_booster(dict(BASE, gpu_use_dp=False, device_type="cpu",
+                             tpu_quantized_grad="on"), Xe, ye, 2)
+    ln = bnd.gbdt.learner
+    assert ln._bundle is not None and ln._quant and not ln._use_fused
+    assert ln.kernel_calls["fused_scan"] == 0
+    assert ln.kernel_calls["hist_segments_quant"] > 0
