@@ -8,7 +8,7 @@ Run from the root of a checkout: the kernels are built from its sources
 torch, numpy and ``lightgbm_tpu_torch`` only.  Phases, each printing one JSON
 line and each raising (exit code 1) on any failure:
 
-  device     card name and power limit (nvidia-smi), torch, the six kernel
+  device     card name and power limit (nvidia-smi), torch, the seven kernel
              builds (one nvcc each, started together)
   kernel     packed histogram kernel vs its plain torch version at full width
              (Fw=8, N=1,000,448, 255 bins): bitwise on dyadic inputs at the
@@ -36,6 +36,13 @@ line and each raising (exit code 1) on any failure:
              3, 16 and 64 slots; at K = 16 on random float32 within
              rtol=1e-5 and an atol of 1e-5 times each bin's own sum of |w|,
              bitwise across two launches, and the quant mode bitwise
+  hist_full  full-pass histogram kernel (the masked learner's) vs its plain
+             version at full width (28 used of 32 code rows, N=1,000,448):
+             uint16 codes with 1,023 bins and uint8 codes with 255 bins,
+             bitwise on dyadic inputs, within rtol=1e-5 and an atol of 1e-5
+             times each bin's own sum of |w| on random float32, bitwise across
+             two launches; codes at or past num_bins dropped; 2,047 bins (two
+             bin tiles) and 65,536 bins on small inputs
   fused_scan fused child-scan kernel vs the unfused path at K=64, F=28,
              B=255 over a 574-slot histogram pool: on quant-grid histograms
              every field and both pool rows bitwise equal to the plain
@@ -48,6 +55,11 @@ line and each raising (exit code 1) on any failure:
   wave_tree  the same tree grown by the wave learner through its four
              kernels, by the wave learner through every plain version, and by
              the compact learner: records, counts and leaf ids bitwise equal
+  masked_tree one 255-leaf dyadic tree of the masked learner on the same
+             rows: at 255 bins through hist_full, through the plain version
+             and by the compact learner (records, counts, leaf ids and leaf
+             outputs bitwise equal); at 1,023 bins (uint16 codes) through
+             hist_full and through the plain version, bitwise
   opening_tree one full-width 255-leaf tree of the default learner with
              tpu_wave_open_levels=5 and boost_from_average=false (round-1
              gradients are exact): model text equal to the opening off, five
@@ -69,9 +81,19 @@ line and each raising (exit code 1) on any failure:
              (quant-mode launches too) equal to the learner's calls, held-out
              AUC within 1e-3 of wave_train's, one tree fused against unfused
              bitwise, quantize_gradients on the card bitwise equal to the CPU
+  masked_train the wave_train run with max_bin=1023 (auto -> the masked
+             learner, uint16 codes): hist_full launches equal to the calls the
+             learner recorded (num_leaves per tree), host syncs per tree <= 2,
+             training logloss falling, held-out AUC, Booster.predict through
+             the DevicePredictor agreeing with the device-side held-out scores
+  predict    DevicePredictor on the card for the wave_train model on the
+             held-out rows: against the host trees within 1e-9; with
+             pred_early_stop the same frozen rows and scores within 1e-9 as
+             the same call on the CPU; the model saved to text and reloaded
+             (a bin schema rebuilt from the text) within 1e-9; rows per second
   small      a small input trained on the card and on the CPU (the path the
              tests hold against lightgbm_tpu): held-out metrics within 1e-4
-  timing     each of the six kernels', its plain version's and (where one
+  timing     each of the seven kernels', its plain version's and (where one
              PyTorch call computes the same function) the library call's
              times from CUDA events, L2 flushed before each launch, beside
              the bound
@@ -93,8 +115,9 @@ import numpy as np
 import torch
 
 PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
-          "fused_scan", "tree", "wave_tree", "opening_tree", "train",
-          "wave_train", "quant_train", "small", "timing")
+          "hist_full", "fused_scan", "tree", "wave_tree", "masked_tree",
+          "opening_tree", "train", "wave_train", "quant_train",
+          "masked_train", "predict", "small", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -108,6 +131,9 @@ WAVE_PARAMS = {k: v for k, v in TRAIN_PARAMS.items() if k != "tpu_learner"}
 #: this slice's path: quantized gradients with the level-wise opening
 QUANT_PARAMS = dict(WAVE_PARAMS, tpu_quantized_grad="on",
                     tpu_wave_open_levels=5)
+#: the masked learner's path: past 256 bins the default learner is masked
+MASKED_BINS = 1023
+MASKED_PARAMS = dict(WAVE_PARAMS, max_bin=MASKED_BINS)
 SCAN_K = 128
 MULTI_K = 16        # slots at the 5th opening level
 FUSED_K = 64        # members of a full growth wave
@@ -125,6 +151,8 @@ KERNEL_SOURCES = {
                        "lightgbm_tpu/ops/hist_pallas.py:584"),
     "fused_scan": ("lightgbm_tpu_torch/csrc/fused_scan.cu",
                    "lightgbm_tpu/ops/scan_pallas.py:298"),
+    "hist_full": ("lightgbm_tpu_torch/csrc/hist_full.cu",
+                  "lightgbm_tpu/ops/hist_pallas.py:90"),
 }
 
 
@@ -631,6 +659,88 @@ def phase_multislot(ctx) -> None:
     emit(out)
 
 
+#: the dataset's padded code rows at 28 features (features pad to 8)
+CODE_ROWS = 32
+
+
+def full_inputs(seed: int, dtype, num_bins: int, kind: str, n: int = N_FULL,
+                f: int = FEATURES, code_max=None):
+    """A (32, n) uint8 or uint16 code matrix whose first ``f`` rows are
+    passed as the masked learner passes the used features (a view with the
+    padded row stride), and (3, n) weights: dyadic or random float32."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, code_max or num_bins, size=(CODE_ROWS, n)) \
+        .astype(dtype)
+    bins = torch.from_numpy(codes).to(dev)[:f]
+    if kind == "dyadic":
+        g, h, bag = dyadic_weights(rng, n, n, dev)
+    else:
+        bag = torch.from_numpy((rng.rand(n) < 0.9).astype(np.float32)) \
+            .to(dev)
+        g, h = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                for a in (rng.randn(n), rng.rand(n)))
+    return bins, torch.stack([g * bag, h * bag, bag]).contiguous()
+
+
+def phase_hist_full(ctx) -> None:
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.histogram import (build_histogram_onehot,
+                                                  read_codes)
+
+    out = {"phase": "hist_full", "F": FEATURES, "code_rows": CODE_ROWS,
+           "N": N_FULL}
+    worst = 0.0
+    for dtype, b in ((np.uint16, MASKED_BINS), (np.uint8, NUM_BINS)):
+        tag = f"{np.dtype(dtype).name}_B{b}"
+        bins, w = full_inputs(50 + b, dtype, b, "dyadic")
+        k = build_histogram_full(bins, w, num_bins=b)
+        p = build_histogram_onehot(bins, w, num_bins=b)
+        check(torch.equal(k, p), f"hist_full dyadic {tag}: kernel != plain "
+              f"(max diff {(k - p).abs().max().item()})")
+        bins, w = full_inputs(60 + b, dtype, b, "random")
+        k = build_histogram_full(bins, w, num_bins=b)
+        k2 = build_histogram_full(bins, w, num_bins=b)
+        p = build_histogram_onehot(bins, w, num_bins=b)
+        check(torch.equal(k, k2), f"hist_full {tag}: two launches differ")
+        # float32 sums in two orders: each bin's rounding error is bounded
+        # by the bin's own absolute mass
+        mass = build_histogram_onehot(bins, w.abs(), num_bins=b)
+        err = (k - p).abs()
+        lim = 1e-5 * p.abs() + 1e-5 * mass
+        check(bool((err <= lim).all()),
+              f"hist_full random {tag}: kernel vs plain beyond rtol=1e-5, "
+              f"atol=1e-5*(the bin's sum of |w|) (max diff "
+              f"{err.max().item()})")
+        nz = lim > 0
+        out[tag] = {"dyadic_bitwise": True, "relaunch_bitwise": True,
+                    "random_max_abs_err": err.max().item(),
+                    "random_worst_err_to_limit":
+                        (err[nz] / lim[nz]).max().item()}
+        worst = max(worst, err.max().item())
+    # codes at or past num_bins are dropped: uint16 codes up to 1,099
+    b = MASKED_BINS
+    bins, w = full_inputs(70, np.uint16, b, "dyadic", code_max=1100)
+    k = build_histogram_full(bins, w, num_bins=b)
+    check(torch.equal(k, build_histogram_onehot(bins, w, num_bins=b)),
+          "hist_full: dropped codes differ from the plain version")
+    kept = ((read_codes(bins) < b) * w[2]).sum(dim=1)
+    check(torch.equal(k[..., 2].sum(dim=1), kept),
+          "hist_full: codes at or past num_bins were counted")
+    out["dropped_codes"] = int((read_codes(bins) >= b).sum())
+    # past one shared-memory bin tile (1,024 bins), and the widest uint16
+    for b, n, f in ((2047, 65_536, FEATURES), (65_536, 8_192, 5)):
+        bins, w = full_inputs(80, np.uint16, b, "dyadic", n=n, f=f)
+        k = build_histogram_full(bins, w, num_bins=b)
+        p = build_histogram_onehot(bins, w, num_bins=b)
+        check(torch.equal(k, p), f"hist_full dyadic at {b} bins, {n} rows: "
+              f"kernel != plain")
+        out[f"dyadic_B{b}_N{n}_bitwise"] = True
+    torch.cuda.synchronize()
+    ctx["err_hist_full"] = worst
+    emit(out)
+
+
 def fused_inputs(seed: int, exact: bool, k: int = FUSED_K,
                  f: int = FEATURES, b: int = NUM_BINS, h: int = POOL_H):
     """One growth wave's fused step at the bench width: smaller-child and
@@ -828,6 +938,74 @@ def phase_wave_tree(ctx) -> None:
           "growers": info})
 
 
+def _dataset_masked(ctx):
+    """The same rows binned at max_bin=1023 (uint16 codes), built once and
+    shared by the masked_tree and masked_train phases."""
+    if "ds_masked" not in ctx:
+        import lightgbm_tpu_torch as lt
+
+        X, y = higgs_like(ROWS + VALID_ROWS)
+        t0 = time.perf_counter()
+        ds = lt.Dataset(X[:ROWS], label=y[:ROWS], params=MASKED_PARAMS)
+        dv = ds.create_valid(X[ROWS:], label=y[ROWS:])
+        ds.construct()
+        dv.construct()
+        ctx["ds_masked"], ctx["dv_masked"] = ds, dv
+        ctx["bin_s_masked"] = time.perf_counter() - t0
+    return ctx["ds_masked"], ctx["dv_masked"]
+
+
+def phase_masked_tree(ctx) -> None:
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learner import MaskedTreeLearner
+    from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+    from lightgbm_tpu_torch.ops.histogram import build_histogram_onehot
+
+    dev = torch.device("cuda", 0)
+    out = {"phase": "masked_tree"}
+    for tag_b, ds, params in (("B255", _dataset(ctx)[0], TRAIN_PARAMS),
+                              ("B1023", _dataset_masked(ctx)[0],
+                               MASKED_PARAMS)):
+        data = ds.constructed
+        cfg = Config.from_params(dict(params, tpu_learner="masked"))
+        g, h, bag = dyadic_weights(np.random.RandomState(1),
+                                   data.num_data_padded, data.num_data, dev)
+        growers = {
+            "masked_kernel": lambda: MaskedTreeLearner(cfg, data, dev),
+            "masked_plain": lambda: MaskedTreeLearner(
+                cfg, data, dev, histogram=build_histogram_onehot)}
+        if tag_b == "B255":
+            growers["compact"] = lambda: CompactTreeLearner(
+                Config.from_params(TRAIN_PARAMS), data, dev)
+        res, info = {}, {}
+        for tag, make in growers.items():
+            learner = make()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[tag] = learner.grow(g, h, bag)
+            torch.cuda.synchronize()
+            info[tag] = {"grow_s": time.perf_counter() - t0,
+                         "host_syncs": learner.host_syncs}
+        rk, ik, lk, ok = res["masked_kernel"]
+        splits = int((rk[:, 0] > 0.5).sum())
+        check(splits == 254, f"the dyadic masked tree at {tag_b} made "
+              f"{splits} splits, not 254")
+        for tag in list(growers)[1:]:
+            r, i, lid, o = res[tag]
+            check(np.array_equal(rk, r) and np.array_equal(ik, i),
+                  f"masked tree {tag_b}: records differ from the {tag} tree")
+            check(torch.equal(lk, lid),
+                  f"masked tree {tag_b}: leaf ids differ from the {tag} tree")
+            check(torch.equal(ok.to(torch.float32), o.to(torch.float32)),
+                  f"masked tree {tag_b}: leaf outputs differ from the {tag} "
+                  f"tree")
+        out[tag_b] = {"splits": splits, "num_bins": int(data.max_num_bin),
+                      "codes": str(data.bins.dtype), "records_bitwise": True,
+                      "growers": info}
+    out["bin_s_masked"] = ctx["bin_s_masked"]
+    emit(out)
+
+
 def phase_opening_tree(ctx) -> None:
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops.hist_multislot import \
@@ -860,15 +1038,15 @@ def phase_opening_tree(ctx) -> None:
     emit({"phase": "opening_tree", "model_text_equal": True, "runs": info})
 
 
-def _train_run(ctx, params, tag, counters):
-    """Train 5 iterations at the bench width with ``params``; ``counters``
-    maps kernel names to their wrappers, whose launch counts are set to 0
-    just before the run and read just after.  Checks and returns the
-    phase's result dict."""
+def _train_run(ctx, params, tag, counters, data=None):
+    """Train 5 iterations at the bench width with ``params`` on ``data``
+    (the 255-bin sets by default); ``counters`` maps kernel names to their
+    wrappers, whose launch counts are set to 0 just before the run and read
+    just after.  Checks and returns the phase's result dict."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.metrics import create_metric
 
-    ds, dv = _dataset(ctx)
+    ds, dv = data or _dataset(ctx)
     iters = 5
     evals, t_iter, train_ll = {}, [], []
     logloss = create_metric("binary_logloss", lt.Config.from_params(params))
@@ -900,14 +1078,21 @@ def _train_run(ctx, params, tag, counters):
     for name, n in launches.items():
         check(n > 0, f"{tag}: kernel {name} was not launched on the path")
     learner = bst.gbdt.learner
-    check(learner.bins_packed().is_cuda and bst.gbdt.train_score.score.is_cuda,
+    bins = getattr(learner, "bins", None)
+    if bins is None:
+        bins = learner.bins_packed()
+    check(bins.is_cuda and bst.gbdt.train_score.score.is_cuda,
           "bins or scores are not on the card")
     check(all(b < a for a, b in zip(train_ll, train_ll[1:])),
           f"training logloss did not fall every iteration: {train_ll}")
     auc = evals["heldout"]["auc"]
     check(all(np.isfinite(auc)) and auc[-1] > 0.7,
           f"held-out AUC too low: {auc}")
+    n_dev = bst.gbdt.device_predictions
     pred = bst.predict(ctx["Xv"])
+    # 100,000 rows x 5 trees: the DevicePredictor's batch size
+    check(bst.gbdt.device_predictions == n_dev + 1,
+          "Booster.predict did not go through the DevicePredictor")
     dev_score = bst.gbdt.valid_scores[0].np_score().astype(np.float64)
     check(pred.shape == (VALID_ROWS,) and bool(np.isfinite(pred).all()),
           "predictions are not finite of shape (100000,)")
@@ -925,6 +1110,7 @@ def _train_run(ctx, params, tag, counters):
         "host_syncs_per_tree": learner.host_syncs / len(trees),
         "loop_score_reads": bst.gbdt.host_syncs,
         "peak_device_bytes": peak, "predict_vs_device_max_diff": diff,
+        "predict_via_device_predictor": True,
         "device": str(learner.device)}
 
 
@@ -989,6 +1175,7 @@ def phase_wave_train(ctx) -> None:
     out["lanes_on_card"] = sorted(lanes)
     ctx["launches_wave"] = out["kernel_launches"]
     ctx["auc_wave"] = out["heldout_auc"]
+    ctx["bst_wave"] = bst
     emit(out)
 
 
@@ -1065,6 +1252,110 @@ def phase_quant_train(ctx) -> None:
     out["quantize_card_vs_cpu_bitwise"] = True
     ctx["launches_quant"] = dict(out["kernel_launches"], **quant)
     emit(out)
+
+
+def phase_masked_train(ctx) -> None:
+    from lightgbm_tpu_torch.learner import MaskedTreeLearner
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+
+    counters = {"hist_full": build_histogram_full}
+    bst, learner, _, out = _train_run(ctx, MASKED_PARAMS, "masked_train",
+                                      counters, data=_dataset_masked(ctx))
+    check(type(learner) is MaskedTreeLearner,
+          f"max_bin={MASKED_BINS} did not route to the masked learner")
+    check(learner.bins.dtype == torch.uint16,
+          f"the masked learner reads {learner.bins.dtype} codes, not uint16")
+    calls = learner.kernel_calls["hist_full"]
+    want = len(bst.gbdt.models) * learner.num_leaves
+    check(out["kernel_launches"]["hist_full"] == calls == want,
+          f"hist_full launches {out['kernel_launches']} != the learner's "
+          f"calls {calls} != trees x num_leaves {want}")
+    check(out["host_syncs_per_tree"] <= 2,
+          f"{out['host_syncs_per_tree']} host syncs per tree")
+    out["launches_expected"] = want
+    out["num_bins"] = int(bst.gbdt.train_data.max_num_bin)
+    out["bin_s"] = ctx["bin_s_masked"]
+    if "auc_wave" in ctx:
+        out["auc_gap_to_wave_B255"] = out["heldout_auc"][-1] \
+            - ctx["auc_wave"][-1]
+    ctx["launches_masked"] = out["kernel_launches"]
+    emit(out)
+
+
+def _wave_booster(ctx):
+    """The wave_train booster, or 5 iterations of the default learner when
+    that phase did not run."""
+    if "bst_wave" not in ctx:
+        import lightgbm_tpu_torch as lt
+
+        ds, _ = _dataset(ctx)
+        ctx["bst_wave"] = lt.train(WAVE_PARAMS, ds, 5, verbose_eval=False)
+    return ctx["bst_wave"]
+
+
+def phase_predict(ctx) -> None:
+    import copy
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.binner import BinnerArrays
+    from lightgbm_tpu_torch.predictor import DevicePredictor
+
+    bst = _wave_booster(ctx)
+    gbdt, data, Xv = bst.gbdt, bst.gbdt.train_data, ctx["Xv"]
+    dev = torch.device("cuda", 0)
+    host = np.zeros(len(Xv))
+    for t in gbdt.models:
+        host += t.predict(Xv)
+    dp = DevicePredictor(gbdt, data)
+    raw = dp.predict_raw(Xv)
+    diff = float(np.abs(raw - host).max())
+    check(diff <= 1e-9, f"DevicePredictor vs host trees: {diff}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp.predict_raw(Xv)                   # warm: host binning, upload, walk
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bins = BinnerArrays.for_data(data).bin_host(Xv)
+    bin_host_s = time.perf_counter() - t0
+    bins = torch.from_numpy(bins).to(dev)
+    flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
+    traverse_ms = cuda_ms(lambda: dp.predict_binned(bins), 5, flush)
+    # prediction early stop, checked after every tree, with a margin that
+    # freezes about half the rows after the first
+    es = dict(pred_early_stop=True, pred_early_stop_freq=1,
+              pred_early_stop_margin=float(np.median(
+                  2.0 * np.abs(gbdt.models[0].predict(Xv)))))
+    on_card = DevicePredictor(gbdt, data, **es).predict_raw(Xv)
+    on_cpu_gbdt = copy.copy(gbdt)
+    on_cpu_gbdt.device = torch.device("cpu")
+    on_cpu = DevicePredictor(on_cpu_gbdt, data, **es).predict_raw(Xv)
+    off_cpu = DevicePredictor(on_cpu_gbdt, data).predict_raw(Xv)
+    frozen = on_card != raw
+    check(0 < int(frozen.sum()) < len(Xv),
+          f"pred_early_stop froze {int(frozen.sum())} rows")
+    check(np.array_equal(frozen, on_cpu != off_cpu),
+          "pred_early_stop froze other rows on the card than on the CPU")
+    es_diff = float(np.abs(on_card - on_cpu).max())
+    check(es_diff <= 1e-9, f"pred_early_stop card vs CPU: {es_diff}")
+    # the model through its text: a bin schema rebuilt from the thresholds
+    loaded = lt.Booster(model_str=bst.model_to_string())
+    lraw = loaded.predict(Xv, raw_score=True)
+    check(loaded.gbdt.device_predictions == 1
+          and loaded.gbdt._pred_schema[0] is not None,
+          "the text-loaded booster did not predict on the card")
+    ldiff = float(np.abs(lraw - raw).max())
+    check(ldiff <= 1e-9, f"text-loaded booster vs trained: {ldiff}")
+    emit({"phase": "predict", "rows": len(Xv), "trees": dp.T,
+          "depth": dp.depth, "vs_host_max_diff": diff,
+          "predict_raw_s": predict_s, "bin_host_s": bin_host_s,
+          "rows_per_s_with_host_binning": len(Xv) / predict_s,
+          "traverse_ms": traverse_ms,
+          "rows_per_s_device_traversal": len(Xv) / traverse_ms * 1e3,
+          "early_stop": {"margin": es["pred_early_stop_margin"],
+                         "frozen_rows": int(frozen.sum()),
+                         "card_vs_cpu_max_diff": es_diff,
+                         "same_frozen_rows": True},
+          "text_loaded_vs_trained_max_diff": ldiff})
 
 
 def phase_small(ctx) -> None:
@@ -1253,11 +1544,52 @@ def _time_fused(flush) -> dict:
                 members=k, **_bound(nbytes, cells * (3 + 6 + 2 * 80)))
 
 
+def _time_hist_full(flush) -> dict:
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.histogram import (build_histogram_onehot,
+                                                  read_codes)
+
+    b, f, n = MASKED_BINS, FEATURES, N_FULL
+    bins, w = full_inputs(90, np.uint16, b, "random")
+    dev = bins.device
+    reps = 20
+    ms = cuda_ms(lambda: build_histogram_full(bins, w, num_bins=b), reps,
+                 flush)
+    plain_ms = cuda_ms(lambda: build_histogram_onehot(bins, w, num_bins=b),
+                       3, flush)
+    # the library call: one index_add_ on pre-flattened (feature, bin)
+    # indices, as for hist_packed
+    flat = (read_codes(bins) + torch.arange(f, device=dev)[:, None] * b) \
+        .reshape(-1)
+    src = w.t().unsqueeze(0).expand(f, n, 3).reshape(-1, 3).contiguous()
+    lib_ms = cuda_ms(lambda: torch.zeros(f * b, 3, device=dev).index_add_(
+        0, flat, src), reps, flush)
+    # the masked learner's usual call: only the smaller child's rows (here
+    # 5%) carry weights, the others are zero and skipped
+    w_small = w * torch.from_numpy(
+        (np.random.RandomState(91).rand(n) < 0.05).astype(np.float32)).to(dev)
+    ms_small = cuda_ms(lambda: build_histogram_full(bins, w_small,
+                                                    num_bins=b), reps, flush)
+    # uint8 codes at 255 bins
+    bins8, w8 = full_inputs(92, np.uint8, NUM_BINS, "random")
+    ms_u8 = cuda_ms(lambda: build_histogram_full(bins8, w8,
+                                                 num_bins=NUM_BINS), reps,
+                    flush)
+    nbytes = f * n * 2 + 3 * n * 4 + f * b * 3 * 4
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, num_bins=b,
+                codes="uint16", ms_5pct_rows_weighted=ms_small,
+                ms_uint8_B255=ms_u8, bound_ms_uint8_B255=_bound(
+                    f * n + 3 * n * 4 + f * NUM_BINS * 3 * 4,
+                    f * n * 3)["bound_ms"],
+                **_bound(nbytes, f * n * 3))
+
+
 def phase_timing(ctx) -> None:
     from lightgbm_tpu_torch.ops.hist_packed import (
         build_histogram_packed, build_histogram_packed_plain, pack_bin_words,
         unpack_bin_words)
     from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
     from lightgbm_tpu_torch.ops.hist_multislot import \
         build_histogram_multislot
     from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
@@ -1277,7 +1609,8 @@ def phase_timing(ctx) -> None:
     flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
     wrappers = (build_histogram_packed, build_histogram_segments,
                 apply_partition, find_best_splits_batched,
-                build_histogram_multislot, fused_child_scans)
+                build_histogram_multislot, fused_child_scans,
+                build_histogram_full)
     launches_before = [fn.launches for fn in wrappers]
     rows = {}
     for tag, s in (("full", N_FULL), ("65536", 65_536)):
@@ -1308,7 +1641,8 @@ def phase_timing(ctx) -> None:
               "partition": _time_partition(flush),
               "split_scan": _time_scan(flush),
               "hist_multislot": _time_multislot(flush),
-              "fused_scan": _time_fused(flush)}
+              "fused_scan": _time_fused(flush),
+              "hist_full": _time_hist_full(flush)}
     for fn, n in zip(wrappers, launches_before):
         fn.launches = n
     ctx["timing"] = rows
@@ -1320,8 +1654,9 @@ def phase_timing(ctx) -> None:
 
 
 def kernels_line(ctx) -> dict:
-    """The per-kernel summary: launches from the main path's run (the wave
-    learner's training), times and bounds from the timing phase."""
+    """The per-kernel summary: launches from the run of the path that
+    launches each kernel (wave_train, quant_train, masked_train), times and
+    bounds from the timing phase."""
     t = dict(ctx["timing_others"])
     t["hist_packed"] = ctx["timing"]["full"]
     compare = {
@@ -1341,13 +1676,18 @@ def kernels_line(ctx) -> dict:
                           "bin's sum of |w|",
         "fused_scan": "quant-grid inputs: every field and both pool rows "
                       "bitwise equal to the plain version (card and CPU); "
-                      "random float32: bitwise equal to the unfused step"}
+                      "random float32: bitwise equal to the unfused step",
+        "hist_full": "uint16 codes at 1,023 bins and uint8 at 255: dyadic "
+                     "inputs bitwise; two launches bitwise; random float32 "
+                     "within rtol=1e-5, atol=1e-5 times each bin's sum of "
+                     "|w|; dropped codes, 2,047 and 65,536 bins bitwise"}
     err = {"hist_packed": ctx.get("max_abs_err"),
            "hist_segments": ctx.get("err_segments"),
            "partition": ctx.get("err_partition"),
            "split_scan": ctx.get("err_scan"),
            "hist_multislot": ctx.get("err_multislot"),
-           "fused_scan": ctx.get("err_fused")}
+           "fused_scan": ctx.get("err_fused"),
+           "hist_full": ctx.get("err_hist_full")}
     quant = ctx.get("launches_quant", {})
     out = []
     for name in KERNEL_SOURCES:
@@ -1355,13 +1695,16 @@ def kernels_line(ctx) -> dict:
         row = t[name]
         # each kernel's launches on the path that runs it: the default
         # (float32) wave learner for the first four, the quantized wave
-        # learner with the opening for the two this slice ported
-        path = "wave_train" if name in ctx["launches_wave"] \
-            else "quant_train"
+        # learner with the opening for the next two, the masked learner
+        # (max_bin=1023) for hist_full
+        path, launches = next(
+            (p, c[name]) for p, c in (("wave_train", ctx["launches_wave"]),
+                                      ("masked_train",
+                                       ctx["launches_masked"]),
+                                      ("quant_train", quant))
+            if name in c)
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces,
-                    "launches": (ctx["launches_wave"] if path == "wave_train"
-                                 else quant)[name],
+                    "replaces": replaces, "launches": launches,
                     "launches_path": path,
                     "launches_quant_train": quant.get(name),
                     "quant_mode_launches_quant_train":
@@ -1396,7 +1739,8 @@ def main() -> int:
     for name in PHASES:
         if name in phases:
             globals()[f"phase_{name}"](ctx)
-    if all(p in phases for p in ("wave_train", "quant_train", "timing")):
+    if all(p in phases for p in ("wave_train", "quant_train", "masked_train",
+                                 "timing")):
         emit(kernels_line(ctx))
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,13 @@ the training and validation sets, metric output with early-stopping
 bookkeeping, and model text.  The scores live on the booster's device as
 (K, N_pad) float32; the training score is updated from the learner's leaf
 partition, the validation scores by a device traversal of the new tree over
-the validation set's bin codes.  ``Booster.predict`` walks the host trees
-(``Tree.predict``, numpy).  The JAX package's pipelined and fused iteration
-paths produce the same model text and come with a later slice.
+the validation set's bin codes.  ``Booster.predict`` routes as the JAX
+package's does: a batch with rows x trees >= 200,000, or any call with
+``pred_early_stop``, goes to ``predictor.DevicePredictor`` on the booster's
+device (text-loaded boosters through a bin schema rebuilt from the model
+text), a smaller batch walks the host trees (``Tree.predict``, numpy).  The
+JAX package's pipelined and fused iteration paths produce the same model
+text and come with a later slice.
 """
 
 from __future__ import annotations
@@ -23,12 +27,16 @@ import torch
 from ..binning import kEpsilon
 from ..config import Config
 from ..dataset import Dataset, _ConstructedDataset, upload
-from ..learner_compact import CompactTreeLearner, create_tree_learner
+from ..learner import TreeLearner
+from ..learner_compact import create_tree_learner
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction, create_objective
+from ..ops.histogram import read_codes
 from ..tree import Tree
 
 K_MODEL_VERSION = "v2"
+#: rows x trees from which ``predict_raw`` traverses on the device
+DEVICE_PREDICT_MIN_WORK = 200_000
 
 
 class ScoreUpdater:
@@ -78,6 +86,44 @@ class ScoreUpdater:
         return s.T if self.num_class > 1 else s[0]
 
 
+def rebind_tree_to_dataset(tree: Tree, data) -> None:
+    """Reconstruct the inner (bin-space) split fields of a deserialized
+    tree: ``split_feature_inner`` / ``threshold_in_bin`` are not part of the
+    model text format (`src/io/tree.cpp:207-240`); the reference rebuilds
+    them on load the same way (real feature index -> used-feature slot, real
+    threshold -> bin via the mapper's upper bounds)."""
+    if not getattr(tree, "needs_rebind", False):
+        return
+    from ..tree import _in_bitset
+
+    real2inner = {int(j): k for k, j in enumerate(data.used_feature_map)}
+    tree._cat_bitsets_inner = {}
+    for nd in range(tree.num_leaves - 1):
+        real = int(tree.split_feature[nd])
+        inner = real2inner.get(real)
+        if inner is None:
+            raise ValueError(
+                f"Model splits on feature {real} which is trivial/unused in "
+                "the training data; cannot continue training on this dataset")
+        tree.split_feature_inner[nd] = inner
+        if not (tree.decision_type[nd] & 1):  # numerical
+            tree.threshold_in_bin[nd] = data.bin_mappers[inner].value_to_bin(
+                float(tree.threshold[nd]))
+        else:
+            # categorical: rebuild the inner (bin-space) bitset from the
+            # stored category-value bitset via the mapper
+            cat_idx = int(tree.threshold[nd])
+            tree.threshold_in_bin[nd] = cat_idx
+            lo, hi = tree.cat_boundaries[cat_idx], \
+                tree.cat_boundaries[cat_idx + 1]
+            mapper = data.bin_mappers[inner]
+            bins = {mapper.categorical_2_bin[c]
+                    for c in mapper.categorical_2_bin
+                    if c >= 0 and _in_bitset(tree.cat_threshold, lo, hi, c)}
+            tree._cat_bitsets_inner[cat_idx] = bins
+    tree.needs_rebind = False
+
+
 def traverse_tree_binned(data: _ConstructedDataset, tree: Tree,
                          device: torch.device) -> torch.Tensor:
     """Inner-bin traversal (``NumericalDecisionInner``, `tree.h:233-249`) of
@@ -100,7 +146,7 @@ def traverse_tree_binned(data: _ConstructedDataset, tree: Tree,
     node = torch.zeros(n, dtype=torch.int64, device=device)
     for _ in range(int(tree.leaf_depth[:tree.num_leaves].max())):
         nd = torch.clamp(node, min=0)        # leaves are encoded negative
-        fv = bins[feat_d[nd], rows].to(torch.int64)
+        fv = read_codes(bins, (feat_d[nd], rows))
         m = mt[nd]
         is_missing = ((m == 1) & (fv == dbin[nd])) | \
                      ((m == 2) & (fv == nanbin[nd]))
@@ -129,7 +175,7 @@ class GBDT:
         self.label_idx = 0
         self.feature_names: List[str] = []
         self.feature_infos: List[str] = []
-        self.learner: Optional[CompactTreeLearner] = None
+        self.learner: Optional[TreeLearner] = None
         self.train_score: Optional[ScoreUpdater] = None
         self.valid_scores: List[ScoreUpdater] = []
         self.valid_names: List[str] = []
@@ -147,6 +193,9 @@ class GBDT:
         self.pandas_categorical = None
         self.eval_history: Dict[str, Dict[str, List[float]]] = {}
         self.host_syncs = 0     # blocking reads of scores by the loop
+        self._device_predictor = None    # (key, DevicePredictor) cache
+        self._pred_schema = None         # 1-tuple cache (loaded boosters)
+        self.device_predictions = 0      # predict_raw calls on the device
 
     # -- GBDT::Init (`gbdt.cpp:45-137`) -------------------------------------
 
@@ -349,7 +398,7 @@ class GBDT:
         self.host_syncs += 1
         return updater.np_score()
 
-    # -- prediction (host traversal) -----------------------------------------
+    # -- prediction ----------------------------------------------------------
 
     def _num_models_for(self, num_iteration: int) -> int:
         if num_iteration <= 0:
@@ -359,12 +408,57 @@ class GBDT:
 
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1
                     ) -> np.ndarray:
+        """The JAX package's rule (`gbdt.py:990-1030`): rows x trees >=
+        ``DEVICE_PREDICT_MIN_WORK`` or ``pred_early_stop`` traverse every
+        tree on the device in bin space (trained boosters bin against the
+        training mappers, text-loaded ones against a schema rebuilt from the
+        model text); smaller batches walk the host trees.  Trees pending a
+        rebind never take the device path."""
         X = np.ascontiguousarray(X, dtype=np.float64)
+        n = X.shape[0]
         k = self.num_tree_per_iteration
-        out = np.zeros((X.shape[0], k), dtype=np.float64)
-        for i in range(self._num_models_for(num_iteration)):
+        num_models = self._num_models_for(num_iteration)
+        cfg = self.cfg
+        big = num_models > 0 and (n * num_models >= DEVICE_PREDICT_MIN_WORK
+                                  or cfg.pred_early_stop)
+        pred_data = self.train_data
+        if pred_data is None and big:
+            pred_data = self._prediction_schema()
+        if pred_data is not None and big and not any(
+                getattr(t, "needs_rebind", False)
+                for t in self.models[:num_models]):
+            from ..predictor import DevicePredictor
+            key = (num_models, cfg.pred_early_stop, cfg.pred_early_stop_freq,
+                   cfg.pred_early_stop_margin)
+            if self._device_predictor is None \
+                    or self._device_predictor[0] != key:
+                self._device_predictor = (key, DevicePredictor(
+                    self, pred_data, num_iteration,
+                    pred_early_stop=cfg.pred_early_stop,
+                    pred_early_stop_freq=cfg.pred_early_stop_freq,
+                    pred_early_stop_margin=cfg.pred_early_stop_margin))
+            self.device_predictions += 1
+            return self._device_predictor[1].predict_raw(X)
+        out = np.zeros((n, k), dtype=np.float64)
+        for i in range(num_models):
             out[:, i % k] += self.models[i].predict(X)
         return out[:, 0] if k == 1 else out
+
+    def _prediction_schema(self):
+        """Synthetic bin schema for a dataset-less (text-loaded) booster,
+        built once and cached; None when reconstruction is not possible
+        (the host path then serves, with a warning)."""
+        if self._pred_schema is None:
+            from ..predictor import reconstruct_bin_schema
+            try:
+                self._pred_schema = (reconstruct_bin_schema(self),)
+            except Exception as e:  # unexpected model text shapes
+                import warnings
+                warnings.warn("could not reconstruct a device bin schema "
+                              f"from the model text ({e}); predictions use "
+                              "the host path")
+                self._pred_schema = (None,)
+        return self._pred_schema[0]
 
     def predict(self, X: np.ndarray, num_iteration: int = -1,
                 raw_score: bool = False, pred_leaf: bool = False

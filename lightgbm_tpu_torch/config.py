@@ -872,7 +872,6 @@ BREADTH = "objective, metric and feature breadth"
 VARIANTS = "boosting variants"
 PARALLEL = "multi-GPU and multi-host"
 SURFACE = "predict and the user surface"
-MASKED = "the masked learner"
 OBSERVE = "reliability and training observability"
 
 
@@ -889,9 +888,7 @@ def check_supported(cfg: Config) -> None:
             or cfg.num_hosts > 1 or cfg.elastic:
         raise not_ported(f"tree_learner={cfg.tree_learner} and multi-host "
                          f"training", PARALLEL)
-    if cfg.tpu_learner == "masked":
-        raise not_ported("tpu_learner=masked", MASKED)
-    if cfg.tpu_learner not in ("auto", "wave", "compact"):
+    if cfg.tpu_learner not in ("auto", "wave", "compact", "masked"):
         raise ValueError(f"tpu_learner must be one of auto, wave, compact, "
                          f"masked; got {cfg.tpu_learner!r}")
     if cfg.forcedsplits_filename:
@@ -904,8 +901,6 @@ def check_supported(cfg: Config) -> None:
         raise not_ported("categorical features", BREADTH)
     if cfg.two_round or cfg.data or cfg.valid or cfg.input_model:
         raise not_ported("text-file inputs", SURFACE)
-    if cfg.pred_early_stop:
-        raise not_ported("pred_early_stop", SURFACE)
     if cfg.telemetry or cfg.trace_out or cfg.profile_trace_dir \
             or cfg.telemetry_out or cfg.snapshot_freq > 0 or cfg.resume \
             or cfg.fault_spec:

@@ -8,7 +8,9 @@ binned matrix are bit-identical to the JAX package's.  The layout is kept:
     numpy array; features pad to ``FEATURE_TILE`` (8) so the packed-word
     histogram sees whole 4-feature words, rows pad to ``tpu_row_block``.
   * ``device_bins(device)`` uploads it once per ``torch.device`` as a uint8
-    tensor (the JAX package's HBM-resident ``device_bins()``).
+    tensor, uint16 past 256 bins (the JAX package's HBM-resident
+    ``device_bins()``).  The card has few kernels for uint16, so consumers
+    widen uint16 codes through ``ops/histogram.py:read_codes``.
 
 Text files, binary caches, streaming loads and pandas categoricals are not
 ported in this slice; they raise ``NotImplementedError``.

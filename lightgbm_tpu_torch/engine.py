@@ -120,7 +120,10 @@ class Booster:
 
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
                 pred_leaf: bool = False) -> np.ndarray:
-        """Host traversal of the trees (``Tree.predict``)."""
+        """Raw scores, probabilities or leaf indices.  Large batches (rows x
+        trees >= 200,000) and ``pred_early_stop`` traverse every tree on the
+        booster's device (``predictor.DevicePredictor``), smaller ones walk
+        the host trees, as ``GBDT.predict_raw`` routes."""
         if hasattr(data, "values") and not isinstance(data, np.ndarray):
             data = data.values
         data = np.asarray(data, dtype=np.float64)

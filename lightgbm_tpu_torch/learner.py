@@ -1,23 +1,44 @@
-"""Learner base: per-feature metadata, split candidates, host tree assembly.
+"""Learner base and the masked learner.
 
-Port of the parts of ``lightgbm_tpu/learner.py`` (``TPUTreeLearner``) that the
-compact learner stands on: feature metadata, ``_fix_histogram`` (`:237-253`),
-the numerical ``_feature_cands`` path, the per-split record layout
-(``REC_*``, ``NUM_REC_FIELDS = 17``, `:42-46`) and host assembly
-(``_split_host_tree`` / ``_assemble_vec``, `:626-778`).  The masked learner's
-own full-pass growth is not ported in this slice.
+Port of ``lightgbm_tpu/learner.py`` (``TPUTreeLearner``).  The base class
+``TreeLearner`` holds what every learner of the port stands on: feature
+metadata, ``_fix_histogram`` (`:237-253`), the numerical ``_feature_cands``
+path, the per-leaf candidate rows, the per-split record layout (``REC_*``,
+``NUM_REC_FIELDS = 17``, `:42-46`) and host assembly (``_split_host_tree`` /
+``_assemble_vec``, `:626-778`).
+
+``MaskedTreeLearner`` is ``TPUTreeLearner`` itself for serial numerical
+data: leaf-wise growth in which every split step reads every row.  Rows
+never move; a leaf id per row marks the partition, and the smaller child's
+histogram is one full pass over the unpacked bin codes with the weights of
+every other row masked to zero (``ops/histogram.py:build_histogram``, the
+hand-written ``hist_full`` kernel on the card), the sibling's by subtraction
+from the parent.  The factory sends it data past 256 bins (codes that do not
+pack four to a word) and ``tpu_learner=masked``.
+
+What changes in eager torch: the JAX package fuses the tree into one
+``lax.while_loop``, an XLA dispatch device; the port runs its unfused step
+loop (`learner.py:606-624`, ``fused=False``): exactly ``num_leaves - 1``
+no-op-able steps, every state update under ``torch.where(do, ...)``, with no
+host read between them.  The records, their exact counts and the leaf
+outputs are read once per tree.  The split search is the plain torch
+``ops/split.py:find_best_splits``, as the JAX masked learner's is plain XLA
+with no Pallas kernel.  Categorical splits, monotone constraints, forced
+splits, feature penalties and the GSPMD parallel modes are not ported.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .binning import MISSING_NONE
+from .binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
 from .config import BREADTH, Config, not_ported
 from .dataset import _ConstructedDataset
+from .ops.histogram import build_histogram, read_codes
 from .ops.split import find_best_splits, fix_histogram
 from .tree import K_DEFAULT_LEFT_MASK, Tree
 
@@ -27,6 +48,19 @@ REC_VALID, REC_LEAF, REC_FEATURE, REC_THRESHOLD, REC_DEFAULT_LEFT, REC_GAIN, \
     REC_INTERNAL_VALUE, REC_INTERNAL_CNT, REC_LEFT_SUM_H, REC_RIGHT_SUM_H, \
     REC_LEFT_SUM_G, REC_RIGHT_SUM_G, REC_IS_CAT = range(17)
 NUM_REC_FIELDS = 17
+
+# fused per-leaf state columns (acc dtype)
+LF_SUM_G, LF_SUM_H, LF_CNT, LF_OUT, LF_DEPTH, LF_MIN_C, LF_MAX_C = range(7)
+NUM_LF = 7
+# fused per-leaf best-candidate columns (acc dtype)
+CF_GAIN, CF_LSG, CF_LSH, CF_LCNT, CF_RSG, CF_RSH, CF_RCNT, CF_LOUT, \
+    CF_ROUT = range(9)
+NUM_CF = 9
+# int candidate columns; flags bit0 = default_left
+CI_FEAT, CI_THR, CI_FLAGS = range(3)
+NUM_CI = 3
+
+HistogramFn = Callable[..., torch.Tensor]
 
 
 class _FeatCand(NamedTuple):
@@ -67,6 +101,7 @@ class TreeLearner:
         self.num_features = data.num_used_features
         # float64 histograms and split accounting: the reference's gpu_use_dp
         self.hist_dp = bool(cfg.gpu_use_dp or cfg.tpu_double_precision)
+        self._acc = torch.float64 if self.hist_dp else torch.float32
         self._split_kwargs = dict(
             lambda_l1=float(cfg.lambda_l1), lambda_l2=float(cfg.lambda_l2),
             max_delta_step=float(cfg.max_delta_step),
@@ -90,6 +125,27 @@ class TreeLearner:
             hist, sum_g, sum_h, cnt, self.f_num_bin, self.f_missing,
             self.f_default_bin, feature_mask, **self._split_kwargs)
         return _FeatCand(*num)
+
+    def _pack_cands(self, c, depth_ok) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(K, F) per-feature candidates -> per-leaf best rows ((K, NUM_CF)
+        acc, (K, NUM_CI) int64); argmax over features, lowest index winning
+        ties (`serial_tree_learner.cpp:505-520`)."""
+        best_f = torch.argmax(c.gain, dim=-1)                     # (K,)
+
+        def pick(a):
+            return torch.gather(a, -1, best_f[:, None]).squeeze(-1)
+
+        gain = pick(c.gain)
+        if depth_ok is not True:
+            gain = torch.where(depth_ok, gain, float("-inf"))
+        cf = torch.stack([
+            gain.to(self._acc), pick(c.left_sum_g), pick(c.left_sum_h),
+            pick(c.left_cnt), pick(c.right_sum_g), pick(c.right_sum_h),
+            pick(c.right_cnt), pick(c.left_output), pick(c.right_output)],
+            dim=-1).to(self._acc)
+        ci = torch.stack([best_f, pick(c.threshold).to(torch.int64),
+                          pick(c.default_left).to(torch.int64)], dim=-1)
+        return cf, ci
 
     # -- host assembly -------------------------------------------------------
 
@@ -204,3 +260,187 @@ class TreeLearner:
             cd[i] = 1 + (cd[p] if p >= 0 else 0)
         tree.leaf_depth[:nv + 1] = np.asarray(cd, np.int64)[lp]
         return tree
+
+
+@dataclass
+class MaskedState:
+    """One tree's device state (the JAX ``TreeState`` for serial numerical
+    data); the tensors are updated in place, ``leaf_id`` is replaced."""
+    leaf_id: torch.Tensor     # (N,) int32 leaf of each row
+    hist_pool: torch.Tensor   # (L, F, B, 3) acc
+    leaf_f: torch.Tensor      # (L, NUM_LF) acc sums/cnt/output/depth
+    cand_f: torch.Tensor      # (L, NUM_CF) acc per-leaf best split floats
+    cand_i: torch.Tensor      # (L, NUM_CI) int64 feature/threshold/flags
+    num_leaves: torch.Tensor  # () int64
+    rec_f: torch.Tensor       # (L-1, NUM_REC_FIELDS) f32 per-split records
+    rec_i: torch.Tensor       # (L-1, 2) int64 exact bagged left/right counts
+    w: torch.Tensor           # (3, N) f32 (g*bag, h*bag, bag)
+    w_small: torch.Tensor     # (3, N) f32 the smaller child's weights
+    bag_b: torch.Tensor       # (N,) bool rows in the bag
+
+
+class MaskedTreeLearner(TreeLearner):
+    """Leaf-wise growth over every row, one full-pass histogram per split
+    (see the module docstring)."""
+
+    def __init__(self, cfg: Config, data: _ConstructedDataset,
+                 device: torch.device,
+                 histogram: Optional[HistogramFn] = None):
+        super().__init__(cfg, data, device)
+        # only the used features' code rows are read, not the padding rows
+        self.bins = data.device_bins(device)[:self.num_features]
+        #: ``histogram(bins, w, num_bins=, dp=)``; the dispatcher by default
+        #: (the kernel on the card); the chip check passes the plain version
+        self.histogram = histogram or build_histogram
+        self.host_syncs = 0          # blocking device->host reads so far
+        self.kernel_calls = {"hist_full": 0}
+        self._all_features = torch.ones(self.num_features, dtype=torch.bool,
+                                        device=device)
+
+    def _hist(self, w: torch.Tensor) -> torch.Tensor:
+        self.kernel_calls["hist_full"] += int(not self.hist_dp)
+        return self.histogram(self.bins, w, num_bins=self.num_bins_padded,
+                              dp=self.hist_dp)
+
+    def _cands(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok):
+        return self._pack_cands(
+            self._feature_cands(hist, sum_g, sum_h, cnt, feature_mask),
+            depth_ok)
+
+    def _init_root(self, grad, hess, bag, feature_mask) -> MaskedState:
+        n, L, acc, dev = self.bins.shape[1], self.num_leaves, self._acc, \
+            self.device
+        w = torch.stack([grad * bag, hess * bag, bag]).to(torch.float32)
+        root_hist = self._hist(w)
+        sum_g = (grad * bag).to(acc).sum()
+        sum_h = (hess * bag).to(acc).sum()
+        cnt = bag.to(acc).sum()
+        cf, ci = self._cands(root_hist[None], sum_g[None], sum_h[None],
+                             cnt[None], feature_mask, True)
+        st = MaskedState(
+            leaf_id=torch.zeros(n, dtype=torch.int32, device=dev),
+            hist_pool=torch.zeros((L,) + tuple(root_hist.shape), dtype=acc,
+                                  device=dev),
+            leaf_f=torch.zeros((L, NUM_LF), dtype=acc, device=dev),
+            cand_f=torch.zeros((L, NUM_CF), dtype=acc, device=dev),
+            cand_i=torch.zeros((L, NUM_CI), dtype=torch.int64, device=dev),
+            num_leaves=torch.ones((), dtype=torch.int64, device=dev),
+            rec_f=torch.zeros((L - 1, NUM_REC_FIELDS), dtype=torch.float32,
+                              device=dev),
+            rec_i=torch.zeros((L - 1, 2), dtype=torch.int64, device=dev),
+            w=w, w_small=torch.empty_like(w), bag_b=bag > 0.5)
+        st.hist_pool[0] = root_hist
+        st.leaf_f[0, :LF_OUT] = torch.stack([sum_g, sum_h, cnt])
+        st.cand_f[:, CF_GAIN] = float("-inf")
+        st.cand_f[0] = cf[0]
+        st.cand_i[0] = ci[0]
+        return st
+
+    def _split_step(self, st: MaskedState, feature_mask, step: int) -> None:
+        """One no-op-able split (`learner.py:373-510`): the best leaf splits
+        when its gain is positive (``do``), else nothing changes but record
+        ``step``, written invalid.  No value is read to the host: rows are
+        picked with ``index_select`` on device indices."""
+        best = torch.argmax(st.cand_f[:, CF_GAIN]).view(1)        # (1,)
+        cf = st.cand_f.index_select(0, best)[0]
+        ci = st.cand_i.index_select(0, best)[0]
+        lrow = st.leaf_f.index_select(0, best)[0]
+        do = cf[CF_GAIN] > 0.0
+        new = st.num_leaves.view(1)
+        pair = torch.cat([best, new])
+        best32 = best.to(torch.int32)
+
+        # ---- partition rows (`tree.h:233-249` NumericalDecisionInner) from
+        # the split feature's code row, widened before any compare
+        feat = ci[CI_FEAT:CI_FEAT + 1]
+        frow = read_codes(self.bins, feat)[0]                      # (N,)
+        mt = self.f_missing.index_select(0, feat)
+        is_missing = ((mt == MISSING_ZERO)
+                      & (frow == self.f_default_bin.index_select(0, feat))) \
+            | ((mt == MISSING_NAN)
+               & (frow == self.f_num_bin.index_select(0, feat) - 1))
+        go_left = torch.where(is_missing, ci[CI_FLAGS] != 0,
+                              frow <= ci[CI_THR])
+        at_leaf = st.leaf_id == best32
+        st.leaf_id = torch.where(do & at_leaf & ~go_left,
+                                 new.to(torch.int32), st.leaf_id)
+        # exact integer bagged counts (a float32 count channel loses
+        # integer exactness past 2^24 rows)
+        lc_bag = (at_leaf & go_left & st.bag_b).sum()
+        c_bag = (at_leaf & st.bag_b).sum()
+
+        # ---- smaller-child histogram over every row, the other rows'
+        # weights masked to zero, and sibling subtraction
+        # (`serial_tree_learner.cpp:371-385`)
+        left_smaller = cf[CF_LCNT] <= cf[CF_RCNT]
+        small = torch.where(left_smaller, best32, new.to(torch.int32))
+        m_small = (st.leaf_id == small) & at_leaf & do
+        torch.mul(st.w, m_small.to(torch.float32), out=st.w_small)
+        hist_small = self._hist(st.w_small)
+        parent = st.hist_pool.index_select(0, best)[0]
+        large = parent - hist_small
+        hist_left = torch.where(left_smaller, hist_small, large)
+        hist_right = torch.where(left_smaller, large, hist_small)
+        hists = torch.stack([hist_left, hist_right])
+        st.hist_pool.index_copy_(0, pair, torch.where(
+            do, hists, st.hist_pool.index_select(0, pair)))
+
+        # ---- leaf bookkeeping
+        child_depth = lrow[LF_DEPTH:LF_DEPTH + 1] + 1.0
+        rows = torch.stack([
+            torch.cat([cf[CF_LSG:CF_LCNT + 1], cf[CF_LOUT:CF_LOUT + 1],
+                       child_depth, lrow[LF_MIN_C:]]),
+            torch.cat([cf[CF_RSG:CF_RCNT + 1], cf[CF_ROUT:CF_ROUT + 1],
+                       child_depth, lrow[LF_MIN_C:]])])
+        st.leaf_f.index_copy_(0, pair, torch.where(
+            do, rows, st.leaf_f.index_select(0, pair)))
+
+        # ---- both children's best splits in one scan
+        md = int(self.cfg.max_depth)
+        depth_ok = True if md <= 0 else child_depth[0] < md
+        cf2, ci2 = self._cands(
+            hists, torch.stack([cf[CF_LSG], cf[CF_RSG]]),
+            torch.stack([cf[CF_LSH], cf[CF_RSH]]),
+            torch.stack([cf[CF_LCNT], cf[CF_RCNT]]), feature_mask, depth_ok)
+        st.cand_f.index_copy_(0, pair, torch.where(
+            do, cf2, st.cand_f.index_select(0, pair)))
+        st.cand_i.index_copy_(0, pair, torch.where(
+            do, ci2, st.cand_i.index_select(0, pair)))
+
+        # ---- record for host tree assembly (REC_VALID .. REC_RIGHT_SUM_G;
+        # REC_IS_CAT stays 0)
+        head = torch.cat([do.view(1).to(torch.int64), best, ci])
+        body = torch.stack([
+            cf[CF_GAIN], cf[CF_LOUT], cf[CF_ROUT], cf[CF_LCNT], cf[CF_RCNT],
+            lrow[LF_OUT], lrow[LF_CNT], cf[CF_LSH], cf[CF_RSH], cf[CF_LSG],
+            cf[CF_RSG]])
+        st.rec_f[step, :NUM_REC_FIELDS - 1] = torch.cat([
+            head.to(torch.float32), body.to(torch.float32)])
+        st.rec_i[step] = torch.stack([lc_bag, c_bag - lc_bag])
+        st.num_leaves += do.to(torch.int64)
+
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
+             feature_mask: Optional[torch.Tensor] = None):
+        """Grow one tree in exactly ``num_leaves - 1`` steps; returns
+        (records (L-1, 17) f32 numpy, exact bagged counts (L-1, 2) int64
+        numpy, leaf id per row (N,) int64 tensor, leaf outputs (L,) acc
+        tensor).  The records are the one host read of the tree."""
+        if feature_mask is None:
+            feature_mask = self._all_features
+        st = self._init_root(grad, hess, bag, feature_mask)
+        for step in range(self.num_leaves - 1):
+            self._split_step(st, feature_mask, step)
+        out = torch.cat([st.rec_f.to(torch.float64),
+                         st.rec_i.to(torch.float64)], dim=1).cpu().numpy()
+        self.host_syncs += 1
+        return (out[:, :NUM_REC_FIELDS].astype(np.float32),
+                out[:, NUM_REC_FIELDS:].astype(np.int64),
+                st.leaf_id.to(torch.int64), st.leaf_f[:, LF_OUT])
+
+    def train(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
+              feature_mask: Optional[torch.Tensor] = None):
+        """Build one tree; returns (host Tree with unit shrinkage, leaf id
+        per row, leaf outputs) — the last two on the device."""
+        rec_f, rec_i, leaf_id, leaf_out = self.grow(grad, hess, bag,
+                                                    feature_mask)
+        return self.assemble_host(rec_f, rec_i), leaf_id, leaf_out

@@ -86,13 +86,12 @@ import torch
 from .binning import MISSING_NAN, MISSING_ZERO
 from .config import Config
 from .dataset import _ConstructedDataset, _round_up, upload
-from .learner import (NUM_REC_FIELDS, REC_LEFT_OUT, REC_RIGHT_OUT,
-                      _FeatCand)
-from .learner_compact import (CF_GAIN, CF_LCNT, CF_LOUT, CF_LSG, CF_LSH,
-                              CF_RCNT, CF_ROUT, CF_RSG, CF_RSH, CI_FEAT,
-                              CI_FLAGS, CI_THR, LF_CNT, LF_DEPTH, LF_MAX_C,
-                              LF_MIN_C, LF_OUT, NUM_CF, NUM_CI, NUM_LF,
-                              CompactTreeLearner)
+from .learner import (CF_GAIN, CF_LCNT, CF_LOUT, CF_LSG, CF_LSH, CF_RCNT,
+                      CF_ROUT, CF_RSG, CF_RSH, CI_FEAT, CI_FLAGS, CI_THR,
+                      LF_CNT, LF_DEPTH, LF_MAX_C, LF_MIN_C, LF_OUT, NUM_CF,
+                      NUM_CI, NUM_LF, NUM_REC_FIELDS, REC_LEFT_OUT,
+                      REC_RIGHT_OUT, _FeatCand)
+from .learner_compact import CompactTreeLearner
 from .ops.fused_scan import fused_child_scans, fused_child_scans_plain
 from .ops.hist_multislot import (build_histogram_multislot,
                                  build_histogram_multislot_plain)

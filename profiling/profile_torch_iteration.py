@@ -1,13 +1,16 @@
 """Where one boosting iteration of the PyTorch port spends its time on the card.
 
-    python3 profiling/profile_torch_iteration.py [--learner wave|compact]
-        [--quant] [--open-levels N] [--rows 1000000] [--iters 1]
+    python3 profiling/profile_torch_iteration.py
+        [--learner wave|compact|masked] [--max-bin 255] [--quant]
+        [--open-levels N] [--rows 1000000] [--iters 1]
         [--out reports/profile_torch_iteration.json]
 
 Trains the bench workload (bench.py's Higgs-shaped data, 28 features, 255
-leaves, 255 bins, binary) with ``lightgbm_tpu_torch`` on ``cuda:0`` through
-the chosen learner (``wave``: the default ``tpu_learner=auto`` path;
-``compact``: the sequential learner; ``--quant`` sets
+leaves, 255 bins unless ``--max-bin`` says otherwise, binary) with
+``lightgbm_tpu_torch`` on ``cuda:0`` through the chosen learner (``wave``:
+the default ``tpu_learner=auto`` path; ``compact``: the sequential learner;
+``masked``: the masked learner, which ``auto`` picks past 256 bins, e.g.
+``--learner masked --max-bin 1023``; ``--quant`` sets
 ``tpu_quantized_grad=on`` and ``--open-levels N`` ``tpu_wave_open_levels=N``
 for the wave learner): two warm-up iterations, then
 ``--iters`` iterations under ``torch.profiler`` (CPU and CUDA activities).
@@ -38,13 +41,14 @@ import lightgbm_tpu_torch as lt  # noqa: E402
 PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
           "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1,
           "metric": "none"}
-LEARNERS = {"wave": "auto", "compact": "compact"}
+LEARNERS = {"wave": "auto", "compact": "compact", "masked": "masked"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--learner", choices=sorted(LEARNERS), default="wave")
     ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--max-bin", type=int, default=255)
     ap.add_argument("--iters", type=int, default=1)
     ap.add_argument("--quant", action="store_true",
                     help="tpu_quantized_grad=on")
@@ -61,6 +65,7 @@ def main() -> int:
              + 0.5 * rng.randn(args.rows))
     y = (logit > 0).astype(np.float64)
     params = dict(PARAMS, tpu_learner=LEARNERS[args.learner],
+                  max_bin=args.max_bin,
                   tpu_quantized_grad="on" if args.quant else "auto",
                   tpu_wave_open_levels=args.open_levels)
     bst = lt.Booster(params, lt.Dataset(X, label=y, params=params))
@@ -97,7 +102,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     out = {
         "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "learner": args.learner, "quant": args.quant,
+        "learner": args.learner, "max_bin": args.max_bin,
+        "quant": args.quant,
         "open_levels": args.open_levels,
         "learner_class": type(learner).__name__, "rows": args.rows,
         "iters": args.iters, "splits": splits, "wall_s": wall,
@@ -124,7 +130,8 @@ def main() -> int:
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps({k: out[k] for k in (
-        "nvidia_smi", "learner", "quant", "open_levels", "rows",
+        "nvidia_smi", "learner", "learner_class", "max_bin", "quant",
+        "open_levels", "rows",
         "s_per_iter", "device_busy_s",
         "device_idle_share", "cuda_events_per_iter", "cuda_events_per_split",
         "host_syncs_per_tree") + tuple(k for k in out if k.endswith(

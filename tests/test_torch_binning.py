@@ -10,6 +10,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
@@ -58,6 +59,7 @@ def _assert_same_data(cj, ct):
     {"max_bin": 31, "use_missing": False},
     {"max_bin": 63, "bin_construct_sample_cnt": 500, "data_random_seed": 3},
     {"max_bin": 63, "tpu_row_block": 512},
+    {"max_bin": 1023},                  # past 256 bins: uint16 codes
 ])
 def test_bins_bit_identical(params, seed=0):
     X, y = _matrix(seed)
@@ -66,6 +68,10 @@ def test_bins_bit_identical(params, seed=0):
                                      X[1500:]) for lib in (lj, lt))
     _assert_same_data(dj.constructed, dt.constructed)
     np.testing.assert_array_equal(vj.constructed.bins, vt.constructed.bins)
+    if params["max_bin"] > 255:
+        assert dt.constructed.max_num_bin > 256
+        assert dt.constructed.bins.dtype == np.uint16
+        assert dt.constructed.device_bins("cpu").dtype == torch.uint16
 
 
 def test_efb_bundles_bit_identical():

@@ -351,3 +351,126 @@ def test_fused_kernel_equals_plain_and_unfused_step(cuda_device, exact):
         a, r = getattr(got, fld), getattr(ref, fld)
         assert bool(((a == r) | (torch.isnan(a) & torch.isnan(r))).all()), fld
     assert torch.equal(pk, pr)
+
+
+def _full_inputs(dev, dtype, f, n, b, seed, dyadic=True, code_max=None):
+    """The first ``f`` of 2*f code rows (a view with the padded row stride,
+    as the masked learner passes them) and (3, n) weights."""
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, code_max or b, size=(2 * f, n)).astype(dtype)
+    bag = (rng.rand(n) < 0.8).astype(np.float32)
+    if dyadic:
+        g, h = rng.randint(-16, 17, n) / 16.0, rng.randint(0, 17, n) / 16.0
+    else:
+        g, h = rng.randn(n), rng.rand(n)
+    w = np.stack([g * bag, h * bag, bag]).astype(np.float32)
+    return torch.from_numpy(codes).to(dev)[:f], torch.from_numpy(w).to(dev)
+
+
+@pytest.mark.parametrize("dtype,f,n,b,code_max", [
+    (np.uint8, 3, 1000, 2, None), (np.uint8, 7, 5000, 255, 256),
+    (np.uint16, 28, 20_000, 1023, 1100), (np.uint16, 4, 9000, 2047, None),
+    (np.uint16, 2, 3000, 65_536, None)])      # the widest uint16 histogram
+def test_hist_full_bitwise_on_dyadic_inputs(cuda_device, dtype, f, n, b,
+                                            code_max):
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.histogram import build_histogram_onehot
+
+    bins, w = _full_inputs(cuda_device, dtype, f, n, b, n + b,
+                           code_max=code_max)
+    before = build_histogram_full.launches
+    k = build_histogram_full(bins, w, num_bins=b)
+    k2 = build_histogram_full(bins, w, num_bins=b)
+    assert build_histogram_full.launches == before + 2
+    assert k.shape == (f, b, 3)
+    assert torch.equal(k, build_histogram_onehot(bins, w, num_bins=b))
+    assert torch.equal(k, k2)
+
+
+def test_hist_full_random_float32_and_relaunch(cuda_device):
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.histogram import build_histogram_onehot
+
+    bins, w = _full_inputs(cuda_device, np.uint16, 28, 1 << 16, 1023, 3,
+                           dyadic=False)
+    k1 = build_histogram_full(bins, w, num_bins=1023)
+    k2 = build_histogram_full(bins, w, num_bins=1023)
+    p = build_histogram_onehot(bins, w, num_bins=1023)
+    mass = build_histogram_onehot(bins, w.abs(), num_bins=1023)
+    assert torch.equal(k1, k2)
+    assert bool(((k1 - p).abs() <= 1e-5 * p.abs() + 1e-5 * mass).all())
+
+
+def test_hist_full_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+
+    bins, w = _full_inputs(cuda_device, np.uint16, 4, 4096, 300, 5)
+    for bad_bins, bad_w, nb in (
+            (bins, w, 65_537),                    # past a uint16 code
+            (bins, w, 0),
+            (bins.to(torch.int32), w, 300),       # codes not uint8/uint16
+            (bins.view(torch.int16), w, 300),
+            (bins.t().contiguous().t(), w, 300),  # rows not contiguous
+            (bins, w.double(), 300),
+            (bins, w[:, :4000], 300),
+            (bins.cpu(), w, 300)):
+        with pytest.raises(ValueError):
+            build_histogram_full(bad_bins, bad_w, num_bins=nb)
+
+
+def test_masked_training_on_card_matches_cpu(cuda_device):
+    from lightgbm_tpu_torch.learner import MaskedTreeLearner
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+
+    rng = np.random.RandomState(1)
+    X = rng.randn(9000, 10)
+    X[rng.rand(9000) < 0.1, 3] = np.nan
+    y = (X[:, 0] + np.nan_to_num(X[:, 3]) + 0.5 * rng.randn(9000) > 0) \
+        .astype(float)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = {"objective": "binary", "num_leaves": 31, "max_bin": 511,
+             "verbosity": -1, "device_type": dev,
+             "metric": "auc,binary_logloss"}
+        ds = lt.Dataset(X[:8192], label=y[:8192], params=p)
+        dv = ds.create_valid(X[8192:], label=y[8192:])
+        ev = {}
+        before = build_histogram_full.launches
+        bst = lt.train(p, ds, 4, valid_sets=[dv], evals_result=ev,
+                       verbose_eval=False)
+        learner = bst.gbdt.learner
+        assert type(learner) is MaskedTreeLearner
+        assert learner.bins.dtype == torch.uint16
+        launched = build_histogram_full.launches - before
+        assert launched == (learner.kernel_calls["hist_full"]
+                            if dev == "cuda" else 0)
+        out[dev] = ev["valid_0"]
+    # float32 histograms summed in other orders on the card and the CPU
+    for m in ("auc", "binary_logloss"):
+        np.testing.assert_allclose(out["cuda"][m], out["cpu"][m], rtol=0,
+                                   atol=1e-4)
+
+
+def test_device_predictor_on_card_equals_host_trees(cuda_device):
+    from lightgbm_tpu_torch.predictor import DevicePredictor
+
+    rng = np.random.RandomState(2)
+    X = rng.randn(6000, 8)
+    X[::11, 2] = np.nan
+    X[rng.rand(6000) < 0.3, 4] = 0.0
+    y = (X[:, 0] + X[:, 1] * np.nan_to_num(X[:, 2]) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    bst = lt.train(p, lt.Dataset(X, label=y), 12, verbose_eval=False)
+    Xt = rng.randn(40_000, 8)
+    Xt[::7, 2] = np.nan
+    host = np.zeros(len(Xt))
+    for t in bst.gbdt.models:
+        host += t.predict(Xt)
+    dp = DevicePredictor(bst.gbdt, bst.gbdt.train_data)
+    assert dp.nodes.is_cuda
+    np.testing.assert_allclose(dp.predict_raw(Xt), host, rtol=0, atol=1e-9)
+    before = bst.gbdt.device_predictions
+    np.testing.assert_allclose(bst.predict(Xt, raw_score=True), host,
+                               rtol=0, atol=1e-9)     # 40,000 x 12 trees
+    assert bst.gbdt.device_predictions == before + 1

@@ -104,7 +104,7 @@ def test_device_rule_cpu_and_alias():
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
     {"snapshot_freq": 1},
     {"tree_learner": "data"},
-    {"tpu_learner": "masked"},
+    {"tpu_learner": "masked", "tree_learner": "voting"},
     {"forcedsplits_filename": "forced.json"},
     {"monotone_constraints": "1,0,0,0,0"},
     {"feature_contri": "0.5,1,1,1,1"},
