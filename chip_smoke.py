@@ -74,7 +74,9 @@ line and each raising (exit code 1) on any failure:
   wave_train the same with the default tpu_learner (auto -> the wave
              learner): launches per kernel equal to the calls the learner
              recorded, host syncs, waves and stall events per tree, held-out
-             AUC within 1e-4 of the compact phase's
+             AUC within 1e-4 of the compact phase's; the shape of every
+             hist_segments launch (K, sum and max of cnt, the host's row
+             bound) and split_scan launch (K), and their distribution
   quant_train the wave_train run with tpu_quantized_grad=on and
              tpu_wave_open_levels=5, the path of the multislot and fused
              kernels and of the histograms' quant modes: launches per kernel
@@ -96,7 +98,10 @@ line and each raising (exit code 1) on any failure:
   timing     each of the seven kernels', its plain version's and (where one
              PyTorch call computes the same function) the library call's
              times from CUDA events, L2 flushed before each launch, beside
-             the bound
+             the bound; each kernel alone (``kernel_ms``: its C entry point
+             called again on the buffers one wrapper call staged, no torch
+             work around it); hist_segments and split_scan also at the
+             median and largest launch shape wave_train recorded
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -110,6 +115,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -216,8 +222,9 @@ def phase_device(ctx) -> None:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": {k: v for k, v in native.BUILD_SECONDS.items()},
           "build_wall_s": time.perf_counter() - t0,
-          "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
-                        or "smem" in ln] for k, v in
+          "ptxas": {k: [ln.strip() for ln in v.splitlines()
+                        if "registers" in ln or "smem" in ln
+                        or "spill" in ln] for k, v in
                     native.PTXAS_REPORT.items()}})
 
 
@@ -319,7 +326,7 @@ def segments_inputs(seed: int, dyadic: bool):
         h = torch.from_numpy(rng.rand(N_FULL).astype(np.float32)).to(dev)
     w = torch.stack([g * bag, h * bag, bag]).contiguous()
     t = [torch.from_numpy(a).to(dev) for a in (lid, start, cnt, leaf)]
-    return words, w, t[0], t[1], t[2], t[3], int(cnt.max())
+    return words, w, t[0], t[1], t[2], t[3], int(cnt.sum())
 
 
 def phase_segments(ctx) -> None:
@@ -329,11 +336,11 @@ def phase_segments(ctx) -> None:
     out = {"phase": "segments", "Fw": FW, "N": N_FULL, "num_bins": NUM_BINS,
            "members": 64}
     for tag, dyadic in (("dyadic", True), ("random", False)):
-        words, w, lid, start, cnt, leaf, mx = segments_inputs(3, dyadic)
+        words, w, lid, start, cnt, leaf, bound = segments_inputs(3, dyadic)
         k = build_histogram_segments(words, w, lid, start, cnt, leaf,
-                                     num_bins=NUM_BINS, max_cnt=mx)
+                                     num_bins=NUM_BINS, rows_bound=bound)
         k2 = build_histogram_segments(words, w, lid, start, cnt, leaf,
-                                      num_bins=NUM_BINS, max_cnt=mx)
+                                      num_bins=NUM_BINS, rows_bound=bound)
         p = build_histogram_segments_plain(words, w, lid, start, cnt, leaf,
                                            num_bins=NUM_BINS)
         check(torch.equal(k, k2), f"segments {tag}: two launches differ")
@@ -357,7 +364,7 @@ def phase_segments(ctx) -> None:
                 .item()
             ctx["err_segments"] = err.max().item()
         out[tag] = {"max_abs_err": err.max().item(), "relaunch_bitwise": True,
-                    "max_member_rows": mx}
+                    "rows_bound": bound}
     torch.cuda.synchronize()
     emit(out)
 
@@ -1135,6 +1142,42 @@ def phase_train(ctx) -> None:
     emit(out)
 
 
+def _quantiles(xs) -> dict:
+    q = np.percentile(np.asarray(xs, dtype=np.float64), [0, 25, 50, 75, 100])
+    return dict(zip(("min", "p25", "median", "p75", "max"), q.tolist()))
+
+
+def launch_shapes(seg, scan) -> dict:
+    """The distribution of the main path's hist_segments launches (member
+    count K, sum and maximum of cnt, the row bound the wrapper was given)
+    and split_scan launches (leaf count K), and for each kernel its median
+    and largest launch (by rows for hist_segments, by K for split_scan)."""
+    sizes = [c.numel() for c, _ in seg]
+    flat = torch.cat([c.reshape(-1).to(torch.int64) for c, _ in seg]).cpu()
+    cnts = [c.tolist() for c in torch.split(flat, sizes)]
+    rows = [{"K": len(c), "sum_cnt": int(sum(c)), "max_cnt": int(max(c)),
+             "rows_bound": int(b), "cnt": c}
+            for c, (_, b) in zip(cnts, seg)]
+    by_rows = sorted(rows, key=lambda r: (r["sum_cnt"], r["K"]))
+    ks = sorted(scan)
+    return {
+        "hist_segments": {
+            "distribution": {
+                "launches": len(rows),
+                "K": _quantiles([r["K"] for r in rows]),
+                "sum_cnt": _quantiles([r["sum_cnt"] for r in rows]),
+                "max_cnt": _quantiles([r["max_cnt"] for r in rows]),
+                "launches_by_K": {str(k): n for k, n in sorted(
+                    Counter(r["K"] for r in rows).items())}},
+            "median": by_rows[len(by_rows) // 2], "largest": by_rows[-1]},
+        "split_scan": {
+            "distribution": {
+                "launches": len(ks), "K": _quantiles(ks),
+                "launches_by_K": {str(k): n for k, n in
+                                  sorted(Counter(ks).items())}},
+            "median": {"K": ks[len(ks) // 2]}, "largest": {"K": ks[-1]}}}
+
+
 def phase_wave_train(ctx) -> None:
     from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
     from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
@@ -1146,10 +1189,25 @@ def phase_wave_train(ctx) -> None:
                 "hist_segments": build_histogram_segments,
                 "partition": apply_partition,
                 "split_scan": find_best_splits_batched}
-    bst, learner, grads, out = _train_run(ctx, WAVE_PARAMS, "wave_train",
-                                          counters)
+    # each launch's shape, kept as the device tensors the learner passed
+    # and read after the run (no host read during it)
+    build_histogram_segments.shapes, find_best_splits_batched.shapes = [], []
+    try:
+        bst, learner, grads, out = _train_run(ctx, WAVE_PARAMS, "wave_train",
+                                              counters)
+        seg, scan = (build_histogram_segments.shapes,
+                     find_best_splits_batched.shapes)
+    finally:
+        build_histogram_segments.shapes = None
+        find_best_splits_batched.shapes = None
     check(type(learner) is WaveTreeLearner,
           "tpu_learner=auto did not select the wave learner")
+    check(len(seg) == out["kernel_launches"]["hist_segments"]
+          and len(scan) == out["kernel_launches"]["split_scan"],
+          "a launch shape was not recorded")
+    ctx["shapes_wave"] = launch_shapes(seg, scan)
+    out["shapes"] = {k: v["distribution"]
+                     for k, v in ctx["shapes_wave"].items()}
     calls = learner.kernel_calls
     check(out["kernel_launches"] == {n: calls[n] for n in counters},
           f"kernel launches {out['kernel_launches']} != the calls the "
@@ -1387,18 +1445,90 @@ def _bound(nbytes: float, flops: float) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def _time_segments(flush) -> dict:
+def staged(fn):
+    """The one launch ``fn`` makes, recorded and returned as a replay: the
+    C entry point called again on the same staged buffers, with none of
+    the wrapper's torch work around it."""
+    from lightgbm_tpu_torch import native
+
+    with native.staging() as rec:
+        fn()
+    check(len(rec) == 1, f"{len(rec)} launches staged, want 1")
+    return rec[0]
+
+
+def shape_segments_inputs(cnt, seed: int):
+    """Full-width words and random float32 weights, and K disjoint member
+    windows with the given counts laid out in order over N_FULL rows with
+    random gaps (every row of a window matches its member's leaf)."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(seed)
+    from lightgbm_tpu_torch.ops.hist_packed import pack_bin_words
+
+    codes = rng.randint(0, NUM_BINS, size=(4 * FW, N_FULL)).astype(np.uint8)
+    words = pack_bin_words(torch.from_numpy(codes).to(dev))
+    bag = (rng.rand(N_FULL) < 0.8).astype(np.float32)
+    w = np.stack([rng.randn(N_FULL) * bag, rng.rand(N_FULL) * bag, bag])
+    k = len(cnt)
+    gaps = rng.multinomial(N_FULL - int(sum(cnt)), [1.0 / (k + 1)] * (k + 1))
+    start = np.cumsum(gaps[:k]) + np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    lid = np.full(N_FULL, 9999, np.int32)
+    for m, (s0, c) in enumerate(zip(start, cnt)):
+        lid[s0:s0 + c] = 100 + m
+    t = [torch.from_numpy(np.asarray(a)).to(dev) for a in
+         (w.astype(np.float32), lid, start.astype(np.int64),
+          np.asarray(cnt, np.int64), 100 + np.arange(k))]
+    return words, t[0].contiguous(), t[1], t[2], t[3], t[4]
+
+
+def _segments_bytes(words, lid, start, cnt, leaf) -> tuple:
+    """(bytes, matching rows) the function needs: lid once for each row of
+    the union of the member ranges (frozen members share theirs), words and
+    weights once for each row that matches its member's leaf, the output
+    once."""
+    dev = words.device
+    edge = torch.zeros(words.shape[1] + 1, dtype=torch.int64, device=dev)
+    one = torch.ones_like(start, dtype=torch.int64)
+    edge.index_add_(0, start.long(), one)
+    edge.index_add_(0, (start + cnt).long(), -one)
+    union_rows = int((torch.cumsum(edge[:-1], 0) > 0).sum())
+    matching = sum(int((lid[s:s + c] == lf).sum()) for s, c, lf in
+                   zip(start.tolist(), cnt.tolist(), leaf.tolist()))
+    k = start.numel()
+    return (union_rows * 4 + matching * (FW * 4 + 3 * 4)
+            + k * 4 * FW * NUM_BINS * 3 * 4), matching, union_rows
+
+
+def _time_segments_call(flush, words, w, lid, start, cnt, leaf, bound,
+                        reps: int = 20) -> dict:
+    """The wrapper's and the kernel's own time at one launch shape."""
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+
+    call = (lambda: build_histogram_segments(
+        words, w, lid, start, cnt, leaf, num_bins=NUM_BINS,
+        rows_bound=bound))
+    ms = cuda_ms(call, reps, flush)
+    kernel_ms = cuda_ms(staged(call), reps, flush)
+    nbytes, matching, union_rows = _segments_bytes(words, lid, start, cnt,
+                                                   leaf)
+    return dict(ms=ms, kernel_ms=kernel_ms, members=start.numel(),
+                member_rows=int(cnt.sum()), max_cnt=int(cnt.max()),
+                union_rows=union_rows, matching_rows=matching,
+                rows_bound=bound,
+                **_bound(nbytes, matching * 4 * FW * 3))
+
+
+def _time_segments(flush, shapes=None) -> dict:
     from lightgbm_tpu_torch.ops.hist_packed import unpack_bin_words
     from lightgbm_tpu_torch.ops.hist_segments import (
-        build_histogram_segments, build_histogram_segments_plain)
+        build_histogram_segments_plain)
 
-    words, w, lid, start, cnt, leaf, mx = segments_inputs(7, False)
+    words, w, lid, start, cnt, leaf, bound = segments_inputs(7, False)
     dev = words.device
     reps = 20
-    ms = cuda_ms(lambda: build_histogram_segments(
-        words, w, lid, start, cnt, leaf, num_bins=NUM_BINS, max_cnt=mx),
-        reps, flush)
-    plain_ms = cuda_ms(lambda: build_histogram_segments_plain(
+    res = _time_segments_call(flush, words, w, lid, start, cnt, leaf,
+                              bound)
+    res["plain_ms"] = cuda_ms(lambda: build_histogram_segments_plain(
         words, w, lid, start, cnt, leaf, num_bins=NUM_BINS), 3, flush)
     # the library call: one index_add_ over the members' matching rows, with
     # the flat (member, feature, bin) indices formed beforehand
@@ -1417,24 +1547,18 @@ def _time_segments(flush) -> dict:
     src = w.index_select(1, rows).t().unsqueeze(0) \
         .expand(4 * FW, rows.numel(), 3).reshape(-1, 3).contiguous()
     k = start.numel()
-    lib_ms = cuda_ms(lambda: torch.zeros(
+    res["library_ms"] = cuda_ms(lambda: torch.zeros(
         k * 4 * FW * NUM_BINS, 3, device=dev).index_add_(0, flat, src),
         reps, flush)
-    # the bytes the function needs: lid once for each row of the union of
-    # the member ranges (frozen members share theirs), words and weights
-    # once for each row that matches its member's leaf, the output once
-    edge = torch.zeros(words.shape[1] + 1, dtype=torch.int64, device=dev)
-    one = torch.ones_like(start, dtype=torch.int64)
-    edge.index_add_(0, start.long(), one)
-    edge.index_add_(0, (start + cnt).long(), -one)
-    union_rows = int((torch.cumsum(edge[:-1], 0) > 0).sum())
-    matching = int(rows.numel())
-    nbytes = (union_rows * 4 + matching * (FW * 4 + 3 * 4)
-              + k * 4 * FW * NUM_BINS * 3 * 4)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, members=k,
-                member_rows=int(cnt.sum()), union_rows=union_rows,
-                matching_rows=matching,
-                **_bound(nbytes, matching * 4 * FW * 3))
+    # the main path's median and largest launch (wave_train's shapes)
+    if shapes:
+        res["shapes_wave_train"] = {}
+        for tag in ("median", "largest"):
+            rec = shapes[tag]
+            args = shape_segments_inputs(rec["cnt"], 11)
+            res["shapes_wave_train"][tag] = _time_segments_call(
+                flush, *args, rec["rows_bound"])
+    return res
 
 
 def _time_partition(flush) -> dict:
@@ -1444,8 +1568,9 @@ def _time_partition(flush) -> dict:
     bins, w, rid, lid, dest = partition_inputs(8)
     out = tuple(torch.empty_like(t) for t in (bins, w, rid, lid))
     reps = 20
-    ms = cuda_ms(lambda: apply_partition(bins, w, rid, lid, dest, out=out),
-                 reps, flush)
+    call = (lambda: apply_partition(bins, w, rid, lid, dest, out=out))
+    ms = cuda_ms(call, reps, flush)
+    kernel_ms = cuda_ms(staged(call), reps, flush)
     plain_ms = cuda_ms(lambda: apply_partition_plain(bins, w, rid, lid, dest,
                                                      out=out), reps, flush)
     # the library call: one index_copy_ of every lane stacked as int32 rows
@@ -1459,28 +1584,46 @@ def _time_partition(flush) -> dict:
                      flush)
     n = N_FULL
     nbytes = n * (FW + 3 + 2 + 1) * 4 * 2 + n * 4
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                **_bound(nbytes, 0))
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **_bound(nbytes, 0))
 
 
-def _time_scan(flush) -> dict:
+def _time_scan_call(flush, k: int, reps: int = 20) -> dict:
+    """The wrapper's and the kernel's own time at K leaves (F = 28,
+    B = 255, random float32 histograms)."""
     from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
-    from lightgbm_tpu_torch.ops.split import find_best_splits
 
     dev = torch.device("cuda", 0)
-    args = [t.to(dev) for t in scan_inputs(9, False)]
-    reps = 20
-    ms = cuda_ms(lambda: find_best_splits_batched(*args, **SCAN_KW), reps,
-                 flush)
-    plain_ms = cuda_ms(lambda: find_best_splits(
-        *args, **SCAN_KW), reps, flush)
-    cells = SCAN_K * FEATURES * NUM_BINS
-    nbytes = cells * 3 * 4 + SCAN_K * 8 * FEATURES * 4
+    args = [t.to(dev) for t in scan_inputs(9, False, k=k)]
+    call = lambda: find_best_splits_batched(*args, **SCAN_KW)  # noqa: E731
+    ms = cuda_ms(call, reps, flush)
+    kernel_ms = cuda_ms(staged(call), reps, flush)
+    cells = k * FEATURES * NUM_BINS
+    # read the cube and the leaf totals once, write the 11 (K, F) fields
+    # (ten of 4 bytes, default_left of 1)
+    nbytes = cells * 3 * 4 + k * 3 * 4 + k * FEATURES * (10 * 4 + 1)
     # per bin and direction: 3 cumulative adds, 3 subtractions, two leaf
     # outputs and two leaf gains (about 34 float operations)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                library="no single PyTorch call computes this function",
+    return dict(ms=ms, kernel_ms=kernel_ms, K=k, args=args,
                 **_bound(nbytes, cells * 2 * 40))
+
+
+def _time_scan(flush, shapes=None) -> dict:
+    from lightgbm_tpu_torch.ops.split import find_best_splits
+
+    res = _time_scan_call(flush, SCAN_K)
+    args = res.pop("args")
+    res["plain_ms"] = cuda_ms(lambda: find_best_splits(*args, **SCAN_KW),
+                              20, flush)
+    res.update(library_ms=None,
+               library="no single PyTorch call computes this function")
+    if shapes:
+        res["shapes_wave_train"] = {}
+        for tag in ("median", "largest"):
+            r = _time_scan_call(flush, shapes[tag]["K"])
+            r.pop("args")
+            res["shapes_wave_train"][tag] = r
+    return res
 
 
 def _time_multislot(flush) -> dict:
@@ -1492,8 +1635,10 @@ def _time_multislot(flush) -> dict:
     words, w, slot = multislot_inputs(43, "random", k)
     dev = words.device
     reps = 20
-    ms = cuda_ms(lambda: build_histogram_multislot(
-        words, w, slot, num_bins=NUM_BINS, n_slots=k), reps, flush)
+    call = (lambda: build_histogram_multislot(
+        words, w, slot, num_bins=NUM_BINS, n_slots=k))
+    ms = cuda_ms(call, reps, flush)
+    kernel_ms = cuda_ms(staged(call), reps, flush)
     plain_ms = cuda_ms(lambda: build_histogram_multislot_plain(
         words, w, slot, num_bins=NUM_BINS, n_slots=k), 3, flush)
     # the library call: one index_add_ over the rows in a slot, with the
@@ -1514,7 +1659,8 @@ def _time_multislot(flush) -> dict:
     matching = int(rows.numel())
     nbytes = (N_FULL * 4 + matching * (FW * 4 + 3 * 4)
               + k * 4 * FW * NUM_BINS * 3 * 4)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, slots=k,
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, slots=k,
                 matching_rows=matching,
                 **_bound(nbytes, matching * 4 * FW * 3))
 
@@ -1529,7 +1675,9 @@ def _time_fused(flush) -> dict:
     reps = 20
     # each launch rewrites the members' pool rows in place; the values
     # drift between launches, the work does not
-    ms = cuda_ms(lambda: fused_child_scans(*args, **kw), reps, flush)
+    call = (lambda: fused_child_scans(*args, **kw))
+    ms = cuda_ms(call, reps, flush)
+    kernel_ms = cuda_ms(staged(call), reps, flush)
     plain_ms = cuda_ms(lambda: fused_child_scans_plain(*args, **kw), reps,
                        flush)
     k, f, b = FUSED_K, FEATURES, NUM_BINS
@@ -1539,7 +1687,8 @@ def _time_fused(flush) -> dict:
     nbytes = 4 * cells * 3 * 4 + 2 * k * 5 * 4 + 2 * k * 8 * f * 4
     # per cell: 3 subtractions, 6 pairwise adds for the two fixes, then two
     # children's scans at the split scan's 2 x 40 operations per bin
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=None,
                 library="no single PyTorch call computes this function",
                 members=k, **_bound(nbytes, cells * (3 + 6 + 2 * 80)))
 
@@ -1553,8 +1702,9 @@ def _time_hist_full(flush) -> dict:
     bins, w = full_inputs(90, np.uint16, b, "random")
     dev = bins.device
     reps = 20
-    ms = cuda_ms(lambda: build_histogram_full(bins, w, num_bins=b), reps,
-                 flush)
+    call = (lambda: build_histogram_full(bins, w, num_bins=b))
+    ms = cuda_ms(call, reps, flush)
+    kernel_ms = cuda_ms(staged(call), reps, flush)
     plain_ms = cuda_ms(lambda: build_histogram_onehot(bins, w, num_bins=b),
                        3, flush)
     # the library call: one index_add_ on pre-flattened (feature, bin)
@@ -1576,7 +1726,8 @@ def _time_hist_full(flush) -> dict:
                                                  num_bins=NUM_BINS), reps,
                     flush)
     nbytes = f * n * 2 + 3 * n * 4 + f * b * 3 * 4
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, num_bins=b,
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, num_bins=b,
                 codes="uint16", ms_5pct_rows_weighted=ms_small,
                 ms_uint8_B255=ms_u8, bound_ms_uint8_B255=_bound(
                     f * n + 3 * n * 4 + f * NUM_BINS * 3 * 4,
@@ -1621,8 +1772,9 @@ def phase_timing(ctx) -> None:
         src = ww.t().unsqueeze(0).expand(4 * FW, s, 3).reshape(-1, 3) \
             .contiguous()
         reps = 20
-        ms = cuda_ms(lambda: build_histogram_packed(wv, ww, num_bins=NUM_BINS),
-                     reps, flush)
+        call = (lambda: build_histogram_packed(wv, ww, num_bins=NUM_BINS))
+        ms = cuda_ms(call, reps, flush)
+        kernel_ms = cuda_ms(staged(call), reps, flush)
         plain_ms = cuda_ms(lambda: build_histogram_packed_plain(
             wv, ww, num_bins=NUM_BINS), reps, flush)
         lib_ms = cuda_ms(lambda: torch.zeros(
@@ -1632,14 +1784,17 @@ def phase_timing(ctx) -> None:
         out_bytes = 4 * FW * NUM_BINS * 3 * 4
         bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
         ops_ms = 4 * FW * s * 3 / F32_FLOPS * 1e3   # one add per row, lane
-        rows[tag] = {"rows": s, "ms": ms, "plain_ms": plain_ms,
+        rows[tag] = {"rows": s, "ms": ms, "kernel_ms": kernel_ms,
+                     "plain_ms": plain_ms,
                      "library_ms": lib_ms, "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations", "bytes": in_bytes + out_bytes,
                      "achieved_GBps": (in_bytes + out_bytes) / ms / 1e6}
-    others = {"hist_segments": _time_segments(flush),
+    shapes = ctx.get("shapes_wave", {})
+    others = {"hist_segments": _time_segments(flush,
+                                              shapes.get("hist_segments")),
               "partition": _time_partition(flush),
-              "split_scan": _time_scan(flush),
+              "split_scan": _time_scan(flush, shapes.get("split_scan")),
               "hist_multislot": _time_multislot(flush),
               "fused_scan": _time_fused(flush),
               "hist_full": _time_hist_full(flush)}
@@ -1710,10 +1865,13 @@ def kernels_line(ctx) -> dict:
                     "quant_mode_launches_quant_train":
                         quant.get(name + "_quant"),
                     "max_abs_err": err[name], "ms": row["ms"],
+                    "kernel_ms": row["kernel_ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
                     "compare": compare[name]})
+        if "shapes_wave_train" in row:
+            out[-1]["shapes_wave_train"] = row["shapes_wave_train"]
     out[0]["launches_compact_train"] = ctx.get("launches_compact")
     return {"kernels": out}
 

@@ -389,9 +389,11 @@ class WaveTreeLearner(CompactTreeLearner):
                               frow <= row[P_THR]) & (mi < k)
         return mi, go_left, row
 
-    def _member_hists(self, st: WaveState, start, cnt, leaf, max_cnt: int):
+    def _member_hists(self, st: WaveState, start, cnt, leaf,
+                      rows_bound: int):
         """Histograms of K members' rows in one call (plain float64 in dp;
-        the count channel rescaled in quant mode)."""
+        the count channel rescaled in quant mode).  ``rows_bound`` bounds
+        ``sum(cnt)`` on the host; it sizes the kernel's grid."""
         if self.hist_dp:
             h = build_histogram_segments_plain(
                 st.bins_p, st.w_p, st.lid_p, start, cnt, leaf,
@@ -401,7 +403,7 @@ class WaveTreeLearner(CompactTreeLearner):
         self.kernel_calls["hist_segments_quant"] += int(self._quant)
         h = self.kernels.segments(st.bins_p, st.w_p, st.lid_p, start, cnt,
                                   leaf, num_bins=self._hist_nbins,
-                                  max_cnt=max_cnt, quant=self._quant)
+                                  rows_bound=rows_bound, quant=self._quant)
         return self._quant_count(h[:, :self._hist_cols])
 
     def _opening_hists(self, st: WaveState, sm_slot, k: int):
@@ -521,7 +523,7 @@ class WaveTreeLearner(CompactTreeLearner):
             sm_cnt = torch.where(srt, torch.where(left_small, lc_w,
                                                   cw - lc_w), cw)
             h_small = self._member_hists(st, sm_start, sm_cnt, sm_slot,
-                                         max(widths))
+                                         sum(widths))
         ph = st.hslot.index_select(0, wi)
         rh = 1 + ns + ar
 

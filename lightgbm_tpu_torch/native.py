@@ -6,7 +6,10 @@ loaded with ``ctypes``.  The hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source rebuilds and an unchanged
 one is reused.  Nothing is built when a module is imported: the first kernel
 launch builds its library, and ``build_all`` builds several in parallel (one
-``nvcc`` process per source).
+``nvcc`` process per source).  Every wrapper launches through ``launch``;
+inside ``staging()`` each launch is also kept as a ``Replay``, which calls
+the C entry point again on the same buffers with no torch work around it
+(``chip_smoke.py`` times a kernel alone that way).
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ import shutil
 import subprocess
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -39,6 +45,8 @@ BUILD_SECONDS: Dict[str, float] = {}
 #: nvcc's register / shared-memory report per library built in this process
 PTXAS_REPORT: Dict[str, str] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: the launches recorded inside ``staging()`` (None outside it)
+_STAGED: Optional[List["Replay"]] = None
 
 
 def find_nvcc() -> str:
@@ -117,3 +125,44 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+class Replay:
+    """One recorded launch: the C entry point and its raw arguments, with
+    the tensors they point into held alive.  Calling it launches the kernel
+    again on the same buffers (outputs are overwritten; a kernel that
+    updates a buffer in place updates it again) and counts nowhere."""
+
+    def __init__(self, what: str, fn, raw: tuple, tensors: tuple):
+        self.what, self.fn, self.raw, self._tensors = what, fn, raw, tensors
+
+    def __call__(self) -> None:
+        _check(self.what, self.fn(*self.raw))
+
+
+def _check(what: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def launch(what: str, fn, *args) -> None:
+    """Call the C entry point ``fn`` with ``args``, tensors passed as their
+    data pointers, and raise if it returns a CUDA error (a refused launch
+    never runs and no later synchronisation reports it)."""
+    raw = tuple(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args)
+    _check(what, fn(*raw))
+    if _STAGED is not None:
+        _STAGED.append(Replay(what, fn, raw, tuple(
+            a for a in args if isinstance(a, torch.Tensor))))
+
+
+@contextmanager
+def staging():
+    """Record every launch made inside the block; yields the list."""
+    global _STAGED
+    prev, _STAGED = _STAGED, []
+    try:
+        yield _STAGED
+    finally:
+        _STAGED = prev

@@ -150,16 +150,11 @@ def fused_child_scans(h_small: torch.Tensor, pool: torch.Tensor,
     out = torch.empty((2 * k, N_OUT, f), dtype=torch.float32, device=dev)
     p = 1 << (b - 1).bit_length()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().lgbt_fused_scan(
-        h_small.data_ptr(), pool.data_ptr(), ints[0].data_ptr(),
-        ints[1].data_ptr(), ints[2].data_ptr(), tot.data_ptr(),
-        ints[3].data_ptr(), ints[4].data_ptr(), ints[5].data_ptr(), k, f, b,
-        p, float(lambda_l1), float(lambda_l2), float(max_delta_step),
-        int(max_delta_step > 0.0), float(min_data_in_leaf),
-        float(min_sum_hessian_in_leaf), out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_scan kernel launch failed: CUDA error "
-                           f"{err}")
+    native.launch("fused_scan", _lib().lgbt_fused_scan, h_small, pool,
+                  *ints[:3], tot, *ints[3:], k, f, b, p, float(lambda_l1),
+                  float(lambda_l2), float(max_delta_step),
+                  int(max_delta_step > 0.0), float(min_data_in_leaf),
+                  float(min_sum_hessian_in_leaf), out, stream)
     fused_child_scans.launches += 1
     return candidates_from_planes(out, total_g, total_h, total_n,
                                   min_gain_shift, feature_mask)

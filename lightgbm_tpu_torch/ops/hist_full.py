@@ -98,12 +98,9 @@ def build_histogram_full(bins: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((f, num_bins, 3), dtype=torch.float32,
                       device=bins.device)
     stream = torch.cuda.current_stream(bins.device).cuda_stream
-    err = _lib().lgbt_hist_full(
-        bins.data_ptr(), bins.stride(0), bins.element_size(), w.data_ptr(),
-        w.stride(0), f, n, num_bins, tile, nchunks, chunk, partial.data_ptr(),
-        out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"hist_full kernel launch failed: CUDA error {err}")
+    native.launch("hist_full", _lib().lgbt_hist_full, bins, bins.stride(0),
+                  bins.element_size(), w, w.stride(0), f, n, num_bins, tile,
+                  nchunks, chunk, partial, out, stream)
     build_histogram_full.launches += 1
     return out
 

@@ -130,13 +130,9 @@ def build_histogram_multislot(words: torch.Tensor, w: torch.Tensor,
     out = torch.empty((n_slots, 4 * fw, num_bins, 3), dtype=torch.float32,
                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().lgbt_hist_multislot(
-        words.data_ptr(), w.data_ptr(), slot.data_ptr(), n, fw, n_slots,
-        num_bins, int(quant), nchunks, chunk, partial.data_ptr(),
-        out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"hist_multislot kernel launch failed: CUDA error "
-                           f"{err}")
+    native.launch("hist_multislot", _lib().lgbt_hist_multislot, words, w,
+                  slot, n, fw, n_slots, num_bins, int(quant), nchunks, chunk,
+                  partial, out, stream)
     build_histogram_multislot.launches += 1
     build_histogram_multislot.quant_launches += int(quant)
     return out

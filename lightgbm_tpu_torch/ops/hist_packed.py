@@ -144,13 +144,9 @@ def build_histogram_packed(words: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((4 * fw, num_bins, 3), dtype=torch.float32,
                       device=words.device)
     stream = torch.cuda.current_stream(words.device).cuda_stream
-    err = _lib().lgbt_hist_packed(
-        words.data_ptr(), words.stride(0), w.data_ptr(), w.stride(0), fw, s,
-        num_bins, int(quant), nchunks, chunk, partial.data_ptr(),
-        out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"hist_packed kernel launch failed: CUDA error "
-                           f"{err}")
+    native.launch("hist_packed", _lib().lgbt_hist_packed, words,
+                  words.stride(0), w, w.stride(0), fw, s, num_bins,
+                  int(quant), nchunks, chunk, partial, out, stream)
     build_histogram_packed.launches += 1
     build_histogram_packed.quant_launches += int(quant)
     return out

@@ -114,12 +114,8 @@ def apply_partition(bins: torch.Tensor, w: torch.Tensor, rid: torch.Tensor,
         raise ValueError(f"need 1 <= N < 2^31 and Fw >= 1, got N={n}, Fw={fw}")
     bo, wo, ro, lo = _outputs(bins, w, rid, lid, out)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().lgbt_partition(
-        bins.data_ptr(), fw, w.data_ptr(), rid.data_ptr(), lid.data_ptr(),
-        dest.data_ptr(), n, bo.data_ptr(), wo.data_ptr(), ro.data_ptr(),
-        lo.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"partition kernel launch failed: CUDA error {err}")
+    native.launch("partition", _lib().lgbt_partition, bins, fw, w, rid, lid,
+                  dest, n, bo, wo, ro, lo, stream)
     apply_partition.launches += 1
     return bo, wo, ro, lo
 

@@ -7,13 +7,16 @@ float32 histogram cube, as ``SplitCandidates`` with the post-shift gain and
 ``scan_pallas.py:236-248``).  The histograms arrive already unbundled and
 FixHistogram'd, as in the JAX package.
 
-On a CUDA tensor ``find_best_splits_batched`` launches the hand-written
-Hopper kernel ``csrc/split_scan.cu`` (design and bound in that file's
-header) and finishes with the same torch operations ``find_best_splits``
-ends with; on a CPU tensor it runs the plain version,
-``ops/split.py:find_best_splits`` with its batch axis and both
-missing-direction scans.  The kernel is float32 only: ``gpu_use_dp`` keeps
-the plain float64 path, as the JAX package gates its scan kernel off in dp.
+On a CUDA tensor ``find_best_splits_batched`` is one launch of the
+hand-written Hopper kernel ``csrc/split_scan.cu`` (design and bound in that
+file's header), which forms the leaf totals, scans, masks features and
+writes every ``SplitCandidates`` field itself, bitwise equal to the plain
+version on the CPU; no other device op runs.  On a CPU tensor it runs the
+plain version, ``ops/split.py:find_best_splits`` with its batch axis and
+both missing-direction scans.  The kernel is float32 only: ``gpu_use_dp``
+keeps the plain float64 path, as the JAX package gates its scan kernel off
+in dp.  ``leaf_totals`` and ``candidates_from_planes`` are the torch steps
+the fused child-scan kernel (``ops/fused_scan.py``) still wraps itself in.
 """
 
 from __future__ import annotations
@@ -26,8 +29,12 @@ from .. import native
 from .split import (K_EPSILON, K_MIN_SCORE, SplitCandidates,
                     find_best_splits, leaf_split_gain)
 
-#: output planes: raw gain, threshold, default_left, lg, lh(+eps), lc, lo, ro
+#: the fused child-scan kernel's output planes: raw gain, threshold,
+#: default_left, lg, lh(+eps), lc, lo, ro
 N_OUT = 8
+#: the split-scan kernel's float32 planes, in SplitCandidates order without
+#: default_left (its own bool tensor); plane 1 holds the int32 threshold
+N_PLANES = 10
 
 _LIB = None
 
@@ -37,11 +44,14 @@ def _lib():
     if _LIB is None:
         lib = native.load("split_scan")
         lib.lgbt_split_scan.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-            ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.lgbt_split_scan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -112,33 +122,45 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
     k, f, b, _ = hist.shape
     if not 1 <= b <= 256 or k < 1 or f < 1:
         raise ValueError(f"need K, F >= 1 and 1 <= B <= 256, got {k, f, b}")
+    # every conversion below is a no-op for the learner's tensors (float32
+    # sums, int32 metadata, a bool mask, a contiguous cube): the call is
+    # then one kernel launch and no other device op
     meta = [t.to(torch.int32).contiguous() for t in
             (num_bin, missing_type, default_bin)]
     if any(t.shape != (f,) or t.device != dev for t in meta):
         raise ValueError("feature metadata must be (F,) on the hist's device")
-    total_g, total_h, total_n, min_gain_shift = leaf_totals(
-        sum_gradients, sum_hessians, num_data, hist.dtype,
-        lambda_l1=lambda_l1, lambda_l2=lambda_l2,
-        max_delta_step=max_delta_step, min_gain_to_split=min_gain_to_split)
-    tot = torch.stack([total_g, total_h, total_n, min_gain_shift], 1) \
-        .contiguous()
-    if tot.shape != (k, 4) or tot.device != dev:
+    sums = [t.to(torch.float32) for t in (sum_gradients, sum_hessians,
+                                          num_data)]
+    if any(t.shape != (k,) or t.device != dev for t in sums):
         raise ValueError("leaf totals must be (K,) on the hist's device")
+    fm = feature_mask.to(torch.bool)
+    if fm.device != dev or fm.shape not in ((f,), (k, f)):
+        raise ValueError(f"feature_mask must be ({f},) or ({k}, {f}) on the "
+                         f"hist's device")
+    if fm.stride(-1) != 1:
+        fm = fm.contiguous()
     hist = hist.contiguous()
-    out = torch.empty((k, N_OUT, f), dtype=torch.float32, device=dev)
+    planes = torch.empty((N_PLANES, k, f), dtype=torch.float32, device=dev)
+    dleft = torch.empty((k, f), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().lgbt_split_scan(
-        hist.data_ptr(), tot.data_ptr(), meta[0].data_ptr(),
-        meta[1].data_ptr(), meta[2].data_ptr(), k, f, b, float(lambda_l1),
-        float(lambda_l2), float(max_delta_step), int(max_delta_step > 0.0),
-        float(min_data_in_leaf), float(min_sum_hessian_in_leaf),
-        out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"split_scan kernel launch failed: CUDA error "
-                           f"{err}")
+    native.launch("split_scan", _lib().lgbt_split_scan, hist, sums[0],
+                  sums[0].stride(0), sums[1], sums[1].stride(0), sums[2],
+                  sums[2].stride(0), *meta, fm,
+                  fm.stride(0) if fm.dim() == 2 else 0, k, f, b,
+                  float(lambda_l1), float(lambda_l2), float(max_delta_step),
+                  int(max_delta_step > 0.0), float(min_data_in_leaf),
+                  float(min_sum_hessian_in_leaf), float(min_gain_to_split),
+                  planes, dleft, stream)
     find_best_splits_batched.launches += 1
-    return candidates_from_planes(out, total_g, total_h, total_n,
-                                  min_gain_shift, feature_mask)
+    if find_best_splits_batched.shapes is not None:
+        find_best_splits_batched.shapes.append(k)
+    return SplitCandidates(
+        gain=planes[0], threshold=planes[1].view(torch.int32),
+        default_left=dleft, left_sum_g=planes[2], left_sum_h=planes[3],
+        left_cnt=planes[4], right_sum_g=planes[5], right_sum_h=planes[6],
+        right_cnt=planes[7], left_output=planes[8], right_output=planes[9])
 
 
 find_best_splits_batched.launches = 0
+#: a list to record each launch's leaf count K in, or None
+find_best_splits_batched.shapes = None

@@ -1,0 +1,148 @@
+"""Where the segment-histogram and split-scan kernels spend their time.
+
+    python3 profiling/profile_kernel_shapes.py [--out chiprun_out/shapes.json]
+
+Times each kernel alone (its C entry point called again on the buffers one
+wrapper call staged, ``native.staging()``; CUDA events, the L2 flushed
+before each launch, mean of 20) on ``cuda:0`` across shapes that separate
+its costs:
+
+  split_scan     K in (2, 8, 128) leaves x B in (16, 64, 255) bins at
+                 F = 28, random float32 histograms: the per-bin cost (the
+                 carries and the threshold evaluation) against the fixed one
+  hist_segments  the 64-member fixture of chip_smoke.py over 1,000,448
+                 rows at Fw = 8, and one member of 25,000 and of 500,000
+                 rows, each with random weights and with every weight zero
+                 (a zero row is read but never binned: loads, pipeline and
+                 flushes without the binning)
+
+Prints one JSON line per kernel and writes them all to ``--out`` with the
+card's name and power limit.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from lightgbm_tpu_torch import native  # noqa: E402
+from lightgbm_tpu_torch.ops.hist_packed import pack_bin_words  # noqa: E402
+from lightgbm_tpu_torch.ops.hist_segments import \
+    build_histogram_segments  # noqa: E402
+from lightgbm_tpu_torch.ops.scan import find_best_splits_batched  # noqa
+
+N, FW, BINS, F = 1_000_448, 8, 255, 28
+
+
+def kernel_ms(call, flush, reps: int = 20) -> float:
+    with native.staging() as rec:
+        call()
+    replay = rec[0]
+    replay()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.add_(1)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        replay()
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / reps
+
+
+def scan_case(dev, k: int, b: int, seed: int):
+    rng = np.random.RandomState(seed)
+    hist = rng.rand(k, F, b, 3).astype(np.float32)
+    hist[..., 0] -= 0.5
+    hist[..., 2] = np.floor(hist[..., 2] * 20)
+    sums = hist.sum(axis=(1, 2)) / F
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        hist, sums[:, 0], sums[:, 1], sums[:, 2],
+        np.full(F, b, np.int32), rng.randint(0, 3, F).astype(np.int32),
+        (rng.randint(0, 99, F) % b).astype(np.int32), np.ones(F, bool))]
+    return t
+
+
+def segments_case(dev, members, zero: bool, seed: int):
+    """Words over N rows and K disjoint members of the given sizes laid out
+    in order; random float32 weights or all zero."""
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, BINS, size=(4 * FW, N)).astype(np.uint8)
+    words = pack_bin_words(torch.from_numpy(codes).to(dev))
+    w = np.stack([rng.randn(N), rng.rand(N), np.ones(N)]).astype(np.float32)
+    if zero:
+        w[:] = 0.0
+    start = np.concatenate([[0], np.cumsum(members)[:-1]]) + 13
+    lid = np.full(N, 9999, np.int32)
+    for m, (s, c) in enumerate(zip(start, members)):
+        lid[s:s + c] = 100 + m
+    t = [torch.from_numpy(np.asarray(a)).to(dev) for a in (
+        lid, start.astype(np.int64), np.asarray(members, np.int64),
+        100 + np.arange(len(members)))]
+    return words, torch.from_numpy(w).to(dev), t
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="reports/profile_kernel_shapes.json")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    out = {"nvidia_smi": smi, "split_scan": [], "hist_segments": []}
+    kw = dict(lambda_l1=0.1, lambda_l2=0.5, min_data_in_leaf=3)
+    for k in (2, 8, 128):
+        for b in (16, 64, 255):
+            a = scan_case(dev, k, b, k * 1000 + b)
+            ms = kernel_ms(lambda: find_best_splits_batched(*a, **kw), flush)
+            out["split_scan"].append({"K": k, "B": b, "kernel_ms": ms})
+    # the wrapper's host bound: the old kernel took the largest member
+    # window, the redesigned one a bound on the sum of the counts
+    takes_rows = "rows_bound" in inspect.signature(
+        build_histogram_segments).parameters
+    rng = np.random.RandomState(3)
+    cuts = np.sort(rng.choice(np.arange(1, N - 100), 63, replace=False))
+    fixture = np.diff(np.concatenate([[0], cuts, [N - 100]])).tolist()
+    for name, members in (("fixture_64", fixture), ("one_25000", [25_000]),
+                          ("one_500000", [500_000])):
+        for zero in (False, True):
+            words, w, (lid, start, cnt, leaf) = segments_case(
+                dev, members, zero, len(members))
+            bound = ({"rows_bound": int(sum(members))} if takes_rows
+                     else {"max_cnt": int(max(members))})
+            ms = kernel_ms(lambda: build_histogram_segments(
+                words, w, lid, start, cnt, leaf, num_bins=BINS, **bound),
+                flush)
+            out["hist_segments"].append({"case": name, "members":
+                                         len(members), "rows": sum(members),
+                                         "zero_weights": zero,
+                                         "kernel_ms": ms})
+    for key in ("split_scan", "hist_segments"):
+        print(json.dumps({key: out[key]}))
+    print(smi)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(out, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -140,13 +140,139 @@ def test_segments_kernel_bitwise_on_dyadic_inputs(cuda_device):
     lid[:999] = 0
     lid[5001:] = 0
     k = build_histogram_segments(words, w, lid, start, cnt, leaf,
-                                 num_bins=63, max_cnt=3191)
+                                 num_bins=63, rows_bound=10_190)
     k2 = build_histogram_segments(words, w, lid, start, cnt, leaf,
-                                  num_bins=63, max_cnt=3191)
+                                  num_bins=63, rows_bound=10_190)
     p = build_histogram_segments_plain(words, w, lid, start, cnt, leaf,
                                        num_bins=63)
     assert k.shape == (4, 8, 63, 3)
     assert torch.equal(k, p) and torch.equal(k, k2)
+
+
+def _wave_members(dev, k, n, seed):
+    """K members over n rows as a wave lays them out: disjoint windows at
+    unaligned starts, one member of more than a hundred 128-row tiles, a
+    frozen pair sharing a span (K >= 4) and an empty member (K >= 3)."""
+    rng = np.random.RandomState(seed)
+    lid = np.full(n, 9999, np.int32)
+    cuts = np.sort(rng.choice(np.arange(1, n - 20_000), 2 * k, replace=False))
+    start, cnt = [int(cuts[0])], [20_000]     # the large member first
+    for i in range(1, k):
+        start.append(int(cuts[2 * i - 1]) + 20_000)
+        cnt.append(int(cuts[2 * i] - cuts[2 * i - 1]))
+    leaf = list(range(100, 100 + k))
+    for i in range(k):
+        lid[start[i]:start[i] + cnt[i]] = leaf[i]
+    if k >= 4:                                # members 2 and 3 share a span
+        start[3], cnt[3] = start[2], cnt[2]
+        s, c = start[2], cnt[2]
+        lid[s:s + c] = np.where(rng.rand(c) < 0.5, leaf[2], leaf[3])
+    if k >= 3:
+        cnt[-1] = 0
+    t = [torch.tensor(a, device=dev) for a in (start, cnt, leaf)]
+    return torch.from_numpy(lid).to(dev), t[0], t[1], t[2]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 64])
+def test_segments_kernel_bitwise_at_wave_shapes(cuda_device, k, quant):
+    """Dyadic (and quant-grid) weights sum exactly in any order: the kernel
+    equals the plain version bitwise whether a member's tiles sit in one
+    block (a loose bound, many blocks) or spread over several (grids from
+    small and large row bounds)."""
+    from lightgbm_tpu_torch.ops.hist_segments import (
+        build_histogram_segments, build_histogram_segments_plain)
+
+    n = 300_000
+    words, w = _inputs(cuda_device, 8, n, 255, k, dyadic=True)
+    if quant:
+        w = _quant_weights(cuda_device, n, k)
+    lid, start, cnt, leaf = _wave_members(cuda_device, k, n, k)
+    p = build_histogram_segments_plain(words, w, lid, start, cnt, leaf,
+                                       num_bins=255, quant=quant)
+    for bound in (1, int(cnt.sum()), 4 * n):
+        got = build_histogram_segments(words, w, lid, start, cnt, leaf,
+                                       num_bins=255, rows_bound=bound,
+                                       quant=quant)
+        assert got.shape == (k, 32, 255, 3)
+        assert torch.equal(got, p), bound
+
+
+def test_segments_kernel_relaunch_bitwise_on_random(cuda_device):
+    from lightgbm_tpu_torch.ops.hist_segments import (
+        build_histogram_segments, build_histogram_segments_plain)
+
+    n = 300_000
+    words, w = _inputs(cuda_device, 8, n, 255, 5, dyadic=False)
+    lid, start, cnt, leaf = _wave_members(cuda_device, 64, n, 6)
+    before = build_histogram_segments.launches
+    a = build_histogram_segments(words, w, lid, start, cnt, leaf,
+                                 num_bins=255, rows_bound=n)
+    b = build_histogram_segments(words, w, lid, start, cnt, leaf,
+                                 num_bins=255, rows_bound=n)
+    assert build_histogram_segments.launches == before + 2
+    assert torch.equal(a, b)
+    p = build_histogram_segments_plain(words, w, lid, start, cnt, leaf,
+                                       num_bins=255)
+    mass = build_histogram_segments_plain(words, w.abs(), lid, start, cnt,
+                                          leaf, num_bins=255)
+    assert bool(((a - p).abs() <= 1e-5 * p.abs() + 1e-5 * mass).all())
+
+
+def _device_ops(fn):
+    """The device operations (kernels, copies, fills) ``fn`` issues, from
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("k", [1, 2, 128])
+def test_scan_kernel_one_launch_bitwise_to_cpu(cuda_device, k):
+    """Random float32 histograms at the bench width and a (K, F) feature
+    mask: every SplitCandidates field bitwise equal to the plain version on
+    the CPU, and the call issues exactly one kernel and no other device
+    op."""
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+    from lightgbm_tpu_torch.ops.split import find_best_splits
+
+    rng = np.random.RandomState(40 + k)
+    f, b, rows = 28, 255, 4096
+    nb = rng.randint(2, b + 1, f).astype(np.int32)
+    codes = (rng.rand(k, f, rows) * nb[None, :, None]).astype(np.int64)
+    wts = np.stack([rng.randn(k, rows), rng.rand(k, rows),
+                    np.ones((k, rows))]).astype(np.float32)
+    flat = ((np.arange(k)[:, None, None] * f
+             + np.arange(f)[None, :, None]) * b + codes).reshape(-1)
+    hist = np.stack([np.bincount(flat, weights=np.broadcast_to(
+        wts[c][:, None, :], codes.shape).reshape(-1), minlength=k * f * b)
+        for c in range(3)], -1).reshape(k, f, b, 3).astype(np.float32)
+    sums = wts.astype(np.float64).sum(axis=2).astype(np.float32)
+    cpu = [torch.from_numpy(a) for a in (
+        hist, sums[0], sums[1], sums[2], nb,
+        rng.randint(0, 3, f).astype(np.int32),
+        (rng.randint(0, 99, f) % nb).astype(np.int32),
+        rng.rand(k, f) < 0.9)]
+    dev = [t.to(cuda_device) for t in cpu]
+    kw = dict(lambda_l1=0.1, lambda_l2=0.5, min_data_in_leaf=3,
+              min_gain_to_split=0.01)
+    before = find_best_splits_batched.launches
+    got = find_best_splits_batched(*dev, **kw)
+    assert find_best_splits_batched.launches == before + 1
+    ref = find_best_splits(*cpu, **kw)
+    for fld in got._fields:
+        a, r = getattr(got, fld).cpu(), getattr(ref, fld)
+        assert a.dtype == r.dtype and a.shape == r.shape, fld
+        assert bool(((a == r) | (torch.isnan(a) & torch.isnan(r))).all()), \
+            fld
+    assert bool(torch.isinf(got.gain[~dev[-1]]).all())
+    ops = _device_ops(lambda: find_best_splits_batched(*dev, **kw))
+    assert len(ops) == 1 and "split_scan" in ops[0], ops
 
 
 def test_partition_kernel_is_the_plain_permutation(cuda_device):
@@ -259,7 +385,7 @@ def test_quant_modes_of_packed_and_segments_bitwise(cuda_device):
     leaf = torch.tensor([0, 1], device=cuda_device)
     before = build_histogram_segments.quant_launches
     k = build_histogram_segments(words, w, lid, start, cnt, leaf,
-                                 num_bins=63, max_cnt=4192, quant=True)
+                                 num_bins=63, rows_bound=8092, quant=True)
     p = build_histogram_segments_plain(words, w, lid, start, cnt, leaf,
                                        num_bins=63, quant=True)
     assert torch.equal(k, p)

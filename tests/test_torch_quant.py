@@ -166,6 +166,6 @@ def test_segments_quant_mode_bitwise():
     s, c, leaf = (torch.tensor([m[i] for m in members]) for i in range(3))
     got = build_histogram_segments(
         tpack(torch.from_numpy(bins)), torch.from_numpy(w),
-        torch.from_numpy(lid), s, c, leaf, num_bins=B, max_cnt=int(c.max()),
-        quant=True).numpy()
+        torch.from_numpy(lid), s, c, leaf, num_bins=B,
+        rows_bound=int(c.sum()), quant=True).numpy()
     np.testing.assert_array_equal(got, want)

@@ -20,8 +20,8 @@ import torch
 from lightgbm_tpu.ops.hist_pallas import (build_histogram_segments as
                                           jax_segments, pack_bin_words)
 from lightgbm_tpu_torch.ops.hist_segments import (
-    build_histogram_segments, build_histogram_segments_plain,
-    segment_geometry)
+    TILE_ROWS, build_histogram_segments, build_histogram_segments_plain,
+    segment_grid, segment_tile_plan)
 
 N, F, B, RB = 4096, 8, 64, 512
 # (start, count, leaf): disjoint windows at unaligned starts, then two
@@ -74,7 +74,7 @@ def _port(bins, w, lid, fn=build_histogram_segments, **kw):
     s, c, leaf = (torch.tensor([m[i] for m in MEMBERS]) for i in range(3))
     return fn(pack(torch.from_numpy(bins)), torch.from_numpy(w),
               torch.from_numpy(lid), s, c, leaf, num_bins=B,
-              max_cnt=int(c.max()), **kw)
+              rows_bound=int(c.sum()), **kw)
 
 
 @pytest.mark.parametrize("dyadic", [True, False])
@@ -117,11 +117,95 @@ def test_dp_and_wrapper_route():
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("fw,k,mx", [(8, 1, 1_000_448), (8, 64, 15_000),
-                                     (8, 64, 300), (1, 3, 1), (30, 128,
-                                                               8192)])
-def test_segment_geometry_covers_every_row(fw, k, mx):
-    nchunks, chunk = segment_geometry(fw, k, mx)
-    assert chunk % 256 == 0 and chunk >= 256
-    assert nchunks * chunk >= mx > (nchunks - 1) * chunk
-    assert nchunks <= -(-528 // (fw * k))
+# (start, cnt) member windows for the tile plan: cnt = 0 members, one
+# member over many tiles, frozen pairs sharing a span, K = 1, a wave of
+# many small members
+PLAN_CASES = {
+    "zero_counts": ([0, 10, 500, 900], [0, 300, 0, 1000]),
+    "many_tiles": ([7], [1_000_448 - 7]),
+    "frozen_pairs": ([0, 5000, 5000, 9000, 9000], [4000, 2000, 2000, 129,
+                                                    129]),
+    "k1_small": ([12_345], [77]),
+    "wave_of_64": (list(range(0, 64 * 3000, 3000)),
+                   [(37 * m) % 2900 + 1 for m in range(64)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+@pytest.mark.parametrize("grid", [1, 7, 264])
+def test_tile_plan_covers_every_row_once(case, grid):
+    """Every row of every member lies in exactly one of the member's tiles,
+    each block takes consecutive tiles (at most q), and the partial slots
+    of different (block, member) pairs never collide."""
+    start, cnt = (torch.tensor(a) for a in PLAN_CASES[case])
+    plan = segment_tile_plan(start, cnt, grid)
+    q = plan["q"]
+    for m, (s, c) in enumerate(zip(start.tolist(), cnt.tolist())):
+        sel = plan["member"] == m
+        rows = torch.cat([torch.arange(r, r + n) for r, n in zip(
+            plan["row0"][sel].tolist(), plan["rows"][sel].tolist())]
+            + [torch.zeros(0, dtype=torch.int64)])
+        assert torch.equal(rows, torch.arange(s, s + c)), m
+        assert bool((plan["rows"][sel] > 0).all())
+        assert bool((plan["rows"][sel] <= TILE_ROWS).all())
+        blocks = plan["block"][sel].unique()
+        if c > 0:
+            assert bool(plan["direct"][sel].all()) == (blocks.numel() == 1)
+    blk = plan["block"]
+    assert bool((blk[1:] >= blk[:-1]).all()) and int(blk.max()) < grid
+    assert int(torch.bincount(blk).max()) <= q
+    seg = torch.stack([blk, plan["member"]], 1).unique(dim=0)
+    assert seg[:, 0].add(seg[:, 1]).unique().numel() == seg.shape[0]
+    assert int(plan["slot"].max()) < grid + start.numel()
+
+
+def _kernel_plan_in_torch(bins, w, lid, grid):
+    """The kernel's two passes on the tile plan, in float32 torch: each
+    block's tiles in order into its members' histograms, flushed to the
+    output or to the partial slot block + member, then each member's
+    partials summed in block order."""
+    from lightgbm_tpu_torch.ops.hist_packed import (
+        build_histogram_packed_plain, pack_bin_words as pack)
+
+    words = pack(torch.from_numpy(bins))
+    s, c, leaf = (torch.tensor([m[i] for m in MEMBERS]) for i in range(3))
+    plan = segment_tile_plan(s, c, grid)
+    k = len(MEMBERS)
+    out = torch.zeros((k, F, B, 3))
+    partial = {}
+    wt, lt = torch.from_numpy(w), torch.from_numpy(lid)
+    for t in range(plan["member"].numel()):
+        m, r0, n = (int(plan[x][t]) for x in ("member", "row0", "rows"))
+        sl = slice(r0, r0 + n)
+        h = build_histogram_packed_plain(
+            words[:, sl], wt[:, sl] * (lt[sl] == int(leaf[m])), num_bins=B)
+        if bool(plan["direct"][t]):
+            out[m] += h
+        else:
+            key = int(plan["slot"][t])
+            partial[key] = partial.get(key, 0) + h
+    for m in range(k):
+        sel = plan["member"] == m
+        if sel.any() and not bool(plan["direct"][sel][0]):
+            acc = torch.zeros((F, B, 3))
+            for b in plan["block"][sel].unique().tolist():
+                acc = acc + partial[b + m]
+            out[m] = acc
+    return out
+
+
+@pytest.mark.parametrize("grid", [1, 3, 40])
+def test_kernel_plan_equals_plain_on_dyadic_inputs(grid):
+    """On dyadic weights every order sums exactly: the plan's tiles,
+    partial slots and block-order reduction give the plain histograms."""
+    bins, w, lid = _inputs(True, seed=17)
+    want = _port(bins, w, lid, fn=build_histogram_segments_plain)
+    assert torch.equal(_kernel_plan_in_torch(bins, w, lid, grid), want)
+
+
+def test_segment_grid_is_sized_by_rows():
+    assert segment_grid(1, 132) == 1
+    assert segment_grid(256 * 10, 132) == 10
+    assert segment_grid(256 * 10 + 1, 132) == 11
+    assert segment_grid(1_000_448, 132) == 264
+    assert segment_grid(0, 132) == 1
