@@ -70,7 +70,8 @@ line and each raising (exit code 1) on any failure:
              (1 + splits), device residency, training logloss falling every
              iteration, held-out AUC, seconds per iteration, host syncs per
              tree, peak device memory, Booster.predict agreeing with the
-             device-side held-out scores
+             device-side held-out scores; the window of every hist_packed
+             launch and their distribution
   wave_train the same with the default tpu_learner (auto -> the wave
              learner): launches per kernel equal to the calls the learner
              recorded, host syncs, waves and stall events per tree, held-out
@@ -87,7 +88,10 @@ line and each raising (exit code 1) on any failure:
              learner, uint16 codes): hist_full launches equal to the calls the
              learner recorded (num_leaves per tree), host syncs per tree <= 2,
              training logloss falling, held-out AUC, Booster.predict through
-             the DevicePredictor agreeing with the device-side held-out scores
+             the DevicePredictor agreeing with the device-side held-out
+             scores; every hist_full launch's weighted rows (rows with a
+             weight not zero, a device count read after the run) and their
+             distribution
   predict    DevicePredictor on the card for the wave_train model on the
              held-out rows: against the host trees within 1e-9; with
              pred_early_stop the same frozen rows and scores within 1e-9 as
@@ -101,7 +105,14 @@ line and each raising (exit code 1) on any failure:
              the bound; each kernel alone (``kernel_ms``: its C entry point
              called again on the buffers one wrapper call staged, no torch
              work around it); hist_segments and split_scan also at the
-             median and largest launch shape wave_train recorded
+             median and largest launch shape wave_train recorded; hist_full
+             also with every weight zero, 5% of the rows weighted and the
+             weighted share of masked_train's median and largest launch (a
+             seeded random mask), each with its bound (the weight rows, the
+             code sectors that hold a weighted row, the output) beside the
+             all-rows bound; hist_packed at the full window and 65,536 rows
+             with random and with zero weights, and at train's median and
+             largest window
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -116,6 +127,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -959,6 +971,7 @@ def _dataset_masked(ctx):
         dv.construct()
         ctx["ds_masked"], ctx["dv_masked"] = ds, dv
         ctx["bin_s_masked"] = time.perf_counter() - t0
+        ctx.setdefault("Xv", X[ROWS:])  # held-out rows, when run alone
     return ctx["ds_masked"], ctx["dv_masked"]
 
 
@@ -1121,12 +1134,58 @@ def _train_run(ctx, params, tag, counters, data=None):
         "device": str(learner.device)}
 
 
+@contextmanager
+def recording(module, name: str, record):
+    """Replace ``module.name``, the histogram function a learner takes when
+    it is built, by one that hands every call's arguments to ``record``
+    (while the block runs) and then calls the original.  The launch counts
+    stay on the original wrapper."""
+    orig = getattr(module, name)
+    live = [True]
+
+    def hook(*args, **kw):
+        if live[0]:
+            record(*args, **kw)
+        return orig(*args, **kw)
+
+    setattr(module, name, hook)
+    try:
+        yield
+    finally:
+        live[0] = False
+        setattr(module, name, orig)
+
+
+def size_shapes(sizes, key: str, extra=None) -> dict:
+    """The distribution of one number per launch (``key``: the weighted
+    rows of a hist_full launch, the window of a hist_packed launch), and the
+    median and largest launch."""
+    order = sorted(range(len(sizes)), key=lambda i: sizes[i])
+    pick = {"median": order[len(order) // 2], "largest": order[-1]}
+    return {"distribution": {"launches": len(sizes),
+                             key: _quantiles(sizes),
+                             "launches_by_" + key: dict(Counter(
+                                 str(v) for v in sorted(sizes)
+                             ).most_common(8))},
+            **{tag: dict({key: sizes[i]}, **(extra(i) if extra else {}))
+               for tag, i in pick.items()}}
+
+
 def phase_train(ctx) -> None:
+    import lightgbm_tpu_torch.learner_compact as lc
     from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
     from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
 
-    bst, learner, grads, out = _train_run(
-        ctx, TRAIN_PARAMS, "train", {"hist_packed": build_histogram_packed})
+    # every hist_packed launch's window length (a host number: no device
+    # work is added to the run)
+    windows = []
+    with recording(lc, "build_histogram_packed",
+                   lambda words, w, **kw: windows.append(
+                       int(words.shape[1]))):
+        bst, learner, grads, out = _train_run(
+            ctx, TRAIN_PARAMS, "train",
+            {"hist_packed": build_histogram_packed})
+    windows = windows[:out["kernel_launches"]["hist_packed"]]
     check(type(learner) is CompactTreeLearner, "compact was not selected")
     launches = out["kernel_launches"]["hist_packed"]
     want = sum(1 + t.num_leaves - 1 for t in bst.gbdt.models)
@@ -1136,6 +1195,9 @@ def phase_train(ctx) -> None:
                             learner._all_features)
     check(st.w_p.is_cuda and st.hist_pool.is_cuda and st.bins_p.is_cuda,
           "weights or histogram pool are not on the card")
+    check(len(windows) == launches, "a hist_packed window was not recorded")
+    ctx["shapes_train"] = size_shapes(windows, "rows")
+    out["shapes"] = {"hist_packed": ctx["shapes_train"]}
     ctx["launches_compact"] = launches
     ctx["auc_compact"] = out["heldout_auc"]
     out["launches_expected"] = want
@@ -1312,13 +1374,30 @@ def phase_quant_train(ctx) -> None:
     emit(out)
 
 
+def weighted_rows(w: torch.Tensor) -> torch.Tensor:
+    """Rows with any of their three weights not zero (NaN counts), as a
+    device scalar."""
+    return torch.count_nonzero(w.ne(0).any(dim=0))
+
+
 def phase_masked_train(ctx) -> None:
+    import lightgbm_tpu_torch.learner as lm
     from lightgbm_tpu_torch.learner import MaskedTreeLearner
     from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
 
     counters = {"hist_full": build_histogram_full}
-    bst, learner, _, out = _train_run(ctx, MASKED_PARAMS, "masked_train",
-                                      counters, data=_dataset_masked(ctx))
+    data = _dataset_masked(ctx)
+    # every hist_full launch's weighted rows, kept as device scalars and
+    # read after the run (a few device ops per launch, no host read)
+    active = []
+    with recording(lm, "build_histogram",
+                   lambda bins, w, dp=False, **kw: dp or active.append(
+                       weighted_rows(w))):
+        bst, learner, _, out = _train_run(ctx, MASKED_PARAMS,
+                                          "masked_train", counters,
+                                          data=data)
+    active = torch.stack(
+        active[:out["kernel_launches"]["hist_full"]]).cpu().tolist()
     check(type(learner) is MaskedTreeLearner,
           f"max_bin={MASKED_BINS} did not route to the masked learner")
     check(learner.bins.dtype == torch.uint16,
@@ -1330,6 +1409,12 @@ def phase_masked_train(ctx) -> None:
           f"calls {calls} != trees x num_leaves {want}")
     check(out["host_syncs_per_tree"] <= 2,
           f"{out['host_syncs_per_tree']} host syncs per tree")
+    check(len(active) == calls, "a hist_full launch was not recorded")
+    n = int(learner.bins.shape[1])
+    ctx["shapes_masked_train"] = size_shapes(
+        active, "weighted_rows",
+        lambda i: {"rows": n, "share": active[i] / n})
+    out["shapes"] = {"hist_full": ctx["shapes_masked_train"]}
     out["launches_expected"] = want
     out["num_bins"] = int(bst.gbdt.train_data.max_num_bin)
     out["bin_s"] = ctx["bin_s_masked"]
@@ -1693,8 +1778,45 @@ def _time_fused(flush) -> dict:
                 members=k, **_bound(nbytes, cells * (3 + 6 + 2 * 80)))
 
 
-def _time_hist_full(flush) -> dict:
+def _full_bound(bins: torch.Tensor, w: torch.Tensor, num_bins: int) -> dict:
+    """hist_full's bound at these inputs: the three weight rows, the 32-byte
+    code sectors that hold a weighted row (in every feature's row) and the
+    output; with every row's codes read, the all-rows bound beside it."""
+    f, n = bins.shape
+    act = w.ne(0).any(dim=0)
+    per = 32 // bins.element_size()               # rows per code sector
+    pad = torch.zeros((-n) % per, dtype=torch.bool, device=act.device)
+    sectors = int(torch.cat([act, pad]).view(-1, per).any(dim=1).sum())
+    rows = int(act.sum())
+    out_bytes = f * num_bins * 3 * 4
+    res = _bound(3 * n * 4 + sectors * 32 * f + out_bytes, rows * f * 3)
+    res.update(weighted_rows=rows, weighted_share=rows / n,
+               code_sectors=sectors,
+               bound_ms_all_rows=_bound(
+                   f * n * bins.element_size() + 3 * n * 4 + out_bytes,
+                   n * f * 3)["bound_ms"])
+    return res
+
+
+def _time_full_call(flush, bins, w, num_bins: int, reps: int = 20) -> dict:
+    """hist_full through the wrapper and alone at one input, with its
+    bounds."""
     from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+
+    call = (lambda: build_histogram_full(bins, w, num_bins=num_bins))
+    return dict(ms=cuda_ms(call, reps, flush),
+                kernel_ms=cuda_ms(staged(call), reps, flush),
+                **_full_bound(bins, w, num_bins))
+
+
+def share_mask(n: int, rows: int, seed: int, dev) -> torch.Tensor:
+    """A float32 0/1 mask with exactly ``rows`` ones at random rows."""
+    keep = np.zeros(n, np.float32)
+    keep[np.random.RandomState(seed).permutation(n)[:rows]] = 1.0
+    return torch.from_numpy(keep).to(dev)
+
+
+def _time_hist_full(flush, shapes=None) -> dict:
     from lightgbm_tpu_torch.ops.histogram import (build_histogram_onehot,
                                                   read_codes)
 
@@ -1702,50 +1824,66 @@ def _time_hist_full(flush) -> dict:
     bins, w = full_inputs(90, np.uint16, b, "random")
     dev = bins.device
     reps = 20
-    call = (lambda: build_histogram_full(bins, w, num_bins=b))
-    ms = cuda_ms(call, reps, flush)
-    kernel_ms = cuda_ms(staged(call), reps, flush)
-    plain_ms = cuda_ms(lambda: build_histogram_onehot(bins, w, num_bins=b),
-                       3, flush)
+    res = _time_full_call(flush, bins, w, b)
+    res["plain_ms"] = cuda_ms(lambda: build_histogram_onehot(
+        bins, w, num_bins=b), 3, flush)
     # the library call: one index_add_ on pre-flattened (feature, bin)
     # indices, as for hist_packed
     flat = (read_codes(bins) + torch.arange(f, device=dev)[:, None] * b) \
         .reshape(-1)
     src = w.t().unsqueeze(0).expand(f, n, 3).reshape(-1, 3).contiguous()
-    lib_ms = cuda_ms(lambda: torch.zeros(f * b, 3, device=dev).index_add_(
-        0, flat, src), reps, flush)
-    # the masked learner's usual call: only the smaller child's rows (here
-    # 5%) carry weights, the others are zero and skipped
-    w_small = w * torch.from_numpy(
-        (np.random.RandomState(91).rand(n) < 0.05).astype(np.float32)).to(dev)
-    ms_small = cuda_ms(lambda: build_histogram_full(bins, w_small,
-                                                    num_bins=b), reps, flush)
+    res["library_ms"] = cuda_ms(lambda: torch.zeros(
+        f * b, 3, device=dev).index_add_(0, flat, src), reps, flush)
+    res.update(num_bins=b, codes="uint16")
+    # the masked learner's calls: only the smaller child's rows carry
+    # weights, the others are zero and skipped; 5% of the rows, no row, and
+    # the weighted share of masked_train's median and largest launch, each
+    # a random mask over weights that are all non-zero
+    wall = w.clone()
+    wall[2] = 1.0
+    wall[:2] = torch.where(wall[:2] == 0, torch.ones_like(wall[:2]),
+                           wall[:2])
+    res["rows_5pct_weighted"] = _time_full_call(
+        flush, bins, wall * share_mask(n, n // 20, 91, dev), b)
+    res["ms_5pct_rows_weighted"] = res["rows_5pct_weighted"]["ms"]
+    res["zero_weights"] = _time_full_call(flush, bins, torch.zeros_like(w),
+                                          b)
+    if shapes:
+        res["shapes_masked_train"] = {}
+        for tag in ("median", "largest"):
+            rows = int(round(shapes[tag]["share"] * n))
+            res["shapes_masked_train"][tag] = dict(
+                _time_full_call(flush, bins,
+                                wall * share_mask(n, rows, 93, dev), b),
+                recorded=shapes[tag])
     # uint8 codes at 255 bins
     bins8, w8 = full_inputs(92, np.uint8, NUM_BINS, "random")
-    ms_u8 = cuda_ms(lambda: build_histogram_full(bins8, w8,
-                                                 num_bins=NUM_BINS), reps,
-                    flush)
-    nbytes = f * n * 2 + 3 * n * 4 + f * b * 3 * 4
-    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, num_bins=b,
-                codes="uint16", ms_5pct_rows_weighted=ms_small,
-                ms_uint8_B255=ms_u8, bound_ms_uint8_B255=_bound(
-                    f * n + 3 * n * 4 + f * NUM_BINS * 3 * 4,
-                    f * n * 3)["bound_ms"],
-                **_bound(nbytes, f * n * 3))
+    r8 = _time_full_call(flush, bins8, w8, NUM_BINS)
+    res.update(ms_uint8_B255=r8["ms"], kernel_ms_uint8_B255=r8["kernel_ms"],
+               bound_ms_uint8_B255=r8["bound_ms"])
+    return res
 
 
-def phase_timing(ctx) -> None:
+def _time_packed_call(flush, words, w, reps: int = 20) -> dict:
+    """hist_packed through the wrapper and alone at one window, with its
+    bound (every word and weight read once, the output written once)."""
+    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
+
+    s = words.shape[1]
+    call = (lambda: build_histogram_packed(words, w, num_bins=NUM_BINS))
+    ms = cuda_ms(call, reps, flush)
+    nbytes = FW * s * 4 + 3 * s * 4 + 4 * FW * NUM_BINS * 3 * 4
+    return dict(rows=s, ms=ms, kernel_ms=cuda_ms(staged(call), reps, flush),
+                achieved_GBps=nbytes / ms / 1e6,
+                **_bound(nbytes, 4 * FW * s * 3))
+
+
+def _time_packed(flush, shapes=None) -> dict:
+    """hist_packed at the full window and at 65,536 rows (with the plain
+    version and the library call), with zero weights at both, and at the
+    compact learner's median and largest recorded window."""
     from lightgbm_tpu_torch.ops.hist_packed import (
-        build_histogram_packed, build_histogram_packed_plain, pack_bin_words,
-        unpack_bin_words)
-    from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
-    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
-    from lightgbm_tpu_torch.ops.hist_multislot import \
-        build_histogram_multislot
-    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
-    from lightgbm_tpu_torch.ops.partition import apply_partition
-    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+        build_histogram_packed_plain, pack_bin_words, unpack_bin_words)
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(2)
@@ -1757,12 +1895,7 @@ def phase_timing(ctx) -> None:
         torch.from_numpy(rng.randn(N_FULL).astype(np.float32)).to(dev) * bag,
         torch.from_numpy(rng.rand(N_FULL).astype(np.float32)).to(dev) * bag,
         bag])
-    flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
-    wrappers = (build_histogram_packed, build_histogram_segments,
-                apply_partition, find_best_splits_batched,
-                build_histogram_multislot, fused_child_scans,
-                build_histogram_full)
-    launches_before = [fn.launches for fn in wrappers]
+    reps = 20
     rows = {}
     for tag, s in (("full", N_FULL), ("65536", 65_536)):
         wv, ww = words[:, :s], w[:, :s]
@@ -1771,25 +1904,45 @@ def phase_timing(ctx) -> None:
             .reshape(-1)
         src = ww.t().unsqueeze(0).expand(4 * FW, s, 3).reshape(-1, 3) \
             .contiguous()
-        reps = 20
-        call = (lambda: build_histogram_packed(wv, ww, num_bins=NUM_BINS))
-        ms = cuda_ms(call, reps, flush)
-        kernel_ms = cuda_ms(staged(call), reps, flush)
-        plain_ms = cuda_ms(lambda: build_histogram_packed_plain(
+        r = _time_packed_call(flush, wv, ww)
+        r["plain_ms"] = cuda_ms(lambda: build_histogram_packed_plain(
             wv, ww, num_bins=NUM_BINS), reps, flush)
-        lib_ms = cuda_ms(lambda: torch.zeros(
+        r["library_ms"] = cuda_ms(lambda: torch.zeros(
             4 * FW * NUM_BINS, 3, device=dev).index_add_(0, flat, src),
             reps, flush)
-        in_bytes = FW * s * 4 + 3 * s * 4
-        out_bytes = 4 * FW * NUM_BINS * 3 * 4
-        bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 4 * FW * s * 3 / F32_FLOPS * 1e3   # one add per row, lane
-        rows[tag] = {"rows": s, "ms": ms, "kernel_ms": kernel_ms,
-                     "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                     else "operations", "bytes": in_bytes + out_bytes,
-                     "achieved_GBps": (in_bytes + out_bytes) / ms / 1e6}
+        r["zero_weights"] = _time_packed_call(flush, wv,
+                                              torch.zeros_like(ww))
+        rows[tag] = r
+    if shapes:
+        # the learner's windows start anywhere: an unaligned view
+        rows["full"]["shapes_train"] = {
+            tag: dict(_time_packed_call(
+                flush, words[:, 777:777 + shapes[tag]["rows"]],
+                w[:, 777:777 + shapes[tag]["rows"]]),
+                recorded=shapes[tag])
+            for tag in ("median", "largest")
+            if shapes[tag]["rows"] + 777 <= N_FULL}
+    return rows
+
+
+def phase_timing(ctx) -> None:
+    from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.hist_multislot import \
+        build_histogram_multislot
+    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.partition import apply_partition
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+
+    dev = torch.device("cuda", 0)
+    flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
+    wrappers = (build_histogram_packed, build_histogram_segments,
+                apply_partition, find_best_splits_batched,
+                build_histogram_multislot, fused_child_scans,
+                build_histogram_full)
+    launches_before = [fn.launches for fn in wrappers]
+    rows = _time_packed(flush, ctx.get("shapes_train"))
     shapes = ctx.get("shapes_wave", {})
     others = {"hist_segments": _time_segments(flush,
                                               shapes.get("hist_segments")),
@@ -1797,7 +1950,8 @@ def phase_timing(ctx) -> None:
               "split_scan": _time_scan(flush, shapes.get("split_scan")),
               "hist_multislot": _time_multislot(flush),
               "fused_scan": _time_fused(flush),
-              "hist_full": _time_hist_full(flush)}
+              "hist_full": _time_hist_full(flush,
+                                           ctx.get("shapes_masked_train"))}
     for fn, n in zip(wrappers, launches_before):
         fn.launches = n
     ctx["timing"] = rows
@@ -1870,8 +2024,10 @@ def kernels_line(ctx) -> dict:
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
                     "compare": compare[name]})
-        if "shapes_wave_train" in row:
-            out[-1]["shapes_wave_train"] = row["shapes_wave_train"]
+        for key in ("shapes_wave_train", "shapes_masked_train",
+                    "shapes_train"):
+            if key in row:
+                out[-1][key] = row[key]
     out[0]["launches_compact_train"] = ctx.get("launches_compact")
     return {"kernels": out}
 

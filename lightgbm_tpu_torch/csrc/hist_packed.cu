@@ -1,4 +1,5 @@
-// Packed-word histogram for the compact learner, written for Hopper (sm_90a).
+// Packed-word histogram for the compact learner and the wave learner's root,
+// written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/hist_pallas.py:build_histogram_packed
 // (_hist_kernel_packed, _radix_word), which expands bin codes into one-hot
@@ -16,163 +17,211 @@
 //           of the TPU kernel): channel 2 accumulates lane 1 (h), not lane
 //           2 (bag); the caller rescales it into a count
 //
-// Design.  Pass 1 runs a (Fw, nchunks) grid: each block reads ONE word lane
-// over a chunk of rows, 32 consecutive rows per warp step, so every load of
-// the word lane and of the three weight rows is coalesced.  Each warp owns a
-// private shared-memory histogram (4 sub-features x nbins x 3 floats, 12 KB at
-// 256 bins).  For each sub-feature the lanes holding the same bin are grouped
-// with __match_any_sync; the group's leader sums the group's weights from a
-// per-warp staging buffer in lane order and adds the sum to the warp's copy.
-// Leaders of different groups touch different bins, so no atomics are
-// needed.  The warps' copies are then summed in warp order and written as the
-// block's partial; pass 2 sums the partials over chunks in chunk order.  The
-// launch geometry depends only on (Fw, S), so every sum is taken in a fixed
-// order and two launches on the same input are bitwise equal, as on the TPU;
-// a float atomicAdd histogram would not be.  Rows whose three weights are all
-// zero (masked out of the leaf or the bag) add nothing and are skipped.
+// Bound.  The function must read Fw*S*4 + 3*S*4 bytes and write
+// 4*Fw*nbins*12; at the full window of the bench width (Fw = 8, S =
+// 1,000,448) that is about 44 MB, about 13 us at 3.35 TB/s; at a 65,536-row
+// window 2.9 MB, under 1 us.
 //
-// Bound.  The function must read Fw*S*4 + 3*S*4 bytes; at the full window of
-// the bench width (Fw = 8, S = 1,000,448) that is about 44 MB, about 13 us at
-// 3.35 TB/s.  The real limit is more likely the per-row match, the group sums
-// and the shared-memory read-modify-writes (a few dozen instructions per row
-// and word); skewed bins, where many of a warp's 32 rows share one bin,
-// serialise the group sums in the leader.  Loads are 4 bytes per lane so that
-// window views at any row offset stay valid; 16-byte loads need aligned views.
+// Design (hist_common.cuh holds the shared pieces):
+//
+//  * Grid (nchunks, lane groups).  A block takes nl word lanes and gives
+//    each of their features its own warp, so a warp bins one byte plane.
+//    The host sizes the plan (ops/hist_packed.py: packed_plan): at the full
+//    window nl = 4 (16 warps, two lane groups at Fw = 8) and 1,024-row
+//    chunks and more, at most one wave of the 132 SMs at three blocks
+//    each; a window under 131,072 rows takes one word lane a block (eight
+//    lane groups) and up to 64 chunks of at least 256 rows, so it spreads
+//    over the card with few chunk partials.
+//  * The block copies each 128-row stage's weights and its lanes' words into
+//    shared memory with cp.async (4 bytes each, so window views at any row
+//    offset stay valid), three stages deep: the weights are read once per
+//    row for the block's 4 * nl features.  A 32-row step with no weighted
+//    row is not binned.
+//  * Binning: one histogram copy per feature (3 KB at 256 bins) and an
+//    nbins-word group mask per warp (group_add): 76 KB a block of four
+//    lanes at 256 bins, so up to three blocks (48 warps) an SM.  No
+//    cross-warp merge.
+//  * One block per chunk writes its partial, only the bins it touched, with
+//    a bitmap (flush); the second pass (hist_reduce) sums them over chunks
+//    in a fixed order.  A single chunk writes the output directly and the
+//    second pass is not launched.  No float atomics.
+//
+// What limits it: the binning's shared-memory traffic (an OR, a read-back
+// and a read-modify-write per row and feature: at the full window on an
+// H100 about 50 SM cycles per 32-row step of one feature), at small windows
+// the block's fixed work (zeroing, the pipeline's first stages, the flush),
+// the chunks' partials that the second pass reads back and its launch.
+//
+// A lane-per-feature layout (a warp bins one row's 32 features, each lane
+// its own histogram, no bin-mates to find) was tried and measured slower:
+// its per-warp histogram copies (98 KB at 255 bins) leave two binning warps
+// an SM, and their row-to-row read-modify-write chain set the pace.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hist_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kStage = 32 * 3;  // one warp step's (g, h, c) per lane
+using namespace lgbt_hist;
 
-__global__ void __launch_bounds__(kThreads)
-hist_packed_partial(const int32_t* __restrict__ words, long long words_stride,
-                    const float* __restrict__ w, long long w_stride, int S,
-                    int chunk, int nbins, int quant,
-                    float* __restrict__ partial) {
-  extern __shared__ float smem[];
-  const int E = 4 * nbins * 3;
-  float* hist = smem;                      // kWarps * E
-  float* stage = smem + kWarps * E;        // kWarps * kStage
-  const int k = blockIdx.x;
-  const int ch = blockIdx.y;
+constexpr int kLanesMax = 4;  // word lanes per block (4 warps each)
+constexpr int kRows = 128;    // rows per stage
+constexpr int kStages = 3;
+
+size_t smem_bytes(int nl, int nbins) {
+  return sizeof(float) * ((size_t)4 * nl * nbins * 4 +
+                          (size_t)kStages * kRows * (3 + nl));
+}
+
+// Copy stage rows [row0, row0 + n) to the stage at shared address `buf`:
+// the three weight lanes (two in quant mode: channel 2 reads lane 1), then
+// the block's nl word lanes.
+__device__ __forceinline__ void issue(const int32_t* words,
+                                      long long words_stride, const float* w,
+                                      long long w_stride, int fw, int lane0,
+                                      int nl, int quant, int row0, int n,
+                                      unsigned buf) {
+  const int arrays = 3 + nl;
+  for (int e = threadIdx.x; e < arrays * kRows; e += blockDim.x) {
+    const int a = e / kRows;
+    const int i = e - a * kRows;
+    if (i >= n) continue;
+    if (a < 3) {
+      if (a == 2 && quant) continue;
+      cp_async4(buf + 4 * e, w + a * w_stride + row0 + i);
+    } else if (lane0 + a - 3 < fw) {
+      cp_async4(buf + 4 * e,
+                  words + (lane0 + a - 3) * words_stride + row0 + i);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(4 * kLanesMax * 32)
+hist_packed_chunks(const int32_t* __restrict__ words, long long words_stride,
+                   const float* __restrict__ w, long long w_stride, int fw,
+                   int S, int chunk, int nbins, int quant, int nchunks,
+                   float* __restrict__ partial, uint32_t* __restrict__ bits,
+                   float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int nl = blockDim.x >> 7;  // word lanes of this block
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int lane0 = blockIdx.y * nl;
+  const int k = lane0 + (warp >> 2);  // this warp's word lane
+  const int s = warp & 3;             // ... and byte plane
+  const bool live = k < fw;
+  const int ch = blockIdx.x;
+  const int nw = 4 * nl;
+  float* hist = smem + warp * nbins * 3;
+  uint32_t* msk = reinterpret_cast<uint32_t*>(smem + nw * nbins * 3) +
+                  warp * nbins;
+  float* stages = smem + nw * nbins * 4;
+  const unsigned sstages =
+      static_cast<unsigned>(__cvta_generic_to_shared(stages));
+  const int stage_floats = kRows * (3 + nl);
+  for (int e = threadIdx.x; e < nw * nbins * 4; e += blockDim.x)
+    smem[e] = 0.0f;  // histograms and group masks
 
-  for (int i = threadIdx.x; i < kWarps * E; i += kThreads) hist[i] = 0.0f;
-  __syncthreads();
-
-  float* mine = hist + warp * E;
-  float* st = stage + warp * kStage;
-  const int32_t* lane_words = words + (long long)k * words_stride;
-  const float* wg = w;
-  const float* wh = w + w_stride;
-  const float* wc = quant ? wh : w + 2 * w_stride;
   const int r0 = ch * chunk;
   const int r1 = min(S, r0 + chunk);
-
-  for (int base = r0 + warp * 32; base < r1; base += kThreads) {
-    const int r = base + lane;
-    const bool valid = r < r1;
-    uint32_t word = 0u;
-    float g = 0.0f, h = 0.0f, c = 0.0f;
-    if (valid) {
-      word = static_cast<uint32_t>(lane_words[r]);
-      g = wg[r];
-      h = wh[r];
-      c = wc[r];
-    }
-    const bool active = valid && (g != 0.0f || h != 0.0f || c != 0.0f);
-    st[lane * 3 + 0] = g;
-    st[lane * 3 + 1] = h;
-    st[lane * 3 + 2] = c;
-    __syncwarp();
+  const int nst = (r1 - r0 + kRows - 1) / kRows;
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < nst)
+      issue(words, words_stride, w, w_stride, fw, lane0, nl, quant,
+            r0 + j * kRows, min(kRows, r1 - r0 - j * kRows),
+            sstages + 4 * j * stage_floats);
+    cp_async_commit();
+  }
+  for (int j = 0; j < nst; ++j) {
+    const int ja = j + kStages - 1;
+    if (ja < nst)
+      issue(words, words_stride, w, w_stride, fw, lane0, nl, quant,
+            r0 + ja * kRows, min(kRows, r1 - r0 - ja * kRows),
+            sstages + 4 * (ja % kStages) * stage_floats);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // stage j (this thread's copies) landed
+    __syncthreads();               // ... and every thread's
+    const float* buf = stages + (j % kStages) * stage_floats;
+    const float* sg = buf;
+    const float* sh = buf + kRows;
+    const float* sc = quant ? sh : buf + 2 * kRows;
+    const uint32_t* sw =
+        reinterpret_cast<const uint32_t*>(buf + (3 + (warp >> 2)) * kRows);
+    const int n = min(kRows, r1 - r0 - j * kRows);
+    if (live) {
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const uint32_t code = (word >> (8 * s)) & 0xFFu;
-      const uint32_t key = active ? code : 0xFFFFFFFFu;
-      const uint32_t group = __match_any_sync(0xFFFFFFFFu, key);
-      const int leader = __ffs(group) - 1;
-      if (active && lane == leader && code < static_cast<uint32_t>(nbins)) {
-        float sg = 0.0f, sh = 0.0f, sc = 0.0f;
-        uint32_t m = group;
-        while (m) {
-          const int j = __ffs(m) - 1;
-          m &= m - 1;
-          sg += st[j * 3 + 0];
-          sh += st[j * 3 + 1];
-          sc += st[j * 3 + 2];
+      for (int i0 = 0; i0 < kRows; i0 += 32) {
+        const int i = i0 + lane;
+        bool a = false;
+        float g = 0.0f, h = 0.0f, c = 0.0f;
+        if (i < n) {
+          g = sg[i];
+          h = sh[i];
+          c = sc[i];
+          a = weighted(g, h, c);
         }
-        float* dst = mine + (s * nbins + static_cast<int>(code)) * 3;
-        dst[0] += sg;
-        dst[1] += sh;
-        dst[2] += sc;
+        if (__ballot_sync(kFull, a) == 0u) continue;  // warp-uniform
+        const uint32_t code = a ? (sw[i] >> (8 * s)) & 0xFFu : 0u;
+        const bool in = a && code < static_cast<uint32_t>(nbins);
+        group_add(in, static_cast<int>(code), g, h, c, sg, sh, sc, i0, msk,
+                  hist);
       }
     }
-    __syncwarp();
+    __syncthreads();  // the stage is free for the copies of a later stage
   }
-  __syncthreads();
-
-  float* out = partial + ((long long)k * gridDim.y + ch) * E;
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    float v = 0.0f;
-    for (int q = 0; q < kWarps; ++q) v += hist[q * E + e];
-    out[e] = v;
-  }
-}
-
-__global__ void hist_packed_reduce(const float* __restrict__ partial,
-                                   int nchunks, int E, long long total,
-                                   float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long long k = i / E;
-  const long long e = i - k * E;
-  const float* p = partial + k * nchunks * (long long)E + e;
-  float v = 0.0f;
-  for (int q = 0; q < nchunks; ++q) v += p[(long long)q * E];
-  out[i] = v;
-}
-
-// Shared memory pass 1 needs for `nbins` bins, in bytes.
-long long smem_bytes(int nbins) {
-  return (long long)(kWarps * 4 * nbins * 3 + kWarps * kStage) * sizeof(float);
+  if (!live) return;
+  const int f = 4 * k + s;
+  const long long slot = (long long)ch * 4 * fw + f;
+  if (nchunks == 1)
+    flush(hist, nbins, true, out + (long long)f * nbins * 3, nullptr);
+  else
+    flush(hist, nbins, false, partial + slot * nbins * 3,
+          bits + slot * ((nbins + 31) >> 5));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch both passes on `stream`.  `partial` holds Fw * nchunks * 4*nbins*3
-// floats of scratch, `out` 4*Fw*nbins*3 floats.  Returns cudaGetLastError()
-// after the launches (0 = both launched).
+// Launch on `stream`: the binning pass over (nchunks, ceil(fw / nl)) blocks
+// of 4 * nl warps, then, for nchunks > 1, the reduce pass.  `partial` holds
+// nchunks * 4*fw * nbins * 3 floats and `bits` nchunks * 4*fw *
+// ceil(nbins / 32) words of scratch (unused for one chunk), `out`
+// 4*fw * nbins * 3 floats.  Returns cudaGetLastError() after the launches
+// (0 = launched), or cudaErrorInvalidValue for arguments outside what the
+// kernel takes.
 int lgbt_hist_packed(const void* words, long long words_stride, const void* w,
                      long long w_stride, int fw, int S, int nbins, int quant,
-                     int nchunks, int chunk, void* partial, void* out,
-                     void* stream) {
-  const long long smem = smem_bytes(nbins);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_packed_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                     int nl, int nchunks, int chunk, void* partial,
+                     void* bits, void* out, void* stream) {
+  static bool raised[64] = {false};
+  if (nbins < 1 || nbins > 256 || fw < 1 || S < 1 || nl < 1 ||
+      nl > kLanesMax || nchunks < 1 || chunk < 1 || chunk % kRows)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {  // once per device: the largest block this file makes
+    err = cudaFuncSetAttribute(hist_packed_chunks,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes(kLanesMax, 256));
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = true;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  hist_packed_partial<<<dim3(fw, nchunks), kThreads, smem, st>>>(
+  const int groups = (fw + nl - 1) / nl;
+  hist_packed_chunks<<<dim3(nchunks, groups), 4 * nl * 32,
+                       smem_bytes(nl, nbins), st>>>(
       static_cast<const int32_t*>(words), words_stride,
-      static_cast<const float*>(w), w_stride, S, chunk, nbins, quant,
-      static_cast<float*>(partial));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int E = 4 * nbins * 3;
-  const long long total = (long long)fw * E;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  hist_packed_reduce<<<(unsigned)blocks, threads, 0, st>>>(
-      static_cast<const float*>(partial), nchunks, E, total,
+      static_cast<const float*>(w), w_stride, fw, S, chunk, nbins, quant,
+      nchunks, static_cast<float*>(partial), static_cast<uint32_t*>(bits),
       static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nchunks == 1) return (int)err;
+  return (int)launch_reduce(static_cast<const float*>(partial),
+                            static_cast<const uint32_t*>(bits), nchunks,
+                            4 * fw, nbins, static_cast<float*>(out), st);
 }
 
 }  // extern "C"

@@ -25,17 +25,32 @@ carried over, so the key keeps its validation but no longer changes numbers.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import native
+from .hist_full import SMEM_PER_SM, SMEM_RESERVED, SMS, _round_up
 from .histogram import build_histogram_onehot
 
 #: the kernel's row-window granularity (window sizes are multiples of it)
 ROW_QUANTUM = 1024
-#: pass-1 blocks aimed for per launch (about four per SM of an H100); fixed,
-#: so the launch geometry and with it every sum's order depend only on shapes
-_TARGET_BLOCKS = 528
+#: word lanes a block takes, four warps each (csrc/hist_packed.cu:
+#: kLanesMax), rows per shared-memory stage (kRows) and stages (kStages)
+LANES_PER_BLOCK = 4
+STAGE_ROWS = 128
+STAGES = 3
+#: rows per chunk: at least LARGE_CHUNK_ROWS.  A window of fewer than
+#: SMALL_WINDOW_ROWS rows takes SMALL_LANES word lanes a block (more blocks
+#: per chunk) and up to SMALL_CHUNKS chunks of at least SMALL_CHUNK_ROWS:
+#: each chunk's partial costs a block's flush and the second pass's reads,
+#: so a small window spreads over word lanes before rows
+LARGE_CHUNK_ROWS = 1024
+SMALL_WINDOW_ROWS = 131_072
+SMALL_LANES = 1
+SMALL_CHUNK_ROWS = 256
+SMALL_CHUNKS = 64
 
 
 def pack_bin_words(bins: torch.Tensor) -> torch.Tensor:
@@ -76,14 +91,39 @@ def build_histogram_packed_plain(words: torch.Tensor, w: torch.Tensor, *,
                                   num_bins=num_bins, dp=dp)
 
 
-def _geometry(fw: int, s: int):
-    """(nchunks, chunk rows) of pass 1: about ``_TARGET_BLOCKS`` blocks, at
-    most one chunk per ``ROW_QUANTUM`` rows, chunks a multiple of 256 rows
-    (one step of the block's eight warps)."""
-    nchunks = max(1, min(s // ROW_QUANTUM, -(-_TARGET_BLOCKS // fw)))
-    chunk = -(-s // nchunks)
-    chunk = -(-chunk // 256) * 256
-    return -(-s // chunk), chunk
+class PackedPlan(NamedTuple):
+    """The launch geometry of ``csrc/hist_packed.cu``: block (c, g) takes
+    rows [c * chunk, min(S, (c + 1) * chunk)) of word lanes
+    [g * lanes, (g + 1) * lanes), clipped to Fw, a warp per feature."""
+    lanes: int
+    groups: int
+    nchunks: int
+    chunk: int
+
+
+def packed_smem_bytes(lanes: int, num_bins: int) -> int:
+    """A block's shared memory (csrc/hist_packed.cu: smem_bytes): a
+    histogram and a group mask per feature, and the stages."""
+    return 4 * (4 * lanes * num_bins * 4
+                + STAGES * STAGE_ROWS * (3 + lanes))
+
+
+@functools.lru_cache(maxsize=256)
+def packed_plan(fw: int, s: int, num_bins: int) -> PackedPlan:
+    """Word lanes a block and chunks as LARGE_CHUNK_ROWS says, at most one
+    wave of blocks on the card (SMS times the blocks an SM holds), chunks
+    a multiple of ``STAGE_ROWS``."""
+    small = s < SMALL_WINDOW_ROWS
+    groups = -(-fw // (SMALL_LANES if small else LANES_PER_BLOCK))
+    lanes = -(-fw // groups)
+    per_sm = max(1, min(2048 // (128 * lanes),
+                        SMEM_PER_SM // (packed_smem_bytes(lanes, num_bins)
+                                        + SMEM_RESERVED)))
+    want = (min(s // SMALL_CHUNK_ROWS, SMALL_CHUNKS) if small
+            else s // LARGE_CHUNK_ROWS)
+    nchunks = max(1, min(want, SMS * per_sm // groups))
+    chunk = _round_up(-(-s // nchunks), STAGE_ROWS)
+    return PackedPlan(lanes, groups, -(-s // chunk), chunk)
 
 
 _LIB = None
@@ -96,8 +136,9 @@ def _lib():
         lib.lgbt_hist_packed.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
         lib.lgbt_hist_packed.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -115,7 +156,9 @@ def build_histogram_packed(words: torch.Tensor, w: torch.Tensor, *,
     quant : channel 2 sums lane 1 (h) instead of lane 2.
     Returns (4*Fw, num_bins, 3) float32.  CPU tensors take the plain version;
     CUDA tensors launch the kernel (counted in ``build_histogram_packed.
-    launches``, the quant-mode launches also in ``.quant_launches``) or raise.
+    launches``, the quant-mode launches also in ``.quant_launches``) or
+    raise; the result is then the front of the one allocation that also
+    holds the kernel's scratch.
     """
     if words.device.type == "cpu" and w.device.type == "cpu":
         return build_histogram_packed_plain(words, w, num_bins=num_bins,
@@ -137,16 +180,21 @@ def build_histogram_packed(words: torch.Tensor, w: torch.Tensor, *,
     if not 1 <= num_bins <= 256 or fw < 1:
         raise ValueError(f"need 1 <= num_bins <= 256 and Fw >= 1, got "
                          f"num_bins={num_bins}, Fw={fw}")
-    nchunks, chunk = _geometry(fw, s)
-    e = 4 * num_bins * 3
-    partial = torch.empty(fw * nchunks * e, dtype=torch.float32,
-                          device=words.device)
-    out = torch.empty((4 * fw, num_bins, 3), dtype=torch.float32,
+    plan = packed_plan(fw, s, num_bins)
+    # one allocation: the output, then the chunks' partials and bitmaps
+    out_n = 4 * fw * num_bins * 3
+    many = plan.nchunks > 1
+    part_n = out_n * plan.nchunks if many else 0
+    bits_n = 4 * fw * -(-num_bins // 32) * plan.nchunks if many else 0
+    buf = torch.empty(out_n + part_n + bits_n, dtype=torch.float32,
                       device=words.device)
+    out = buf[:out_n].view(4 * fw, num_bins, 3)
+    partial = buf.data_ptr() + 4 * out_n
     stream = torch.cuda.current_stream(words.device).cuda_stream
     native.launch("hist_packed", _lib().lgbt_hist_packed, words,
                   words.stride(0), w, w.stride(0), fw, s, num_bins,
-                  int(quant), nchunks, chunk, partial, out, stream)
+                  int(quant), plan.lanes, plan.nchunks, plan.chunk,
+                  partial, partial + 4 * part_n, out, stream)
     build_histogram_packed.launches += 1
     build_histogram_packed.quant_launches += int(quant)
     return out

@@ -1,6 +1,7 @@
-"""Where the segment-histogram and split-scan kernels spend their time.
+"""Where the histogram and split-scan kernels spend their time.
 
     python3 profiling/profile_kernel_shapes.py [--out chiprun_out/shapes.json]
+        [--only split_scan,hist_segments,hist_full,hist_packed] [--passes]
 
 Times each kernel alone (its C entry point called again on the buffers one
 wrapper call staged, ``native.staging()``; CUDA events, the L2 flushed
@@ -15,9 +16,21 @@ its costs:
                  rows, each with random weights and with every weight zero
                  (a zero row is read but never binned: loads, pipeline and
                  flushes without the binning)
+  hist_full      F = 28 uint16 codes at 1,023 bins over 1,000,448 rows with
+                 every row weighted, 5%, 0.2% (the masked learner's usual
+                 share) and no row weighted: what the weight rows and the
+                 stage loop cost against the binning
+  hist_packed    Fw = 8 words at 255 bins over the full 1,000,448-row
+                 window, 65,536, 8,192 and 4,096 rows (an unaligned view),
+                 each with random weights and with every weight zero
 
-Prints one JSON line per kernel and writes them all to ``--out`` with the
-card's name and power limit.  Needs a CUDA card.
+With ``--passes`` each hist_full and hist_packed case also gives the device
+time of each kernel the call launches (its passes: row ballots, binning,
+reduce), from ``torch.profiler`` over the same replays, and the wrapper's
+host time per call (``host_us``: 50 calls enqueued back to back, the host
+clock around them, the card drained before and after).  Prints one JSON
+line per kernel and writes them all to ``--out`` with the card's name and
+power limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -36,12 +50,54 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from lightgbm_tpu_torch import native  # noqa: E402
-from lightgbm_tpu_torch.ops.hist_packed import pack_bin_words  # noqa: E402
+from lightgbm_tpu_torch.ops.hist_full import \
+    build_histogram_full  # noqa: E402
+from lightgbm_tpu_torch.ops.hist_packed import (  # noqa: E402
+    build_histogram_packed, pack_bin_words)
 from lightgbm_tpu_torch.ops.hist_segments import \
     build_histogram_segments  # noqa: E402
 from lightgbm_tpu_torch.ops.scan import find_best_splits_batched  # noqa
 
 N, FW, BINS, F = 1_000_448, 8, 255, 28
+
+
+def pass_us(call, flush, reps: int = 20) -> dict:
+    """Device microseconds per call of each kernel ``call`` launches, from
+    torch.profiler over ``reps`` replays (the L2 flush's own kernel left
+    out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with native.staging() as rec:
+        call()
+    replay = rec[0]
+    replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.add_(1)
+            replay()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(
+            e, "self_device_time_total", 0)
+        if t and ("hist" in e.key or "lgbt" in e.key):
+            name = e.key.replace("(anonymous namespace)::", "")
+            out[name.split("(")[0].split("<")[0].split(" ")[-1]] = t / reps
+    return out
+
+
+def host_us(call, reps: int = 50) -> float:
+    """Host microseconds per wrapper call, the calls enqueued back to back
+    (the card keeps up or queues; the host never waits)."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
 
 
 def kernel_ms(call, flush, reps: int = 20) -> float:
@@ -95,10 +151,42 @@ def segments_case(dev, members, zero: bool, seed: int):
     return words, torch.from_numpy(w).to(dev), t
 
 
+def full_case(dev, share: float, seed: int):
+    """(28, N) uint16 codes over 1,023 bins and
+    random float32 weights on exactly ``share`` of the rows (random rows)."""
+    rng = np.random.RandomState(seed)
+    bins = torch.from_numpy(rng.randint(0, 1023, size=(F, N))
+                            .astype(np.uint16)).to(dev)
+    keep = np.zeros(N, np.float32)
+    keep[rng.permutation(N)[:int(round(share * N))]] = 1.0
+    w = np.stack([rng.randn(N) * keep, rng.rand(N) * keep, keep])
+    return bins, torch.from_numpy(w.astype(np.float32)).to(dev)
+
+
+def packed_case(dev, rows: int, zero: bool, seed: int):
+    """An unaligned (Fw, rows) window view of (Fw, N) words and its
+    weights (90% of the rows weighted), or zero weights."""
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, BINS, size=(4 * FW, N)).astype(np.uint8)
+    words = pack_bin_words(torch.from_numpy(codes).to(dev))
+    bag = (rng.rand(N) < 0.9).astype(np.float32)
+    w = np.stack([rng.randn(N) * bag, rng.rand(N) * bag, bag])
+    if zero:
+        w[:] = 0.0
+    w = torch.from_numpy(w.astype(np.float32)).to(dev)
+    off = 0 if rows == N else 777
+    return words[:, off:off + rows], w[:, off:off + rows]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="reports/profile_kernel_shapes.json")
+    ap.add_argument("--only", default="split_scan,hist_segments,hist_full,"
+                    "hist_packed", help="comma-separated kernels to time")
+    ap.add_argument("--passes", action="store_true",
+                    help="also each pass's device time (torch.profiler)")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -107,9 +195,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    out = {"nvidia_smi": smi, "split_scan": [], "hist_segments": []}
+    out = {"nvidia_smi": smi, "split_scan": [], "hist_segments": [],
+           "hist_full": [], "hist_packed": []}
     kw = dict(lambda_l1=0.1, lambda_l2=0.5, min_data_in_leaf=3)
-    for k in (2, 8, 128):
+    for k in (2, 8, 128) if "split_scan" in only else ():
         for b in (16, 64, 255):
             a = scan_case(dev, k, b, k * 1000 + b)
             ms = kernel_ms(lambda: find_best_splits_batched(*a, **kw), flush)
@@ -122,7 +211,8 @@ def main() -> int:
     cuts = np.sort(rng.choice(np.arange(1, N - 100), 63, replace=False))
     fixture = np.diff(np.concatenate([[0], cuts, [N - 100]])).tolist()
     for name, members in (("fixture_64", fixture), ("one_25000", [25_000]),
-                          ("one_500000", [500_000])):
+                          ("one_500000", [500_000])
+                          ) if "hist_segments" in only else ():
         for zero in (False, True):
             words, w, (lid, start, cnt, leaf) = segments_case(
                 dev, members, zero, len(members))
@@ -135,7 +225,30 @@ def main() -> int:
                                          len(members), "rows": sum(members),
                                          "zero_weights": zero,
                                          "kernel_ms": ms})
-    for key in ("split_scan", "hist_segments"):
+    for share in (1.0, 0.05, 0.002, 0.0) if "hist_full" in only else ():
+        bins, w = full_case(dev, share, 5)
+        ms = kernel_ms(lambda: build_histogram_full(bins, w, num_bins=1023),
+                       flush)
+        out["hist_full"].append({"F": F, "rows": N, "num_bins": 1023,
+                                 "weighted_share": share, "kernel_ms": ms})
+        if args.passes:
+            call = (lambda: build_histogram_full(bins, w, num_bins=1023))
+            out["hist_full"][-1].update(passes_us=pass_us(call, flush),
+                                        host_us=host_us(call))
+    for rows in (N, 65_536, 8192, 4096) if "hist_packed" in only else ():
+        for zero in (False, True):
+            words, w = packed_case(dev, rows, zero, 6)
+            ms = kernel_ms(lambda: build_histogram_packed(
+                words, w, num_bins=BINS), flush)
+            out["hist_packed"].append({"Fw": FW, "rows": rows,
+                                       "zero_weights": zero,
+                                       "kernel_ms": ms})
+            if args.passes:
+                call = (lambda: build_histogram_packed(words, w,
+                                                       num_bins=BINS))
+                out["hist_packed"][-1].update(passes_us=pass_us(call, flush),
+                                              host_us=host_us(call))
+    for key in ("split_scan", "hist_segments", "hist_full", "hist_packed"):
         print(json.dumps({key: out[key]}))
     print(smi)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -600,3 +600,131 @@ def test_device_predictor_on_card_equals_host_trees(cuda_device):
     np.testing.assert_allclose(bst.predict(Xt, raw_score=True), host,
                                rtol=0, atol=1e-9)     # 40,000 x 12 trees
     assert bst.gbdt.device_predictions == before + 1
+
+
+# -- the redesigned full-pass histograms: weighted shares, edge weights ----
+
+def _bits_equal(a, b):
+    """Bitwise equal (NaN payloads included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _nan_equal(a, b):
+    """Equal where not NaN, NaN at the same places (the plain version's
+    NaN payload may differ)."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _shared_weights(dev, n, share, seed, edge=False):
+    """Dyadic (3, n) weights with a ``share`` of the rows weighted, the
+    rest exactly zero; with ``edge``, some weighted rows carry -0.0 in one
+    or two lanes, some rows carry -0.0 in all three (skipped: all zero), and
+    a few carry a NaN (not skipped)."""
+    rng = np.random.RandomState(seed)
+    keep = rng.rand(n) < share
+    g = rng.randint(-16, 17, n) / 16.0 * keep
+    h = rng.randint(0, 17, n) / 16.0 * keep
+    w = np.stack([g, h, keep.astype(np.float64)]).astype(np.float32)
+    if edge:
+        w[0, rng.rand(n) < 0.1] = -0.0
+        w[1, rng.rand(n) < 0.1] = -0.0
+        w[:, rng.rand(n) < 0.05] = -0.0
+        w[0, rng.choice(n, 3, replace=False)] = np.nan
+    return torch.from_numpy(w).to(dev)
+
+
+FULL_SHARES = [1.0, 0.05, 0.002, 0.0]
+
+
+@pytest.mark.parametrize("share", FULL_SHARES)
+@pytest.mark.parametrize("dtype,f,n,b", [
+    (np.uint8, 7, 70_001, 255), (np.uint16, 28, 100_000, 1023),
+    (np.uint16, 5, 40_000, 2048)])
+def test_hist_full_weighted_shares_bitwise(cuda_device, dtype, f, n, b,
+                                           share):
+    """Every weighted share, bitwise to the plain version on dyadic inputs
+    and across two launches; codes past num_bins dropped; at 2,048 bins
+    two bin tiles."""
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.histogram import build_histogram_onehot
+
+    bins, _ = _full_inputs(cuda_device, dtype, f, n, b, n + b,
+                           code_max=b + 40)
+    w = _shared_weights(cuda_device, n, share, n)
+    k1 = build_histogram_full(bins, w, num_bins=b)
+    k2 = build_histogram_full(bins, w, num_bins=b)
+    assert k1.shape == (f, b, 3)
+    assert _bits_equal(k1, build_histogram_onehot(bins, w, num_bins=b))
+    assert _bits_equal(k1, k2)
+    if share == 0.0:
+        assert not bool(k1.ne(0).any())
+
+
+@pytest.mark.parametrize("dtype,b", [(np.uint8, 255), (np.uint16, 1023)])
+def test_hist_full_skew_and_edge_weights(cuda_device, dtype, b):
+    """Every row in one bin (one 32-lane group per step), and -0.0 and NaN
+    weights: all-zero rows skipped, a NaN row counted."""
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.histogram import build_histogram_onehot
+
+    n, f = 50_000, 6
+    bins = torch.from_numpy(np.full((f, n), b - 1, dtype)).to(cuda_device)
+    w = _shared_weights(cuda_device, n, 0.5, 3)
+    k = build_histogram_full(bins, w, num_bins=b)
+    assert _bits_equal(k, build_histogram_onehot(bins, w, num_bins=b))
+    assert not bool(k[:, :b - 1].ne(0).any())
+    bins, _ = _full_inputs(cuda_device, dtype, f, n, b, 4)
+    w = _shared_weights(cuda_device, n, 0.3, 5, edge=True)
+    k1 = build_histogram_full(bins, w, num_bins=b)
+    k2 = build_histogram_full(bins, w, num_bins=b)
+    assert _bits_equal(k1, k2)
+    p = build_histogram_onehot(bins, w, num_bins=b)
+    assert bool(torch.isnan(k1).any())
+    assert _nan_equal(k1, p)
+    ok = ~torch.isnan(p)
+    assert torch.equal(k1[ok].view(torch.int32), p[ok].view(torch.int32))
+
+
+@pytest.mark.parametrize("share", FULL_SHARES)
+@pytest.mark.parametrize("off,s", [(0, 1024), (333, 1024), (5, 65_536),
+                                   (0, 65_536), (1001, 200_704)])
+def test_packed_weighted_shares_and_views_bitwise(cuda_device, off, s,
+                                                  share):
+    """Window views at unaligned row offsets, every weighted share: bitwise
+    to the plain version on dyadic inputs and across two launches."""
+    fw, b = 8, 255
+    rng = np.random.RandomState(s + off)
+    codes = rng.randint(0, 256, size=(4 * fw, off + s)).astype(np.uint8)
+    words = pack_bin_words(torch.from_numpy(codes).to(cuda_device))
+    w = _shared_weights(cuda_device, off + s, share, off)
+    wv, ww = words[:, off:], w[:, off:]
+    k1 = build_histogram_packed(wv, ww, num_bins=b)
+    k2 = build_histogram_packed(wv, ww, num_bins=b)
+    assert _bits_equal(k1, build_histogram_packed_plain(wv, ww, num_bins=b))
+    assert _bits_equal(k1, k2)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_packed_skew_edge_weights_and_quant(cuda_device, quant):
+    """Every row in one bin, -0.0 and NaN weights, codes past num_bins, in
+    both modes; the quant mode bitwise with channel 2 the hessian's sums."""
+    n, fw = 65_536, 3
+    skew = pack_bin_words(torch.full((4 * fw, n), 7, dtype=torch.uint8)
+                          .to(cuda_device))
+    w = _shared_weights(cuda_device, n, 0.6, 8)
+    k = build_histogram_packed(skew, w, num_bins=63, quant=quant)
+    assert _bits_equal(k, build_histogram_packed_plain(skew, w, num_bins=63,
+                                                       quant=quant))
+    words, _ = _inputs(cuda_device, fw, n, 256, 9, dyadic=True)
+    w = _shared_weights(cuda_device, n, 0.4, 10, edge=True)
+    k1 = build_histogram_packed(words, w, num_bins=100, quant=quant)
+    k2 = build_histogram_packed(words, w, num_bins=100, quant=quant)
+    p = build_histogram_packed_plain(words, w, num_bins=100, quant=quant)
+    assert _bits_equal(k1, k2)
+    assert bool(torch.isnan(k1).any()) and _nan_equal(k1, p)
+    ok = ~torch.isnan(p)
+    assert torch.equal(k1[ok].view(torch.int32), p[ok].view(torch.int32))
+    if quant:
+        assert _nan_equal(k1[..., 2], k1[..., 1])
