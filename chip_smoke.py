@@ -33,9 +33,12 @@ line and each raising (exit code 1) on any failure:
   multislot  multislot histogram kernel (the level-wise opening's) vs its
              plain version on the full-width rows, a slot per row in root
              order (slot K and -1 dropped): bitwise on dyadic inputs at K = 1,
-             3, 16 and 64 slots; at K = 16 on random float32 within
-             rtol=1e-5 and an atol of 1e-5 times each bin's own sum of |w|,
-             bitwise across two launches, and the quant mode bitwise
+             3, 16 and 64 slots, and at K = 16 with the dataset's four
+             padding features (code 0 in every row) on dyadic and quant
+             inputs; at K = 16 on random float32 (padding features too)
+             within rtol=1e-5 and an atol of 1e-5 times each bin's own sum
+             of |w|, bitwise across two launches, and the quant mode
+             bitwise
   hist_full  full-pass histogram kernel (the masked learner's) vs its plain
              version at full width (28 used of 32 code rows, N=1,000,448):
              uint16 codes with 1,023 bins and uint8 codes with 255 bins,
@@ -45,10 +48,11 @@ line and each raising (exit code 1) on any failure:
              bin tiles) and 65,536 bins on small inputs
   fused_scan fused child-scan kernel vs the unfused path at K=64, F=28,
              B=255 over a 574-slot histogram pool: on quant-grid histograms
-             every field and both pool rows bitwise equal to the plain
-             version on the card and on the CPU; on random float32 bitwise
-             equal to the learner's unfused step on the card (torch
-             subtraction and fix_histogram, then the split-scan kernel)
+             and on random float32 every field and both pool rows bitwise
+             equal to the plain version on the CPU; on quant-grid histograms
+             also to the plain version on the card, on random float32 to
+             the learner's unfused step on the card (torch subtraction and
+             fix_histogram, then the split-scan kernel)
   tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
              rows, grown by the compact learner through the kernel and
              through the plain histogram: records bitwise equal
@@ -83,7 +87,9 @@ line and each raising (exit code 1) on any failure:
              kernels and of the histograms' quant modes: launches per kernel
              (quant-mode launches too) equal to the learner's calls, held-out
              AUC within 1e-3 of wave_train's, one tree fused against unfused
-             bitwise, quantize_gradients on the card bitwise equal to the CPU
+             bitwise, quantize_gradients on the card bitwise equal to the CPU;
+             the shape of every hist_multislot launch (K and the rows in a
+             slot) and fused_scan launch (K), and their distribution
   masked_train the wave_train run with max_bin=1023 (auto -> the masked
              learner, uint16 codes): hist_full launches equal to the calls the
              learner recorded (num_leaves per tree), host syncs per tree <= 2,
@@ -112,7 +118,12 @@ line and each raising (exit code 1) on any failure:
              code sectors that hold a weighted row, the output) beside the
              all-rows bound; hist_packed at the full window and 65,536 rows
              with random and with zero weights, and at train's median and
-             largest window
+             largest window; hist_multislot and fused_scan at the median and
+             largest launch quant_train recorded (hist_multislot also at its
+             median K = 1 launch, the recorded share of rows in a slot
+             reproduced by seeded random slots over rows whose padding
+             features hold one code, the bound counting only the rows in a
+             slot)
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -601,16 +612,19 @@ def phase_scan(ctx) -> None:
     emit(out)
 
 
-def multislot_inputs(seed: int, kind: str, k: int):
+def multislot_inputs(seed: int, kind: str, k: int, pad: bool = False):
     """Full-width packed rows, weights and a slot per row in root order, as
     an opening level sees them: slots 0..K-1, K and -1 (rows of leaves the
     level does not split) dropped.  ``kind``: dyadic, quant (the integer
-    grids times powers of two) or random float32."""
+    grids times powers of two) or random float32.  ``pad``: features
+    28-31 hold code 0 in every row, as the dataset pads the 28 features."""
     from lightgbm_tpu_torch.ops.hist_packed import pack_bin_words
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(seed)
     codes = rng.randint(0, NUM_BINS, size=(4 * FW, N_FULL)).astype(np.uint8)
+    if pad:
+        codes[FEATURES:] = 0
     words = pack_bin_words(torch.from_numpy(codes).to(dev))
     if kind == "dyadic":
         g, h, bag = dyadic_weights(rng, N_FULL, N_FULL, dev)
@@ -644,8 +658,20 @@ def phase_multislot(ctx) -> None:
         check(torch.equal(a, p), f"multislot dyadic K={k}: kernel != plain "
               f"(max diff {(a - p).abs().max().item()})")
         out[f"dyadic_K{k}_bitwise"] = True
+    # the dataset's padding features (one code in every row)
+    for kind in ("dyadic", "quant"):
+        words, w, slot = multislot_inputs(45, kind, MULTI_K, pad=True)
+        a = build_histogram_multislot(words, w, slot, num_bins=NUM_BINS,
+                                      n_slots=MULTI_K, quant=kind == "quant")
+        p = build_histogram_multislot_plain(words, w, slot,
+                                            num_bins=NUM_BINS,
+                                            n_slots=MULTI_K,
+                                            quant=kind == "quant")
+        check(torch.equal(a, p), f"multislot {kind} with constant padding "
+              f"features: kernel != plain")
+        out[f"{kind}_K16_padding_features_bitwise"] = True
     k = MULTI_K
-    words, w, slot = multislot_inputs(41, "random", k)
+    words, w, slot = multislot_inputs(41, "random", k, pad=True)
     a = build_histogram_multislot(words, w, slot, num_bins=NUM_BINS,
                                   n_slots=k)
     a2 = build_histogram_multislot(words, w, slot, num_bins=NUM_BINS,
@@ -834,18 +860,17 @@ def phase_fused_scan(ctx) -> None:
         args = [t.to(dev) for t in cpu]
         pools = {n: args[1].clone() for n in ("kernel", "ref")}
         k = fused_child_scans(args[0], pools["kernel"], *args[2:], **kw)
+        pool_cpu = cpu[1].clone()
+        ref_cpu = fused_child_scans_plain(cpu[0], pool_cpu, *cpu[2:], **kw)
+        check(all(same(getattr(k, fl).cpu(), getattr(ref_cpu, fl))
+                  for fl in k._fields),
+              f"fused {tag}: kernel differs from the plain version run on "
+              f"the CPU")
+        check(torch.equal(pools["kernel"].cpu(), pool_cpu),
+              f"fused {tag}: pool differs from the CPU plain version")
         if exact:
             ref = fused_child_scans_plain(args[0], pools["ref"], *args[2:],
                                           **kw)
-            pool_cpu = cpu[1].clone()
-            ref_cpu = fused_child_scans_plain(cpu[0], pool_cpu, *cpu[2:],
-                                              **kw)
-            check(all(same(getattr(k, fl).cpu(), getattr(ref_cpu, fl))
-                      for fl in k._fields),
-                  "fused quant-grid: kernel differs from the plain version "
-                  "run on the CPU")
-            check(torch.equal(pools["kernel"].cpu(), pool_cpu),
-                  "fused quant-grid: pool differs from the CPU plain version")
         else:
             ref = unfused_step(args[0], pools["ref"], *args[2:], **kw)
         for fl in k._fields:
@@ -857,8 +882,9 @@ def phase_fused_scan(ctx) -> None:
         fin = torch.isfinite(k.gain)
         out[tag] = {"fields_bitwise": True, "pool_bitwise": True,
                     "feasible": int(fin.sum()),
-                    "against": "plain version (card and CPU)" if exact
-                    else "unfused step (card)"}
+                    "against": "plain version on the CPU, and the "
+                    + ("plain version" if exact else "unfused step")
+                    + " on the card"}
     ctx["err_fused"] = 0.0
     torch.cuda.synchronize()
     emit(out)
@@ -1299,6 +1325,35 @@ def phase_wave_train(ctx) -> None:
     emit(out)
 
 
+def quant_shapes(multi, n: int, fused_k) -> dict:
+    """The distribution of the quant path's hist_multislot launches (slot
+    count K and rows in a slot, of n rows) and fused_scan launches (member
+    count K); for each kernel its median and largest launch (by rows in a
+    slot, then K, for hist_multislot; by K for fused_scan), and the
+    median K = 1 multislot launch (an opening's first level)."""
+    rows = [{"K": k, "rows_in_slot": r, "share": r / n} for k, r in multi]
+    by_rows = sorted(rows, key=lambda r: (r["rows_in_slot"], r["K"]))
+    k1 = [r for r in by_rows if r["K"] == 1]
+    ks = sorted(fused_k)
+    return {
+        "hist_multislot": {
+            "distribution": {
+                "launches": len(rows),
+                "K": _quantiles([r["K"] for r in rows]),
+                "rows_in_slot": _quantiles([r["rows_in_slot"]
+                                            for r in rows]),
+                "launches_by_K": {str(k): c for k, c in sorted(
+                    Counter(r["K"] for r in rows).items())}},
+            "median": by_rows[len(by_rows) // 2], "largest": by_rows[-1],
+            **({"k1": k1[len(k1) // 2]} if k1 else {})},
+        "fused_scan": {
+            "distribution": {
+                "launches": len(ks), "K": _quantiles(ks),
+                "launches_by_K": {str(k): c for k, c in
+                                  sorted(Counter(ks).items())}},
+            "median": {"K": ks[len(ks) // 2]}, "largest": {"K": ks[-1]}}}
+
+
 def phase_quant_train(ctx) -> None:
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
@@ -1322,9 +1377,27 @@ def phase_quant_train(ctx) -> None:
                    "hist_multislot_quant": build_histogram_multislot}
     for fn in quant_modes.values():
         fn.quant_launches = 0
-    bst, learner, grads, out = _train_run(ctx, QUANT_PARAMS, "quant_train",
-                                          counters)
+    # each multislot launch's K and slot tensor and each fused launch's K,
+    # kept as the learner passed them and read after the run (no host read
+    # during it)
+    build_histogram_multislot.shapes, fused_child_scans.shapes = [], []
+    try:
+        bst, learner, grads, out = _train_run(ctx, QUANT_PARAMS,
+                                              "quant_train", counters)
+        multi, fused_k = (build_histogram_multislot.shapes,
+                          fused_child_scans.shapes)
+    finally:
+        build_histogram_multislot.shapes = None
+        fused_child_scans.shapes = None
     quant = {name: fn.quant_launches for name, fn in quant_modes.items()}
+    check(len(multi) == out["kernel_launches"]["hist_multislot"]
+          and len(fused_k) == out["kernel_launches"]["fused_scan"],
+          "a multislot or fused launch shape was not recorded")
+    ctx["shapes_quant"] = quant_shapes(
+        [(k, int(((sl >= 0) & (sl < k)).sum())) for k, sl in multi],
+        int(multi[0][1].numel()), fused_k)
+    out["shapes"] = {k: v["distribution"]
+                     for k, v in ctx["shapes_quant"].items()}
     check(type(learner) is WaveTreeLearner and learner._quant
           and learner._use_fused and learner.open_levels == 5,
           "quant_train did not run the quantized wave learner with the "
@@ -1711,20 +1784,45 @@ def _time_scan(flush, shapes=None) -> dict:
     return res
 
 
-def _time_multislot(flush) -> dict:
-    from lightgbm_tpu_torch.ops.hist_multislot import (
-        build_histogram_multislot, build_histogram_multislot_plain)
+def share_slots(n: int, k: int, share: float, seed: int, dev):
+    """Root-order slots with ``share`` of the rows in a slot (each a
+    uniform slot of [0, K)) and the others in slot K (dropped)."""
+    rng = np.random.RandomState(seed)
+    slot = np.where(rng.rand(n) < share, rng.randint(0, k, n), k)
+    return torch.from_numpy(slot.astype(np.int32)).to(dev)
+
+
+def _time_multislot_call(flush, words, w, slot, k: int,
+                         reps: int = 20) -> dict:
+    """hist_multislot through the wrapper and alone at one input, with its
+    bound: every row's slot, the words and weights of the rows in a slot,
+    the output once."""
+    from lightgbm_tpu_torch.ops.hist_multislot import \
+        build_histogram_multislot
+
+    call = (lambda: build_histogram_multislot(
+        words, w, slot, num_bins=NUM_BINS, n_slots=k))
+    matching = int(((slot >= 0) & (slot < k)).sum())
+    n = words.shape[1]
+    nbytes = (n * 4 + matching * (FW * 4 + 3 * 4)
+              + k * 4 * FW * NUM_BINS * 3 * 4)
+    return dict(ms=cuda_ms(call, reps, flush),
+                kernel_ms=cuda_ms(staged(call), reps, flush), slots=k,
+                matching_rows=matching, share=matching / n,
+                **_bound(nbytes, matching * 4 * FW * 3))
+
+
+def _time_multislot(flush, shapes=None) -> dict:
+    from lightgbm_tpu_torch.ops.hist_multislot import \
+        build_histogram_multislot_plain
     from lightgbm_tpu_torch.ops.hist_packed import unpack_bin_words
 
     k = MULTI_K
     words, w, slot = multislot_inputs(43, "random", k)
     dev = words.device
     reps = 20
-    call = (lambda: build_histogram_multislot(
-        words, w, slot, num_bins=NUM_BINS, n_slots=k))
-    ms = cuda_ms(call, reps, flush)
-    kernel_ms = cuda_ms(staged(call), reps, flush)
-    plain_ms = cuda_ms(lambda: build_histogram_multislot_plain(
+    res = _time_multislot_call(flush, words, w, slot, k)
+    res["plain_ms"] = cuda_ms(lambda: build_histogram_multislot_plain(
         words, w, slot, num_bins=NUM_BINS, n_slots=k), 3, flush)
     # the library call: one index_add_ over the rows in a slot, with the
     # flat (slot, column, bin) indices formed beforehand
@@ -1736,46 +1834,62 @@ def _time_multislot(flush) -> dict:
              + fo) * NUM_BINS + codes).reshape(-1)
     src = w.index_select(1, rows).t().unsqueeze(0) \
         .expand(4 * FW, rows.numel(), 3).reshape(-1, 3).contiguous()
-    lib_ms = cuda_ms(lambda: torch.zeros(
+    res["library_ms"] = cuda_ms(lambda: torch.zeros(
         k * 4 * FW * NUM_BINS, 3, device=dev).index_add_(0, flat, src),
         reps, flush)
-    # the bytes the function needs: every row's slot, words and weights of
-    # the rows in a slot, the output once
-    matching = int(rows.numel())
-    nbytes = (N_FULL * 4 + matching * (FW * 4 + 3 * 4)
-              + k * 4 * FW * NUM_BINS * 3 * 4)
-    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, slots=k,
-                matching_rows=matching,
-                **_bound(nbytes, matching * 4 * FW * 3))
+    # the quant path's launches: the recorded K and share of rows in a slot
+    # through seeded random slots, over rows whose four padding features
+    # hold code 0, as the dataset's do
+    if shapes:
+        words, w, _ = multislot_inputs(43, "random", k, pad=True)
+        res["shapes_quant_train"] = {
+            tag: dict(_time_multislot_call(
+                flush, words, w, share_slots(N_FULL, rec["K"], rec["share"],
+                                             44, dev), rec["K"]),
+                recorded=rec, padding_features_constant=True)
+            for tag, rec in shapes.items() if tag != "distribution"}
+    return res
 
 
-def _time_fused(flush) -> dict:
-    from lightgbm_tpu_torch.ops.fused_scan import (fused_child_scans,
-                                                   fused_child_scans_plain)
+def _time_fused_call(flush, k: int, reps: int = 20) -> dict:
+    """fused_scan through the wrapper and alone at K members (F = 28,
+    B = 255, random float32), with its bound."""
+    from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
 
     dev = torch.device("cuda", 0)
-    args = [t.to(dev) for t in fused_inputs(33, False)]
+    args = [t.to(dev) for t in fused_inputs(33, False, k=k)]
     kw = dict(SCAN_KW, lambda_l1=0.0)
-    reps = 20
     # each launch rewrites the members' pool rows in place; the values
     # drift between launches, the work does not
     call = (lambda: fused_child_scans(*args, **kw))
-    ms = cuda_ms(call, reps, flush)
-    kernel_ms = cuda_ms(staged(call), reps, flush)
-    plain_ms = cuda_ms(lambda: fused_child_scans_plain(*args, **kw), reps,
-                       flush)
-    k, f, b = FUSED_K, FEATURES, NUM_BINS
+    f, b = FEATURES, NUM_BINS
     cells = k * f * b
-    # read h_small and the parents, write both children; the totals and
-    # the 2K planes
-    nbytes = 4 * cells * 3 * 4 + 2 * k * 5 * 4 + 2 * k * 8 * f * 4
+    # read h_small and the parents, write both children; read the (2K,)
+    # sums, write the 11 (2K, F) fields (ten of 4 bytes, default_left of 1)
+    nbytes = 4 * cells * 3 * 4 + 2 * k * 3 * 4 + 2 * k * f * (10 * 4 + 1)
     # per cell: 3 subtractions, 6 pairwise adds for the two fixes, then two
     # children's scans at the split scan's 2 x 40 operations per bin
-    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=None,
-                library="no single PyTorch call computes this function",
-                members=k, **_bound(nbytes, cells * (3 + 6 + 2 * 80)))
+    return dict(ms=cuda_ms(call, reps, flush),
+                kernel_ms=cuda_ms(staged(call), reps, flush), members=k,
+                args=args, kw=kw, **_bound(nbytes, cells * (3 + 6 + 2 * 80)))
+
+
+def _time_fused(flush, shapes=None) -> dict:
+    from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans_plain
+
+    res = _time_fused_call(flush, FUSED_K)
+    args, kw = res.pop("args"), res.pop("kw")
+    res["plain_ms"] = cuda_ms(lambda: fused_child_scans_plain(*args, **kw),
+                              20, flush)
+    res.update(library_ms=None,
+               library="no single PyTorch call computes this function")
+    if shapes:
+        res["shapes_quant_train"] = {}
+        for tag in ("median", "largest"):
+            r = _time_fused_call(flush, shapes[tag]["K"])
+            r.pop("args"), r.pop("kw")
+            res["shapes_quant_train"][tag] = dict(r, recorded=shapes[tag])
+    return res
 
 
 def _full_bound(bins: torch.Tensor, w: torch.Tensor, num_bins: int) -> dict:
@@ -1944,12 +2058,14 @@ def phase_timing(ctx) -> None:
     launches_before = [fn.launches for fn in wrappers]
     rows = _time_packed(flush, ctx.get("shapes_train"))
     shapes = ctx.get("shapes_wave", {})
+    quant = ctx.get("shapes_quant", {})
     others = {"hist_segments": _time_segments(flush,
                                               shapes.get("hist_segments")),
               "partition": _time_partition(flush),
               "split_scan": _time_scan(flush, shapes.get("split_scan")),
-              "hist_multislot": _time_multislot(flush),
-              "fused_scan": _time_fused(flush),
+              "hist_multislot": _time_multislot(
+                  flush, quant.get("hist_multislot")),
+              "fused_scan": _time_fused(flush, quant.get("fused_scan")),
               "hist_full": _time_hist_full(flush,
                                            ctx.get("shapes_masked_train"))}
     for fn, n in zip(wrappers, launches_before):
@@ -1983,9 +2099,11 @@ def kernels_line(ctx) -> dict:
                           "launches bitwise; quant mode bitwise; random "
                           "float32 within rtol=1e-5, atol=1e-5 times each "
                           "bin's sum of |w|",
-        "fused_scan": "quant-grid inputs: every field and both pool rows "
-                      "bitwise equal to the plain version (card and CPU); "
-                      "random float32: bitwise equal to the unfused step",
+        "fused_scan": "quant-grid and random float32 inputs: every field "
+                      "and both pool rows bitwise equal to the plain "
+                      "version on the CPU; quant-grid: bitwise equal to "
+                      "the plain version on the card; random float32: "
+                      "bitwise equal to the unfused step on the card",
         "hist_full": "uint16 codes at 1,023 bins and uint8 at 255: dyadic "
                      "inputs bitwise; two launches bitwise; random float32 "
                      "within rtol=1e-5, atol=1e-5 times each bin's sum of "
@@ -2025,7 +2143,7 @@ def kernels_line(ctx) -> dict:
                     "library_ms": row["library_ms"],
                     "compare": compare[name]})
         for key in ("shapes_wave_train", "shapes_masked_train",
-                    "shapes_train"):
+                    "shapes_train", "shapes_quant_train"):
             if key in row:
                 out[-1][key] = row[key]
     out[0]["launches_compact_train"] = ctx.get("launches_compact")

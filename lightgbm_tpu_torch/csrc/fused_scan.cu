@@ -11,130 +11,217 @@
 //   pool[ph[k], f] = hl;  pool[rh[k], f] = hr             (the raw children)
 //   for each child: the default-bin entry rebuilt as the child's totals minus
 //   the other bins (Dataset::FixHistogram, a feature with default_bin > 0),
-//   then scan_common.cuh's scan_leaf() over the fixed histogram
+//   then the split scan of the fixed histogram, every SplitCandidates field
 //
 //   h_small : (K, F, B, 3) float32, each member's smaller-child histogram
 //   pool    : (H, F, B, 3) float32, the learner's histogram pool, updated
 //             in place; ph[k] is the member's own slot (its parent
-//             histogram, overwritten by the left child), rh[k] a fresh slot
-//   tot     : (2K, 5) float32 per child, interleaved [l0, r0, l1, ...]:
-//             sum_g, sum_h, sum_h + 2*K_EPSILON, count, min_gain_shift
-//   out     : (2K, 8, F) float32 planes, as split_scan.cu
+//             histogram, overwritten by the left child), rh[k] a fresh slot;
+//             slots are int64 with element strides, as the learner makes them
+//   left_small : (K,) bool with an element stride
+//   sums    : the (2K,) child sums sum_g, sum_h (no epsilon), count, float32
+//             with element strides, interleaved [l0, r0, l1, r1, ...]
+//   mask    : the feature mask, (F,) or (2K, F) bytes
+//   out     : (10, 2K, F) float32 planes and (2K, F) default_left, as
+//             split_scan.cu writes them
 //
-// Design.  One block of 256 threads per (k, f), one thread per bin, so one
-// block reads and writes every element of its (member, feature) row of the
-// pool: each thread reads its bin of pool[ph[k], f] before it writes the left
-// child there, and no other block touches that row (the members' slots are
-// distinct, the right children's slots fresh), so the in-place write needs
-// no second buffer.  The FixHistogram sums run as a pairwise tree over the
-// bins padded to a power of two, the order ops/split.py:fix_histogram uses on
-// every device, so the fused and the unfused wave agree bit for bit even on
-// the count channel, whose values (hessian sums times a rescale) are not
-// exact.  Then each child runs scan_leaf(), the batched scan's code: on the
-// same histograms every field is bitwise split_scan.cu's.
+// One launch is the whole call: for the learner's tensors the wrapper issues
+// no other device op.
+//
+// Design.  A warp per (member, child, feature), 2K * F warps packed as
+// split_scan.cu packs its (leaf, feature) warps: four a block, seven blocks
+// an SM.  The smaller child's warp loads h_small[k, f].  The larger child's
+// warp loads h_small[k, f] and the parent's row pool[ph[k], f], forms the
+// larger child by subtraction, and writes BOTH pool rows.  So the order of
+// the parent's read before its overwrite is the program order of that one
+// warp (each lane's loads have returned before the warp synchronises and
+// any lane stores), and no other warp reads or writes those rows: the
+// smaller child's warp never touches the pool, the members' slots are
+// distinct and the right children's slots fresh.  No barrier between warps
+// and no second buffer are needed.  (Both children in one warp would
+// serialise two 256-step carries; a named barrier between the pair of warps
+// would tie two warps' schedules for nothing.)
+//
+// The child's warp then rebuilds the default-bin entry in registers: the
+// sum of the other bins as ops/split.py:pairwise_bin_sum forms it, a
+// pairwise tree over the bins padded to a power of two P (x[i] + x[i + P/2]
+// at every level: the levels of half 128, 64 and 32 add a lane's own bins
+// lane + 32 j, the last five are shuffles), so the entry equals
+// fix_histogram's on every device bit for bit.  Then scan_common.cuh's
+// warp_scan() scans it with split_scan.cu's code and writes the fields, so
+// on the same histograms every field is bitwise split_scan.cu's, and equal
+// to the plain version on the CPU.
 //
 // Bound.  The function must read h_small and the parents' rows and write
-// both children, 4 * K * F * B * 3 * 4 bytes, plus the tot rows and the
-// 2K * 8 * F planes: at K = 64, F = 28, B = 255 about 22 MB, about 6.6 us at
-// 3.35 TB/s.  As in split_scan.cu, the two children's sequential carries
-// (2 x B dependent double additions per block) are the likelier limit.
+// both children, 4 * K * F * B * 3 * 4 bytes, plus the (2K,) sums and the
+// 2K * F fields: at K = 64, F = 28, B = 255 about 22 MB, about 6.6 us at
+// 3.35 TB/s.  As in split_scan.cu, the sequential carries (B dependent
+// double additions per warp) and the threshold evaluation's instructions
+// are the likelier limit.
 
 #include "scan_common.cuh"
 
 namespace {
 
-using scan::kThreads;
+constexpr int kWarps = 4;        // (member, child, feature) warps per block
+constexpr int kBlocksPerSm = 7;  // as split_scan.cu
 
-__global__ void __launch_bounds__(kThreads)
-fused_child_scan(const float* __restrict__ h_small, float* __restrict__ pool,
-                 const int32_t* __restrict__ ph, const int32_t* __restrict__ rh,
-                 const int32_t* __restrict__ left_small,
-                 const float* __restrict__ tot,
-                 const int32_t* __restrict__ num_bin,
-                 const int32_t* __restrict__ missing,
-                 const int32_t* __restrict__ default_bin, int F, int B, int P,
-                 scan::Params p, float* __restrict__ out) {
-  __shared__ float hc[2][3][kThreads];  // the children, then fixed
-  __shared__ float tr[6][kThreads];     // FixHistogram pairwise sums
-  __shared__ scan::Smem sm;
+struct Args {
+  const float* h_small;
+  float* pool;
+  const int64_t *ph, *rh;
+  long long ph_stride, rh_stride;
+  const uint8_t* left_small;
+  long long ls_stride;
+  const float *sum_g, *sum_h, *num_data;
+  long long sg_stride, sh_stride, nd_stride;
+  const int32_t *num_bin, *missing, *default_bin;
+  const uint8_t* fmask;
+  long long fmask_stride;  // 0 for an (F,) mask, F for (2K, F)
+  int K, F, B;
+  long long H;             // pool slots
+  float min_gain_to_split;
+  scan::Fields out;        // (10, 2K, F) planes and (2K, F) default_left
+};
 
-  const int k = blockIdx.x / F;
-  const int f = blockIdx.x - k * F;
-  const int t = threadIdx.x;
-  const long long row = (long long)B * 3;
-  const float* hs = h_small + ((long long)k * F + f) * row;
-  float* par = pool + ((long long)ph[k] * F + f) * row;
-  float* rgt = pool + ((long long)rh[k] * F + f) * row;
-  const bool ls = left_small[k] != 0;
-  if (t < B) {
+// The pairwise sum over P bins (a power of two, at most kBins) of x, a
+// lane's bins lane + 32 j, one channel; the result in every lane.
+__device__ __forceinline__ float pairwise_sum(float (&x)[scan::kPerLane],
+                                              int P) {
+#pragma unroll
+  for (int h = scan::kPerLane / 2; h >= 1; h >>= 1) {  // halves 128, 64, 32
+    if (P >= 64 * h) {
+#pragma unroll
+      for (int j = 0; j < h; ++j) x[j] = __fadd_rn(x[j], x[j + h]);
+    }
+  }
+  float t = x[0];
+#pragma unroll
+  for (int half = 16; half >= 1; half >>= 1) {
+    const float o = __shfl_down_sync(scan::kFull, t, half);
+    if (P >= 2 * half) t = __fadd_rn(t, o);
+  }
+  return __shfl_sync(scan::kFull, t, 0);
+}
+
+__global__ void __launch_bounds__(kWarps * 32, kBlocksPerSm)
+fused_child_scan(Args a, scan::Params p) {
+  __shared__ scan::WarpSmem smem[kWarps];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long pair = (long long)blockIdx.x * kWarps + warp;
+  if (pair >= 2LL * a.K * a.F) return;  // whole warps only
+  const int row = static_cast<int>(pair / a.F);  // the child, 2k + c
+  const int f = static_cast<int>(pair - (long long)row * a.F);
+  const int k = row >> 1;
+  const bool ls = a.left_small[k * a.ls_stride] != 0;
+  const bool smaller = ((row & 1) == 0) == ls;
+  scan::WarpSmem& s = smem[warp];
+  const int B = a.B;
+  const int n = B * 3;
+
+  const float* hs = a.h_small + ((long long)k * a.F + f) * n;
+  scan::load_row(s.hs, hs, n, lane);
+  if (!smaller) {
+    const long long ph = a.ph[k * a.ph_stride];
+    const long long rh = a.rh[k * a.rh_stride];
+    if (ph < 0 || ph >= a.H || rh < 0 || rh >= a.H) __trap();
+    float* par = a.pool + (ph * a.F + f) * n;
+    float* rgt = a.pool + (rh * a.F + f) * n;
+    float* ps = &s.cp[0][0];  // the parent's row, before any write
+    scan::load_row(ps, par, n, lane);
+    __syncwarp();
+    for (int e = lane; e < n; e += 32) {
+      const float sm = s.hs[e];
+      const float lg = __fsub_rn(ps[e], sm);
+      par[e] = ls ? sm : lg;
+      rgt[e] = ls ? lg : sm;
+      s.hs[e] = lg;  // this warp's child
+    }
+  }
+  __syncwarp();
+  float v[scan::kPerLane][3];
+  scan::lane_bins(s, B, lane, v);
+
+  const float tg = a.sum_g[row * a.sg_stride];
+  const float sh = a.sum_h[row * a.sh_stride];
+  const float tn = a.num_data[row * a.nd_stride];
+  const int d = a.default_bin[f];
+  if (d > 0 && d < B) {
+    // FixHistogram: bin d = the child's totals minus the other bins
+    const int P = 1 << (32 - __clz(B - 1));  // B rounded up to a power of 2
+    const float tot[3] = {tg, sh, tn};
+#pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float a = hs[t * 3 + c];
-      const float large = __fsub_rn(par[t * 3 + c], a);
-      const float l = ls ? a : large;
-      const float r = ls ? large : a;
-      hc[0][c][t] = l;
-      hc[1][c][t] = r;
-      par[t * 3 + c] = l;  // this thread read this element just above
-      rgt[t * 3 + c] = r;
+      float x[scan::kPerLane];
+#pragma unroll
+      for (int j = 0; j < scan::kPerLane; ++j)
+        x[j] = lane + 32 * j == d ? 0.0f : v[j][c];
+      const float fixed = __fsub_rn(tot[c], pairwise_sum(x, P));
+#pragma unroll
+      for (int j = 0; j < scan::kPerLane; ++j)
+        if (lane + 32 * j == d) v[j][c] = fixed;
     }
   }
-  const int d = default_bin[f];
-  const bool fix = d > 0 && d < B;
-  if (fix) {
-    // others[child][c] = sum of the bins but d, pairwise over P bins
-    __syncthreads();
-    for (int q = 0; q < 6; ++q)
-      tr[q][t] = (t < B && t != d) ? hc[q / 3][q % 3][t] : 0.0f;
-    __syncthreads();
-    for (int s = P / 2; s > 0; s >>= 1) {
-      if (t < s)
-        for (int q = 0; q < 6; ++q) tr[q][t] = __fadd_rn(tr[q][t], tr[q][t + s]);
-      __syncthreads();
-    }
-    if (t < 6) {
-      const int child = t / 3;
-      const int c = t % 3;
-      const float* tc = tot + (2LL * k + child) * 5;
-      const float total = c == 0 ? tc[0] : (c == 1 ? tc[1] : tc[3]);
-      hc[child][c][d] = __fsub_rn(total, tr[t][0]);
-    }
-  }
-  __syncthreads();
   const scan::Feature ft =
-      scan::make_feature(num_bin[f], missing[f], default_bin[f]);
-  for (int child = 0; child < 2; ++child) {
-    const float* tc = tot + (2LL * k + child) * 5;
-    scan::scan_leaf(hc[child], sm, ft, B, tc[0], tc[2], tc[3], tc[4], p,
-                    out + (2LL * k + child) * 8 * F + f, F);
-  }
+      scan::make_feature(a.num_bin[f], a.missing[f], d);
+  const bool masked = a.fmask[row * a.fmask_stride + f] == 0;
+  scan::warp_scan(s, v, ft, B, tg, sh, tn, masked, a.min_gain_to_split, p,
+                  a.out, pair);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream` (see the header for the operands; ph, rh and
-// left_small are (K,) int32, P is the bin count rounded up to a power of
-// two).  Returns cudaGetLastError() after the launch (0 = launched).
-int lgbt_fused_scan(const void* h_small, void* pool, const void* ph,
-                    const void* rh, const void* left_small, const void* tot,
-                    const void* num_bin, const void* missing,
-                    const void* default_bin, int K, int F, int B, int P,
-                    float l1, float l2, float mds, int use_mds, float min_data,
-                    float min_hess, void* out, void* stream) {
-  if (B < 1 || B > kThreads || P < B || P > kThreads || (P & (P - 1)))
+// Launch on `stream` (see the header for the operands).  Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for shapes the kernel does not take.
+int lgbt_fused_scan(const void* h_small, void* pool, long long H,
+                    const void* ph, long long ph_stride, const void* rh,
+                    long long rh_stride, const void* left_small,
+                    long long ls_stride, const void* sum_g,
+                    long long sg_stride, const void* sum_h,
+                    long long sh_stride, const void* num_data,
+                    long long nd_stride, const void* num_bin,
+                    const void* missing, const void* default_bin,
+                    const void* fmask, long long fmask_stride, int K, int F,
+                    int B, float l1, float l2, float mds, int use_mds,
+                    float min_data, float min_hess, float min_gain_to_split,
+                    void* planes, void* dleft, void* stream) {
+  if (B < 1 || B > scan::kBins || K < 1 || F < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
+  Args a;
+  a.h_small = static_cast<const float*>(h_small);
+  a.pool = static_cast<float*>(pool);
+  a.ph = static_cast<const int64_t*>(ph);
+  a.rh = static_cast<const int64_t*>(rh);
+  a.ph_stride = ph_stride;
+  a.rh_stride = rh_stride;
+  a.left_small = static_cast<const uint8_t*>(left_small);
+  a.ls_stride = ls_stride;
+  a.sum_g = static_cast<const float*>(sum_g);
+  a.sum_h = static_cast<const float*>(sum_h);
+  a.num_data = static_cast<const float*>(num_data);
+  a.sg_stride = sg_stride;
+  a.sh_stride = sh_stride;
+  a.nd_stride = nd_stride;
+  a.num_bin = static_cast<const int32_t*>(num_bin);
+  a.missing = static_cast<const int32_t*>(missing);
+  a.default_bin = static_cast<const int32_t*>(default_bin);
+  a.fmask = static_cast<const uint8_t*>(fmask);
+  a.fmask_stride = fmask_stride;
+  a.K = K;
+  a.F = F;
+  a.B = B;
+  a.H = H;
+  a.min_gain_to_split = min_gain_to_split;
+  a.out = scan::Fields{static_cast<float*>(planes),
+                       static_cast<uint8_t*>(dleft), 2LL * K * F};
   scan::Params p{l1, l2, mds, use_mds, min_data, min_hess};
-  const long long blocks = (long long)K * F;
-  fused_child_scan<<<(unsigned)blocks, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h_small), static_cast<float*>(pool),
-      static_cast<const int32_t*>(ph), static_cast<const int32_t*>(rh),
-      static_cast<const int32_t*>(left_small), static_cast<const float*>(tot),
-      static_cast<const int32_t*>(num_bin),
-      static_cast<const int32_t*>(missing),
-      static_cast<const int32_t*>(default_bin), F, B, P, p,
-      static_cast<float*>(out));
+  const long long blocks = (2LL * K * F + kWarps - 1) / kWarps;
+  fused_child_scan<<<(unsigned)blocks, kWarps * 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a, p);
   return (int)cudaGetLastError();
 }
 

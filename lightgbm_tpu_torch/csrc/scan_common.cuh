@@ -1,10 +1,10 @@
-// One leaf-feature split scan, shared by split_scan.cu and fused_scan.cu
-// (the TPU package shares _scan_body between find_best_splits_batched and
-// fused_child_scans the same way).  Build every includer with -fmad=false
-// (native.py does): the gain arithmetic must round after every operation, as
-// the plain torch version (ops/split.py) does.
+// One leaf-feature split scan, a warp's work, shared by split_scan.cu and
+// fused_scan.cu (the TPU package shares _scan_body between
+// find_best_splits_batched and fused_child_scans the same way).  Build every
+// includer with -fmad=false (native.py does): the gain arithmetic must round
+// after every operation, as the plain torch version (ops/split.py) does.
 //
-// scan_leaf() finds the best numerical threshold of one (leaf, feature)
+// warp_scan() finds the best numerical threshold of one (leaf, feature)
 // histogram with the semantics of ops/split.py:find_best_splits (the
 // reference's FeatureHistogram::FindBestThreshold*):
 //
@@ -16,21 +16,29 @@
 //   * min_data_in_leaf / min_sum_hessian_in_leaf feasibility, a gain above
 //     the leaf's min_gain_shift, L1 / L2 / max_delta_step leaf outputs;
 //   * default_left false when the missing-right scan wins, and false for a
-//     NaN feature with two bins.
+//     NaN feature with two bins;
 //
-// It writes 8 planes, as the TPU kernel: the raw best gain, the threshold,
-// default_left, and the left sums (g, h + K_EPSILON, count) and both outputs
-// at that threshold.
+// and writes every SplitCandidates field with the epilogue of
+// find_best_splits: the post-shift gain (-inf where the best is -inf or the
+// feature is masked), the int32 threshold, default_left, the left and right
+// sums with the K_EPSILON conventions and both outputs.  Every field is
+// computed with the plain version's operations in its order (_rn
+// intrinsics, no contraction), so it equals ops/split.py on the CPU bit for
+// bit.
 //
-// Design.  A block of 256 threads, one thread per bin.  Six threads form the
-// six cumulative sums (3 channels x 2 directions) in bin order with one
-// running carry each, accumulated in double and rounded to float at every
-// bin: that is what torch.cumsum does on the CPU for float32, so the sums
-// equal the plain version's on the CPU bit for bit (a tree-shaped block scan
-// would not).  Every thread then evaluates its threshold in both directions
-// with the operation order of ops/split.py (explicit _rn intrinsics, no
-// contraction), and two shared-memory reductions pick each direction's best
-// threshold with the tie rules above.
+// Design.  A warp per (leaf, feature) and 6 KB of shared memory per warp
+// (WarpSmem).  The caller loads the histogram with coalesced 16-byte loads
+// (load_row) and hands every lane its bins lane, lane + 32, ... in
+// registers.  All 32 lanes write the bins of both directions under their
+// keep masks, and six lanes then turn them, in place, into the six
+// cumulative sums (3 channels x 2 directions) in bin order with one running
+// carry each, in double and rounded to float at every bin: that is what
+// torch.cumsum does on the CPU for float32 (a tree-shaped scan would not
+// be).  Every lane evaluates B / 32 thresholds of both directions, keeps its
+// best of each by beats()'s tie rules (a strict order on (gain,
+// threshold)), and a five-step shuffle butterfly (warp_best) gives every
+// lane the warp's best; lane 0 forms the chosen candidate and the epilogue.
+// No block-wide barrier.
 
 #pragma once
 
@@ -40,7 +48,10 @@
 
 namespace scan {
 
-constexpr int kThreads = 256;
+constexpr int kBins = 256;             // most bins a histogram holds
+constexpr int kPerLane = kBins / 32;   // bins a lane holds
+constexpr int kUnroll = 8;             // bins per step of the carry loop
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMissingNone = 0;
 constexpr int kMissingZero = 1;
 constexpr int kMissingNan = 2;
@@ -118,7 +129,7 @@ __device__ __forceinline__ Feature make_feature(int nb, int mt, int d) {
 
 // Missing-left candidate at threshold t: right = suffix sums over bins > t.
 __device__ __forceinline__ Cand cand_m1(int t, const Feature& ft,
-                                        const float (*cm)[kThreads + 1],
+                                        const float (*cm)[kBins + 1],
                                         float tg, float th, float tn,
                                         float mgs, const Params& p) {
   const float rg = cm[0][t + 1];
@@ -133,7 +144,7 @@ __device__ __forceinline__ Cand cand_m1(int t, const Feature& ft,
 
 // Missing-right candidate at threshold t: left = prefix sums over bins <= t.
 __device__ __forceinline__ Cand cand_p1(int t, const Feature& ft,
-                                        const float (*cp)[kThreads],
+                                        const float (*cp)[kBins],
                                         float tg, float th, float tn,
                                         float mgs, const Params& p) {
   const float lg = cp[0][t];
@@ -156,94 +167,175 @@ __device__ __forceinline__ bool beats(float g1, int t1, float g2, int t2,
   return prefer_high ? t1 > t2 : t1 < t2;
 }
 
-// Shared memory one scan_leaf() call works in.
-struct Smem {
-  float cm[3][kThreads + 1];  // suffix sums, cm[c][B] = 0
-  float cp[3][kThreads];      // prefix sums
-  float red_g[2][kThreads];
-  int red_t[2][kThreads];
+// One warp's shared memory.
+struct WarpSmem {
+  union {
+    float hs[kBins * 3];        // the histogram as stored, (bin, channel)
+    float cm[3][kBins + 1];     // then the suffix sums over bins >= b
+  };
+  float cp[3][kBins];           // prefix sums over bins <= b
 };
 
-// Scan one (leaf, feature): hs holds the histogram's three channels over B
-// bins (filled and synchronised by the caller); tg, th (sum_h + 2 *
-// K_EPSILON), tn are the leaf totals, mgs its min_gain_shift.  Thread 0
-// writes the 8 planes to o[0], o[stride], ..., o[7 * stride].  Every thread
-// of the block must call it.
-__device__ void scan_leaf(const float (*hs)[kThreads], Smem& sm,
-                          const Feature& ft, int B, float tg, float th,
-                          float tn, float mgs, const Params& p, float* o,
-                          int stride) {
-  const int t = threadIdx.x;
-  if (t < 3) {
-    // missing-left keep mask; suffix sums from the last bin down
-    double carry = 0.0;
-    for (int b = B - 1; b >= 0; --b) {
-      const bool excl = (ft.two && ft.is_zero && b == ft.d) ||
-                        (ft.two && ft.is_nan && b >= ft.nb - 1) || b >= ft.nb;
-      carry += (double)__fmul_rn(hs[t][b], excl ? 0.0f : 1.0f);
-      sm.cm[t][b] = __double2float_rn(carry);
-    }
-    sm.cm[t][B] = 0.0f;
-  } else if (t < 6) {
-    // missing-right keep mask; prefix sums from the first bin up
-    const int c = t - 3;
-    double carry = 0.0;
-    for (int b = 0; b < B; ++b) {
-      const bool excl = (ft.is_zero && b == ft.d) ||
-                        (ft.is_nan && b >= ft.nb - 1) || b >= ft.nb;
-      carry += (double)__fmul_rn(hs[c][b], excl ? 0.0f : 1.0f);
-      sm.cp[c][b] = __double2float_rn(carry);
+// The warp copies n floats from global src to shared dst: 16-byte loads
+// where src is aligned, words elsewhere.  The caller synchronises the warp
+// before reading dst.
+__device__ __forceinline__ void load_row(float* dst, const float* src, int n,
+                                         int lane) {
+  const int head = static_cast<int>(
+      ((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15) >> 2);
+  const int h0 = head < n ? head : n;
+  if (lane < h0) dst[lane] = src[lane];
+  const int n4 = (n - h0) >> 2;
+  const float4* src4 = reinterpret_cast<const float4*>(src + h0);
+  for (int i = lane; i < n4; i += 32) {
+    const float4 v = src4[i];
+    float* d = dst + h0 + 4 * i;
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+  for (int i = h0 + 4 * n4 + lane; i < n; i += 32) dst[i] = src[i];
+}
+
+// Every lane's bins lane, lane + 32, ... of the (bin, channel) histogram in
+// s.hs (B bins), zeros past B.  The caller synchronises the warp after
+// filling s.hs.
+__device__ __forceinline__ void lane_bins(const WarpSmem& s, int B, int lane,
+                                          float (&v)[kPerLane][3]) {
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int b = lane + 32 * j;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[j][c] = b < B ? s.hs[b * 3 + c] : 0.0f;
+  }
+}
+
+// Keep the better of (g, t) and the other lanes' entries, the warp's best in
+// every lane after five butterfly steps.
+__device__ __forceinline__ void warp_best(float& g, int& t, bool prefer_high) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float og = __shfl_xor_sync(kFull, g, o);
+    const int ot = __shfl_xor_sync(kFull, t, o);
+    if (!beats(g, t, og, ot, prefer_high)) {
+      g = og;
+      t = ot;
     }
   }
-  __syncthreads();
+}
 
+// Where the SplitCandidates fields of `rows` leaves x F features go.
+struct Fields {
+  float* planes;     // (10, rows, F): gain, threshold (int32), lsg, lsh, lc,
+                     // rsg, rsh, rc, lo, ro
+  uint8_t* dleft;    // (rows, F) bool
+  long long plane;   // rows * F
+};
+
+// Scan one (leaf, feature) and write its fields at entry `pair` (= leaf * F
+// + feature) of `o`.  v holds every lane's bins (lane_bins), tg, sum_h (no
+// epsilon) and tn are the leaf's sums, `masked` drops the feature for this
+// leaf.  s.hs may hold the histogram v was read from: it is overwritten.
+// Every lane of the warp must call it.
+__device__ __forceinline__ void warp_scan(WarpSmem& s,
+                                          const float (&v)[kPerLane][3],
+                                          const Feature& ft, int B, float tg,
+                                          float sum_h, float tn, bool masked,
+                                          float min_gain_to_split,
+                                          const Params& p, const Fields& o,
+                                          long long pair) {
+  const int lane = threadIdx.x & 31;
+  // the leaf totals, as find_best_splits forms them
+  const float th = __fadd_rn(sum_h, 2.0f * kEpsilon);
+  const float shift = gain_given_output(tg, th, leaf_output(tg, th, p), p);
+  const float mgs = __fadd_rn(shift, min_gain_to_split);
+  __syncwarp();  // every lane has read its bins (cm shares its words with hs)
+
+  // The six cumulative sums.  First every lane writes the masked bins of
+  // both directions, bins past B as zeros (the missing-left keep mask into
+  // cm, the missing-right one into cp); then lanes 0-2 turn cm[c] into
+  // suffix sums from bin 255 down and lanes 3-5 cp[c] into prefix sums from
+  // bin 0 up, in place, one running carry each in double, rounded to float
+  // at every bin.  The leading zeros of the suffix walk leave its carry at
+  // +0.0, so every sum is the plain version's.  The loop is the same 256
+  // steps for all six lanes, eight bins to an unrolled step.
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int b = lane + 32 * j;
+    const bool excl_l = (ft.two && ft.is_zero && b == ft.d) ||
+                        (ft.two && ft.is_nan && b >= ft.nb - 1) || b >= ft.nb;
+    const bool excl_r = (ft.is_zero && b == ft.d) ||
+                        (ft.is_nan && b >= ft.nb - 1) || b >= ft.nb;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      s.cm[c][b] = __fmul_rn(v[j][c], excl_l ? 0.0f : 1.0f);
+      s.cp[c][b] = __fmul_rn(v[j][c], excl_r ? 0.0f : 1.0f);
+    }
+  }
+  if (lane < 3) s.cm[lane][kBins] = 0.0f;
+  __syncwarp();
+  if (lane < 6) {
+    const bool suffix = lane < 3;
+    float* x = suffix ? &s.cm[lane][kBins - 1] : s.cp[lane - 3];
+    const int step = suffix ? -1 : 1;
+    double carry = 0.0;
+    for (int i0 = 0; i0 < kBins; i0 += kUnroll) {
+      float u[kUnroll];
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) u[q] = x[(i0 + q) * step];
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        carry += (double)u[q];
+        x[(i0 + q) * step] = __double2float_rn(carry);
+      }
+    }
+  }
+  __syncwarp();
+
+  // each lane's thresholds t = lane, lane + 32, ...; t < 0 marks none
   float gm = -INFINITY, gp = -INFINITY;
   int tm = -1, tp = -1;
-  if (t < B) {
-    gm = cand_m1(t, ft, sm.cm, tg, th, tn, mgs, p).gain;
-    gp = cand_p1(t, ft, sm.cp, tg, th, tn, mgs, p).gain;
-    tm = t;
-    tp = t;
-  }
-  sm.red_g[0][t] = gm;
-  sm.red_t[0][t] = tm;
-  sm.red_g[1][t] = gp;
-  sm.red_t[1][t] = tp;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      if (!beats(sm.red_g[0][t], sm.red_t[0][t], sm.red_g[0][t + s],
-                 sm.red_t[0][t + s], true)) {
-        sm.red_g[0][t] = sm.red_g[0][t + s];
-        sm.red_t[0][t] = sm.red_t[0][t + s];
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {  // unrolled: independent chains
+    const int t = lane + 32 * j;
+    if (t < B) {
+      const float g1 = cand_m1(t, ft, s.cm, tg, th, tn, mgs, p).gain;
+      if (beats(g1, t, gm, tm, true)) {
+        gm = g1;
+        tm = t;
       }
-      if (!beats(sm.red_g[1][t], sm.red_t[1][t], sm.red_g[1][t + s],
-                 sm.red_t[1][t + s], false)) {
-        sm.red_g[1][t] = sm.red_g[1][t + s];
-        sm.red_t[1][t] = sm.red_t[1][t + s];
+      const float g2 = cand_p1(t, ft, s.cp, tg, th, tn, mgs, p).gain;
+      if (beats(g2, t, gp, tp, false)) {
+        gp = g2;
+        tp = t;
       }
     }
-    __syncthreads();
   }
-  if (t == 0) {
-    const float best_m1 = sm.red_g[0][0];
-    const float best_p1 = sm.red_g[1][0];
-    const bool use_p1 = best_p1 > best_m1;
-    const int bt = use_p1 ? sm.red_t[1][0] : sm.red_t[0][0];
-    const Cand c = use_p1 ? cand_p1(bt, ft, sm.cp, tg, th, tn, mgs, p)
-                          : cand_m1(bt, ft, sm.cm, tg, th, tn, mgs, p);
-    const bool dleft = use_p1 ? false : !(!ft.two && ft.is_nan);
-    o[0 * stride] = use_p1 ? best_p1 : best_m1;
-    o[1 * stride] = (float)bt;
-    o[2 * stride] = dleft ? 1.0f : 0.0f;
-    o[3 * stride] = c.lg;
-    o[4 * stride] = c.lh;
-    o[5 * stride] = c.lc;
-    o[6 * stride] = c.lo;
-    o[7 * stride] = c.ro;
-  }
-  // the caller may reuse hs and sm after this
-  __syncthreads();
+  warp_best(gm, tm, true);
+  warp_best(gp, tp, false);
+  if (lane != 0) return;
+
+  const bool use_p1 = gp > gm;
+  const int bt = use_p1 ? tp : tm;
+  const Cand c = use_p1 ? cand_p1(bt, ft, s.cp, tg, th, tn, mgs, p)
+                        : cand_m1(bt, ft, s.cm, tg, th, tn, mgs, p);
+  const float best = use_p1 ? gp : gm;
+  const bool dleft = use_p1 ? false : !(!ft.two && ft.is_nan);
+  const bool invalid = (isinf(best) && best < 0.0f) || masked;
+  float* out = o.planes + pair;
+  const long long pl = o.plane;
+  out[0] = invalid ? -INFINITY : __fsub_rn(best, mgs);
+  reinterpret_cast<int32_t*>(out + pl)[0] = bt;
+  out[2 * pl] = c.lg;
+  out[3 * pl] = __fsub_rn(c.lh, kEpsilon);
+  out[4 * pl] = c.lc;
+  out[5 * pl] = __fsub_rn(tg, c.lg);
+  out[6 * pl] = __fsub_rn(__fsub_rn(th, c.lh), kEpsilon);
+  out[7 * pl] = __fsub_rn(tn, c.lc);
+  out[8 * pl] = c.lo;
+  out[9 * pl] = c.ro;
+  o.dleft[pair] = dleft ? 1 : 0;
 }
 
 }  // namespace scan

@@ -13,12 +13,16 @@ writes, this port writes them into the pool in place: the left child over
 the parent's slot ``ph[k]``, the right child into the fresh slot ``rh[k]``,
 as the wave learner's unfused step does.
 
-On a CUDA tensor ``fused_child_scans`` launches the hand-written Hopper
-kernel ``csrc/fused_scan.cu`` (design and bound in that file's header); on a
-CPU tensor it runs ``fused_child_scans_plain``, the unfused composition the
-wave learner runs without it: subtraction, ``ops/split.py:fix_histogram``
-and ``find_best_splits``.  On exact sums (quantized or dyadic histograms)
-every field and both pool rows agree bit for bit.
+On a CUDA tensor ``fused_child_scans`` is one launch of the hand-written
+Hopper kernel ``csrc/fused_scan.cu`` (design and bound in that file's
+header), which also forms the leaf totals and writes every
+``SplitCandidates`` field itself; for the learner's tensors no other device
+op runs.  On a CPU tensor it runs ``fused_child_scans_plain``, the unfused
+composition the wave learner runs without it: subtraction,
+``ops/split.py:fix_histogram`` and ``find_best_splits``.  The kernel's scan
+is ``split_scan``'s and its FixHistogram sum the same pairwise tree, so on
+any float32 input every field and both pool rows equal the plain version on
+the CPU bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import ctypes
 import torch
 
 from .. import native
-from .scan import N_OUT, candidates_from_planes, leaf_totals
+from .scan import N_PLANES, candidates_from_kernel
 from .split import SplitCandidates, find_best_splits, fix_histogram
 
 
@@ -67,6 +71,14 @@ def fused_child_scans_plain(h_small: torch.Tensor, pool: torch.Tensor,
                             default_bin, feature_mask, **kw)
 
 
+def _as(t: torch.Tensor, dtype, contiguous: bool = False) -> torch.Tensor:
+    """``t`` in ``dtype`` (and contiguous), converted only where it is not:
+    a call of ``.to`` costs host time even when it returns ``t``."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t.contiguous() if contiguous and not t.is_contiguous() else t
+
+
 _LIB = None
 
 
@@ -74,13 +86,11 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = native.load("fused_scan")
+        P, I, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
         lib.lgbt_fused_scan.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+            P, P, L, P, L, P, L, P, L, P, L, P, L, P, L, P, P, P, P, L, I, I,
+            I, F, F, F, I, F, F, F, P, P, P]
         lib.lgbt_fused_scan.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -105,7 +115,8 @@ def fused_child_scans(h_small: torch.Tensor, pool: torch.Tensor,
                  left child over ``ph[k]`` (which holds the parent), the
                  right child into ``rh[k]``; the slots must be distinct
     left_small : (K,) bool;  sum_g2, sum_h2, num2 : (2K,) child totals,
-                 interleaved [l0, r0, l1, r1, ...]
+                 interleaved [l0, r0, l1, r1, ...];  feature_mask (F,) or
+                 (2K, F) bool
     Returns (2K, F)-batched ``SplitCandidates``.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (counted in
     ``fused_child_scans.launches``) or raise.
@@ -132,32 +143,50 @@ def fused_child_scans(h_small: torch.Tensor, pool: torch.Tensor,
     k, f, b, _ = h_small.shape
     if not 1 <= b <= 256 or k < 1 or f < 1:
         raise ValueError(f"need K, F >= 1 and 1 <= B <= 256, got {k, f, b}")
-    ints = [t.to(torch.int32).contiguous() for t in
-            (ph, rh, left_small, num_bin, missing_type, default_bin)]
-    if any(t.device != dev for t in ints) \
-            or any(t.shape != (f,) for t in ints[3:]):
-        raise ValueError("slots, flags and (F,) feature metadata must lie on "
-                         "the pool's device")
-    total_g, total_h, total_n, min_gain_shift = leaf_totals(
-        sum_g2, sum_h2, num2, torch.float32, lambda_l1=lambda_l1,
-        lambda_l2=lambda_l2, max_delta_step=max_delta_step,
-        min_gain_to_split=min_gain_to_split)
-    tot = torch.stack([total_g, sum_h2.to(torch.float32), total_h, total_n,
-                       min_gain_shift], 1).contiguous()
-    if tot.shape != (2 * k, 5) or tot.device != dev:
-        raise ValueError("child totals must be (2K,) on the pool's device")
-    h_small = h_small.contiguous()
-    out = torch.empty((2 * k, N_OUT, f), dtype=torch.float32, device=dev)
-    p = 1 << (b - 1).bit_length()
+    # every conversion below is skipped for the learner's tensors (int64
+    # slots, a bool flag, float32 sums, int32 metadata, a bool mask, a
+    # contiguous h_small): the call is then one kernel launch and no other
+    # device op
+    slots = [_as(t, torch.int64) for t in (ph, rh)]
+    ls = _as(left_small, torch.bool)
+    sums = [_as(t, torch.float32) for t in (sum_g2, sum_h2, num2)]
+    meta = [_as(t, torch.int32, contiguous=True) for t in
+            (num_bin, missing_type, default_bin)]
+    if any(t.device != dev for t in slots + [ls] + sums + meta):
+        raise ValueError("slots, flags, child totals and feature metadata "
+                         "must lie on the pool's device")
+    if any(t.shape != (2 * k,) for t in sums) \
+            or any(t.shape != (f,) for t in meta):
+        raise ValueError(f"child totals must be ({2 * k},) and feature "
+                         f"metadata ({f},)")
+    fm = _as(feature_mask, torch.bool)
+    if fm.device != dev or fm.shape not in ((f,), (2 * k, f)):
+        raise ValueError(f"feature_mask must be ({f},) or ({2 * k}, {f}) on "
+                         f"the pool's device")
+    if fm.stride(-1) != 1:
+        fm = fm.contiguous()
+    if not h_small.is_contiguous():
+        h_small = h_small.contiguous()
+    planes = torch.empty((N_PLANES, 2 * k, f), dtype=torch.float32,
+                         device=dev)
+    dleft = torch.empty((2 * k, f), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     native.launch("fused_scan", _lib().lgbt_fused_scan, h_small, pool,
-                  *ints[:3], tot, *ints[3:], k, f, b, p, float(lambda_l1),
-                  float(lambda_l2), float(max_delta_step),
+                  pool.shape[0], slots[0], slots[0].stride(0), slots[1],
+                  slots[1].stride(0), ls, ls.stride(0), sums[0],
+                  sums[0].stride(0), sums[1], sums[1].stride(0), sums[2],
+                  sums[2].stride(0), *meta, fm,
+                  fm.stride(0) if fm.dim() == 2 else 0, k, f, b,
+                  float(lambda_l1), float(lambda_l2), float(max_delta_step),
                   int(max_delta_step > 0.0), float(min_data_in_leaf),
-                  float(min_sum_hessian_in_leaf), out, stream)
+                  float(min_sum_hessian_in_leaf), float(min_gain_to_split),
+                  planes, dleft, stream)
     fused_child_scans.launches += 1
-    return candidates_from_planes(out, total_g, total_h, total_n,
-                                  min_gain_shift, feature_mask)
+    if fused_child_scans.shapes is not None:
+        fused_child_scans.shapes.append(k)
+    return candidates_from_kernel(planes, dleft)
 
 
 fused_child_scans.launches = 0
+#: a list to record each launch's member count K in, or None
+fused_child_scans.shapes = None

@@ -22,17 +22,25 @@ one-hot and slot one-hot are MXU mechanism and are not carried over.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .. import native
+from .hist_full import SMEM_PER_SM, SMEM_RESERVED, SMS, _round_up
 from .hist_packed import quant_lanes, unpack_bin_words
 
-#: pass-1 blocks aimed for per launch (about four per SM of an H100); fixed,
-#: so the launch geometry and every sum's order depend only on shapes
-_TARGET_BLOCKS = 528
-#: slots per block group (csrc/hist_multislot.cu: kGroup)
-_GROUP = 16
+#: word lanes a block takes, four warps each (csrc/hist_multislot.cu:
+#: kLanesMax), rows per shared-memory stage (kRows) and stages (kStages),
+#: slots a thread reads per window (kPer) and the row list's length (kList)
+LANES_PER_BLOCK = 4
+STAGE_ROWS = 128
+STAGES = 3
+WINDOW_SLOTS = 8
+LIST_ROWS = 8192
+#: chunks hold at least this many rows
+MIN_CHUNK_ROWS = 4096
 
 
 def build_histogram_multislot_plain(words: torch.Tensor, w: torch.Tensor,
@@ -62,15 +70,39 @@ def build_histogram_multislot_plain(words: torch.Tensor, w: torch.Tensor,
     return out.view(n_slots + 1, f, num_bins + 1, 3)[:n_slots, :, :num_bins]
 
 
-def multislot_geometry(fw: int, k: int, n: int):
-    """(nchunks, chunk rows) of pass 1: about ``_TARGET_BLOCKS`` blocks over
-    the (word, slot group, chunk) grid, chunks of at least 1024 rows and a
-    multiple of 256."""
-    groups = -(-k // _GROUP)
-    nchunks = max(1, min(-(-n // 1024), -(-_TARGET_BLOCKS // (fw * groups))))
-    chunk = -(-n // nchunks)
-    chunk = -(-chunk // 256) * 256
-    return -(-n // chunk), chunk
+class MultislotPlan(NamedTuple):
+    """The launch geometry of ``csrc/hist_multislot.cu``: block (j, g, c)
+    takes the rows of slot j among rows [c * chunk, min(N, (c + 1) *
+    chunk)) of word lanes [g * lanes, (g + 1) * lanes), clipped to Fw, a
+    warp per feature."""
+    lanes: int
+    groups: int
+    nchunks: int
+    chunk: int
+
+
+def multislot_smem_bytes(lanes: int, num_bins: int) -> int:
+    """A block's shared memory (csrc/hist_multislot.cu: smem_bytes): a
+    histogram and a group mask per feature, the stages, the row list and
+    the window counts."""
+    return 4 * (4 * lanes * num_bins * 4 + STAGES * STAGE_ROWS * (3 + lanes)
+                + LIST_ROWS + 2 * WINDOW_SLOTS * 4 * LANES_PER_BLOCK + 1)
+
+
+@functools.lru_cache(maxsize=256)
+def multislot_plan(fw: int, k: int, n: int, num_bins: int) -> MultislotPlan:
+    """``LANES_PER_BLOCK`` word lanes a block and as many chunks of at
+    least ``MIN_CHUNK_ROWS`` rows as keep the K x groups x chunks grid
+    within one wave of the card (SMS times the blocks an SM holds), chunks
+    a multiple of ``STAGE_ROWS``."""
+    groups = -(-fw // LANES_PER_BLOCK)
+    lanes = -(-fw // groups)
+    per_sm = max(1, min(2048 // (128 * lanes),
+                        SMEM_PER_SM // (multislot_smem_bytes(lanes, num_bins)
+                                        + SMEM_RESERVED)))
+    nchunks = max(1, min(n // MIN_CHUNK_ROWS, SMS * per_sm // (groups * k)))
+    chunk = _round_up(-(-n // nchunks), STAGE_ROWS)
+    return MultislotPlan(lanes, groups, -(-n // chunk), chunk)
 
 
 _LIB = None
@@ -83,8 +115,9 @@ def _lib():
         lib.lgbt_hist_multislot.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
         lib.lgbt_hist_multislot.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -101,7 +134,8 @@ def build_histogram_multislot(words: torch.Tensor, w: torch.Tensor,
     Returns (K, 4*Fw, num_bins, 3) float32.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (counted in
     ``build_histogram_multislot.launches``, the quant-mode launches also in
-    ``.quant_launches``) or raise.
+    ``.quant_launches``) or raise; the result is then the front of the one
+    allocation that also holds the kernel's scratch.
     """
     args = (words, w, slot)
     if all(t.device.type == "cpu" for t in args):
@@ -123,20 +157,33 @@ def build_histogram_multislot(words: torch.Tensor, w: torch.Tensor,
                          f"got num_bins={num_bins}, Fw={fw}, K={n_slots}")
     if not 1 <= n < 2 ** 31:
         raise ValueError(f"{n} rows do not fit int32 row indices")
-    nchunks, chunk = multislot_geometry(fw, n_slots, n)
-    e = 4 * num_bins * 3
-    partial = torch.empty(fw * n_slots * nchunks * e, dtype=torch.float32,
-                          device=dev)
-    out = torch.empty((n_slots, 4 * fw, num_bins, 3), dtype=torch.float32,
+    if n_slots * 4 * fw > 65_535:
+        raise ValueError(f"K * 4*Fw = {n_slots * 4 * fw} histograms exceed "
+                         f"the reduce pass's 65,535 grid rows")
+    plan = multislot_plan(fw, n_slots, n, num_bins)
+    # one allocation: the output, then the chunks' partials and bitmaps
+    out_n = n_slots * 4 * fw * num_bins * 3
+    many = plan.nchunks > 1
+    part_n = out_n * plan.nchunks if many else 0
+    bits_n = n_slots * 4 * fw * -(-num_bins // 32) * plan.nchunks \
+        if many else 0
+    buf = torch.empty(out_n + part_n + bits_n, dtype=torch.float32,
                       device=dev)
+    out = buf[:out_n].view(n_slots, 4 * fw, num_bins, 3)
+    partial = buf.data_ptr() + 4 * out_n
     stream = torch.cuda.current_stream(dev).cuda_stream
     native.launch("hist_multislot", _lib().lgbt_hist_multislot, words, w,
-                  slot, n, fw, n_slots, num_bins, int(quant), nchunks, chunk,
-                  partial, out, stream)
+                  slot, n, fw, n_slots, num_bins, int(quant), plan.lanes,
+                  plan.nchunks, plan.chunk, partial, partial + 4 * part_n,
+                  out, stream)
     build_histogram_multislot.launches += 1
     build_histogram_multislot.quant_launches += int(quant)
+    if build_histogram_multislot.shapes is not None:
+        build_histogram_multislot.shapes.append((n_slots, slot))
     return out
 
 
 build_histogram_multislot.launches = 0
 build_histogram_multislot.quant_launches = 0
+#: a list to record each launch's slot count K and slot tensor in, or None
+build_histogram_multislot.shapes = None

@@ -15,8 +15,8 @@ version on the CPU; no other device op runs.  On a CPU tensor it runs the
 plain version, ``ops/split.py:find_best_splits`` with its batch axis and
 both missing-direction scans.  The kernel is float32 only: ``gpu_use_dp``
 keeps the plain float64 path, as the JAX package gates its scan kernel off
-in dp.  ``leaf_totals`` and ``candidates_from_planes`` are the torch steps
-the fused child-scan kernel (``ops/fused_scan.py``) still wraps itself in.
+in dp.  The fused child-scan kernel (``ops/fused_scan.py``) writes the same
+planes.
 """
 
 from __future__ import annotations
@@ -26,13 +26,9 @@ import ctypes
 import torch
 
 from .. import native
-from .split import (K_EPSILON, K_MIN_SCORE, SplitCandidates,
-                    find_best_splits, leaf_split_gain)
+from .split import SplitCandidates, find_best_splits
 
-#: the fused child-scan kernel's output planes: raw gain, threshold,
-#: default_left, lg, lh(+eps), lc, lo, ro
-N_OUT = 8
-#: the split-scan kernel's float32 planes, in SplitCandidates order without
+#: the scan kernels' float32 planes, in SplitCandidates order without
 #: default_left (its own bool tensor); plane 1 holds the int32 threshold
 N_PLANES = 10
 
@@ -57,34 +53,12 @@ def _lib():
     return _LIB
 
 
-def leaf_totals(sum_gradients, sum_hessians, num_data, dt, *, lambda_l1,
-                lambda_l2, max_delta_step, min_gain_to_split):
-    """(total_g, total_h + 2*K_EPSILON, total_n, min_gain_shift) of a batch
-    of leaves in ``dt``, as ``find_best_splits`` forms them."""
-    total_g = sum_gradients.to(dt)
-    total_h = sum_hessians.to(dt) + 2.0 * K_EPSILON
-    total_n = num_data.to(dt)
-    gain_shift = leaf_split_gain(total_g, total_h, lambda_l1, lambda_l2,
-                                 max_delta_step)
-    return total_g, total_h, total_n, gain_shift + min_gain_to_split
-
-
-def candidates_from_planes(out, total_g, total_h, total_n, min_gain_shift,
-                           feature_mask) -> SplitCandidates:
-    """A kernel's (K, N_OUT, F) planes -> ``SplitCandidates``, with the same
-    torch operations ``find_best_splits`` ends with."""
-    best_g = out[:, 0]
-    lg_b, lh_b, lc_b = out[:, 3], out[:, 4], out[:, 5]
-    tg, th, tn = total_g[:, None], total_h[:, None], total_n[:, None]
-    invalid = torch.isneginf(best_g) | ~feature_mask
-    return SplitCandidates(
-        gain=torch.where(invalid, K_MIN_SCORE,
-                         best_g - min_gain_shift[:, None]),
-        threshold=out[:, 1].round().to(torch.int32),
-        default_left=out[:, 2] > 0.5,
-        left_sum_g=lg_b, left_sum_h=lh_b - K_EPSILON, left_cnt=lc_b,
-        right_sum_g=tg - lg_b, right_sum_h=th - lh_b - K_EPSILON,
-        right_cnt=tn - lc_b, left_output=out[:, 6], right_output=out[:, 7])
+def candidates_from_kernel(planes: torch.Tensor,
+                           dleft: torch.Tensor) -> SplitCandidates:
+    """A scan kernel's (N_PLANES, rows, F) planes and (rows, F)
+    default_left as ``SplitCandidates`` (views, no device op)."""
+    p = planes.unbind(0)
+    return SplitCandidates(p[0], p[1].view(torch.int32), dleft, *p[2:])
 
 
 def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
@@ -154,11 +128,7 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
     find_best_splits_batched.launches += 1
     if find_best_splits_batched.shapes is not None:
         find_best_splits_batched.shapes.append(k)
-    return SplitCandidates(
-        gain=planes[0], threshold=planes[1].view(torch.int32),
-        default_left=dleft, left_sum_g=planes[2], left_sum_h=planes[3],
-        left_cnt=planes[4], right_sum_g=planes[5], right_sum_h=planes[6],
-        right_cnt=planes[7], left_output=planes[8], right_output=planes[9])
+    return candidates_from_kernel(planes, dleft)
 
 
 find_best_splits_batched.launches = 0

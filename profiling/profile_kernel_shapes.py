@@ -1,7 +1,8 @@
 """Where the histogram and split-scan kernels spend their time.
 
     python3 profiling/profile_kernel_shapes.py [--out chiprun_out/shapes.json]
-        [--only split_scan,hist_segments,hist_full,hist_packed] [--passes]
+        [--only split_scan,hist_segments,hist_full,hist_packed,
+                hist_multislot,fused_scan] [--passes]
 
 Times each kernel alone (its C entry point called again on the buffers one
 wrapper call staged, ``native.staging()``; CUDA events, the L2 flushed
@@ -23,11 +24,20 @@ its costs:
   hist_packed    Fw = 8 words at 255 bins over the full 1,000,448-row
                  window, 65,536, 8,192 and 4,096 rows (an unaligned view),
                  each with random weights and with every weight zero
+  hist_multislot Fw = 8 words at 255 bins over 1,000,448 rows, K in (1, 2,
+                 4, 8, 16) slots with half of the rows in a slot (seeded
+                 random slots in root order, as an opening level sees
+                 them), K = 16 with 16 of every 18 rows in a slot (the
+                 chip_smoke.py fixture), and K = 1, 4, 16 with features
+                 28-31 at code 0 in every row (the dataset's padding of
+                 the bench's 28 features, which the learner bins too)
+  fused_scan     K in (1, 8, 16, 64) members at F = 28, B = 255, random
+                 float32 histograms, a 574-slot pool
 
-With ``--passes`` each hist_full and hist_packed case also gives the device
-time of each kernel the call launches (its passes: row ballots, binning,
-reduce), from ``torch.profiler`` over the same replays, and the wrapper's
-host time per call (``host_us``: 50 calls enqueued back to back, the host
+With ``--passes`` each hist_full, hist_packed, hist_multislot and fused_scan
+case also gives the device time of each kernel the call launches (its
+passes: row ballots, binning, reduce), from ``torch.profiler`` over the
+same replays, and the wrapper's host time per call (``host_us``: 50 calls enqueued back to back, the host
 clock around them, the card drained before and after).  Prints one JSON
 line per kernel and writes them all to ``--out`` with the card's name and
 power limit.  Needs a CUDA card.
@@ -50,8 +60,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from lightgbm_tpu_torch import native  # noqa: E402
+from lightgbm_tpu_torch.ops.fused_scan import \
+    fused_child_scans  # noqa: E402
 from lightgbm_tpu_torch.ops.hist_full import \
     build_histogram_full  # noqa: E402
+from lightgbm_tpu_torch.ops.hist_multislot import \
+    build_histogram_multislot  # noqa: E402
 from lightgbm_tpu_torch.ops.hist_packed import (  # noqa: E402
     build_histogram_packed, pack_bin_words)
 from lightgbm_tpu_torch.ops.hist_segments import \
@@ -81,7 +95,7 @@ def pass_us(call, flush, reps: int = 20) -> dict:
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", 0) or getattr(
             e, "self_device_time_total", 0)
-        if t and ("hist" in e.key or "lgbt" in e.key):
+        if t and ("hist" in e.key or "lgbt" in e.key or "scan" in e.key):
             name = e.key.replace("(anonymous namespace)::", "")
             out[name.split("(")[0].split("<")[0].split(" ")[-1]] = t / reps
     return out
@@ -178,11 +192,49 @@ def packed_case(dev, rows: int, zero: bool, seed: int):
     return words[:, off:off + rows], w[:, off:off + rows]
 
 
+def multislot_case(dev, k: int, share: float, seed: int, pad: bool = False):
+    """(Fw, N) words, random float32 weights (90% of the rows bagged) and
+    root-order slots with ``share`` of the rows in a slot of [0, K), the
+    rest in slot K (dropped).  ``pad``: features 28-31 hold code 0 in every
+    row, as the dataset pads the bench's 28 features to 32."""
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, BINS, size=(4 * FW, N)).astype(np.uint8)
+    if pad:
+        codes[F:] = 0
+    words = pack_bin_words(torch.from_numpy(codes).to(dev))
+    bag = (rng.rand(N) < 0.9).astype(np.float32)
+    w = np.stack([rng.randn(N) * bag, rng.rand(N) * bag, bag])
+    slot = np.where(rng.rand(N) < share, rng.randint(0, k, N), k)
+    return (words, torch.from_numpy(w.astype(np.float32)).to(dev),
+            torch.from_numpy(slot.astype(np.int32)).to(dev))
+
+
+def fused_case(dev, k: int, seed: int, h: int = 574):
+    """One quantized growth wave's fused step at F = 28, B = 255: random
+    float32 smaller-child histograms, parents in distinct pool slots,
+    fresh right-child slots, child sums and feature metadata."""
+    rng = np.random.RandomState(seed)
+    hs = np.stack([rng.randn(k, F, BINS) * 20, rng.rand(k, F, BINS) * 20,
+                   rng.rand(k, F, BINS) * 80], -1).astype(np.float32)
+    pool = rng.randn(h, F, BINS, 3).astype(np.float32)
+    slots = rng.permutation(h)
+    pool[slots[:k]] += hs
+    sums = np.abs(rng.randn(3, 2 * k)).astype(np.float32) * 1000
+    nb = np.full(F, BINS, np.int32)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        hs, pool, slots[:k].astype(np.int64), slots[k:2 * k].astype(np.int64),
+        rng.rand(k) < 0.5, sums[0], sums[1], sums[2], nb,
+        rng.randint(0, 3, F).astype(np.int32),
+        rng.randint(0, 99, F).astype(np.int32), np.ones(F, bool))]
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="reports/profile_kernel_shapes.json")
     ap.add_argument("--only", default="split_scan,hist_segments,hist_full,"
-                    "hist_packed", help="comma-separated kernels to time")
+                    "hist_packed,hist_multislot,fused_scan",
+                    help="comma-separated kernels to time")
     ap.add_argument("--passes", action="store_true",
                     help="also each pass's device time (torch.profiler)")
     args = ap.parse_args()
@@ -195,8 +247,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    out = {"nvidia_smi": smi, "split_scan": [], "hist_segments": [],
-           "hist_full": [], "hist_packed": []}
+    keys = ("split_scan", "hist_segments", "hist_full", "hist_packed",
+            "hist_multislot", "fused_scan")
+    out = {"nvidia_smi": smi, **{key: [] for key in keys}}
     kw = dict(lambda_l1=0.1, lambda_l2=0.5, min_data_in_leaf=3)
     for k in (2, 8, 128) if "split_scan" in only else ():
         for b in (16, 64, 255):
@@ -248,7 +301,31 @@ def main() -> int:
                                                        num_bins=BINS))
                 out["hist_packed"][-1].update(passes_us=pass_us(call, flush),
                                               host_us=host_us(call))
-    for key in ("split_scan", "hist_segments", "hist_full", "hist_packed"):
+    cases = ([(k, 0.5, False) for k in (1, 2, 4, 8, 16)]
+             + [(16, 16 / 18, False), (1, 0.5, True), (4, 0.35, True),
+                (16, 0.35, True)] if "hist_multislot" in only else [])
+    for k, share, pad in cases:
+        words, w, slot = multislot_case(dev, k, share, 7, pad)
+        call = (lambda: build_histogram_multislot(
+            words, w, slot, num_bins=BINS, n_slots=k))
+        out["hist_multislot"].append({
+            "Fw": FW, "rows": N, "K": k, "share": share,
+            "padding_features_constant": pad,
+            "rows_in_slot": int(((slot >= 0) & (slot < k)).sum()),
+            "kernel_ms": kernel_ms(call, flush)})
+        if args.passes:
+            out["hist_multislot"][-1].update(passes_us=pass_us(call, flush),
+                                             host_us=host_us(call))
+    for k in (1, 8, 16, 64) if "fused_scan" in only else ():
+        a = fused_case(dev, k, 8)
+        call = (lambda: fused_child_scans(*a, lambda_l2=0.5,
+                                          min_data_in_leaf=20))
+        out["fused_scan"].append({"K": k, "F": F, "B": BINS,
+                                  "kernel_ms": kernel_ms(call, flush)})
+        if args.passes:
+            out["fused_scan"][-1].update(passes_us=pass_us(call, flush),
+                                         host_us=host_us(call))
+    for key in keys:
         print(json.dumps({key: out[key]}))
     print(smi)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,8 +1,11 @@
-"""The launch plans of the two full-pass histogram kernels, on the CPU.
+"""The launch plans of the full-pass and multislot histogram kernels, on the
+CPU.
 
-``csrc/hist_full.cu`` and ``csrc/hist_packed.cu`` take their geometry from
-``ops/hist_full.py:full_plan`` and ``ops/hist_packed.py:packed_plan``: a
-block per (row chunk, feature group[, bin tile]).  These tests check that
+``csrc/hist_full.cu``, ``csrc/hist_packed.cu`` and ``csrc/hist_multislot.cu``
+take their geometry from ``ops/hist_full.py:full_plan``,
+``ops/hist_packed.py:packed_plan`` and ``ops/hist_multislot.py:
+multislot_plan``: a block per (row chunk, feature group[, bin tile][,
+slot]).  These tests check that
 the blocks cover every row, feature and bin exactly once for odd shapes,
 that the grid stays within one wave of the card, and, replaying the plan
 with the plain histogram, that the kernels' second pass (partials written
@@ -16,6 +19,7 @@ import pytest
 import torch
 
 from lightgbm_tpu_torch.ops import hist_full as hf
+from lightgbm_tpu_torch.ops import hist_multislot as hm
 from lightgbm_tpu_torch.ops import hist_packed as hp
 from lightgbm_tpu_torch.ops.histogram import build_histogram_onehot
 
@@ -191,3 +195,94 @@ def test_packed_plan_replay_is_bitwise_the_plain_version():
     got = _replay_reduce(parts, touched)
     assert torch.equal(got, hp.build_histogram_packed_plain(words, w,
                                                             num_bins=nb))
+
+
+def _per_sm_multislot(lanes, num_bins):
+    smem = hm.multislot_smem_bytes(lanes, num_bins)
+    return min(2048 // (128 * lanes),
+               hf.SMEM_PER_SM // (smem + hf.SMEM_RESERVED))
+
+
+@pytest.mark.parametrize("fw", [1, 2, 3, 5, 8, 9])
+@pytest.mark.parametrize("k,s,num_bins", [
+    (1, 1_000_448, 255), (2, 1_000_448, 255), (4, 1_000_448, 255),
+    (16, 1_000_448, 255), (17, 5000, 63), (64, 1_000_448, 256), (3, 1024, 2),
+    (1, 777, 17), (300, 70_000, 255)])
+def test_multislot_plan_covers_every_row_lane_and_slot_once(fw, k, s,
+                                                            num_bins):
+    """Block (j, g, c) bins slot j's rows of chunk c over lane group g:
+    with the chunks tiling the rows and the groups the lanes, every (row,
+    word lane, slot) has one block; the grid stays within one wave of the
+    card unless it is a single chunk."""
+    p = hm.multislot_plan(fw, k, s, num_bins)
+    assert 1 <= p.lanes <= hm.LANES_PER_BLOCK
+    assert p.chunk % hm.STAGE_ROWS == 0
+    assert (p.nchunks - 1) * p.chunk < s <= p.nchunks * p.chunk
+    assert p.nchunks == 1 or p.chunk >= hm.MIN_CHUNK_ROWS
+    assert p.nchunks == 1 or k * p.groups * p.nchunks \
+        <= hf.SMS * _per_sm_multislot(p.lanes, num_bins)
+    assert k * 4 * fw <= 65_535 or p.nchunks == 1
+    cover = np.zeros((fw, s), np.int8)
+    for c in range(p.nchunks):
+        for g in range(p.groups):
+            cover[g * p.lanes:min(fw, (g + 1) * p.lanes),
+                  c * p.chunk:min(s, (c + 1) * p.chunk)] += 1
+    assert (cover == 1).all()   # ... and the same blocks for every slot
+
+
+@pytest.mark.parametrize("k,nchunks", [(1, 131), (2, 66), (4, 33), (8, 16),
+                                       (16, 8), (64, 2)])
+def test_multislot_plan_at_the_bench_width(k, nchunks):
+    """Fw = 8 at 255 bins over 1,000,448 rows: four word lanes a block (16
+    warps, two blocks an SM), two lane groups, and as many chunks as fill
+    one wave of the 132 SMs at every opening level's K."""
+    p = hm.multislot_plan(8, k, 1_000_448, 255)
+    assert p.lanes == 4 and p.groups == 2
+    assert _per_sm_multislot(4, 255) == 2
+    assert p.nchunks == nchunks
+
+
+def _slots(rng, n, k, kind):
+    """Root-order slots: ``spread`` (slots 0..K-1, K and -1 dropped),
+    ``half`` (about half the rows in slot 0 of K = 1, as an opening's first
+    level), ``empty`` (slot 1 of K = 3 holds no row)."""
+    if kind == "half":
+        return np.where(rng.rand(n) < 0.5, 0, 1).astype(np.int32)
+    slot = rng.randint(-1, k + 1, n).astype(np.int32)
+    if kind == "empty":
+        slot[slot == 1] = 0
+    return slot
+
+
+@pytest.mark.parametrize("fw,k,s,kind", [
+    (2, 3, 40_000, "spread"), (3, 1, 70_001, "half"), (1, 3, 20_000, "empty"),
+    (5, 17, 9_000, "spread")])
+def test_multislot_plan_replay_is_bitwise_the_plain_version(fw, k, s, kind):
+    """multislot_plan replayed with the plain version: each chunk's slot
+    histograms, partials kept only where a bin's sums are not all zero,
+    then the second pass over the K * 4*Fw features; dyadic weights give
+    the plain version's bits, the quant mode too."""
+    rng = np.random.RandomState(s)
+    codes = torch.from_numpy(rng.randint(0, 256, (4 * fw, s))
+                             .astype(np.uint8))
+    words = hp.pack_bin_words(codes)
+    w = _dyadic(rng, s, 0.8)
+    slot = torch.from_numpy(_slots(rng, s, k, kind))
+    p = hm.multislot_plan(fw, k, s, 255)
+    assert p.nchunks > 1 or s < 2 * hm.MIN_CHUNK_ROWS
+    for quant in (False, True):
+        parts = [hm.build_histogram_multislot_plain(
+            words[:, c * p.chunk:(c + 1) * p.chunk],
+            w[:, c * p.chunk:(c + 1) * p.chunk],
+            slot[c * p.chunk:(c + 1) * p.chunk], num_bins=255, n_slots=k,
+            quant=quant) for c in range(p.nchunks)]
+        if p.nchunks > 1:
+            touched = [(t != 0).any(dim=-1, keepdim=True) for t in parts]
+            got = _replay_reduce(parts, touched)
+        else:
+            got = parts[0]
+        want = hm.build_histogram_multislot_plain(
+            words, w, slot, num_bins=255, n_slots=k, quant=quant)
+        assert torch.equal(got, want)
+    if kind == "empty":
+        assert not want[1].any()

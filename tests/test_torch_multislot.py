@@ -20,8 +20,8 @@ import torch
 from lightgbm_tpu.ops.hist_pallas import (build_histogram_multislot as
                                           jax_multislot, pack_bin_words)
 from lightgbm_tpu_torch.ops.hist_multislot import (
-    build_histogram_multislot, build_histogram_multislot_plain,
-    multislot_geometry)
+    LANES_PER_BLOCK, STAGE_ROWS, build_histogram_multislot,
+    build_histogram_multislot_plain, multislot_plan)
 from lightgbm_tpu_torch.ops.hist_packed import pack_bin_words as tpack
 
 N, F, B, K = 4096, 8, 64, 4
@@ -100,8 +100,22 @@ def test_dp_and_wrapper_route():
 
 @pytest.mark.parametrize("fw,k,n", [(8, 1, 1_000_448), (8, 16, 1_000_448),
                                     (8, 64, 1_000_448), (1, 3, 1024),
-                                    (2, 17, 5000)])
+                                    (2, 17, 5000), (3, 2, 40_000),
+                                    (9, 4, 123_457)])
 def test_multislot_geometry_covers_every_row(fw, k, n):
-    nchunks, chunk = multislot_geometry(fw, k, n)
-    assert chunk % 256 == 0 and chunk >= 256
-    assert nchunks * chunk >= n > (nchunks - 1) * chunk
+    """The kernel's plan (``multislot_plan``): the chunks tile the rows and
+    the lane groups the word lanes, each once, and every slot gets the same
+    blocks, so each (row, word lane, slot) is binned by one block."""
+    p = multislot_plan(fw, k, n, 255)
+    assert p.chunk % STAGE_ROWS == 0 and p.chunk >= STAGE_ROWS
+    assert p.nchunks * p.chunk >= n > (p.nchunks - 1) * p.chunk
+    assert 1 <= p.lanes <= LANES_PER_BLOCK
+    assert p.groups * p.lanes >= fw > (p.groups - 1) * p.lanes
+    rows = np.zeros(n, np.int64)
+    for c in range(p.nchunks):
+        rows[c * p.chunk:(c + 1) * p.chunk] += 1
+    assert (rows == 1).all()
+    lanes = np.zeros(fw, np.int64)
+    for g in range(p.groups):
+        lanes[g * p.lanes:(g + 1) * p.lanes] += 1
+    assert (lanes == 1).all()
