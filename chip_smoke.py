@@ -8,7 +8,7 @@ Run from the root of a checkout: the kernels are built from its sources
 torch, numpy and ``lightgbm_tpu_torch`` only.  Phases, each printing one JSON
 line and each raising (exit code 1) on any failure:
 
-  device     card name and power limit (nvidia-smi), torch, the seven kernel
+  device     card name and power limit (nvidia-smi), torch, the eight kernel
              builds (one nvcc each, started together)
   kernel     packed histogram kernel vs its plain torch version at full width
              (Fw=8, N=1,000,448, 255 bins): bitwise on dyadic inputs at the
@@ -53,12 +53,21 @@ line and each raising (exit code 1) on any failure:
              also to the plain version on the card, on random float32 to
              the learner's unfused step on the card (torch subtraction and
              fix_histogram, then the split-scan kernel)
+  replay     the replay-pass kernel vs its plain version run on the CPU, at
+             the bench configuration's 1,145 node slots, 254 splits and
+             stall batch 4: over random forests whose gains come from a
+             small set (exact ties), half grown and grown to the budget
+             (one with a vector cap that binds), every pass's carried
+             state, members and counters bitwise, each stall's members
+             split on both sides before the next pass
   tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
              rows, grown by the compact learner through the kernel and
              through the plain histogram: records bitwise equal
-  wave_tree  the same tree grown by the wave learner through its four
-             kernels, by the wave learner through every plain version, and by
-             the compact learner: records, counts and leaf ids bitwise equal
+  wave_tree  the same tree grown by the wave learner through its kernels
+             (the learner's second tree: its split passes replayed as CUDA
+             graphs), by the wave learner through every plain version, and
+             by the compact learner: records, counts and leaf ids bitwise
+             equal
   masked_tree one 255-leaf dyadic tree of the masked learner on the same
              rows: at 255 bins through hist_full, through the plain version
              and by the compact learner (records, counts, leaf ids and leaf
@@ -77,19 +86,31 @@ line and each raising (exit code 1) on any failure:
              device-side held-out scores; the window of every hist_packed
              launch and their distribution
   wave_train the same with the default tpu_learner (auto -> the wave
-             learner): launches per kernel equal to the calls the learner
-             recorded, host syncs, waves and stall events per tree, held-out
-             AUC within 1e-4 of the compact phase's; the shape of every
-             hist_segments launch (K, sum and max of cnt, the host's row
-             bound) and split_scan launch (K), and their distribution
+             learner): launches per kernel (replay included; a graph replay
+             counts the launches captured in it) equal to the calls the
+             learner recorded, host syncs (at most 2), lagged flag waits,
+             graph launches, waves and stall events per tree, held-out AUC
+             within 1e-4 of the compact phase's; the shape of every
+             hist_segments launch (K, sum and max of cnt, the row bound)
+             and split_scan launch (K) of one more tree grown eagerly on
+             the run's last gradients, and their distribution
+  wave_pipelined wave_train's params without the held-out set: the
+             pipelined boosting loop, 5 iterations; no blocking read of
+             records in the loop, record waits only at the flush, launches
+             equal to the learner's calls, the first tree's model text
+             equal to wave_train's, the held-out AUC of Booster.predict
+             within 1e-4 of wave_train's, the loop's host seconds and the
+             wall time to the last synchronisation
   quant_train the wave_train run with tpu_quantized_grad=on and
              tpu_wave_open_levels=5, the path of the multislot and fused
              kernels and of the histograms' quant modes: launches per kernel
              (quant-mode launches too) equal to the learner's calls, held-out
              AUC within 1e-3 of wave_train's, one tree fused against unfused
-             bitwise, quantize_gradients on the card bitwise equal to the CPU;
-             the shape of every hist_multislot launch (K and the rows in a
-             slot) and fused_scan launch (K), and their distribution
+             bitwise, quantize_gradients on the card bitwise equal to the CPU,
+             wave_train's per-tree counters; the shape of every
+             hist_multislot launch (K and the rows in a slot) and fused_scan
+             launch (K) of one more tree grown eagerly, and their
+             distribution
   masked_train the wave_train run with max_bin=1023 (auto -> the masked
              learner, uint16 codes): hist_full launches equal to the calls the
              learner recorded (num_leaves per tree), host syncs per tree <= 2,
@@ -105,7 +126,7 @@ line and each raising (exit code 1) on any failure:
              (a bin schema rebuilt from the text) within 1e-9; rows per second
   small      a small input trained on the card and on the CPU (the path the
              tests hold against lightgbm_tpu): held-out metrics within 1e-4
-  timing     each of the seven kernels', its plain version's and (where one
+  timing     each of the eight kernels', its plain version's and (where one
              PyTorch call computes the same function) the library call's
              times from CUDA events, L2 flushed before each launch, beside
              the bound; each kernel alone (``kernel_ms``: its C entry point
@@ -123,7 +144,10 @@ line and each raising (exit code 1) on any failure:
              median K = 1 launch, the recorded share of rows in a slot
              reproduced by seeded random slots over rows whose padding
              features hold one code, the bound counting only the rows in a
-             slot)
+             slot); the replay kernel on a pass of all 254 pops (each
+             launch on its own fresh state), on a pass after the end and
+             on one whose budget is spent (its fixed cost: the node
+             table's load and the list), and the time per pop
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -144,9 +168,10 @@ import numpy as np
 import torch
 
 PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
-          "hist_full", "fused_scan", "tree", "wave_tree", "masked_tree",
-          "opening_tree", "train", "wave_train", "quant_train",
-          "masked_train", "predict", "small", "timing")
+          "hist_full", "fused_scan", "replay", "tree", "wave_tree",
+          "masked_tree", "opening_tree", "train", "wave_train",
+          "wave_pipelined", "quant_train", "masked_train", "predict", "small",
+          "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -182,7 +207,15 @@ KERNEL_SOURCES = {
                    "lightgbm_tpu/ops/scan_pallas.py:298"),
     "hist_full": ("lightgbm_tpu_torch/csrc/hist_full.cu",
                   "lightgbm_tpu/ops/hist_pallas.py:90"),
+    # the port of an XLA while_loop, not of a pallas_call
+    "replay": ("lightgbm_tpu_torch/csrc/replay.cu",
+               "lightgbm_tpu/learner_wave.py:1597"),
 }
+#: the bench configuration's replay: node slots, splits, stall batch
+REPLAY_M, REPLAY_BUDGET, REPLAY_KB = 1145, 254, 4
+#: node gains of the replay checks: a small set, so exact ties are common
+REPLAY_GAINS = np.array([-1.0, 0.0, 0.25, 0.5, 0.5, 1.0, 1.0, 1.5, 2.0,
+                         3.0], dtype=np.float32)
 
 
 def emit(obj) -> None:
@@ -890,6 +923,115 @@ def phase_fused_scan(ctx) -> None:
     emit(out)
 
 
+def replay_forest(rng, grown: int, positive: bool = False):
+    """A random grown forest in REPLAY_M node slots as the wave learner
+    holds it (float32 gain, split flag, left child, window width; CPU
+    tensors) and its node count: ``grown`` splits of random unsplit
+    positive-gain nodes, gains drawn from REPLAY_GAINS (only its positive
+    values with ``positive``)."""
+    m = REPLAY_M
+    vals = REPLAY_GAINS[2:] if positive else REPLAY_GAINS
+    gain = np.full(m, -np.inf, np.float32)
+    split = np.zeros(m, bool)
+    child0 = np.zeros(m, np.int64)
+    width = np.zeros(m, np.int64)
+    gain[0], width[0] = rng.choice(REPLAY_GAINS[2:]), N_FULL
+    nn = 1
+    for _ in range(grown):
+        free = np.flatnonzero(~split[:nn] & (gain[:nn] > 0))
+        if free.size == 0 or nn + 2 > m:
+            break
+        nn = split_node(rng, (gain, split, child0, width), int(rng.choice(
+            free)), nn, vals)
+    return [torch.from_numpy(a) for a in (gain, split, child0, width)], nn
+
+
+def split_node(rng, tab, s: int, nn: int, vals) -> int:
+    """Give node ``s`` children at slots nn, nn + 1 (random gains from
+    ``vals``, a random cut of its width); returns the new node count."""
+    gain, split, child0, width = tab
+    split[s] = True
+    child0[s] = nn
+    gain[nn:nn + 2] = torch.from_numpy(rng.choice(vals, 2)
+                                       .astype(np.float32))
+    lw = int(rng.randint(0, int(width[s]) + 1))
+    width[nn] = lw
+    width[nn + 1] = int(width[s]) - lw
+    return nn + 2
+
+
+def replay_state(dev=None):
+    """A replay's carried state before its first pass (ops/replay.py)."""
+    from lightgbm_tpu_torch.ops.replay import NUM_CTL
+
+    m, b, kb = REPLAY_M, REPLAY_BUDGET, REPLAY_KB
+    avail = torch.zeros(m, dtype=torch.uint8)
+    avail[0] = 1
+    refidx = torch.full((m,), -1, dtype=torch.int32)
+    refidx[0] = 0
+    st = [avail, refidx, torch.zeros((b, 2), dtype=torch.int32),
+          torch.zeros(NUM_CTL, dtype=torch.int32),
+          torch.zeros(kb, dtype=torch.int64),
+          torch.zeros(kb, dtype=torch.bool)]
+    return [t.to(dev) for t in st] if dev is not None else st
+
+
+REPLAY_KW = dict(budget=REPLAY_BUDGET, stall_batch=REPLAY_KB, extras_cap=64,
+                 vec_cap=1 << 17, pad_slot=REPLAY_M)
+
+
+def replay_to_end(rng, tab, nn: int, cpu, kw, card=None,
+                  vals=REPLAY_GAINS) -> int:
+    """Run replay passes of the plain version on the CPU state ``cpu``
+    (and of the kernel on ``card``, checked bitwise after every pass) over
+    the node table ``tab``, splitting each stall's members as a correction
+    does (children's gains drawn from ``vals``), until the replay ends;
+    returns the passes."""
+    from lightgbm_tpu_torch.ops.replay import (CTL_FLAG, FLAG_DONE,
+                                               replay_pass, replay_pass_plain)
+
+    passes = 0
+    while True:
+        replay_pass_plain(*tab, *cpu, **kw)
+        if card is not None:
+            replay_pass(*[t.to(card[0].device) for t in tab], *card, **kw)
+            check(all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card)),
+                  f"replay pass {passes + 1}: the kernel's state differs "
+                  f"from the plain version's")
+        passes += 1
+        if int(cpu[3][CTL_FLAG]) == FLAG_DONE:
+            return passes
+        check(passes <= REPLAY_BUDGET + 1, "the replay did not end")
+        for s in cpu[4][cpu[5]].tolist():
+            nn = split_node(rng, tab, s, nn, vals)
+
+
+def phase_replay(ctx) -> None:
+    from lightgbm_tpu_torch.ops.replay import CTL_POPS, CTL_STALL_EVENTS
+
+    dev = torch.device("cuda", 0)
+    out = {"phase": "replay", "M": REPLAY_M, "budget": REPLAY_BUDGET,
+           "stall_batch": REPLAY_KB, "cases": {}}
+    # half grown: many stalls; grown to the growth budget: fewer
+    for tag, seed, grown, vec_cap in (("half_grown", 1, 127, 1 << 17),
+                                      ("half_grown_vec_cap", 2, 127, 5000),
+                                      ("grown", 3, REPLAY_BUDGET, 1 << 17)):
+        rng = np.random.RandomState(seed)
+        tab, nn = replay_forest(rng, grown)
+        cpu = replay_state()
+        card = [t.to(dev) for t in cpu]
+        passes = replay_to_end(rng, tab, nn, cpu, dict(REPLAY_KW,
+                                                       vec_cap=vec_cap),
+                               card)
+        out["cases"][tag] = {"passes": passes,
+                             "pops": int(cpu[3][CTL_POPS]),
+                             "stalls": int(cpu[3][CTL_STALL_EVENTS]),
+                             "state_bitwise_every_pass": True}
+    torch.cuda.synchronize()
+    ctx["err_replay"] = 0.0
+    emit(out)
+
+
 def _dataset(ctx):
     """The 1M-row training set and the 100,000-row held-out set, binned
     once and shared by the tree and train phases."""
@@ -961,6 +1103,10 @@ def phase_wave_tree(ctx) -> None:
     res, info = {}, {}
     for tag, make in growers.items():
         learner = make()
+        if tag == "wave_kernels":
+            # a learner's first tree runs its passes eagerly (and warms up);
+            # the second captures and replays them as CUDA graphs
+            learner.grow(g, h, bag)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res[tag] = learner.grow(g, h, bag)
@@ -972,6 +1118,11 @@ def phase_wave_tree(ctx) -> None:
     rk, ik, lk, ok = res["wave_kernels"]
     splits = int((rk[:, 0] > 0.5).sum())
     check(splits == 254, f"the dyadic wave tree made {splits} splits, not 254")
+    check(info["wave_kernels"]["graph_launches"]
+          == info["wave_kernels"]["passes"] > 0,
+          "the second wave tree did not replay its passes as CUDA graphs")
+    check(info["wave_plain"]["graph_launches"] == 0,
+          "the plain versions' tree replayed graphs")
     for tag in ("wave_plain", "compact"):
         r, i, lid, out = res[tag]
         check(np.array_equal(rk, r) and np.array_equal(ik, i),
@@ -980,7 +1131,7 @@ def phase_wave_tree(ctx) -> None:
         check(torch.equal(ok.to(torch.float32), out.to(torch.float32)),
               f"leaf outputs differ from the {tag} tree")
     emit({"phase": "wave_tree", "splits": splits, "records_bitwise": True,
-          "growers": info})
+          "graphed_tree_bitwise": True, "growers": info})
 
 
 def _dataset_masked(ctx):
@@ -1266,53 +1417,130 @@ def launch_shapes(seg, scan) -> dict:
             "median": {"K": ks[len(ks) // 2]}, "largest": {"K": ks[-1]}}}
 
 
+def eager_tree_shapes(learner, grads, bag, wrappers):
+    """Grow the first tree of a fresh learner with the learner's config and
+    data (a learner's first tree runs its passes eagerly; a launch captured
+    into a graph records no shape), with every launch of ``wrappers``
+    recording its shape; returns the records and that tree's kernel
+    calls."""
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+
+    ln = WaveTreeLearner(learner.cfg, learner.data, learner.device)
+    ln._use_fused = learner._use_fused
+    for fn in wrappers:
+        fn.shapes = []
+    try:
+        ln.grow(*grads, bag)
+        rec = [fn.shapes for fn in wrappers]
+    finally:
+        for fn in wrappers:
+            fn.shapes = None
+    return rec, ln.kernel_calls
+
+
+#: the kernel a wrapper launches once per call, as the profiler names it
+KERNEL_SYMBOLS = {"hist_packed": "hist_packed_chunks",
+                  "hist_segments": "hist_segments_tiles",
+                  "partition": "partition_rows", "split_scan": "split_scan",
+                  "hist_multislot": "hist_multislot_chunks",
+                  "fused_scan": "fused_child_scan", "replay": "replay_pass"}
+
+
+def profiled_tree(learner, grads, bag, names) -> dict:
+    """Grow one more tree with ``learner`` (past its first, so its passes
+    replay CUDA graphs) under torch.profiler, and check that the device ran
+    each kernel of ``names`` as often as the learner's counts say it was
+    launched in that tree: the launches a graph replay is credited with,
+    read back from the device's own records.  The window opens and closes
+    with a spin kernel (the profiler has missed a window's first records on
+    the H100)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    calls0 = dict(learner.kernel_calls)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        learner.grow(*grads, bag)
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+    ran = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = {n: sum(1 for k in ran if re.search(
+        rf"(^|::){KERNEL_SYMBOLS[n]}\(", k)) for n in names}
+    counted = {n: learner.kernel_calls[n] - calls0[n] for n in names}
+    stats = learner.tree_stats[-1]
+    check(stats["graph_launches"] == stats["passes"] > 0,
+          f"the profiled tree did not replay its passes as graphs: {stats}")
+    check(device == counted and all(counted.values()),
+          f"kernels the device ran in a graphed tree {device} != the "
+          f"launches the learner counted {counted}")
+    return {"device_kernels": device, "counted_launches": counted,
+            "graph_launches": stats["graph_launches"],
+            "kernel_records": len(ran)}
+
+
+def tree_counters(out, learner, keys) -> None:
+    """Per-tree counters of the learner's trees into ``out``."""
+    stats = learner.tree_stats
+    for key in keys:
+        out[key + "_per_tree"] = [s[key] for s in stats]
+
+
+WAVE_TREE_KEYS = ("waves", "stall_events", "stall_splits", "replay_passes",
+                  "host_syncs", "flag_waits", "graph_launches", "passes",
+                  "graph_captures")
+
+
 def phase_wave_train(ctx) -> None:
     from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
     from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
     from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
     from lightgbm_tpu_torch.ops.partition import apply_partition
+    from lightgbm_tpu_torch.ops.replay import replay_pass
     from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
 
     counters = {"hist_packed": build_histogram_packed,
                 "hist_segments": build_histogram_segments,
                 "partition": apply_partition,
-                "split_scan": find_best_splits_batched}
-    # each launch's shape, kept as the device tensors the learner passed
-    # and read after the run (no host read during it)
-    build_histogram_segments.shapes, find_best_splits_batched.shapes = [], []
-    try:
-        bst, learner, grads, out = _train_run(ctx, WAVE_PARAMS, "wave_train",
-                                              counters)
-        seg, scan = (build_histogram_segments.shapes,
-                     find_best_splits_batched.shapes)
-    finally:
-        build_histogram_segments.shapes = None
-        find_best_splits_batched.shapes = None
-    check(type(learner) is WaveTreeLearner,
-          "tpu_learner=auto did not select the wave learner")
-    check(len(seg) == out["kernel_launches"]["hist_segments"]
-          and len(scan) == out["kernel_launches"]["split_scan"],
-          "a launch shape was not recorded")
-    ctx["shapes_wave"] = launch_shapes(seg, scan)
-    out["shapes"] = {k: v["distribution"]
-                     for k, v in ctx["shapes_wave"].items()}
+                "split_scan": find_best_splits_batched,
+                "replay": replay_pass}
+    bst, learner, grads, out = _train_run(ctx, WAVE_PARAMS, "wave_train",
+                                          counters)
+    check(type(learner) is WaveTreeLearner and learner.use_graphs,
+          "tpu_learner=auto did not select the wave learner with graphs")
     calls = learner.kernel_calls
     check(out["kernel_launches"] == {n: calls[n] for n in counters},
           f"kernel launches {out['kernel_launches']} != the calls the "
           f"learner recorded {calls}")
+    tree_counters(out, learner, WAVE_TREE_KEYS)
+    syncs = out["host_syncs_per_tree"]
+    check(max(syncs) <= 2, f"host syncs per tree {syncs} (want <= 2)")
+    check(all(n > 0 for n in out["graph_launches_per_tree"][1:]),
+          "trees after the first did not replay CUDA graphs")
+    out["graphed_tree_profiled"] = profiled_tree(
+        learner, grads, bst.gbdt._bag_mask, counters)
+    # each launch's shape, from one more tree grown eagerly on the run's
+    # last gradients (a graph replay records none)
+    (seg, scan), calls1 = eager_tree_shapes(
+        learner, grads, bst.gbdt._bag_mask,
+        (build_histogram_segments, find_best_splits_batched))
+    check(len(seg) == calls1["hist_segments"]
+          and len(scan) == calls1["split_scan"],
+          "a launch shape was not recorded")
+    ctx["shapes_wave"] = launch_shapes(seg, scan)
+    out["shapes"] = {k: v["distribution"]
+                     for k, v in ctx["shapes_wave"].items()}
     st = learner._init_root_wave(*grads, bst.gbdt._bag_mask,
                                  learner._all_features)
     lanes = {"bins_p": st.bins_p, "w_p": st.w_p, "rid_p": st.rid_p,
              "lid_p": st.lid_p, "hist_pool": st.hist_pool,
              "node_i": st.node_i, "node_f": st.node_f, "cand_f": st.cand_f,
              "cand_i": st.cand_i, "split_m": st.split_m,
-             "spare": st.spare[0]}
+             "spare": st.spare[0], "replay_state": st.rctl}
     off = [k for k, v in lanes.items() if not v.is_cuda]
     check(not off, f"lanes not on the card: {off}")
-    stats = learner.tree_stats
-    for key in ("waves", "stall_events", "stall_splits", "replay_passes",
-                "host_syncs"):
-        out[key + "_per_tree"] = [s[key] for s in stats]
     if "auc_compact" in ctx:
         gap = abs(out["heldout_auc"][-1] - ctx["auc_compact"][-1])
         check(gap < 1e-4, f"held-out AUC {out['heldout_auc'][-1]} is "
@@ -1322,6 +1550,99 @@ def phase_wave_train(ctx) -> None:
     ctx["launches_wave"] = out["kernel_launches"]
     ctx["auc_wave"] = out["heldout_auc"]
     ctx["bst_wave"] = bst
+    emit(out)
+
+
+def phase_wave_pipelined(ctx) -> None:
+    """wave_train's run without the held-out set: the pipelined loop, run
+    8 iterations past its flush depth and timed over those, each of which
+    also builds the host tree of the iteration `depth` back."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.metrics import create_metric
+    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.partition import apply_partition
+    from lightgbm_tpu_torch.ops.replay import replay_pass
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+
+    ds, dv = _dataset(ctx)
+    counters = {"hist_packed": build_histogram_packed,
+                "hist_segments": build_histogram_segments,
+                "partition": apply_partition,
+                "split_scan": find_best_splits_batched,
+                "replay": replay_pass}
+    bst = lt.Booster(WAVE_PARAMS, ds)
+    gbdt = bst.gbdt
+    check(gbdt._can_pipeline(), "the run without a held-out set does not "
+          "pipeline")
+    learner = gbdt.learner
+    # past the flush depth, so that every iteration of the last `steady`
+    # also waits for and builds the host tree `depth` iterations old
+    depth = int(gbdt.cfg.tpu_pipeline_flush_depth)
+    steady = 8
+    iters = depth + steady
+    for fn in counters.values():                 # counts of the main path
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dispatch, starts = [], []
+    for _ in range(iters):
+        t1 = time.perf_counter()
+        starts.append(t1)
+        bst.update()
+        dispatch.append(time.perf_counter() - t1)
+    loop_s = time.perf_counter() - t0
+    reads_in_loop = learner.host_syncs
+    waits_in_loop = gbdt.pipeline_waits
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    wall = t_end - t0
+    trees = gbdt.models                          # the flush
+    launches = {name: fn.launches for name, fn in counters.items()}
+    calls = learner.kernel_calls
+    check(len(trees) == iters, f"{len(trees)} trees, want {iters}")
+    check(reads_in_loop == 0, f"{reads_in_loop} blocking reads of records "
+          f"in the loop")
+    check(waits_in_loop == max(0, iters - depth) > 0,
+          f"{waits_in_loop} record waits in the loop")
+    check(launches == {n: calls[n] for n in counters}
+          and all(launches.values()),
+          f"kernel launches {launches} != the learner's calls {calls}")
+    # the held-out AUC after wave_train's 5 iterations, and after all
+    auc_m = create_metric("auc", lt.Config.from_params(WAVE_PARAMS))
+    auc_m.init(dv.constructed.metadata, dv.constructed.num_data)
+    aucs = []
+    for n in (5, iters):
+        raw = bst.predict(ctx["Xv"], num_iteration=n, raw_score=True)
+        check(np.isfinite(raw).all() and raw.shape == (VALID_ROWS,),
+              "held-out predictions are not finite of shape (100000,)")
+        aucs.append(auc_m.eval(raw, gbdt.objective)[0][1])
+    auc = aucs[0]
+    out = {"phase": "wave_pipelined", "iterations": iters,
+           "flush_depth": depth, "trees_leaves": [t.num_leaves
+                                                  for t in trees],
+           "kernel_launches": launches, "heldout_auc_5": auc,
+           "heldout_auc": aucs[1],
+           "loop_s": loop_s, "dispatch_s_per_iter": dispatch,
+           "wall_s": wall, "s_per_iter": wall / iters,
+           # the last `steady` iterations, each with its rolling flush:
+           # from the host's start of the first to the card's end
+           "steady_iterations": steady,
+           "s_per_iter_steady": (t_end - starts[depth]) / steady,
+           "record_reads_in_loop": reads_in_loop,
+           "record_waits_in_loop": waits_in_loop,
+           "record_waits_at_flush": gbdt.pipeline_waits - waits_in_loop}
+    tree_counters(out, learner, WAVE_TREE_KEYS)
+    if "bst_wave" in ctx:
+        sync = ctx["bst_wave"].gbdt.models[0].to_string()
+        check(trees[0].to_string() == sync,
+              "the first pipelined tree's model text differs from the "
+              "synchronous run's")
+        gap = abs(auc - ctx["auc_wave"][-1])
+        check(gap < 1e-4, f"pipelined held-out AUC {auc} is {gap} from "
+              f"wave_train's")
+        out["first_tree_text_equal"] = True
+        out["auc_gap_to_wave_train"] = gap
     emit(out)
 
 
@@ -1364,6 +1685,7 @@ def phase_quant_train(ctx) -> None:
     from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
     from lightgbm_tpu_torch.ops.partition import apply_partition
     from lightgbm_tpu_torch.ops.quant import quantize_gradients
+    from lightgbm_tpu_torch.ops.replay import replay_pass
     from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
 
     counters = {"hist_packed": build_histogram_packed,
@@ -1371,27 +1693,23 @@ def phase_quant_train(ctx) -> None:
                 "partition": apply_partition,
                 "split_scan": find_best_splits_batched,
                 "hist_multislot": build_histogram_multislot,
-                "fused_scan": fused_child_scans}
+                "fused_scan": fused_child_scans,
+                "replay": replay_pass}
     quant_modes = {"hist_packed_quant": build_histogram_packed,
                    "hist_segments_quant": build_histogram_segments,
                    "hist_multislot_quant": build_histogram_multislot}
     for fn in quant_modes.values():
         fn.quant_launches = 0
-    # each multislot launch's K and slot tensor and each fused launch's K,
-    # kept as the learner passed them and read after the run (no host read
-    # during it)
-    build_histogram_multislot.shapes, fused_child_scans.shapes = [], []
-    try:
-        bst, learner, grads, out = _train_run(ctx, QUANT_PARAMS,
-                                              "quant_train", counters)
-        multi, fused_k = (build_histogram_multislot.shapes,
-                          fused_child_scans.shapes)
-    finally:
-        build_histogram_multislot.shapes = None
-        fused_child_scans.shapes = None
+    bst, learner, grads, out = _train_run(ctx, QUANT_PARAMS, "quant_train",
+                                          counters)
     quant = {name: fn.quant_launches for name, fn in quant_modes.items()}
-    check(len(multi) == out["kernel_launches"]["hist_multislot"]
-          and len(fused_k) == out["kernel_launches"]["fused_scan"],
+    # each multislot launch's K and slot tensor and each fused launch's K,
+    # from one more tree grown eagerly on the run's last gradients
+    (multi, fused_k), calls1 = eager_tree_shapes(
+        learner, grads, bst.gbdt._bag_mask,
+        (build_histogram_multislot, fused_child_scans))
+    check(len(multi) == calls1["hist_multislot"]
+          and len(fused_k) == calls1["fused_scan"],
           "a multislot or fused launch shape was not recorded")
     ctx["shapes_quant"] = quant_shapes(
         [(k, int(((sl >= 0) & (sl < k)).sum())) for k, sl in multi],
@@ -1408,10 +1726,11 @@ def phase_quant_train(ctx) -> None:
           f"learner recorded {calls}")
     check(quant == {n: calls[n] for n in quant_modes} and all(quant.values()),
           f"quant-mode launches {quant} != the learner's {calls}")
-    stats = learner.tree_stats
-    for key in ("open_levels", "waves", "stall_events", "stall_splits",
-                "replay_passes", "host_syncs"):
-        out[key + "_per_tree"] = [s[key] for s in stats]
+    tree_counters(out, learner, ("open_levels",) + WAVE_TREE_KEYS)
+    check(max(out["host_syncs_per_tree"]) <= 2,
+          f"host syncs per tree {out['host_syncs_per_tree']} (want <= 2)")
+    out["graphed_tree_profiled"] = profiled_tree(
+        learner, grads, bst.gbdt._bag_mask, counters)
     out["quant_mode_launches"] = quant
     if "auc_wave" in ctx:
         gap = abs(out["heldout_auc"][-1] - ctx["auc_wave"][-1])
@@ -1494,8 +1813,43 @@ def phase_masked_train(ctx) -> None:
     if "auc_wave" in ctx:
         out["auc_gap_to_wave_B255"] = out["heldout_auc"][-1] \
             - ctx["auc_wave"][-1]
+    out["pipelined"] = masked_pipelined(data[0], bst)
     ctx["launches_masked"] = out["kernel_launches"]
     emit(out)
+
+
+def masked_pipelined(ds, sync_bst, iters: int = 3) -> dict:
+    """The masked learner without a held-out set: the pipelined loop, at a
+    flush depth of 1 so that the loop's rolling flush runs.  No record is
+    read in the loop, each tree is built one iteration late, and the first
+    tree's model text is the synchronous run's."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner import MaskedTreeLearner
+
+    bst = lt.Booster(dict(MASKED_PARAMS, tpu_pipeline_flush_depth=1), ds)
+    gbdt = bst.gbdt
+    check(type(gbdt.learner) is MaskedTreeLearner and gbdt._can_pipeline(),
+          "the masked learner without a held-out set does not pipeline")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        bst.update()
+    reads, waits = gbdt.learner.host_syncs, gbdt.pipeline_waits
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trees = gbdt.models
+    check(reads == 0 and waits == iters - 1,
+          f"masked pipelined loop: {reads} blocking record reads, {waits} "
+          f"record waits (want 0 and {iters - 1})")
+    check(len(trees) == iters and all(t.num_leaves > 1 for t in trees),
+          f"masked pipelined loop: {len(trees)} trees")
+    check(trees[0].to_string() == sync_bst.gbdt.models[0].to_string(),
+          "the masked learner's first pipelined tree differs from the "
+          "synchronous run's")
+    return {"iterations": iters, "flush_depth": 1,
+            "record_reads_in_loop": reads, "record_waits_in_loop": waits,
+            "trees_leaves": [t.num_leaves for t in trees],
+            "s_per_iter": wall / iters, "first_tree_text_equal": True}
 
 
 def _wave_booster(ctx):
@@ -2039,6 +2393,93 @@ def _time_packed(flush, shapes=None) -> dict:
     return rows
 
 
+def _events_ms(fn) -> float:
+    """Device time in ms of what ``fn`` queues, from CUDA events."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def _time_replay(reps: int = 20) -> dict:
+    """One replay pass of the bench configuration (M = 1,145 node slots,
+    254 splits, stall batch 4) over a forest grown past the budget, so the
+    pass makes all 254 pops (the first pass of a tree makes most): the
+    wrapper, the kernel alone (its C entry point replayed) and the plain
+    version on the card, each pass on its own fresh state; and the kernel
+    on a state whose replay has ended (the pass queued after the last,
+    which returns at once).  The bound: the node table read once (not
+    the window widths, which only a stall's batch extras read) and what
+    the pass writes."""
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.ops.replay import (CTL_FLAG, CTL_POPS,
+                                               FLAG_DONE, NUM_CTL,
+                                               replay_pass, replay_pass_plain)
+
+    dev = torch.device("cuda", 0)
+    # a forest the replay needed no correction in: the final tables of a
+    # replay run to its end from a half-grown forest of positive gains
+    rng = np.random.RandomState(3)
+    tab, nn = replay_forest(rng, REPLAY_BUDGET // 2, positive=True)
+    replay_to_end(rng, tab, nn, replay_state(), REPLAY_KW,
+                  vals=REPLAY_GAINS[2:])
+    tab = [t.to(dev) for t in tab]
+    fresh = replay_state(dev)
+    states = [[t.clone() for t in fresh] for _ in range(reps)]
+
+    def reset():
+        for st in states:
+            for a, b in zip(st, fresh):
+                a.copy_(b)
+
+    n0 = replay_pass.launches
+    replay_pass(*tab, *states[0], **REPLAY_KW)           # build and warm
+    reset()
+    ms = _events_ms(lambda: [replay_pass(*tab, *st, **REPLAY_KW)
+                             for st in states]) / reps
+    pops = int(states[0][3][CTL_POPS])
+    check(pops == REPLAY_BUDGET and int(states[0][3][CTL_FLAG]) == FLAG_DONE,
+          f"the timed replay pass made {pops} pops")
+    reset()
+    with native.staging() as rec:
+        for st in states:
+            replay_pass(*tab, *st, **REPLAY_KW)
+    reset()
+    kernel_ms = _events_ms(lambda: [r() for r in rec]) / reps
+    noop_ms = _events_ms(lambda: [r() for r in rec]) / reps   # ended
+    # the fixed cost: the table's load and the list, no pop (the budget
+    # already spent)
+    reset()
+    for st in states:
+        st[3][CTL_POPS] = REPLAY_BUDGET
+    fixed_ms = _events_ms(lambda: [r() for r in rec]) / reps
+    reset()
+    plain_ms = _events_ms(lambda: [replay_pass_plain(*tab, *st, **REPLAY_KW)
+                                   for st in states[:3]]) / 3
+    replay_pass.launches = n0
+    m = REPLAY_M
+    # what the timed pass must move.  Read: per slot the gain, split flag,
+    # left child, avail flag and leaf index, and the counters (the window
+    # widths are read only for a stall's batch extras, and this pass has no
+    # stall).  Written: per pop the pop record (8) and the two children's
+    # leaf indices (8), the avail flags whose value the pass changed, the
+    # counters and the correction's members and valid mask
+    changed = int((states[0][0].cpu() != fresh[0].cpu()).sum())
+    nbytes = m * (tab[0].element_size() + 1 + 8 + 1 + 4) + NUM_CTL * 4 \
+        + pops * (8 + 8) + changed + NUM_CTL * 4 + REPLAY_KB * (8 + 1)
+    return dict(ms=ms, kernel_ms=kernel_ms, noop_kernel_ms=noop_ms,
+                fixed_kernel_ms=fixed_ms,
+                us_per_pop=(kernel_ms - fixed_ms) * 1e3 / pops,
+                avail_bytes_changed=changed,
+                plain_ms=plain_ms, library_ms=None,
+                library="no single PyTorch call computes this function",
+                pops=pops, M=m, **_bound(nbytes, 0))
+
+
 def phase_timing(ctx) -> None:
     from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
     from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
@@ -2067,7 +2508,8 @@ def phase_timing(ctx) -> None:
                   flush, quant.get("hist_multislot")),
               "fused_scan": _time_fused(flush, quant.get("fused_scan")),
               "hist_full": _time_hist_full(flush,
-                                           ctx.get("shapes_masked_train"))}
+                                           ctx.get("shapes_masked_train")),
+              "replay": _time_replay()}
     for fn, n in zip(wrappers, launches_before):
         fn.launches = n
     ctx["timing"] = rows
@@ -2107,14 +2549,18 @@ def kernels_line(ctx) -> dict:
         "hist_full": "uint16 codes at 1,023 bins and uint8 at 255: dyadic "
                      "inputs bitwise; two launches bitwise; random float32 "
                      "within rtol=1e-5, atol=1e-5 times each bin's sum of "
-                     "|w|; dropped codes, 2,047 and 65,536 bins bitwise"}
+                     "|w|; dropped codes, 2,047 and 65,536 bins bitwise",
+        "replay": "every pass's carried state, members and counters "
+                  "bitwise equal to the plain version on the CPU over "
+                  "random forests with exact gain ties (M = 1,145)"}
     err = {"hist_packed": ctx.get("max_abs_err"),
            "hist_segments": ctx.get("err_segments"),
            "partition": ctx.get("err_partition"),
            "split_scan": ctx.get("err_scan"),
            "hist_multislot": ctx.get("err_multislot"),
            "fused_scan": ctx.get("err_fused"),
-           "hist_full": ctx.get("err_hist_full")}
+           "hist_full": ctx.get("err_hist_full"),
+           "replay": ctx.get("err_replay")}
     quant = ctx.get("launches_quant", {})
     out = []
     for name in KERNEL_SOURCES:
@@ -2142,6 +2588,9 @@ def kernels_line(ctx) -> dict:
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
                     "compare": compare[name]})
+        if name == "replay":
+            out[-1]["noop_kernel_ms"] = row["noop_kernel_ms"]
+            out[-1]["ported_from"] = "an XLA while_loop, not a pallas_call"
         for key in ("shapes_wave_train", "shapes_masked_train",
                     "shapes_train", "shapes_quant_train"):
             if key in row:

@@ -37,8 +37,8 @@
 //    that it covers every row of every member exactly once).  Each block
 //    forms the scan itself from the device counts, so the host reads
 //    nothing back.  The grid holds G blocks, G sized on the host from an
-//    upper bound on the rows (the sum of the wave's parent widths, which
-//    the learner holds anyway: one block per 256 rows) and capped at the
+//    upper bound on the rows (one block per 256 rows; the wave learner
+//    passes its padded row count, known with no read) and capped at the
 //    blocks the card holds at once; block b takes the q = ceil(tiles / G)
 //    consecutive tiles [b*q, (b+1)*q), so every block gets the same number
 //    of rows whatever the member sizes, and blocks past the real count

@@ -21,7 +21,8 @@ What changes in eager torch: the JAX package fuses the tree into one
 loop (`learner.py:606-624`, ``fused=False``): exactly ``num_leaves - 1``
 no-op-able steps, every state update under ``torch.where(do, ...)``, with no
 host read between them.  The records, their exact counts and the leaf
-outputs are read once per tree.  The split search is the plain torch
+outputs are read once per tree (``train_async`` leaves them on the device
+for the pipelined boosting loop).  The split search is the plain torch
 ``ops/split.py:find_best_splits``, as the JAX masked learner's is plain XLA
 with no Pallas kernel.  Categorical splits, monotone constraints, forced
 splits, feature penalties and the GSPMD parallel modes are not ported.
@@ -76,6 +77,18 @@ class _FeatCand(NamedTuple):
     right_cnt: torch.Tensor
     left_output: torch.Tensor
     right_output: torch.Tensor
+
+
+class AsyncTree(NamedTuple):
+    """One tree grown with no blocking host read (``train_async``): its
+    records packed in one float64 device tensor (the learner's
+    ``host_records`` decodes them once they are on the host), the leaf id
+    per row and the leaf outputs on the device, and the host's counters of
+    the tree."""
+    records: torch.Tensor
+    leaf_id: torch.Tensor
+    leaf_out: torch.Tensor
+    host_stats: dict
 
 
 class TreeLearner:
@@ -419,23 +432,42 @@ class MaskedTreeLearner(TreeLearner):
         st.rec_i[step] = torch.stack([lc_bag, c_bag - lc_bag])
         st.num_leaves += do.to(torch.int64)
 
-    def grow(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
-             feature_mask: Optional[torch.Tensor] = None):
-        """Grow one tree in exactly ``num_leaves - 1`` steps; returns
-        (records (L-1, 17) f32 numpy, exact bagged counts (L-1, 2) int64
-        numpy, leaf id per row (N,) int64 tensor, leaf outputs (L,) acc
-        tensor).  The records are the one host read of the tree."""
+    def train_async(self, grad: torch.Tensor, hess: torch.Tensor,
+                    bag: torch.Tensor,
+                    feature_mask: Optional[torch.Tensor] = None
+                    ) -> AsyncTree:
+        """Grow one tree in exactly ``num_leaves - 1`` steps with no host
+        read: the records and their exact counts packed as (L-1) rows of
+        ``NUM_REC_FIELDS + 2`` float64, the leaf id per row (N,) int64 and
+        the leaf outputs (L,) acc, all on the device."""
         if feature_mask is None:
             feature_mask = self._all_features
         st = self._init_root(grad, hess, bag, feature_mask)
         for step in range(self.num_leaves - 1):
             self._split_step(st, feature_mask, step)
-        out = torch.cat([st.rec_f.to(torch.float64),
-                         st.rec_i.to(torch.float64)], dim=1).cpu().numpy()
-        self.host_syncs += 1
+        packed = torch.cat([st.rec_f.to(torch.float64),
+                            st.rec_i.to(torch.float64)], dim=1).reshape(-1)
+        return AsyncTree(packed, st.leaf_id.to(torch.int64),
+                         st.leaf_f[:, LF_OUT], {})
+
+    def host_records(self, flat: np.ndarray, host_stats=None):
+        """(records (L-1, 17) float32, exact bagged counts (L-1, 2) int64)
+        from a tree's packed records read to the host."""
+        out = flat.reshape(self.num_leaves - 1, NUM_REC_FIELDS + 2)
         return (out[:, :NUM_REC_FIELDS].astype(np.float32),
-                out[:, NUM_REC_FIELDS:].astype(np.int64),
-                st.leaf_id.to(torch.int64), st.leaf_f[:, LF_OUT])
+                out[:, NUM_REC_FIELDS:].astype(np.int64))
+
+    def grow(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
+             feature_mask: Optional[torch.Tensor] = None):
+        """Grow one tree; returns (records (L-1, 17) f32 numpy, exact bagged
+        counts (L-1, 2) int64 numpy, leaf id per row (N,) int64 tensor, leaf
+        outputs (L,) acc tensor).  The records are the one host read of the
+        tree."""
+        tree = self.train_async(grad, hess, bag, feature_mask)
+        flat = tree.records.cpu().numpy()
+        self.host_syncs += 1
+        rec_f, rec_i = self.host_records(flat)
+        return rec_f, rec_i, tree.leaf_id, tree.leaf_out
 
     def train(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
               feature_mask: Optional[torch.Tensor] = None):

@@ -38,7 +38,7 @@ EXTRA_FLAGS: Dict[str, List[str]] = {"split_scan": ["-fmad=false"],
                                      "fused_scan": ["-fmad=false"]}
 #: every kernel source of the port
 KERNELS = ("hist_packed", "hist_segments", "partition", "split_scan",
-           "hist_multislot", "fused_scan", "hist_full")
+           "hist_multislot", "fused_scan", "hist_full", "replay")
 
 #: seconds each library took to build in this process (0.0 = reused)
 BUILD_SECONDS: Dict[str, float] = {}

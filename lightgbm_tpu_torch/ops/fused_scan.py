@@ -182,11 +182,13 @@ def fused_child_scans(h_small: torch.Tensor, pool: torch.Tensor,
                   float(min_sum_hessian_in_leaf), float(min_gain_to_split),
                   planes, dleft, stream)
     fused_child_scans.launches += 1
-    if fused_child_scans.shapes is not None:
+    if fused_child_scans.shapes is not None \
+            and not torch.cuda.is_current_stream_capturing():
         fused_child_scans.shapes.append(k)
     return candidates_from_kernel(planes, dleft)
 
 
 fused_child_scans.launches = 0
-#: a list to record each launch's member count K in, or None
+#: a list to record each launch's member count K in, or None;
+#: a launch captured into a CUDA graph records nothing
 fused_child_scans.shapes = None

@@ -178,12 +178,14 @@ def build_histogram_multislot(words: torch.Tensor, w: torch.Tensor,
                   out, stream)
     build_histogram_multislot.launches += 1
     build_histogram_multislot.quant_launches += int(quant)
-    if build_histogram_multislot.shapes is not None:
+    if build_histogram_multislot.shapes is not None \
+            and not torch.cuda.is_current_stream_capturing():
         build_histogram_multislot.shapes.append((n_slots, slot))
     return out
 
 
 build_histogram_multislot.launches = 0
 build_histogram_multislot.quant_launches = 0
-#: a list to record each launch's slot count K and slot tensor in, or None
+#: a list to record each launch's slot count K and slot tensor in, or None;
+#: a launch captured into a CUDA graph records nothing
 build_histogram_multislot.shapes = None

@@ -139,8 +139,8 @@ def build_histogram_segments(words: torch.Tensor, w: torch.Tensor,
     words : (Fw, N) int32, w (3, N) float32, lid (N,) int32, all contiguous
     start, cnt, leaf : (K,) integer tensors on the same device
     rows_bound : an upper bound on ``sum(cnt)``, known on the host (the
-              learner's sum of the parent widths); it sizes the grid, the
-              device counts divide the work
+              wave learner passes its padded row count); it sizes the
+              grid, the device counts divide the work
     quant : channel 2 sums lane 1 (h) instead of lane 2.
     Returns (K, 4*Fw, num_bins, 3) float32.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (counted in
@@ -187,12 +187,14 @@ def build_histogram_segments(words: torch.Tensor, w: torch.Tensor,
                   partial, seg, out, stream)
     build_histogram_segments.launches += 1
     build_histogram_segments.quant_launches += int(quant)
-    if build_histogram_segments.shapes is not None:
+    if build_histogram_segments.shapes is not None \
+            and not torch.cuda.is_current_stream_capturing():
         build_histogram_segments.shapes.append((cnt, rows_bound))
     return out
 
 
 build_histogram_segments.launches = 0
 build_histogram_segments.quant_launches = 0
-#: a list to record each launch's (cnt, rows_bound) in, or None
+#: a list to record each launch's (cnt, rows_bound) in, or None;
+#: a launch captured into a CUDA graph records nothing
 build_histogram_segments.shapes = None

@@ -126,11 +126,13 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
                   float(min_sum_hessian_in_leaf), float(min_gain_to_split),
                   planes, dleft, stream)
     find_best_splits_batched.launches += 1
-    if find_best_splits_batched.shapes is not None:
+    if find_best_splits_batched.shapes is not None \
+            and not torch.cuda.is_current_stream_capturing():
         find_best_splits_batched.shapes.append(k)
     return candidates_from_kernel(planes, dleft)
 
 
 find_best_splits_batched.launches = 0
-#: a list to record each launch's leaf count K in, or None
+#: a list to record each launch's leaf count K in, or None;
+#: a launch captured into a CUDA graph records nothing
 find_best_splits_batched.shapes = None

@@ -2,8 +2,8 @@
 
     python3 profiling/profile_torch_iteration.py
         [--learner wave|compact|masked] [--max-bin 255] [--quant]
-        [--open-levels N] [--rows 1000000] [--iters 1]
-        [--out reports/profile_torch_iteration.json]
+        [--open-levels N] [--rows 1000000] [--valid-rows 0] [--warmup 2]
+        [--iters 1] [--out reports/profile_torch_iteration.json]
 
 Trains the bench workload (bench.py's Higgs-shaped data, 28 features, 255
 leaves, 255 bins unless ``--max-bin`` says otherwise, binary) with
@@ -12,14 +12,23 @@ the default ``tpu_learner=auto`` path; ``compact``: the sequential learner;
 ``masked``: the masked learner, which ``auto`` picks past 256 bins, e.g.
 ``--learner masked --max-bin 1023``; ``--quant`` sets
 ``tpu_quantized_grad=on`` and ``--open-levels N`` ``tpu_wave_open_levels=N``
-for the wave learner): two warm-up iterations, then
-``--iters`` iterations under ``torch.profiler`` (CPU and CUDA activities).
-Writes one JSON file with the card's name and power limit (nvidia-smi), the
-wall time, the device busy time over the profiled iterations (sum of CUDA
-kernel and memcpy times), the device idle share, the number of CUDA kernels
-per split and per iteration, host syncs per tree (and for the wave learner
-waves and stall events per tree), and the top operators by host time and by
-device time; prints a one-line summary.  Needs a CUDA card.
+for the wave learner; ``--valid-rows N`` holds out N more rows as a
+validation set, which keeps the synchronous boosting loop, as chip_smoke.py's
+wave_train runs it; without one the loop pipelines): ``--warmup``
+iterations (past ``tpu_pipeline_flush_depth``, 8, every profiled iteration
+of the pipelined loop also builds the host tree 8 iterations back), then
+``--iters`` iterations under ``torch.profiler`` (CPU and CUDA
+activities).  Writes one JSON file with the card's name and power limit
+(nvidia-smi), the wall time, the device busy time over the profiled
+iterations (sum of CUDA kernel and memcpy times), the device idle share, the
+number of CUDA kernel and memcpy events per split and per iteration
+(``cuda_events_*``: a kernel inside a replayed CUDA graph counts once per
+replay), the host's launch calls per iteration (``host_launch_calls_per_iter``:
+the runtime's kernel-launch and graph-launch calls, one per
+``cudaGraphLaunch`` however many kernels the graph holds), host syncs per
+tree (and for the wave learner waves, stall events, lagged flag waits and
+graph launches per tree), and the top operators by host time and by device
+time; prints a one-line summary.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -42,13 +51,22 @@ PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
           "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1,
           "metric": "none"}
 LEARNERS = {"wave": "auto", "compact": "compact", "masked": "masked"}
+#: runtime calls that launch work on the card, as the profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+                "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--learner", choices=sorted(LEARNERS), default="wave")
     ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--valid-rows", type=int, default=0,
+                    help="held-out rows (a validation set: the "
+                         "synchronous loop)")
     ap.add_argument("--max-bin", type=int, default=255)
+    ap.add_argument("--warmup", type=int, default=2,
+                    help="iterations before the profiled ones")
     ap.add_argument("--iters", type=int, default=1)
     ap.add_argument("--quant", action="store_true",
                     help="tpu_quantized_grad=on")
@@ -60,22 +78,28 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 2
     rng = np.random.RandomState(7)
-    X = rng.randn(args.rows, 28)
+    rows = args.rows + args.valid_rows
+    X = rng.randn(rows, 28)
     logit = (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] * 0.5 + np.sin(X[:, 3])
-             + 0.5 * rng.randn(args.rows))
+             + 0.5 * rng.randn(rows))
     y = (logit > 0).astype(np.float64)
     params = dict(PARAMS, tpu_learner=LEARNERS[args.learner],
                   max_bin=args.max_bin,
                   tpu_quantized_grad="on" if args.quant else "auto",
                   tpu_wave_open_levels=args.open_levels)
-    bst = lt.Booster(params, lt.Dataset(X, label=y, params=params))
-    for _ in range(2):
+    ds = lt.Dataset(X[:args.rows], label=y[:args.rows], params=params)
+    bst = lt.Booster(params, ds)
+    if args.valid_rows:
+        bst.add_valid(ds.create_valid(X[args.rows:], label=y[args.rows:]),
+                      "heldout")
+    for _ in range(args.warmup):
         bst.update()
     torch.cuda.synchronize()
     learner = bst.gbdt.learner
     syncs0 = learner.host_syncs
-    trees0 = len(bst.gbdt.models)
-    stats0 = len(getattr(learner, "tree_stats", []))
+    waits0 = bst.gbdt.pipeline_waits
+    # not ``models``, whose read would build the queued host trees
+    trees0 = bst.gbdt.iter_ * bst.gbdt.num_tree_per_iteration
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -84,6 +108,7 @@ def main() -> int:
             bst.update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    waits = bst.gbdt.pipeline_waits - waits0
     trees = bst.gbdt.models[trees0:]
     splits = sum(t.num_leaves - 1 for t in trees)
     events = prof.key_averages()
@@ -94,6 +119,9 @@ def main() -> int:
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    launch_calls = [e for e in prof.events() if e.name in LAUNCH_CALLS]
+    graph_calls = sum(e.name in ("cudaGraphLaunch", "cuGraphLaunch")
+                      for e in launch_calls)
     busy_us = sum(float(e.time_range.elapsed_us()) for e in kernels)
     by_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:20]
     by_dev = sorted(events, key=dev_us, reverse=True)[:20]
@@ -113,6 +141,12 @@ def main() -> int:
         "cuda_events": len(kernels),
         "cuda_events_per_split": len(kernels) / max(splits, 1),
         "cuda_events_per_iter": len(kernels) / args.iters,
+        "host_launch_calls_per_iter": len(launch_calls) / args.iters,
+        "graph_launch_calls_per_iter": graph_calls / args.iters,
+        "valid_rows": args.valid_rows, "warmup": args.warmup,
+        "pipelined": bool(getattr(bst.gbdt, "_can_pipeline",
+                                  lambda: False)()),
+        "record_waits_per_iter": waits / args.iters,
         "host_syncs_per_tree": (learner.host_syncs - syncs0) / len(trees),
         "top_host": [{"op": e.key, "count": e.count,
                       "self_cpu_ms": e.self_cpu_time_total / 1e3}
@@ -121,10 +155,10 @@ def main() -> int:
                         "self_device_ms": dev_us(e) / 1e3}
                        for e in by_dev if dev_us(e) > 0],
     }
+    stats = getattr(learner, "tree_stats", [])[-len(trees):]
     for key in ("open_levels", "waves", "stall_events", "stall_splits",
-                "replay_passes"):
-        stats = getattr(learner, "tree_stats", [])[stats0:]
-        if stats:
+                "replay_passes", "flag_waits", "graph_launches", "passes"):
+        if stats and key in stats[0]:
             out[key + "_per_tree"] = [s[key] for s in stats]
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
@@ -134,8 +168,10 @@ def main() -> int:
         "open_levels", "rows",
         "s_per_iter", "device_busy_s",
         "device_idle_share", "cuda_events_per_iter", "cuda_events_per_split",
-        "host_syncs_per_tree") + tuple(k for k in out if k.endswith(
-            "_per_tree") and k != "host_syncs_per_tree")}))
+        "host_launch_calls_per_iter", "graph_launch_calls_per_iter",
+        "pipelined", "record_waits_per_iter", "host_syncs_per_tree")
+        + tuple(k for k in out if k.endswith("_per_tree")
+                and k != "host_syncs_per_tree")}))
     return 0
 
 

@@ -801,3 +801,214 @@ def test_packed_skew_edge_weights_and_quant(cuda_device, quant):
     assert torch.equal(k1[ok].view(torch.int32), p[ok].view(torch.int32))
     if quant:
         assert _nan_equal(k1[..., 2], k1[..., 1])
+
+
+# -- the device-resident wave tree: replay kernel, graphs, no host read ----
+
+def _replay_tables(dev, seed, m, grown, dtype):
+    from test_torch_replay import _forest
+
+    g, split, child0, width, nn = _forest(np.random.RandomState(seed), m,
+                                          grown)
+    return [torch.from_numpy(g).to(dtype), torch.from_numpy(split),
+            torch.from_numpy(child0), torch.from_numpy(width)], nn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("budget,kb,extras_cap,vec_cap,seed", [
+    (30, 1, 29, 1 << 17, 30), (62, 4, 2, 600, 248),
+    (254, 4, 64, 1 << 17, 1017), (254, 16, 64, 1 << 17, 4064)])
+def test_replay_kernel_bitwise_to_plain(cuda_device, budget, kb, extras_cap,
+                                        vec_cap, seed, dtype):
+    """Pass by pass over random node tables with exact gain ties, the
+    kernel's carried state, members and counters equal the plain version's
+    on the CPU; each correction gives the members random children on both
+    sides; a pass after the end is a no-op."""
+    from test_torch_replay import GAINS, _state
+    from lightgbm_tpu_torch.ops.replay import (CTL_FLAG, FLAG_DONE,
+                                               replay_pass, replay_pass_plain)
+
+    rng = np.random.RandomState(budget + kb)
+    m = 1 + 2 * (budget + budget + extras_cap)
+    tab, nn = _replay_tables(cuda_device, seed, m, budget // 2, dtype)
+    cpu = list(_state(m, budget, kb))
+    card = [t.to(cuda_device) for t in cpu]
+    kw = dict(budget=budget, stall_batch=kb, extras_cap=extras_cap,
+              vec_cap=vec_cap, pad_slot=m)
+    n0 = replay_pass.launches
+    for step in range(budget + 2):
+        replay_pass_plain(*tab, *cpu, **kw)
+        replay_pass(*[t.to(cuda_device) for t in tab], *card, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(cpu, card):
+            assert torch.equal(a, b.cpu()), step
+        if int(cpu[3][CTL_FLAG]) == FLAG_DONE:
+            break
+        members, mvalid = cpu[4], cpu[5]
+        for s in members[mvalid].tolist():
+            tab[1][s] = True
+            tab[2][s] = nn
+            tab[0][nn:nn + 2] = torch.from_numpy(
+                rng.choice(GAINS, 2)).to(dtype)
+            tab[3][nn:nn + 2] = torch.tensor([1, tab[3][s] - 1])
+            nn += 2
+    assert int(cpu[3][CTL_FLAG]) == FLAG_DONE and step > 2
+    after = [t.clone() for t in card]
+    replay_pass(*[t.to(cuda_device) for t in tab], *card, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(after, card))
+    assert replay_pass.launches == n0 + step + 2
+
+
+def _wave_problem(dev, params, n=20_000, seed=5):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 10)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] + 0.3 * rng.randn(n) > 0).astype(float)
+    p = dict({"objective": "binary", "num_leaves": 63, "max_bin": 63,
+              "verbosity": -1, "min_data_in_leaf": 20}, **params)
+    data = lt.Dataset(X, label=y, params=p).construct().constructed
+    npad = data.num_data_padded
+    g = torch.from_numpy(np.concatenate(
+        [rng.randn(n), np.zeros(npad - n)]).astype(np.float32)).to(dev)
+    h = torch.from_numpy(np.concatenate(
+        [rng.rand(n) + 0.1, np.zeros(npad - n)]).astype(np.float32)).to(dev)
+    bag = torch.from_numpy((np.arange(npad) < n).astype(np.float32)).to(dev)
+    return lt.Config.from_params(p), data, g, h, bag
+
+
+@pytest.mark.parametrize("params", [
+    {}, {"tpu_wave_stall_batch": 1, "tpu_wave_width": 8},
+    {"tpu_quantized_grad": "on", "tpu_wave_open_levels": 3}])
+def test_graphed_tree_equals_eager_tree(cuda_device, params):
+    """A learner's second tree replays every split pass as a CUDA graph
+    (its first runs them eagerly and warms up); on the same gradients it
+    equals a fresh learner's first tree, run eagerly, record for record,
+    with the same kernel calls and wrapper launches."""
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.replay import replay_pass
+
+    cfg, data, g, h, bag = _wave_problem(cuda_device, params)
+    graphed = WaveTreeLearner(cfg, data, cuda_device)
+    assert graphed.use_graphs
+    graphed.grow(g, h, bag)
+    out = {}
+    for name, ln in (("graphed", graphed),
+                     ("eager", WaveTreeLearner(cfg, data, cuda_device))):
+        calls = dict(ln.kernel_calls)
+        n0 = (build_histogram_segments.launches, replay_pass.launches)
+        res = ln.grow(g * 0.5, h, bag)
+        n1 = (build_histogram_segments.launches, replay_pass.launches)
+        out[name] = (res, {k: v - calls[k]
+                           for k, v in ln.kernel_calls.items()},
+                     (n1[0] - n0[0], n1[1] - n0[1]), ln.tree_stats[-1])
+    (ra, ca, la, sa), (rb, cb, lb, sb) = out["graphed"], out["eager"]
+    assert np.array_equal(ra[0], rb[0]) and np.array_equal(ra[1], rb[1])
+    assert torch.equal(ra[2], rb[2]) and torch.equal(ra[3], rb[3])
+    assert int((ra[0][:, 0] > 0.5).sum()) > 30
+    assert ca == cb and la == lb
+    assert la == (ca["hist_segments"], ca["replay"]) and la[1] > 0
+    assert sa["graph_launches"] == sa["passes"] > 0 and sb["graph_launches"] == 0
+    assert sa["host_syncs"] == 1 and sa["stall_events"] == sb["stall_events"]
+
+
+def test_passes_make_no_blocking_read(cuda_device):
+    """One growth wave, one replay pass, one correction and the record
+    emission, run eagerly, then a whole graphed tree, under
+    ``set_sync_debug_mode("error")``: no operation blocks on the card.
+    (Capturing a graph synchronizes once, so the learner captures in its
+    second tree, before the window.)"""
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+
+    cfg, data, g, h, bag = _wave_problem(cuda_device, {})
+    ln = WaveTreeLearner(cfg, data, cuda_device)
+    for _ in range(2):                           # builds, warms, captures
+        ln.grow(g, h, bag)
+    st = ln._init_root_wave(g, h, bag, ln._all_features)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ln._wave_pass(st, ln.W, False)
+        st.par ^= 1
+        ln._replay_pass(st)
+        ln._correct_pass(st)
+        ln._emit(st)
+        tree = ln.train_async(g, h, bag)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rec_f, _ = ln.host_records(tree.records.cpu().numpy(), {})
+    assert int((rec_f[:, 0] > 0.5).sum()) > 30
+    assert tree.host_stats["graph_launches"] == tree.host_stats["passes"]
+
+
+def test_pipelined_training_reads_only_at_the_flush(cuda_device):
+    """Pipelined boosting on the card at chip_smoke.py's wave_pipelined
+    size (1M x 28 rows, 255 leaves, 255 bins; no validation set): a
+    boosting iteration makes no blocking read until trees are assembled,
+    and the model equals the one a run with a flush every 16 iterations
+    assembles."""
+    rng = np.random.RandomState(6)
+    X = rng.randn(1_000_000, 28)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+         "verbosity": -1, "metric": "none", "tpu_pipeline_flush_depth": 4}
+    ds = lt.Dataset(X, label=y, params=p)
+    bst = lt.Booster(p, ds)
+    assert bst.gbdt._can_pipeline()
+    for _ in range(2):       # an eager tree, then one that captures graphs
+        bst.update()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            bst.update()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(bst.gbdt._pending) == 4 and bst.gbdt.pipeline_waits == 0
+    for _ in range(2):
+        bst.update()
+    assert bst.gbdt.pipeline_waits == 2
+    text = bst.model_to_string()
+    assert bst.gbdt.pipeline_waits == 6
+    b0 = lt.Booster(dict(p, tpu_pipeline_flush_depth=0), ds)
+    for _ in range(6):
+        b0.update()
+    assert b0.model_to_string() == text
+
+
+def test_masked_pipelined_training_on_card(cuda_device):
+    """The masked learner (511 bins) without a validation set takes the
+    pipelined loop on the card: no record read until the flush, a rolling
+    flush (depth 2) giving the model text of a run that flushes at the end
+    (depth 0), and the first tree the synchronous loop's."""
+    from lightgbm_tpu_torch.learner import MaskedTreeLearner
+
+    rng = np.random.RandomState(1)
+    X = rng.randn(9000, 10)
+    X[rng.rand(9000) < 0.1, 3] = np.nan
+    y = (X[:, 0] + np.nan_to_num(X[:, 3]) + 0.5 * rng.randn(9000) > 0) \
+        .astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 511,
+         "verbosity": -1, "metric": "none", "tpu_pipeline_flush_depth": 2}
+    ds = lt.Dataset(X[:8192], label=y[:8192], params=p)
+    bst = lt.Booster(p, ds)
+    gbdt = bst.gbdt
+    assert type(gbdt.learner) is MaskedTreeLearner and gbdt._can_pipeline()
+    for _ in range(2):
+        bst.update()
+    assert gbdt.learner.host_syncs == 0 and gbdt.pipeline_waits == 0
+    for _ in range(3):
+        bst.update()
+    assert gbdt.learner.host_syncs == 0 and gbdt.pipeline_waits == 3
+    text = bst.model_to_string()
+    assert gbdt.pipeline_waits == 5 and gbdt.learner.host_syncs == 0
+    b0 = lt.Booster(dict(p, tpu_pipeline_flush_depth=0), ds)
+    for _ in range(5):
+        b0.update()
+    assert b0.model_to_string() == text
+    sync = lt.Booster(p, ds)
+    sync.add_valid(ds.create_valid(X[8192:], label=y[8192:]), "heldout")
+    assert not sync.gbdt._can_pipeline()
+    sync.update()
+    assert sync.gbdt.learner.host_syncs == 1
+    assert sync.gbdt.models[0].to_string() == gbdt.models[0].to_string()
+    assert all(t.num_leaves > 1 for t in gbdt.models)
