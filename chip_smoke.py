@@ -126,6 +126,37 @@ line and each raising (exit code 1) on any failure:
              (a bin schema rebuilt from the text) within 1e-9; rows per second
   small      a small input trained on the card and on the CPU (the path the
              tests hold against lightgbm_tpu): held-out metrics within 1e-4
+  multiclass_train  objective=multiclass, num_class=5 (classes cut at the
+             quintiles of the bench data's latent score, the rows and width
+             kept), 5 iterations (25 trees) with the 100,000 held-out rows
+             through the default (wave) learner: launches per kernel equal
+             to the learner's calls, kernel calls and host syncs per tree
+             (1), held-out multi_logloss falling every iteration, seconds per
+             iteration; Booster.predict (the DevicePredictor) (100000, 5)
+             probabilities whose rows sum to 1 within 1e-6, raw scores equal
+             to the host trees within 1e-9; the card's joint softmax
+             gradients within 1e-6 (relative) of the CPU objective's on the
+             same scores; then the same without the held-out set, through
+             the pipelined loop: no record read in the loop, the first
+             iteration's five trees' text equal to the synchronous run's
+  objectives_train  reg_sqrt, regression_l1, huber, fair, poisson, quantile,
+             mape, gamma, tweedie, multiclassova (3 classes), cross_entropy
+             and cross_entropy_lambda on the same rows, each with a label
+             made valid for it from the latent score, 2 iterations each:
+             the wave kernels launched, host syncs per tree (2 for the
+             renewing L1, quantile and MAPE: the records and the renewal's
+             read; 1 for the others), the held-out metric, seconds per
+             iteration, the card's gradients within 1e-6 (relative) of the
+             CPU objective's on the same scores
+  rank_train lambdarank at MS LTR's width (2,270,296 rows, 137 features:
+             the reference's docs/Experiments.rst), synthetic from a seed,
+             queries of 120 documents, relevance 0-4 from a latent score;
+             num_leaves=255, eval_at=1,3,5,10, 5 iterations, 1,000 held-out
+             queries: the wave kernels launched, host syncs per tree (1),
+             ndcg per iteration, seconds per iteration and the share of it
+             in the lambdarank gradients (CUDA events around every gradient
+             call), the card's gradients within 1e-5 of the CPU version's
+             on one query batch of the trained scores
   timing     each of the eight kernels', its plain version's and (where one
              PyTorch call computes the same function) the library call's
              times from CUDA events, L2 flushed before each launch, beside
@@ -171,7 +202,7 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "hist_full", "fused_scan", "replay", "tree", "wave_tree",
           "masked_tree", "opening_tree", "train", "wave_train",
           "wave_pipelined", "quant_train", "masked_train", "predict", "small",
-          "timing")
+          "multiclass_train", "objectives_train", "rank_train", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -227,12 +258,19 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def higgs_like(rows: int, seed: int = 7):
-    """bench.py's synthetic Higgs-shaped binary problem (28 dense features)."""
+def higgs_latent(rows: int, seed: int = 7):
+    """bench.py's synthetic Higgs-shaped problem (28 dense features) and
+    its latent score, whose sign is the binary label."""
     rng = np.random.RandomState(seed)
     X = rng.randn(rows, FEATURES).astype(np.float64)
     logit = (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] * 0.5 + np.sin(X[:, 3])
              + 0.5 * rng.randn(rows))
+    return X, logit
+
+
+def higgs_like(rows: int, seed: int = 7):
+    """bench.py's synthetic Higgs-shaped binary problem (28 dense features)."""
+    X, logit = higgs_latent(rows, seed)
     return X, (logit > 0).astype(np.float64)
 
 
@@ -1038,7 +1076,9 @@ def _dataset(ctx):
     if "ds" not in ctx:
         import lightgbm_tpu_torch as lt
 
-        X, y = higgs_like(ROWS + VALID_ROWS)
+        X, logit = higgs_latent(ROWS + VALID_ROWS)
+        y = (logit > 0).astype(np.float64)
+        ctx["logit"] = logit
         t0 = time.perf_counter()
         ds = lt.Dataset(X[:ROWS], label=y[:ROWS], params=TRAIN_PARAMS)
         dv = ds.create_valid(X[ROWS:], label=y[ROWS:])
@@ -1481,6 +1521,21 @@ def profiled_tree(learner, grads, bag, names) -> dict:
             "kernel_records": len(ran)}
 
 
+def wave_counters() -> dict:
+    """The wave learner's kernel wrappers, by kernel name."""
+    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.partition import apply_partition
+    from lightgbm_tpu_torch.ops.replay import replay_pass
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+
+    return {"hist_packed": build_histogram_packed,
+            "hist_segments": build_histogram_segments,
+            "partition": apply_partition,
+            "split_scan": find_best_splits_batched,
+            "replay": replay_pass}
+
+
 def tree_counters(out, learner, keys) -> None:
     """Per-tree counters of the learner's trees into ``out``."""
     stats = learner.tree_stats
@@ -1495,17 +1550,10 @@ WAVE_TREE_KEYS = ("waves", "stall_events", "stall_splits", "replay_passes",
 
 def phase_wave_train(ctx) -> None:
     from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
-    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
     from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
-    from lightgbm_tpu_torch.ops.partition import apply_partition
-    from lightgbm_tpu_torch.ops.replay import replay_pass
     from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
 
-    counters = {"hist_packed": build_histogram_packed,
-                "hist_segments": build_histogram_segments,
-                "partition": apply_partition,
-                "split_scan": find_best_splits_batched,
-                "replay": replay_pass}
+    counters = wave_counters()
     bst, learner, grads, out = _train_run(ctx, WAVE_PARAMS, "wave_train",
                                           counters)
     check(type(learner) is WaveTreeLearner and learner.use_graphs,
@@ -1559,18 +1607,9 @@ def phase_wave_pipelined(ctx) -> None:
     also builds the host tree of the iteration `depth` back."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.metrics import create_metric
-    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
-    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
-    from lightgbm_tpu_torch.ops.partition import apply_partition
-    from lightgbm_tpu_torch.ops.replay import replay_pass
-    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
 
     ds, dv = _dataset(ctx)
-    counters = {"hist_packed": build_histogram_packed,
-                "hist_segments": build_histogram_segments,
-                "partition": apply_partition,
-                "split_scan": find_best_splits_batched,
-                "replay": replay_pass}
+    counters = wave_counters()
     bst = lt.Booster(WAVE_PARAMS, ds)
     gbdt = bst.gbdt
     check(gbdt._can_pipeline(), "the run without a held-out set does not "
@@ -1947,6 +1986,392 @@ def phase_small(ctx) -> None:
     check(worst < 1e-4, f"card vs CPU held-out metrics differ by {worst}")
     emit({"phase": "small", "rows": 16_384, "cuda": out["cuda"],
           "cpu": out["cpu"], "max_metric_diff": worst})
+
+
+#: the objective slice: five classes cut from the latent score, the class
+#: count of the reference's examples/multiclass_classification/train.conf
+NUM_CLASS = 5
+MULTICLASS_PARAMS = dict(WAVE_PARAMS, objective="multiclass",
+                         num_class=NUM_CLASS,
+                         metric="multi_logloss,multi_error")
+#: (objective, extra params) of objectives_train: the rest of the table
+OBJECTIVE_CASES = (("regression", {"reg_sqrt": True}), ("regression_l1", {}),
+                   ("huber", {}), ("fair", {}), ("poisson", {}),
+                   ("quantile", {}), ("mape", {}), ("gamma", {}),
+                   ("tweedie", {}), ("multiclassova", {"num_class": 3}),
+                   ("cross_entropy", {}), ("cross_entropy_lambda", {}))
+RENEWING = ("regression_l1", "quantile", "mape")
+#: MS LTR's width (the reference's docs/Experiments.rst): training rows,
+#: features; synthetic queries of 120 documents, 1,000 held out
+RANK_ROWS, RANK_FEATURES, RANK_QUERY, RANK_VALID_QUERIES = \
+    2_270_296, 137, 120, 1_000
+RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "min_data_in_leaf": 20,
+               "verbosity": -1, "metric": "ndcg", "eval_at": [1, 3, 5, 10]}
+
+
+@contextmanager
+def relabeled(ctx, label):
+    """The shared 1M-row training and held-out sets with ``label`` (the
+    user's ``Dataset.set_label``; the binned codes are shared), the binary
+    labels restored after."""
+    ds, dv = _dataset(ctx)
+    old = (ds.get_label().copy(), dv.get_label().copy())
+    ds.set_label(label[:ROWS])
+    dv.set_label(label[ROWS:])
+    try:
+        yield ds, dv
+    finally:
+        ds.set_label(old[0])
+        dv.set_label(old[1])
+
+
+def iteration_timer(t_iter):
+    """Callbacks that put each iteration's seconds (card synchronised at
+    both ends) into ``t_iter``."""
+    marks = {}
+
+    def before(env):
+        torch.cuda.synchronize()
+        marks["t0"] = time.perf_counter()
+    before.before_iteration = True
+
+    def after(env):
+        torch.cuda.synchronize()
+        t_iter.append(time.perf_counter() - marks["t0"])
+    after.order = 100
+    return [before, after]
+
+
+def wave_path_checks(tag, bst, launches) -> dict:
+    """A run of the default learner: the wave learner with graphs, its
+    kernels launched as often as it recorded calls; returns per-tree
+    counts."""
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+
+    learner = bst.gbdt.learner
+    check(type(learner) is WaveTreeLearner and learner.use_graphs,
+          f"{tag}: the default learner is not the wave learner with graphs")
+    calls = learner.kernel_calls
+    check(launches == {n: calls[n] for n in launches},
+          f"{tag}: kernel launches {launches} != the learner's calls {calls}")
+    for name in ("hist_packed", "hist_segments", "split_scan", "partition",
+                 "replay"):
+        check(launches[name] > 0, f"{tag}: kernel {name} was not launched")
+    trees = len(bst.gbdt.models)
+    return {"trees": trees,
+            "trees_leaves": [t.num_leaves for t in bst.gbdt.models],
+            "kernel_launches": launches,
+            "kernel_calls_per_tree": {n: launches[n] / trees
+                                      for n in launches},
+            "learner_host_syncs_per_tree": learner.host_syncs / trees,
+            "renew_reads_per_tree": bst.gbdt.renew_reads / trees,
+            "host_syncs_per_tree": (learner.host_syncs
+                                    + bst.gbdt.renew_reads) / trees}
+
+
+def grads_close(card, cpu, tol: float) -> float:
+    """Largest difference of the card's gradients from the CPU's, relative
+    to the CPU's largest magnitude; checked against ``tol``."""
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        a = a.cpu().to(torch.float64)
+        b = b.to(torch.float64)
+        worst = max(worst, float((a - b).abs().max()
+                                 / max(float(b.abs().max()), 1e-30)))
+    check(worst <= tol, f"card vs CPU gradients differ by {worst} (rel)")
+    return worst
+
+
+def cpu_objective(params, metadata, num_data, num_data_padded):
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objectives import create_objective
+
+    obj = create_objective(Config.from_params(params), torch.device("cpu"))
+    obj.init(metadata, num_data, num_data_padded)
+    return obj
+
+
+def class_gradients(obj, score):
+    """(grad, hess) of every class, as the boosting loop takes them."""
+    if obj.name == "multiclass":
+        return list(obj.get_gradients_all(score))
+    out = []
+    for k in range(score.shape[0]):
+        out.extend(obj.get_gradients(score[k], k))
+    return out
+
+
+def phase_multiclass_train(ctx) -> None:
+    """Five classes at the bench width: the synchronous loop with the
+    held-out set, then the pipelined loop without it."""
+    import lightgbm_tpu_torch as lt
+
+    iters, k = 5, NUM_CLASS
+    _dataset(ctx)
+    logit = ctx["logit"]
+    cuts = np.quantile(logit[:ROWS], np.linspace(0, 1, k + 1)[1:-1])
+    label = np.digitize(logit, cuts).astype(np.float64)
+    counters = wave_counters()
+    out = {"phase": "multiclass_train", "num_class": k,
+           "iterations": iters}
+    with relabeled(ctx, label) as (ds, dv):
+        evals, t_iter = {}, []
+        for fn in counters.values():             # counts of the main path
+            fn.launches = 0
+        bst = lt.train(MULTICLASS_PARAMS, ds, iters, valid_sets=[dv],
+                       valid_names=["heldout"], evals_result=evals,
+                       verbose_eval=False, callbacks=iteration_timer(t_iter))
+        launches = {n: fn.launches for n, fn in counters.items()}
+        gbdt = bst.gbdt
+        check(len(gbdt.models) == iters * k,
+              f"{len(gbdt.models)} trees, want {iters * k}")
+        out.update(wave_path_checks("multiclass_train", bst, launches))
+        check(out["host_syncs_per_tree"] == 1,
+              f"host syncs per tree {out['host_syncs_per_tree']} (want 1)")
+        ll = evals["heldout"]["multi_logloss"]
+        check(all(b < a for a, b in zip(ll, ll[1:])),
+              f"held-out multi_logloss did not fall: {ll}")
+        n_dev = gbdt.device_predictions
+        prob = bst.predict(ctx["Xv"])
+        check(gbdt.device_predictions == n_dev + 1,
+              "Booster.predict did not go through the DevicePredictor")
+        check(prob.shape == (VALID_ROWS, k) and np.isfinite(prob).all(),
+              f"predictions of shape {prob.shape}, want ({VALID_ROWS}, {k})")
+        row_sum = float(np.abs(prob.sum(axis=1) - 1.0).max())
+        check(row_sum <= 1e-6, f"probabilities sum to 1 within {row_sum}")
+        raw = bst.predict(ctx["Xv"], raw_score=True)
+        host = np.zeros((VALID_ROWS, k))
+        for i, t in enumerate(gbdt.models):
+            host[:, i % k] += t.predict(ctx["Xv"])
+        host_diff = float(np.abs(raw - host).max())
+        check(host_diff <= 1e-9, f"predictions vs host trees: {host_diff}")
+        cpu = cpu_objective(MULTICLASS_PARAMS, ds.constructed.metadata,
+                            ds.constructed.num_data,
+                            ds.constructed.num_data_padded)
+        score = gbdt.train_score.score
+        out["grads_card_vs_cpu_rel"] = grads_close(
+            class_gradients(gbdt.objective, score),
+            class_gradients(cpu, score.cpu()), 1e-6)
+        out.update({"heldout_multi_logloss": ll,
+                    "heldout_multi_error": evals["heldout"]["multi_error"],
+                    "s_per_iter": t_iter,
+                    "s_per_iter_after_first": float(np.mean(t_iter[1:])),
+                    "predict_shape": list(prob.shape),
+                    "prob_row_sum_max_err": row_sum,
+                    "predict_vs_host_trees_max_diff": host_diff,
+                    "tree_counters": {key: [s[key] for s in
+                                            gbdt.learner.tree_stats]
+                                      for key in ("flag_waits",
+                                                  "graph_launches")}})
+        ctx["launches_multiclass"] = launches
+
+        # the same without the held-out set: the pipelined loop
+        piped = lt.Booster(MULTICLASS_PARAMS, ds)
+        pg = piped.gbdt
+        check(pg._can_pipeline(), "multiclass without a held-out set does "
+              "not pipeline")
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            piped.update()
+        reads_in_loop = pg.learner.host_syncs
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trees = pg.models                        # the flush
+        plaunches = {n: fn.launches for n, fn in counters.items()}
+        check(reads_in_loop == 0, f"{reads_in_loop} blocking record reads "
+              f"in the pipelined loop")
+        check(len(trees) == iters * k, f"{len(trees)} pipelined trees")
+        pout = wave_path_checks("multiclass_pipelined", piped, plaunches)
+        same = all(a.to_string() == b.to_string()
+                   for a, b in zip(trees[:k], gbdt.models[:k]))
+        check(same, "the first iteration's pipelined trees differ from "
+              "the synchronous loop's")
+        out["pipelined"] = dict(pout, s_per_iter=wall / iters,
+                                record_reads_in_loop=reads_in_loop,
+                                first_iteration_text_equal=True)
+    emit(out)
+
+
+def objective_label(name: str, logit: np.ndarray) -> np.ndarray:
+    """A label valid for ``name`` from the latent score: positive for
+    Poisson, Gamma, Tweedie and MAPE, in [0, 1] for the cross-entropies,
+    three classes for one-vs-all, the score itself otherwise."""
+    if name in ("poisson", "gamma", "tweedie", "mape"):
+        return np.exp(0.5 * logit)
+    if name.startswith("cross_entropy"):
+        return 1.0 / (1.0 + np.exp(-logit))
+    if name == "multiclassova":
+        cuts = np.quantile(logit[:ROWS], [1 / 3, 2 / 3])
+        return np.digitize(logit, cuts).astype(np.float64)
+    return logit
+
+
+def phase_objectives_train(ctx) -> None:
+    """The rest of the objective table at the bench width, 2 iterations
+    each, the held-out set keeping the synchronous loop."""
+    import lightgbm_tpu_torch as lt
+
+    iters = 2
+    _dataset(ctx)
+    counters = wave_counters()
+    results, t_phase = {}, time.perf_counter()
+    for name, extra in OBJECTIVE_CASES:
+        label = objective_label(name, ctx["logit"])
+        params = dict(WAVE_PARAMS, objective=name, **extra)
+        params.pop("metric")
+        with relabeled(ctx, label) as (ds, dv):
+            evals, t_iter = {}, []
+            for fn in counters.values():
+                fn.launches = 0
+            bst = lt.train(params, ds, iters, valid_sets=[dv],
+                           valid_names=["heldout"], evals_result=evals,
+                           verbose_eval=False,
+                           callbacks=iteration_timer(t_iter))
+            launches = {n: fn.launches for n, fn in counters.items()}
+            gbdt = bst.gbdt
+            k = gbdt.num_tree_per_iteration
+            check(len(gbdt.models) == iters * k,
+                  f"{name}: {len(gbdt.models)} trees, want {iters * k}")
+            res = wave_path_checks(name, bst, launches)
+            want = 2 if name in RENEWING else 1
+            check(res["host_syncs_per_tree"] == want,
+                  f"{name}: host syncs per tree {res['host_syncs_per_tree']}"
+                  f" (want {want})")
+            (metric, values), = evals["heldout"].items()
+            check(all(np.isfinite(values)), f"{name}: held-out {metric} "
+                  f"{values}")
+            cpu = cpu_objective(params, ds.constructed.metadata,
+                                ds.constructed.num_data,
+                                ds.constructed.num_data_padded)
+            score = gbdt.train_score.score
+            res["grads_card_vs_cpu_rel"] = grads_close(
+                class_gradients(gbdt.objective, score),
+                class_gradients(cpu, score.cpu()), 1e-6)
+            res.update({"metric": metric, "heldout": values,
+                        "s_per_iter": t_iter})
+            results[name] = res
+    emit({"phase": "objectives_train", "iterations": iters,
+          "rows": ROWS, "phase_s": time.perf_counter() - t_phase,
+          "objectives": results})
+
+
+def ms_ltr_like(seed: int = 13):
+    """Synthetic data at MS LTR's width: 137 dense features, queries of
+    120 documents (the training set's last query holds the remainder),
+    relevance 0-4 cut from a latent score at its 50/75/90/97th
+    percentiles.  Returns (X, label, train groups, held-out groups)."""
+    rng = np.random.RandomState(seed)
+    n_valid = RANK_VALID_QUERIES * RANK_QUERY
+    n = RANK_ROWS + n_valid
+    X = rng.randn(n, RANK_FEATURES).astype(np.float32)
+    w = rng.randn(8).astype(np.float32)
+    latent = X[:, :8] @ w + 0.5 * X[:, 8] * X[:, 9] \
+        + rng.randn(n).astype(np.float32)
+    label = np.digitize(latent, np.percentile(latent, [50, 75, 90, 97]))
+    full, rest = divmod(RANK_ROWS, RANK_QUERY)
+    groups = [RANK_QUERY] * full + ([rest] if rest else [])
+    return X, label.astype(np.float64), np.asarray(groups), \
+        np.full(RANK_VALID_QUERIES, RANK_QUERY)
+
+
+def phase_rank_train(ctx) -> None:
+    """Lambdarank at MS LTR's width, 5 iterations, 1,000 held-out
+    queries; CUDA events around every gradient call."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.rank_objective import LambdarankNDCG
+
+    iters = 5
+    t0 = time.perf_counter()
+    X, label, groups, vgroups = ms_ltr_like()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X[:RANK_ROWS], label=label[:RANK_ROWS], group=groups,
+                    params=RANK_PARAMS)
+    dv = ds.create_valid(X[RANK_ROWS:], label=label[RANK_ROWS:],
+                         group=vgroups)
+    ds.construct()
+    dv.construct()
+    bin_s = time.perf_counter() - t0
+    del X
+    counters = wave_counters()
+    events = []
+    orig = LambdarankNDCG.get_gradients
+
+    def timed(self, score, class_id=0):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig(self, score, class_id)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    evals, t_iter = {}, []
+    LambdarankNDCG.get_gradients = timed
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        bst = lt.train(RANK_PARAMS, ds, iters, valid_sets=[dv],
+                       valid_names=["heldout"], evals_result=evals,
+                       verbose_eval=False, callbacks=iteration_timer(t_iter))
+        launches = {n: fn.launches for n, fn in counters.items()}
+    finally:
+        LambdarankNDCG.get_gradients = orig
+    torch.cuda.synchronize()
+    grad_ms = [a.elapsed_time(b) for a, b in events]
+    gbdt = bst.gbdt
+    check(len(gbdt.models) == iters, f"{len(gbdt.models)} trees")
+    check(len(grad_ms) == iters, f"{len(grad_ms)} gradient calls")
+    out = {"phase": "rank_train", "rows": RANK_ROWS,
+           "features": RANK_FEATURES, "queries": len(groups),
+           "query_docs": RANK_QUERY, "heldout_queries": len(vgroups),
+           "iterations": iters, "generate_s": gen_s, "bin_s": bin_s}
+    out.update(wave_path_checks("rank_train", bst, launches))
+    check(out["host_syncs_per_tree"] == 1,
+          f"host syncs per tree {out['host_syncs_per_tree']} (want 1)")
+    ndcg = {m: v for m, v in evals["heldout"].items()}
+    check(set(ndcg) == {"ndcg@1", "ndcg@3", "ndcg@5", "ndcg@10"},
+          f"metrics {sorted(ndcg)}")
+    check(ndcg["ndcg@10"][-1] > ndcg["ndcg@10"][0],
+          f"held-out ndcg@10 did not rise: {ndcg['ndcg@10']}")
+    # one query batch of the trained scores on the card and on the CPU
+    obj = gbdt.objective
+    nq = obj.q_batch
+    hi = int(obj.query_boundaries[nq])
+    meta = Metadata(hi)
+    meta.set_label(label[:hi])
+    meta.set_group(groups[:nq])
+    pair = []
+    for dev in (torch.device("cuda", 0), torch.device("cpu")):
+        o = LambdarankNDCG(obj.cfg, dev)
+        o.init(meta, hi, hi)
+        pair.append(o.get_gradients(gbdt.train_score.score[0, :hi].to(dev)))
+    batch_diff = max(float((a.cpu() - b).abs().max())
+                     for a, b in zip(*pair))
+    # near-tied scores give lambdas in the hundreds (delta / (0.01 +
+    # |ds|)), where one float32 ulp is 3e-5: the card's and the CPU's exp
+    # and reduction orders may differ by an ulp there, so 1e-5 is held
+    # relative to the batch's largest magnitude
+    scale = max(float(b.abs().max()) for b in pair[1])
+    check(batch_diff <= 1e-5 * max(scale, 1.0),
+          f"card vs CPU lambdarank gradients differ by {batch_diff} "
+          f"(largest magnitude {scale})")
+    share = [g / 1e3 / t for g, t in zip(grad_ms, t_iter)]
+    out.update({"heldout_ndcg": ndcg, "s_per_iter": t_iter,
+                "s_per_iter_after_first": float(np.mean(t_iter[1:])),
+                "grad_ms": grad_ms, "grad_share_of_iter": share,
+                "q_pad": obj.q_pad, "q_batch": obj.q_batch,
+                "grads_batch_queries": nq,
+                "grads_card_vs_cpu_max_abs": batch_diff,
+                "grads_cpu_max_magnitude": scale,
+                "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    ctx["launches_rank"] = launches
+    emit(out)
 
 
 def _bound(nbytes: float, flops: float) -> dict:
@@ -2580,6 +3005,10 @@ def kernels_line(ctx) -> dict:
                     "replaces": replaces, "launches": launches,
                     "launches_path": path,
                     "launches_quant_train": quant.get(name),
+                    "launches_multiclass_train": ctx.get(
+                        "launches_multiclass", {}).get(name),
+                    "launches_rank_train": ctx.get(
+                        "launches_rank", {}).get(name),
                     "quant_mode_launches_quant_train":
                         quant.get(name + "_quant"),
                     "max_abs_err": err[name], "ms": row["ms"],

@@ -5,9 +5,14 @@ Port of ``lightgbm_tpu/boosting/gbdt.py`` (``GBDT::TrainOneIter``,
 sampling, one tree per class, shrinkage, score updates for the training and
 validation sets, metric output with early-stopping bookkeeping, and model
 text.  The scores live on the booster's device as
-(K, N_pad) float32; the training score is updated from the learner's leaf
-partition, the validation scores by a device traversal of the new tree over
-the validation set's bin codes.  ``Booster.predict`` routes as the JAX
+(K, N_pad) float32; the gradients of every class come from one call per
+iteration (``_gradients``: multiclass softmax's jointly over the (K, N_pad)
+score); the training score is updated from the learner's leaf partition,
+the validation scores by a device traversal of the new tree over the
+validation set's bin codes.  An objective that renews its leaves (L1,
+quantile, MAPE) reads the class's score and the tree's leaf ids to the host
+once per tree, renews the host tree, and the training score is updated from
+the renewed host leaf values.  ``Booster.predict`` routes as the JAX
 package's does: a batch with rows x trees >= 200,000, or any call with
 ``pred_early_stop``, goes to ``predictor.DevicePredictor`` on the booster's
 device (text-loaded boosters through a bin schema rebuilt from the model
@@ -210,6 +215,8 @@ class GBDT:
         self.pandas_categorical = None
         self.eval_history: Dict[str, Dict[str, List[float]]] = {}
         self.host_syncs = 0     # blocking reads of scores by the loop
+        #: of those, the reads of the leaf renewal (one per renewed tree)
+        self.renew_reads = 0
         #: waits for a pipelined tree's record copy, in ``_flush_pending``
         self.pipeline_waits = 0
         self._device_predictor = None    # (key, DevicePredictor) cache
@@ -328,6 +335,7 @@ class GBDT:
         self.num_data = data.num_data
         base = np.zeros(data.num_data_padded, dtype=np.float32)
         base[:data.num_data] = 1.0
+        self._np_bag_mask = base       # the host copy the renewal reads
         self._bag_mask = upload(base, self.device)   # 0 on padded rows
         self._full_fmask = torch.ones(data.num_used_features,
                                       dtype=torch.bool, device=self.device)
@@ -355,6 +363,7 @@ class GBDT:
             idx = self._bag_rng.choice(n, bag_cnt, replace=False)
             mask = np.zeros(self.train_data.num_data_padded, dtype=np.float32)
             mask[idx] = 1.0
+            self._np_bag_mask = mask
             self._bag_mask = upload(mask, self.device)
 
     def _feature_sample(self) -> torch.Tensor:
@@ -381,6 +390,33 @@ class GBDT:
                 and self.train_data.num_used_features > 0
                 and hasattr(self.learner, "train_async"))
 
+    def _gradients(self) -> List[tuple]:
+        """(grad, hess) per class from the objective (`gbdt.cpp:149`), for
+        both loops: multiclass softmax's jointly over the (K, N_pad) score
+        (``get_gradients_all``, as `gbdt.py:569-570`), every other objective
+        class by class."""
+        score = self.train_score.score
+        if self.objective.name == "multiclass":
+            g, h = self.objective.get_gradients_all(score)
+            return list(zip(g, h))
+        return [self.objective.get_gradients(score[k], k)
+                for k in range(self.num_tree_per_iteration)]
+
+    def _renew_tree_output(self, tree: Tree, leaf_id: torch.Tensor,
+                           class_id: int) -> None:
+        """The objective's leaf renewal (`gbdt.py:809-820`) on the tree
+        before shrinkage: class ``class_id``'s training score before this
+        tree's update and the tree's leaf ids come to the host in one
+        blocking read (counted in ``host_syncs`` and ``renew_reads``)."""
+        both = torch.stack([self.train_score.score[class_id]
+                            .to(torch.float64), leaf_id.to(torch.float64)])
+        both = both.cpu().numpy()
+        self.host_syncs += 1
+        self.renew_reads += 1
+        self.objective.renew_tree_output(
+            tree, both[0, :self.num_data].astype(np.float32),
+            both[1].astype(np.int64), self._np_bag_mask)
+
     def train_one_iter(self) -> bool:
         """Returns True when training cannot continue (no splittable leaves;
         in the pipelined loop found up to ``tpu_pipeline_flush_depth``
@@ -391,9 +427,10 @@ class GBDT:
             return self._train_one_iter_pipelined()
         init_scores = [self._boost_from_average(k)
                        for k in range(self.num_tree_per_iteration)]
-        grads = [self.objective.get_gradients(self.train_score.score[k], k)
-                 for k in range(self.num_tree_per_iteration)]
+        grads = self._gradients()
         self._bagging(self.iter_)
+        renew = self.objective is not None \
+            and self.objective.needs_renew_tree_output
         should_continue = False
         for k, (grad, hess) in enumerate(grads):
             new_tree = Tree(2)
@@ -403,12 +440,21 @@ class GBDT:
                     grad, hess, self._bag_mask, self._feature_sample())
             if new_tree.num_leaves > 1:
                 should_continue = True
+                if renew:
+                    self._renew_tree_output(new_tree, leaf_id, k)
                 new_tree.apply_shrinkage(self.shrinkage_rate)
-                # the host tree's leaf values are float32(f32 output * rate
-                # in float64); the same numbers are formed on the device
-                lv = (torch.nan_to_num(leaf_out.to(torch.float32), nan=0.0)
-                      .to(torch.float64) * self.shrinkage_rate) \
-                    .to(torch.float32)
+                if renew:
+                    # the renewed host leaf values, as float32
+                    lv = upload(new_tree.leaf_value[:new_tree.num_leaves]
+                                .astype(np.float32), self.device)
+                else:
+                    # the host tree's leaf values are float32(f32 output *
+                    # rate in float64); the same numbers are formed on the
+                    # device
+                    lv = (torch.nan_to_num(leaf_out.to(torch.float32),
+                                           nan=0.0)
+                          .to(torch.float64) * self.shrinkage_rate) \
+                        .to(torch.float32)
                 self.train_score.add_by_leaf_id(lv, leaf_id, k)
                 for vs in self.valid_scores:
                     vs.add_by_tree(new_tree, k)
@@ -449,8 +495,7 @@ class GBDT:
         assembled (``0``: all of them every 16 iterations)."""
         k_trees = self.num_tree_per_iteration
         init_scores = [self._boost_from_average(k) for k in range(k_trees)]
-        grads = [self.objective.get_gradients(self.train_score.score[k], k)
-                 for k in range(k_trees)]
+        grads = self._gradients()
         self._bagging(self.iter_)
         cuda = self.device.type == "cuda"
         lr = float(np.float32(self.shrinkage_rate))

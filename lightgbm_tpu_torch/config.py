@@ -878,10 +878,6 @@ OBSERVE = "reliability and training observability"
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every setting this slice does not
     run, so none of them is silently ignored."""
-    if cfg.objective not in ("binary", "regression"):
-        raise not_ported(f"objective={cfg.objective}", BREADTH)
-    if cfg.reg_sqrt and cfg.objective == "regression":
-        raise not_ported("reg_sqrt", BREADTH)
     if cfg.boosting != "gbdt":
         raise not_ported(f"boosting={cfg.boosting}", VARIANTS)
     if cfg.tree_learner != "serial" or cfg.num_machines > 1 \

@@ -12,8 +12,10 @@ binned matrix are bit-identical to the JAX package's.  The layout is kept:
     ``device_bins()``).  The card has few kernels for uint16, so consumers
     widen uint16 codes through ``ops/histogram.py:read_codes``.
 
-Text files, binary caches, streaming loads and pandas categoricals are not
-ported in this slice; they raise ``NotImplementedError``.
+Query groups (``group=``, per-query sizes) are stored as boundaries, as in
+the JAX package.  Text files, binary caches, streaming loads and pandas
+categoricals are not ported in this slice; they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -70,8 +72,17 @@ class Metadata:
         self.weights = arr
 
     def set_group(self, group: _ArrayLike) -> None:
-        if group is not None:
-            raise not_ported("query groups (ranking)", BREADTH)
+        """Per-query sizes (like the reference's query file), stored as
+        boundaries (`metadata.cpp` ``SetQuery``)."""
+        if group is None:
+            self.query_boundaries = None
+            return
+        arr = np.asarray(group, dtype=np.int64).reshape(-1)
+        bounds = np.concatenate([[0], np.cumsum(arr)])
+        if bounds[-1] != self.num_data:
+            raise ValueError(f"Sum of group sizes ({bounds[-1]}) != num_data "
+                             f"({self.num_data})")
+        self.query_boundaries = bounds.astype(np.int32)
 
     def set_init_score(self, init_score: _ArrayLike) -> None:
         if init_score is None:
@@ -163,6 +174,12 @@ class Dataset:
             self._constructed.metadata.set_weights(weight)
         return self
 
+    def set_group(self, group):
+        self._group = group
+        if self._constructed:
+            self._constructed.metadata.set_group(group)
+        return self
+
     def set_init_score(self, init_score):
         self._init_score = init_score
         if self._constructed:
@@ -180,10 +197,11 @@ class Dataset:
     def num_feature(self) -> int:
         return self.construct()._constructed.num_total_features
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
-                     params=None) -> "Dataset":
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params)
+                       group=group, init_score=init_score,
+                       params=params or self.params)
 
     @property
     def constructed(self) -> "_ConstructedDataset":

@@ -1,9 +1,10 @@
 """Training engine: ``train`` and the ``Booster`` facade.
 
 Port of the part of ``lightgbm_tpu/engine.py`` this slice runs: ``train``
-with validation sets, evaluation history and callbacks (early stopping via
-``callback.early_stopping``), and ``Booster`` training, prediction and model
-text.  The device comes from ``device_type`` (``config.resolve_device``): the
+with validation sets (query groups included), evaluation history and
+callbacks (early stopping via ``callback.early_stopping``), and ``Booster``
+training, prediction ((n,) or (n, K) for K classes) and model text, for
+every objective of the JAX package's table.  The device comes from ``device_type`` (``config.resolve_device``): the
 CUDA card unless the params ask for the CPU.  ``cv``, custom objectives and
 continued training come with a later slice.
 """

@@ -82,7 +82,9 @@ def booster_from_jax_arrays(trees: List[Dict[str, np.ndarray]],
     per tree: ``num_leaves``, ``split_feature``, ``threshold``,
     ``decision_type``, ``left_child``, ``leaf_value``, ... as the attributes
     of ``lightgbm_tpu.tree.Tree``).  ``bin_mappers`` and ``used_feature_map``
-    give the model text its feature infos; prediction walks the trees."""
+    give the model text its feature infos; prediction walks the trees.  A
+    multiclass model needs ``num_class`` in ``params``: its trees come in
+    iteration order, K per iteration."""
     params = dict(params or {})
     params.setdefault("objective", objective)
     cfg = Config.from_params(params)
@@ -92,6 +94,10 @@ def booster_from_jax_arrays(trees: List[Dict[str, np.ndarray]],
     used = np.asarray(used_feature_map, dtype=np.int32)
     total = _num_total(used, num_total_features)
     gbdt.objective = create_objective(cfg, device)
+    # K trees per iteration for multiclass models (``num_class`` in params)
+    gbdt.num_tree_per_iteration = (
+        gbdt.objective.num_model_per_iteration if gbdt.objective is not None
+        else max(cfg.num_class, 1))
     gbdt.max_feature_idx = total - 1
     gbdt.feature_names = _names(feature_names, total)
     gbdt.feature_infos = feature_infos(mappers, used, total)

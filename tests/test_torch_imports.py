@@ -96,9 +96,9 @@ def test_device_rule_cpu_and_alias():
 
 
 @pytest.mark.parametrize("extra", [
-    {"objective": "multiclass", "num_class": 3},
-    {"objective": "lambdarank"},
-    {"objective": "huber"},
+    {"tree_learner": "feature"},
+    {"trace_out": "t.json"},
+    {"resume": True},
     {"boosting": "dart"},
     {"boosting": "goss"},
     {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
