@@ -8,7 +8,7 @@ Run from the root of a checkout: the kernels are built from its sources
 torch, numpy and ``lightgbm_tpu_torch`` only.  Phases, each printing one JSON
 line and each raising (exit code 1) on any failure:
 
-  device     card name and power limit (nvidia-smi), torch, the eight kernel
+  device     card name and power limit (nvidia-smi), torch, the nine kernel
              builds (one nvcc each, started together)
   kernel     packed histogram kernel vs its plain torch version at full width
              (Fw=8, N=1,000,448, 255 bins): bitwise on dyadic inputs at the
@@ -60,6 +60,16 @@ line and each raising (exit code 1) on any failure:
              (one with a vector cap that binds), every pass's carried
              state, members and counters bitwise, each stall's members
              split on both sides before the next pass
+  split_cat  categorical split kernel vs its plain version at K=128 leaves,
+             8 features of which 6 categorical (a one-hot one of 4 bins,
+             many-vs-many ones, a NaN-typed one, a Zero-missing one, one
+             with two bins of equal CTR), B=256 and B=1,023: at the defaults,
+             max_cat_threshold=3, min_data_per_group=1, a cat_smooth that
+             leaves no bin eligible, and a (K, F) feature mask; every field
+             and bitset (the numerical columns carried untouched) bitwise
+             equal to the plain version run on the CPU on random float32
+             and dyadic inputs, to the plain version on the card on dyadic
+             ones, bitwise across two launches
   tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
              rows, grown by the compact learner through the kernel and
              through the plain histogram: records bitwise equal
@@ -77,6 +87,11 @@ line and each raising (exit code 1) on any failure:
              tpu_wave_open_levels=5 and boost_from_average=false (round-1
              gradients are exact): model text equal to the opening off, five
              opening levels through the multislot kernel
+  categorical_tree one 255-leaf dyadic tree on the Expo-shaped rows of
+             categorical_train, grown by the wave learner through its kernels
+             (its second, graphed tree), through every plain version, by
+             the compact and by the masked learner: records, counts,
+             bitsets, leaf ids and leaf outputs bitwise equal
   train      lightgbm_tpu_torch.train with tpu_learner=compact at the bench
              width (1M x 28, 255 leaves, 255 bins, 5 iterations, 100,000
              held-out rows): launch count equal to the sum over trees of
@@ -157,7 +172,22 @@ line and each raising (exit code 1) on any failure:
              in the lambdarank gradients (CUDA events around every gradient
              call), the card's gradients within 1e-5 of the CPU version's
              on one query batch of the trained scores
-  timing     each of the eight kernels', its plain version's and (where one
+  categorical_train a synthetic Expo/airline-shaped binary problem (the
+             reference's docs/Experiments.rst:112): 1M training and 100,000
+             held-out rows from RandomState(11), six categorical columns
+             (Month 12, DayofMonth 31, DayOfWeek 7, UniqueCarrier 22, Origin
+             and Dest 300, Zipf) and two numerical ones, num_leaves=255,
+             max_bin=255, 5 iterations through the default (wave) learner:
+             the wave kernels and split_cat launched as often as the learner
+             counted (and, in one graphed tree, as the device's records say),
+             1 host sync per tree, graphs from the second tree, every tree
+             with categorical splits, held-out AUC rising, the
+             DevicePredictor's held-out scores equal to the host trees'
+             within 1e-9 (the loop's float32 scores within 1e-5); then the
+             same without the held-out set (pipelined): no record read in
+             the loop, the first tree's model text equal, AUC within 1e-3,
+             the flush's host assembly of the categorical trees timed
+  timing     each of the nine kernels', its plain version's and (where one
              PyTorch call computes the same function) the library call's
              times from CUDA events, L2 flushed before each launch, beside
              the bound; each kernel alone (``kernel_ms``: its C entry point
@@ -178,7 +208,9 @@ line and each raising (exit code 1) on any failure:
              slot); the replay kernel on a pass of all 254 pops (each
              launch on its own fresh state), on a pass after the end and
              on one whose budget is spent (its fixed cost: the node
-             table's load and the list), and the time per pop
+             table's load and the list), and the time per pop; split_cat at
+             the fixture (K = 128) and at categorical_train's median and
+             largest launch K
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -199,10 +231,11 @@ import numpy as np
 import torch
 
 PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
-          "hist_full", "fused_scan", "replay", "tree", "wave_tree",
-          "masked_tree", "opening_tree", "train", "wave_train",
-          "wave_pipelined", "quant_train", "masked_train", "predict", "small",
-          "multiclass_train", "objectives_train", "rank_train", "timing")
+          "hist_full", "fused_scan", "replay", "split_cat", "tree",
+          "wave_tree", "masked_tree", "opening_tree", "categorical_tree",
+          "train", "wave_train", "wave_pipelined", "quant_train",
+          "masked_train", "predict", "small", "multiclass_train",
+          "objectives_train", "rank_train", "categorical_train", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -241,6 +274,9 @@ KERNEL_SOURCES = {
     # the port of an XLA while_loop, not of a pallas_call
     "replay": ("lightgbm_tpu_torch/csrc/replay.cu",
                "lightgbm_tpu/learner_wave.py:1597"),
+    # the port of an XLA lax.scan, not of a pallas_call
+    "split_cat": ("lightgbm_tpu_torch/csrc/split_cat.cu",
+                  "lightgbm_tpu/ops/split_cat.py:70"),
 }
 #: the bench configuration's replay: node slots, splits, stall batch
 REPLAY_M, REPLAY_BUDGET, REPLAY_KB = 1145, 254, 4
@@ -1070,6 +1106,154 @@ def phase_replay(ctx) -> None:
     emit(out)
 
 
+CAT_K = 128         # children of a full growth wave
+CAT_F = 8           # features of the fixture, six of them categorical
+CAT_COLS = (0, 1, 2, 4, 5, 7)
+#: the fixture's kwarg regimes (defaults; a tight category cap; no group
+#: bookkeeping; a cat_smooth that leaves no bin eligible)
+CAT_REGIMES = {"defaults": {},
+               "max_cat_threshold_3": {"max_cat_threshold": 3},
+               "min_data_per_group_1": {"min_data_per_group": 1},
+               "none_eligible": {"cat_smooth": 1e9}}
+CAT_KW = dict(lambda_l1=0.0, lambda_l2=0.5, max_delta_step=0.0,
+              min_data_in_leaf=3, min_sum_hessian_in_leaf=1e-3,
+              min_gain_to_split=0.0)
+
+
+def split_cat_inputs(seed: int, dyadic: bool, k: int = CAT_K,
+                     b: int = 256):
+    """A (K, 8, B, 3) histogram cube whose six categorical columns cover the
+    regimes: column 0 one-hot (4 bins), 1 many-vs-many over every bin, 2
+    NaN-typed (its last bin outside the scan), 4 with two bins of equal CTR
+    (bins 3 and 7: g / (h + 10) = 0.5 in every leaf), 5 Zero-missing, 7
+    many-vs-many; columns 3 and 6 are numerical.  Dyadic: bins on a 1/64
+    grid, totals from column 1 (every sum exact).  Random: the histograms
+    of 16,384 random rows per leaf."""
+    rng = np.random.RandomState(seed)
+    f = CAT_F
+    num_bin = np.array([4, b, 60, b, 40, 100, b, min(b, 300)], np.int32)
+    missing = np.array([0, 0, 2, 0, 0, 1, 0, 0], np.int32)
+    if dyadic:
+        gen = (lambda s: (rng.randint(-(1 << 12), 1 << 12, size=s) / 64.0)
+               .astype(np.float32))
+        hg = gen((k, f, b))
+        hh = np.abs(gen((k, f, b))) + 0.25
+        hc = rng.randint(0, 400, size=(k, f, b)).astype(np.float32)
+        hist = np.stack([hg, hh, hc], axis=-1)
+    else:
+        rows = 16384
+        w = np.stack([rng.randn(k, rows), rng.rand(k, rows),
+                      np.ones((k, rows))]).astype(np.float32)
+        codes = (rng.rand(k, f, rows) * num_bin[None, :, None]) \
+            .astype(np.int64)
+        flat = ((np.arange(k)[:, None, None] * f
+                 + np.arange(f)[None, :, None]) * b + codes).reshape(-1)
+        hist = np.stack([np.bincount(
+            flat, weights=np.broadcast_to(w[c][:, None, :], codes.shape)
+            .reshape(-1), minlength=k * f * b) for c in range(3)], -1) \
+            .reshape(k, f, b, 3).astype(np.float32)
+    hist *= (np.arange(b)[None, :] < num_bin[:, None])[None, :, :, None]
+    hist[:, 4, 3] = [15.0, 20.0, 300.0]
+    hist[:, 4, 7] = [25.0, 40.0, 300.0]
+    sums = hist[:, 1].astype(np.float64).sum(axis=1)            # (K, 3)
+    fmask = np.ones(f, bool)
+    return [torch.from_numpy(np.asarray(a)) for a in
+            (hist, sums[:, 0].astype(np.float32),
+             sums[:, 1].astype(np.float32), sums[:, 2].astype(np.float32),
+             num_bin, missing, fmask)]
+
+
+def _cat_start(args):
+    """The fields split_cat writes into: the numerical scan's (the plain
+    version, any width) of every column, and zero bitsets."""
+    from lightgbm_tpu_torch.ops.split import find_best_splits
+    from lightgbm_tpu_torch.ops.split_cat import cat_words
+
+    hist, sg, sh, cnt, num_bin, missing, fmask = args
+    num = find_best_splits(hist, sg, sh, cnt, num_bin, missing,
+                           torch.zeros_like(num_bin), fmask, **CAT_KW)
+    k, f, b, _ = hist.shape
+    bits = torch.zeros((k, f, cat_words(b)), dtype=torch.int32,
+                       device=hist.device)
+    return num, bits
+
+
+def _cat_run(fn, args, start, kw):
+    num, bits = start
+    num = type(num)(*(t.clone() for t in num))
+    bits = bits.clone()
+    cols = torch.tensor(CAT_COLS, dtype=torch.int32, device=bits.device)
+    fn(num, bits, *args, cols, **dict(CAT_KW, **kw))
+    return num, bits
+
+
+def _cat_same(a, b) -> bool:
+    return all(same(x.cpu(), y.cpu()) for x, y in zip(a[0], b[0])) \
+        and torch.equal(a[1].cpu(), b[1].cpu())
+
+
+def phase_split_cat(ctx) -> None:
+    from lightgbm_tpu_torch.ops.split_cat import (
+        categorical_candidates, categorical_candidates_plain)
+
+    dev = torch.device("cuda", 0)
+    n0 = categorical_candidates.launches
+    out = {"phase": "split_cat", "K": CAT_K, "F": CAT_F,
+           "categorical_columns": list(CAT_COLS), "cases": {}}
+    # a (K, F) mask that drops column 5 in every other leaf
+    kf_mask = torch.ones(CAT_K, CAT_F, dtype=torch.bool)
+    kf_mask[1::2, 5] = False
+    cols = list(CAT_COLS)
+    for b in (256, 1023):
+        for tag, dyadic in (("dyadic", True), ("random", False)):
+            cpu = split_cat_inputs(7 if dyadic else 8, dyadic, b=b)
+            for regime, kw in CAT_REGIMES.items():
+                for mname, m in (("fmask_F", None), ("fmask_KF", kf_mask)):
+                    if m is not None and regime != "defaults":
+                        continue
+                    ca = cpu[:6] + [cpu[6] if m is None else m]
+                    card = [t.to(dev) for t in ca]
+                    # the same start on both devices: the card's numerical
+                    # scan, whose columns split_cat carries
+                    sk = _cat_start(card)
+                    sc = (type(sk[0])(*(t.cpu() for t in sk[0])),
+                          sk[1].cpu())
+                    k = _cat_run(categorical_candidates, card, sk, kw)
+                    k2 = _cat_run(categorical_candidates, card, sk, kw)
+                    pc = _cat_run(categorical_candidates_plain, ca, sc, kw)
+                    where = f"split_cat B={b} {tag} {regime} {mname}"
+                    check(_cat_same(k, pc), f"{where}: kernel differs from "
+                          f"the plain version run on the CPU")
+                    check(_cat_same(k, k2), f"{where}: two launches differ")
+                    if dyadic:
+                        pk = _cat_run(categorical_candidates_plain, card, sk,
+                                      kw)
+                        check(_cat_same(k, pk), f"{where}: kernel differs "
+                              f"from the plain version on the card")
+                    gain, bits = k[0].gain[:, cols], k[1][:, cols]
+                    case = {"valid_splits": int(torch.isfinite(gain).sum()),
+                            "nonzero_bitsets": int((bits != 0).any(-1).sum()),
+                            "cpu_plain_bitwise": True,
+                            "card_plain_bitwise": True if dyadic else None}
+                    if regime == "none_eligible":
+                        # only the one-hot column (0) can split
+                        check(not torch.isfinite(gain[:, 1:]).any(),
+                              f"{where}: a many-vs-many split with no "
+                              f"eligible bin")
+                    if regime == "defaults" and m is None:
+                        check(bool(torch.isfinite(gain).any(0).all()),
+                              f"{where}: a column splits in no leaf")
+                        nan_bin = 59                 # column 2's last bin
+                        check(not ((bits[:, 2, nan_bin // 32]
+                                    >> (nan_bin % 32)) & 1).any(),
+                              f"{where}: the NaN bin is in a bitset")
+                    out["cases"][f"B{b}/{tag}/{regime}/{mname}"] = case
+    categorical_candidates.launches = n0
+    torch.cuda.synchronize()
+    ctx["err_split_cat"] = 0.0
+    emit(out)
+
+
 def _dataset(ctx):
     """The 1M-row training set and the 100,000-row held-out set, binned
     once and shared by the tree and train phases."""
@@ -1273,6 +1457,117 @@ def phase_opening_tree(ctx) -> None:
     check(text["off"] == text["open5"],
           "model text with the opening differs from the opening off")
     emit({"phase": "opening_tree", "model_text_equal": True, "runs": info})
+
+
+#: the Expo experiment's shape (the reference's docs/Experiments.rst:112,
+#: the airline data): six categorical columns (name, categories; Origin
+#: and Dest Zipf-distributed) and two numerical ones, DepTime and Distance
+EXPO_CATS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
+             ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300))
+CAT_PARAMS = dict(WAVE_PARAMS, categorical_feature="0,1,2,3,4,5")
+
+
+def expo_like(rows: int, seed: int = 11):
+    """Synthetic two-class data shaped like the Expo/airline set, cut from
+    its 11M rows: per-category effects on a latent, DepTime and Distance
+    terms and noise, the label its top 20%."""
+    rng = np.random.RandomState(seed)
+    cols, latent = [], np.zeros(rows)
+    for _, n in EXPO_CATS:
+        if n == 300:
+            # Zipf: the 45 rarest fall past max_bin, into the last bin
+            p = 1.0 / np.arange(1, n + 1) ** 1.5
+            c = rng.choice(n, size=rows, p=p / p.sum())
+        else:
+            c = rng.randint(0, n, rows)
+        latent += (rng.randn(n) * 0.4)[c]
+        cols.append(c)
+    dep = np.clip(np.round(rng.normal(1330, 480, rows)), 1, 2400)
+    dist = np.round(np.exp(rng.normal(6.4, 0.6, rows)))
+    latent += 0.0008 * (dep - 1330) + 0.2 * np.log(dist) + rng.randn(rows)
+    y = (latent > np.quantile(latent, 0.8)).astype(np.float64)
+    return np.column_stack(cols + [dep, dist]).astype(np.float64), y
+
+
+def _dataset_expo(ctx):
+    """The Expo-shaped 1M training and 100,000 held-out rows, binned once
+    and shared by the categorical phases."""
+    if "ds_expo" not in ctx:
+        import lightgbm_tpu_torch as lt
+
+        t0 = time.perf_counter()
+        X, y = expo_like(ROWS + VALID_ROWS)
+        ctx["gen_s_expo"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = lt.Dataset(X[:ROWS], label=y[:ROWS], params=CAT_PARAMS)
+        dv = ds.create_valid(X[ROWS:], label=y[ROWS:])
+        ds.construct()
+        dv.construct()
+        ctx["ds_expo"], ctx["dv_expo"] = ds, dv
+        ctx["Xv_expo"], ctx["yv_expo"] = X[ROWS:], y[ROWS:]
+        ctx["bin_s_expo"] = time.perf_counter() - t0
+    return ctx["ds_expo"], ctx["dv_expo"]
+
+
+def phase_categorical_tree(ctx) -> None:
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learner import REC_IS_CAT, MaskedTreeLearner
+    from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+    from lightgbm_tpu_torch.learner_wave import (PLAIN_KERNELS,
+                                                 WaveTreeLearner)
+
+    dev = torch.device("cuda", 0)
+    ds, _ = _dataset_expo(ctx)
+    data = ds.constructed
+    g, h, bag = dyadic_weights(np.random.RandomState(1),
+                               data.num_data_padded, data.num_data, dev)
+    cfg = Config.from_params(CAT_PARAMS)
+    growers = {
+        "wave_kernels": lambda: WaveTreeLearner(cfg, data, dev),
+        "wave_plain": lambda: WaveTreeLearner(cfg, data, dev, PLAIN_KERNELS),
+        "compact": lambda: CompactTreeLearner(cfg, data, dev),
+        "masked": lambda: MaskedTreeLearner(
+            Config.from_params(dict(CAT_PARAMS, tpu_learner="masked")),
+            data, dev)}
+    res, info = {}, {}
+    for tag, make in growers.items():
+        learner = make()
+        if tag == "wave_kernels":
+            # the first tree runs eagerly; the second replays CUDA graphs
+            learner.grow(g, h, bag)
+        calls0 = dict(learner.kernel_calls)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[tag] = learner.grow(g, h, bag)
+        torch.cuda.synchronize()
+        info[tag] = {"grow_s": time.perf_counter() - t0,
+                     "split_cat_calls": learner.kernel_calls["split_cat"]
+                     - calls0["split_cat"]}
+        if tag.startswith("wave"):
+            info[tag].update(learner.tree_stats[-1])
+    rk, ik, lk, ok = res["wave_kernels"]
+    splits = int((rk[:, 0] > 0.5).sum())
+    cat_splits = int((rk[:splits, REC_IS_CAT] > 0.5).sum())
+    check(splits == 254, f"the dyadic categorical tree made {splits} "
+          f"splits, not 254")
+    check(cat_splits > 0, "the dyadic tree has no categorical split")
+    check(info["wave_kernels"]["graph_launches"]
+          == info["wave_kernels"]["passes"] > 0,
+          "the second wave tree did not replay its passes as CUDA graphs")
+    for tag in ("wave_plain", "compact", "masked"):
+        r, i, lid, o = res[tag]
+        check(np.array_equal(rk, r),
+              f"categorical tree records differ from the {tag} tree")
+        check(np.array_equal(ik, i), f"categorical tree counts or bitsets "
+              f"differ from the {tag} tree")
+        check(torch.equal(lk, lid), f"leaf ids differ from the {tag} tree")
+        check(torch.equal(ok.to(torch.float32), o.to(torch.float32)),
+              f"leaf outputs differ from the {tag} tree")
+    emit({"phase": "categorical_tree", "splits": splits,
+          "categorical_splits": cat_splits,
+          "bitset_words": int(ik.shape[1] - 2), "records_bitwise": True,
+          "graphed_tree_bitwise": True, "growers": info,
+          "gen_s": ctx["gen_s_expo"], "bin_s": ctx["bin_s_expo"]})
 
 
 def _train_run(ctx, params, tag, counters, data=None):
@@ -1483,7 +1778,8 @@ KERNEL_SYMBOLS = {"hist_packed": "hist_packed_chunks",
                   "hist_segments": "hist_segments_tiles",
                   "partition": "partition_rows", "split_scan": "split_scan",
                   "hist_multislot": "hist_multislot_chunks",
-                  "fused_scan": "fused_child_scan", "replay": "replay_pass"}
+                  "fused_scan": "fused_child_scan", "replay": "replay_pass",
+                  "split_cat": "split_cat"}
 
 
 def profiled_tree(learner, grads, bag, names) -> dict:
@@ -2374,6 +2670,118 @@ def phase_rank_train(ctx) -> None:
     emit(out)
 
 
+def phase_categorical_train(ctx) -> None:
+    """The Expo-shaped cell: 5 iterations of the default learner with the
+    held-out AUC (the synchronous loop), then 5 without (pipelined)."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.metrics import create_metric
+    from lightgbm_tpu_torch.ops.split_cat import categorical_candidates
+
+    ds, dv = _dataset_expo(ctx)
+    iters = 5
+    counters = dict(wave_counters(), split_cat=categorical_candidates)
+    evals, t_iter = {}, []
+    for fn in counters.values():                 # counts of the main path
+        fn.launches = 0
+    bst = lt.train(CAT_PARAMS, ds, iters, valid_sets=[dv],
+                   valid_names=["heldout"], evals_result=evals,
+                   verbose_eval=False, callbacks=iteration_timer(t_iter))
+    launches = {n: fn.launches for n, fn in counters.items()}
+    gbdt, learner = bst.gbdt, bst.gbdt.learner
+    out = {"phase": "categorical_train", "rows": ROWS,
+           "heldout_rows": VALID_ROWS, "iterations": iters,
+           "categorical_columns": [n for n, _ in EXPO_CATS],
+           "num_bins": [m.num_bin for m in ds.constructed.bin_mappers]}
+    out.update(wave_path_checks("categorical_train", bst, launches))
+    check(launches["split_cat"] > 0,
+          "categorical_train: kernel split_cat was not launched")
+    trees = gbdt.models
+    check(all(t.num_cat > 0 for t in trees),
+          f"a tree without a categorical split: "
+          f"{[t.num_cat for t in trees]}")
+    check(out["host_syncs_per_tree"] == 1,
+          f"host syncs per tree {out['host_syncs_per_tree']} (want 1)")
+    tree_counters(out, learner, WAVE_TREE_KEYS)
+    check(all(n > 0 for n in out["graph_launches_per_tree"][1:]),
+          "trees after the first did not replay CUDA graphs")
+    auc = evals["heldout"]["auc"]
+    check(all(np.isfinite(auc)) and auc[-1] > auc[0] and auc[-1] > 0.6,
+          f"held-out AUC {auc}")
+    # the device traversal (DevicePredictor, 500,000 row-trees) against
+    # the host trees, and the loop's float32 held-out scores against both
+    Xv = ctx["Xv_expo"]
+    n_dev = gbdt.device_predictions
+    raw = bst.predict(Xv, raw_score=True)
+    check(gbdt.device_predictions == n_dev + 1,
+          "Booster.predict did not go through the DevicePredictor")
+    host = np.sum([t.predict(Xv) for t in trees], axis=0)
+    diff = float(np.abs(raw - host).max())
+    check(raw.shape == (VALID_ROWS,) and np.isfinite(raw).all()
+          and diff < 1e-9, f"device traversal vs host trees: {diff}")
+    loop_diff = float(np.abs(gbdt.valid_scores[0].np_score() - host).max())
+    check(loop_diff < 1e-5, f"held-out scores of the loop vs the host "
+          f"trees: {loop_diff}")
+    out["graphed_tree_profiled"] = profiled_tree(
+        learner, gbdt.objective.get_gradients(gbdt.train_score.score[0]),
+        gbdt._bag_mask, dict(counters))
+    (shapes,), _ = eager_tree_shapes(
+        learner, gbdt.objective.get_gradients(gbdt.train_score.score[0]),
+        gbdt._bag_mask, (categorical_candidates,))
+    ks = sorted(shapes)
+    ctx["shapes_cat"] = {"median": {"K": ks[len(ks) // 2]},
+                         "largest": {"K": ks[-1]}}
+    out.update({"heldout_auc": auc, "s_per_iter": t_iter,
+                "s_per_iter_after_first": float(np.mean(t_iter[1:])),
+                "split_cat_launches_per_tree": launches["split_cat"]
+                / len(trees),
+                "num_cat_per_tree": [t.num_cat for t in trees],
+                "predict_vs_host_max_diff": diff,
+                "loop_scores_vs_host_max_diff": loop_diff,
+                "split_cat_shapes": {"launches": len(ks), "K": _quantiles(ks),
+                                     "launches_by_K": {str(k): n for k, n in
+                                                       sorted(Counter(ks)
+                                                              .items())}}})
+    ctx["launches_cat"] = launches
+
+    # the same without the held-out set: the pipelined loop
+    bst2 = lt.Booster(CAT_PARAMS, ds)
+    gbdt2 = bst2.gbdt
+    check(gbdt2._can_pipeline(), "the run without a held-out set does not "
+          "pipeline")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        bst2.update()
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    reads = gbdt2.learner.host_syncs
+    t0 = time.perf_counter()
+    trees2 = gbdt2.models                        # the flush: host assembly
+    flush_s = time.perf_counter() - t0
+    check(reads == 0, f"{reads} blocking record reads in the loop")
+    check(len(trees2) == iters and all(t.num_cat > 0 for t in trees2),
+          "the pipelined loop's trees")
+    check(trees2[0].to_string() == trees[0].to_string(),
+          "the first pipelined tree's model text differs from the "
+          "synchronous loop's")
+    auc_m = create_metric("auc", lt.Config.from_params(CAT_PARAMS))
+    auc_m.init(dv.constructed.metadata, dv.constructed.num_data)
+    auc2 = auc_m.eval(bst2.predict(Xv, raw_score=True),
+                      gbdt2.objective)[0][1]
+    gap = abs(auc2 - auc[-1])
+    check(gap < 1e-3, f"pipelined held-out AUC {auc2} is {gap} from the "
+          f"synchronous loop's")
+    texts_equal = [a.to_string() == b.to_string()
+                   for a, b in zip(trees, trees2)]
+    out["pipelined"] = {"s_per_iter": loop_s / iters,
+                        "record_reads_in_loop": reads,
+                        "flush_s": flush_s,
+                        "flush_s_per_tree": flush_s / iters,
+                        "heldout_auc": auc2, "auc_gap_to_sync": gap,
+                        "tree_text_equal_to_sync": texts_equal}
+    emit(out)
+
+
 def _bound(nbytes: float, flops: float) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
@@ -2560,6 +2968,54 @@ def _time_scan(flush, shapes=None) -> dict:
             r = _time_scan_call(flush, shapes[tag]["K"])
             r.pop("args")
             res["shapes_wave_train"][tag] = r
+    return res
+
+
+def _time_split_cat_call(flush, k: int, reps: int = 20) -> dict:
+    """The wrapper's and the kernel's own time at K leaves of the fixture
+    (six categorical columns of eight, B = 256, random float32), on a start
+    the numerical scan wrote."""
+    from lightgbm_tpu_torch.ops.split_cat import (cat_words,
+                                                  categorical_candidates)
+
+    dev = torch.device("cuda", 0)
+    args = [t.to(dev) for t in split_cat_inputs(9, False, k=k)]
+    num, bits = _cat_start(args)
+    cols = torch.tensor(CAT_COLS, dtype=torch.int32, device=dev)
+    call = lambda: categorical_candidates(  # noqa: E731
+        num, bits, *args, cols, **CAT_KW)
+    ms = cuda_ms(call, reps, flush)
+    kernel_ms = cuda_ms(staged(call), reps, flush)
+    c, b = len(CAT_COLS), args[0].shape[2]
+    w = cat_words(b)
+    # read the categorical columns' histograms and the leaf totals once,
+    # write per (leaf, column) the eleven fields (ten of 4 bytes, one of
+    # 1) and W words
+    nbytes = k * c * b * 3 * 4 + k * 3 * 4 + k * c * (10 * 4 + 1 + w * 4)
+    # per bin a CTR (2 operations) or a one-hot gain (about 30); per scan
+    # position and direction about 30, over min(32, (B + 1) // 2) positions
+    flops = k * c * (b * 30 + 2 * 32 * 30)
+    return dict(ms=ms, kernel_ms=kernel_ms, K=k, C=c, B=b, args=args,
+                start=(num, bits), **_bound(nbytes, flops))
+
+
+def _time_split_cat(flush, shapes=None) -> dict:
+    from lightgbm_tpu_torch.ops.split_cat import categorical_candidates_plain
+
+    res = _time_split_cat_call(flush, CAT_K)
+    args, (num, bits) = res.pop("args"), res.pop("start")
+    cols = torch.tensor(CAT_COLS, dtype=torch.int32, device=bits.device)
+    res["plain_ms"] = cuda_ms(lambda: categorical_candidates_plain(
+        num, bits, *args, cols, **CAT_KW), 5, flush)
+    res.update(library_ms=None,
+               library="no single PyTorch call computes this function")
+    if shapes:
+        res["shapes_categorical_train"] = {}
+        for tag in ("median", "largest"):
+            r = _time_split_cat_call(flush, shapes[tag]["K"])
+            r.pop("args")
+            r.pop("start")
+            res["shapes_categorical_train"][tag] = r
     return res
 
 
@@ -2914,13 +3370,14 @@ def phase_timing(ctx) -> None:
     from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
     from lightgbm_tpu_torch.ops.partition import apply_partition
     from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+    from lightgbm_tpu_torch.ops.split_cat import categorical_candidates
 
     dev = torch.device("cuda", 0)
     flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
     wrappers = (build_histogram_packed, build_histogram_segments,
                 apply_partition, find_best_splits_batched,
                 build_histogram_multislot, fused_child_scans,
-                build_histogram_full)
+                build_histogram_full, categorical_candidates)
     launches_before = [fn.launches for fn in wrappers]
     rows = _time_packed(flush, ctx.get("shapes_train"))
     shapes = ctx.get("shapes_wave", {})
@@ -2934,7 +3391,8 @@ def phase_timing(ctx) -> None:
               "fused_scan": _time_fused(flush, quant.get("fused_scan")),
               "hist_full": _time_hist_full(flush,
                                            ctx.get("shapes_masked_train")),
-              "replay": _time_replay()}
+              "replay": _time_replay(),
+              "split_cat": _time_split_cat(flush, ctx.get("shapes_cat"))}
     for fn, n in zip(wrappers, launches_before):
         fn.launches = n
     ctx["timing"] = rows
@@ -2977,7 +3435,11 @@ def kernels_line(ctx) -> dict:
                      "|w|; dropped codes, 2,047 and 65,536 bins bitwise",
         "replay": "every pass's carried state, members and counters "
                   "bitwise equal to the plain version on the CPU over "
-                  "random forests with exact gain ties (M = 1,145)"}
+                  "random forests with exact gain ties (M = 1,145)",
+        "split_cat": "every field and bitset bitwise equal to the plain "
+                     "version on the CPU (random float32 and dyadic, B = 256 "
+                     "and 1,023, seven regimes), to the plain version on "
+                     "the card on dyadic inputs; two launches bitwise"}
     err = {"hist_packed": ctx.get("max_abs_err"),
            "hist_segments": ctx.get("err_segments"),
            "partition": ctx.get("err_partition"),
@@ -2985,7 +3447,8 @@ def kernels_line(ctx) -> dict:
            "hist_multislot": ctx.get("err_multislot"),
            "fused_scan": ctx.get("err_fused"),
            "hist_full": ctx.get("err_hist_full"),
-           "replay": ctx.get("err_replay")}
+           "replay": ctx.get("err_replay"),
+           "split_cat": ctx.get("err_split_cat")}
     quant = ctx.get("launches_quant", {})
     out = []
     for name in KERNEL_SOURCES:
@@ -2994,12 +3457,14 @@ def kernels_line(ctx) -> dict:
         # each kernel's launches on the path that runs it: the default
         # (float32) wave learner for the first four, the quantized wave
         # learner with the opening for the next two, the masked learner
-        # (max_bin=1023) for hist_full
+        # (max_bin=1023) for hist_full, the categorical cell for split_cat
         path, launches = next(
             (p, c[name]) for p, c in (("wave_train", ctx["launches_wave"]),
                                       ("masked_train",
                                        ctx["launches_masked"]),
-                                      ("quant_train", quant))
+                                      ("quant_train", quant),
+                                      ("categorical_train",
+                                       ctx["launches_cat"]))
             if name in c)
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
@@ -3009,6 +3474,8 @@ def kernels_line(ctx) -> dict:
                         "launches_multiclass", {}).get(name),
                     "launches_rank_train": ctx.get(
                         "launches_rank", {}).get(name),
+                    "launches_categorical_train": ctx.get(
+                        "launches_cat", {}).get(name),
                     "quant_mode_launches_quant_train":
                         quant.get(name + "_quant"),
                     "max_abs_err": err[name], "ms": row["ms"],
@@ -3020,8 +3487,11 @@ def kernels_line(ctx) -> dict:
         if name == "replay":
             out[-1]["noop_kernel_ms"] = row["noop_kernel_ms"]
             out[-1]["ported_from"] = "an XLA while_loop, not a pallas_call"
+        if name == "split_cat":
+            out[-1]["ported_from"] = "an XLA lax.scan, not a pallas_call"
         for key in ("shapes_wave_train", "shapes_masked_train",
-                    "shapes_train", "shapes_quant_train"):
+                    "shapes_train", "shapes_quant_train",
+                    "shapes_categorical_train"):
             if key in row:
                 out[-1][key] = row[key]
     out[0]["launches_compact_train"] = ctx.get("launches_compact")
@@ -3050,7 +3520,7 @@ def main() -> int:
         if name in phases:
             globals()[f"phase_{name}"](ctx)
     if all(p in phases for p in ("wave_train", "quant_train", "masked_train",
-                                 "timing")):
+                                 "categorical_train", "timing")):
         emit(kernels_line(ctx))
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

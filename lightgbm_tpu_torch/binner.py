@@ -14,8 +14,7 @@ binned without a fresh lookup table per feature and call:
   * ``missing`` / ``nan_bin`` / ``default_bin`` / ``is_cat`` — per-feature
     metadata for the NaN rules.
 
-The port raises on categorical features, but the categorical fields stay so
-that the arrays keep the JAX package's layout.  ``bin_host`` is
+The categorical fields keep the JAX package's layout.  ``bin_host`` is
 bit-identical to ``BinMapper.values_to_bins_predict`` per used feature: a
 numerical row is the count of bounds below each value, taken with
 ``np.searchsorted(side="left")`` over the sorted, ``+inf``-padded row, which

@@ -893,8 +893,6 @@ def check_supported(cfg: Config) -> None:
         raise not_ported("monotone constraints", BREADTH)
     if any(float(v) != 1.0 for v in cfg.feature_contri):
         raise not_ported("feature_contri penalties", BREADTH)
-    if cfg.categorical_feature:
-        raise not_ported("categorical features", BREADTH)
     if cfg.two_round or cfg.data or cfg.valid or cfg.input_model:
         raise not_ported("text-file inputs", SURFACE)
     if cfg.telemetry or cfg.trace_out or cfg.profile_trace_dir \

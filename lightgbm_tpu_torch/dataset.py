@@ -13,9 +13,11 @@ binned matrix are bit-identical to the JAX package's.  The layout is kept:
     widen uint16 codes through ``ops/histogram.py:read_codes``.
 
 Query groups (``group=``, per-query sizes) are stored as boundaries, as in
-the JAX package.  Text files, binary caches, streaming loads and pandas
-categoricals are not ported in this slice; they raise
-``NotImplementedError``.
+the JAX package.  Categorical features (``categorical_feature``: a list of
+indices or names, ``"0,2"`` or ``"name:c1,c2"``) get the count-sorted
+categorical bin mapper and stay out of EFB bundles.  Text files, binary
+caches, streaming loads and pandas ``category`` columns are not ported in
+this slice; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper, kZeroThreshold
-from .config import SURFACE, BREADTH, Config, not_ported
+from .config import SURFACE, Config, not_ported
 
 _ArrayLike = Union[np.ndarray, Sequence[float], None]
 
@@ -120,10 +122,9 @@ class Dataset:
                 self._constructed = _ConstructedDataset.from_reference(
                     data, ref, cfg)
             else:
-                if self._resolve_categorical(data):
-                    raise not_ported("categorical features", BREADTH)
                 self._constructed = _ConstructedDataset.from_matrix(
-                    data, cfg, feature_names=self._resolve_feature_names(data))
+                    data, cfg, categorical=self._resolve_categorical(data),
+                    feature_names=self._resolve_feature_names(data))
             md = self._constructed.metadata
             if self._label is not None:
                 md.set_label(self._label)
@@ -142,7 +143,7 @@ class Dataset:
         if hasattr(data, "dtypes") and hasattr(data, "columns") \
                 and not isinstance(data, np.ndarray):  # pandas DataFrame
             if any(str(t) == "category" for t in data.dtypes):
-                raise not_ported("pandas categorical columns", BREADTH)
+                raise not_ported("pandas categorical columns", SURFACE)
             return np.asarray(data.values, dtype=np.float64)
         return np.asarray(data, dtype=np.float64)
 
@@ -155,12 +156,22 @@ class Dataset:
         return [f"Column_{i}" for i in range(data.shape[1])]
 
     def _resolve_categorical(self, data) -> List[int]:
+        """The categorical columns, sorted (JAX ``dataset.py:314-337``):
+        ``categorical_feature`` as indices or names, else the config's
+        ``categorical_feature`` (``"0,1,2"`` or ``"name:c1,c2"``)."""
         cf = self.categorical_feature
         if cf == "auto" or cf is None or cf == "":
             cf = Config.from_params(self.params).categorical_feature
+            if not cf:
+                return []
         if isinstance(cf, str):
-            return [c for c in cf.split(",") if c.strip()]
-        return list(cf)
+            if cf.startswith("name:"):
+                cf = [c.strip() for c in cf[5:].split(",") if c.strip()]
+            else:
+                cf = [int(c) for c in cf.split(",") if c.strip()]
+        names = self._resolve_feature_names(data)
+        return sorted(names.index(c) if isinstance(c, str) else int(c)
+                      for c in cf)
 
     def set_label(self, label):
         self._label = label
@@ -237,6 +248,7 @@ class _ConstructedDataset:
 
     @classmethod
     def from_matrix(cls, mat: np.ndarray, cfg: Config,
+                    categorical: Sequence[int] = (),
                     feature_names: Optional[List[str]] = None
                     ) -> "_ConstructedDataset":
         self = cls()
@@ -249,7 +261,7 @@ class _ConstructedDataset:
         self.metadata = Metadata(n)
         sample_idx = cls._sample_indices(n, cfg)
         sample = mat if sample_idx is None else mat[sample_idx]
-        self._find_mappers(sample, cfg)
+        self._find_mappers(sample, cfg, categorical)
         self._bin_all(mat, cfg)
         return self
 
@@ -263,9 +275,12 @@ class _ConstructedDataset:
                                       replace=False))
         return None
 
-    def _find_mappers(self, sample: np.ndarray, cfg: Config) -> None:
+    def _find_mappers(self, sample: np.ndarray, cfg: Config,
+                      categorical: Sequence[int] = ()) -> None:
         """FindBin over the sample -> ``bin_mappers`` + ``used_feature_map``
-        (trivial features dropped)."""
+        (trivial features dropped); the ``categorical`` columns get the
+        categorical mapper."""
+        categorical = set(categorical)
         self.bin_mappers = []
         keep: List[int] = []
         for j in range(self.num_total_features):
@@ -277,7 +292,8 @@ class _ConstructedDataset:
             m.find_bin(col, total_sample_cnt=len(sample),
                        max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
                        min_split_data=cfg.min_data_in_leaf,
-                       bin_type=BIN_NUMERICAL,
+                       bin_type=BIN_CATEGORICAL if j in categorical
+                       else BIN_NUMERICAL,
                        use_missing=cfg.use_missing,
                        zero_as_missing=cfg.zero_as_missing)
             if not m.is_trivial:

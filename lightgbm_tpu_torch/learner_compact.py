@@ -6,7 +6,10 @@ permuted so that the rows of leaf ``l`` live at ``[start[l], start[l] +
 size[l])``; a split partitions only its parent's window and the smaller
 child's histogram is built through ``ops/hist_packed.py``, the sibling's by
 subtraction from the parent (`serial_tree_learner.cpp:371-385`).  Split
-semantics are the JAX package's: both call ``find_best_splits``.
+semantics are the JAX package's: both call ``find_best_splits`` and, for
+categorical features, the categorical search (``ops/split_cat.py``, the
+``split_cat`` kernel on the card); a categorical split routes the rows of
+its window by the bin bitset kept per leaf (`learner_compact.py:281-316`).
 
 What changes in eager torch:
 
@@ -47,7 +50,7 @@ from .dataset import _ConstructedDataset, _round_up
 from .learner import (CF_GAIN, CF_LCNT, CF_LOUT, CF_LSG, CF_LSH, CF_RCNT,
                       CF_ROUT, CF_RSG, CF_RSH, LF_CNT, LF_DEPTH, LF_MAX_C,
                       LF_MIN_C, LF_OUT, NUM_CF, NUM_CI, NUM_LF,
-                      NUM_REC_FIELDS, HistogramFn, TreeLearner)
+                      NUM_REC_FIELDS, REC_IS_CAT, HistogramFn, TreeLearner)
 from .ops.hist_packed import (ROW_QUANTUM, build_histogram_packed,
                               build_histogram_packed_plain, pack_bin_words)
 from .tree import Tree
@@ -69,7 +72,9 @@ class CompactState:
     cand_f: torch.Tensor     # (L, NUM_CF) acc per-leaf best split floats
     cand_i: torch.Tensor     # (L, NUM_CI) int64 feature/threshold/flags
     rec_f: torch.Tensor      # (L-1, NUM_REC_FIELDS) f32 per-split records
-    rec_i: torch.Tensor      # (L-1, 2) int64 exact bagged left/right counts
+    rec_i: torch.Tensor      # (L-1, rec_i_cols) int64 exact bagged
+                             # left/right counts (and bitset words)
+    cand_b: Optional[torch.Tensor] = None  # (L, W) int32 bitsets (cat data)
 
 
 class CompactTreeLearner(TreeLearner):
@@ -203,10 +208,9 @@ class CompactTreeLearner(TreeLearner):
 
     # -- per-leaf candidates -------------------------------------------------
 
-    def _cand_rows(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _cand_rows(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok):
         """(K, ...) histograms -> per-leaf best rows ((K, NUM_CF) acc,
-        (K, NUM_CI) int64)."""
+        (K, NUM_CI) int64, the winner's (K, W) int32 bitset or None)."""
         if self._bundle is not None:
             hist = self._unbundle_hist(hist, sum_g, sum_h, cnt)
         return self._pack_cands(
@@ -230,15 +234,21 @@ class CompactTreeLearner(TreeLearner):
             cand_i=torch.zeros((L, NUM_CI), dtype=torch.int64, device=dev),
             rec_f=torch.zeros((L - 1, NUM_REC_FIELDS), dtype=torch.float32,
                               device=dev),
-            rec_i=torch.zeros((L - 1, 2), dtype=torch.int64, device=dev))
+            rec_i=torch.zeros((L - 1, self.rec_i_cols), dtype=torch.int64,
+                              device=dev))
         root_hist = self._window_hist(st, 0, n, None)
         sum_g = (grad * bag).to(acc).sum()
         sum_h = (hess * bag).to(acc).sum()
         cnt = bag.to(acc).sum()
         md = int(self.cfg.max_depth)
         depth_ok = True if md <= 0 else md > 0
-        cf, ci = self._cand_rows(root_hist[None], sum_g[None], sum_h[None],
-                                 cnt[None], feature_mask, depth_ok)
+        cf, ci, cb = self._cand_rows(root_hist[None], sum_g[None],
+                                     sum_h[None], cnt[None], feature_mask,
+                                     depth_ok)
+        if cb is not None:
+            st.cand_b = torch.zeros((L, self.cat_W), dtype=torch.int32,
+                                    device=dev)
+            st.cand_b[0] = cb[0]
         st.leaf_i[0, 1] = n
         st.leaf_f[:, LF_MIN_C] = float("-inf")
         st.leaf_f[:, LF_MAX_C] = float("inf")
@@ -258,6 +268,7 @@ class CompactTreeLearner(TreeLearner):
         dleft = bool(flags & 1)
         crow_f = st.cand_f[leaf].clone()
         lrow_f = st.leaf_f[leaf].clone()
+        crow_b = None if st.cand_b is None else st.cand_b[leaf].clone()
 
         # ---- partition the parent's window (DataPartition::Split): the
         # decision on the split feature (NumericalDecisionInner,
@@ -274,13 +285,19 @@ class CompactTreeLearner(TreeLearner):
             in_r = (r >= 0) & (r < int(self.np_num_bin[feat]) - 1)
             frow = torch.where(in_r, r + (r >= d).to(r.dtype), d)
         mt = int(self.np_missing[feat])
-        go_left = frow <= thr
-        if mt == MISSING_ZERO:
-            go_left = torch.where(frow == int(self.np_default_bin[feat]),
-                                  dleft, go_left)
-        elif mt == MISSING_NAN:
-            go_left = torch.where(frow == int(self.np_num_bin[feat]) - 1,
-                                  dleft, go_left)
+        if flags & 2:
+            # CategoricalDecisionInner (`tree.h:270-277`): the bin's bit of
+            # the leaf's bitset; no missing rule
+            word = crow_b.index_select(0, (frow >> 5).to(torch.int64))
+            go_left = ((word >> (frow & 31)) & 1) == 1
+        else:
+            go_left = frow <= thr
+            if mt == MISSING_ZERO:
+                go_left = torch.where(
+                    frow == int(self.np_default_bin[feat]), dleft, go_left)
+            elif mt == MISSING_NAN:
+                go_left = torch.where(
+                    frow == int(self.np_num_bin[feat]) - 1, dleft, go_left)
         bag = st.w_p[2, s:s + c] > 0.5
         sort_mode = self._bucket(c) > self._sort_cutoff
         if sort_mode:
@@ -337,7 +354,7 @@ class CompactTreeLearner(TreeLearner):
         # ---- children's best splits, both in one batched scan
         md = int(self.cfg.max_depth)
         depth_ok = True if md <= 0 else child_depth < md
-        cf, ci = self._cand_rows(
+        cf, ci, cb = self._cand_rows(
             torch.stack([hist_left, hist_right]),
             torch.stack([crow_f[CF_LSG], crow_f[CF_RSG]]),
             torch.stack([crow_f[CF_LSH], crow_f[CF_RSH]]),
@@ -347,6 +364,9 @@ class CompactTreeLearner(TreeLearner):
         st.cand_f[new_leaf] = cf[1]
         st.cand_i[leaf] = ci[0]
         st.cand_i[new_leaf] = ci[1]
+        if cb is not None:
+            st.cand_b[leaf] = cb[0]
+            st.cand_b[new_leaf] = cb[1]
 
         # ---- record for host tree assembly (the host-known fields
         # REC_VALID..REC_DEFAULT_LEFT are filled in on the host)
@@ -355,19 +375,23 @@ class CompactTreeLearner(TreeLearner):
             crow_f[CF_GAIN], lout, rout, crow_f[CF_LCNT], crow_f[CF_RCNT],
             lrow_f[LF_OUT], lrow_f[LF_CNT], crow_f[CF_LSH], crow_f[CF_RSH],
             crow_f[CF_LSG], crow_f[CF_RSG]]).to(torch.float32)
-        st.rec_i[step] = torch.stack([lc_bag, c_bag - lc_bag])
+        counts = torch.stack([lc_bag, c_bag - lc_bag])
+        if crow_b is not None:
+            counts = torch.cat([counts, crow_b.to(torch.int64) & 0xFFFFFFFF])
+        st.rec_i[step] = counts
 
     # -- whole tree ----------------------------------------------------------
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
              feature_mask: Optional[torch.Tensor] = None):
-        """Grow one tree; returns (records (L-1, 17) f32 numpy, exact bagged
-        counts (L-1, 2) int64 numpy, leaf id per original row (N,) int64
-        tensor, leaf outputs (L,) acc tensor)."""
+        """Grow one tree; returns (records (L-1, 17) f32 numpy, exact
+        integer columns (L-1, rec_i_cols) int64 numpy: the bagged counts and
+        any bitset words, leaf id per original row (N,) int64 tensor, leaf
+        outputs (L,) acc tensor)."""
         if feature_mask is None:
             feature_mask = self._all_features
         st = self._init_root(grad, hess, bag, feature_mask)
-        host_rec: List[Tuple[int, int, int, int]] = []
+        host_rec: List[Tuple[int, int, int, int, int]] = []
         num_leaves = 1
         while num_leaves < self.num_leaves:
             # (index_select, not tensor indexing: a 0-d index tensor would
@@ -383,7 +407,7 @@ class CompactTreeLearner(TreeLearner):
                 break
             self._split_step(st, feature_mask, leaf, s, c, feat, thr, flags,
                              num_leaves)
-            host_rec.append((leaf, feat, thr, flags & 1))
+            host_rec.append((leaf, feat, thr, flags & 1, flags >> 1))
             num_leaves += 1
         leaf_id = torch.empty_like(st.rid_p)
         leaf_id[st.rid_p] = st.lid_p.to(torch.int64)
@@ -395,7 +419,8 @@ class CompactTreeLearner(TreeLearner):
         if host_rec:
             hr = np.asarray(host_rec, dtype=np.float32)
             rec_f[:len(host_rec), 0] = 1.0
-            rec_f[:len(host_rec), 1:NUM_HOST_REC] = hr
+            rec_f[:len(host_rec), 1:NUM_HOST_REC] = hr[:, :-1]
+            rec_f[:len(host_rec), REC_IS_CAT] = hr[:, -1]
         return rec_f, rec_i, leaf_id, st.leaf_f[:, LF_OUT]
 
     def train(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,

@@ -35,10 +35,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: per-source additions: the split scans' gain arithmetic must round after
 #: every operation, as the plain torch version does (no fused multiply-add)
 EXTRA_FLAGS: Dict[str, List[str]] = {"split_scan": ["-fmad=false"],
-                                     "fused_scan": ["-fmad=false"]}
+                                     "fused_scan": ["-fmad=false"],
+                                     "split_cat": ["-fmad=false"]}
 #: every kernel source of the port
 KERNELS = ("hist_packed", "hist_segments", "partition", "split_scan",
-           "hist_multislot", "fused_scan", "hist_full", "replay")
+           "hist_multislot", "fused_scan", "hist_full", "replay",
+           "split_cat")
 
 #: seconds each library took to build in this process (0.0 = reused)
 BUILD_SECONDS: Dict[str, float] = {}

@@ -108,7 +108,7 @@ def test_device_rule_cpu_and_alias():
     {"forcedsplits_filename": "forced.json"},
     {"monotone_constraints": "1,0,0,0,0"},
     {"feature_contri": "0.5,1,1,1,1"},
-    {"categorical_feature": "0"},
+    {"profile_trace_dir": "prof"},
     {"telemetry": True},
 ])
 def test_unported_settings_raise(extra):
