@@ -59,17 +59,23 @@ line and each raising (exit code 1) on any failure:
              small set (exact ties), half grown and grown to the budget
              (one with a vector cap that binds), every pass's carried
              state, members and counters bitwise, each stall's members
-             split on both sides before the next pass
+             split on both sides before the next pass; and at the sizing of
+             num_leaves=4095 (M = 16,505: the table in global memory),
+             4,097 (the list buffers in global memory) and 8,191 (both),
+             over forests grown in the replay's order with one node in 500
+             left unsplit
   split_cat  categorical split kernel vs its plain version at K=128 leaves,
              8 features of which 6 categorical (a one-hot one of 4 bins,
              many-vs-many ones, a NaN-typed one, a Zero-missing one, one
-             with two bins of equal CTR), B=256 and B=1,023: at the defaults,
-             max_cat_threshold=3, min_data_per_group=1, a cat_smooth that
-             leaves no bin eligible, and a (K, F) feature mask; every field
-             and bitset (the numerical columns carried untouched) bitwise
-             equal to the plain version run on the CPU on random float32
-             and dyadic inputs, to the plain version on the card on dyadic
-             ones, bitwise across two launches
+             with two bins of equal CTR), B=256, 1,023 and 2,047, and
+             on dyadic inputs B=4,096 and 10,000 (over 2,048 and 8,192
+             eligible bins: the shared-memory sort and its cut rounds): at
+             the defaults, max_cat_threshold=3, min_data_per_group=1, a
+             cat_smooth that leaves no bin eligible, and a (K, F) feature
+             mask; every field and bitset (the numerical columns carried
+             untouched) bitwise equal to the plain version run on the CPU
+             on random float32 and dyadic inputs, to the plain version on
+             the card on dyadic ones, bitwise across two launches
   tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
              rows, grown by the compact learner through the kernel and
              through the plain histogram: records bitwise equal
@@ -108,7 +114,9 @@ line and each raising (exit code 1) on any failure:
              within 1e-4 of the compact phase's; the shape of every
              hist_segments launch (K, sum and max of cnt, the row bound)
              and split_scan launch (K) of one more tree grown eagerly on
-             the run's last gradients, and their distribution
+             the run's last gradients, and their distribution; that tree's
+             replay passes, each held bitwise against the plain version run
+             on the CPU from the state the kernel started from
   wave_pipelined wave_train's params without the held-out set: the
              pipelined boosting loop, 5 iterations; no blocking read of
              records in the loop, record waits only at the flush, launches
@@ -187,6 +195,23 @@ line and each raising (exit code 1) on any failure:
              same without the held-out set (pipelined): no record read in
              the loop, the first tree's model text equal, AUC within 1e-3,
              the flush's host assembly of the categorical trees timed
+  categorical_2047 categorical data past 1,024 bins: 200,000 Expo-shaped
+             rows whose Origin column has 2,500 categories, max_bin=2047
+             (the masked learner, uint16 codes, B > 1,024), trained 3
+             iterations on the card with split_cat launched, its first 256
+             launches (over 2,048 eligible bins at the root: the
+             shared-memory sort) each bitwise equal to the plain version
+             run on the CPU on the recorded inputs; one more
+             iteration with gpu_use_dp on the card and on the CPU (round 1
+             without boost_from_average: exact sums): the same tree
+             (structure, thresholds, bitsets, counts exactly; leaf values
+             within 1e-9)
+  wave_4095  a wave tree past the old shared-memory limit: num_leaves=4095
+             (M = 16,505 node slots) on 100,000 Higgs-shaped rows, trained
+             3 iterations on the card through the wave learner (replay
+             kernel launched, no change of learner); the same gpu_use_dp
+             check against the CPU as categorical_2047 (the replay kernel
+             on float64 gains)
   timing     each of the nine kernels', its plain version's and (where one
              PyTorch call computes the same function) the library call's
              times from CUDA events, L2 flushed before each launch, beside
@@ -208,9 +233,11 @@ line and each raising (exit code 1) on any failure:
              slot); the replay kernel on a pass of all 254 pops (each
              launch on its own fresh state), on a pass after the end and
              on one whose budget is spent (its fixed cost: the node
-             table's load and the list), and the time per pop; split_cat at
-             the fixture (K = 128) and at categorical_train's median and
-             largest launch K
+             table's load and the list), the time per pop, wave_train's
+             median and largest pass by pops (its eager tree's pass inputs
+             replayed) and a pass of 4,094 pops at M = 16,505; split_cat at
+             the fixture (K = 128, B = 256), at B = 2,047 and at
+             categorical_train's median and largest launch K
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -230,12 +257,15 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from expo_data import EXPO_CATEGORICAL, EXPO_CATS, expo_like
+
 PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "hist_full", "fused_scan", "replay", "split_cat", "tree",
           "wave_tree", "masked_tree", "opening_tree", "categorical_tree",
           "train", "wave_train", "wave_pipelined", "quant_train",
           "masked_train", "predict", "small", "multiclass_train",
-          "objectives_train", "rank_train", "categorical_train", "timing")
+          "objectives_train", "rank_train", "categorical_train",
+          "categorical_2047", "wave_4095", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -280,6 +310,21 @@ KERNEL_SOURCES = {
 }
 #: the bench configuration's replay: node slots, splits, stall batch
 REPLAY_M, REPLAY_BUDGET, REPLAY_KB = 1145, 254, 4
+#: the large trees of the replay checks, one per placement of the kernel's
+#: buffers past the bench configuration's (all in shared memory): the node
+#: table in global memory (4,095 leaves), the list buffers (4,097), both
+#: (8,191); ops/replay.py:replay_plan
+REPLAY_LARGE = (4095, 4097, 8191)
+
+
+def replay_dims(num_leaves: int) -> tuple:
+    """The wave learner's node slots M and replay budget at ``num_leaves``
+    with the other parameters at their defaults: 1 + 2 * (grow budget +
+    correction reserve), learner_wave.py:_init_wave_dims."""
+    budget = num_leaves - 1
+    return 1 + 2 * (2 * budget + 64), budget
+
+
 #: node gains of the replay checks: a small set, so exact ties are common
 REPLAY_GAINS = np.array([-1.0, 0.0, 0.25, 0.5, 0.5, 1.0, 1.0, 1.5, 2.0,
                          3.0], dtype=np.float32)
@@ -1020,6 +1065,34 @@ def replay_forest(rng, grown: int, positive: bool = False):
     return [torch.from_numpy(a) for a in (gain, split, child0, width)], nn
 
 
+def replay_ordered_forest(rng, m: int, grown: int, holes: float,
+                          vals=REPLAY_GAINS[2:]):
+    """A forest in ``m`` node slots grown in the replay's own order (gain
+    desc, leaf index asc: the replay pops long runs), ``grown`` splits,
+    each popped node left unsplit with probability ``holes`` (a stall);
+    children's gains drawn from ``vals``, those of positive gain pushed.
+    As ``replay_forest``."""
+    import heapq
+
+    gain = np.full(m, -np.inf, np.float32)
+    split = np.zeros(m, bool)
+    child0 = np.zeros(m, np.int64)
+    width = np.full(m, N_FULL, np.int64)
+    gain[0] = vals[-1]
+    heap, nn, leaves = [(-float(gain[0]), 0, 0)], 1, 1
+    while heap and nn < 1 + 2 * grown:
+        _, ref, s = heapq.heappop(heap)
+        if rng.rand() < holes:
+            continue
+        split[s], child0[s] = True, nn
+        gain[nn:nn + 2] = rng.choice(vals, 2)
+        for c, r in ((nn, ref), (nn + 1, leaves)):
+            if gain[c] > 0:
+                heapq.heappush(heap, (-float(gain[c]), r, c))
+        nn, leaves = nn + 2, leaves + 1
+    return [torch.from_numpy(a) for a in (gain, split, child0, width)], nn
+
+
 def split_node(rng, tab, s: int, nn: int, vals) -> int:
     """Give node ``s`` children at slots nn, nn + 1 (random gains from
     ``vals``, a random cut of its width); returns the new node count."""
@@ -1034,11 +1107,11 @@ def split_node(rng, tab, s: int, nn: int, vals) -> int:
     return nn + 2
 
 
-def replay_state(dev=None):
+def replay_state(dev=None, m: int = REPLAY_M, b: int = REPLAY_BUDGET):
     """A replay's carried state before its first pass (ops/replay.py)."""
     from lightgbm_tpu_torch.ops.replay import NUM_CTL
 
-    m, b, kb = REPLAY_M, REPLAY_BUDGET, REPLAY_KB
+    kb = REPLAY_KB
     avail = torch.zeros(m, dtype=torch.uint8)
     avail[0] = 1
     refidx = torch.full((m,), -1, dtype=torch.int32)
@@ -1075,13 +1148,14 @@ def replay_to_end(rng, tab, nn: int, cpu, kw, card=None,
         passes += 1
         if int(cpu[3][CTL_FLAG]) == FLAG_DONE:
             return passes
-        check(passes <= REPLAY_BUDGET + 1, "the replay did not end")
+        check(passes <= kw["budget"] + 1, "the replay did not end")
         for s in cpu[4][cpu[5]].tolist():
             nn = split_node(rng, tab, s, nn, vals)
 
 
 def phase_replay(ctx) -> None:
-    from lightgbm_tpu_torch.ops.replay import CTL_POPS, CTL_STALL_EVENTS
+    from lightgbm_tpu_torch.ops.replay import (CTL_POPS, CTL_STALL_EVENTS,
+                                               replay_plan)
 
     dev = torch.device("cuda", 0)
     out = {"phase": "replay", "M": REPLAY_M, "budget": REPLAY_BUDGET,
@@ -1101,6 +1175,25 @@ def phase_replay(ctx) -> None:
                              "pops": int(cpu[3][CTL_POPS]),
                              "stalls": int(cpu[3][CTL_STALL_EVENTS]),
                              "state_bitwise_every_pass": True}
+    # the large trees: every placement of the kernel's buffers
+    for seed, leaves in enumerate(REPLAY_LARGE, 4):
+        m, b = replay_dims(leaves)
+        rng = np.random.RandomState(seed)
+        tab, nn = replay_ordered_forest(rng, m, b, holes=0.002)
+        cpu = replay_state(m=m, b=b)
+        card = [t.to(dev) for t in cpu]
+        kw = dict(REPLAY_KW, budget=b, pad_slot=m)
+        passes = replay_to_end(rng, tab, nn, cpu, kw, card,
+                               vals=REPLAY_GAINS[2:])
+        pops = int(cpu[3][CTL_POPS])
+        check(pops == b, f"the {leaves}-leaf replay made {pops} pops")
+        plan = replay_plan(m, b)
+        out["cases"][f"num_leaves_{leaves}"] = {
+            "M": m, "budget": b, "passes": passes, "pops": pops,
+            "stalls": int(cpu[3][CTL_STALL_EVENTS]),
+            "list_in_shared_memory": plan.list_smem,
+            "table_in_shared_memory": plan.tab_smem,
+            "state_bitwise_every_pass": True}
     torch.cuda.synchronize()
     ctx["err_replay"] = 0.0
     emit(out)
@@ -1115,6 +1208,10 @@ CAT_REGIMES = {"defaults": {},
                "max_cat_threshold_3": {"max_cat_threshold": 3},
                "min_data_per_group_1": {"min_data_per_group": 1},
                "none_eligible": {"cat_smooth": 1e9}}
+#: the fixture's widths: the kernel's sort paths by eligible keys (a
+#: register bitonic sort up to 2,048, through shared memory past it, cut
+#: rounds past 8,192)
+CAT_WIDTHS = (256, 1023, 2047, 4096, 10000)
 CAT_KW = dict(lambda_l1=0.0, lambda_l2=0.5, max_delta_step=0.0,
               min_data_in_leaf=3, min_sum_hessian_in_leaf=1e-3,
               min_gain_to_split=0.0)
@@ -1204,9 +1301,19 @@ def phase_split_cat(ctx) -> None:
     kf_mask = torch.ones(CAT_K, CAT_F, dtype=torch.bool)
     kf_mask[1::2, 5] = False
     cols = list(CAT_COLS)
-    for b in (256, 1023):
+    for b in CAT_WIDTHS:
         for tag, dyadic in (("dyadic", True), ("random", False)):
+            if b > 2047 and not dyadic:
+                # 16,384 random rows a leaf leave few bins of so wide a
+                # column at cnt >= cat_smooth: the dyadic counts fill it
+                continue
             cpu = split_cat_inputs(7 if dyadic else 8, dyadic, b=b)
+            eligible = int((cpu[0][:, 1, :, 2] >= 10.0).sum(-1).max())
+            if dyadic:
+                # column 1's eligible bins reach the sort path of the width
+                check(eligible > {256: 128, 1023: 512, 2047: 1024,
+                                  4096: 2048, 10000: 8192}[b],
+                      f"split_cat B={b}: {eligible} eligible bins")
             for regime, kw in CAT_REGIMES.items():
                 for mname, m in (("fmask_F", None), ("fmask_KF", kf_mask)):
                     if m is not None and regime != "defaults":
@@ -1231,7 +1338,8 @@ def phase_split_cat(ctx) -> None:
                         check(_cat_same(k, pk), f"{where}: kernel differs "
                               f"from the plain version on the card")
                     gain, bits = k[0].gain[:, cols], k[1][:, cols]
-                    case = {"valid_splits": int(torch.isfinite(gain).sum()),
+                    case = {"eligible_bins_max": eligible,
+                            "valid_splits": int(torch.isfinite(gain).sum()),
                             "nonzero_bitsets": int((bits != 0).any(-1).sum()),
                             "cpu_plain_bitwise": True,
                             "card_plain_bitwise": True if dyadic else None}
@@ -1459,34 +1567,7 @@ def phase_opening_tree(ctx) -> None:
     emit({"phase": "opening_tree", "model_text_equal": True, "runs": info})
 
 
-#: the Expo experiment's shape (the reference's docs/Experiments.rst:112,
-#: the airline data): six categorical columns (name, categories; Origin
-#: and Dest Zipf-distributed) and two numerical ones, DepTime and Distance
-EXPO_CATS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7),
-             ("UniqueCarrier", 22), ("Origin", 300), ("Dest", 300))
-CAT_PARAMS = dict(WAVE_PARAMS, categorical_feature="0,1,2,3,4,5")
-
-
-def expo_like(rows: int, seed: int = 11):
-    """Synthetic two-class data shaped like the Expo/airline set, cut from
-    its 11M rows: per-category effects on a latent, DepTime and Distance
-    terms and noise, the label its top 20%."""
-    rng = np.random.RandomState(seed)
-    cols, latent = [], np.zeros(rows)
-    for _, n in EXPO_CATS:
-        if n == 300:
-            # Zipf: the 45 rarest fall past max_bin, into the last bin
-            p = 1.0 / np.arange(1, n + 1) ** 1.5
-            c = rng.choice(n, size=rows, p=p / p.sum())
-        else:
-            c = rng.randint(0, n, rows)
-        latent += (rng.randn(n) * 0.4)[c]
-        cols.append(c)
-    dep = np.clip(np.round(rng.normal(1330, 480, rows)), 1, 2400)
-    dist = np.round(np.exp(rng.normal(6.4, 0.6, rows)))
-    latent += 0.0008 * (dep - 1330) + 0.2 * np.log(dist) + rng.randn(rows)
-    y = (latent > np.quantile(latent, 0.8)).astype(np.float64)
-    return np.column_stack(cols + [dep, dist]).astype(np.float64), y
+CAT_PARAMS = dict(WAVE_PARAMS, categorical_feature=EXPO_CATEGORICAL)
 
 
 def _dataset_expo(ctx):
@@ -1752,15 +1833,28 @@ def launch_shapes(seg, scan) -> dict:
             "median": {"K": ks[len(ks) // 2]}, "largest": {"K": ks[-1]}}}
 
 
-def eager_tree_shapes(learner, grads, bag, wrappers):
+def eager_tree_shapes(learner, grads, bag, wrappers, replays=None):
     """Grow the first tree of a fresh learner with the learner's config and
     data (a learner's first tree runs its passes eagerly; a launch captured
     into a graph records no shape), with every launch of ``wrappers``
     recording its shape; returns the records and that tree's kernel
-    calls."""
-    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+    calls.  With a list ``replays``, every replay pass appends its inputs
+    and its carried state before and after (device copies, read after the
+    tree)."""
+    import dataclasses
 
-    ln = WaveTreeLearner(learner.cfg, learner.data, learner.device)
+    from lightgbm_tpu_torch.learner_wave import WaveKernels, WaveTreeLearner
+    from lightgbm_tpu_torch.ops.replay import replay_pass
+
+    kernels = WaveKernels()
+    if replays is not None:
+        def record(*args, **kw):
+            before = [t.clone() for t in args]
+            replay_pass(*args, **kw)
+            replays.append((before, [t.clone() for t in args[4:]], kw))
+
+        kernels = dataclasses.replace(kernels, replay=record)
+    ln = WaveTreeLearner(learner.cfg, learner.data, learner.device, kernels)
     ln._use_fused = learner._use_fused
     for fn in wrappers:
         fn.shapes = []
@@ -1773,13 +1867,24 @@ def eager_tree_shapes(learner, grads, bag, wrappers):
     return rec, ln.kernel_calls
 
 
-#: the kernel a wrapper launches once per call, as the profiler names it
-KERNEL_SYMBOLS = {"hist_packed": "hist_packed_chunks",
-                  "hist_segments": "hist_segments_tiles",
-                  "partition": "partition_rows", "split_scan": "split_scan",
-                  "hist_multislot": "hist_multislot_chunks",
-                  "fused_scan": "fused_child_scan", "replay": "replay_pass",
-                  "split_cat": "split_cat"}
+def replay_shapes(replays) -> dict:
+    """The distribution of the pops per replay pass of an eager tree
+    (``eager_tree_shapes``' records) and its median and largest pass by
+    pops, each with its recorded inputs (``inputs``: the node table and the
+    carried state before the pass, and the pass's kwargs)."""
+    from lightgbm_tpu_torch.ops.replay import CTL_FLAG, CTL_POPS
+
+    pops = [int(after[3][CTL_POPS]) - int(before[7][CTL_POPS])
+            for before, after, _ in replays]
+    flags = [int(after[3][CTL_FLAG]) for _, after, _ in replays]
+    order = sorted(range(len(pops)), key=lambda i: pops[i])
+    pick = {"median": order[len(order) // 2], "largest": order[-1]}
+    return {"distribution": {"passes": len(pops), "pops": _quantiles(pops),
+                             "pops_per_pass": pops, "flags": flags,
+                             "M": int(replays[0][0][4].numel())},
+            **{tag: {"pops": pops[i], "M": int(replays[i][0][4].numel()),
+                     "inputs": (replays[i][0], replays[i][2])}
+               for tag, i in pick.items()}}
 
 
 def profiled_tree(learner, grads, bag, names) -> dict:
@@ -1794,6 +1899,8 @@ def profiled_tree(learner, grads, bag, names) -> dict:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from lightgbm_tpu_torch import native
+
     calls0 = dict(learner.kernel_calls)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1803,8 +1910,9 @@ def profiled_tree(learner, grads, bag, names) -> dict:
         torch.cuda.synchronize()
     ran = [e.name for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
+    sym = native.KERNEL_SYMBOLS
     device = {n: sum(1 for k in ran if re.search(
-        rf"(^|::){KERNEL_SYMBOLS[n]}\(", k)) for n in names}
+        rf"(^|::){sym[n]}(<[^>]*>)?\(", k)) for n in names}
     counted = {n: learner.kernel_calls[n] - calls0[n] for n in names}
     stats = learner.tree_stats[-1]
     check(stats["graph_launches"] == stats["passes"] > 0,
@@ -1847,6 +1955,7 @@ WAVE_TREE_KEYS = ("waves", "stall_events", "stall_splits", "replay_passes",
 def phase_wave_train(ctx) -> None:
     from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
     from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.replay import replay_pass_plain
     from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
 
     counters = wave_counters()
@@ -1867,13 +1976,25 @@ def phase_wave_train(ctx) -> None:
         learner, grads, bst.gbdt._bag_mask, counters)
     # each launch's shape, from one more tree grown eagerly on the run's
     # last gradients (a graph replay records none)
+    replays = []
     (seg, scan), calls1 = eager_tree_shapes(
         learner, grads, bst.gbdt._bag_mask,
-        (build_histogram_segments, find_best_splits_batched))
+        (build_histogram_segments, find_best_splits_batched), replays)
     check(len(seg) == calls1["hist_segments"]
-          and len(scan) == calls1["split_scan"],
+          and len(scan) == calls1["split_scan"]
+          and len(replays) == calls1["replay"],
           "a launch shape was not recorded")
+    # the main path's own replay passes against the plain version on the
+    # CPU, from the recorded state before each
+    for i, (before, after, kw) in enumerate(replays):
+        st = [t.cpu() for t in before[4:]]
+        replay_pass_plain(*[t.cpu() for t in before[:4]], *st, **kw)
+        check(all(torch.equal(a, b.cpu()) for a, b in zip(st, after)),
+              f"wave_train replay pass {i + 1}: the kernel's state differs "
+              f"from the plain version's")
+    out["replay_passes_bitwise_to_plain"] = len(replays)
     ctx["shapes_wave"] = launch_shapes(seg, scan)
+    ctx["shapes_wave"]["replay"] = replay_shapes(replays)
     out["shapes"] = {k: v["distribution"]
                      for k, v in ctx["shapes_wave"].items()}
     st = learner._init_root_wave(*grads, bst.gbdt._bag_mask,
@@ -2782,6 +2903,172 @@ def phase_categorical_train(ctx) -> None:
     emit(out)
 
 
+def _tree_diff(a: str, b: str) -> list:
+    """The fields of two trees' model text that differ: every field but
+    the gains and leaf values exactly (structure, thresholds, bitsets,
+    counts), leaf and internal values within 1e-9 relative, gains (printed
+    to six digits) within 1e-5 relative."""
+    fa, fb = (dict(ln.split("=", 1) for ln in t.splitlines() if "=" in ln)
+              for t in (a, b))
+    rtol = {"split_gain": 1e-5, "leaf_value": 1e-9, "internal_value": 1e-9}
+    out = []
+    for key in sorted(set(fa) | set(fb)):
+        va, vb = fa.get(key), fb.get(key)
+        if key in rtol and va is not None and vb is not None:
+            x, y = (np.array(v.split(), dtype=np.float64) for v in (va, vb))
+            if x.shape == y.shape and np.allclose(x, y, rtol=rtol[key],
+                                                  atol=1e-12):
+                continue
+        elif va == vb:
+            continue
+        out.append(key)
+    return out
+
+
+def _card_and_cpu(params, X, y, iters: int, counters) -> tuple:
+    """``iters`` iterations of ``params`` on the card, in float32 through
+    the kernels (launches of the ``counters`` wrappers counted, AUC on the
+    last 20,000 rows rising); then one iteration with ``gpu_use_dp`` on the
+    card and on the CPU, round 1 without boost_from_average (gradients
+    +-0.5, hessians 0.25: every histogram sum exact), whose trees must be
+    the same (``_tree_diff``).  Returns the float32 booster, the launches,
+    the seconds per iteration and the AUC."""
+    import lightgbm_tpu_torch as lt
+
+    p = dict(params, boost_from_average=False, metric="auc",
+             verbosity=-1)
+    ds = lt.Dataset(X, label=y, params=p)
+    for fn in counters.values():
+        fn.launches = 0
+    t_iter = []
+    ev = {}
+    dv = ds.create_valid(X[-20_000:], label=y[-20_000:])
+    bst = lt.train(p, ds, iters, valid_sets=[dv], valid_names=["train"],
+                   evals_result=ev, verbose_eval=False,
+                   callbacks=iteration_timer(t_iter))
+    launches = {n: fn.launches for n, fn in counters.items()}
+    auc = ev["train"]["auc"]
+    check(all(np.isfinite(auc)) and auc[-1] > auc[0],
+          f"AUC on the last 20,000 training rows {auc} did not rise")
+    trees = []
+    for dev in ("cuda", "cpu"):
+        pd_ = dict(p, gpu_use_dp=True, device_type=dev)
+        b = lt.train(pd_, lt.Dataset(X, label=y, params=pd_), 1,
+                     verbose_eval=False)
+        trees.append(b.gbdt.models[0].to_string())
+    diff = _tree_diff(*trees)
+    check(not diff, f"the card's first tree (gpu_use_dp) differs from the "
+          f"CPU's in {diff}")
+    return bst, launches, t_iter, auc
+
+
+def phase_categorical_2047(ctx) -> None:
+    """Categorical data past 1,024 bins: the masked learner's split_cat at
+    B > 1,024, on the card and against the CPU."""
+    import lightgbm_tpu_torch.learner as lmod
+    from lightgbm_tpu_torch.learner import MaskedTreeLearner
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.split_cat import (
+        categorical_candidates, categorical_candidates_plain)
+
+    rows, cats = 200_000, 2500
+    X, y = expo_like(rows, seed=12)
+    rng = np.random.RandomState(12)
+    # Origin with 2,500 categories, each shifting the positive rate
+    X[:, 4] = rng.randint(0, cats, rows)
+    flip = rng.rand(rows) < (0.3 * rng.rand(cats))[X[:, 4].astype(int)]
+    y = np.where(flip, 1.0 - y, y)
+    params = dict(CAT_PARAMS, max_bin=2047)
+    counters = {"hist_full": build_histogram_full,
+                "split_cat": categorical_candidates}
+    # the float32 run's split_cat launches of its first tree, recorded
+    # (inputs and the fields before and after) for the plain version
+    calls = []
+
+    def record(cands, bits, *args, **kw):
+        keep = args[0].is_cuda and len(calls) < 256
+        if keep:
+            start = (type(cands), [t.clone() for t in cands], bits.clone(),
+                     [t.clone() for t in args])
+        categorical_candidates(cands, bits, *args, **kw)
+        if keep:
+            calls.append((start, [t.clone() for t in cands], bits.clone(),
+                          kw))
+
+    lmod.categorical_candidates = record
+    try:
+        bst, launches, t_iter, auc = _card_and_cpu(params, X, y, 3,
+                                                   counters)
+    finally:
+        lmod.categorical_candidates = categorical_candidates
+    check(len(calls) == min(256, launches["split_cat"]) > 0,
+          f"{len(calls)} split_cat launches recorded of "
+          f"{launches['split_cat']}")
+    eligible = 0
+    for i, ((kind, fields, bits0, args), after, bits, kw) in \
+            enumerate(calls):
+        cpu = [t.cpu() for t in args]
+        cands, b0 = kind(*(t.cpu() for t in fields)), bits0.cpu()
+        categorical_candidates_plain(cands, b0, *cpu, **kw)
+        check(_cat_same((after, bits), (cands, b0)),
+              f"categorical_2047 split_cat launch {i + 1}: the kernel "
+              f"differs from the plain version run on the CPU")
+        cnt = cpu[0][:, cpu[-1].long(), :, 2]
+        eligible = max(eligible,
+                       int((cnt >= kw["cat_smooth"]).sum(-1).max()))
+    # the root's Origin column reaches the kernel's shared-memory sort
+    check(eligible > 2048, f"at most {eligible} eligible bins")
+    learner = bst.gbdt.learner
+    nb = [m.num_bin for m in bst.gbdt.train_data.bin_mappers]
+    width = learner.num_bins_padded
+    check(type(learner) is MaskedTreeLearner,
+          f"max_bin=2047 trained through {type(learner).__name__}")
+    check(width > 1024, f"the masked learner's width {width}")
+    check(launches["split_cat"] > 0 and launches["hist_full"] > 0,
+          f"kernels not launched: {launches}")
+    trees = bst.gbdt.models
+    check(all(t.num_cat > 0 for t in trees), "a tree without a "
+          "categorical split")
+    emit({"phase": "categorical_2047", "rows": rows,
+          "origin_categories": cats, "width_B": width,
+          "num_bins": nb, "learner": type(learner).__name__,
+          "launches": launches, "s_per_iter": t_iter, "train_auc": auc,
+          "num_cat_per_tree": [t.num_cat for t in trees],
+          "split_cat_launches_bitwise_to_plain": len(calls),
+          "eligible_bins_max": eligible,
+          "first_tree_dp_equal_to_cpu": True})
+
+
+def phase_wave_4095(ctx) -> None:
+    """A wave tree of 4,095 leaves: the replay's node table past shared
+    memory (M = 16,505), on the card and against the CPU."""
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+
+    rows = 100_000
+    X, y = higgs_like(rows, seed=8)
+    # the JAX package's byte estimate counts an (N, M) one-hot lookup the
+    # port does not build (it gathers): past 4 GB at this M and N, so the
+    # budget is raised to keep the wave learner
+    params = dict(WAVE_PARAMS, num_leaves=4095, min_data_in_leaf=5,
+                  tpu_wave_max_bytes=16 << 30)
+    counters = wave_counters()
+    bst, launches, t_iter, auc = _card_and_cpu(params, X, y, 3, counters)
+    learner = bst.gbdt.learner
+    check(type(learner) is WaveTreeLearner,
+          f"num_leaves=4095 trained through {type(learner).__name__}")
+    check(learner.M == replay_dims(4095)[0], f"M = {learner.M}")
+    check(all(launches.values()), f"kernels not launched: {launches}")
+    leaves = [t.num_leaves for t in bst.gbdt.models]
+    check(leaves[0] == 4095, f"leaves per tree {leaves}")
+    stats = learner.tree_stats
+    emit({"phase": "wave_4095", "rows": rows, "M": learner.M,
+          "launches": launches, "s_per_iter": t_iter, "train_auc": auc,
+          "leaves_per_tree": leaves,
+          "replay_passes_per_tree": [s["replay_passes"] for s in stats],
+          "graph_launches_per_tree": [s["graph_launches"] for s in stats],
+          "first_tree_dp_equal_to_cpu": True})
+
+
 def _bound(nbytes: float, flops: float) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS * 1e3
@@ -2971,21 +3258,25 @@ def _time_scan(flush, shapes=None) -> dict:
     return res
 
 
-def _time_split_cat_call(flush, k: int, reps: int = 20) -> dict:
+def _time_split_cat_call(flush, k: int, reps: int = 20,
+                         b: int = 256) -> dict:
     """The wrapper's and the kernel's own time at K leaves of the fixture
-    (six categorical columns of eight, B = 256, random float32), on a start
+    (six categorical columns of eight, B bins, random float32), on a start
     the numerical scan wrote."""
     from lightgbm_tpu_torch.ops.split_cat import (cat_words,
                                                   categorical_candidates)
 
     dev = torch.device("cuda", 0)
-    args = [t.to(dev) for t in split_cat_inputs(9, False, k=k)]
+    args = [t.to(dev) for t in split_cat_inputs(9, False, k=k, b=b)]
     num, bits = _cat_start(args)
     cols = torch.tensor(CAT_COLS, dtype=torch.int32, device=dev)
     call = lambda: categorical_candidates(  # noqa: E731
         num, bits, *args, cols, **CAT_KW)
     ms = cuda_ms(call, reps, flush)
-    kernel_ms = cuda_ms(staged(call), reps, flush)
+    rec = staged(call)
+    kernel_ms = cuda_ms(rec, reps, flush)
+    device_ms = _device_ms(lambda: [(flush.add_(1), rec())
+                                    for _ in range(reps)], "split_cat")
     c, b = len(CAT_COLS), args[0].shape[2]
     w = cat_words(b)
     # read the categorical columns' histograms and the leaf totals once,
@@ -2995,8 +3286,8 @@ def _time_split_cat_call(flush, k: int, reps: int = 20) -> dict:
     # per bin a CTR (2 operations) or a one-hot gain (about 30); per scan
     # position and direction about 30, over min(32, (B + 1) // 2) positions
     flops = k * c * (b * 30 + 2 * 32 * 30)
-    return dict(ms=ms, kernel_ms=kernel_ms, K=k, C=c, B=b, args=args,
-                start=(num, bits), **_bound(nbytes, flops))
+    return dict(ms=ms, kernel_ms=kernel_ms, device_ms=device_ms, K=k, C=c,
+                B=b, args=args, start=(num, bits), **_bound(nbytes, flops))
 
 
 def _time_split_cat(flush, shapes=None) -> dict:
@@ -3016,6 +3307,10 @@ def _time_split_cat(flush, shapes=None) -> dict:
             r.pop("args")
             r.pop("start")
             res["shapes_categorical_train"][tag] = r
+    r = _time_split_cat_call(flush, CAT_K, b=2047)
+    r.pop("args")
+    r.pop("start")
+    res["B2047"] = r
     return res
 
 
@@ -3286,20 +3581,114 @@ def _events_ms(fn) -> float:
     return e0.elapsed_time(e1)
 
 
-def _time_replay(reps: int = 20) -> dict:
+def _device_ms(fn, symbol: str) -> float:
+    """Mean device time in ms of the kernels named ``symbol`` that ``fn``
+    launches, from torch.profiler's kernel records: no host launch time in
+    it, which a kernel of a few microseconds timed by events carries.  A
+    spin kernel opens the window (the profiler has missed a window's first
+    record on the H100); a window with no record is taken again, twice,
+    then None.  ``fn`` must be safe to call again."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):          # a window the profiler kept no record of
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1_000_000)
+            fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and re.search(rf"(^|::){symbol}(<[^>]*>)?\(", e.name)]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return None
+
+
+def _replay_bytes(tab, before, after, pops: int) -> float:
+    """What one replay pass must move.  Read: per slot the gain, split flag,
+    left child, avail flag and leaf index, and the counters (the window
+    widths are read only for a stall's batch extras, which the bound leaves
+    out).  Written: per pop the pop record (8) and the two children's leaf
+    indices (8), the avail flags whose value the pass changed, the counters
+    and the correction's members and valid mask."""
+    from lightgbm_tpu_torch.ops.replay import NUM_CTL
+
+    m = before[0].numel()
+    changed = int((before[0].cpu() != after[0].cpu()).sum())
+    kb = before[4].numel()
+    return m * (tab[0].element_size() + 1 + 8 + 1 + 4) + NUM_CTL * 4 \
+        + pops * (8 + 8) + changed + NUM_CTL * 4 + kb * (8 + 1)
+
+
+def _time_replay_pass(tab, fresh, kw, reps: int = 20,
+                      plain: bool = False) -> dict:
+    """One replay pass from the state ``fresh`` over the node table ``tab``
+    (CUDA tensors): the wrapper and the kernel alone (its C entry point
+    replayed), each launch on its own copy of the state, then the kernel
+    alone again on the states it left (``noop_kernel_ms`` where the pass
+    ended the replay), and the plain version on the card; the pops, the
+    flag and the bound."""
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.ops.replay import (CTL_FLAG, CTL_POPS,
+                                               replay_pass,
+                                               replay_pass_plain)
+
+    states = [[t.clone() for t in fresh] for _ in range(reps)]
+
+    def reset():
+        for st in states:
+            for a, b in zip(st, fresh):
+                a.copy_(b)
+
+    n0 = replay_pass.launches
+    replay_pass(*tab, *states[0], **kw)                 # build and warm
+    reset()
+    ms = _events_ms(lambda: [replay_pass(*tab, *st, **kw)
+                             for st in states]) / reps
+    pops = int(states[0][3][CTL_POPS]) - int(fresh[3][CTL_POPS])
+    flag = int(states[0][3][CTL_FLAG])
+    bound = _bound(_replay_bytes(tab, fresh, states[0], pops), 0)
+    reset()
+    with native.staging() as rec:
+        for st in states:
+            replay_pass(*tab, *st, **kw)
+    reset()
+    kernel_ms = _events_ms(lambda: [r() for r in rec]) / reps
+    again_ms = _events_ms(lambda: [r() for r in rec]) / reps
+    again_dev = _device_ms(lambda: [r() for r in rec], "replay_pass")
+    device_ms = _device_ms(lambda: (reset(), [r() for r in rec]),
+                           "replay_pass")
+    out = dict(ms=ms, kernel_ms=kernel_ms, device_ms=device_ms, pops=pops,
+               flag=flag, M=int(fresh[0].numel()), **bound)
+    if flag == 2:
+        out["noop_kernel_ms"] = again_ms
+        out["noop_device_ms"] = again_dev
+    if plain:
+        reset()
+        out["plain_ms"] = _events_ms(lambda: [replay_pass_plain(
+            *tab, *st, **kw) for st in states[:3]]) / 3
+    replay_pass.launches = n0
+    out["_rec"] = rec
+    out["_reset"] = (reset, states)
+    return out
+
+
+def _time_replay(shapes=None, reps: int = 20) -> dict:
     """One replay pass of the bench configuration (M = 1,145 node slots,
     254 splits, stall batch 4) over a forest grown past the budget, so the
     pass makes all 254 pops (the first pass of a tree makes most): the
     wrapper, the kernel alone (its C entry point replayed) and the plain
-    version on the card, each pass on its own fresh state; and the kernel
-    on a state whose replay has ended (the pass queued after the last,
-    which returns at once).  The bound: the node table read once (not
-    the window widths, which only a stall's batch extras read) and what
-    the pass writes."""
-    from lightgbm_tpu_torch import native
-    from lightgbm_tpu_torch.ops.replay import (CTL_FLAG, CTL_POPS,
-                                               FLAG_DONE, NUM_CTL,
-                                               replay_pass, replay_pass_plain)
+    version on the card, each pass on its own fresh state; the kernel on a
+    state whose replay has ended (the pass queued after the last, which
+    returns at once) and on one whose budget is spent (the fixed cost).
+    Then the main path's median and largest pass (wave_train's eager tree,
+    its recorded inputs) and a pass of 4,094 pops at num_leaves=4095's
+    sizing (M = 16,505).  The bound: the node table read once (not the
+    window widths, which only a stall's batch extras read) and what the
+    pass writes."""
+    from lightgbm_tpu_torch.ops.replay import CTL_POPS, FLAG_DONE
 
     dev = torch.device("cuda", 0)
     # a forest the replay needed no correction in: the final tables of a
@@ -3309,56 +3698,55 @@ def _time_replay(reps: int = 20) -> dict:
     replay_to_end(rng, tab, nn, replay_state(), REPLAY_KW,
                   vals=REPLAY_GAINS[2:])
     tab = [t.to(dev) for t in tab]
-    fresh = replay_state(dev)
-    states = [[t.clone() for t in fresh] for _ in range(reps)]
-
-    def reset():
-        for st in states:
-            for a, b in zip(st, fresh):
-                a.copy_(b)
-
-    n0 = replay_pass.launches
-    replay_pass(*tab, *states[0], **REPLAY_KW)           # build and warm
-    reset()
-    ms = _events_ms(lambda: [replay_pass(*tab, *st, **REPLAY_KW)
-                             for st in states]) / reps
-    pops = int(states[0][3][CTL_POPS])
-    check(pops == REPLAY_BUDGET and int(states[0][3][CTL_FLAG]) == FLAG_DONE,
-          f"the timed replay pass made {pops} pops")
-    reset()
-    with native.staging() as rec:
-        for st in states:
-            replay_pass(*tab, *st, **REPLAY_KW)
-    reset()
-    kernel_ms = _events_ms(lambda: [r() for r in rec]) / reps
-    noop_ms = _events_ms(lambda: [r() for r in rec]) / reps   # ended
+    res = _time_replay_pass(tab, replay_state(dev), REPLAY_KW, reps,
+                            plain=True)
+    rec, (reset, states) = res.pop("_rec"), res.pop("_reset")
+    check(res["pops"] == REPLAY_BUDGET and res["flag"] == FLAG_DONE,
+          f"the timed replay pass made {res['pops']} pops")
     # the fixed cost: the table's load and the list, no pop (the budget
     # already spent)
     reset()
     for st in states:
         st[3][CTL_POPS] = REPLAY_BUDGET
-    fixed_ms = _events_ms(lambda: [r() for r in rec]) / reps
-    reset()
-    plain_ms = _events_ms(lambda: [replay_pass_plain(*tab, *st, **REPLAY_KW)
-                                   for st in states[:3]]) / 3
-    replay_pass.launches = n0
-    m = REPLAY_M
-    # what the timed pass must move.  Read: per slot the gain, split flag,
-    # left child, avail flag and leaf index, and the counters (the window
-    # widths are read only for a stall's batch extras, and this pass has no
-    # stall).  Written: per pop the pop record (8) and the two children's
-    # leaf indices (8), the avail flags whose value the pass changed, the
-    # counters and the correction's members and valid mask
-    changed = int((states[0][0].cpu() != fresh[0].cpu()).sum())
-    nbytes = m * (tab[0].element_size() + 1 + 8 + 1 + 4) + NUM_CTL * 4 \
-        + pops * (8 + 8) + changed + NUM_CTL * 4 + REPLAY_KB * (8 + 1)
-    return dict(ms=ms, kernel_ms=kernel_ms, noop_kernel_ms=noop_ms,
-                fixed_kernel_ms=fixed_ms,
-                us_per_pop=(kernel_ms - fixed_ms) * 1e3 / pops,
-                avail_bytes_changed=changed,
-                plain_ms=plain_ms, library_ms=None,
-                library="no single PyTorch call computes this function",
-                pops=pops, M=m, **_bound(nbytes, 0))
+    res["fixed_kernel_ms"] = _events_ms(lambda: [r() for r in rec]) / reps
+
+    def spent():
+        reset()
+        for st in states:
+            st[3][CTL_POPS] = REPLAY_BUDGET
+        for r in rec:
+            r()
+
+    res["fixed_device_ms"] = _device_ms(spent, "replay_pass")
+    res["us_per_pop"] = (res["kernel_ms"] - res["fixed_kernel_ms"]) * 1e3 \
+        / res["pops"]
+    if res["device_ms"] is not None and res["fixed_device_ms"] is not None:
+        res["us_per_pop_device"] = (res["device_ms"]
+                                    - res["fixed_device_ms"]) * 1e3 \
+            / res["pops"]
+    res.update(library_ms=None,
+               library="no single PyTorch call computes this function")
+    if shapes:
+        res["shapes_wave_train"] = {}
+        for tag in ("median", "largest"):
+            (before, kw) = shapes[tag]["inputs"]
+            r = _time_replay_pass(before[:4], before[4:], kw, reps)
+            r.pop("_rec"), r.pop("_reset")
+            check(r["pops"] == shapes[tag]["pops"],
+                  f"the {tag} pass replayed {r['pops']} pops, not "
+                  f"{shapes[tag]['pops']}")
+            res["shapes_wave_train"][tag] = r
+    # num_leaves=4095: a forest grown in the replay's order, one pass of
+    # every pop
+    m, b = replay_dims(4095)
+    tab, _ = replay_ordered_forest(np.random.RandomState(5), m, b, 0.0)
+    kw = dict(REPLAY_KW, budget=b, pad_slot=m)
+    r = _time_replay_pass([t.to(dev) for t in tab],
+                          replay_state(dev, m=m, b=b), kw, reps)
+    r.pop("_rec"), r.pop("_reset")
+    check(r["pops"] == b, f"the M = {m} pass made {r['pops']} pops")
+    res["num_leaves_4095"] = r
+    return res
 
 
 def phase_timing(ctx) -> None:
@@ -3391,7 +3779,7 @@ def phase_timing(ctx) -> None:
               "fused_scan": _time_fused(flush, quant.get("fused_scan")),
               "hist_full": _time_hist_full(flush,
                                            ctx.get("shapes_masked_train")),
-              "replay": _time_replay(),
+              "replay": _time_replay(shapes.get("replay")),
               "split_cat": _time_split_cat(flush, ctx.get("shapes_cat"))}
     for fn, n in zip(wrappers, launches_before):
         fn.launches = n
@@ -3435,11 +3823,13 @@ def kernels_line(ctx) -> dict:
                      "|w|; dropped codes, 2,047 and 65,536 bins bitwise",
         "replay": "every pass's carried state, members and counters "
                   "bitwise equal to the plain version on the CPU over "
-                  "random forests with exact gain ties (M = 1,145)",
+                  "random forests with exact gain ties (M = 1,145 and "
+                  "16,505)",
         "split_cat": "every field and bitset bitwise equal to the plain "
-                     "version on the CPU (random float32 and dyadic, B = 256 "
-                     "and 1,023, seven regimes), to the plain version on "
-                     "the card on dyadic inputs; two launches bitwise"}
+                     "version on the CPU (random float32 and dyadic, B = "
+                     "256, 1,023 and 2,047, seven regimes), to the plain "
+                     "version on the card on dyadic inputs; two launches "
+                     "bitwise"}
     err = {"hist_packed": ctx.get("max_abs_err"),
            "hist_segments": ctx.get("err_segments"),
            "partition": ctx.get("err_partition"),
@@ -3486,8 +3876,11 @@ def kernels_line(ctx) -> dict:
                     "compare": compare[name]})
         if name == "replay":
             out[-1]["noop_kernel_ms"] = row["noop_kernel_ms"]
+            out[-1]["fixed_kernel_ms"] = row["fixed_kernel_ms"]
+            out[-1]["num_leaves_4095"] = row["num_leaves_4095"]
             out[-1]["ported_from"] = "an XLA while_loop, not a pallas_call"
         if name == "split_cat":
+            out[-1]["B2047"] = row["B2047"]
             out[-1]["ported_from"] = "an XLA lax.scan, not a pallas_call"
         for key in ("shapes_wave_train", "shapes_masked_train",
                     "shapes_train", "shapes_quant_train",

@@ -27,334 +27,547 @@
 // real ones.  A pass that finds the flag at 2 (done) returns at once, so a
 // pass queued behind the last one is a device no-op.
 //
-// Design.  The node table (M = 1 + 2 * (grow budget + correction reserve)
-// slots: 1,145 at 255 leaves) is read once into shared memory by the whole
-// block: an order-preserving 64-bit key per slot (the bits of the positive
-// gain as a double, 0 for a gain that is not positive or NaN), the left
-// child and the split flag.  Warp 0 then compacts the available slots into
-// a list of at most budget + 1 entries (ballots, so the list order is fixed)
-// and runs the pops.  Entry p belongs to lane p % 32, which keeps the best
-// of its entries by (key desc, leaf index asc); a pop is three warp
-// reductions (__reduce_max_sync: the key's high word, its low word, the
-// least leaf index), the popped entry becomes its left child and a new
-// entry its right child, and only the popped entry's lane rescans (the new
-// entry's lane compares one entry).  An entry carries its slot's left
-// child and split flag, so a pop reads two shared words after the
-// reductions.  A pop writes nothing to device memory: the pass keeps its
-// pops in shared memory and the warp writes the pop records, the
-// children's leaf indices and the available flags after the last.  The pass is
-// bitwise equal to ops/replay.py:replay_pass_plain: it compares and copies,
-// it computes nothing.
+// Design.  One block of 512 threads pops whole runs at a time, as the JAX
+// package's batched simulation does (learner_wave.py:1599-1617).  The
+// block first copies the node table into a compact form (an
+// order-preserving 64-bit key per slot: the positive gain's bits as a
+// double, 0 for a gain that is not positive or NaN; the left child; the
+// split flag) and lists the available slots of positive key (each warp's
+// ballot places its entries) in replay order: key desc, leaf index asc,
+// slot asc (a strict order: available slots have distinct leaf indices):
+// up to 512 entries by each one's rank (a thread each, four loads in
+// flight), more by a bitonic sort.  A step then pops the longest prefix
+// of the list in which every entry is split and comes before every child
+// the entries ahead of it reveal (their leaf indices are known: the
+// parent's on the left, pops + position + 1 on the right), capped by the
+// budget and by a window of 32 entries.  Such a prefix is exactly what
+// sequential pops would take, ties included, so no exact tie needs the JAX
+// package's single-pop fallback.
+// Warp 0 evaluates the window, a lane per entry: its better child, a warp
+// scan (shuffles) of the best child revealed ahead of it, and one ballot
+// for the prefix; its lanes write the pops' records, children's leaf
+// indices and avail flags straight to device memory and rank the
+// positive-key children among themselves.  After one barrier the whole
+// block merges the list's rest with the children into the other list
+// buffer (the thread at position i places its entry after the children
+// that come before it, and every child that falls between its entry and
+// the one ahead), then a second barrier ends the step.  A step whose
+// prefix is empty has an unsplit head: the stall, and the head is its
+// top.  The members are then the first stall_batch unsplit entries of the
+// list.
+//
+// Memory.  The table (13 bytes a slot) and the two list buffers (16 bytes
+// an entry, the next power of two above budget + 1 each) live in shared
+// memory where they fit (ops/replay.py:replay_plan places them: at 255
+// leaves both, 23 KB, beside 2 KB of the step's children); what does not
+// fit lives in a global scratch buffer the wrapper allocates (a kernel
+// instantiation per placement), so every M the learner sizes runs (M =
+// 16,505 at 4,095 leaves keeps its table in device memory, which the L2
+// holds).
 //
 // Bound.  The function must read the node table once (gain, split flag,
 // left child, available flag and leaf index: 18 bytes per slot with float32
 // gains, 21 KB at M = 1,145; a window width only for a stall's batch
 // extras) and write per pop its record and the two children's leaf indices
 // (16 bytes), plus the available flags that change: under 10 ns of
-// device-memory time.
-// What bounds it is latency: up to `budget` dependent pops, each three
-// warp reductions, a few shared-memory reads and one lane's rescan of at
-// most ceil((budget + 1) / 32) entries.
+// device-memory time.  What bounds it is latency: the table's load, the
+// sort, and per step warp 0's chain (three shared-memory loads, five
+// shuffle rounds, the children's ranks) and two block barriers; real trees
+// pop in a few runs per pass.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kMaxBatch = 64;
+constexpr int kWindow = 32;  // entries a step evaluates: one warp
+constexpr int kLoad = 4;     // slots a thread loads at once
 constexpr unsigned kFull = 0xFFFFFFFFu;
 // ctl layout, as ops/replay.py
 constexpr int kPops = 0, kExtras = 1, kFlag = 2, kPasses = 3,
               kStallEvents = 4, kStallSplits = 5, kError = 6;
 constexpr int kStall = 1, kDone = 2;
-constexpr unsigned kEmpty = 0xFFFFFFFFu;
 
 typedef unsigned long long u64;
 
-// (key desc, rp asc), the key as its high and low words, rp = leaf index
-// << 16 | list position: the leaf index decides (it is unique among the
-// available slots), the position never
-__device__ __forceinline__ bool better(unsigned ha, unsigned la, unsigned ra,
-                                       unsigned hb, unsigned lb,
-                                       unsigned rb) {
-  return ha > hb || (ha == hb && (la > lb || (la == lb && ra < rb)));
+// A list entry: an available slot (or a revealed child) of positive key.
+struct __align__(16) Ent {
+  u64 key;  // the positive gain's bits as a double
+  int ref;  // leaf index
+  int slot;
+};
+
+// Replay order: key desc, leaf index asc, slot asc.  The sentinel (key 0)
+// comes after every entry of positive key.
+__device__ __forceinline__ bool before(const Ent& a, const Ent& b) {
+  return a.key > b.key ||
+         (a.key == b.key && (a.ref < b.ref || (a.ref == b.ref &&
+                                               a.slot < b.slot)));
 }
 
-// The warp's best (key, rp) in every lane: three single-instruction
-// reductions (the key's high word, its low word among the lanes that hold
-// the high one, the least rp among the lanes that hold the key)
-__device__ __forceinline__ void warp_best(unsigned& h, unsigned& l,
-                                          unsigned& rp) {
-  const unsigned mh = __reduce_max_sync(kFull, h);
-  const unsigned ml = __reduce_max_sync(kFull, h == mh ? l : 0u);
-  const unsigned mr = __reduce_max_sync(kFull,
-                                        h == mh && l == ml ? ~rp : 0u);
-  h = mh;
-  l = ml;
-  rp = ~mr;
+// An entry through one 16-byte access (a warp's accesses to consecutive
+// entries then take no bank conflict; 64-bit halves would)
+__device__ __forceinline__ Ent load_ent(const Ent* p) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  Ent e;
+  e.key = ((u64)v.y << 32) | v.x;
+  e.ref = (int)v.z;
+  e.slot = (int)v.w;
+  return e;
+}
+
+__device__ __forceinline__ void store_ent(Ent* p, const Ent& e) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(
+      (unsigned)e.key, (unsigned)(e.key >> 32), (unsigned)e.ref,
+      (unsigned)e.slot);
+}
+
+// before(a, b) as 0 or 1, without branches (a rank loop's body)
+__device__ __forceinline__ int ahead_of(const Ent& a, const Ent& b) {
+  const int eq_ref = a.ref == b.ref;
+  return (a.key > b.key) |
+         ((a.key == b.key) & ((a.ref < b.ref) | (eq_ref & (a.slot < b.slot))));
+}
+
+__device__ __forceinline__ Ent sentinel() {
+  Ent e;
+  e.key = 0ull;
+  e.ref = INT_MAX;
+  e.slot = INT_MAX;
+  return e;
 }
 
 __device__ __forceinline__ u64 gain_key(const void* gain, long long stride,
                                         int f64, int i) {
-  const double g = f64 ? static_cast<const double*>(gain)[i * stride]
-                       : (double)static_cast<const float*>(gain)[i * stride];
+  const double g =
+      f64 ? __ldg(static_cast<const double*>(gain) + i * stride)
+          : (double)__ldg(static_cast<const float*>(gain) + i * stride);
   return g > 0.0 ? (u64)__double_as_longlong(g) : 0ull;
 }
 
-__global__ void __launch_bounds__(kThreads)
-replay_pass(const void* __restrict__ gain, long long gstride, int gain_f64,
-            const uint8_t* __restrict__ split,
-            const int64_t* __restrict__ child0,
-            const int64_t* __restrict__ width, long long wstride, int M,
-            uint8_t* __restrict__ avail, int32_t* __restrict__ refidx,
-            int32_t* __restrict__ poprec, int32_t* __restrict__ ctl,
-            int64_t* __restrict__ members, uint8_t* __restrict__ mvalid,
-            int budget, int kb, int extras_cap, long long vec_cap,
-            long long pad_slot, int cap) {
-  if (ctl[kFlag] == kDone) return;  // uniform: a pass behind the last one
-  // per slot: key, left child, leaf index, split and avail flags; per list
-  // entry: key words, rp, slot, the slot's left child and split flag; per
-  // pop of this pass: slot, leaf index, left child
-  extern __shared__ __align__(16) unsigned char smem[];
-  u64* skey = reinterpret_cast<u64*>(smem);                       // M
-  int32_t* schild = reinterpret_cast<int32_t*>(skey + M);          // M
-  int32_t* sref = schild + M;                                      // M
-  unsigned* lhi = reinterpret_cast<unsigned*>(sref + M);           // cap
-  unsigned* llo = lhi + cap;                                       // cap
-  unsigned* lrp = llo + cap;                                       // cap
-  int32_t* lslot = reinterpret_cast<int32_t*>(lrp + cap);          // cap
-  int32_t* lchild = lslot + cap;                                   // cap
-  int32_t* spop = lchild + cap;                                    // 3 cap
-  uint8_t* ssplit = reinterpret_cast<uint8_t*>(spop + 3 * cap);    // M
-  uint8_t* savail = ssplit + M;                                    // M
-  uint8_t* lsplit = savail + M;                                    // cap
-
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    skey[i] = gain_key(gain, gstride, gain_f64, i);
-    schild[i] = (int32_t)child0[i];
-    sref[i] = refidx[i];
-    ssplit[i] = split[i];
-    savail[i] = avail[i];
-  }
-  __syncthreads();
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  const unsigned lt_mask = (1u << lane) - 1u;
-
-  auto put = [&](int p, int s, int ref) {   // list entry p := slot s
-    const u64 k = skey[s];
-    lhi[p] = (unsigned)(k >> 32);
-    llo[p] = (unsigned)k;
-    lrp[p] = ((unsigned)ref << 16) | (unsigned)p;
-    lslot[p] = s;
-    lchild[p] = schild[s];
-    lsplit[p] = ssplit[s];
-  };
-
-  // ---- the available slots, compacted in slot order
-  int n = 0;
-  for (int base = 0; base < M; base += 32) {
-    const int i = base + lane;
-    const bool a = i < M && savail[i] != 0;
-    const unsigned ball = __ballot_sync(kFull, a);
-    const int p = n + __popc(ball & lt_mask);
-    if (a && p < cap) put(p, i, sref[i]);
-    n += __popc(ball);
-  }
-  int err = n > cap;
-  if (err) n = cap;
-  __syncwarp();
-
-  const int pops0 = ctl[kPops];
-  int pops = pops0;
-  int extras = ctl[kExtras];
-  // this lane's best entry (entries lane, lane + 32, ...)
-  unsigned mh = 0u, ml = 0u, mrp = kEmpty;
-  auto consider = [&](int p) {
-    const unsigned h = lhi[p], l = llo[p], r = lrp[p];
-    if (better(h, l, r, mh, ml, mrp)) {
-      mh = h;
-      ml = l;
-      mrp = r;
-    }
-  };
-  auto rescan = [&]() {      // four entries' loads in flight at a time
-    mh = 0u;
-    ml = 0u;
-    mrp = kEmpty;
-    int p = lane;
-    for (; p + 96 < n; p += 128) {
-      unsigned h[4], l[4], r[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        h[u] = lhi[p + 32 * u];
-        l[u] = llo[p + 32 * u];
-        r[u] = lrp[p + 32 * u];
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (better(h[u], l[u], r[u], mh, ml, mrp)) {
-          mh = h[u];
-          ml = l[u];
-          mrp = r[u];
+// Block-wide bitonic sort of x[0, P) into replay order, P a power of two
+__device__ void bitonic_sort(Ent* x, int P) {
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = threadIdx.x; t < (P >> 1); t += blockDim.x) {
+        const int i = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
+        const int j = i + stride;
+        const bool asc = (i & size) == 0;
+        const Ent u = load_ent(x + i), v = load_ent(x + j);
+        if (before(v, u) == asc) {
+          store_ent(x + i, v);
+          store_ent(x + j, u);
         }
       }
+      __syncthreads();
     }
-    for (; p < n; p += 32) consider(p);
-  };
-  rescan();
+  }
+}
 
-  int flag = kDone, top = -1;
-  while (!err && pops < budget) {
-    unsigned bh = mh, bl = ml, brp = mrp;
-    warp_best(bh, bl, brp);
-    if ((bh | bl) == 0u) break;  // no positive gain left
-    const int pos = (int)(brp & 0xFFFFu);
-    const int ref = (int)(brp >> 16);
-    const int s = lslot[pos];
-    const int c0 = lchild[pos];
-    if (!lsplit[pos]) {      // the growth never split it: stall
-      flag = kStall;
-      top = s;
-      break;
+struct Args {
+  const void* gain;
+  long long gstride;
+  int gain_f64;
+  const uint8_t* split;
+  const int64_t* child0;
+  const int64_t* width;
+  long long wstride;
+  int M;
+  uint8_t* avail;
+  int32_t* refidx;
+  int32_t* poprec;
+  int32_t* ctl;
+  int64_t* members;
+  uint8_t* mvalid;
+  int budget, kb, extras_cap;
+  long long vec_cap, pad_slot;
+  // the plan (ops/replay.py:replay_plan): list capacity (a power of two
+  // >= budget + 1), where the lists and the table live, and the global
+  // scratch for what is not in shared memory
+  int cap;
+  unsigned char* scratch;
+};
+
+// kListShared / kTabShared: the list buffers / the table in shared memory
+// (else in the global scratch buffer); one instantiation per placement, so
+// the compiler knows each pointer's memory space.
+template <bool kListShared, bool kTabShared>
+__global__ void __launch_bounds__(kThreads) replay_pass(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_n, s_k, s_m, s_top;
+  __shared__ int s_cand[kMaxBatch];
+  __shared__ u64 ckey[2 * kWindow];  // the step's children: keys (0 for
+  __shared__ int cref[2 * kWindow];  // none) and leaf indices
+  __shared__ Ent csrt[2 * kWindow];  // ... of positive key, in replay order
+  const int tid = threadIdx.x, T = blockDim.x, M = a.M;
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned lt_mask = (1u << lane) - 1u;
+
+  const size_t list_bytes = 2 * (size_t)a.cap * sizeof(Ent);
+  Ent* la = reinterpret_cast<Ent*>(kListShared ? smem : a.scratch);
+  Ent* lb = la + a.cap;
+  unsigned char* tp = kTabShared
+                          ? smem + (kListShared ? list_bytes : 0)
+                          : a.scratch + (kListShared ? 0 : list_bytes);
+  u64* tkey = reinterpret_cast<u64*>(tp);
+  int32_t* tchild = reinterpret_cast<int32_t*>(tkey + M);
+  uint8_t* tsplit = reinterpret_cast<uint8_t*>(tchild + M);
+
+  // ---- the compact table and the unsorted list of available slots (a
+  // warp's ballot places its entries; the inputs are read before the pass
+  // writes avail or refidx)
+  if (tid == 0) s_n = 0;
+  __syncthreads();
+  // the flag's load in flight with the table's first loads: a pass behind
+  // the last one returns before it writes anything
+  const int flag0 = a.ctl[kFlag];
+  for (int base = 0; base < M; base += kLoad * T) {
+    // every load of kLoad slots a thread in flight at once
+    u64 key[kLoad];
+    int ch[kLoad], ref[kLoad];
+    uint8_t spl[kLoad], av[kLoad];
+#pragma unroll
+    for (int u = 0; u < kLoad; ++u) {
+      const int i = base + u * T + tid;
+      key[u] = 0ull;
+      av[u] = 0;
+      if (i < M) {
+        key[u] = gain_key(a.gain, a.gstride, a.gain_f64, i);
+        ch[u] = (int)__ldg(a.child0 + i);
+        spl[u] = __ldg(a.split + i);
+        av[u] = __ldg(a.avail + i);
+        ref[u] = __ldg(a.refidx + i);
+      }
     }
-    if (n >= cap) {          // an inconsistent carried state
-      err = 1;
-      break;
+    if (flag0 == kDone) return;  // uniform
+#pragma unroll
+    for (int u = 0; u < kLoad; ++u) {
+      const int i = base + u * T + tid;
+      if (i < M) {
+        tkey[i] = key[u];
+        tchild[i] = ch[u];
+        tsplit[i] = spl[u];
+      }
+      const bool take = i < M && av[u] != 0 && key[u] != 0ull;
+      const unsigned bal = __ballot_sync(kFull, take);
+      int wbase = 0;
+      if (lane == 0 && bal != 0u) wbase = atomicAdd(&s_n, __popc(bal));
+      wbase = __shfl_sync(kFull, wbase, 0);
+      const int pos = wbase + __popc(bal & lt_mask);
+      if (take && pos < a.cap) {
+        Ent e;
+        e.key = key[u];
+        e.ref = ref[u];
+        e.slot = i;
+        store_ent(la + pos, e);
+      }
     }
-    if (lane == 0) {         // written to device memory after the pops
-      spop[3 * (pops - pops0)] = s;
-      spop[3 * (pops - pops0) + 1] = ref;
-      spop[3 * (pops - pops0) + 2] = c0;
+  }
+  __syncthreads();
+  int n = s_n;
+  bool err = n > a.cap;  // an inconsistent carried state
+  if (err) n = 0;
+  Ent* L = la;
+  Ent* Lo = lb;
+  if (n <= T) {
+    // a thread per entry: its rank is the entries that come before it
+    if (tid < n) {
+      const Ent e = load_ent(la + tid);
+      // four loads in flight, four counts
+      int r0 = 0, r1 = 0, r2 = 0, r3 = 0, y = 0;
+      for (; y + 4 <= n; y += 4) {
+        const Ent a0 = load_ent(la + y), a1 = load_ent(la + y + 1);
+        const Ent a2 = load_ent(la + y + 2), a3 = load_ent(la + y + 3);
+        r0 += ahead_of(a0, e);
+        r1 += ahead_of(a1, e);
+        r2 += ahead_of(a2, e);
+        r3 += ahead_of(a3, e);
+      }
+      for (; y < n; ++y) r0 += ahead_of(load_ent(la + y), e);
+      store_ent(lb + r0 + r1 + r2 + r3, e);
     }
-    // the popped entry becomes its left child (same leaf index), a new
-    // entry its right child (leaf index pops + 1)
-    const int fresh = n;
-    if (lane == (pos & 31)) put(pos, c0, ref);
-    if (lane == (fresh & 31)) put(fresh, c0 + 1, pops + 1);
-    ++n;
-    ++pops;
-    if (lane == (pos & 31)) {
-      rescan();
-    } else if (lane == (fresh & 31)) {
-      consider(fresh);
-    }
-    __syncwarp();
+    __syncthreads();
+    L = lb;
+    Lo = la;
+  } else {
+    int P = 1;
+    while (P < n) P <<= 1;
+    for (int i = n + tid; i < P; i += T) store_ent(la + i, sentinel());
+    __syncthreads();
+    bitonic_sort(la, P);
   }
 
-  // ---- the correction's members
+  // ---- steps: pop the longest prefix that sequential pops would take.
+  // Within a step every leaf index is distinct (the list's, a popped
+  // entry's left child that takes over its index, the right children's
+  // new ones), so (key desc, leaf index asc) orders everything a step
+  // compares; the values stay in registers as scalars.
+  int pops = a.ctl[kPops];
+  int flag = kDone, top = -1;
+  while (!err && pops < a.budget && n > 0) {
+    if (warp == 0) {
+      // lane j evaluates entry j of the window: its better child, the
+      // best child revealed by the entries ahead of it (a warp scan), and
+      // whether it pops
+      const int lim = min(min(n, a.budget - pops), kWindow);
+      u64 ek = 0ull, k0 = 0ull, k1 = 0ull;
+      int er = INT_MAX, es = 0, c0 = 0;
+      bool split = false;
+      if (lane < lim) {
+        const Ent e = load_ent(L + lane);
+        ek = e.key;
+        er = e.ref;
+        es = e.slot;
+        split = tsplit[es] != 0;
+        if (split) {
+          c0 = tchild[es];
+          k0 = tkey[c0];
+          k1 = tkey[c0 + 1];
+        }
+      }
+      // the better child: the right one only on a larger key (the left
+      // keeps the parent's index, smaller than any new one)
+      const int r1 = pops + lane + 1;
+      u64 bk = k1 > k0 ? k1 : k0;
+      int br = k1 > k0 ? r1 : er;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const u64 ok = __shfl_up_sync(kFull, bk, d);
+        const int orf = __shfl_up_sync(kFull, br, d);
+        if (lane >= d && (ok > bk || (ok == bk && orf < br))) {
+          bk = ok;
+          br = orf;
+        }
+      }
+      u64 ak = __shfl_up_sync(kFull, bk, 1);
+      int ar = __shfl_up_sync(kFull, br, 1);
+      if (lane == 0) {
+        ak = 0ull;
+        ar = INT_MAX;
+      }
+      const bool pop = lane < lim && split && (ek > ak ||
+                                                (ek == ak && er < ar));
+      const unsigned okb = __ballot_sync(kFull, pop);
+      int k = okb == kFull ? 32 : __ffs(~okb) - 1;
+      if (k > 0 && n + k > a.cap) k = -1;  // inconsistent carried state
+      if (lane < k) {
+        const int pj = pops + lane;
+        a.poprec[2 * pj] = es;
+        a.poprec[2 * pj + 1] = er;
+        a.refidx[c0] = er;
+        a.refidx[c0 + 1] = r1;
+        a.avail[es] = 0;
+        a.avail[c0] = 1;
+        a.avail[c0 + 1] = 1;
+      }
+      // the children of positive key, ranked among themselves: lane j's
+      // are children 2j and 2j + 1
+      const bool p0 = lane < k && k0 != 0ull, p1 = lane < k && k1 != 0ull;
+      ckey[2 * lane] = p0 ? k0 : 0ull;
+      ckey[2 * lane + 1] = p1 ? k1 : 0ull;
+      cref[2 * lane] = er;
+      cref[2 * lane + 1] = r1;
+      __syncwarp();
+      int q0 = 0, q1 = 0;
+      for (int y = 0; y < 2 * k; ++y) {
+        const u64 yk = ckey[y];
+        const int yr = cref[y];
+        q0 += yk > k0 || (yk == k0 && yr < er) ? 1 : 0;
+        q1 += yk > k1 || (yk == k1 && yr < r1) ? 1 : 0;
+      }
+      if (p0) {
+        Ent c;
+        c.key = k0;
+        c.ref = er;
+        c.slot = c0;
+        store_ent(csrt + q0, c);
+      }
+      if (p1) {
+        Ent c;
+        c.key = k1;
+        c.ref = r1;
+        c.slot = c0 + 1;
+        store_ent(csrt + q1, c);
+      }
+      const int m = __popc(__ballot_sync(kFull, p0)) +
+                    __popc(__ballot_sync(kFull, p1));
+      if (lane == 0) {
+        s_k = k;
+        s_m = m;
+        s_top = es;
+      }
+    }
+    __syncthreads();
+    const int k = s_k, m = s_m;
+    if (k <= 0) {
+      if (k == 0) {  // the head is unsplit: stall
+        flag = kStall;
+        top = s_top;
+      } else {
+        err = true;
+      }
+      break;
+    }
+    // merge the list's rest and the children into the other buffer: the
+    // thread at position i places L[i] after the children before it, and
+    // each child that falls between L[i - 1] and L[i]
+    for (int i = k + tid; i <= n; i += T) {
+      const bool has = i < n;
+      u64 vk = 0ull, pk = ~0ull;
+      int vr = INT_MAX, pr = -1;
+      Ent v;
+      if (has) {
+        v = load_ent(L + i);
+        vk = v.key;
+        vr = v.ref;
+      }
+      if (i > k) {
+        const Ent pv = load_ent(L + i - 1);
+        pk = pv.key;
+        pr = pv.ref;
+      }
+      int cnt = 0;
+      for (int r = 0; r < m; ++r) {
+        const Ent c = load_ent(csrt + r);
+        // c ahead of L[i] (always past the end), behind L[i - 1]
+        const bool ahead = !has || c.key > vk || (c.key == vk && c.ref < vr);
+        const bool behind = pk > c.key || (pk == c.key && pr < c.ref);
+        if (ahead && behind) store_ent(Lo + r + i - k, c);
+        cnt += ahead ? 1 : 0;
+      }
+      if (has) store_ent(Lo + i - k + cnt, v);
+    }
+    __syncthreads();
+    Ent* t = L;
+    L = Lo;
+    Lo = t;
+    n += m - k;
+    pops += k;
+  }
+
+  // ---- the correction's members, then the counters (warp 0)
+  if (tid >= 32) return;
+  int extras = a.ctl[kExtras];
   int nm = 0;
   if (flag == kStall) {
-    if (kb == 1) {
+    if (a.kb == 1) {
       if (lane == 0) {
-        members[0] = top;
-        mvalid[0] = 1;
+        a.members[0] = top;
+        a.mvalid[0] = 1;
       }
       nm = 1;
     } else {
-      // the j-th candidate is the best unsplit positive-gain entry strictly
-      // after the (j-1)-th in the pop order
-      unsigned ph = ~0u, pl = ~0u, prp = 0u;
-      for (int j = 0; j < kb; ++j) {
-        unsigned ch = 0u, cl = 0u, crp = kEmpty;
-        for (int p = lane; p < n; p += 32) {
-          const unsigned h = lhi[p], l = llo[p], r = lrp[p];
-          if ((h | l) == 0u || lsplit[p]) continue;
-          if (better(ph, pl, prp, h, l, r) && better(h, l, r, ch, cl, crp)) {
-            ch = h;
-            cl = l;
-            crp = r;
-          }
+      // the first kb unsplit entries of the list, in replay order (the
+      // head, the stalled top, first)
+      int found = 0;
+      for (int base = 0; base < n && found < a.kb; base += 32) {
+        const int i = base + lane;
+        const int slot = i < n ? load_ent(L + i).slot : 0;
+        const bool u = i < n && tsplit[slot] == 0;
+        const unsigned bal = __ballot_sync(kFull, u);
+        const int r = found + __popc(bal & lt_mask);
+        if (u && r < a.kb) s_cand[r] = slot;
+        found += __popc(bal);
+      }
+      found = min(found, a.kb);
+      __syncwarp();
+      for (int base = 0; base < found; base += 32) {
+        const int j = base + lane;
+        int s = 0;
+        bool take = false;
+        if (j < found) {
+          s = s_cand[j];
+          take = j == 0 ||
+                 (extras + j - 1 < a.extras_cap &&
+                  a.width[(long long)s * a.wstride] <= a.vec_cap);
         }
-        warp_best(ch, cl, crp);
-        if ((ch | cl) == 0u) break;  // fewer candidates than the batch
-        ph = ch;
-        pl = cl;
-        prp = crp;
-        const int s = lslot[crp & 0xFFFFu];
-        const bool take = j == 0 || (extras + j - 1 < extras_cap &&
-                                     width[(long long)s * wstride] <= vec_cap);
+        const unsigned bal = __ballot_sync(kFull, take);
         if (take) {
-          if (lane == 0) {
-            members[nm] = s;
-            mvalid[nm] = 1;
-          }
-          ++nm;
+          const int o = nm + __popc(bal & lt_mask);
+          a.members[o] = s;
+          a.mvalid[o] = 1;
         }
+        nm += __popc(bal);
       }
       extras += nm - 1;
     }
   }
-  // ---- this pass's pops to device memory: the pop records, the
-  // children's leaf indices, the popped slots out of avail and the final
-  // list into it (disjoint slots: a popped slot is never in the list)
-  __syncwarp();
-  for (int i = lane; i < pops - pops0; i += 32) {
-    const int s = spop[3 * i], ref = spop[3 * i + 1], c0 = spop[3 * i + 2];
-    poprec[2 * (pops0 + i)] = s;
-    poprec[2 * (pops0 + i) + 1] = ref;
-    refidx[c0] = ref;
-    refidx[c0 + 1] = pops0 + i + 1;
-    avail[s] = 0;
+  for (int j = nm + lane; j < a.kb; j += 32) {
+    a.members[j] = a.pad_slot;
+    a.mvalid[j] = 0;
   }
-  for (int p = lane; p < n; p += 32) avail[lslot[p]] = 1;
   if (lane == 0) {
-    for (int j = nm; j < kb; ++j) {
-      members[j] = pad_slot;
-      mvalid[j] = 0;
-    }
-    ctl[kPops] = pops;
-    ctl[kExtras] = extras;
-    ctl[kFlag] = err ? kDone : flag;
-    ctl[kPasses] += 1;
-    ctl[kStallEvents] += flag == kStall;
-    ctl[kStallSplits] += nm;
-    ctl[kError] |= err;
+    a.ctl[kPops] = pops;
+    a.ctl[kExtras] = extras;
+    a.ctl[kFlag] = err ? kDone : flag;
+    a.ctl[kPasses] += 1;
+    a.ctl[kStallEvents] += flag == kStall;
+    a.ctl[kStallSplits] += nm;
+    a.ctl[kError] |= err ? 1 : 0;
   }
-}
-
-// Shared memory the kernel takes for M slots and a list of cap entries
-// (ops/replay.py:replay_smem_bytes).
-long long replay_smem(int M, int cap) {
-  return (long long)M * (8 + 4 + 4 + 1 + 1) + (long long)cap * (8 * 4 + 1);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch one pass on `stream` (one block).  gain is float32 (gain_f64 = 0)
-// or float64 with element stride gstride; width is int64 with element
-// stride wstride.  Returns cudaGetLastError() after the launch.
+// Launch one pass on `stream` (one block of 512 threads).  gain is float32
+// (gain_f64 = 0) or float64 with element stride gstride; width is int64
+// with element stride wstride.  cap, list_smem, tab_smem, smem and the
+// scratch buffer are ops/replay.py:replay_plan's.  Returns
+// cudaGetLastError() after the launch.
 int lgbt_replay(const void* gain, long long gstride, int gain_f64,
                 const void* split, const void* child0, const void* width,
                 long long wstride, int M, void* avail, void* refidx,
                 void* poprec, void* ctl, void* members, void* mvalid,
                 int budget, int kb, int extras_cap, long long vec_cap,
-                long long pad_slot, int cap, void* stream) {
-  const long long smem = replay_smem(M, cap);
-  // the dynamic shared-memory limit, raised per device to the largest
-  // size asked so far
-  static long long raised[64] = {0};
+                long long pad_slot, int cap, int list_smem, int tab_smem,
+                long long smem, void* scratch, void* stream) {
+  if (kb < 1 || kb > kMaxBatch || cap < 1) return (int)cudaErrorInvalidValue;
+  void (*const kernels[4])(Args) = {
+      replay_pass<false, false>, replay_pass<false, true>,
+      replay_pass<true, false>, replay_pass<true, true>};
+  const int variant = (list_smem ? 2 : 0) + (tab_smem ? 1 : 0);
+  // the dynamic shared-memory limit, raised per device and variant to the
+  // largest size asked so far
+  static long long raised[64][4] = {{0}};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024 && dev < 64 && smem > raised[dev]) {
-    err = cudaFuncSetAttribute(replay_pass,
+  if (smem > 48 * 1024 && dev < 64 && smem > raised[dev][variant]) {
+    err = cudaFuncSetAttribute(kernels[variant],
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    raised[dev] = smem;
+    raised[dev][variant] = smem;
   }
-  replay_pass<<<1, kThreads, (size_t)smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      gain, gstride, gain_f64, static_cast<const uint8_t*>(split),
-      static_cast<const int64_t*>(child0),
-      static_cast<const int64_t*>(width), wstride, M,
-      static_cast<uint8_t*>(avail), static_cast<int32_t*>(refidx),
-      static_cast<int32_t*>(poprec), static_cast<int32_t*>(ctl),
-      static_cast<int64_t*>(members), static_cast<uint8_t*>(mvalid), budget,
-      kb, extras_cap, vec_cap, pad_slot, cap);
+  Args a;
+  a.gain = gain;
+  a.gstride = gstride;
+  a.gain_f64 = gain_f64;
+  a.split = static_cast<const uint8_t*>(split);
+  a.child0 = static_cast<const int64_t*>(child0);
+  a.width = static_cast<const int64_t*>(width);
+  a.wstride = wstride;
+  a.M = M;
+  a.avail = static_cast<uint8_t*>(avail);
+  a.refidx = static_cast<int32_t*>(refidx);
+  a.poprec = static_cast<int32_t*>(poprec);
+  a.ctl = static_cast<int32_t*>(ctl);
+  a.members = static_cast<int64_t*>(members);
+  a.mvalid = static_cast<uint8_t*>(mvalid);
+  a.budget = budget;
+  a.kb = kb;
+  a.extras_cap = extras_cap;
+  a.vec_cap = vec_cap;
+  a.pad_slot = pad_slot;
+  a.cap = cap;
+  a.scratch = static_cast<unsigned char*>(scratch);
+  kernels[variant]<<<1, kThreads, (size_t)smem,
+                     static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

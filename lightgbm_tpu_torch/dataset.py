@@ -16,8 +16,10 @@ Query groups (``group=``, per-query sizes) are stored as boundaries, as in
 the JAX package.  Categorical features (``categorical_feature``: a list of
 indices or names, ``"0,2"`` or ``"name:c1,c2"``) get the count-sorted
 categorical bin mapper and stay out of EFB bundles.  Text files, binary
-caches, streaming loads and pandas ``category`` columns are not ported in
-this slice; they raise ``NotImplementedError``.
+caches, streaming loads and training on pandas ``category`` columns are not
+ported in this slice; they raise ``NotImplementedError``.  ``recode_pandas``
+codes a predict-time DataFrame's ``category`` columns through a model's
+stored category lists, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -91,6 +93,26 @@ class Metadata:
             self.init_score = None
             return
         self.init_score = np.asarray(init_score, dtype=np.float64).reshape(-1)
+
+
+def recode_pandas(df, cat_cols, stored) -> np.ndarray:
+    """DataFrame -> float64 matrix with the ``category`` columns
+    ``cat_cols`` coded through the ``stored`` category lists, paired by
+    position; a value outside its stored list becomes NaN (JAX
+    ``dataset.py:recode_pandas``)."""
+    cols = []
+    ci = 0
+    for j in range(df.shape[1]):
+        s = df.iloc[:, j]
+        if j in cat_cols:
+            s = s.cat.set_categories(stored[ci])
+            ci += 1
+            codes = s.cat.codes.to_numpy().astype(np.float64)
+            codes[codes < 0] = np.nan
+            cols.append(codes)
+        else:
+            cols.append(np.asarray(s, dtype=np.float64))
+    return np.column_stack(cols)
 
 
 class Dataset:

@@ -18,7 +18,7 @@ import numpy as np
 from . import callback as callback_mod
 from .boosting.gbdt import GBDT
 from .config import Config, check_supported, resolve_device
-from .dataset import Dataset
+from .dataset import Dataset, recode_pandas
 from .metrics import create_metric
 from .objectives import create_objective
 
@@ -124,11 +124,32 @@ class Booster:
         """Raw scores, probabilities or leaf indices.  Large batches (rows x
         trees >= 200,000) and ``pred_early_stop`` traverse every tree on the
         booster's device (``predictor.DevicePredictor``), smaller ones walk
-        the host trees, as ``GBDT.predict_raw`` routes."""
-        if hasattr(data, "values") and not isinstance(data, np.ndarray):
+        the host trees, as ``GBDT.predict_raw`` routes.  A DataFrame's
+        ``category`` columns are coded through the model's stored category
+        lists."""
+        if hasattr(data, "dtypes") and hasattr(data, "columns") \
+                and not isinstance(data, np.ndarray):
+            data = self._predict_data_from_pandas(data)
+        elif hasattr(data, "values") and not isinstance(data, np.ndarray):
             data = data.values
         data = np.asarray(data, dtype=np.float64)
         return self.gbdt.predict(data, num_iteration, raw_score, pred_leaf)
+
+    def _predict_data_from_pandas(self, df) -> np.ndarray:
+        """Predict-time DataFrame conversion (JAX
+        ``engine.py:_predict_data_from_pandas``): the category lists
+        recorded at training define the code space; unseen values -> NaN."""
+        stored = self.gbdt.pandas_categorical
+        cat_cols = [j for j, c in enumerate(df.columns)
+                    if str(df.dtypes.iloc[j]) == "category"]
+        if not cat_cols:
+            return np.asarray(df.values, dtype=np.float64)
+        if stored is None or len(stored) != len(cat_cols):
+            raise ValueError(
+                "train and predict dataset categorical_feature do not "
+                f"match ({0 if stored is None else len(stored)} recorded "
+                f"category columns vs {len(cat_cols)} in this DataFrame)")
+        return recode_pandas(df, cat_cols, stored)
 
     def save_model(self, filename: str, num_iteration: int = -1,
                    start_iteration: int = 0) -> "Booster":

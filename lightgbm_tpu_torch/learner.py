@@ -29,8 +29,8 @@ outputs are read once per tree (``train_async`` leaves them on the device
 for the pipelined boosting loop).  The numerical split search is the plain
 torch ``ops/split.py:find_best_splits``, as the JAX masked learner's is
 plain XLA with no Pallas kernel; the categorical one is
-``ops/split_cat.py`` (the ``split_cat`` kernel on the card, up to 1,024
-bins), and a categorical split routes rows by its bitset (`:401-404`).
+``ops/split_cat.py`` (the ``split_cat`` kernel on the card, at every
+uint16 width), and a categorical split routes rows by its bitset (`:401-404`).
 Monotone constraints, forced splits, feature penalties and the GSPMD
 parallel modes are not ported.
 """

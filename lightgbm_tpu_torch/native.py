@@ -41,6 +41,13 @@ EXTRA_FLAGS: Dict[str, List[str]] = {"split_scan": ["-fmad=false"],
 KERNELS = ("hist_packed", "hist_segments", "partition", "split_scan",
            "hist_multislot", "fused_scan", "hist_full", "replay",
            "split_cat")
+#: the kernel each wrapper launches, by source, as a profiler names it
+KERNEL_SYMBOLS = {"hist_packed": "hist_packed_chunks",
+                  "hist_segments": "hist_segments_tiles",
+                  "partition": "partition_rows", "split_scan": "split_scan",
+                  "hist_multislot": "hist_multislot_chunks",
+                  "fused_scan": "fused_child_scan", "replay": "replay_pass",
+                  "split_cat": "split_cat"}
 
 #: seconds each library took to build in this process (0.0 = reused)
 BUILD_SECONDS: Dict[str, float] = {}

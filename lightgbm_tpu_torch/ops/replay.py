@@ -31,14 +31,18 @@ in the JAX package); members are compacted and padded with ``pad_slot``.
 
 On a CUDA tensor ``replay_pass`` is one launch of the hand-written Hopper
 kernel ``csrc/replay.cu`` (design and bound in its header), bitwise equal
-to ``replay_pass_plain``: the pass only compares and copies.  On a CPU
-tensor it runs ``replay_pass_plain``, the same pass in plain torch, one
-argmax over the available slots per pop.
+to ``replay_pass_plain``: the pass only compares and copies.  The kernel
+pops whole runs of the list of available slots per block-wide step; where
+its buffers live (shared memory or a global scratch buffer) is
+``replay_plan``'s choice, so every M and budget the wave learner sizes
+runs.  On a CPU tensor it runs ``replay_pass_plain``, the same pass in
+plain torch, one argmax over the available slots per pop.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -120,20 +124,51 @@ def _lib():
         lib = native.load("replay")
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.lgbt_replay.argtypes = [P, L, I, P, P, P, L, I, P, P, P, P, P, P,
-                                    I, I, I, L, L, I, P]
+                                    I, I, I, L, L, I, I, I, L, P, P]
         lib.lgbt_replay.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-#: shared memory one block may take on the card (Hopper: 227 KB)
-_SMEM_LIMIT = 232_448
+#: dynamic shared memory the block may take on the card: Hopper's 227 KB
+#: less 4 KB for the kernel's static shared memory
+_SMEM_LIMIT = 232_448 - 4_096
 
 
-def replay_smem_bytes(m: int, budget: int) -> int:
-    """The kernel's shared memory for M slots (``replay_smem`` in
-    ``csrc/replay.cu``)."""
-    return m * (8 + 4 + 4 + 1 + 1) + (budget + 1) * (8 * 4 + 1)
+class ReplayPlan(NamedTuple):
+    """The kernel's buffers for M slots and a budget: the list capacity
+    (a power of two >= budget + 1), whether the two list buffers and the
+    compact table are in shared memory, the dynamic shared memory and the
+    global scratch bytes."""
+    cap: int
+    list_smem: bool
+    tab_smem: bool
+    smem: int
+    scratch: int
+
+
+def replay_plan(m: int, budget: int) -> ReplayPlan:
+    """Place the kernel's buffers: the two list buffers (16 bytes an entry
+    each) in shared memory where they fit, then the table (13 bytes a slot)
+    where it still fits, the rest in the global scratch buffer.  Raises
+    only for sizes past the kernel's 32-bit indices."""
+    if m < 1 or budget < 0 or m >= 1 << 31 or budget + 1 >= 1 << 31:
+        raise ValueError(f"{m} node slots and budget {budget} are past the "
+                         f"replay kernel's 32-bit slot and leaf indices")
+    cap = 1 << budget.bit_length()
+    smem = scratch = 0
+    list_bytes, tab_bytes = 32 * cap, 13 * m
+    list_smem = list_bytes <= _SMEM_LIMIT
+    if list_smem:
+        smem += list_bytes
+    else:
+        scratch += list_bytes
+    tab_smem = smem + tab_bytes <= _SMEM_LIMIT
+    if tab_smem:
+        smem += tab_bytes
+    else:
+        scratch += tab_bytes
+    return ReplayPlan(cap, list_smem, tab_smem, smem, scratch)
 
 
 def replay_pass(gain: torch.Tensor, split: torch.Tensor,
@@ -179,19 +214,19 @@ def replay_pass(gain: torch.Tensor, split: torch.Tensor,
     if not all(t.is_contiguous() for t in (split, child0) + state):
         raise ValueError("split, child0 and the replay state must be "
                          "contiguous")
-    if budget + 1 >= 1 << 16 or m >= 1 << 31 or not 1 <= stall_batch <= 64:
-        raise ValueError(f"budget {budget} past the kernel's 16-bit leaf "
-                         f"index or stall_batch {stall_batch} out of range")
-    smem = replay_smem_bytes(m, budget)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{m} node slots need {smem} bytes of shared "
-                         f"memory, past the card's {_SMEM_LIMIT}")
+    if not 1 <= stall_batch <= 64:
+        raise ValueError(f"stall_batch {stall_batch} out of the kernel's "
+                         f"range 1..64")
+    plan = replay_plan(m, budget)
+    scratch = torch.empty(plan.scratch, dtype=torch.uint8, device=dev) \
+        if plan.scratch else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     native.launch("replay", _lib().lgbt_replay, gain, gain.stride(0),
                   int(gain.dtype == torch.float64), split, child0, width,
                   width.stride(0), m, avail, refidx, poprec, ctl, members,
                   mvalid, budget, stall_batch, extras_cap, int(vec_cap),
-                  int(pad_slot), budget + 1, stream)
+                  int(pad_slot), plan.cap, int(plan.list_smem),
+                  int(plan.tab_smem), plan.smem, scratch, stream)
     replay_pass.launches += 1
 
 

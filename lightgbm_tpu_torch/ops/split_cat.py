@@ -28,9 +28,10 @@ categorical columns of a batch's (K, F) candidate fields in place, after the
 numerical scan has filled the others (threshold 0 and default_left False on
 those columns, as the JAX ``_feature_cands`` merges them).  On a CUDA tensor
 it is one launch of the hand-written Hopper kernel ``csrc/split_cat.cu``
-(bitwise equal to the plain version on the CPU) and no other device op; on a
-CPU tensor it runs the plain version, ``categorical_candidates_plain``.  The
-kernel is float32 only: ``gpu_use_dp`` keeps the plain float64 search.
+(bitwise equal to the plain version on the CPU) and no other device op, at
+any width up to 65,536 bins (``split_cat_plan``); on a CPU tensor it runs
+the plain version, ``categorical_candidates_plain``.  The kernel is float32
+only: ``gpu_use_dp`` keeps the plain float64 search.
 """
 
 from __future__ import annotations
@@ -45,8 +46,14 @@ from ..binning import MISSING_NONE
 from .split import (K_EPSILON, K_MIN_SCORE, SplitCandidates, _split_gains,
                     calculate_leaf_output, leaf_split_gain)
 
-#: most bins the kernel takes (the masked learner's max_bin up to 1,023)
-MAX_BINS = 1024
+#: most bins the kernel takes: every width of the masked learner's uint16
+#: codes (bins fit the kernel's 16-bit sort-key field)
+MAX_BINS = 1 << 16
+#: keys the kernel sorts at once (``split_cat_plan``)
+SORT_CAP = 8192
+#: dynamic shared memory one block may take on the card: Hopper's 227 KB
+#: less a kilobyte for the kernel's static shared memory
+_SMEM_LIMIT = 232_448 - 1_024
 
 
 class CatSplitCandidates(NamedTuple):
@@ -255,10 +262,43 @@ def _lib():
         lib.lgbt_split_cat.argtypes = [
             p, p, ll, p, ll, p, ll, p, p, p, ll, p, i, i, i, i,
             fl, fl, fl, fl, i, fl, fl, fl, fl, i, i, fl,
-            p, p, p, p, p, p, p, p, p, p, p, p, p]
+            p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, ll, p]
         lib.lgbt_split_cat.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+class SplitCatPlan(NamedTuple):
+    """The kernel's launch for a histogram of B bins: threads per block,
+    the sort buffer's keys, the scan positions per direction and the
+    dynamic shared memory."""
+    threads: int
+    cap: int
+    tcap: int
+    smem: int
+
+
+def split_cat_plan(num_bins: int, max_cat_threshold: int) -> SplitCatPlan:
+    """Half the next power of two of B threads (64 to 512); a sort buffer
+    of that power of two, at most SORT_CAP keys (a wider column's sorted
+    run is cut to its ``max_cat_threshold`` smallest and largest between
+    rounds, which needs room for both and a round); ``max_cat_threshold``
+    scan positions a direction, at most (B + 1) // 2.  Raises for what the
+    kernel does not take."""
+    b, mct = num_bins, max_cat_threshold
+    if not 1 <= b <= MAX_BINS:
+        raise ValueError(f"the kernel takes 1 to {MAX_BINS} bins, got {b}")
+    if mct < 0:
+        raise ValueError(f"max_cat_threshold must be >= 0, got {mct}")
+    p2 = 1 << (b - 1).bit_length()
+    threads = min(512, max(64, p2 // 2))
+    cap = min(p2, SORT_CAP)
+    tcap = max(1, min(mct, (b + 1) // 2))
+    smem = 8 * cap + 58 * tcap + 4 * cat_words(b)
+    if (cap < p2 and 2 * mct + threads > cap) or smem > _SMEM_LIMIT:
+        raise ValueError(f"max_cat_threshold {mct} at {b} bins is past the "
+                         f"kernel's shared memory")
+    return SplitCatPlan(threads, cap, tcap, smem)
 
 
 #: the SplitCandidates fields the kernel writes, with their dtypes
@@ -316,9 +356,9 @@ def categorical_candidates(cands: SplitCandidates, bits: torch.Tensor,
                          f"tensor, got {hist.dtype} {tuple(hist.shape)}")
     k, f, b, _ = hist.shape
     w = cat_words(b)
-    if not 1 <= b <= MAX_BINS or k < 1 or f < 1:
-        raise ValueError(f"need K, F >= 1 and 1 <= B <= {MAX_BINS}, got "
-                         f"{k, f, b}")
+    if k < 1 or f < 1:
+        raise ValueError(f"need K, F >= 1, got {k, f}")
+    plan = split_cat_plan(b, int(max_cat_threshold))
     # the learner's tensors need no conversion: the call is then one launch
     meta = [t.to(torch.int32).contiguous() for t in (num_bin, missing_type)]
     cols = cat_cols.to(torch.int32).contiguous()
@@ -359,7 +399,8 @@ def categorical_candidates(cands: SplitCandidates, bits: torch.Tensor,
                   float(min_sum_hessian_in_leaf), float(min_gain_to_split),
                   float(cat_smooth), int(max_cat_threshold),
                   int(max_cat_to_onehot), float(min_data_per_group),
-                  *fields, bits, stream)
+                  *fields, bits, plan.threads, plan.cap, plan.tcap,
+                  plan.smem, stream)
     categorical_candidates.launches += 1
     if categorical_candidates.shapes is not None \
             and not torch.cuda.is_current_stream_capturing():

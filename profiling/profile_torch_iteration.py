@@ -2,8 +2,8 @@
 
     python3 profiling/profile_torch_iteration.py
         [--learner wave|compact|masked] [--max-bin 255] [--quant]
-        [--open-levels N] [--rows 1000000] [--valid-rows 0] [--warmup 2]
-        [--iters 1] [--out reports/profile_torch_iteration.json]
+        [--open-levels N] [--categorical] [--rows 1000000] [--valid-rows 0]
+        [--warmup 2] [--iters 1] [--out reports/profile_torch_iteration.json]
 
 Trains the bench workload (bench.py's Higgs-shaped data, 28 features, 255
 leaves, 255 bins unless ``--max-bin`` says otherwise, binary) with
@@ -12,7 +12,10 @@ the default ``tpu_learner=auto`` path; ``compact``: the sequential learner;
 ``masked``: the masked learner, which ``auto`` picks past 256 bins, e.g.
 ``--learner masked --max-bin 1023``; ``--quant`` sets
 ``tpu_quantized_grad=on`` and ``--open-levels N`` ``tpu_wave_open_levels=N``
-for the wave learner; ``--valid-rows N`` holds out N more rows as a
+for the wave learner; ``--categorical`` trains chip_smoke.py's
+Expo-shaped categorical cell instead (``expo_data.py``: six categorical
+columns and two numerical ones, ``categorical_feature=0,...,5``);
+``--valid-rows N`` holds out N more rows as a
 validation set, which keeps the synchronous boosting loop, as chip_smoke.py's
 wave_train runs it; without one the loop pipelines): ``--warmup``
 iterations (past ``tpu_pipeline_flush_depth``, 8, every profiled iteration
@@ -27,8 +30,10 @@ replay), the host's launch calls per iteration (``host_launch_calls_per_iter``:
 the runtime's kernel-launch and graph-launch calls, one per
 ``cudaGraphLaunch`` however many kernels the graph holds), host syncs per
 tree (and for the wave learner waves, stall events, lagged flag waits and
-graph launches per tree), and the top operators by host time and by device
-time; prints a one-line summary.  Needs a CUDA card.
+graph launches per tree), each of the port's kernels' device ms per
+iteration (``kernel_device_ms_per_iter``, by ``native.KERNEL_SYMBOLS``),
+and the top operators by host time and by device time; prints a one-line
+summary.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,6 +52,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import lightgbm_tpu_torch as lt  # noqa: E402
+from expo_data import EXPO_CATEGORICAL, expo_like  # noqa: E402
+from lightgbm_tpu_torch.native import KERNEL_SYMBOLS  # noqa: E402
 
 PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
           "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1,
@@ -72,21 +80,28 @@ def main() -> int:
                     help="tpu_quantized_grad=on")
     ap.add_argument("--open-levels", type=int, default=0,
                     help="tpu_wave_open_levels")
+    ap.add_argument("--categorical", action="store_true",
+                    help="chip_smoke.py's Expo-shaped categorical cell")
     ap.add_argument("--out", default="reports/profile_torch_iteration.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
-    rng = np.random.RandomState(7)
     rows = args.rows + args.valid_rows
-    X = rng.randn(rows, 28)
-    logit = (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] * 0.5 + np.sin(X[:, 3])
-             + 0.5 * rng.randn(rows))
-    y = (logit > 0).astype(np.float64)
+    if args.categorical:
+        X, y = expo_like(rows)
+    else:
+        rng = np.random.RandomState(7)
+        X = rng.randn(rows, 28)
+        logit = (X[:, 0] * 1.5 + X[:, 1] * X[:, 2] * 0.5 + np.sin(X[:, 3])
+                 + 0.5 * rng.randn(rows))
+        y = (logit > 0).astype(np.float64)
     params = dict(PARAMS, tpu_learner=LEARNERS[args.learner],
                   max_bin=args.max_bin,
                   tpu_quantized_grad="on" if args.quant else "auto",
                   tpu_wave_open_levels=args.open_levels)
+    if args.categorical:
+        params["categorical_feature"] = EXPO_CATEGORICAL
     ds = lt.Dataset(X[:args.rows], label=y[:args.rows], params=params)
     bst = lt.Booster(params, ds)
     if args.valid_rows:
@@ -123,6 +138,9 @@ def main() -> int:
     graph_calls = sum(e.name in ("cudaGraphLaunch", "cuGraphLaunch")
                       for e in launch_calls)
     busy_us = sum(float(e.time_range.elapsed_us()) for e in kernels)
+    kernel_ms = {n: sum(float(e.time_range.elapsed_us()) for e in kernels
+                        if re.search(rf"(^|::){sym}(<[^>]*>)?\(", e.name))
+                 / 1e3 / args.iters for n, sym in KERNEL_SYMBOLS.items()}
     by_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:20]
     by_dev = sorted(events, key=dev_us, reverse=True)[:20]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -131,7 +149,7 @@ def main() -> int:
     out = {
         "card": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "learner": args.learner, "max_bin": args.max_bin,
-        "quant": args.quant,
+        "quant": args.quant, "categorical": args.categorical,
         "open_levels": args.open_levels,
         "learner_class": type(learner).__name__, "rows": args.rows,
         "iters": args.iters, "splits": splits, "wall_s": wall,
@@ -148,6 +166,7 @@ def main() -> int:
                                   lambda: False)()),
         "record_waits_per_iter": waits / args.iters,
         "host_syncs_per_tree": (learner.host_syncs - syncs0) / len(trees),
+        "kernel_device_ms_per_iter": kernel_ms,
         "top_host": [{"op": e.key, "count": e.count,
                       "self_cpu_ms": e.self_cpu_time_total / 1e3}
                      for e in by_host],
@@ -165,11 +184,12 @@ def main() -> int:
         json.dump(out, fh, indent=1)
     print(json.dumps({k: out[k] for k in (
         "nvidia_smi", "learner", "learner_class", "max_bin", "quant",
-        "open_levels", "rows",
+        "open_levels", "categorical", "rows",
         "s_per_iter", "device_busy_s",
         "device_idle_share", "cuda_events_per_iter", "cuda_events_per_split",
         "host_launch_calls_per_iter", "graph_launch_calls_per_iter",
-        "pipelined", "record_waits_per_iter", "host_syncs_per_tree")
+        "pipelined", "record_waits_per_iter", "host_syncs_per_tree",
+        "kernel_device_ms_per_iter")
         + tuple(k for k in out if k.endswith("_per_tree")
                 and k != "host_syncs_per_tree")}))
     return 0

@@ -859,6 +859,70 @@ def test_replay_kernel_bitwise_to_plain(cuda_device, budget, kb, extras_cap,
     assert replay_pass.launches == n0 + step + 2
 
 
+@pytest.mark.parametrize("case", ["half_grown", "half_grown_vec_cap",
+                                  "grown", "num_leaves_4095",
+                                  "num_leaves_4097", "num_leaves_8191"])
+def test_replay_kernel_at_the_check_forests(cuda_device, case):
+    """The forests of chip_smoke.py's replay phase (M = 1,145: half grown,
+    with a binding vector cap, grown to the budget) and forests at the
+    sizing of num_leaves=4095 (M = 16,505, the node table in global
+    memory), 4,097 (the list buffers in global memory) and 8,191 (both):
+    every pass bitwise to the plain version on the CPU, run to the replay's
+    end, a pass after it a no-op."""
+    import chip_smoke as cs
+    from lightgbm_tpu_torch.ops.replay import CTL_POPS, replay_pass
+
+    if case.startswith("num_leaves_"):
+        m, b = cs.replay_dims(int(case.split("_")[-1]))
+        rng = np.random.RandomState(6)
+        tab, nn = cs.replay_ordered_forest(rng, m, b, holes=0.002)
+        kw = dict(cs.REPLAY_KW, budget=b, pad_slot=m)
+        vals = cs.REPLAY_GAINS[2:]
+    else:
+        m, b = cs.REPLAY_M, cs.REPLAY_BUDGET
+        seed, grown, vec_cap = {"half_grown": (11, 127, 1 << 17),
+                                "half_grown_vec_cap": (12, 127, 5000),
+                                "grown": (13, b, 1 << 17)}[case]
+        rng = np.random.RandomState(seed)
+        tab, nn = cs.replay_forest(rng, grown)
+        kw = dict(cs.REPLAY_KW, vec_cap=vec_cap)
+        vals = cs.REPLAY_GAINS
+    cpu = cs.replay_state(m=m, b=b)
+    card = [t.to(cuda_device) for t in cpu]
+    passes = cs.replay_to_end(rng, tab, nn, cpu, kw, card, vals=vals)
+    assert passes >= 1 and int(cpu[3][CTL_POPS]) > 0
+    after = [t.clone() for t in card]
+    replay_pass(*[t.to(cuda_device) for t in tab], *card, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(after, card))
+
+
+@pytest.mark.parametrize("b,dyadic", [
+    (256, True), (256, False), (1024, True), (1024, False), (2047, True),
+    (2047, False), (4096, True), (10000, True)])
+def test_split_cat_kernel_bitwise_at_every_width(cuda_device, b, dyadic):
+    """The categorical split kernel at K = 128 leaves of chip_smoke.py's
+    eight-column fixture (one-hot, many-vs-many, NaN-typed, Zero-missing,
+    a CTR tie) at B = 256, 1,024 and 2,047, and on dyadic counts at 4,096
+    and 10,000 (over 2,048 and 8,192 eligible bins: the shared-memory sort
+    and its cut rounds), in every regime of its phase:
+    every field and bitset bitwise equal to the plain version on the CPU,
+    the numerical columns carried untouched, one launch per call."""
+    import chip_smoke as cs
+    from lightgbm_tpu_torch.ops.split_cat import (
+        categorical_candidates, categorical_candidates_plain)
+
+    cpu = cs.split_cat_inputs(21 + b, dyadic, b=b)
+    for regime, kw in cs.CAT_REGIMES.items():
+        card = [t.to(cuda_device) for t in cpu]
+        sk = cs._cat_start(card)
+        sc = (type(sk[0])(*(t.cpu() for t in sk[0])), sk[1].cpu())
+        n0 = categorical_candidates.launches
+        k = cs._cat_run(categorical_candidates, card, sk, kw)
+        assert categorical_candidates.launches == n0 + 1
+        pc = cs._cat_run(categorical_candidates_plain, cpu, sc, kw)
+        assert cs._cat_same(k, pc), regime
+
+
 def _wave_problem(dev, params, n=20_000, seed=5):
     rng = np.random.RandomState(seed)
     X = rng.randn(n, 10)

@@ -226,3 +226,74 @@ def test_cpu_tensors_take_the_plain_version():
     assert int(ctl[CTL_FLAG]) == FLAG_STALL
     assert members.tolist() == [2, 4] and mvalid.tolist() == [True, True]
     assert refidx[:5].tolist() == [0, 0, 1, 0, 2]
+
+
+def test_large_table_resumed_passes_against_the_oracle():
+    """A table at the sizing of num_leaves=4095 (budget 4,094, M = 16,505)
+    grown best-first to most of the budget, gains with exact ties: the
+    first passes and their corrections agree with the heap oracle."""
+    import chip_smoke as cs
+
+    kb, extras_cap, vec_cap = 4, 64, 1 << 17
+    m, budget = cs.replay_dims(4095)
+    assert (m, budget) == (16_505, 4094)
+    rng = np.random.RandomState(4095)
+    tab, nn = cs.replay_ordered_forest(rng, m, 4000, 0.002, vals=GAINS)
+    gains, split, child0, width = (t.numpy() for t in tab)
+    oracle = Oracle(m, budget, kb, extras_cap, vec_cap)
+    st = _state(m, budget, kb)
+    avail, refidx, poprec, ctl, members, mvalid = st
+    kw = dict(budget=budget, stall_batch=kb, extras_cap=extras_cap,
+              vec_cap=vec_cap, pad_slot=m)
+    for _ in range(4):
+        replay_pass_plain(*tab, *st, **kw)
+        flag, want = oracle.run(gains, split, child0, width)
+        pops = int(ctl[CTL_POPS])
+        assert int(ctl[CTL_FLAG]) == flag
+        assert [tuple(r) for r in poprec[:pops].tolist()] == oracle.pops
+        assert np.array_equal(refidx.numpy(), oracle.refidx)
+        assert set(torch.nonzero(avail).flatten().tolist()) == oracle.avail
+        nv = int(mvalid.sum())
+        assert members[:nv].tolist() == want
+        if flag == FLAG_DONE:
+            break
+        for s in want:
+            split[s] = True
+            child0[s] = nn
+            gains[nn:nn + 2] = rng.choice(GAINS, 2)
+            width[nn:nn + 2] = (1, width[s] - 1)
+            nn += 2
+    assert int(ctl[CTL_POPS]) > 500 and int(ctl[CTL_STALL_EVENTS]) >= 3
+
+
+@pytest.mark.parametrize("num_leaves", [255, 2200, 4095, 4097, 131_072])
+def test_launch_plan_takes_every_learner_size(num_leaves):
+    """The kernel's launch plan (``replay_plan``) for the node slots and
+    budget the wave learner sizes: no size refused, shared memory within
+    the card's, what does not fit in the global scratch."""
+    from lightgbm_tpu_torch import Config
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+    from lightgbm_tpu_torch.ops.replay import _SMEM_LIMIT, replay_plan
+
+    import chip_smoke as cs
+
+    ln = WaveTreeLearner.__new__(WaveTreeLearner)
+    ln.num_leaves, ln.n_pad, ln.hist_dp = num_leaves, 1 << 20, False
+    cfg = Config.from_params({"num_leaves": num_leaves})
+    ln._sort_cutoff = int(cfg.tpu_sort_cutoff)
+    ln._init_wave_dims(cfg)
+    plan = replay_plan(ln.M, ln.budget)
+    assert plan.cap >= ln.budget + 1 and plan.cap & (plan.cap - 1) == 0
+    assert plan.smem <= _SMEM_LIMIT
+    assert plan.scratch + plan.smem == 32 * plan.cap + 13 * ln.M
+    want_smem = {255: (True, True), 2200: (True, False),
+                 4095: (True, False), 4097: (False, True),
+                 131_072: (False, False)}[num_leaves]
+    assert (plan.list_smem, plan.tab_smem) == want_smem
+    if num_leaves == 255:
+        assert ln.M == 1145 and plan.scratch == 0
+    if num_leaves == 4095:
+        assert ln.M == 16_505
+    if num_leaves in cs.REPLAY_LARGE:
+        # the sizing chip_smoke.py's large replay checks take
+        assert (ln.M, ln.budget) == cs.replay_dims(num_leaves)

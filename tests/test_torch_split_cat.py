@@ -6,8 +6,9 @@ totals.  The bitsets and the counts must be equal, the other float fields
 within 1e-12 relative in float64 and 1e-6 in float32.  The fixtures are the
 seven of ``tests/test_split_cat.py`` (one-hot, sorted-CTR at the defaults,
 no group bookkeeping, a tight category cap, an eligibility filter that
-bites, a wide histogram), held against that file's numpy port of the
-reference loop as well, plus a NaN-typed feature and two bins of equal CTR.
+bites, a wide histogram) and one column of 2,047 bins (past the 1,024 the
+kernel once took), held against that file's numpy port of the reference
+loop as well, plus a NaN-typed feature and two bins of equal CTR.
 ``categorical_candidates`` (the learners' entry point) must write exactly
 the plain version's values into the categorical columns and leave the
 others alone.
@@ -33,7 +34,8 @@ FIELDS = ("gain", "left_sum_g", "left_sum_h", "left_cnt", "right_sum_g",
 FIXTURES = [
     (4, {}), (3, {}), (25, {}), (25, {"min_data_per_group": 1}),
     (25, {"max_cat_threshold": 3}), (40, {"cat_smooth": 25.0}),
-    (64, {"min_data_in_leaf": 1, "min_data_per_group": 1})]
+    (64, {"min_data_in_leaf": 1, "min_data_per_group": 1}),
+    (2047, {})]
 
 
 def _hists(rng, k, b, nbins):
@@ -81,7 +83,7 @@ def _compare(hist, num_bin, mtype, kw, dtype, rtol):
 @pytest.mark.parametrize("nbins,kw", FIXTURES)
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_plain_equals_jax_and_reference(rng, nbins, kw, dtype):
-    k, b = 5, 64
+    k, b = 5, max(64, nbins)
     hist = _hists(rng, k, b, nbins)[:, None]              # (K, 1, B, 3)
     kwargs = dict(dict(min_data_in_leaf=5, min_sum_hessian_in_leaf=1e-3),
                   **kw)
@@ -204,3 +206,18 @@ def test_candidates_write_only_the_categorical_columns():
     categorical_candidates_plain(num2, bits2, *args, *meta, fm, cols, **kw)
     assert all(torch.equal(a, b_) for a, b_ in zip(num, num2))
     assert torch.equal(bits, bits2)
+
+
+@pytest.mark.parametrize("b", [4, 256, 1024, 2047, 1 << 16])
+def test_kernel_plan_takes_every_uint16_width(b):
+    """The wrapper's launch plan (``split_cat_plan``, its only width check)
+    takes every width of the masked learner's uint16 codes at the default
+    max_cat_threshold, its shared memory within the card's."""
+    from lightgbm_tpu_torch.ops.split_cat import (_SMEM_LIMIT, SORT_CAP,
+                                                  split_cat_plan)
+
+    plan = split_cat_plan(b, 32)
+    assert 64 <= plan.threads <= 512 and plan.smem <= _SMEM_LIMIT
+    assert plan.cap >= min(b, SORT_CAP) and plan.tcap == min(32, (b + 1) // 2)
+    with pytest.raises(ValueError):
+        split_cat_plan((1 << 16) + 1, 32)
