@@ -29,7 +29,11 @@ line and each raising (exit code 1) on any failure:
              cumulative sums the kernel's carries reproduce), and against the
              plain version on the card (another summation order) the gain
              within 1e-3 of the pre-shift gain, threshold and default_left
-             equal wherever the best two candidates differ by more than that
+             equal wherever the best two candidates differ by more than that;
+             constrained (per-leaf value bounds that bind, a monotone sign
+             and a gain penalty per feature) on the random fixture: every
+             field bitwise equal to the CPU plain version, other winners
+             than the unconstrained scan
   multislot  multislot histogram kernel (the level-wise opening's) vs its
              plain version on the full-width rows, a slot per row in root
              order (slot K and -1 dropped): bitwise on dyadic inputs at K = 1,
@@ -75,7 +79,10 @@ line and each raising (exit code 1) on any failure:
              mask; every field and bitset (the numerical columns carried
              untouched) bitwise equal to the plain version run on the CPU
              on random float32 and dyadic inputs, to the plain version on
-             the card on dyadic ones, bitwise across two launches
+             the card on dyadic ones, bitwise across two launches; at
+             B=256 with per-leaf value bounds and a gain penalty per
+             feature (monotone constraints), bitwise to the CPU plain
+             version on both inputs, the bounds binding
   tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
              rows, grown by the compact learner through the kernel and
              through the plain histogram: records bitwise equal
@@ -134,6 +141,21 @@ line and each raising (exit code 1) on any failure:
              hist_multislot launch (K and the rows in a slot) and fused_scan
              launch (K) of one more tree grown eagerly, and their
              distribution
+  constrained_train the wave_train run with monotone_constraints +1 on
+             feature 0 and -1 on feature 1 and feature_contri 0.5 on
+             feature 2: every split_scan launch a constrained one, launches
+             equal to the learner's calls, 1 host sync per tree, graphs from
+             the second tree, the plain split search never called, the model
+             monotone along features 0 and 1 over a grid of 256 values at 64
+             held-out rows, seconds per iteration beside wave_train's; then
+             3 iterations with tpu_quantized_grad=on and
+             tpu_wave_open_levels=5: no fused_scan launch (the constrained
+             split_scan instead), quant hist_segments, 1 host sync per tree,
+             steps against the sign reported (the quantized recipe renews
+             leaf outputs without the bounds, as the JAX package does);
+             then the categorical_train cell with DepTime +1, Distance -1
+             and Origin at 0.5, 5 iterations: every split_scan and
+             split_cat launch constrained, 1 host sync per tree, monotone
   masked_train the wave_train run with max_bin=1023 (auto -> the masked
              learner, uint16 codes): hist_full launches equal to the calls the
              learner recorded (num_leaves per tree), host syncs per tree <= 2,
@@ -142,6 +164,12 @@ line and each raising (exit code 1) on any failure:
              scores; every hist_full launch's weighted rows (rows with a
              weight not zero, a device count read after the run) and their
              distribution
+  forced_train a three-node forcedsplits_filename tree (feature 25 at its
+             median, then feature 26 at its median on both sides), written
+             to a temporary directory: 3 iterations with the default
+             learner (moved to the compact learner) at 255 bins and 3 with
+             max_bin=1023 (the masked learner): every tree's first three
+             splits the forced ones, in BFS order
   predict    DevicePredictor on the card for the wave_train model on the
              held-out rows: against the host trees within 1e-9; with
              pred_early_stop the same frozen rows and scores within 1e-9 as
@@ -237,7 +265,8 @@ line and each raising (exit code 1) on any failure:
              median and largest pass by pops (its eager tree's pass inputs
              replayed) and a pass of 4,094 pops at M = 16,505; split_cat at
              the fixture (K = 128, B = 256), at B = 2,047 and at
-             categorical_train's median and largest launch K
+             categorical_train's median and largest launch K; split_scan and
+             split_cat also constrained at K = 128 (bounds, signs, penalty)
 
 Then a ``kernels`` line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -263,7 +292,7 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "hist_full", "fused_scan", "replay", "split_cat", "tree",
           "wave_tree", "masked_tree", "opening_tree", "categorical_tree",
           "train", "wave_train", "wave_pipelined", "quant_train",
-          "masked_train", "predict", "small", "multiclass_train",
+          "constrained_train", "masked_train", "forced_train", "predict", "small", "multiclass_train",
           "objectives_train", "rank_train", "categorical_train",
           "categorical_2047", "wave_4095", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
@@ -279,6 +308,13 @@ WAVE_PARAMS = {k: v for k, v in TRAIN_PARAMS.items() if k != "tpu_learner"}
 #: this slice's path: quantized gradients with the level-wise opening
 QUANT_PARAMS = dict(WAVE_PARAMS, tpu_quantized_grad="on",
                     tpu_wave_open_levels=5)
+#: the constrained path: monotone +1 on feature 0, -1 on feature 1 and a
+#: gain penalty of 0.5 on feature 2, the rest free
+CON_PARAMS = dict(WAVE_PARAMS,
+                  monotone_constraints=",".join(["1", "-1"]
+                                                + ["0"] * (28 - 2)),
+                  feature_contri=",".join(["1", "1", "0.5"]
+                                          + ["1"] * (28 - 3)))
 #: the masked learner's path: past 256 bins the default learner is masked
 MASKED_BINS = 1023
 MASKED_PARAMS = dict(WAVE_PARAMS, max_bin=MASKED_BINS)
@@ -658,6 +694,20 @@ SCAN_KW = dict(lambda_l1=0.1, lambda_l2=0.5, max_delta_step=0.0,
                min_gain_to_split=0.0)
 
 
+def scan_constraints(k: int, f: int, seed: int):
+    """What a constrained scan takes, on the CPU: a monotone sign (F,) int8
+    of -1, 0 or +1, per-leaf value bounds (K,) that bind (no bound, a band
+    of +-0.05, a floor at 0, a ceiling at -0.01, in turn) and a gain
+    penalty (F,) of 1, 0.5, 0.25 or 0."""
+    rng = np.random.RandomState(seed)
+    lo = np.array([-np.inf, -0.05, 0.0, -np.inf], np.float32)
+    hi = np.array([np.inf, 0.05, np.inf, -0.01], np.float32)
+    mono = rng.randint(-1, 2, f).astype(np.int8)
+    pen = rng.choice([1.0, 0.5, 0.25, 0.0], f).astype(np.float32)
+    return [torch.from_numpy(a) for a in
+            (mono, np.resize(lo, k), np.resize(hi, k), pen)]
+
+
 def threshold_gains(hist, sum_g, sum_h, cnt, num_bin, missing, default_bin,
                     *, lambda_l1, lambda_l2, max_delta_step, min_data_in_leaf,
                     min_sum_hessian_in_leaf, min_gain_to_split):
@@ -760,6 +810,25 @@ def phase_scan(ctx) -> None:
         out[tag] = {"gain_max_abs_err": ctx["err_scan"],
                     "clear_candidates": int(clear.sum()),
                     "feasible": int(fin.sum()), "cpu_plain_bitwise": True}
+        # the constrained scan on the same inputs: bounds, signs, penalty
+        con = scan_constraints(SCAN_K, FEATURES, 8)
+        con_d = [t.to(dev) for t in con]
+        n0 = find_best_splits_batched.con_launches
+        kc = find_best_splits_batched(*args, *con_d[:3], penalty=con_d[3],
+                                      **kw)
+        check(find_best_splits_batched.con_launches == n0 + 1,
+              "scan constrained: not a constrained launch")
+        pcc = find_best_splits(*cpu, *con[:3], penalty=con[3], **kw)
+        check(all(same(getattr(kc, fl).cpu(), getattr(pcc, fl))
+                  for fl in fields),
+              "scan constrained: kernel differs from the plain version run "
+              "on the CPU")
+        moved = int((kc.threshold != k.threshold).sum())
+        check(moved > 0, "scan constrained: the constraints moved no split")
+        out["constrained"] = {"cpu_plain_bitwise": True,
+                              "thresholds_moved": moved,
+                              "finite_gains": int(torch.isfinite(
+                                  kc.gain).sum())}
     torch.cuda.synchronize()
     emit(out)
 
@@ -1275,12 +1344,14 @@ def _cat_start(args):
     return num, bits
 
 
-def _cat_run(fn, args, start, kw):
+def _cat_run(fn, args, start, kw, con=()):
+    """``fn`` on copies of ``start``'s fields; ``con`` the constrained
+    call's (min_c, max_c, penalty)."""
     num, bits = start
     num = type(num)(*(t.clone() for t in num))
     bits = bits.clone()
     cols = torch.tensor(CAT_COLS, dtype=torch.int32, device=bits.device)
-    fn(num, bits, *args, cols, **dict(CAT_KW, **kw))
+    fn(num, bits, *args, cols, *con, **dict(CAT_KW, **kw))
     return num, bits
 
 
@@ -1356,6 +1427,35 @@ def phase_split_cat(ctx) -> None:
                                     >> (nan_bin % 32)) & 1).any(),
                               f"{where}: the NaN bin is in a bitset")
                     out["cases"][f"B{b}/{tag}/{regime}/{mname}"] = case
+            if b != 256:
+                continue
+            # the constrained launch: per-leaf bounds and the penalty
+            card = [t.to(dev) for t in cpu]
+            sk = _cat_start(card)
+            sc = (type(sk[0])(*(t.cpu() for t in sk[0])), sk[1].cpu())
+            _, mn, mx, pen = scan_constraints(CAT_K, CAT_F, 9)
+            where = f"split_cat B={b} {tag} constrained"
+            c0 = categorical_candidates.con_launches
+            k = _cat_run(categorical_candidates, card, sk, {},
+                         tuple(t.to(dev) for t in (mn, mx, pen)))
+            check(categorical_candidates.con_launches == c0 + 1,
+                  f"{where}: not a constrained launch")
+            pc = _cat_run(categorical_candidates_plain, cpu, sc, {},
+                          (mn, mx, pen))
+            check(_cat_same(k, pc), f"{where}: kernel differs from the "
+                  f"plain version run on the CPU")
+            free = _cat_run(categorical_candidates, card, sk, {})
+            out_c = k[0].left_output[:, cols]
+            check(not _cat_same(k, free), f"{where}: the bounds bind nowhere")
+            band = ((mn > -1.0) & (mx < 1.0)).to(dev)[:, None] \
+                & torch.isfinite(
+                k[0].gain[:, cols])
+            check(bool((out_c[band].abs() <= 0.05).all()),
+                  f"{where}: an output outside its leaf's band")
+            out["cases"][f"B{b}/{tag}/constrained"] = {
+                "cpu_plain_bitwise": True,
+                "valid_splits": int(torch.isfinite(
+                    k[0].gain[:, cols]).sum())}
     categorical_candidates.launches = n0
     torch.cuda.synchronize()
     ctx["err_split_cat"] = 0.0
@@ -1651,16 +1751,17 @@ def phase_categorical_tree(ctx) -> None:
           "gen_s": ctx["gen_s_expo"], "bin_s": ctx["bin_s_expo"]})
 
 
-def _train_run(ctx, params, tag, counters, data=None):
-    """Train 5 iterations at the bench width with ``params`` on ``data``
-    (the 255-bin sets by default); ``counters`` maps kernel names to their
-    wrappers, whose launch counts are set to 0 just before the run and read
-    just after.  Checks and returns the phase's result dict."""
+def _train_run(ctx, params, tag, counters, data=None, iters: int = 5,
+               falling: bool = True):
+    """Train ``iters`` iterations at the bench width with ``params`` on
+    ``data`` (the 255-bin sets by default); ``counters`` maps kernel names
+    to their wrappers, whose launch counts are set to 0 just before the run
+    and read just after.  Checks (the training logloss falling every
+    iteration where ``falling``) and returns the phase's result dict."""
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.metrics import create_metric
 
     ds, dv = data or _dataset(ctx)
-    iters = 5
     evals, t_iter, train_ll = {}, [], []
     logloss = create_metric("binary_logloss", lt.Config.from_params(params))
     logloss.init(ds.constructed.metadata, ds.constructed.num_data)
@@ -1696,7 +1797,7 @@ def _train_run(ctx, params, tag, counters, data=None):
         bins = learner.bins_packed()
     check(bins.is_cuda and bst.gbdt.train_score.score.is_cuda,
           "bins or scores are not on the card")
-    check(all(b < a for a, b in zip(train_ll, train_ll[1:])),
+    check(not falling or all(b < a for a, b in zip(train_ll, train_ll[1:])),
           f"training logloss did not fall every iteration: {train_ll}")
     auc = evals["heldout"]["auc"]
     check(all(np.isfinite(auc)) and auc[-1] > 0.7,
@@ -2015,6 +2116,7 @@ def phase_wave_train(ctx) -> None:
     ctx["launches_wave"] = out["kernel_launches"]
     ctx["auc_wave"] = out["heldout_auc"]
     ctx["bst_wave"] = bst
+    ctx["wave_s_per_iter"] = out["s_per_iter"]
     emit(out)
 
 
@@ -2219,6 +2321,200 @@ def phase_quant_train(ctx) -> None:
           "quantize_gradients on the card differs from the CPU")
     out["quantize_card_vs_cpu_bitwise"] = True
     ctx["launches_quant"] = dict(out["kernel_launches"], **quant)
+    emit(out)
+
+
+def monotone_grid(bst, X, feature: int, sign: float, n_rows: int = 64,
+                  n_grid: int = 256) -> float:
+    """The largest step against the constraint's ``sign`` along
+    ``feature``: ``n_rows`` rows of ``X``, each with ``feature`` set to
+    ``n_grid`` values over its range, raw scores (host trees), differences
+    along the grid times the sign; 0.0 when the model is monotone."""
+    base = np.repeat(X[:n_rows], n_grid, axis=0)
+    grid = np.linspace(X[:, feature].min(), X[:, feature].max(), n_grid)
+    base[:, feature] = np.tile(grid, n_rows)
+    raw = bst.predict(base, raw_score=True).reshape(n_rows, n_grid)
+    return float(max(0.0, -(np.diff(raw, axis=1) * sign).min()))
+
+
+def phase_constrained_train(ctx) -> None:
+    """The main path with monotone constraints and a feature penalty
+    (``CON_PARAMS``), then quantized with the opening."""
+    import lightgbm_tpu_torch.learner as lm
+    import lightgbm_tpu_torch.ops.scan as ops_scan
+    from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+
+    plain = []
+    out = {"phase": "constrained_train"}
+    for tag, params, iters in (("float32", CON_PARAMS, 5),
+                               ("quant", dict(CON_PARAMS,
+                                              tpu_quantized_grad="on",
+                                              tpu_wave_open_levels=5), 3)):
+        counters = wave_counters()
+        fused_child_scans.launches = 0
+        find_best_splits_batched.con_launches = 0
+        build_histogram_segments.quant_launches = 0
+        # the plain split search, counted: the card's wave path calls none
+        with recording(lm, "find_best_splits",
+                       lambda *a, **k: plain.append(tag)), \
+                recording(ops_scan, "find_best_splits",
+                          lambda *a, **k: plain.append(tag)):
+            bst, learner, _, run = _train_run(
+                ctx, params, f"constrained_train/{tag}", counters,
+                iters=iters)
+        launches = dict(run["kernel_launches"],
+                        fused_scan=fused_child_scans.launches)
+        run["kernel_launches"] = launches
+        calls = learner.kernel_calls
+        check(learner.has_monotone and learner.has_penalty
+              and not learner._use_fused,
+              f"{tag}: the constrained learner runs the fused kernel")
+        check(launches == {n: calls[n] for n in launches},
+              f"{tag}: kernel launches {launches} != the learner's calls "
+              f"{calls}")
+        check(launches["fused_scan"] == 0,
+              f"{tag}: fused_scan launched {launches['fused_scan']} times")
+        con = find_best_splits_batched.con_launches
+        check(con == launches["split_scan"] > 0,
+              f"{tag}: {con} constrained split_scan launches of "
+              f"{launches['split_scan']}")
+        check(not plain, f"{tag}: the plain split search ran {len(plain)} "
+              f"times on the card's wave path")
+        tree_counters(run, learner, WAVE_TREE_KEYS)
+        check(all(n == 1 for n in run["host_syncs_per_tree"]),
+              f"{tag}: host syncs per tree {run['host_syncs_per_tree']}")
+        check(all(n > 0 for n in run["graph_launches_per_tree"][1:]),
+              f"{tag}: trees after the first did not replay CUDA graphs")
+        if tag == "quant":
+            check(learner._quant and build_histogram_segments.quant_launches
+                  == launches["hist_segments"] > 0,
+                  f"{tag}: the quant segment histogram did not run")
+        steps = {f"feature_{f}": monotone_grid(bst, ctx["Xv"], f, sign)
+                 for f, sign in ((0, 1.0), (1, -1.0))}
+        # the quantized recipe renews the leaf outputs from the float32
+        # gradients after the tree is grown, without the bounds, as the JAX
+        # package does (learner_wave.py:1926-1965): reported, not held
+        if tag == "float32":
+            check(all(v == 0.0 for v in steps.values()),
+                  f"{tag}: the model is not monotone on the grid: {steps}")
+        run["steps_against_the_sign"] = steps
+        run["constrained_split_scan_launches"] = con
+        run["plain_split_search_calls"] = len(plain)
+        out[tag] = run
+        ctx.setdefault("launches_con", {})[tag] = launches
+    if "wave_s_per_iter" in ctx:
+        out["wave_train_s_per_iter"] = ctx["wave_s_per_iter"]
+    out["categorical"] = constrained_categorical(ctx)
+    emit(out)
+
+
+def constrained_categorical(ctx) -> dict:
+    """The Expo-shaped cell with monotone constraints on its two numerical
+    columns (DepTime +1, Distance -1) and a penalty of 0.5 on Origin, 5
+    iterations: every split_scan and split_cat launch constrained, 1 host
+    sync per tree, the model monotone along both columns."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+    from lightgbm_tpu_torch.ops.split_cat import categorical_candidates
+
+    ds, dv = _dataset_expo(ctx)
+    params = dict(CAT_PARAMS, monotone_constraints="0,0,0,0,0,0,1,-1",
+                  feature_contri="1,1,1,1,0.5,1,1,1")
+    counters = dict(wave_counters(), split_cat=categorical_candidates)
+    for fn in counters.values():
+        fn.launches = 0
+    find_best_splits_batched.con_launches = 0
+    categorical_candidates.con_launches = 0
+    evals, t_iter = {}, []
+    bst = lt.train(params, ds, 5, valid_sets=[dv], valid_names=["heldout"],
+                   evals_result=evals, verbose_eval=False,
+                   callbacks=iteration_timer(t_iter))
+    launches = {n: fn.launches for n, fn in counters.items()}
+    out = wave_path_checks("constrained_train/categorical", bst, launches)
+    con = {"split_scan": find_best_splits_batched.con_launches,
+           "split_cat": categorical_candidates.con_launches}
+    check(con == {n: launches[n] for n in con} and all(con.values()),
+          f"categorical: constrained launches {con} of {launches}")
+    check(out["host_syncs_per_tree"] == 1,
+          f"categorical: host syncs per tree {out['host_syncs_per_tree']}")
+    steps = {f"feature_{f}": monotone_grid(bst, ctx["Xv_expo"], f, sign)
+             for f, sign in ((6, 1.0), (7, -1.0))}
+    check(all(v == 0.0 for v in steps.values()),
+          f"categorical: the model is not monotone on the grid: {steps}")
+    ctx.setdefault("launches_con", {})["categorical"] = launches
+    out.update(constrained_launches=con, steps_against_the_sign=steps,
+               heldout_auc=evals["heldout"]["auc"], s_per_iter=t_iter,
+               trees_with_categorical_splits=sum(
+                   t.num_cat > 0 for t in bst.gbdt.models))
+    return out
+
+
+def forced_json(ctx, path) -> list:
+    """A three-node forced-split tree on the bench data: feature 25 at its
+    median, then feature 26 at its median on both sides; written to
+    ``path``.  Returns [(feature, threshold)] in BFS order."""
+    X = ctx["Xv"]
+    t25, t26 = (float(np.median(X[:, f])) for f in (25, 26))
+    node = {"feature": 25, "threshold": t25,
+            "left": {"feature": 26, "threshold": t26},
+            "right": {"feature": 26, "threshold": t26}}
+    with open(path, "w") as fh:
+        json.dump(node, fh)
+    return [(25, t25), (26, t26), (26, t26)]
+
+
+def phase_forced_train(ctx) -> None:
+    """Forced splits through the compact learner (the default learner moved
+    there, 255 bins) and the masked learner (max_bin=1023)."""
+    import tempfile
+
+    from lightgbm_tpu_torch.learner import MaskedTreeLearner
+    from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
+
+    _dataset(ctx)
+    out = {"phase": "forced_train"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/forced.json"
+        want = forced_json(ctx, path)
+        for tag, params, cls, counters, data in (
+                ("compact", WAVE_PARAMS, CompactTreeLearner,
+                 {"hist_packed": build_histogram_packed}, None),
+                ("masked", MASKED_PARAMS, MaskedTreeLearner,
+                 {"hist_full": build_histogram_full},
+                 _dataset_masked(ctx))):
+            # the forced splits take their children's sums from the
+            # reference's GatherInfoForThreshold, which counts the
+            # threshold bin on the right while the rows of that bin go
+            # left (feature_histogram.hpp:284-322): the outputs of the
+            # forced leaves miss, and the loss may rise in a later
+            # iteration, in the JAX package as here (the same sums on a
+            # 20,000-row cut: 0.5495 -> 0.6380 at the fourth)
+            bst, learner, _, run = _train_run(
+                ctx, dict(params, forcedsplits_filename=path),
+                f"forced_train/{tag}", counters, data=data, iters=3,
+                falling=False)
+            ll = run["train_logloss"]
+            check(bool(np.isfinite(ll).all()) and ll[-1] < ll[0] * 1.2,
+                  f"{tag}: training logloss {ll}")
+            check(type(learner) is cls, f"{tag}: {type(learner).__name__} "
+                  f"trained, not {cls.__name__}")
+            firsts = []
+            for tree in bst.gbdt.models:
+                got = [(int(tree.split_feature[i]), float(tree.threshold[i]))
+                       for i in range(3)]
+                firsts.append(got)
+                check([f for f, _ in got] == [f for f, _ in want]
+                      and tree.left_child[0] == 1
+                      and tree.right_child[0] == 2,
+                      f"{tag}: a tree's first splits {got} are not the "
+                      f"forced {want}")
+            run["first_splits_per_tree"] = firsts
+            out[tag] = run
+    out["forced"] = want
     emit(out)
 
 
@@ -2988,8 +3284,9 @@ def phase_categorical_2047(ctx) -> None:
     def record(cands, bits, *args, **kw):
         keep = args[0].is_cuda and len(calls) < 256
         if keep:
+            # (the bounds and the penalty, None without constraints)
             start = (type(cands), [t.clone() for t in cands], bits.clone(),
-                     [t.clone() for t in args])
+                     [None if t is None else t.clone() for t in args])
         categorical_candidates(cands, bits, *args, **kw)
         if keep:
             calls.append((start, [t.clone() for t in cands], bits.clone(),
@@ -3007,13 +3304,13 @@ def phase_categorical_2047(ctx) -> None:
     eligible = 0
     for i, ((kind, fields, bits0, args), after, bits, kw) in \
             enumerate(calls):
-        cpu = [t.cpu() for t in args]
+        cpu = [None if t is None else t.cpu() for t in args]
         cands, b0 = kind(*(t.cpu() for t in fields)), bits0.cpu()
         categorical_candidates_plain(cands, b0, *cpu, **kw)
         check(_cat_same((after, bits), (cands, b0)),
               f"categorical_2047 split_cat launch {i + 1}: the kernel "
               f"differs from the plain version run on the CPU")
-        cnt = cpu[0][:, cpu[-1].long(), :, 2]
+        cnt = cpu[0][:, cpu[7].long(), :, 2]           # the cat_cols
         eligible = max(eligible,
                        int((cnt >= kw["cat_smooth"]).sum(-1).max()))
     # the root's Origin column reaches the kernel's shared-memory sort
@@ -3220,32 +3517,49 @@ def _time_partition(flush) -> dict:
                 library_ms=lib_ms, **_bound(nbytes, 0))
 
 
-def _time_scan_call(flush, k: int, reps: int = 20) -> dict:
+def _time_scan_call(flush, k: int, reps: int = 20,
+                    con: bool = False) -> dict:
     """The wrapper's and the kernel's own time at K leaves (F = 28,
-    B = 255, random float32 histograms)."""
+    B = 255, random float32 histograms); ``con``: the constrained scan
+    (per-leaf bounds, monotone signs, penalty), its inputs in ``args``."""
     from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
 
     dev = torch.device("cuda", 0)
     args = [t.to(dev) for t in scan_inputs(9, False, k=k)]
-    call = lambda: find_best_splits_batched(*args, **SCAN_KW)  # noqa: E731
+    extra, kw = [], dict(SCAN_KW)
+    if con:
+        mono, mn, mx, pen = (t.to(dev) for t in
+                             scan_constraints(k, FEATURES, 10))
+        extra, kw = [mono, mn, mx], dict(SCAN_KW, penalty=pen)
+    call = lambda: find_best_splits_batched(  # noqa: E731
+        *args, *extra, **kw)
     ms = cuda_ms(call, reps, flush)
-    kernel_ms = cuda_ms(staged(call), reps, flush)
+    rec = staged(call)
+    kernel_ms = cuda_ms(rec, reps, flush)
+    device_ms = _device_ms(lambda: [(flush.add_(1), rec())
+                                    for _ in range(reps)], "split_scan")
     cells = k * FEATURES * NUM_BINS
     # read the cube and the leaf totals once, write the 11 (K, F) fields
-    # (ten of 4 bytes, default_left of 1)
+    # (ten of 4 bytes, default_left of 1); constrained: also the (K,)
+    # bounds and the (F,) signs and penalties
     nbytes = cells * 3 * 4 + k * 3 * 4 + k * FEATURES * (10 * 4 + 1)
+    if con:
+        nbytes += k * 2 * 4 + FEATURES * (1 + 4)
     # per bin and direction: 3 cumulative adds, 3 subtractions, two leaf
-    # outputs and two leaf gains (about 34 float operations)
-    return dict(ms=ms, kernel_ms=kernel_ms, K=k, args=args,
-                **_bound(nbytes, cells * 2 * 40))
+    # outputs and two leaf gains (about 34 float operations); constrained:
+    # two clips and the sign test, about 6 more
+    flops = cells * 2 * (46 if con else 40)
+    return dict(ms=ms, kernel_ms=kernel_ms, device_ms=device_ms, K=k,
+                constrained=con, args=args + extra, kw=kw,
+                **_bound(nbytes, flops))
 
 
 def _time_scan(flush, shapes=None) -> dict:
     from lightgbm_tpu_torch.ops.split import find_best_splits
 
     res = _time_scan_call(flush, SCAN_K)
-    args = res.pop("args")
-    res["plain_ms"] = cuda_ms(lambda: find_best_splits(*args, **SCAN_KW),
+    args, kw = res.pop("args"), res.pop("kw")
+    res["plain_ms"] = cuda_ms(lambda: find_best_splits(*args, **kw),
                               20, flush)
     res.update(library_ms=None,
                library="no single PyTorch call computes this function")
@@ -3254,15 +3568,22 @@ def _time_scan(flush, shapes=None) -> dict:
         for tag in ("median", "largest"):
             r = _time_scan_call(flush, shapes[tag]["K"])
             r.pop("args")
+            r.pop("kw")
             res["shapes_wave_train"][tag] = r
+    # the constrained launch at the same K (constrained_train's)
+    r = _time_scan_call(flush, SCAN_K, con=True)
+    args, kw = r.pop("args"), r.pop("kw")
+    r["plain_ms"] = cuda_ms(lambda: find_best_splits(*args, **kw), 20, flush)
+    res["constrained"] = r
     return res
 
 
 def _time_split_cat_call(flush, k: int, reps: int = 20,
-                         b: int = 256) -> dict:
+                         b: int = 256, con: bool = False) -> dict:
     """The wrapper's and the kernel's own time at K leaves of the fixture
     (six categorical columns of eight, B bins, random float32), on a start
-    the numerical scan wrote."""
+    the numerical scan wrote; ``con``: with per-leaf bounds and the
+    penalty."""
     from lightgbm_tpu_torch.ops.split_cat import (cat_words,
                                                   categorical_candidates)
 
@@ -3270,8 +3591,11 @@ def _time_split_cat_call(flush, k: int, reps: int = 20,
     args = [t.to(dev) for t in split_cat_inputs(9, False, k=k, b=b)]
     num, bits = _cat_start(args)
     cols = torch.tensor(CAT_COLS, dtype=torch.int32, device=dev)
+    extra = []
+    if con:
+        extra = [t.to(dev) for t in scan_constraints(k, CAT_F, 11)[1:]]
     call = lambda: categorical_candidates(  # noqa: E731
-        num, bits, *args, cols, **CAT_KW)
+        num, bits, *args, cols, *extra, **CAT_KW)
     ms = cuda_ms(call, reps, flush)
     rec = staged(call)
     kernel_ms = cuda_ms(rec, reps, flush)
@@ -3283,11 +3607,14 @@ def _time_split_cat_call(flush, k: int, reps: int = 20,
     # write per (leaf, column) the eleven fields (ten of 4 bytes, one of
     # 1) and W words
     nbytes = k * c * b * 3 * 4 + k * 3 * 4 + k * c * (10 * 4 + 1 + w * 4)
+    if con:
+        nbytes += k * 2 * 4 + c * 4        # the bounds, the penalties
     # per bin a CTR (2 operations) or a one-hot gain (about 30); per scan
     # position and direction about 30, over min(32, (B + 1) // 2) positions
     flops = k * c * (b * 30 + 2 * 32 * 30)
     return dict(ms=ms, kernel_ms=kernel_ms, device_ms=device_ms, K=k, C=c,
-                B=b, args=args, start=(num, bits), **_bound(nbytes, flops))
+                B=b, constrained=con, args=args, extra=extra,
+                start=(num, bits), **_bound(nbytes, flops))
 
 
 def _time_split_cat(flush, shapes=None) -> dict:
@@ -3295,6 +3622,7 @@ def _time_split_cat(flush, shapes=None) -> dict:
 
     res = _time_split_cat_call(flush, CAT_K)
     args, (num, bits) = res.pop("args"), res.pop("start")
+    res.pop("extra")
     cols = torch.tensor(CAT_COLS, dtype=torch.int32, device=bits.device)
     res["plain_ms"] = cuda_ms(lambda: categorical_candidates_plain(
         num, bits, *args, cols, **CAT_KW), 5, flush)
@@ -3304,13 +3632,18 @@ def _time_split_cat(flush, shapes=None) -> dict:
         res["shapes_categorical_train"] = {}
         for tag in ("median", "largest"):
             r = _time_split_cat_call(flush, shapes[tag]["K"])
-            r.pop("args")
-            r.pop("start")
+            for key in ("args", "start", "extra"):
+                r.pop(key)
             res["shapes_categorical_train"][tag] = r
     r = _time_split_cat_call(flush, CAT_K, b=2047)
-    r.pop("args")
-    r.pop("start")
+    for key in ("args", "start", "extra"):
+        r.pop(key)
     res["B2047"] = r
+    r = _time_split_cat_call(flush, CAT_K, con=True)
+    args, (num, bits), extra = r.pop("args"), r.pop("start"), r.pop("extra")
+    r["plain_ms"] = cuda_ms(lambda: categorical_candidates_plain(
+        num, bits, *args, cols, *extra, **CAT_KW), 5, flush)
+    res["constrained"] = r
     return res
 
 
@@ -3807,7 +4140,9 @@ def kernels_line(ctx) -> dict:
         "split_scan": "dyadic: every field exact; random float32: bitwise "
                       "equal to the CPU plain version; vs the card plain "
                       "version gain within 1e-3 of the pre-shift gain, "
-                      "choice equal at clear candidates",
+                      "choice equal at clear candidates; constrained "
+                      "(bounds, signs, penalty): bitwise equal to the CPU "
+                      "plain version",
         "hist_multislot": "dyadic inputs bitwise at K=1, 3, 16, 64; two "
                           "launches bitwise; quant mode bitwise; random "
                           "float32 within rtol=1e-5, atol=1e-5 times each "
@@ -3829,7 +4164,8 @@ def kernels_line(ctx) -> dict:
                      "version on the CPU (random float32 and dyadic, B = "
                      "256, 1,023 and 2,047, seven regimes), to the plain "
                      "version on the card on dyadic inputs; two launches "
-                     "bitwise"}
+                     "bitwise; with bounds and penalty at B = 256 bitwise "
+                     "to the CPU plain version"}
     err = {"hist_packed": ctx.get("max_abs_err"),
            "hist_segments": ctx.get("err_segments"),
            "partition": ctx.get("err_partition"),
@@ -3866,6 +4202,9 @@ def kernels_line(ctx) -> dict:
                         "launches_rank", {}).get(name),
                     "launches_categorical_train": ctx.get(
                         "launches_cat", {}).get(name),
+                    "launches_constrained_train": {
+                        run: c.get(name) for run, c in
+                        ctx.get("launches_con", {}).items()},
                     "quant_mode_launches_quant_train":
                         quant.get(name + "_quant"),
                     "max_abs_err": err[name], "ms": row["ms"],
@@ -3882,6 +4221,9 @@ def kernels_line(ctx) -> dict:
         if name == "split_cat":
             out[-1]["B2047"] = row["B2047"]
             out[-1]["ported_from"] = "an XLA lax.scan, not a pallas_call"
+        if name in ("split_scan", "split_cat"):
+            # the constrained launch (bounds, signs, penalty) at K = 128
+            out[-1]["constrained"] = row["constrained"]
         for key in ("shapes_wave_train", "shapes_masked_train",
                     "shapes_train", "shapes_quant_train",
                     "shapes_categorical_train"):

@@ -336,6 +336,20 @@ class GBDT:
         if objective is not None:
             objective.init(data.metadata, data.num_data, data.num_data_padded)
         self.learner = create_tree_learner(self.cfg, data, self.device)
+        if self.cfg.forcedsplits_filename:
+            # the forced-split tree, parsed once against the bin mappers
+            # (`gbdt.py:440-451`); the factory has moved the wave learner's
+            # config to the compact learner
+            from ..forced import load_forced_splits
+            forced = load_forced_splits(self.cfg.forcedsplits_filename, data)
+            if forced and len(forced) > self.cfg.num_leaves - 1:
+                import warnings
+                warnings.warn(
+                    f"forced-splits tree has {len(forced)} splits but "
+                    f"num_leaves={self.cfg.num_leaves} allows "
+                    f"{self.cfg.num_leaves - 1}; truncating in BFS order")
+                forced = forced[:self.cfg.num_leaves - 1]
+            self.learner.set_forced_splits(forced)
         if hasattr(self.learner, "on_stats_read"):
             # reading the learner's per-tree counters decodes queued trees
             self.learner.on_stats_read = self._flush_pending

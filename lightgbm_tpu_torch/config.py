@@ -887,12 +887,6 @@ def check_supported(cfg: Config) -> None:
     if cfg.tpu_learner not in ("auto", "wave", "compact", "masked"):
         raise ValueError(f"tpu_learner must be one of auto, wave, compact, "
                          f"masked; got {cfg.tpu_learner!r}")
-    if cfg.forcedsplits_filename:
-        raise not_ported("forced splits", BREADTH)
-    if any(int(v) != 0 for v in cfg.monotone_constraints):
-        raise not_ported("monotone constraints", BREADTH)
-    if any(float(v) != 1.0 for v in cfg.feature_contri):
-        raise not_ported("feature_contri penalties", BREADTH)
     if cfg.two_round or cfg.data or cfg.valid or cfg.input_model:
         raise not_ported("text-file inputs", SURFACE)
     if cfg.telemetry or cfg.trace_out or cfg.profile_trace_dir \

@@ -17,11 +17,18 @@
 //     the leaf's min_gain_shift, L1 / L2 / max_delta_step leaf outputs;
 //   * default_left false when the missing-right scan wins, and false for a
 //     NaN feature with two bins;
+//   * with kCon (a constrained scan): both outputs clipped to the leaf's
+//     [min_c, max_c] value bounds and the gain 0 where the clipped outputs
+//     break the feature's monotone sign (_split_gains), and the post-shift
+//     gain times the feature's feature_contri penalty (apply_penalty);
 //
 // and writes every SplitCandidates field with the epilogue of
 // find_best_splits: the post-shift gain (-inf where the best is -inf or the
 // feature is masked), the int32 threshold, default_left, the left and right
-// sums with the K_EPSILON conventions and both outputs.  Every field is
+// sums with the K_EPSILON conventions and both outputs.  Without kCon the
+// scan is the unconstrained one instruction for instruction: a constrained
+// scan with bounds of -inf and +inf, sign 0 and penalty 1 computes the same
+// bits, so one instantiation of each kind serves every call.  Every field is
 // computed with the plain version's operations in its order (_rn
 // intrinsics, no contraction), so it equals ops/split.py on the CPU bit for
 // bit.
@@ -88,24 +95,47 @@ __device__ __forceinline__ float gain_given_output(float g, float h, float out,
   return -__fadd_rn(a, b);
 }
 
+// A leaf's value bounds, a feature's monotone sign (+1, -1, 0) and its
+// feature_contri gain penalty: what a constrained scan reads.
+struct Constraint {
+  float mn = -INFINITY, mx = INFINITY;
+  int mono = 0;
+  float pen = 1.0f;
+};
+
+// torch.clamp(x, mn, mx) of the plain version: NaN kept, mx last.
+__device__ __forceinline__ float clip(float x, float mn, float mx) {
+  x = x < mn ? mn : x;
+  return x > mx ? mx : x;
+}
+
 struct Cand {
   float gain, lg, lh, lc, lo, ro;
 };
 
 // One threshold of one direction: left sums (lg, lh, lc), right sums by
-// subtraction from the totals, feasibility, gain (or -inf).
+// subtraction from the totals, feasibility, gain (or -inf); kCon clips the
+// outputs to the leaf's bounds and zeroes a gain against the monotone sign.
+template <bool kCon>
 __device__ __forceinline__ Cand evaluate(float lg, float lh, float lc,
                                          float rg, float rh, float rc,
                                          bool shape_ok, float mgs,
-                                         const Params& p) {
+                                         const Params& p,
+                                         const Constraint& cs) {
   Cand c;
   c.lg = lg;
   c.lh = lh;
   c.lc = lc;
   c.lo = leaf_output(lg, lh, p);
   c.ro = leaf_output(rg, rh, p);
-  const float gain = __fadd_rn(gain_given_output(lg, lh, c.lo, p),
-                               gain_given_output(rg, rh, c.ro, p));
+  if (kCon) {
+    c.lo = clip(c.lo, cs.mn, cs.mx);
+    c.ro = clip(c.ro, cs.mn, cs.mx);
+  }
+  float gain = __fadd_rn(gain_given_output(lg, lh, c.lo, p),
+                         gain_given_output(rg, rh, c.ro, p));
+  if (kCon && ((cs.mono > 0 && c.lo > c.ro) || (cs.mono < 0 && c.lo < c.ro)))
+    gain = 0.0f;
   const bool valid = shape_ok && rc >= p.min_data && lc >= p.min_data &&
                      rh >= p.min_hess && lh >= p.min_hess;
   c.gain = (valid && gain > mgs) ? gain : -INFINITY;
@@ -128,32 +158,36 @@ __device__ __forceinline__ Feature make_feature(int nb, int mt, int d) {
 }
 
 // Missing-left candidate at threshold t: right = suffix sums over bins > t.
+template <bool kCon>
 __device__ __forceinline__ Cand cand_m1(int t, const Feature& ft,
                                         const float (*cm)[kBins + 1],
                                         float tg, float th, float tn,
-                                        float mgs, const Params& p) {
+                                        float mgs, const Params& p,
+                                        const Constraint& cs) {
   const float rg = cm[0][t + 1];
   const float rh = __fadd_rn(cm[1][t + 1], kEpsilon);
   const float rc = cm[2][t + 1];
   const int thr_hi = (ft.two && ft.is_nan) ? ft.nb - 3 : ft.nb - 2;
   const bool shape_ok = t <= thr_hi && t >= 0 &&
                         !(ft.two && ft.is_zero && t == ft.d - 1);
-  return evaluate(__fsub_rn(tg, rg), __fsub_rn(th, rh), __fsub_rn(tn, rc),
-                  rg, rh, rc, shape_ok, mgs, p);
+  return evaluate<kCon>(__fsub_rn(tg, rg), __fsub_rn(th, rh),
+                        __fsub_rn(tn, rc), rg, rh, rc, shape_ok, mgs, p, cs);
 }
 
 // Missing-right candidate at threshold t: left = prefix sums over bins <= t.
+template <bool kCon>
 __device__ __forceinline__ Cand cand_p1(int t, const Feature& ft,
                                         const float (*cp)[kBins],
                                         float tg, float th, float tn,
-                                        float mgs, const Params& p) {
+                                        float mgs, const Params& p,
+                                        const Constraint& cs) {
   const float lg = cp[0][t];
   const float lh = __fadd_rn(cp[1][t], kEpsilon);
   const float lc = cp[2][t];
   const bool shape_ok = ft.two && t <= ft.nb - 2 &&
                         !(ft.is_zero && t == ft.d);
-  return evaluate(lg, lh, lc, __fsub_rn(tg, lg), __fsub_rn(th, lh),
-                  __fsub_rn(tn, lc), shape_ok, mgs, p);
+  return evaluate<kCon>(lg, lh, lc, __fsub_rn(tg, lg), __fsub_rn(th, lh),
+                        __fsub_rn(tn, lc), shape_ok, mgs, p, cs);
 }
 
 // (g1, t1) beats (g2, t2): larger gain; on equal gains the larger threshold
@@ -237,14 +271,17 @@ struct Fields {
 // + feature) of `o`.  v holds every lane's bins (lane_bins), tg, sum_h (no
 // epsilon) and tn are the leaf's sums, `masked` drops the feature for this
 // leaf.  s.hs may hold the histogram v was read from: it is overwritten.
-// Every lane of the warp must call it.
+// kCon runs the constrained scan with `cs`.  Every lane of the warp must
+// call it.
+template <bool kCon = false>
 __device__ __forceinline__ void warp_scan(WarpSmem& s,
                                           const float (&v)[kPerLane][3],
                                           const Feature& ft, int B, float tg,
                                           float sum_h, float tn, bool masked,
                                           float min_gain_to_split,
                                           const Params& p, const Fields& o,
-                                          long long pair) {
+                                          long long pair,
+                                          const Constraint& cs = Constraint{}) {
   const int lane = threadIdx.x & 31;
   // the leaf totals, as find_best_splits forms them
   const float th = __fadd_rn(sum_h, 2.0f * kEpsilon);
@@ -300,12 +337,14 @@ __device__ __forceinline__ void warp_scan(WarpSmem& s,
   for (int j = 0; j < kPerLane; ++j) {  // unrolled: independent chains
     const int t = lane + 32 * j;
     if (t < B) {
-      const float g1 = cand_m1(t, ft, s.cm, tg, th, tn, mgs, p).gain;
+      const float g1 =
+          cand_m1<kCon>(t, ft, s.cm, tg, th, tn, mgs, p, cs).gain;
       if (beats(g1, t, gm, tm, true)) {
         gm = g1;
         tm = t;
       }
-      const float g2 = cand_p1(t, ft, s.cp, tg, th, tn, mgs, p).gain;
+      const float g2 =
+          cand_p1<kCon>(t, ft, s.cp, tg, th, tn, mgs, p, cs).gain;
       if (beats(g2, t, gp, tp, false)) {
         gp = g2;
         tp = t;
@@ -318,14 +357,15 @@ __device__ __forceinline__ void warp_scan(WarpSmem& s,
 
   const bool use_p1 = gp > gm;
   const int bt = use_p1 ? tp : tm;
-  const Cand c = use_p1 ? cand_p1(bt, ft, s.cp, tg, th, tn, mgs, p)
-                        : cand_m1(bt, ft, s.cm, tg, th, tn, mgs, p);
+  const Cand c = use_p1 ? cand_p1<kCon>(bt, ft, s.cp, tg, th, tn, mgs, p, cs)
+                        : cand_m1<kCon>(bt, ft, s.cm, tg, th, tn, mgs, p, cs);
   const float best = use_p1 ? gp : gm;
   const bool dleft = use_p1 ? false : !(!ft.two && ft.is_nan);
   const bool invalid = (isinf(best) && best < 0.0f) || masked;
   float* out = o.planes + pair;
   const long long pl = o.plane;
-  out[0] = invalid ? -INFINITY : __fsub_rn(best, mgs);
+  const float shifted = __fsub_rn(best, mgs);
+  out[0] = invalid ? -INFINITY : (kCon ? __fmul_rn(shifted, cs.pen) : shifted);
   reinterpret_cast<int32_t*>(out + pl)[0] = bt;
   out[2 * pl] = c.lg;
   out[3 * pl] = __fsub_rn(c.lh, kEpsilon);

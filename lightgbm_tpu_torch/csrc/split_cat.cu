@@ -19,7 +19,13 @@
 //     ineligible bin at +inf), scanned from both ends up to
 //     t = min(max_cat_threshold, (used + 1) / 2) categories with the
 //     min_data_per_group bookkeeping, lambda_l2 + cat_l2; the backward
-//     direction only on strictly greater gain.
+//     direction only on strictly greater gain;
+//   * where the call passes them (monotone constraints, feature_contri
+//     penalties), the leaf's value bounds (K,) clip every leaf output the
+//     gains are formed from and the written outputs, and the feature's
+//     penalty (F,) multiplies the written post-shift gain.  A call without
+//     them reads bounds of -inf and +inf and a penalty of 1, which change
+//     no bit (scan::clip keeps the value, x * 1 is x).
 //
 // Every field is computed with the plain version's operations in its order
 // (_rn intrinsics, scan_common.cuh's leaf output and gain), so it equals
@@ -84,6 +90,11 @@ struct Args {
   int tcap;  // scan positions a direction holds
   float min_gain_to_split, cat_smooth, min_data_per_group;
   int max_cat_threshold, max_cat_to_onehot;
+  // (K,) leaf value bounds and (F,) penalty, each null where the call has
+  // none
+  const float *min_c, *max_c;
+  long long mn_stride, mx_stride;
+  const float* penalty;
   float *gain, *lsg, *lsh, *lc, *rsg, *rsh, *rc, *lo, *ro;
   int32_t* thr;
   uint8_t* dleft;
@@ -306,6 +317,8 @@ split_cat(Args a, scan::Params p, scan::Params pm) {
       scan::gain_given_output(tg, th, scan::leaf_output(tg, th, p), p),
       a.min_gain_to_split);
   const bool onehot = nb <= a.max_cat_to_onehot;
+  const float mn = a.min_c != nullptr ? a.min_c[k * a.mn_stride] : -INFINITY;
+  const float mx = a.max_c != nullptr ? a.max_c[k * a.mx_stride] : INFINITY;
   __syncthreads();
 
   float gain, lg, lh, lc;
@@ -324,8 +337,9 @@ split_cat(Args a, scan::Params p, scan::Params pm) {
       const bool valid = c >= p.min_data && h >= p.min_hess &&
                          other_n >= p.min_data && other_h >= p.min_hess;
       const float h_eps = __fadd_rn(h, scan::kEpsilon);
-      const float o_out = scan::leaf_output(other_g, other_h, p);
-      const float b_out = scan::leaf_output(g, h_eps, p);
+      const float o_out =
+          scan::clip(scan::leaf_output(other_g, other_h, p), mn, mx);
+      const float b_out = scan::clip(scan::leaf_output(g, h_eps, p), mn, mx);
       const float gv =
           __fadd_rn(scan::gain_given_output(other_g, other_h, o_out, p),
                     scan::gain_given_output(g, h_eps, b_out, p));
@@ -369,8 +383,13 @@ split_cat(Args a, scan::Params p, scan::Params pm) {
     const int keep = a.max_cat_threshold;  // t <= max_cat_threshold
     for (int base = 0; base < U; base += T) {
       const int add = min(T, U - base);
-      if (s_cnt + add > a.cap) {
-        const int n = sort_keep(buf, s_cnt, keep);
+      // every thread reads the count before any warp adds this round's
+      // keys to it: a thread that read it after would take the cut branch
+      // (and its barriers) alone
+      const int n0 = s_cnt;
+      __syncthreads();
+      if (n0 + add > a.cap) {
+        const int n = sort_keep(buf, n0, keep);
         __syncthreads();
         if (tid == 0) s_cnt = n;
         __syncthreads();
@@ -481,8 +500,10 @@ split_cat(Args a, scan::Params p, scan::Params pm) {
         const float slg = v[3 * i], slh = v[3 * i + 1];
         const float rg = __fsub_rn(tg, slg);
         const float srh = __fsub_rn(th, slh);
-        const float l_out = scan::leaf_output(slg, slh, pm);
-        const float r_out = scan::leaf_output(rg, srh, pm);
+        const float l_out =
+            scan::clip(scan::leaf_output(slg, slh, pm), mn, mx);
+        const float r_out =
+            scan::clip(scan::leaf_output(rg, srh, pm), mn, mx);
         const float g =
             __fadd_rn(scan::gain_given_output(slg, slh, l_out, pm),
                       scan::gain_given_output(rg, srh, r_out, pm));
@@ -553,7 +574,8 @@ split_cat(Args a, scan::Params p, scan::Params pm) {
   const float rg = __fsub_rn(tg, lg);
   const float rh = __fsub_rn(th, lh);
   const float rc = __fsub_rn(tn, lc);
-  a.gain[pair] = invalid ? -INFINITY : __fsub_rn(gain, mgs);
+  const float pen = a.penalty != nullptr ? a.penalty[f] : 1.0f;
+  a.gain[pair] = invalid ? -INFINITY : __fmul_rn(__fsub_rn(gain, mgs), pen);
   a.thr[pair] = 0;
   a.dleft[pair] = 0;
   a.lsg[pair] = lg;
@@ -562,8 +584,8 @@ split_cat(Args a, scan::Params p, scan::Params pm) {
   a.rsg[pair] = rg;
   a.rsh[pair] = __fsub_rn(rh, scan::kEpsilon);
   a.rc[pair] = rc;
-  a.lo[pair] = scan::leaf_output(lg, lh, pe);
-  a.ro[pair] = scan::leaf_output(rg, rh, pe);
+  a.lo[pair] = scan::clip(scan::leaf_output(lg, lh, pe), mn, mx);
+  a.ro[pair] = scan::clip(scan::leaf_output(rg, rh, pe), mn, mx);
 }
 
 }  // namespace
@@ -576,7 +598,9 @@ extern "C" {
 // bytes with a row stride (0 for one (F,) mask); the C categorical columns
 // as int32; the (K, F) contiguous candidate fields (gain, threshold int32,
 // default_left bytes, left sums, right sums, outputs) and bits (K, F, W)
-// int32, of which the categorical columns are written.  threads, cap,
+// int32, of which the categorical columns are written; the leaf bounds
+// min_c, max_c as float32 vectors with element strides and the (F,) float32
+// penalty, each null where the call has none.  threads, cap,
 // tcap and smem are ops/split_cat.py:split_cat_plan's.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 int lgbt_split_cat(const void* hist, const void* sum_g, long long sg_stride,
@@ -589,8 +613,10 @@ int lgbt_split_cat(const void* hist, const void* sum_g, long long sg_stride,
                    float min_data, float min_hess, float min_gain_to_split,
                    float cat_smooth, int max_cat_threshold,
                    int max_cat_to_onehot, float min_data_per_group,
-                   void* gain, void* thr, void* dleft, void* lsg, void* lsh,
-                   void* lc, void* rsg, void* rsh, void* rc, void* lo,
+                   const void* min_c, long long mn_stride,
+                   const void* max_c, long long mx_stride,
+                   const void* penalty, void* gain, void* thr,
+                   void* dleft, void* lsg, void* lsh, void* lc, void* rsg, void* rsh, void* rc, void* lo,
                    void* ro, void* bits, int threads, int cap, int tcap,
                    long long smem, void* stream) {
   if (B < 1 || B > (int)kBinMask + 1 || K < 1 || F < 1 || C < 1 ||
@@ -633,6 +659,11 @@ int lgbt_split_cat(const void* hist, const void* sum_g, long long sg_stride,
   a.min_data_per_group = min_data_per_group;
   a.max_cat_threshold = max_cat_threshold;
   a.max_cat_to_onehot = max_cat_to_onehot;
+  a.min_c = static_cast<const float*>(min_c);
+  a.max_c = static_cast<const float*>(max_c);
+  a.mn_stride = mn_stride;
+  a.mx_stride = mx_stride;
+  a.penalty = static_cast<const float*>(penalty);
   a.gain = static_cast<float*>(gain);
   a.thr = static_cast<int32_t*>(thr);
   a.dleft = static_cast<uint8_t*>(dleft);

@@ -17,7 +17,14 @@
 //   * the epilogue of find_best_splits: the post-shift gain, -inf where the
 //     best is -inf or the feature is masked ((F,) or (K, F) mask), the int32
 //     threshold, default_left, the left and right sums with the K_EPSILON
-//     conventions, both outputs.
+//     conventions, both outputs;
+//   * where the call passes any of them (monotone constraints, feature_contri
+//     penalties), the constrained scan: per-leaf value bounds (K,) that clip
+//     both outputs, a per-feature monotone sign (F,) int8 whose violation
+//     zeroes a threshold's gain, and a per-feature penalty (F,) on the
+//     post-shift gain (scan_common.cuh, kCon).  It is a second instantiation
+//     of the kernel, so a call with none of them runs the unconstrained scan
+//     as before, with no extra load or instruction.
 //
 // Every field is computed with the plain version's operations in its order
 // (_rn intrinsics, no contraction), so it equals ops/split.py on the CPU bit
@@ -56,11 +63,17 @@ struct Args {
   const int32_t *num_bin, *missing, *default_bin;
   const uint8_t* fmask;
   long long fmask_stride;  // 0 for an (F,) mask, F for (K, F)
+  // the constrained scan's inputs, each null where the call has none
+  const float *min_c, *max_c;   // (K,) leaf value bounds
+  long long mn_stride, mx_stride;
+  const int8_t* mono;           // (F,) monotone sign
+  const float* penalty;         // (F,) feature_contri factor
   int K, F, B;
   float min_gain_to_split;
   scan::Fields out;        // (10, K, F) planes and (K, F) default_left
 };
 
+template <bool kCon>
 __global__ void __launch_bounds__(kWarps * 32, kBlocksPerSm)
 split_scan(Args a, scan::Params p) {
   __shared__ scan::WarpSmem smem[kWarps];
@@ -80,9 +93,16 @@ split_scan(Args a, scan::Params p) {
   __syncwarp();
   float v[scan::kPerLane][3];
   scan::lane_bins(s, B, lane, v);
-  scan::warp_scan(s, v, ft, B, a.sum_g[k * a.sg_stride],
-                  a.sum_h[k * a.sh_stride], a.num_data[k * a.nd_stride],
-                  masked, a.min_gain_to_split, p, a.out, pair);
+  scan::Constraint cs;
+  if (kCon) {
+    if (a.min_c != nullptr) cs.mn = a.min_c[k * a.mn_stride];
+    if (a.max_c != nullptr) cs.mx = a.max_c[k * a.mx_stride];
+    if (a.mono != nullptr) cs.mono = a.mono[f];
+    if (a.penalty != nullptr) cs.pen = a.penalty[f];
+  }
+  scan::warp_scan<kCon>(s, v, ft, B, a.sum_g[k * a.sg_stride],
+                        a.sum_h[k * a.sh_stride], a.num_data[k * a.nd_stride],
+                        masked, a.min_gain_to_split, p, a.out, pair, cs);
 }
 
 }  // namespace
@@ -92,9 +112,12 @@ extern "C" {
 // Launch on `stream`: hist (K, F, B, 3) float32 contiguous; the leaf sums
 // sum_g, sum_h (no epsilon), num_data as float32 vectors with element
 // strides; per-feature int32 metadata; the feature mask as bytes with a row
-// stride (0 for one (F,) mask); planes (10, K, F) float32 (plane 1 holds the
-// int32 threshold) and dleft (K, F) bytes.  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// stride (0 for one (F,) mask); the leaf bounds min_c, max_c as float32
+// vectors with element strides, the (F,) int8 monotone sign and the (F,)
+// float32 penalty, each null where the call has none (all four null: the
+// unconstrained scan); planes (10, K, F) float32 (plane 1 holds the int32
+// threshold) and dleft (K, F) bytes.  Returns cudaGetLastError() after the
+// launch (0 = launched).
 int lgbt_split_scan(const void* hist, const void* sum_g, long long sg_stride,
                     const void* sum_h, long long sh_stride,
                     const void* num_data, long long nd_stride,
@@ -102,7 +125,10 @@ int lgbt_split_scan(const void* hist, const void* sum_g, long long sg_stride,
                     const void* default_bin, const void* fmask,
                     long long fmask_stride, int K, int F, int B, float l1,
                     float l2, float mds, int use_mds, float min_data,
-                    float min_hess, float min_gain_to_split, void* planes,
+                    float min_hess, float min_gain_to_split,
+                    const void* min_c, long long mn_stride,
+                    const void* max_c, long long mx_stride,
+                    const void* mono, const void* penalty, void* planes,
                     void* dleft, void* stream) {
   if (B < 1 || B > scan::kBins || K < 1 || F < 1)
     return (int)cudaErrorInvalidValue;
@@ -119,6 +145,12 @@ int lgbt_split_scan(const void* hist, const void* sum_g, long long sg_stride,
   a.default_bin = static_cast<const int32_t*>(default_bin);
   a.fmask = static_cast<const uint8_t*>(fmask);
   a.fmask_stride = fmask_stride;
+  a.min_c = static_cast<const float*>(min_c);
+  a.max_c = static_cast<const float*>(max_c);
+  a.mn_stride = mn_stride;
+  a.mx_stride = mx_stride;
+  a.mono = static_cast<const int8_t*>(mono);
+  a.penalty = static_cast<const float*>(penalty);
   a.K = K;
   a.F = F;
   a.B = B;
@@ -128,8 +160,14 @@ int lgbt_split_scan(const void* hist, const void* sum_g, long long sg_stride,
   scan::Params p{l1, l2, mds, use_mds, min_data, min_hess};
   const long long pairs = (long long)K * F;
   const long long blocks = (pairs + kWarps - 1) / kWarps;
-  split_scan<<<(unsigned)blocks, kWarps * 32, 0,
-               static_cast<cudaStream_t>(stream)>>>(a, p);
+  const bool con = min_c != nullptr || max_c != nullptr || mono != nullptr ||
+                   penalty != nullptr;
+  if (con)
+    split_scan<true><<<(unsigned)blocks, kWarps * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a, p);
+  else
+    split_scan<false><<<(unsigned)blocks, kWarps * 32, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a, p);
   return (int)cudaGetLastError();
 }
 

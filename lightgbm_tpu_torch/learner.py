@@ -31,7 +31,16 @@ torch ``ops/split.py:find_best_splits``, as the JAX masked learner's is
 plain XLA with no Pallas kernel; the categorical one is
 ``ops/split_cat.py`` (the ``split_cat`` kernel on the card, at every
 uint16 width), and a categorical split routes rows by its bitset (`:401-404`).
-Monotone constraints, forced splits, feature penalties and the GSPMD
+
+Monotone constraints and ``feature_contri`` penalties (`:176-194`) are
+per-feature tensors mapped through ``used_feature_map``; every learner
+passes its leaves' value bounds (``LF_MIN_C`` / ``LF_MAX_C``) to the split
+search and propagates them on a split (``_child_constraints``, `:320-331`).
+Forced splits (``forced.py``) run before best-gain growth: in the masked
+learner as extra ``do``-gated steps of the same fixed-shape loop (the JAX
+fused tree's forced phase, `:512-575`), records written at the cursor
+``num_leaves - 1`` so that an aborted forced queue leaves no gap; in the
+compact learner in its host loop (``learner_compact.py``).  The GSPMD
 parallel modes are not ported.
 """
 
@@ -47,7 +56,8 @@ from .binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
 from .config import Config
 from .dataset import _ConstructedDataset
 from .ops.histogram import build_histogram, read_codes
-from .ops.split import find_best_splits, fix_histogram
+from .ops.split import (K_EPSILON, find_best_splits, fix_histogram,
+                        forced_split_info)
 from .ops.split_cat import (cat_words, categorical_candidates,
                             categorical_candidates_plain)
 from .tree import K_DEFAULT_LEFT_MASK, Tree
@@ -159,23 +169,119 @@ class TreeLearner:
         self.split_cat = categorical_candidates
         #: calls to each kernel function, over all trees
         self.kernel_calls: Dict[str, int] = {"split_cat": 0}
+        # monotone constraints and the per-feature gain penalty, mapped from
+        # real feature index to used-feature slots (`config.h:355-368`)
+        used_map = data.used_feature_map
+        mono = np.zeros(self.num_features, np.int8)
+        mc = list(cfg.monotone_constraints or [])
+        pen = np.ones(self.num_features, np.float32)
+        fc = list(cfg.feature_contri or [])
+        for k, j in enumerate(used_map):
+            if int(j) < len(mc):
+                mono[k] = int(mc[int(j)])
+            if int(j) < len(fc):
+                pen[k] = float(fc[int(j)])
+        self.np_monotone = mono
+        self.has_monotone = bool(mono.any())
+        self.f_monotone = torch.from_numpy(mono).to(device) \
+            if self.has_monotone else None
+        self.has_penalty = bool((pen != 1.0).any())
+        self.f_penalty = torch.from_numpy(pen).to(device) \
+            if self.has_penalty else None
+        #: the static BFS forced-split list (``set_forced_splits``)
+        self._forced = None
 
     def _fix_histogram(self, hist, sum_g, sum_h, cnt):
         """``Dataset::FixHistogram`` (`src/io/dataset.cpp:923-941`) of a
         (K, F, B, 3) batch with (K,) totals (``ops/split.py``)."""
         return fix_histogram(hist, sum_g, sum_h, cnt, self.f_default_bin)
 
-    def _feature_cands(self, hist, sum_g, sum_h, cnt,
-                       feature_mask) -> _FeatCand:
+    def _leaf_bounds(self, min_c, max_c, k: int):
+        """The (K,) value bounds the split search takes: None without
+        monotone constraints (no clip), -inf and +inf where the caller has
+        none (the root), else the caller's."""
+        if not self.has_monotone:
+            return None, None
+        if min_c is None:
+            min_c = torch.full((k,), float("-inf"), dtype=self._acc,
+                               device=self.device)
+            max_c = torch.full((k,), float("inf"), dtype=self._acc,
+                               device=self.device)
+        return min_c, max_c
+
+    def _feature_cands(self, hist, sum_g, sum_h, cnt, feature_mask,
+                       min_c=None, max_c=None) -> _FeatCand:
         """Per-feature candidates for a batch of leaves: the numerical scan,
-        then the categorical columns written over it."""
+        then the categorical columns written over it; ``min_c`` / ``max_c``
+        (K,) are the leaves' monotone value bounds."""
         hist = self._fix_histogram(hist, sum_g, sum_h, cnt)
+        min_c, max_c = self._leaf_bounds(min_c, max_c, hist.shape[0])
         num = find_best_splits(
             hist, sum_g, sum_h, cnt, self.f_num_bin, self.f_missing,
             self.f_default_bin, self._num_features_of(feature_mask),
+            self.f_monotone, min_c, max_c, penalty=self.f_penalty,
             **self._split_kwargs)
         return self._with_categorical(num, hist, sum_g, sum_h, cnt,
-                                      feature_mask)
+                                      feature_mask, min_c, max_c)
+
+    def _child_constraints(self, feat, flags, lout, rout, pmin, pmax):
+        """Constraint propagation on a split (`serial_tree_learner.cpp:
+        765-776`, JAX `learner.py:320-331`), batched over (K,) splits:
+        children inherit the parent's range; a monotone numerical split pins
+        the shared boundary at the output midpoint.  Returns (lmin, lmax,
+        rmin, rmax)."""
+        mono = self.f_monotone.index_select(0, feat)
+        mono = torch.where((flags & 2) != 0, 0, mono)
+        mid = (lout + rout) / 2.0
+        return (torch.where(mono < 0, mid, pmin),
+                torch.where(mono > 0, mid, pmax),
+                torch.where(mono > 0, mid, pmin),
+                torch.where(mono < 0, mid, pmax))
+
+    def set_forced_splits(self, forced) -> None:
+        """Install the static BFS forced-split list (``forced.py``); called
+        before the first tree.  Each split's integer row and bitset are
+        static, built here once."""
+        self._forced = list(forced) if forced else None
+        self._forced_static = []
+        for fs in self._forced or ():
+            # numerical forced splits send missing values left
+            ci = torch.tensor([fs.feature_inner, fs.threshold_bin,
+                               2 if fs.is_cat else 1], dtype=torch.int64,
+                              device=self.device)
+            cb = None
+            if self.has_categorical:
+                words = np.zeros(self.cat_W, np.uint32)
+                if fs.is_cat:
+                    t = fs.threshold_bin
+                    words[t // 32] = np.uint32(1) << np.uint32(t % 32)
+                cb = torch.from_numpy(words.view(np.int32)).to(self.device)
+            self._forced_static.append((ci, cb))
+
+    def _forced_rows(self, i: int, hist, lrow):
+        """Candidate rows of forced split ``i`` (``GatherInfoForThreshold``)
+        from its leaf's (F, B, 3) unbundled histogram and leaf row: ((NUM_CF,)
+        acc, (NUM_CI,) int64, the (W,) int32 bitset or None without
+        categorical features, whether the split is valid as a () bool)."""
+        cfg = self.cfg
+        fs = self._forced[i]
+        sum_g, sum_h, cnt = lrow[LF_SUM_G], lrow[LF_SUM_H], lrow[LF_CNT]
+        # FixHistogram before the gather, as the scans see it
+        hist = self._fix_histogram(hist[None], sum_g[None], sum_h[None],
+                                   cnt[None])[0]
+        f = fs.feature_inner
+        gain, lg, lh, lc, rg, rh, rc, lo, ro, valid = forced_split_info(
+            hist[f], sum_g, sum_h, cnt, threshold=fs.threshold_bin,
+            num_bin=int(self.np_num_bin[f]),
+            missing_type=int(self.np_missing[f]),
+            default_bin=int(self.np_default_bin[f]), is_cat=fs.is_cat,
+            lambda_l1=float(cfg.lambda_l1), lambda_l2=float(cfg.lambda_l2),
+            max_delta_step=float(cfg.max_delta_step),
+            min_gain_to_split=float(cfg.min_gain_to_split))
+        cf = torch.stack([gain, lg, lh - K_EPSILON, lc, rg, rh - K_EPSILON,
+                          rc, lo, ro]).to(self._acc)
+        ci, cb = self._forced_static[i]
+        return cf, ci, cb, valid
 
     def _num_features_of(self, feature_mask):
         """The mask the numerical scan takes: categorical features off."""
@@ -184,10 +290,12 @@ class TreeLearner:
         return feature_mask & self._num_mask
 
     def _with_categorical(self, num, hist, sum_g, sum_h, cnt,
-                          feature_mask) -> _FeatCand:
+                          feature_mask, min_c=None, max_c=None) -> _FeatCand:
         """``num``'s candidates with the categorical columns replaced by
         the categorical search's (in place, `:286-310`) and their bitsets;
-        plain float64 in dp, ``split_cat`` otherwise."""
+        plain float64 in dp, ``split_cat`` otherwise.  The leaves' bounds
+        ``min_c`` / ``max_c`` clip its outputs; the penalty scales its
+        gains."""
         if not self.has_categorical:
             return _FeatCand(*num)
         k, f = num.gain.shape
@@ -199,8 +307,8 @@ class TreeLearner:
             fn = self.split_cat
             self.kernel_calls["split_cat"] += 1
         fn(num, bits, hist, sum_g, sum_h, cnt, self.f_num_bin,
-           self.f_missing, feature_mask, self._cat_cols,
-           **self._cat_split_kwargs)
+           self.f_missing, feature_mask, self._cat_cols, min_c, max_c,
+           self.f_penalty, **self._cat_split_kwargs)
         return _FeatCand(*num, is_cat=self._is_cat_t, cat_bits=bits)
 
     def _pack_cands(self, c, depth_ok):
@@ -411,10 +519,11 @@ class MaskedTreeLearner(TreeLearner):
         return self.histogram(self.bins, w, num_bins=self.num_bins_padded,
                               dp=self.hist_dp)
 
-    def _cands(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok):
+    def _cands(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok,
+               min_c=None, max_c=None):
         return self._pack_cands(
-            self._feature_cands(hist, sum_g, sum_h, cnt, feature_mask),
-            depth_ok)
+            self._feature_cands(hist, sum_g, sum_h, cnt, feature_mask,
+                                min_c, max_c), depth_ok)
 
     def _init_root(self, grad, hess, bag, feature_mask) -> MaskedState:
         n, L, acc, dev = self.bins.shape[1], self.num_leaves, self._acc, \
@@ -445,22 +554,42 @@ class MaskedTreeLearner(TreeLearner):
             st.cand_b[0] = cb[0]
         st.hist_pool[0] = root_hist
         st.leaf_f[0, :LF_OUT] = torch.stack([sum_g, sum_h, cnt])
+        st.leaf_f[:, LF_MIN_C] = float("-inf")
+        st.leaf_f[:, LF_MAX_C] = float("inf")
         st.cand_f[:, CF_GAIN] = float("-inf")
         st.cand_f[0] = cf[0]
         st.cand_i[0] = ci[0]
         return st
 
-    def _split_step(self, st: MaskedState, feature_mask, step: int) -> None:
+    def _split_step(self, st: MaskedState, feature_mask, step,
+                    forced=None) -> None:
         """One no-op-able split (`learner.py:373-510`): the best leaf splits
         when its gain is positive (``do``), else nothing changes but record
-        ``step``, written invalid.  No value is read to the host: rows are
-        picked with ``index_select`` on device indices."""
-        best = torch.argmax(st.cand_f[:, CF_GAIN]).view(1)        # (1,)
-        cf = st.cand_f.index_select(0, best)[0]
-        ci = st.cand_i.index_select(0, best)[0]
+        ``step``, written invalid.  ``forced=(i, cf, ci, cb, do)`` splits
+        the leaf of forced split ``i`` at ``_forced_rows``' candidate
+        instead where ``do`` (it is valid and no earlier one aborted).
+        With ``step`` None (a tree with forced splits) the record goes to
+        the cursor ``num_leaves - 1``, written only by a split that is
+        done, and a best-gain split also needs a leaf to spare (JAX
+        `learner_compact.py:444-451`).  No value is read to the host: rows
+        are picked with ``index_select`` on device indices."""
+        L = self.num_leaves
+        if forced is None:
+            best = torch.argmax(st.cand_f[:, CF_GAIN]).view(1)    # (1,)
+            cf = st.cand_f.index_select(0, best)[0]
+            ci = st.cand_i.index_select(0, best)[0]
+            do = cf[CF_GAIN] > 0.0
+            if step is None:
+                do = do & (st.num_leaves < L)
+        else:
+            i, cf, ci, cb_f, do = forced
+            best = torch.full((1,), self._forced[i].leaf, dtype=torch.int64,
+                              device=self.device)
         lrow = st.leaf_f.index_select(0, best)[0]
-        do = cf[CF_GAIN] > 0.0
         new = st.num_leaves.view(1)
+        if step is None:
+            # a full tree's no-op steps stay inside the tables
+            new = torch.clamp(new, max=L - 1)
         pair = torch.cat([best, new])
         best32 = best.to(torch.int32)
 
@@ -479,7 +608,8 @@ class MaskedTreeLearner(TreeLearner):
         cb = None
         if st.cand_b is not None:
             # a categorical row ignores the missing rule: its bin's bit
-            cb = st.cand_b.index_select(0, best)[0]                # (W,)
+            cb = st.cand_b.index_select(0, best)[0] if forced is None \
+                else cb_f                                          # (W,)
             word = cb.index_select(0, frow >> 5)
             go_left = torch.where((ci[CI_FLAGS] & 2) != 0,
                                   ((word >> (frow & 31)) & 1) == 1, go_left)
@@ -507,13 +637,36 @@ class MaskedTreeLearner(TreeLearner):
         st.hist_pool.index_copy_(0, pair, torch.where(
             do, hists, st.hist_pool.index_select(0, pair)))
 
-        # ---- leaf bookkeeping
+        # ---- leaf bookkeeping.  A forced split mirrors the reference: the
+        # children's sums from GatherInfoForThreshold, their counts from the
+        # partition (`leaf_splits.hpp:40-52`, JAX `learner.py:431-438`)
+        if forced is not None:
+            cf = torch.cat([cf[:CF_LCNT], lc_bag.to(cf.dtype).view(1),
+                            cf[CF_RSG:CF_RCNT],
+                            (c_bag - lc_bag).to(cf.dtype).view(1),
+                            cf[CF_LOUT:]])
         child_depth = lrow[LF_DEPTH:LF_DEPTH + 1] + 1.0
+        pmin, pmax = lrow[LF_MIN_C:LF_MIN_C + 1], lrow[LF_MAX_C:]
+        mins = maxs = None
+        lmin = rmin = pmin
+        lmax = rmax = pmax
+        if self.has_monotone:
+            # monotone propagation (JAX `learner.py:451-463`); the JAX
+            # learner keeps the bounds in float32 arrays, so the stored
+            # ones are rounded to float32 while the children's scans below
+            # take them as computed
+            lmin, lmax, rmin, rmax = self._child_constraints(
+                ci[CI_FEAT:CI_FEAT + 1], ci[CI_FLAGS:],
+                cf[CF_LOUT:CF_LOUT + 1], cf[CF_ROUT:CF_ROUT + 1], pmin, pmax)
+            mins, maxs = torch.cat([lmin, rmin]), torch.cat([lmax, rmax])
+            lmin, lmax, rmin, rmax = (
+                x.to(torch.float32).to(x.dtype)
+                for x in (lmin, lmax, rmin, rmax))
         rows = torch.stack([
             torch.cat([cf[CF_LSG:CF_LCNT + 1], cf[CF_LOUT:CF_LOUT + 1],
-                       child_depth, lrow[LF_MIN_C:]]),
+                       child_depth, lmin, lmax]),
             torch.cat([cf[CF_RSG:CF_RCNT + 1], cf[CF_ROUT:CF_ROUT + 1],
-                       child_depth, lrow[LF_MIN_C:]])])
+                       child_depth, rmin, rmax])])
         st.leaf_f.index_copy_(0, pair, torch.where(
             do, rows, st.leaf_f.index_select(0, pair)))
 
@@ -523,7 +676,8 @@ class MaskedTreeLearner(TreeLearner):
         cf2, ci2, cb2 = self._cands(
             hists, torch.stack([cf[CF_LSG], cf[CF_RSG]]),
             torch.stack([cf[CF_LSH], cf[CF_RSH]]),
-            torch.stack([cf[CF_LCNT], cf[CF_RCNT]]), feature_mask, depth_ok)
+            torch.stack([cf[CF_LCNT], cf[CF_RCNT]]), feature_mask, depth_ok,
+            mins, maxs)
         st.cand_f.index_copy_(0, pair, torch.where(
             do, cf2, st.cand_f.index_select(0, pair)))
         st.cand_i.index_copy_(0, pair, torch.where(
@@ -538,16 +692,37 @@ class MaskedTreeLearner(TreeLearner):
             cf[CF_GAIN], cf[CF_LOUT], cf[CF_ROUT], cf[CF_LCNT], cf[CF_RCNT],
             lrow[LF_OUT], lrow[LF_CNT], cf[CF_LSH], cf[CF_RSH], cf[CF_LSG],
             cf[CF_RSG]])
-        st.rec_f[step] = torch.cat([head.to(torch.float32),
-                                    body.to(torch.float32),
-                                    (flags >> 1).to(torch.float32)])
+        rec = torch.cat([head.to(torch.float32), body.to(torch.float32),
+                         (flags >> 1).to(torch.float32)])
         counts = torch.stack([lc_bag, c_bag - lc_bag])
         if cb is not None:
             st.cand_b.index_copy_(0, pair, torch.where(
                 do, cb2, st.cand_b.index_select(0, pair)))
             counts = torch.cat([counts, cb.to(torch.int64) & 0xFFFFFFFF])
-        st.rec_i[step] = counts
+        if step is None:
+            cur = torch.clamp(st.num_leaves - 1, max=L - 2).view(1)
+            st.rec_f.index_copy_(0, cur, torch.where(
+                do, rec, st.rec_f.index_select(0, cur)[0])[None])
+            st.rec_i.index_copy_(0, cur, torch.where(
+                do, counts, st.rec_i.index_select(0, cur)[0])[None])
+        else:
+            st.rec_f[step] = rec
+            st.rec_i[step] = counts
         st.num_leaves += do.to(torch.int64)
+
+    def _forced_phase(self, st: MaskedState, feature_mask) -> None:
+        """The forced splits in BFS order before best-gain growth, each a
+        ``do``-gated step (JAX `learner.py:561-571`): an invalid one aborts
+        the rest of the queue (`serial_tree_learner.cpp:612-616`), with no
+        host read."""
+        aborted = torch.zeros((), dtype=torch.bool, device=self.device)
+        for i, fs in enumerate(self._forced):
+            lrow = st.leaf_f[fs.leaf]
+            cf, ci, cb, valid = self._forced_rows(i, st.hist_pool[fs.leaf],
+                                                  lrow)
+            self._split_step(st, feature_mask, None,
+                             forced=(i, cf, ci, cb, valid & ~aborted))
+            aborted = aborted | ~valid
 
     def train_async(self, grad: torch.Tensor, hess: torch.Tensor,
                     bag: torch.Tensor,
@@ -560,8 +735,15 @@ class MaskedTreeLearner(TreeLearner):
         if feature_mask is None:
             feature_mask = self._all_features
         st = self._init_root(grad, hess, bag, feature_mask)
-        for step in range(self.num_leaves - 1):
-            self._split_step(st, feature_mask, step)
+        if self._forced:
+            # the forced phase, then as many best-gain steps as the tree
+            # can take; records at the cursor
+            self._forced_phase(st, feature_mask)
+            for _ in range(self.num_leaves - 1):
+                self._split_step(st, feature_mask, None)
+        else:
+            for step in range(self.num_leaves - 1):
+                self._split_step(st, feature_mask, step)
         packed = torch.cat([st.rec_f.to(torch.float64),
                             st.rec_i.to(torch.float64)], dim=1).reshape(-1)
         return AsyncTree(packed, st.leaf_id.to(torch.int64),

@@ -10,6 +10,10 @@ semantics are the JAX package's: both call ``find_best_splits`` and, for
 categorical features, the categorical search (``ops/split_cat.py``, the
 ``split_cat`` kernel on the card); a categorical split routes the rows of
 its window by the bin bitset kept per leaf (`learner_compact.py:281-316`).
+A split propagates monotone value bounds to its children
+(`learner_compact.py:563-569`), and the forced splits (``forced.py``) run
+before best-gain growth on every tree (`:618-720`), one host read each,
+the first invalid one ending the queue.
 
 What changes in eager torch:
 
@@ -48,9 +52,10 @@ from .binning import MISSING_NAN, MISSING_ZERO
 from .config import PARALLEL, Config, not_ported
 from .dataset import _ConstructedDataset, _round_up
 from .learner import (CF_GAIN, CF_LCNT, CF_LOUT, CF_LSG, CF_LSH, CF_RCNT,
-                      CF_ROUT, CF_RSG, CF_RSH, LF_CNT, LF_DEPTH, LF_MAX_C,
-                      LF_MIN_C, LF_OUT, NUM_CF, NUM_CI, NUM_LF,
-                      NUM_REC_FIELDS, REC_IS_CAT, HistogramFn, TreeLearner)
+                      CF_ROUT, CF_RSG, CF_RSH, CI_FEAT, CI_FLAGS, LF_CNT,
+                      LF_DEPTH, LF_MAX_C, LF_MIN_C, LF_OUT, LF_SUM_G,
+                      LF_SUM_H, NUM_CF, NUM_CI, NUM_LF, NUM_REC_FIELDS,
+                      REC_IS_CAT, HistogramFn, TreeLearner)
 from .ops.hist_packed import (ROW_QUANTUM, build_histogram_packed,
                               build_histogram_packed_plain, pack_bin_words)
 from .tree import Tree
@@ -208,14 +213,16 @@ class CompactTreeLearner(TreeLearner):
 
     # -- per-leaf candidates -------------------------------------------------
 
-    def _cand_rows(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok):
+    def _cand_rows(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok,
+                   min_c=None, max_c=None):
         """(K, ...) histograms -> per-leaf best rows ((K, NUM_CF) acc,
-        (K, NUM_CI) int64, the winner's (K, W) int32 bitset or None)."""
+        (K, NUM_CI) int64, the winner's (K, W) int32 bitset or None);
+        ``min_c`` / ``max_c`` (K,) the leaves' value bounds."""
         if self._bundle is not None:
             hist = self._unbundle_hist(hist, sum_g, sum_h, cnt)
         return self._pack_cands(
-            self._feature_cands(hist, sum_g, sum_h, cnt, feature_mask),
-            depth_ok)
+            self._feature_cands(hist, sum_g, sum_h, cnt, feature_mask,
+                                min_c, max_c), depth_ok)
 
     # -- root ----------------------------------------------------------------
 
@@ -263,12 +270,18 @@ class CompactTreeLearner(TreeLearner):
 
     def _split_step(self, st: CompactState, feature_mask, leaf: int,
                     s: int, c: int, feat: int, thr: int, flags: int,
-                    new_leaf: int) -> None:
+                    new_leaf: int, forced=None) -> None:
+        """Split ``leaf`` at its best candidate, or at the forced split's
+        rows ``forced=(crow_f, crow_i, crow_b)`` (``_forced_rows``)."""
         dev = self.device
         dleft = bool(flags & 1)
-        crow_f = st.cand_f[leaf].clone()
+        if forced is None:
+            crow_f = st.cand_f[leaf].clone()
+            crow_i = st.cand_i[leaf]      # read before the row is rewritten
+            crow_b = None if st.cand_b is None else st.cand_b[leaf].clone()
+        else:
+            crow_f, crow_i, crow_b = forced
         lrow_f = st.leaf_f[leaf].clone()
-        crow_b = None if st.cand_b is None else st.cand_b[leaf].clone()
 
         # ---- partition the parent's window (DataPartition::Split): the
         # decision on the split feature (NumericalDecisionInner,
@@ -332,16 +345,30 @@ class CompactTreeLearner(TreeLearner):
         st.hist_pool[leaf] = hist_left
         st.hist_pool[new_leaf] = hist_right
 
-        # ---- children bookkeeping
+        # ---- children bookkeeping.  A forced split mirrors the reference:
+        # the children's sums from GatherInfoForThreshold, their counts from
+        # the partition (`leaf_splits.hpp:40-52`)
+        if forced is not None:
+            crow_f = crow_f.clone()
+            crow_f[CF_LCNT] = lc_bag
+            crow_f[CF_RCNT] = c_bag - lc_bag
         child_depth = lrow_f[LF_DEPTH] + 1.0
         lout, rout = crow_f[CF_LOUT], crow_f[CF_ROUT]
         pmin, pmax = lrow_f[LF_MIN_C], lrow_f[LF_MAX_C]
+        lmin = rmin = pmin
+        lmax = rmax = pmax
+        mins = maxs = None
+        if self.has_monotone:
+            lmin, lmax, rmin, rmax = (x[0] for x in self._child_constraints(
+                crow_i[CI_FEAT:CI_FEAT + 1], crow_i[CI_FLAGS:], lout.view(1),
+                rout.view(1), pmin.view(1), pmax.view(1)))
+            mins, maxs = torch.stack([lmin, rmin]), torch.stack([lmax, rmax])
         st.leaf_f[leaf] = torch.stack([crow_f[CF_LSG], crow_f[CF_LSH],
                                        crow_f[CF_LCNT], lout, child_depth,
-                                       pmin, pmax])
+                                       lmin, lmax])
         st.leaf_f[new_leaf] = torch.stack([crow_f[CF_RSG], crow_f[CF_RSH],
                                            crow_f[CF_RCNT], rout, child_depth,
-                                           pmin, pmax])
+                                           rmin, rmax])
         if sort_mode:
             st.leaf_i[leaf, 0] = s
             st.leaf_i[leaf, 1] = lc_w
@@ -359,7 +386,7 @@ class CompactTreeLearner(TreeLearner):
             torch.stack([crow_f[CF_LSG], crow_f[CF_RSG]]),
             torch.stack([crow_f[CF_LSH], crow_f[CF_RSH]]),
             torch.stack([crow_f[CF_LCNT], crow_f[CF_RCNT]]),
-            feature_mask, depth_ok)
+            feature_mask, depth_ok, mins, maxs)
         st.cand_f[leaf] = cf[0]
         st.cand_f[new_leaf] = cf[1]
         st.cand_i[leaf] = ci[0]
@@ -393,6 +420,31 @@ class CompactTreeLearner(TreeLearner):
         st = self._init_root(grad, hess, bag, feature_mask)
         host_rec: List[Tuple[int, int, int, int, int]] = []
         num_leaves = 1
+        for i, fs in enumerate(self._forced or ()):
+            # the forced splits in BFS order (JAX `learner_compact.py:
+            # 686-703`): one read of the split's validity and its leaf's
+            # window; the first invalid one ends the queue
+            if num_leaves >= self.num_leaves:
+                break
+            hist = st.hist_pool[fs.leaf][None]
+            lrow = st.leaf_f[fs.leaf]
+            if self._bundle is not None:
+                hist = self._unbundle_hist(hist, lrow[LF_SUM_G][None],
+                                           lrow[LF_SUM_H][None],
+                                           lrow[LF_CNT][None])
+            cf, ci, cb, valid = self._forced_rows(i, hist[0], lrow)
+            head = torch.cat([valid.view(1).to(torch.int64),
+                              st.leaf_i[fs.leaf]]).tolist()
+            self.host_syncs += 1
+            if not head[0]:
+                break
+            flags = 2 if fs.is_cat else 1
+            self._split_step(st, feature_mask, fs.leaf, head[1], head[2],
+                             fs.feature_inner, fs.threshold_bin, flags,
+                             num_leaves, forced=(cf, ci, cb))
+            host_rec.append((fs.leaf, fs.feature_inner, fs.threshold_bin,
+                             flags & 1, flags >> 1))
+            num_leaves += 1
         while num_leaves < self.num_leaves:
             # (index_select, not tensor indexing: a 0-d index tensor would
             # be read to the host)

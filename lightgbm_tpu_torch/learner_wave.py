@@ -111,8 +111,20 @@ ported, not the TPU mechanism):
     JAX ``_use_scan``), so quantized trees with categorical features run
     the unfused quant path.
 
-Telemetry counters and constrained splits, which no learner of the port
-carries yet, raise at the entry point (``config.check_supported``).
+  * Monotone constraints and ``feature_contri`` penalties
+    (``learner_wave.py:553-571``): every split pass computes its children's
+    value bounds from the parent's (``node_f[:, LF_MIN_C / LF_MAX_C]``,
+    ``_child_constraints``) before their scan and hands them, interleaved,
+    to the batched scan and ``split_cat``, whose kernels clip to them and
+    apply the penalty on the card; the bounds stay on the device, so the
+    graphs and the one host read per tree are unchanged.  The fused
+    child-scan kernel stays off, as the JAX ``_use_scan`` is off under
+    constraints (``scan_pallas.py:scan_ineligible_reason``): a quantized
+    constrained tree runs the quant segment histogram and the constrained
+    ``split_scan``.
+
+Telemetry counters, which no learner of the port carries yet, raise at the
+entry point (``config.check_supported``).
 """
 
 from __future__ import annotations
@@ -180,7 +192,7 @@ _COUNTED = tuple((fn, attr) for fn in (
     build_histogram_packed, build_histogram_segments, apply_partition,
     find_best_splits_batched, build_histogram_multislot, fused_child_scans,
     replay_pass, categorical_candidates)
-    for attr in ("launches", "quant_launches")
+    for attr in ("launches", "quant_launches", "con_launches")
     if hasattr(fn, attr))
 
 # rows of the per-member parameter table the decide pass gathers from
@@ -371,7 +383,8 @@ class WaveTreeLearner(CompactTreeLearner):
         #: 256-bin) row per block, and every histogram here has at most 256
         #: bins
         self._use_fused = self._quant and self._bundle is None \
-            and not self.has_categorical
+            and not self.has_categorical and not self.has_monotone \
+            and not self.has_penalty
         self._tree_stats: List[Dict[str, int]] = []
         #: called before ``tree_stats`` is read: the pipelined boosting
         #: loop sets it to its flush, which decodes the queued trees
@@ -437,22 +450,25 @@ class WaveTreeLearner(CompactTreeLearner):
 
     # -- split candidates ----------------------------------------------------
 
-    def _feature_cands(self, hist, sum_g, sum_h, cnt, feature_mask):
+    def _feature_cands(self, hist, sum_g, sum_h, cnt, feature_mask,
+                       min_c=None, max_c=None):
         """Per-feature candidates of a batch of leaves through the batched
         scan, the categorical columns through ``split_cat`` (plain float64
-        in dp)."""
+        in dp); ``min_c`` / ``max_c`` (K,) the leaves' value bounds."""
         if self.hist_dp:
             return super()._feature_cands(hist, sum_g, sum_h, cnt,
-                                          feature_mask)
+                                          feature_mask, min_c, max_c)
         hist = self._fix_histogram(hist, sum_g, sum_h, cnt)
+        min_c, max_c = self._leaf_bounds(min_c, max_c, hist.shape[0])
         kw = {k: v for k, v in self._split_kwargs.items()
               if k != "skip_missing_scan"}
         self.kernel_calls["split_scan"] += 1
         num = self.kernels.scan(
             hist, sum_g, sum_h, cnt, self.f_num_bin, self.f_missing,
-            self.f_default_bin, self._num_features_of(feature_mask), **kw)
+            self.f_default_bin, self._num_features_of(feature_mask),
+            self.f_monotone, min_c, max_c, penalty=self.f_penalty, **kw)
         return self._with_categorical(num, hist, sum_g, sum_h, cnt,
-                                      feature_mask)
+                                      feature_mask, min_c, max_c)
 
     # -- state and root ------------------------------------------------------
 
@@ -794,6 +810,16 @@ class WaveTreeLearner(CompactTreeLearner):
 
         pcf = st.cand_f.index_select(0, wi)
         pnf = st.node_f.index_select(0, wi)
+        # the children's value bounds (monotone propagation,
+        # ``learner_wave.py:553-571``), before their scans
+        lmin = rmin = pnf[:, LF_MIN_C]
+        lmax = rmax = pnf[:, LF_MAX_C]
+        mins2 = maxs2 = None
+        if self.has_monotone:
+            lmin, lmax, rmin, rmax = self._child_constraints(
+                ci[:, CI_FEAT], ci[:, CI_FLAGS], pcf[:, CF_LOUT],
+                pcf[:, CF_ROUT], lmin, lmax)
+            mins2, maxs2 = i2(lmin, rmin), i2(lmax, rmax)
         cd = pnf[:, LF_DEPTH] + 1.0
         md = int(self.cfg.max_depth)
         depth_ok = True if md <= 0 else i2(cd < md, cd < md)
@@ -817,12 +843,11 @@ class WaveTreeLearner(CompactTreeLearner):
             st.hist_pool.index_copy_(0, ph, hl)
             st.hist_pool.index_copy_(0, rh, hr)
             cf2, ci2, cb2 = self._cand_rows(i2(hl, hr), *sums2, st.fmask,
-                                            depth_ok)
-        pmin, pmax = pnf[:, LF_MIN_C], pnf[:, LF_MAX_C]
+                                            depth_ok, mins2, maxs2)
         lf_l = torch.stack([pcf[:, CF_LSG], pcf[:, CF_LSH], pcf[:, CF_LCNT],
-                            pcf[:, CF_LOUT], cd, pmin, pmax], 1)
+                            pcf[:, CF_LOUT], cd, lmin, lmax], 1)
         lf_r = torch.stack([pcf[:, CF_RSG], pcf[:, CF_RSH], pcf[:, CF_RCNT],
-                            pcf[:, CF_ROUT], cd, pmin, pmax], 1)
+                            pcf[:, CF_ROUT], cd, rmin, rmax], 1)
         s2 = i2(lslot, rslot)
         st.node_i.index_copy_(0, s2, i2(li, ri))
         st.node_f.index_copy_(0, s2, i2(lf_l, lf_r).to(acc))

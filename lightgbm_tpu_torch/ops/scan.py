@@ -17,6 +17,12 @@ both missing-direction scans.  The kernel is float32 only: ``gpu_use_dp``
 keeps the plain float64 path, as the JAX package gates its scan kernel off
 in dp.  The fused child-scan kernel (``ops/fused_scan.py``) writes the same
 planes.
+
+Monotone constraints and ``feature_contri`` penalties go through the same
+kernel (the JAX package sends them to its XLA scan, off the Pallas one,
+``scan_pallas.py:scan_ineligible_reason``): per-leaf value bounds (K,), a
+monotone sign (F,) and a gain penalty (F,), any of them None.  A call with
+none of them launches the unconstrained instantiation, unchanged.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ def _lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p]
         lib.lgbt_split_scan.restype = ctypes.c_int
         _LIB = lib
@@ -66,17 +74,21 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
                              num_data: torch.Tensor, num_bin: torch.Tensor,
                              missing_type: torch.Tensor,
                              default_bin: torch.Tensor,
-                             feature_mask: torch.Tensor, *,
+                             feature_mask: torch.Tensor, monotone=None,
+                             min_constraint=None, max_constraint=None, *,
                              lambda_l1: float = 0.0, lambda_l2: float = 0.0,
                              max_delta_step: float = 0.0,
                              min_data_in_leaf: int = 20,
                              min_sum_hessian_in_leaf: float = 1e-3,
-                             min_gain_to_split: float = 0.0
-                             ) -> SplitCandidates:
+                             min_gain_to_split: float = 0.0,
+                             penalty=None) -> SplitCandidates:
     """hist (K, F, B, 3) float32, leaf totals (K,), feature metadata (F,),
-    feature_mask (F,) or (K, F) bool -> (K, F)-batched ``SplitCandidates``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``find_best_splits_batched.launches``) or raise."""
+    feature_mask (F,) or (K, F) bool, and optionally the monotone sign (F,)
+    int8, the leaves' value bounds (K,) (both or neither) and the gain
+    penalty (F,) -> (K, F)-batched ``SplitCandidates``.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel (counted in
+    ``find_best_splits_batched.launches``, the constrained launches also in
+    ``.con_launches``) or raise."""
     kw = dict(lambda_l1=lambda_l1, lambda_l2=lambda_l2,
               max_delta_step=max_delta_step,
               min_data_in_leaf=min_data_in_leaf,
@@ -85,7 +97,8 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
     if hist.device.type == "cpu":
         return find_best_splits(hist, sum_gradients, sum_hessians, num_data,
                                 num_bin, missing_type, default_bin,
-                                feature_mask, **kw)
+                                feature_mask, monotone, min_constraint,
+                                max_constraint, penalty=penalty, **kw)
     dev = hist.device
     if dev.type != "cuda":
         raise ValueError(f"hist must lie on the CPU or a CUDA device, not "
@@ -113,6 +126,24 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
                          f"hist's device")
     if fm.stride(-1) != 1:
         fm = fm.contiguous()
+    if (min_constraint is None) != (max_constraint is None):
+        raise ValueError("min_constraint and max_constraint go together")
+    bounds = []
+    for t in (min_constraint, max_constraint):
+        if t is None:
+            bounds += [None, 0]
+            continue
+        t = t.to(torch.float32)
+        if t.shape != (k,) or t.device != dev:
+            raise ValueError("leaf bounds must be (K,) on the hist's device")
+        bounds += [t, t.stride(0)]
+    mono = None if monotone is None else monotone.to(torch.int8).contiguous()
+    pen = None if penalty is None else penalty.to(torch.float32).contiguous()
+    if any(t is not None and (t.shape != (f,) or t.device != dev)
+           for t in (mono, pen)):
+        raise ValueError("monotone and penalty must be (F,) on the hist's "
+                         "device")
+    con = any(t is not None for t in (min_constraint, mono, pen))
     hist = hist.contiguous()
     planes = torch.empty((N_PLANES, k, f), dtype=torch.float32, device=dev)
     dleft = torch.empty((k, f), dtype=torch.bool, device=dev)
@@ -124,8 +155,9 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
                   float(lambda_l1), float(lambda_l2), float(max_delta_step),
                   int(max_delta_step > 0.0), float(min_data_in_leaf),
                   float(min_sum_hessian_in_leaf), float(min_gain_to_split),
-                  planes, dleft, stream)
+                  *bounds, mono, pen, planes, dleft, stream)
     find_best_splits_batched.launches += 1
+    find_best_splits_batched.con_launches += int(con)
     if find_best_splits_batched.shapes is not None \
             and not torch.cuda.is_current_stream_capturing():
         find_best_splits_batched.shapes.append(k)
@@ -133,6 +165,7 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
 
 
 find_best_splits_batched.launches = 0
+find_best_splits_batched.con_launches = 0
 #: a list to record each launch's leaf count K in, or None;
 #: a launch captured into a CUDA graph records nothing
 find_best_splits_batched.shapes = None

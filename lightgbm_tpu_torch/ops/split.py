@@ -19,7 +19,12 @@ the JAX package's, line for line:
 The sums use ``torch.cumsum``, the sequential order of the JAX package's CPU
 path.  The TPU's triangular-matmul scan is an MXU mechanism and is not
 carried over.  Every function takes an optional leading batch axis: ``hist``
-is (..., F, B, 3) and the leaf totals have shape (...,).
+is (..., F, B, 3) and the leaf totals have shape (...,).  Monotone
+constraints enter as per-leaf value bounds (...,) that clip both outputs
+and a per-feature sign whose violation zeroes a threshold's gain
+(``_split_gains``), ``feature_contri`` as a per-feature factor on the
+post-shift gain (``apply_penalty``); ``forced_split_info`` is the
+reference's ``GatherInfoForThreshold`` for a forced split.
 """
 
 from __future__ import annotations
@@ -74,14 +79,41 @@ def leaf_split_gain(sum_g, sum_h, l1, l2, max_delta_step):
     return leaf_split_gain_given_output(sum_g, sum_h, l1, l2, out)
 
 
-def _split_gains(lg, lh, rg, rh, l1, l2, mds):
-    """``GetSplitGains`` (`feature_histogram.hpp:453-466`) without value
-    constraints (monotone constraints are not ported yet)."""
+def _split_gains(lg, lh, rg, rh, l1, l2, mds, min_c=None, max_c=None,
+                 monotone=None):
+    """``GetSplitGains`` (`feature_histogram.hpp:453-466`): outputs clipped
+    to the leaf's [min_c, max_c] value constraint; a monotone violation
+    (increasing but left > right, or decreasing but left < right) zeroes
+    the gain."""
     lo = calculate_leaf_output(lg, lh, l1, l2, mds)
     ro = calculate_leaf_output(rg, rh, l1, l2, mds)
+    if min_c is not None:
+        lo = torch.clamp(lo, min_c, max_c)
+        ro = torch.clamp(ro, min_c, max_c)
     gain = (leaf_split_gain_given_output(lg, lh, l1, l2, lo)
             + leaf_split_gain_given_output(rg, rh, l1, l2, ro))
+    if monotone is not None:
+        violated = ((monotone > 0) & (lo > ro)) | ((monotone < 0) & (lo < ro))
+        gain = torch.where(violated, 0.0, gain)
     return gain, lo, ro
+
+
+def apply_penalty(gain: torch.Tensor, penalty) -> torch.Tensor:
+    """The ``feature_contri`` gain penalty (`feature_histogram.hpp:81`, as
+    the JAX learner applies it after the scan, `learner.py:274-277`): every
+    gain but -inf times its feature's factor; ``penalty`` (F,) or None."""
+    if penalty is None:
+        return gain
+    return torch.where(torch.isneginf(gain), gain,
+                       gain * penalty.to(gain.dtype))
+
+
+def leaf_bounds(bound, dt):
+    """A per-leaf value bound, () or (...,), broadcast against (..., F, B)
+    planes; None stays None."""
+    if bound is None:
+        return None
+    return torch.as_tensor(bound).to(dt)[..., None, None]
 
 
 def pairwise_bin_sum(x: torch.Tensor) -> torch.Tensor:
@@ -126,11 +158,13 @@ def find_best_splits(hist: torch.Tensor, sum_gradients: torch.Tensor,
                      sum_hessians: torch.Tensor, num_data: torch.Tensor,
                      num_bin: torch.Tensor, missing_type: torch.Tensor,
                      default_bin: torch.Tensor, feature_mask: torch.Tensor,
+                     monotone=None, min_constraint=None, max_constraint=None,
                      *, lambda_l1: float = 0.0, lambda_l2: float = 0.0,
                      max_delta_step: float = 0.0, min_data_in_leaf: int = 20,
                      min_sum_hessian_in_leaf: float = 1e-3,
                      min_gain_to_split: float = 0.0,
-                     skip_missing_scan: bool = False) -> SplitCandidates:
+                     skip_missing_scan: bool = False,
+                     penalty=None) -> SplitCandidates:
     """Best numerical split per feature for one leaf (or a batch of leaves).
 
     hist          : (..., F, B, 3) — (sum_grad, sum_hess, cnt) per bin
@@ -139,11 +173,18 @@ def find_best_splits(hist: torch.Tensor, sum_gradients: torch.Tensor,
     num_data      : (...,) leaf count (bagged)
     num_bin/missing_type/default_bin : (F,) int32 per-feature metadata
     feature_mask  : (F,) or (..., F) bool — usable features this tree
+    monotone      : (F,) int8 monotone sign (+1, -1, 0) or None
+    min_constraint / max_constraint : (...,) the leaves' value bounds, or
+                    None (no clip); both or neither
+    penalty       : (F,) ``feature_contri`` factor on the gain, or None
     """
     f, b = hist.shape[-3], hist.shape[-2]
     dt = hist.dtype
     dev = hist.device
     l1, l2, mds = lambda_l1, lambda_l2, max_delta_step
+    mn = leaf_bounds(min_constraint, dt)
+    mx = leaf_bounds(max_constraint, dt)
+    mono_b = None if monotone is None else monotone[:, None]          # (F,1)
     bins_i = torch.arange(b, dtype=torch.int32, device=dev)[None, :]  # (1,B)
     nb = num_bin[:, None]                                             # (F,1)
     d_bin = default_bin[:, None]
@@ -187,7 +228,8 @@ def find_best_splits(hist: torch.Tensor, sum_gradients: torch.Tensor,
         & (lc_m1 >= min_data_in_leaf)
     valid_m1 = valid_m1 & (rh_m1 >= min_sum_hessian_in_leaf) \
         & (lh_m1 >= min_sum_hessian_in_leaf)
-    g_m1, lo_m1, ro_m1 = _split_gains(lg_m1, lh_m1, rg_m1, rh_m1, l1, l2, mds)
+    g_m1, lo_m1, ro_m1 = _split_gains(lg_m1, lh_m1, rg_m1, rh_m1, l1, l2, mds,
+                                      mn, mx, mono_b)
     g_m1 = torch.where(valid_m1 & (g_m1 > min_gain_shift), g_m1, K_MIN_SCORE)
 
     # tie-break: largest threshold wins (right-to-left scan with strict >)
@@ -203,7 +245,8 @@ def find_best_splits(hist: torch.Tensor, sum_gradients: torch.Tensor,
         lc_b = _take(lc_m1, best_t)
         invalid = torch.isneginf(best_g_m1) | ~feature_mask
         return SplitCandidates(
-            gain=torch.where(invalid, K_MIN_SCORE, best_g_m1 - mgs),
+            gain=apply_penalty(torch.where(invalid, K_MIN_SCORE,
+                                           best_g_m1 - mgs), penalty),
             threshold=best_t.to(torch.int32),
             default_left=torch.ones_like(invalid),
             left_sum_g=lg_b, left_sum_h=lh_b - K_EPSILON, left_cnt=lc_b,
@@ -229,7 +272,8 @@ def find_best_splits(hist: torch.Tensor, sum_gradients: torch.Tensor,
         & (rc_p1 >= min_data_in_leaf)
     valid_p1 = valid_p1 & (lh_p1 >= min_sum_hessian_in_leaf) \
         & (rh_p1 >= min_sum_hessian_in_leaf)
-    g_p1, lo_p1, ro_p1 = _split_gains(lg_p1, lh_p1, rg_p1, rh_p1, l1, l2, mds)
+    g_p1, lo_p1, ro_p1 = _split_gains(lg_p1, lh_p1, rg_p1, rh_p1, l1, l2, mds,
+                                      mn, mx, mono_b)
     g_p1 = torch.where(valid_p1 & (g_p1 > min_gain_shift), g_p1, K_MIN_SCORE)
     best_t_p1 = torch.argmax(g_p1, dim=-1)                  # smallest thr
     best_g_p1 = torch.amax(g_p1, dim=-1)
@@ -251,10 +295,81 @@ def find_best_splits(hist: torch.Tensor, sum_gradients: torch.Tensor,
     lc_b = pick(lc_p1, lc_m1)
     invalid = torch.isneginf(best_g) | ~feature_mask
     return SplitCandidates(
-        gain=torch.where(invalid, K_MIN_SCORE, best_g - mgs),
+        gain=apply_penalty(torch.where(invalid, K_MIN_SCORE, best_g - mgs),
+                           penalty),
         threshold=best_t.to(torch.int32),
         default_left=default_left,
         left_sum_g=lg_b, left_sum_h=lh_b - K_EPSILON, left_cnt=lc_b,
         right_sum_g=tg - lg_b, right_sum_h=th - lh_b - K_EPSILON,
         right_cnt=tn - lc_b,
         left_output=pick(lo_p1, lo_m1), right_output=pick(ro_p1, ro_m1))
+
+
+def forced_split_info(hrow: torch.Tensor, sum_g: torch.Tensor,
+                      sum_h: torch.Tensor, cnt: torch.Tensor, *,
+                      threshold: int, num_bin: int, missing_type: int,
+                      default_bin: int, is_cat: bool, lambda_l1: float,
+                      lambda_l2: float, max_delta_step: float,
+                      min_gain_to_split: float):
+    """Split info at a FORCED (feature, threshold) —
+    ``FeatureHistogram::GatherInfoForThreshold``
+    (`src/treelearner/feature_histogram.hpp:273-413`), as
+    ``lightgbm_tpu/ops/split.py:forced_split_info``.
+
+    hrow: (B, 3) histogram row of the forced feature; the threshold and the
+    feature's metadata are static (the forced-split tree is fixed at config
+    time).  min_data / min_hessian are bypassed like the reference; only the
+    gain-vs-no-split check applies (gain <= shift refuses the forced split,
+    and the rest of the forced queue aborts,
+    `serial_tree_learner.cpp:612-616`).
+
+    Returns (gain, left_g, left_h_eps, left_cnt, right_g, right_h_eps,
+    right_cnt, left_out, right_out, valid), 0-d tensors; the *_h_eps carry
+    ``find_best_splits``'s K_EPSILON convention (the caller subtracts it).
+    """
+    dt = hrow.dtype
+    l1, l2, mds = lambda_l1, lambda_l2, max_delta_step
+    total_g = sum_g.to(dt)
+    total_h = sum_h.to(dt) + 2.0 * K_EPSILON
+    total_n = cnt.to(dt)
+    min_gain_shift = leaf_split_gain(total_g, total_h, l1, l2, mds) \
+        + min_gain_to_split
+    b = hrow.shape[0]
+    if is_cat:
+        # one-hot categorical forced split (`feature_histogram.hpp:359-413`)
+        lg = hrow[threshold, 0]
+        lh = hrow[threshold, 1] + K_EPSILON
+        lc = hrow[threshold, 2]
+        rg = total_g - lg
+        rh = total_h - lh
+        rc = total_n - lc
+        # the reference computes the left term of the gain check with the
+        # RIGHT hessian (`feature_histogram.hpp:389-394`), mirrored so that
+        # forced-categorical acceptance matches
+        cur = leaf_split_gain(rg, rh, l1, l2, mds) \
+            + leaf_split_gain(lg, rh, l1, l2, mds)
+        ok = threshold < num_bin
+    else:
+        # right = bins >= threshold, never bin 0, skipping the default bin
+        # for MissingType::Zero and the NaN bin for MissingType::NaN
+        # (`feature_histogram.hpp:284-322`)
+        idx = torch.arange(b, device=hrow.device)
+        m = (idx >= max(int(threshold), 1)) & (idx < num_bin)
+        if missing_type == MISSING_ZERO:
+            m = m & (idx != default_bin)
+        elif missing_type == MISSING_NAN:
+            m = m & (idx <= num_bin - 2)
+        mv = m.to(dt)
+        rg = torch.sum(hrow[:, 0] * mv)
+        rh = torch.sum(hrow[:, 1] * mv) + K_EPSILON
+        rc = torch.sum(hrow[:, 2] * mv)
+        lg = total_g - rg
+        lh = total_h - rh
+        lc = total_n - rc
+        cur = leaf_split_gain(lg, lh, l1, l2, mds) \
+            + leaf_split_gain(rg, rh, l1, l2, mds)
+        ok = True
+    valid = ~torch.isnan(cur) & (cur > min_gain_shift) & bool(ok)
+    lo = calculate_leaf_output(lg, lh, l1, l2, mds)
+    ro = calculate_leaf_output(rg, rh, l1, l2, mds)
+    return cur - min_gain_shift, lg, lh, lc, rg, rh, rc, lo, ro, valid

@@ -44,7 +44,7 @@ import torch
 from .. import native
 from ..binning import MISSING_NONE
 from .split import (K_EPSILON, K_MIN_SCORE, SplitCandidates, _split_gains,
-                    calculate_leaf_output, leaf_split_gain)
+                    apply_penalty, calculate_leaf_output, leaf_split_gain)
 
 #: most bins the kernel takes: every width of the masked learner's uint16
 #: codes (bins fit the kernel's 16-bit sort-key field)
@@ -94,7 +94,8 @@ def find_best_splits_categorical(
         hist: torch.Tensor, sum_gradients: torch.Tensor,
         sum_hessians: torch.Tensor, num_data: torch.Tensor,
         num_bin: torch.Tensor, missing_type: torch.Tensor,
-        feature_mask: torch.Tensor, *, lambda_l1: float = 0.0,
+        feature_mask: torch.Tensor, min_constraint=None,
+        max_constraint=None, *, lambda_l1: float = 0.0,
         lambda_l2: float = 0.0, max_delta_step: float = 0.0,
         min_data_in_leaf: int = 20, min_sum_hessian_in_leaf: float = 1e-3,
         min_gain_to_split: float = 0.0, cat_l2: float = 10.0,
@@ -106,10 +107,17 @@ def find_best_splits_categorical(
     hist (K, F, B, 3) — (sum_grad, sum_hess, cnt) per bin; the leaf totals
     (K,), sum_hessians without epsilons; num_bin / missing_type (F,);
     feature_mask (F,) or (K, F) bool, False drops a feature (its gain -inf,
-    its bits 0)."""
+    its bits 0); min_constraint / max_constraint (K,) the leaves' value
+    bounds or None: the outputs, and the outputs the gains are formed from,
+    are clipped to them (`FindBestThresholdCategorical` carries no monotone
+    direction)."""
     k, f, b, _ = hist.shape
     dt, dev = hist.dtype, hist.device
     l1, l2, mds = lambda_l1, lambda_l2, max_delta_step
+    mn = mx = None
+    if min_constraint is not None:
+        mn = min_constraint.to(dt)[:, None, None]                 # (K,1,1)
+        mx = max_constraint.to(dt)[:, None, None]
     total_g = sum_gradients.to(dt)[:, None, None]                 # (K,1,1)
     total_h = sum_hessians.to(dt)[:, None, None] + 2.0 * K_EPSILON
     total_n = num_data.to(dt)[:, None, None]
@@ -128,7 +136,8 @@ def find_best_splits_categorical(
     oh_valid = in_range & (hc >= min_data_in_leaf) \
         & (hh >= min_sum_hessian_in_leaf) & (other_n >= min_data_in_leaf) \
         & (other_h >= min_sum_hessian_in_leaf)
-    g_oh = _split_gains(other_g, other_h, hg, hh + K_EPSILON, l1, l2, mds)[0]
+    g_oh = _split_gains(other_g, other_h, hg, hh + K_EPSILON, l1, l2, mds,
+                        mn, mx)[0]
     g_oh = torch.where(oh_valid & (g_oh > min_gain_shift), g_oh, K_MIN_SCORE)
     oh_t = torch.argmax(g_oh, dim=-1, keepdim=True)               # smallest
     oh_gain = torch.gather(g_oh, -1, oh_t)[..., 0]
@@ -180,7 +189,8 @@ def find_best_splits_categorical(
         stopped = stopped | (active & brk)
         can_eval = active & ~brk & (lcnt >= min_data_in_leaf) \
             & (slh >= min_sum_hessian_in_leaf) & (grp >= min_data_per_group)
-        gain = _split_gains(slg, slh, tg - slg, srh, l1, l2m, mds)[0]
+        gain = _split_gains(slg, slh, tg - slg, srh, l1, l2m, mds, mn,
+                            mx)[0]
         ok = can_eval & (gain > mgs)
         grp = torch.where(can_eval, 0.0, grp)
         better = ok & (gain > best_gain)
@@ -216,6 +226,9 @@ def find_best_splits_categorical(
                      calculate_leaf_output(lg, lh, l1, l2m, mds))
     ro = torch.where(use_onehot, calculate_leaf_output(rg, rh, l1, l2, mds),
                      calculate_leaf_output(rg, rh, l1, l2m, mds))
+    if mn is not None:
+        lo = torch.clamp(lo, mn[..., 0], mx[..., 0])
+        ro = torch.clamp(ro, mn[..., 0], mx[..., 0])
     invalid = torch.isneginf(gain) | ~feature_mask
     return CatSplitCandidates(
         gain=torch.where(invalid, K_MIN_SCORE, gain - mgs[..., 0]),
@@ -228,21 +241,26 @@ def find_best_splits_categorical(
 def categorical_candidates_plain(cands: SplitCandidates, bits: torch.Tensor,
                                  hist, sum_gradients, sum_hessians, num_data,
                                  num_bin, missing_type, feature_mask,
-                                 cat_cols: torch.Tensor, **kw) -> None:
+                                 cat_cols: torch.Tensor, min_constraint=None,
+                                 max_constraint=None, penalty=None,
+                                 **kw) -> None:
     """The plain version of ``categorical_candidates``: the categorical
     columns ``cat_cols`` of every (K, F) field of ``cands`` and of ``bits``
     (K, F, W) are overwritten in place with ``find_best_splits_categorical``
-    of those columns (threshold 0, default_left False)."""
+    of those columns (threshold 0, default_left False), the gains times
+    their ``penalty`` (F,) where one is given."""
     cols = cat_cols.to(torch.int64)
     fm = feature_mask.index_select(-1, cols)
     cat = find_best_splits_categorical(
         hist.index_select(1, cols), sum_gradients, sum_hessians, num_data,
         num_bin.index_select(0, cols), missing_type.index_select(0, cols),
-        fm, **kw)
+        fm, min_constraint, max_constraint, **kw)
+    gain = apply_penalty(cat.gain, None if penalty is None
+                         else penalty.index_select(0, cols))
     for name, val in zip(("gain", "left_sum_g", "left_sum_h", "left_cnt",
                           "right_sum_g", "right_sum_h", "right_cnt",
                           "left_output", "right_output"),
-                         (cat.gain,) + cat[2:]):
+                         (gain,) + cat[2:]):
         field = getattr(cands, name)
         field.index_copy_(1, cols, val.to(field.dtype))
     cands.threshold.index_fill_(1, cols, 0)
@@ -261,7 +279,7 @@ def _lib():
                         ctypes.c_float)
         lib.lgbt_split_cat.argtypes = [
             p, p, ll, p, ll, p, ll, p, p, p, ll, p, i, i, i, i,
-            fl, fl, fl, fl, i, fl, fl, fl, fl, i, i, fl,
+            fl, fl, fl, fl, i, fl, fl, fl, fl, i, i, fl, p, ll, p, ll, p,
             p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, ll, p]
         lib.lgbt_split_cat.restype = ctypes.c_int
         _LIB = lib
@@ -317,7 +335,8 @@ def categorical_candidates(cands: SplitCandidates, bits: torch.Tensor,
                            num_data: torch.Tensor, num_bin: torch.Tensor,
                            missing_type: torch.Tensor,
                            feature_mask: torch.Tensor,
-                           cat_cols: torch.Tensor, *,
+                           cat_cols: torch.Tensor, min_constraint=None,
+                           max_constraint=None, penalty=None, *,
                            lambda_l1: float = 0.0, lambda_l2: float = 0.0,
                            max_delta_step: float = 0.0,
                            min_data_in_leaf: int = 20,
@@ -329,9 +348,11 @@ def categorical_candidates(cands: SplitCandidates, bits: torch.Tensor,
                            min_data_per_group: int = 100) -> None:
     """Write the best categorical split of columns ``cat_cols`` (C,) of a
     (K, F, B, 3) histogram batch into the (K, F) fields of ``cands`` and the
-    (K, F, W) int32 ``bits``, in place.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel (counted in
-    ``categorical_candidates.launches``) or raise."""
+    (K, F, W) int32 ``bits``, in place; optionally with the leaves' value
+    bounds (K,) (both or neither), which clip the outputs, and the gain
+    penalty (F,).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel (counted in ``categorical_candidates.launches``, the launches
+    with bounds or a penalty also in ``.con_launches``) or raise."""
     kw = dict(lambda_l1=lambda_l1, lambda_l2=lambda_l2,
               max_delta_step=max_delta_step,
               min_data_in_leaf=min_data_in_leaf,
@@ -344,6 +365,7 @@ def categorical_candidates(cands: SplitCandidates, bits: torch.Tensor,
         categorical_candidates_plain(cands, bits, hist, sum_gradients,
                                      sum_hessians, num_data, num_bin,
                                      missing_type, feature_mask, cat_cols,
+                                     min_constraint, max_constraint, penalty,
                                      **kw)
         return
     dev = hist.device
@@ -386,6 +408,20 @@ def categorical_candidates(cands: SplitCandidates, bits: torch.Tensor,
             or not bits.is_contiguous() or bits.device != dev:
         raise ValueError(f"bits must be a contiguous ({k}, {f}, {w}) int32 "
                          f"tensor on the hist's device")
+    if (min_constraint is None) != (max_constraint is None):
+        raise ValueError("min_constraint and max_constraint go together")
+    con = []
+    for t in (min_constraint, max_constraint):
+        if t is None:
+            con += [None, 0]
+            continue
+        t = t.to(torch.float32)
+        if t.shape != (k,) or t.device != dev:
+            raise ValueError("leaf bounds must be (K,) on the hist's device")
+        con += [t, t.stride(0)]
+    pen = None if penalty is None else penalty.to(torch.float32).contiguous()
+    if pen is not None and (pen.shape != (f,) or pen.device != dev):
+        raise ValueError("penalty must be (F,) on the hist's device")
     if cols.numel() == 0:
         return
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -399,15 +435,18 @@ def categorical_candidates(cands: SplitCandidates, bits: torch.Tensor,
                   float(min_sum_hessian_in_leaf), float(min_gain_to_split),
                   float(cat_smooth), int(max_cat_threshold),
                   int(max_cat_to_onehot), float(min_data_per_group),
-                  *fields, bits, plan.threads, plan.cap, plan.tcap,
-                  plan.smem, stream)
+                  *con, pen, *fields, bits, plan.threads, plan.cap,
+                  plan.tcap, plan.smem, stream)
     categorical_candidates.launches += 1
+    categorical_candidates.con_launches += int(
+        min_constraint is not None or pen is not None)
     if categorical_candidates.shapes is not None \
             and not torch.cuda.is_current_stream_capturing():
         categorical_candidates.shapes.append(k)
 
 
 categorical_candidates.launches = 0
+categorical_candidates.con_launches = 0
 #: a list to record each launch's leaf count K in, or None;
 #: a launch captured into a CUDA graph records nothing
 categorical_candidates.shapes = None

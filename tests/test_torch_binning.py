@@ -16,6 +16,11 @@ import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.interop import dataset_from_jax_arrays
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 
 def _matrix(seed, n=2000, f=12):
     rng = np.random.RandomState(seed)

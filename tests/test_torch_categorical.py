@@ -39,6 +39,11 @@ from test_categorical import _make_data
 from test_torch_learner import _grads
 from test_torch_masked import _jax_unfused
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 CATS = [3, 4]
 BASE = {"objective": "binary", "num_leaves": 31, "max_bin": 63,

@@ -18,6 +18,11 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops.hist_packed import (
     build_histogram_packed, build_histogram_packed_plain, pack_bin_words)
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1076,3 +1081,91 @@ def test_masked_pipelined_training_on_card(cuda_device):
     assert sync.gbdt.learner.host_syncs == 1
     assert sync.gbdt.models[0].to_string() == gbdt.models[0].to_string()
     assert all(t.num_leaves > 1 for t in gbdt.models)
+
+
+@pytest.mark.parametrize("k", [1, 2, 128])
+def test_scan_kernel_constrained_bitwise_to_cpu(cuda_device, k):
+    """Monotone signs, per-leaf bounds and the penalty through the split
+    scan kernel: every field bitwise equal to the plain version on the CPU,
+    one kernel per call, counted as a constrained launch; a call without
+    them takes the unconstrained kernel and equals the plain version
+    too."""
+    import chip_smoke as cs
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+    from lightgbm_tpu_torch.ops.split import find_best_splits
+
+    cpu = cs.scan_inputs(60 + k, False, k=k)
+    dev = [t.to(cuda_device) for t in cpu]
+    con_cpu = cs.scan_constraints(k, cpu[0].shape[1], k)
+    con = [t.to(cuda_device) for t in con_cpu]
+    kw = dict(cs.SCAN_KW)
+    n0 = (find_best_splits_batched.launches,
+          find_best_splits_batched.con_launches)
+    got = find_best_splits_batched(*dev, *con[:3], penalty=con[3], **kw)
+    free = find_best_splits_batched(*dev, **kw)
+    assert (find_best_splits_batched.launches - n0[0],
+            find_best_splits_batched.con_launches - n0[1]) == (2, 1)
+    ref = find_best_splits(*cpu, *con_cpu[:3], penalty=con_cpu[3], **kw)
+    ref_free = find_best_splits(*cpu, **kw)
+    for fld in got._fields:
+        assert cs.same(getattr(got, fld).cpu(), getattr(ref, fld)), fld
+        assert cs.same(getattr(free, fld).cpu(), getattr(ref_free, fld)), fld
+    assert not torch.equal(got.gain.cpu(), free.gain.cpu())
+    ops = _device_ops(lambda: find_best_splits_batched(
+        *dev, *con[:3], penalty=con[3], **kw))
+    assert len(ops) == 1 and "split_scan" in ops[0], ops
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_split_cat_kernel_constrained_bitwise(cuda_device, dyadic):
+    """Per-leaf bounds and the penalty through the categorical kernel at
+    K = 128, B = 256: every field and bitset bitwise equal to the plain
+    version on the CPU, the bounds binding."""
+    import chip_smoke as cs
+    from lightgbm_tpu_torch.ops.split_cat import (
+        categorical_candidates, categorical_candidates_plain)
+
+    cpu = cs.split_cat_inputs(70, dyadic)
+    card = [t.to(cuda_device) for t in cpu]
+    k, f = cpu[0].shape[:2]
+    _, mn, mx, pen = (t.to(cuda_device)
+                      for t in cs.scan_constraints(k, f, 3))
+    con = (mn, mx, pen)
+    sk = cs._cat_start(card)
+    sc = (type(sk[0])(*(t.cpu() for t in sk[0])), sk[1].cpu())
+    n0 = categorical_candidates.con_launches
+    got = cs._cat_run(categorical_candidates, card, sk, {}, con)
+    assert categorical_candidates.con_launches == n0 + 1
+    ref = cs._cat_run(categorical_candidates_plain, cpu, sc, {},
+                      tuple(t.cpu() for t in con))
+    assert cs._cat_same(got, ref)
+    free = cs._cat_run(categorical_candidates, card, sk, {})
+    assert not cs._cat_same(got, free)
+
+
+def test_constrained_wave_tree_on_card_equals_cpu(cuda_device):
+    """One wave tree with monotone constraints and penalties from dyadic
+    gradients (every float32 sum exact): the kernels on the card and the
+    plain versions on the CPU grow the same records and leaf ids, the
+    scans all constrained launches, no fused kernel."""
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+    from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
+
+    params = {"monotone_constraints": "1,-1,0,1,0,0,-1,0,0,0",
+              "feature_contri": "1,1,0.5,1,1,0.25,1,1,1,1"}
+    cfg, data, g, h, bag = _wave_problem(cuda_device, params)
+    g = torch.round(g * 16) / 16
+    h = torch.round(h * 16) / 16 * (bag > 0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        n0 = find_best_splits_batched.con_launches
+        ln = WaveTreeLearner(cfg, data, dev)
+        rec = ln.grow(g.to(dev), h.to(dev), bag.to(dev))
+        out[dev.type] = (rec, ln, find_best_splits_batched.con_launches - n0)
+    (rc, lc, nc), (rp, lp, _) = out["cuda"], out["cpu"]
+    assert np.array_equal(rc[0], rp[0]) and np.array_equal(rc[1], rp[1])
+    assert torch.equal(rc[2].cpu(), rp[2])
+    assert int((rc[0][:, 0] > 0.5).sum()) > 30
+    assert lc.has_monotone and lc.has_penalty and not lc._use_fused
+    assert nc == lc.kernel_calls["split_scan"] > 0
+    assert lc.tree_stats[-1]["host_syncs"] == 1

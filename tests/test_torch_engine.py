@@ -19,10 +19,16 @@ arrays and through model text and must predict within 1e-12 on the host.
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.interop import booster_from_jax_arrays
+
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
 
 PARAMS = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
           "learning_rate": 0.2, "min_data_in_leaf": 20, "verbosity": -1,

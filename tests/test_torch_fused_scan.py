@@ -24,6 +24,11 @@ from lightgbm_tpu_torch.ops.fused_scan import (fused_child_scans,
 from lightgbm_tpu_torch.ops.split import (find_best_splits, fix_histogram,
                                           pairwise_bin_sum)
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 FIELDS = ("threshold", "default_left", "left_sum_g", "left_sum_h",
           "left_cnt", "right_sum_g", "right_sum_h", "right_cnt",
           "left_output", "right_output")

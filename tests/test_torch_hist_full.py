@@ -24,6 +24,11 @@ from lightgbm_tpu_torch.ops.histogram import (build_histogram,
                                               build_histogram_onehot,
                                               read_codes)
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 N, F = 4096, 8
 
 

@@ -23,6 +23,11 @@ from lightgbm_tpu_torch.ops import hist_multislot as hm
 from lightgbm_tpu_torch.ops import hist_packed as hp
 from lightgbm_tpu_torch.ops.histogram import build_histogram_onehot
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 KPARTS = 8  # csrc/hist_common.cuh: kParts
 
 

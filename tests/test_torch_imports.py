@@ -20,6 +20,11 @@ import torch
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.config import Config, resolve_device
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
                     (REPO / "lightgbm_tpu_torch").rglob("*.py")) \
@@ -105,9 +110,9 @@ def test_device_rule_cpu_and_alias():
     {"snapshot_freq": 1},
     {"tree_learner": "data"},
     {"tpu_learner": "masked", "tree_learner": "voting"},
-    {"forcedsplits_filename": "forced.json"},
-    {"monotone_constraints": "1,0,0,0,0"},
-    {"feature_contri": "0.5,1,1,1,1"},
+    {"num_machines": 2},
+    {"telemetry_out": "t.jsonl"},
+    {"fault_spec": "grad_nan:nth=1"},
     {"profile_trace_dir": "prof"},
     {"telemetry": True},
 ])

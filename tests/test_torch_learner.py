@@ -27,6 +27,11 @@ from lightgbm_tpu_torch.learner import (
 from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
 from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed_plain
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -32,6 +32,11 @@ from lightgbm_tpu_torch.learner_compact import (CompactTreeLearner,
                                                 create_tree_learner)
 from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 BASE = {"objective": "binary", "min_data_in_leaf": 10, "verbosity": -1,
         "tpu_learner": "masked"}

@@ -25,6 +25,11 @@ from lightgbm_tpu_torch.interop import booster_from_jax_arrays
 from lightgbm_tpu_torch.predictor import DevicePredictor
 from test_torch_engine import _tree_arrays
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 K = 3
 PARAMS = {"objective": "multiclass", "num_class": K, "num_leaves": 15,
           "max_bin": 63, "min_data_in_leaf": 20, "learning_rate": 0.3,

@@ -24,6 +24,11 @@ from lightgbm_tpu_torch.ops.hist_multislot import (
     build_histogram_multislot_plain, multislot_plan)
 from lightgbm_tpu_torch.ops.hist_packed import pack_bin_words as tpack
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 N, F, B, K = 4096, 8, 64, 4
 
 

@@ -29,6 +29,11 @@ from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.dataset import Metadata as TMetadata
 from lightgbm_tpu_torch.tree import Tree as TTree
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 ROUNDS = 4
 
 

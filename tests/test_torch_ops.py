@@ -25,6 +25,11 @@ from lightgbm_tpu_torch.ops.histogram import build_histogram_onehot
 from lightgbm_tpu_torch.ops.histogram import fix_histogram
 from lightgbm_tpu_torch.ops.split import find_best_splits
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 
 def _packed_inputs(seed, f, n, b, dyadic=False):
     rng = np.random.RandomState(seed)

@@ -11,9 +11,15 @@ from the model's raises ``ValueError``.
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
+
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
 
 pd = pytest.importorskip("pandas")
 

@@ -21,6 +21,11 @@ from lightgbm_tpu_torch.ops.partition import (apply_partition,
                                               apply_partition_plain,
                                               exclusive_cumsum)
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 
 def _case(n, windows, seed, left_bias=None):
     """Random lanes, split flags inside the windows, and the destinations

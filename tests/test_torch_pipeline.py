@@ -19,6 +19,11 @@ import torch
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 PARAMS = {"objective": "regression", "num_leaves": 15, "max_bin": 63,
           "learning_rate": 0.3, "min_data_in_leaf": 20, "verbosity": -1,
           "metric": "none", "gpu_use_dp": True}

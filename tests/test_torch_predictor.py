@@ -13,6 +13,7 @@ are float64 and summed in tree order on both sides, so the bound is 1e-12.
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
@@ -24,6 +25,11 @@ from lightgbm_tpu_torch.binner import OOV_BIN, BinnerArrays
 from lightgbm_tpu_torch.boosting.gbdt import DEVICE_PREDICT_MIN_WORK
 from lightgbm_tpu_torch.predictor import DevicePredictor, \
     reconstruct_bin_schema
+
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
 
 PARAMS = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
           "min_data_in_leaf": 10, "learning_rate": 0.3}

@@ -26,6 +26,11 @@ from lightgbm_tpu_torch.ops.hist_packed import (build_histogram_packed,
                                                 pack_bin_words as tpack)
 from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 
 def _bits(a) -> np.ndarray:
     return np.asarray(a, np.float32).view(np.uint32)

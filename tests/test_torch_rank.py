@@ -23,6 +23,11 @@ from lightgbm_tpu_torch.rank_objective import LambdarankNDCG as TLambdarank
 from lightgbm_tpu_torch.rank_objective import (default_label_gain,
                                                max_dcg_at_k)
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -26,6 +26,11 @@ from lightgbm_tpu_torch.ops.replay import (CTL_EXTRAS, CTL_FLAG, CTL_PASSES,
                                            FLAG_STALL, NUM_CTL, replay_pass,
                                            replay_pass_plain)
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 GAINS = np.array([-1.0, 0.0, 0.25, 0.5, 0.5, 1.0, 1.0, 1.5, 2.0, 3.0])
 
 

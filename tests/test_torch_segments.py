@@ -23,6 +23,11 @@ from lightgbm_tpu_torch.ops.hist_segments import (
     TILE_ROWS, build_histogram_segments, build_histogram_segments_plain,
     segment_grid, segment_tile_plan)
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 N, F, B, RB = 4096, 8, 64, 512
 # (start, count, leaf): disjoint windows at unaligned starts, then two
 # frozen spans each shared by two members

@@ -29,6 +29,11 @@ from lightgbm_tpu_torch.ops.split_cat import (bits_from_member,
                                               find_best_splits_categorical)
 from test_split_cat import _bits_to_bins, ref_categorical
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 FIELDS = ("gain", "left_sum_g", "left_sum_h", "left_cnt", "right_sum_g",
           "right_sum_h", "right_cnt", "left_output", "right_output")
 FIXTURES = [

@@ -31,6 +31,11 @@ from lightgbm_tpu_torch.learner_wave import (PLAIN_KERNELS, WaveTreeLearner,
                                              wave_transient_bytes)
 from test_torch_learner import _grads, _problem
 
+# every pytest-xdist worker imports every test file and the workers share the
+# machine's cores: one intra-op thread per worker keeps them from
+# oversubscribing the CPU (torch's default is a thread per core)
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 BASE = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
         "min_data_in_leaf": 10, "tpu_min_window": 1024, "verbosity": -1,
