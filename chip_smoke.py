@@ -239,7 +239,12 @@ line and each raising (exit code 1) on any failure:
              3 iterations on the card through the wave learner (replay
              kernel launched, no change of learner); the same gpu_use_dp
              check against the CPU as categorical_2047 (the replay kernel
-             on float64 gains)
+             on float64 gains); then, under the default learner and
+             tpu_wave_max_bytes, the wave learner's byte estimate at or
+             above the card's peak allocation over three trees (eager,
+             capturing, replaying) at 1,000,000 rows with 4,095 leaves
+             and at Higgs's 11,000,000 rows (the bench rows repeated
+             through Dataset.subset) with 31 and 255 leaves
   timing     each of the nine kernels', its plain version's and (where one
              PyTorch call computes the same function) the library call's
              times from CUDA events, L2 flushed before each launch, beside
@@ -294,7 +299,8 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "train", "wave_train", "wave_pipelined", "quant_train",
           "constrained_train", "masked_train", "forced_train", "predict", "small", "multiclass_train",
           "objectives_train", "rank_train", "categorical_train",
-          "categorical_2047", "wave_4095", "timing")
+          "categorical_2047", "wave_4095", "goss_train", "dart_train",
+          "rf_train", "surface", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -3337,17 +3343,15 @@ def phase_categorical_2047(ctx) -> None:
 
 
 def phase_wave_4095(ctx) -> None:
-    """A wave tree of 4,095 leaves: the replay's node table past shared
-    memory (M = 16,505), on the card and against the CPU."""
+    """A wave tree of 4,095 leaves under the default tpu_wave_max_bytes:
+    the replay's node table past shared memory (M = 16,505), on the card
+    and against the CPU; then at the bench width (1,000,000 rows) the
+    learner's byte estimate against the card's peak over one tree."""
     from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
 
     rows = 100_000
     X, y = higgs_like(rows, seed=8)
-    # the JAX package's byte estimate counts an (N, M) one-hot lookup the
-    # port does not build (it gathers): past 4 GB at this M and N, so the
-    # budget is raised to keep the wave learner
-    params = dict(WAVE_PARAMS, num_leaves=4095, min_data_in_leaf=5,
-                  tpu_wave_max_bytes=16 << 30)
+    params = dict(WAVE_PARAMS, num_leaves=4095, min_data_in_leaf=5)
     counters = wave_counters()
     bst, launches, t_iter, auc = _card_and_cpu(params, X, y, 3, counters)
     learner = bst.gbdt.learner
@@ -3363,7 +3367,326 @@ def phase_wave_4095(ctx) -> None:
           "leaves_per_tree": leaves,
           "replay_passes_per_tree": [s["replay_passes"] for s in stats],
           "graph_launches_per_tree": [s["graph_launches"] for s in stats],
-          "first_tree_dp_equal_to_cpu": True})
+          "first_tree_dp_equal_to_cpu": True,
+          "tpu_wave_max_bytes": int(bst.gbdt.cfg.tpu_wave_max_bytes),
+          "memory": wave_4095_memory(ctx)})
+
+
+#: the full UCI Higgs set's rows, the bench workload's source
+HIGGS_ROWS = 11_000_000
+
+
+def tree_memory(bst, trees: int = 3) -> dict:
+    """The wave learner's device memory over ``trees`` trees grown from
+    ``bst``'s first gradients: per tree the peak of
+    ``torch.cuda.max_memory_allocated()`` above the bytes allocated before
+    the first (the eager first tree, the second that captures the CUDA
+    graphs, the third that replays them); the bytes the segments of the
+    graphs' private pool hold after the trees (``memory_snapshot``), and
+    what the allocator keeps reserved beside them once its cache is
+    emptied; the learner's footprint: its input codes (uploaded with the
+    booster) plus the widest of the first two trees' peaks and of the
+    third's beside the graph pool; and the learner's byte estimate
+    (``learner_wave.wave_transient_bytes``) for its shapes."""
+    from lightgbm_tpu_torch.learner_wave import wave_transient_bytes
+
+    gbdt, learner = bst.gbdt, bst.gbdt.learner
+    est = wave_transient_bytes(gbdt.cfg, learner.n_pad, 4 * learner.fw,
+                               learner._hist_nbins, learner.has_categorical,
+                               learner._hist_cols)
+    grad, hess = gbdt._gradients()[0]
+    inputs = learner.data.device_bins(learner.device).nbytes
+    if learner._bins_packed is not None:
+        inputs += learner._bins_packed.nbytes
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    peaks, leaves, captures, seconds = [], [], [], []
+    for _ in range(trees):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = learner.train_async(grad, hess, gbdt._bag_mask,
+                                   learner._all_features)
+        rec_f, _ = learner.host_records(tree.records.cpu().numpy(),
+                                        tree.host_stats)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        leaves.append(int(rec_f[:, 0].sum()) + 1)
+        captures.append(tree.host_stats["graph_captures"])
+        del tree
+    torch.cuda.empty_cache()
+    pid = learner._graph_pool
+    pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if pid is not None
+               and tuple(seg.get("segment_pool_id", ())) == tuple(pid))
+    other = torch.cuda.memory_reserved() - torch.cuda.memory_allocated() \
+        - pool
+    footprint = inputs + max(peaks[:2] + [peaks[2] + pool])
+    return {"padded_rows": learner.n_pad, "padded_columns": 4 * learner.fw,
+            "hist_columns": learner._hist_cols,
+            "num_leaves": learner.num_leaves,
+            "learner": type(learner).__name__, "leaves_per_tree": leaves,
+            "graph_captures_per_tree": captures, "s_per_tree": seconds,
+            "estimate_bytes": est, "peak_bytes_per_tree": peaks,
+            "input_bytes": inputs, "graph_pool_bytes": pool,
+            "reserved_unallocated_bytes": other,
+            "footprint_bytes": footprint,
+            "estimate_over_peak": est["total_bytes"] / max(peaks),
+            "estimate_over_footprint": est["total_bytes"] / footprint}
+
+
+def wave_4095_memory(ctx) -> list:
+    """Under the default learner and budget the wave learner trains 4,095
+    leaves at the bench width (1,000,000 x 28, 32 padded columns, 255
+    bins) and 31 and 255 leaves at Higgs's 11,000,000 rows (the bench rows
+    repeated through ``Dataset.subset``); at each, its byte estimate is at
+    or above the card's peak allocation over a tree (``tree_memory``)."""
+    import gc
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+
+    ds, _ = _dataset(ctx)
+    out = []
+    for rows, leaves in ((ROWS, 4095), (HIGGS_ROWS, 31), (HIGGS_ROWS, 255)):
+        d = ds if rows == ROWS else ds.subset(np.arange(rows) % ROWS)
+        bst = lt.Booster(dict(WAVE_PARAMS, num_leaves=leaves), d)
+        learner = bst.gbdt.learner
+        check(type(learner) is WaveTreeLearner,
+              f"{leaves} leaves at {rows} rows: {type(learner).__name__} "
+              f"under the default budget")
+        m = tree_memory(bst)
+        check(rows != ROWS or m["leaves_per_tree"][0] == leaves,
+              f"leaves per tree {m['leaves_per_tree']}")
+        check(m["estimate_bytes"]["total_bytes"]
+              >= max(m["peak_bytes_per_tree"]),
+              f"{rows} rows, {leaves} leaves: byte estimate "
+              f"{m['estimate_bytes']['total_bytes']} below the measured "
+              f"peak {max(m['peak_bytes_per_tree'])}")
+        out.append(m)
+        del bst, learner, d
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _variant_run(ctx, params, tag, iters: int, valid: bool = True,
+                 callbacks=()):
+    """``iters`` iterations of a boosting variant at the bench width
+    through ``lt.train`` (with the held-out set when ``valid``, and
+    ``callbacks`` besides the timer's), the wave learner's kernel counts
+    set to 0 just before and read just after; returns the booster and the
+    phase's common fields."""
+    import lightgbm_tpu_torch as lt
+
+    ds, dv = _dataset(ctx)
+    counters = wave_counters()
+    for fn in counters.values():                 # counts of the path
+        fn.launches = 0
+    t_iter, evals = [], {}
+    bst = lt.train(params, ds, iters, valid_sets=[dv] if valid else None,
+                   valid_names=["heldout"], evals_result=evals,
+                   verbose_eval=False,
+                   callbacks=iteration_timer(t_iter) + list(callbacks))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    out = wave_path_checks(tag, bst, launches)
+    out.update({"phase": tag, "iterations": iters, "s_per_iter": t_iter,
+                "loop_score_reads": bst.gbdt.host_syncs})
+    if valid:
+        auc = evals["heldout"]["auc"]
+        check(all(np.isfinite(auc)) and auc[-1] > 0.7,
+              f"{tag}: held-out AUC {auc}")
+        out["heldout_auc"] = auc
+    tree_counters(out, bst.gbdt.learner, ("graph_captures",
+                                          "graph_launches"))
+    check(not any(out["graph_captures_per_tree"][2:]),
+          f"{tag}: graph captures after the second tree "
+          f"{out['graph_captures_per_tree']}")
+    return bst, out
+
+
+def device_vs_host(bst, X) -> float:
+    """A large batch's ``Booster.predict`` (the DevicePredictor) against
+    the host trees' sum (averaged for an average_output model)."""
+    gbdt = bst.gbdt
+    n_dev = gbdt.device_predictions
+    dev = bst.predict(X, raw_score=True)
+    check(gbdt.device_predictions == n_dev + 1,
+          "the large batch did not go through the DevicePredictor")
+    host = np.zeros(len(X))
+    for t in gbdt.models:
+        host += t.predict(X)
+    if gbdt.average_output:
+        host /= gbdt.num_iterations_trained
+    diff = float(np.abs(dev - host).max())
+    check(diff <= 1e-6, f"device predictions vs host trees: {diff}")
+    return diff
+
+
+def phase_goss_train(ctx) -> None:
+    """GOSS at the bench width without a held-out set: the pipelined loop,
+    15 iterations at learning rate 0.1, so iterations 10-14 sample on the
+    card; then the selection alone at full width."""
+    from lightgbm_tpu_torch.boosting.goss import GOSS, goss_select
+
+    iters = 15
+    params = dict(WAVE_PARAMS, boosting="goss")
+    draws = []
+
+    def record(env):            # each sampled iteration's draw, unread
+        d = env.model.gbdt.last_draw
+        if d is not None and (not draws or draws[-1][0] != d[0]):
+            draws.append(d)
+
+    bst, out = _variant_run(ctx, params, "goss_train", iters, valid=False,
+                            callbacks=[record])
+    gbdt = bst.gbdt
+    check(type(gbdt) is GOSS and gbdt._can_pipeline(),
+          "GOSS did not take the pipelined loop")
+    trees = gbdt.models
+    reads = gbdt.pipeline_waits + gbdt.learner.host_syncs + gbdt.host_syncs
+    check(gbdt.pipeline_waits == iters and gbdt.learner.host_syncs == 0
+          and gbdt.host_syncs == 0,
+          f"reads: {gbdt.pipeline_waits} record waits, "
+          f"{gbdt.learner.host_syncs} learner reads, {gbdt.host_syncs} "
+          f"score reads for {iters} trees")
+    n = gbdt.num_data
+    sampled = []
+    for it, top_k, rows in draws:
+        rows = int(rows)
+        drawn = rows - top_k
+        other_k = max(1, int(n * gbdt.cfg.other_rate))
+        check(trees[it].internal_count[0] == rows,
+              f"iteration {it}: the tree's root holds "
+              f"{trees[it].internal_count[0]} rows, the bag {rows}")
+        check(abs(drawn - other_k) < 6 * np.sqrt(other_k),
+              f"iteration {it}: {drawn} rows drawn for {other_k}")
+        sampled.append({"iteration": it, "bagged_rows": rows,
+                        "top_k": top_k, "drawn": drawn})
+    check([d["iteration"] for d in sampled] == list(range(10, iters)),
+          f"sampled iterations {[d['iteration'] for d in sampled]}")
+    # the selection alone, on the last sampled iteration's inputs
+    g, h = gbdt._gradients()[0]
+    u = gbdt._goss_uniform(iters)
+    top_k = max(1, int(n * gbdt.cfg.top_rate))
+    other_k = max(1, int(n * gbdt.cfg.other_rate))
+    flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32,
+                        device=g.device)
+    sel_ms = cuda_ms(lambda: goss_select(g[None], h[None], gbdt._valid_rows,
+                                         u, top_k, other_k), 10, flush)
+    t_sampled = float(np.mean(out["s_per_iter"][10:]))
+    out.update({"host_reads_per_tree": reads / iters,
+                "sampled": sampled, "selection_ms": sel_ms,
+                "s_per_sampled_iter": t_sampled,
+                "selection_share_of_sampled_iter":
+                    sel_ms / 1e3 / t_sampled})
+    emit(out)
+
+
+def phase_dart_train(ctx) -> None:
+    """DART at the bench width with the held-out set, drops on every
+    iteration after the first; a large batch predicts through a fresh
+    DevicePredictor after every iteration's in-place edits."""
+    params = dict(WAVE_PARAMS, boosting="dart", skip_drop=0.0,
+                  drop_rate=0.5)
+    bst, out = _variant_run(ctx, params, "dart_train", 5)
+    gbdt = bst.gbdt
+    check(not gbdt._can_pipeline(), "DART pipelined")
+    drops = gbdt.tree_weight
+    check(len(drops) == 5, f"tree weights {drops}")
+    out["tree_weight"] = drops
+    out["last_drop_index"] = gbdt.drop_index
+    out["device_vs_host_max_diff"] = device_vs_host(bst, ctx["Xv"])
+    bst.update()
+    out["after_one_more_iteration_max_diff"] = device_vs_host(bst,
+                                                              ctx["Xv"])
+    emit(out)
+
+
+def phase_rf_train(ctx) -> None:
+    """Random forest at the bench width: bagging 0.632 every iteration,
+    feature fraction 0.8, averaged scores and predictions."""
+    params = dict(WAVE_PARAMS, boosting="rf", bagging_fraction=0.632,
+                  bagging_freq=1, feature_fraction=0.8)
+    bst, out = _variant_run(ctx, params, "rf_train", 5)
+    gbdt = bst.gbdt
+    check(gbdt.average_output, "rf did not average")
+    out["device_vs_host_max_diff"] = device_vs_host(bst, ctx["Xv"])
+    # the held-out score the loop kept is the mean of the trees
+    kept = gbdt.valid_scores[0].np_score().astype(np.float64)
+    raw = bst.predict(ctx["Xv"], raw_score=True)
+    diff = float(np.abs(kept - raw).max())
+    check(diff <= 1e-5, f"averaged held-out scores vs predict: {diff}")
+    out["heldout_score_vs_predict_max_diff"] = diff
+    emit(out)
+
+
+def phase_surface(ctx) -> None:
+    """The training API at the bench width: 5 iterations, saved and
+    continued 5 more; rollback_one_iter and a large-batch predict; refit
+    on the held-out rows; 3-fold cv x 5 iterations on 100,000 rows; a
+    pickle round trip."""
+    import pickle
+    import tempfile
+
+    import lightgbm_tpu_torch as lt
+
+    ds, _ = _dataset(ctx)
+    Xv, yv = ctx["Xv"], ctx["yv"]
+    counters = wave_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    bst = lt.train(WAVE_PARAMS, ds, 5, verbose_eval=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/model.txt"
+        bst.save_model(path)
+        cont = lt.train(WAVE_PARAMS, ds, 5, init_model=path,
+                        verbose_eval=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(all(launches.values()), f"kernels not launched: {launches}")
+    check(cont.num_trees() == 10 and cont.gbdt.train_score.has_init_score,
+          f"continued model has {cont.num_trees()} trees")
+    first = [t.to_string() for t in cont.gbdt.models[:5]]
+    check(first == [t.to_string() for t in bst.gbdt.models],
+          "the continued model's first trees are not the saved ones")
+    from lightgbm_tpu_torch.metrics import create_metric
+
+    auc_m = create_metric("auc", lt.Config.from_params(WAVE_PARAMS))
+    auc_m.init(ctx["dv"].constructed.metadata, VALID_ROWS)
+    aucs = [auc_m.eval(b.predict(Xv, raw_score=True), None)[0][1]
+            for b in (bst, cont)]
+    check(aucs[1] > aucs[0], f"held-out AUC {aucs} did not rise")
+    before = cont.predict(Xv)
+    cont.rollback_one_iter()
+    check(cont.num_trees() == 9, f"rollback left {cont.num_trees()} trees")
+    rollback_diff = device_vs_host(cont, Xv)
+    t0 = time.perf_counter()
+    refit = cont.refit(Xv, yv)
+    refit_s = time.perf_counter() - t0
+    rp = refit.predict(Xv)
+    check(np.isfinite(rp).all() and not np.allclose(rp, before),
+          "refit predictions")
+    X100, y100 = Xv, yv              # 100,000 rows of the same problem
+    t0 = time.perf_counter()
+    res = lt.cv(WAVE_PARAMS, lt.Dataset(X100, label=y100), 5, nfold=3,
+                seed=3, verbose_eval=False)
+    cv_s = time.perf_counter() - t0
+    ll = res["binary_logloss-mean"]
+    check(len(ll) == 5 and ll[-1] < ll[0], f"cv logloss means {ll}")
+    blob = pickle.dumps(cont)
+    back = pickle.loads(blob)
+    pdiff = float(np.abs(back.predict(Xv) - cont.predict(Xv)).max())
+    check(pdiff <= 1e-9, f"pickle round trip: {pdiff}")
+    emit({"phase": "surface", "kernel_launches": launches,
+          "train_and_continue_s": train_s, "heldout_auc_5_and_10": aucs,
+          "rollback_device_vs_host_max_diff": rollback_diff,
+          "refit_s": refit_s, "cv_s": cv_s, "cv_binary_logloss_mean": ll,
+          "cv_auc_mean": res["auc-mean"], "pickle_bytes": len(blob),
+          "pickle_predict_max_diff": pdiff})
 
 
 def _bound(nbytes: float, flops: float) -> dict:
@@ -4251,9 +4574,13 @@ def main() -> int:
     ctx = {}
     if "device" not in phases:
         phases.insert(0, "device")
+    seconds = {}
     for name in PHASES:
         if name in phases:
+            t0 = time.perf_counter()
             globals()[f"phase_{name}"](ctx)
+            seconds[name] = time.perf_counter() - t0
+    emit({"phase_seconds": seconds})
     if all(p in phases for p in ("wave_train", "quant_train", "masked_train",
                                  "categorical_train", "timing")):
         emit(kernels_line(ctx))

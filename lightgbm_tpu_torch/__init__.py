@@ -12,10 +12,10 @@ from .callback import (early_stopping, print_evaluation, record_evaluation,
                        reset_parameter)
 from .config import Config
 from .dataset import Dataset
-from .engine import Booster, train
+from .engine import Booster, CVBooster, cv, train
 
 __version__ = "0.1.0"
 
-__all__ = ["Booster", "Config", "Dataset", "early_stopping",
-           "print_evaluation", "record_evaluation", "reset_parameter",
-           "train"]
+__all__ = ["Booster", "CVBooster", "Config", "Dataset", "cv",
+           "early_stopping", "print_evaluation", "record_evaluation",
+           "reset_parameter", "train"]

@@ -18,10 +18,11 @@ package's does: a batch with rows x trees >= 200,000, or any call with
 device (text-loaded boosters through a bin schema rebuilt from the model
 text), a smaller batch walks the host trees (``Tree.predict``, numpy).
 
-The loop pipelines under the JAX package's conditions (``_can_pipeline``: no
-validation set, no leaf renewal, every class trained, a learner with
-``train_async``): each tree is grown with no blocking host read, the
-training score is updated on the device from the learner's leaf partition
+The loop pipelines under the JAX package's conditions (``_can_pipeline``: a
+variant that allows it, no validation set, no leaf renewal, every class
+trained, a learner with ``train_async``): each tree is grown with no
+blocking host read, the training score is updated on the device from the
+learner's leaf partition
 (``score + float32(lr) * leaf_out[leaf_id]`` rounded once, as XLA fuses the
 JAX ``_score_add_leaf``), the
 packed records go to pinned host memory without blocking, and host trees
@@ -31,6 +32,17 @@ stop check and the rollback of post-stop trees out of the training score.
 The JAX package's fused path (one XLA program per iteration) is the same
 sequence in eager torch and is this path.  The compact learner has no
 ``train_async`` and keeps the synchronous loop.
+
+The hooks the variants (``goss.py``, ``dart.py``, ``rf.py``) and the engine
+stand on, as the JAX ``GBDT`` has them: ``train_one_iter`` takes external
+gradients (a custom objective's), padded and uploaded once; ``_sample``
+sits between the gradients and the trees in both loops (bagging here,
+GOSS's selection in its subclass); the host bag mask is built lazily
+(``_np_bag``); every in-place edit of a tree bumps ``_model_version``,
+which keys the cached ``DevicePredictor``; ``_add_tree_score_train``
+traverses the training rows' codes on the device (DART's drops,
+``rollback_one_iter``, continued training); ``refit_leaf_preds`` and
+``dump_model`` are the JAX package's.
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ from ..learner_compact import create_tree_learner
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction, create_objective
 from ..ops.histogram import read_codes
+from ..ops.split import calculate_leaf_output
 from ..tree import Tree
 
 K_MODEL_VERSION = "v2"
@@ -197,15 +210,21 @@ class GBDT:
     """Reference `src/boosting/gbdt.h:24`: the synchronous loop."""
 
     name = "gbdt"
+    #: DART edits earlier trees every iteration and turns the pipeline off
+    _supports_pipeline = True
 
     def __init__(self, cfg: Config, device: torch.device):
         self.cfg = cfg
         self.device = device
         self.iter_ = 0
         # queued pipelined trees: (model index, host records, their copy's
-        # event, the learner's host counters, the iteration's init score)
+        # event, the learner's host counters, the iteration's init score
+        # and shrinkage rate)
         self._pending: List[tuple] = []
         self._stopped = False
+        #: bumped by every in-place edit of a tree (DART, rollback, refit):
+        #: part of the cached DevicePredictor's key
+        self._model_version = 0
         self._models: List[Optional[Tree]] = []
         self.train_data: Optional[_ConstructedDataset] = None
         self.objective: Optional[ObjectiveFunction] = None
@@ -300,7 +319,7 @@ class GBDT:
     def _assemble_entry(self, entry) -> int:
         """Build one queued pipelined tree into ``self._models`` (waiting
         for its record copy); returns its model index."""
-        idx, host, event, host_stats, init_sc = entry
+        idx, host, event, host_stats, init_sc, rate = entry
         if event is not None:
             event.synchronize()
         self.pipeline_waits += 1
@@ -308,7 +327,10 @@ class GBDT:
             host.numpy(), dict(host_stats, host_syncs=0))
         tree = self.learner.assemble_host(rec_f, rec_i)
         if tree.num_leaves > 1:
-            tree.apply_shrinkage(self.shrinkage_rate)
+            # the rate its score update used (the JAX package takes the
+            # rate at flush time, so a schedule's queued trees get the
+            # last one: ROADMAP.md Queue C)
+            tree.apply_shrinkage(rate)
             if abs(init_sc) > kEpsilon:
                 tree.leaf_value[:tree.num_leaves] += init_sc
                 tree.shrinkage = 1.0
@@ -369,14 +391,20 @@ class GBDT:
         base[:data.num_data] = 1.0
         self._np_bag_mask = base       # the host copy the renewal reads
         self._bag_mask = upload(base, self.device)   # 0 on padded rows
+        self._valid_rows = self._bag_mask
         self._full_fmask = torch.ones(data.num_used_features,
                                       dtype=torch.bool, device=self.device)
 
     def add_valid_data(self, valid_data: Dataset, name: str,
                        metrics: Sequence[Metric]) -> None:
         data = valid_data.constructed
-        self.valid_scores.append(ScoreUpdater(data, self.num_tree_per_iteration,
-                                              self.device))
+        vs = ScoreUpdater(data, self.num_tree_per_iteration, self.device)
+        # the trees the model already holds (an init model's included),
+        # as `gbdt.cpp` AddValidDataset replays them; the JAX package
+        # starts the score from zero (ROADMAP Queue C)
+        for idx, tree in enumerate(self.models):
+            vs.add_by_tree(tree, idx % self.num_tree_per_iteration)
+        self.valid_scores.append(vs)
         self.valid_names.append(name)
         self.valid_metrics.append(list(metrics))
         self.best_score.append([-math.inf] * len(metrics))
@@ -398,6 +426,21 @@ class GBDT:
             self._np_bag_mask = mask
             self._bag_mask = upload(mask, self.device)
 
+    def _np_bag(self) -> np.ndarray:
+        """The host copy of the bag mask, read from the device only when a
+        renewal needs it (GOSS leaves it on the device)."""
+        if self._np_bag_mask is None:
+            self.host_syncs += 1
+            self._np_bag_mask = self._bag_mask.cpu().numpy()
+        return self._np_bag_mask
+
+    def _sample(self, grads: List[tuple]) -> List[tuple]:
+        """The row sampling between the gradients and the trees, in both
+        loops: bagging here; GOSS selects rows and amplifies their
+        gradients."""
+        self._bagging(self.iter_)
+        return grads
+
     def _feature_sample(self) -> torch.Tensor:
         """Per-tree feature_fraction sampling (`serial_tree_learner.cpp:255-283`)."""
         f = self.train_data.num_used_features
@@ -414,7 +457,8 @@ class GBDT:
 
     def _can_pipeline(self) -> bool:
         """The JAX package's conditions (`gbdt.py:727-734`)."""
-        return (self.objective is not None
+        return (self._supports_pipeline
+                and self.objective is not None
                 and not getattr(self.objective, "needs_renew_tree_output",
                                 False)
                 and not self.valid_scores
@@ -447,20 +491,43 @@ class GBDT:
         self.renew_reads += 1
         self.objective.renew_tree_output(
             tree, both[0, :self.num_data].astype(np.float32),
-            both[1].astype(np.int64), self._np_bag_mask)
+            both[1].astype(np.int64), self._np_bag())
 
-    def train_one_iter(self) -> bool:
+    def _pad_external_gradients(self, gradients, hessians) -> List[tuple]:
+        """A custom objective's (K * n,) or (K, n) gradients and hessians,
+        class-major as the reference takes them, padded to N_pad with
+        zeros and uploaded in one copy (JAX ``gbdt.py:594-603``)."""
+        k = self.num_tree_per_iteration
+        both = np.zeros((2, k, self.train_data.num_data_padded), np.float32)
+        for i, a in enumerate((gradients, hessians)):
+            a = np.asarray(a, dtype=np.float32).reshape(k, -1)
+            both[i, :, :a.shape[1]] = a
+        both = upload(both, self.device)
+        return list(zip(both[0], both[1]))
+
+    def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """Returns True when training cannot continue (no splittable leaves;
         in the pipelined loop found up to ``tpu_pipeline_flush_depth``
-        iterations late, the later ones rolled back)."""
+        iterations late, the later ones rolled back).  ``gradients`` and
+        ``hessians`` (a custom objective's) replace the objective's."""
         if self._stopped:
             return True
+        k_trees = self.num_tree_per_iteration
+        if gradients is None or hessians is None:
+            init_scores = [self._boost_from_average(k)
+                           for k in range(k_trees)]
+            grads = self._gradients()
+        else:
+            init_scores = [0.0] * k_trees
+            grads = self._pad_external_gradients(gradients, hessians)
+        grads = self._sample(grads)
         if self._can_pipeline():
-            return self._train_one_iter_pipelined()
-        init_scores = [self._boost_from_average(k)
-                       for k in range(self.num_tree_per_iteration)]
-        grads = self._gradients()
-        self._bagging(self.iter_)
+            return self._train_trees_pipelined(grads, init_scores)
+        return self._train_trees(grads, init_scores)
+
+    def _train_trees(self, grads: List[tuple], init_scores) -> bool:
+        """The synchronous per-class tree loop (`gbdt.cpp:348-413`), shared
+        by GBDT, GOSS and DART."""
         renew = self.objective is not None \
             and self.objective.needs_renew_tree_output
         should_continue = False
@@ -516,7 +583,8 @@ class GBDT:
         self.iter_ += 1
         return False
 
-    def _train_one_iter_pipelined(self) -> bool:
+    def _train_trees_pipelined(self, grads: List[tuple], init_scores
+                               ) -> bool:
         """One iteration with no blocking host read
         (``_train_trees_pipelined``, `gbdt.py:736-779`, and the fused path
         of `gbdt.py:687-725`, the same sequence here): per class the tree is
@@ -526,9 +594,6 @@ class GBDT:
         trees of the iteration ``tpu_pipeline_flush_depth`` back are
         assembled (``0``: all of them every 16 iterations)."""
         k_trees = self.num_tree_per_iteration
-        init_scores = [self._boost_from_average(k) for k in range(k_trees)]
-        grads = self._gradients()
-        self._bagging(self.iter_)
         cuda = self.device.type == "cuda"
         lr = float(np.float32(self.shrinkage_rate))
         for k, (grad, hess) in enumerate(grads):
@@ -551,7 +616,8 @@ class GBDT:
                 event = torch.cuda.Event()
                 event.record()
             self._pending.append((len(self._models), host, event,
-                                  tree.host_stats, init_scores[k]))
+                                  tree.host_stats, init_scores[k],
+                                  self.shrinkage_rate))
             self._models.append(None)
         self.iter_ += 1
         depth = int(getattr(self.cfg, "tpu_pipeline_flush_depth", 8))
@@ -671,8 +737,8 @@ class GBDT:
                 getattr(t, "needs_rebind", False)
                 for t in self.models[:num_models]):
             from ..predictor import DevicePredictor
-            key = (num_models, cfg.pred_early_stop, cfg.pred_early_stop_freq,
-                   cfg.pred_early_stop_margin)
+            key = (num_models, self._model_version, cfg.pred_early_stop,
+                   cfg.pred_early_stop_freq, cfg.pred_early_stop_margin)
             if self._device_predictor is None \
                     or self._device_predictor[0] != key:
                 self._device_predictor = (key, DevicePredictor(
@@ -719,6 +785,107 @@ class GBDT:
     @property
     def num_iterations_trained(self) -> int:
         return len(self.models) // max(self.num_tree_per_iteration, 1)
+
+    # -- in-place edits of the trees ----------------------------------------
+
+    def _add_tree_score_train(self, tree: Tree, class_id: int) -> None:
+        """Add ``tree``'s current leaf values to the training score: a
+        device traversal of the training rows' codes (a constant for a
+        one-leaf tree)."""
+        if tree.num_leaves > 1:
+            self.train_score.score[class_id] += traverse_tree_binned(
+                self.train_data, tree, self.device)
+        else:
+            self.train_score.add_constant(float(tree.leaf_value[0]),
+                                          class_id)
+
+    def rollback_one_iter(self) -> None:
+        """`gbdt.cpp:414-431`: drop the last iteration's trees and take
+        their output out of the training and validation scores (JAX
+        ``gbdt.py:1067-1087``).  Reading ``models`` flushes the pipelined
+        queue first."""
+        if self.iter_ <= 0:
+            return
+        k = self.num_tree_per_iteration
+        models = self.models
+        self._model_version += 1
+        for cid in range(k):
+            tree = models[len(models) - k + cid]
+            tree.apply_shrinkage(-1.0)
+            self._add_tree_score_train(tree, cid)
+            for vs in self.valid_scores:
+                vs.add_by_tree(tree, cid)
+        del models[-k:]
+        self.iter_ -= 1
+
+    def refit_leaf_preds(self, leaf_preds: np.ndarray,
+                         decay_rate: float = 0.9) -> None:
+        """Refit every tree's leaf values on this booster's training data
+        (`gbdt.cpp` RefitTree, JAX ``gbdt.py:1190-1228``): per iteration
+        the gradients at the running score, per-leaf gradient and hessian
+        sums (``index_add_`` in float64 on the device, one read per tree),
+        ``decay * old + (1 - decay) * new * shrinkage``, and the new leaf
+        values added to the score."""
+        models = self.models
+        self._model_version += 1
+        k = max(self.num_tree_per_iteration, 1)
+        n = self.num_data
+        if leaf_preds.shape != (n, len(models)):
+            raise ValueError(f"leaf predictions of shape {leaf_preds.shape}"
+                             f", want ({n}, {len(models)})")
+        cfg = self.cfg
+        lp_all = upload(np.ascontiguousarray(leaf_preds.T, dtype=np.int64),
+                        self.device)
+        self.train_score.score.zero_()
+        for it in range(len(models) // k):
+            grads = self._gradients()
+            for tid in range(k):
+                mi = it * k + tid
+                tree = models[mi]
+                nl = tree.num_leaves
+                lp = lp_all[mi]
+                g, h = grads[tid]
+                sums = torch.zeros((2, nl), dtype=torch.float64,
+                                   device=self.device)
+                sums.index_add_(1, lp, torch.stack([g[:n], h[:n]])
+                                .to(torch.float64))
+                sums = sums.cpu()
+                self.host_syncs += 1
+                new_out = calculate_leaf_output(
+                    sums[0], sums[1] + kEpsilon, float(cfg.lambda_l1),
+                    float(cfg.lambda_l2), float(cfg.max_delta_step)).numpy()
+                old = tree.leaf_value[:nl]
+                tree.leaf_value[:nl] = (decay_rate * old
+                                        + (1.0 - decay_rate)
+                                        * new_out * tree.shrinkage)
+                lv = upload(tree.leaf_value[:nl].astype(np.float32),
+                            self.device)
+                self.train_score.score[tid, :n] += lv.index_select(0, lp)
+
+    def dump_model(self, start_iteration: int = 0, num_iteration: int = -1
+                   ) -> Dict:
+        """The model as a JSON-able dict, the reference ``DumpModel``
+        schema (`gbdt_model_text.cpp:15-60`, JAX ``gbdt.py:1159``)."""
+        k = max(self.num_tree_per_iteration, 1)
+        models = self.models
+        total_iteration = len(models) // k
+        start_iteration = min(max(start_iteration, 0), total_iteration)
+        num_used = len(models)
+        if num_iteration > 0:
+            num_used = min((start_iteration + num_iteration) * k, num_used)
+        out = {"name": "tree", "version": K_MODEL_VERSION,
+               "num_class": max(self.cfg.num_class, 1),
+               "num_tree_per_iteration": self.num_tree_per_iteration,
+               "label_index": self.label_idx,
+               "max_feature_idx": self.max_feature_idx,
+               "average_output": self.average_output}
+        if self.objective is not None:
+            out["objective"] = self.objective.to_string()
+        out["feature_names"] = list(self.feature_names)
+        out["tree_info"] = [dict(tree_index=i - start_iteration * k,
+                                 **models[i].to_json())
+                            for i in range(start_iteration * k, num_used)]
+        return out
 
     # -- serialization (`gbdt_model_text.cpp:244-341`) -----------------------
 

@@ -869,7 +869,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 BREADTH = "objective, metric and feature breadth"
-VARIANTS = "boosting variants"
 PARALLEL = "multi-GPU and multi-host"
 SURFACE = "predict and the user surface"
 OBSERVE = "reliability and training observability"
@@ -878,8 +877,6 @@ OBSERVE = "reliability and training observability"
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every setting this slice does not
     run, so none of them is silently ignored."""
-    if cfg.boosting != "gbdt":
-        raise not_ported(f"boosting={cfg.boosting}", VARIANTS)
     if cfg.tree_learner != "serial" or cfg.num_machines > 1 \
             or cfg.num_hosts > 1 or cfg.elastic:
         raise not_ported(f"tree_learner={cfg.tree_learner} and multi-host "

@@ -94,6 +94,28 @@ class Metadata:
             return
         self.init_score = np.asarray(init_score, dtype=np.float64).reshape(-1)
 
+    def subset(self, idx: np.ndarray) -> "Metadata":
+        """Row subset (`metadata.cpp` Init(metadata, used_indices)); query
+        boundaries are rebuilt only when the subset keeps whole queries in
+        order."""
+        out = Metadata(len(idx))
+        out.label = self.label[idx]
+        if self.weights is not None:
+            out.weights = self.weights[idx]
+        if self.init_score is not None:
+            k = len(self.init_score) // max(self.num_data, 1)
+            out.init_score = self.init_score.reshape(
+                k, self.num_data)[:, idx].reshape(-1)
+        if self.query_boundaries is not None:
+            qid = np.searchsorted(self.query_boundaries, idx, "right") - 1
+            if (np.diff(qid) >= 0).all():
+                _, sizes = np.unique(qid, return_counts=True)
+                out.set_group(sizes)
+            else:
+                raise ValueError("subset of a ranking dataset must keep "
+                                 "query groups contiguous")
+        return out
+
 
 def recode_pandas(df, cat_cols, stored) -> np.ndarray:
     """DataFrame -> float64 matrix with the ``category`` columns
@@ -219,10 +241,38 @@ class Dataset:
             self._constructed.metadata.set_init_score(init_score)
         return self
 
+    def set_feature_name(self, feature_name) -> "Dataset":
+        """The column names (a list), used when the dataset is built."""
+        self.feature_name = feature_name
+        return self
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """The categorical columns (indices, names, ``"0,2"`` or
+        ``"name:c1,c2"``), used when the dataset is built."""
+        self.categorical_feature = categorical_feature
+        return self
+
     def get_label(self):
         if self._constructed is not None:
             return self._constructed.metadata.label
         return self._label
+
+    def get_weight(self):
+        if self._constructed is not None:
+            return self._constructed.metadata.weights
+        return self._weight
+
+    def get_group(self):
+        """Per-query sizes, or None."""
+        if self._constructed is not None \
+                and self._constructed.metadata.query_boundaries is not None:
+            return np.diff(self._constructed.metadata.query_boundaries)
+        return self._group
+
+    def get_init_score(self):
+        if self._constructed is not None:
+            return self._constructed.metadata.init_score
+        return self._init_score
 
     def num_data(self) -> int:
         return self.construct()._constructed.num_data
@@ -246,6 +296,32 @@ class Dataset:
         ds = cls(None, params=params)
         ds._constructed = constructed
         return ds
+
+    def subset(self, used_indices, params: Optional[Dict] = None
+               ) -> "Dataset":
+        """A row subset sharing this dataset's bin mappers, no re-binning
+        (`basic.py:1053`, JAX ``dataset.py:419``); the subset has no EFB
+        bundle."""
+        con = self.construct()._constructed
+        idx = np.asarray(used_indices, dtype=np.int64)
+        sub = _ConstructedDataset()
+        sub.num_data = len(idx)
+        sub.num_total_features = con.num_total_features
+        sub.feature_names = con.feature_names
+        sub.config = con.config
+        sub.bin_mappers = con.bin_mappers
+        sub.used_feature_map = con.used_feature_map
+        sub.num_data_padded = _round_up(max(len(idx), 1), max(
+            int(con.config.tpu_row_block), 128))
+        sub.max_num_bin = con.max_num_bin
+        sub.bins = np.zeros((con.bins.shape[0], sub.num_data_padded),
+                            dtype=con.bins.dtype)
+        sub.bins[:, :len(idx)] = con.bins[:, :con.num_data][:, idx]
+        sub.metadata = con.metadata.subset(idx)
+        out = Dataset._from_constructed(sub, params or self.params)
+        out.used_indices = idx
+        out.reference = self
+        return out
 
 
 class _ConstructedDataset:

@@ -130,7 +130,7 @@ entry point (``config.check_supported``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -414,13 +414,11 @@ class WaveTreeLearner(CompactTreeLearner):
         """Slot and pool sizing, as ``learner_wave.py:_init_wave_dims``:
         growth performs at most ``grow_budget`` splits and the replay
         correction at most ``_correction_reserve`` more, so M node slots and
-        H pool slots can never overflow."""
-        self.budget = self.num_leaves - 1
-        self.W = max(1, min(int(cfg.tpu_wave_width), self.budget))
-        ov = _resolve_overshoot(cfg, self.n_pad)
-        self.grow_budget = min(self.budget + int(np.ceil(self.budget * ov)),
-                               2 * self.budget)
-        self._stall_batch = _resolve_stall_batch(cfg)
+        H pool slots can never overflow (``wave_dims``)."""
+        d = wave_dims(cfg, self.n_pad)
+        self.budget, self.W = d.budget, d.W
+        self.grow_budget = d.grow_budget
+        self._stall_batch = d.stall_batch
         self._extras_cap = _stall_extras_cap(self.budget)
         vc = int(getattr(cfg, "tpu_wave_vec_cap", -1))
         self._vec_cap = self._VEC_CAP if vc <= 0 else vc
@@ -439,9 +437,8 @@ class WaveTreeLearner(CompactTreeLearner):
         self._quant_reason = None if self._quant else reason
         self._q_scales = None      # (sg, sh) of the current tree
         self._q_raw = None         # (gb, hb) float32, kept for the renewal
-        self._corr = _correction_reserve(cfg, self.budget)
-        self.M = 1 + 2 * (self.grow_budget + self._corr)
-        self.H = self.grow_budget + self._corr + 2
+        self._corr = d.corr
+        self.M, self.H = d.M, d.H
         # windows at or below the wave cutoff split in place (children share
         # the parent's span); a K=1 stall may only partition above the larger
         # of both cutoffs, so it never reorders a shared span
@@ -1166,45 +1163,150 @@ class WaveTreeLearner(CompactTreeLearner):
         return torch.where(has_h, out, 0.0), has_h
 
 
-def wave_transient_bytes(cfg: Config, n_pad: int, f_pad: int, b: int
-                         ) -> dict:
-    """Working-set byte estimate of the wave learner, the JAX package's
-    formula (``learner_wave.py:wave_transient_bytes``), so both packages
-    make the same eligibility decision."""
+class WaveDims(NamedTuple):
+    """The wave learner's shape fields, as the JAX learner sizes them."""
+    budget: int         # splits of a tree, num_leaves - 1
+    W: int              # members of a growth wave
+    grow_budget: int    # splits growth may perform
+    corr: int           # correction splits the replay may add
+    M: int              # node slots
+    H: int              # histogram pool slots
+    stall_batch: int    # members of a correction
+
+
+def wave_dims(cfg: Config, n_pad: int) -> WaveDims:
+    """(``learner_wave.py:_init_wave_dims``) the slot and pool sizes for
+    ``n_pad`` rows: growth performs at most ``grow_budget`` splits and the
+    replay correction at most ``corr`` more, so M node slots and H pool
+    slots can never overflow."""
     budget = max(int(cfg.num_leaves), 2) - 1
-    W = min(int(cfg.tpu_wave_width), budget)
-    grow = min(budget + int(np.ceil(budget
-                                    * _resolve_overshoot(cfg, n_pad))),
-               2 * budget)
+    ov = _resolve_overshoot(cfg, n_pad)
+    grow = min(budget + int(np.ceil(budget * ov)), 2 * budget)
     corr = _correction_reserve(cfg, budget)
-    M = 1 + 2 * (grow + corr)
-    h_bytes = (grow + corr + 2) * f_pad * b * 3 * 4
-    scan_bytes = 2 * W * f_pad * b * 3 * 4
-    m_pad = ((M + 127) // 128) * 128
-    mask_bytes = min(n_pad, 1 << 20) * W * 4 + n_pad * 12
-    lookup_bytes = min(n_pad, 1 << 17) * m_pad * 4
-    sort_bytes = 2 * (f_pad // 4 + 6) * n_pad * 4
-    k = _resolve_stall_batch(cfg)
-    vc = int(getattr(cfg, "tpu_wave_vec_cap", -1))
-    if vc <= 0:
-        vc = WaveTreeLearner._VEC_CAP
-    stall_vec_bytes = 0 if k == 1 else \
-        k * min(vc, n_pad) * (f_pad // 4 + 4) * 4
-    out = {"hist_pool_bytes": h_bytes, "child_scan_bytes": scan_bytes,
-           "wave_mask_bytes": mask_bytes, "leaf_lookup_bytes": lookup_bytes,
-           "sort_buffer_bytes": sort_bytes,
-           "stall_vec_bytes": stall_vec_bytes}
-    out["total_bytes"] = sum(out.values())
+    return WaveDims(budget, max(1, min(int(cfg.tpu_wave_width), budget)),
+                    grow, corr, 1 + 2 * (grow + corr), grow + corr + 2,
+                    _resolve_stall_batch(cfg))
+
+
+#: bytes per row a split pass holds beyond the (NUM_P, N) int32 member
+#: table gathered per row, at its widest: the member index, the left and
+#: bag masks, the float64 count codes, the new leaf ids, the partition's
+#: flags, ranks and destinations, the EFB decode and the categorical
+#: probe (35 to 40 measured on the CPU, ``tests/test_torch_wave.py``)
+SPLIT_ROW_BYTES = 48
+#: per row of a tree's root: the weighted lanes stacked and summed (20)
+ROOT_ROW_BYTES = 24
+#: per row of the emission: the leaf id per row and its gather (16)
+EMIT_ROW_BYTES = 16
+#: with quantized gradients: the float32 gradients kept for the renewal
+#: (held across the tree), the root with the quantizer's temporaries (75)
+#: and the emission with the renewal's (20)
+QUANT_STATE_ROW_BYTES = 8
+QUANT_ROOT_ROW_BYTES = 80
+QUANT_EMIT_ROW_BYTES = 24
+#: per row of the opening's materialization: the rows' window starts,
+#: their stable sort (keys, indices, the card's radix double buffers),
+#: the destinations (24 on the CPU, which has no double buffers)
+MATERIALIZE_ROW_BYTES = 60
+#: (K, F, B, 3) child histogram batches live in a split pass: the smaller
+#: children (1), the parents' pool rows (1), the larger children (1), the
+#: left and right children (2), both interleaved for the scan (2) and
+#: FixHistogram's two rewrites of those (4)
+CHILD_HIST_BATCHES = 11
+
+#: the state's terms in ``wave_transient_bytes``
+STATE_TERMS = ("lane_bytes", "bins_bytes", "hist_pool_bytes",
+               "node_table_bytes", "quant_state_bytes")
+#: its passes replayed as CUDA graphs (their transients share the graphs'
+#: private pool) and those run eagerly every tree (the allocator's pool)
+GRAPHED_PASSES = ("split_pass_bytes", "materialize_pass_bytes",
+                  "replay_pass_bytes")
+EAGER_PASSES = ("root_pass_bytes", "emit_pass_bytes")
+
+
+def wave_transient_bytes(cfg: Config, n_pad: int, f_pad: int, b: int,
+                         categorical: bool = False,
+                         hist_cols: Optional[int] = None) -> dict:
+    """The device bytes the port's wave learner holds for one tree at
+    ``n_pad`` rows, ``f_pad`` packed columns, ``hist_cols`` histogram
+    columns (the used features or EFB groups; ``f_pad`` if not given) and
+    ``b`` histogram bins: its state, allocated once (the two lane sets,
+    the codes and packed words, the histogram pool, the node tables), plus
+    the widest of its passes that replay as CUDA graphs and the widest of
+    those that run eagerly (the root and the emission): the two sets of
+    transients live in different pools, and a pass's temporaries are
+    freed before the next pass starts.  No leaf lookup: the JAX package's
+    formula counts an (N, M) one-hot lookup table
+    (``learner_wave.py:wave_transient_bytes``) that the port never builds,
+    as it gathers.  ``tests/test_torch_wave.py`` holds each term against a
+    CPU learner's tensors; ``chip_smoke.py`` phase ``wave_4095`` and
+    ``profiling/wave_memory.py`` hold the total against the card's peak
+    over a tree."""
+    from .ops.hist_full import SMS
+    from .ops.hist_multislot import multislot_plan
+    from .ops.hist_packed import packed_plan
+    from .ops.hist_segments import segment_grid
+    from .ops.replay import replay_plan
+    from .ops.split_cat import cat_words
+
+    d = wave_dims(cfg, n_pad)
+    acc = 8 if (cfg.gpu_use_dp or cfg.tpu_double_precision) else 4
+    k = max(d.W, d.stall_batch)
+    cols = f_pad if hist_cols is None else int(hist_cols)
+    unit = f_pad * b * 3                     # one kernel output, entries
+    m1 = d.M + 1
+    node_cols = 2 * 8 + NUM_LF * acc + NUM_CF * acc + NUM_CI * 8 \
+        + 3 * 8 + 1 + 2 * 8 + (cat_words(b) * 4 if categorical else 0)
+    node = m1 * node_cols + d.M * (1 + 4) + d.budget * 2 * 4 \
+        + 2 * 8 + NUM_ST * 8 + 4 + NUM_CTL * 4 + d.stall_batch * 9 + f_pad
+    fw = f_pad // 4
+    plan = packed_plan(fw, n_pad, b)
+    packed = unit * (1 + (plan.nchunks if plan.nchunks > 1 else 0)) * 4
+    segments = (segment_grid(n_pad, SMS) + k) * unit * 4
+    ol = int(getattr(cfg, "tpu_wave_open_levels", -1))
+    ol = max(0, min(ol, (d.budget + 1).bit_length() - 1))
+    multislot = 0
+    for lvl in range(ol):
+        ks = min(1 << lvl, d.W)
+        ms = multislot_plan(fw, ks, n_pad, b)
+        multislot = max(multislot, ks * unit * 4 * (
+            1 + (ms.nchunks if ms.nchunks > 1 else 0)))
+    quant = str(getattr(cfg, "tpu_quantized_grad", "auto")) == "on" \
+        and quant_ineligible_reason(n_pad, acc == 8) is None
+    out = {"lane_bytes": 2 * n_pad * (f_pad + 12 + 8 + 4) + 4 * n_pad,
+           "bins_bytes": 2 * n_pad * f_pad,
+           "hist_pool_bytes": (d.H + 1) * cols * b * 3 * acc,
+           "node_table_bytes": node,
+           "quant_state_bytes": n_pad * QUANT_STATE_ROW_BYTES if quant
+           else 0,
+           "split_pass_bytes": n_pad * (NUM_P * 4 + SPLIT_ROW_BYTES)
+           + CHILD_HIST_BATCHES * k * unit * acc + max(segments, multislot),
+           "materialize_pass_bytes": n_pad * MATERIALIZE_ROW_BYTES if ol
+           else 0,
+           "replay_pass_bytes": replay_plan(d.M, d.budget).scratch,
+           "root_pass_bytes": n_pad * (QUANT_ROOT_ROW_BYTES if quant
+                                       else ROOT_ROW_BYTES) + packed,
+           # (its per-node temporaries, the ancestors and the records,
+           # stay below the node tables' size)
+           "emit_pass_bytes": n_pad * (QUANT_EMIT_ROW_BYTES if quant
+                                       else EMIT_ROW_BYTES) + node}
+    out["total_bytes"] = sum(out[t] for t in STATE_TERMS) \
+        + max(out[t] for t in GRAPHED_PASSES) \
+        + max(out[t] for t in EAGER_PASSES)
     return out
 
 
-def wave_budget_reason(cfg: Config, n_pad: int, f_pad: int, b: int
-                       ) -> Optional[str]:
-    """Shape and byte-budget gates of the wave learner."""
+def wave_budget_reason(cfg: Config, n_pad: int, f_pad: int, b: int,
+                       categorical: bool = False,
+                       hist_cols: Optional[int] = None) -> Optional[str]:
+    """Shape and byte-budget gates of the wave learner: the port's own
+    byte estimate (``wave_transient_bytes``) against
+    ``tpu_wave_max_bytes``."""
     if f_pad // 4 > 64:
         return f"{f_pad} padded columns > 256 (per-row word extraction is " \
                "a masked sum over words)"
-    total = wave_transient_bytes(cfg, n_pad, f_pad, b)["total_bytes"]
+    total = wave_transient_bytes(cfg, n_pad, f_pad, b, categorical,
+                                 hist_cols)["total_bytes"]
     if total > int(cfg.tpu_wave_max_bytes):
         return "estimated working set %.1f GB > tpu_wave_max_bytes %.1f GB" \
             % (total / 2**30, int(cfg.tpu_wave_max_bytes) / 2**30)
@@ -1226,7 +1328,11 @@ def wave_ineligible_reason(cfg: Config, data: _ConstructedDataset
         b = max(int(data.max_num_bin), int(bundle.max_group_bin))
         if b > 256:
             return f"EFB bundle max bin {b} > 256"
+        cols = bundle.num_groups
     else:
         f_pad = data.bins.shape[0]
         b = int(data.max_num_bin)
-    return wave_budget_reason(cfg, int(data.num_data_padded), f_pad, b)
+        cols = data.num_used_features
+    _, _, _, is_cat = data.feature_meta_arrays()
+    return wave_budget_reason(cfg, int(data.num_data_padded), f_pad, b,
+                              bool(is_cat.any()), cols)

@@ -53,18 +53,29 @@ SMALL_CHUNK_ROWS = 256
 SMALL_CHUNKS = 64
 
 
+#: rows packed at a time: the int64 temporaries stay near 120 MB at 28
+#: features however many rows there are
+PACK_CHUNK_ROWS = 1 << 18
+
+
 def pack_bin_words(bins: torch.Tensor) -> torch.Tensor:
-    """(F, N) uint8 bin codes -> (F/4, N) int32 words (F a multiple of 4)."""
+    """(F, N) uint8 bin codes -> (F/4, N) int32 words (F a multiple of 4),
+    ``PACK_CHUNK_ROWS`` rows at a time."""
     f, n = bins.shape
     if f % 4:
         raise ValueError(f"feature count {f} is not a multiple of 4")
     if bins.dtype != torch.uint8:
         raise ValueError(f"packable bins must be uint8, got {bins.dtype}")
-    b = bins.to(torch.int64).view(f // 4, 4, n)
-    words = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
-    # two's-complement wrap into int32, spelled out (byte 3 >= 128 -> < 0)
-    words = words - ((words >> 31) & 1) * (1 << 32)
-    return words.to(torch.int32)
+    out = torch.empty((f // 4, n), dtype=torch.int32, device=bins.device)
+    for s in range(0, n, PACK_CHUNK_ROWS):
+        e = min(n, s + PACK_CHUNK_ROWS)
+        b = bins[:, s:e].to(torch.int64).view(f // 4, 4, e - s)
+        words = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+        # two's-complement wrap into int32, spelled out (byte 3 >= 128 ->
+        # < 0)
+        words = words - ((words >> 31) & 1) * (1 << 32)
+        out[:, s:e] = words
+    return out
 
 
 def unpack_bin_words(words: torch.Tensor, num_features: int) -> torch.Tensor:

@@ -1169,3 +1169,39 @@ def test_constrained_wave_tree_on_card_equals_cpu(cuda_device):
     assert lc.has_monotone and lc.has_penalty and not lc._use_fused
     assert nc == lc.kernel_calls["split_scan"] > 0
     assert lc.tree_stats[-1]["host_syncs"] == 1
+
+
+def _goss_inputs(kind, k, n=1_000_448, seed=0):
+    """(K, N) gradients and hessians, the valid-row mask, uniform draws:
+    ``tied`` draws its magnitudes from four values, so ties straddle the
+    top-k cut."""
+    rng = np.random.RandomState(seed)
+    if kind == "tied":
+        g = rng.choice([-1.0, -0.5, 0.5, 1.0], (k, n)).astype(np.float32)
+        h = np.full((k, n), 0.25, np.float32)
+    else:
+        g = rng.randn(k, n).astype(np.float32)
+        h = (rng.rand(k, n) + 0.1).astype(np.float32)
+    valid = np.zeros(n, np.float32)
+    valid[:n - 448] = 1.0
+    u = rng.rand(n).astype(np.float32)
+    return [torch.from_numpy(a) for a in (g, h, valid, u)]
+
+
+@pytest.mark.parametrize("kind,k", [("random", 1), ("tied", 1),
+                                    ("tied", 3)])
+def test_goss_selection_on_card_bitwise_to_cpu(cuda_device, kind, k):
+    """GOSS's selection on the card (a stable device sort, no host read)
+    against the CPU on the same draws: the same bag, the amplification
+    bitwise."""
+    from lightgbm_tpu_torch.boosting.goss import goss_select
+
+    args = _goss_inputs(kind, k)
+    n = args[2].shape[0] - 448
+    top_k, other_k = int(n * 0.2), int(n * 0.1)
+    cpu = goss_select(*args, top_k, other_k)
+    card = goss_select(*(a.to(cuda_device) for a in args), top_k, other_k)
+    assert card[0].is_cuda
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[1].cpu(), cpu[1])
+    assert int(cpu[0].sum()) > top_k

@@ -104,9 +104,9 @@ def test_device_rule_cpu_and_alias():
     {"tree_learner": "feature"},
     {"trace_out": "t.json"},
     {"resume": True},
-    {"boosting": "dart"},
-    {"boosting": "goss"},
-    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"tree_learner": "data_feature"},
+    {"num_hosts": 2},
+    {"two_round": True},
     {"snapshot_freq": 1},
     {"tree_learner": "data"},
     {"tpu_learner": "masked", "tree_learner": "voting"},

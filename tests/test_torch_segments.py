@@ -214,3 +214,16 @@ def test_segment_grid_is_sized_by_rows():
     assert segment_grid(256 * 10 + 1, 132) == 11
     assert segment_grid(1_000_448, 132) == 264
     assert segment_grid(0, 132) == 1
+
+
+def test_pack_bin_words_chunked_equal_jax(monkeypatch):
+    """Packing a few rows at a time gives the JAX package's words, the
+    bytes past 127 (negative words) included."""
+    from lightgbm_tpu_torch.ops import hist_packed
+
+    monkeypatch.setattr(hist_packed, "PACK_CHUNK_ROWS", 5)
+    bins = np.random.RandomState(4).randint(0, 256, (8, 37)).astype(np.uint8)
+    got = hist_packed.pack_bin_words(torch.from_numpy(bins)).numpy()
+    want = np.asarray(pack_bin_words(jnp.asarray(bins)))
+    assert got.dtype == np.int32 and (got < 0).any()
+    np.testing.assert_array_equal(got, want)

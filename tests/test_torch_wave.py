@@ -14,10 +14,15 @@ regularization with ``max_depth``, EFB bundles and a budget that runs out
 of positive gains early.
 """
 
+import dataclasses
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 import lightgbm_tpu as lj
 import lightgbm_tpu_torch as lt
@@ -27,8 +32,11 @@ from lightgbm_tpu.learner_wave import \
     wave_transient_bytes as jax_wave_bytes
 from lightgbm_tpu_torch.config import Config as TConfig
 from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
-from lightgbm_tpu_torch.learner_wave import (PLAIN_KERNELS, WaveTreeLearner,
-                                             wave_transient_bytes)
+from lightgbm_tpu_torch.learner_wave import (
+    EAGER_PASSES, GRAPHED_PASSES, NUM_P, PLAIN_KERNELS, STATE_TERMS,
+    WaveKernels, WaveTreeLearner, wave_ineligible_reason,
+    wave_transient_bytes)
+from lightgbm_tpu_torch.ops.replay import replay_plan
 from test_torch_learner import _grads, _problem
 
 # every pytest-xdist worker imports every test file and the workers share the
@@ -182,19 +190,198 @@ def test_f32_wave_equals_compact_and_plain_kernels():
     assert calls["hist_segments"] == calls["split_scan"] - 1 > 0
 
 
+class _LiveBytes(TorchDispatchMode):
+    """Live bytes of the tensors that the torch ops run under this mode
+    create: a storage counts from the op that allocates it until its last
+    tensor is freed (views and in-place results allocate nothing).  While
+    ``paused`` (inside a kernel function) no op is tracked; ``track`` then
+    counts the kernel's outputs."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = self.paused = 0
+        self.refs, self.size = {}, {}
+
+    def _gone(self, key):
+        self.refs[key] -= 1
+        if not self.refs[key]:
+            del self.refs[key]
+            self.live -= self.size.pop(key)
+
+    def track(self, t, fresh=True):
+        if not isinstance(t, torch.Tensor):
+            return
+        st = t.untyped_storage()
+        key = st.data_ptr()
+        if key not in self.refs:
+            if not fresh or st.nbytes() == 0:
+                return
+            self.refs[key], self.size[key] = 0, st.nbytes()
+            self.live += st.nbytes()
+            self.peak = max(self.peak, self.live)
+        self.refs[key] += 1
+        weakref.finalize(t, self._gone, key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self.paused:
+            rets = func._schema.returns
+            for i, t in enumerate(tree_flatten(out)[0]):
+                alias = rets[i].alias_info if i < len(rets) else None
+                self.track(t, fresh=alias is None)
+        return out
+
+
+#: the learner's passes and the estimate's term for each
+_PASSES = {"_init_root_wave": "root_pass_bytes",
+           "_split_members": "split_pass_bytes",
+           "_materialize": "materialize_pass_bytes",
+           "_replay_pass": "replay_pass_bytes",
+           "_emit": "emit_pass_bytes"}
+
+
+def _pass_peaks(params, X, y):
+    """A CPU wave learner's second tree (the first allocates the state) with
+    each pass's peak live bytes beyond those live when it starts, and the
+    quantized gradients the tree holds for its renewal.  The
+    kernel functions' own temporaries go untracked (the estimate counts
+    the card kernels' scratch); their outputs count."""
+    d = lt.Dataset(X, label=y, params=dict(params, device_type="cpu")) \
+        .construct().constructed
+    mode = _LiveBytes()
+
+    def kernel(fn):
+        def call(*a, **kw):
+            mode.paused += 1
+            try:
+                out = fn(*a, **kw)
+            finally:
+                mode.paused -= 1
+            if "out" not in kw:
+                for t in out if isinstance(out, (tuple, list)) else [out]:
+                    mode.track(t)
+            return out
+        return call
+
+    kern = WaveKernels(**{f.name: kernel(getattr(WaveKernels(), f.name))
+                          for f in dataclasses.fields(WaveKernels)})
+    wave = WaveTreeLearner(TConfig.from_params(params), d, CPU, kern)
+    peaks = dict.fromkeys(_PASSES.values(), 0)
+
+    def measured(key, fn):
+        def call(*a, **kw):
+            base = mode.peak = mode.live
+            out = fn(*a, **kw)
+            peaks[key] = max(peaks[key], mode.peak - base)
+            return out
+        return call
+
+    for name, key in _PASSES.items():
+        setattr(wave, name, measured(key, getattr(wave, name)))
+    renew = wave._renew_leaf_outputs
+
+    def renew_held(*a):                 # the renewal drops what it reads
+        peaks["quant_state_bytes"] = sum(t.nbytes for t in wave._q_raw)
+        return renew(*a)
+
+    wave._renew_leaf_outputs = renew_held
+    peaks["quant_state_bytes"] = 0
+    g, h, bag = (torch.from_numpy(a)
+                 for a in _grads(3, y, d.num_data_padded))
+    wave.train_async(g, h, bag)
+    with mode:
+        wave.train_async(g, h, bag)
+    return wave, d, peaks
+
+
 def test_sizing_equals_jax():
+    """The wave learner's shape fields (M, H, grow budget, W) are the JAX
+    learner's; the port's byte estimate (no leaf lookup: the port gathers)
+    holds each state term equal to the tensors a CPU learner allocates and
+    each pass term at or above that pass's measured peak, for a float32, a
+    quantized and an opening tree; ``auto`` keeps the wave learner at
+    1,000,000 x 32 x 255 with 4,095 leaves under the default budget, which
+    the JAX formula refuses, and at Higgs's 11,000,000 rows with 31, 255
+    and 4,095 leaves."""
+    X, y = _problem(0)
+    dj = lj.Dataset(X, label=y, params=BASE).construct().constructed
+    dt = lt.Dataset(X, label=y, params=dict(BASE, device_type="cpu")) \
+        .construct().constructed
     for over in ({}, {"num_leaves": 255}, {"tpu_wave_stall_batch": 1},
                  {"tpu_wave_width": 8, "tpu_wave_vec_cap": 4096}):
         p = dict(BASE, **over)
-        a = wave_transient_bytes(TConfig.from_params(p), 1_000_448, 32, 255)
-        b = jax_wave_bytes(JConfig.from_params(p), 1_000_448, 32, 255)
-        assert a == b, over
-    X, y = _problem(0)
-    params = dict(BASE, num_leaves=255)
-    dt = lt.Dataset(X, label=y, params=dict(params, device_type="cpu")) \
-        .construct().constructed
-    wave = WaveTreeLearner(TConfig.from_params(params), dt, CPU)
-    assert (wave.M, wave.H, wave.grow_budget, wave.W) == (1145, 574, 254, 64)
+        jw = WaveTPUTreeLearner(JConfig.from_params(p), dj)
+        tw = WaveTreeLearner(TConfig.from_params(p), dt, CPU)
+        assert (tw.M, tw.H, tw.grow_budget, tw.W) == \
+            (jw.M, jw.H, jw.grow_budget, jw.W), over
+
+    # trees on 8 dense features (f_pad = the histogram's columns); 20,000
+    # rows and a narrow wave, so the per-row terms outweigh the histograms
+    X8, y8 = _problem(5, n=20000, f=8)
+    p = dict(BASE, num_leaves=7, max_bin=15, gpu_use_dp=False)
+    for over in ({}, {"tpu_quantized_grad": "on"},
+                 {"tpu_wave_open_levels": 2}):
+        wave, d8, peaks = _pass_peaks(dict(p, **over), X8, y8)
+        f_pad, n_pad, b = d8.bins.shape[0], d8.num_data_padded, \
+            d8.max_num_bin
+        assert f_pad == d8.num_used_features == 8
+        est = wave_transient_bytes(wave.cfg, n_pad, f_pad, b)
+        assert "leaf_lookup_bytes" not in est
+        for key in _PASSES.values():
+            assert peaks[key] <= est[key], (over, key, peaks[key], est[key])
+        assert peaks["split_pass_bytes"] > n_pad * NUM_P * 4
+        assert (peaks["materialize_pass_bytes"] > 0) == \
+            (wave.open_levels > 0) == (est["materialize_pass_bytes"] > 0)
+        st = wave._st
+        assert est["quant_state_bytes"] == peaks["quant_state_bytes"]
+        assert (peaks["quant_state_bytes"] > 0) == wave._quant
+        assert est["lane_bytes"] == sum(t.nbytes for lane in st.lanes
+                                        for t in lane) + wave._pos.nbytes
+        assert est["bins_bytes"] == wave.bins_packed().nbytes \
+            + d8.device_bins(CPU).nbytes
+        assert est["hist_pool_bytes"] == st.hist_pool.nbytes
+        tables = [getattr(st, f.name) for f in dataclasses.fields(st)
+                  if f.name not in ("lanes", "hist_pool", "par")]
+        assert est["node_table_bytes"] == sum(t.nbytes for t in tables
+                                              if t is not None)
+        assert est["replay_pass_bytes"] == \
+            replay_plan(wave.M, wave.budget).scratch
+        # the state, the widest graphed pass and the widest eager pass
+        assert est["total_bytes"] == sum(est[k] for k in STATE_TERMS) \
+            + max(est[k] for k in GRAPHED_PASSES) \
+            + max(est[k] for k in EAGER_PASSES)
+
+    class Bench:          # what the learner choice reads of a dataset
+        num_data_padded, max_num_bin, bundle = 1_000_448, 255, None
+        num_used_features = 28
+        bins = np.empty((32, 0), np.uint8)
+
+        def feature_meta_arrays(self):
+            return (None, None, None, np.zeros(28, bool))
+
+    # the bench width at 4,095 leaves: the default 4 GiB admits it
+    big = TConfig.from_params({"num_leaves": 4095})
+    est = wave_transient_bytes(big, 1_000_448, 32, 255, hist_cols=28)
+    fits = est["total_bytes"] <= int(big.tpu_wave_max_bytes)
+    assert fits and est["hist_pool_bytes"] > est["total_bytes"] / 2
+    assert (wave_ineligible_reason(big, Bench()) is None) == fits
+    jax = jax_wave_bytes(JConfig.from_params({"num_leaves": 4095}),
+                         1_000_448, 32, 255)
+    assert jax["total_bytes"] > int(big.tpu_wave_max_bytes) \
+        > jax["total_bytes"] - jax["leaf_lookup_bytes"]
+    # Higgs's 11,000,000 rows keep the wave learner at 31, 255 and 4,095
+    # leaves; 16,000,000 rows at 255 leaves, which the JAX formula admits,
+    # do not (the card holds 4.74 GB for them, ``wave_memory.py``)
+    Bench.num_data_padded = 11_000_832
+    for leaves in (31, 255, 4095):
+        assert wave_ineligible_reason(
+            TConfig.from_params({"num_leaves": leaves}), Bench()) is None
+    Bench.num_data_padded = 16_000_000
+    c255 = TConfig.from_params({"num_leaves": 255})
+    assert wave_ineligible_reason(c255, Bench()) is not None
+    jax = jax_wave_bytes(JConfig.from_params({"num_leaves": 255}),
+                         16_000_000, 32, 255)
+    assert jax["total_bytes"] <= int(c255.tpu_wave_max_bytes)
 
 
 # ---------------------------------------------------------------------------
