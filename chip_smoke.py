@@ -8,7 +8,7 @@ Run from the root of a checkout: the kernels are built from its sources
 torch, numpy and ``lightgbm_tpu_torch`` only.  Phases, each printing one JSON
 line and each raising (exit code 1) on any failure:
 
-  device     card name and power limit (nvidia-smi), torch, the nine kernel
+  device     card name and power limit (nvidia-smi), torch, the ten kernel
              builds (one nvcc each, started together)
   kernel     packed histogram kernel vs its plain torch version at full width
              (Fw=8, N=1,000,448, 255 bins): bitwise on dyadic inputs at the
@@ -83,6 +83,16 @@ line and each raising (exit code 1) on any failure:
              B=256 with per-leaf value bounds and a gain penalty per
              feature (monotone constraints), bitwise to the CPU plain
              version on both inputs, the bounds binding
+  bin_predict the predict binner kernel vs its plain version on the card
+             and bin_host, at 100,000 raw rows over mappers fitted on
+             10,000: 28 features at 255 and 1,023 bins (a NaN-typed
+             feature; NaN, +-inf, -0.0, 1e30, every bound and its ulp
+             neighbours), the Expo-shaped categorical rows (unseen,
+             negative, fractional categories, NaN) and 4 features with
+             over 6,144 bounds (the row searched in global memory): codes
+             bitwise, two launches bitwise; at the first shape the wrapper,
+             the kernel alone, its device time, the plain version,
+             torch.searchsorted and the host-to-card upload of the rows
   tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
              rows, grown by the compact learner through the kernel and
              through the plain histogram: records bitwise equal
@@ -171,10 +181,23 @@ line and each raising (exit code 1) on any failure:
              max_bin=1023 (the masked learner): every tree's first three
              splits the forced ones, in BFS order
   predict    DevicePredictor on the card for the wave_train model on the
-             held-out rows: against the host trees within 1e-9; with
+             held-out rows, the raw rows uploaded and binned by the
+             bin_predict kernel (one launch, bin_host never called, codes
+             equal to bin_host's): against the host trees within 1e-9; with
              pred_early_stop the same frozen rows and scores within 1e-9 as
              the same call on the CPU; the model saved to text and reloaded
              (a bin schema rebuilt from the text) within 1e-9; rows per second
+             with device binning, the upload, binning and traversal times
+  cli        the bench's 1M training and 100,000 held-out rows written as
+             CSV (repr floats, eight spawned writers), 5 iterations of the
+             default config through lightgbm_tpu_torch.cli.main (the wave
+             learner's kernels launched; parse, bin and train seconds),
+             task=predict on the held-out file equal to Booster.predict
+             written the same way, task=convert_model (five PredictTree
+             functions), a binary cache of 20,000 held-out rows (equal
+             codes, the same first tree) and their two_round stream (equal
+             codes and labels),
+             pred_contrib on 100 rows summing to the raw score within 1e-9
   small      a small input trained on the card and on the CPU (the path the
              tests hold against lightgbm_tpu): held-out metrics within 1e-4
   multiclass_train  objective=multiclass, num_class=5 (classes cut at the
@@ -245,8 +268,9 @@ line and each raising (exit code 1) on any failure:
              capturing, replaying) at 1,000,000 rows with 4,095 leaves
              and at Higgs's 11,000,000 rows (the bench rows repeated
              through Dataset.subset) with 31 and 255 leaves
-  timing     each of the nine kernels', its plain version's and (where one
-             PyTorch call computes the same function) the library call's
+  timing     each of nine kernels' (bin_predict's in its own phase), its
+             plain version's and (where one PyTorch call computes the same
+             function) the library call's
              times from CUDA events, L2 flushed before each launch, beside
              the bound; each kernel alone (``kernel_ms``: its C entry point
              called again on the buffers one wrapper call staged, no torch
@@ -294,10 +318,12 @@ import torch
 from expo_data import EXPO_CATEGORICAL, EXPO_CATS, expo_like
 
 PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
-          "hist_full", "fused_scan", "replay", "split_cat", "tree",
+          "hist_full", "fused_scan", "replay", "split_cat", "bin_predict",
+          "tree",
           "wave_tree", "masked_tree", "opening_tree", "categorical_tree",
           "train", "wave_train", "wave_pipelined", "quant_train",
-          "constrained_train", "masked_train", "forced_train", "predict", "small", "multiclass_train",
+          "constrained_train", "masked_train", "forced_train", "predict",
+          "cli", "small", "multiclass_train",
           "objectives_train", "rank_train", "categorical_train",
           "categorical_2047", "wave_4095", "goss_train", "dart_train",
           "rf_train", "surface", "timing")
@@ -349,6 +375,9 @@ KERNEL_SOURCES = {
     # the port of an XLA lax.scan, not of a pallas_call
     "split_cat": ("lightgbm_tpu_torch/csrc/split_cat.cu",
                   "lightgbm_tpu/ops/split_cat.py:70"),
+    # the port of a jitted XLA function, not of a pallas_call
+    "bin_predict": ("lightgbm_tpu_torch/csrc/bin_predict.cu",
+                    "lightgbm_tpu/serving/binner.py:184"),
 }
 #: the bench configuration's replay: node slots, splits, stall batch
 REPLAY_M, REPLAY_BUDGET, REPLAY_KB = 1145, 254, 4
@@ -1465,6 +1494,126 @@ def phase_split_cat(ctx) -> None:
     categorical_candidates.launches = n0
     torch.cuda.synchronize()
     ctx["err_split_cat"] = 0.0
+    emit(out)
+
+
+#: bin_predict's shapes: the bench's held-out matrix at 255 and 1,023 bins,
+#: the Expo-shaped categorical rows, and a width past the staged bounds row
+#: (B > 6,144: the search in global memory)
+BIN_SHAPES = (("higgs_255", 255), ("expo_categorical", 255),
+              ("higgs_1023", 1023), ("global_bounds_10000", 10000))
+#: training rows the mappers of a bin_predict case are fitted on
+BIN_FIT_ROWS = 10_000
+
+
+def bin_predict_case(tag: str, max_bin: int, rows: int = VALID_ROWS):
+    """Mappers fitted on 10,000 training rows at ``max_bin`` (host FindBin
+    costs about a second per 100,000 distinct values of a feature) and a
+    raw predict matrix of ``rows`` rows holding the hard values: NaN (column
+    2 trains with NaN, so it has a NaN bin), +-inf, -0.0, 1e30, every bin
+    bound and its neighbours one ulp away; for the Expo rows unseen (300 to
+    400), negative and fractional categories and NaN."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import _ConstructedDataset
+
+    n = BIN_FIT_ROWS + rows
+    # no EFB: its exclusivity scan is set-up time, and predict binning
+    # reads the mappers only
+    params = {"max_bin": max_bin, "verbosity": -1, "enable_bundle": False}
+    cat = []
+    if tag == "expo_categorical":
+        X, _ = expo_like(n, seed=12)
+        cat = [int(c) for c in EXPO_CATEGORICAL.split(",")]
+    elif tag == "global_bounds_10000":
+        X = np.round(higgs_like(n, seed=13)[0][:, :4], 4)
+        params["min_data_in_bin"] = 1
+    else:
+        X, _ = higgs_like(n, seed=13)
+    train, Xp = X[:BIN_FIT_ROWS].copy(), X[BIN_FIT_ROWS:].copy()
+    train[::11, 2] = np.nan
+    data = _ConstructedDataset.from_matrix(train, Config.from_params(params),
+                                           categorical=cat)
+    rng = np.random.RandomState(17)
+    r = 0
+    for k, j in enumerate(data.used_feature_map):
+        m = data.bin_mappers[k]
+        if j in cat:
+            vals = np.array([np.nan, -1.0, -0.5, -0.0, 0.5, 2.7, 300.0,
+                             350.25, 400.0, 1e30, np.inf, -np.inf, -7.0])
+        else:
+            b = np.asarray(m.bin_upper_bound, np.float64)
+            b = b[np.isfinite(b)]
+            vals = np.concatenate([[np.nan, np.inf, -np.inf, -0.0, 0.0,
+                                    1e30, -1e30], b, np.nextafter(b, np.inf),
+                                   np.nextafter(b, -np.inf)])
+        idx = rng.choice(rows, len(vals), replace=False)
+        Xp[idx, j] = vals
+        r += len(vals)
+    return data, Xp, r
+
+
+def _bin_bytes(a, n: int) -> float:
+    """What one binning call must move: each used column read once, the
+    tables once, every code written once."""
+    tables = sum(t.numel() * t.element_size()
+                 for t in (a.meta, a.bounds, a.cat_lut))
+    return n * a.fu * 8 + tables + a.f_pad * n * 4
+
+
+def phase_bin_predict(ctx) -> None:
+    from lightgbm_tpu_torch.binner import (M_COL, BinnerArrays, bin_plain,
+                                           bin_predict)
+    from lightgbm_tpu_torch.dataset import upload
+
+    dev = torch.device("cuda", 0)
+    n0 = bin_predict.launches
+    out = {"phase": "bin_predict", "cases": {}}
+    for tag, max_bin in BIN_SHAPES:
+        data, Xp, hard = bin_predict_case(tag, max_bin)
+        arrs = BinnerArrays.for_data(data)
+        a = arrs.device_arrays(dev)
+        x = upload(Xp, dev)
+        got = bin_predict(x, a)
+        again = bin_predict(x, a)
+        plain = bin_plain(x, a)
+        host = torch.from_numpy(arrs.bin_host(Xp))
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), f"{tag}: kernel != plain on the card")
+        check(torch.equal(got.cpu(), host), f"{tag}: kernel != bin_host")
+        check(torch.equal(got, again), f"{tag}: two launches differ")
+        out["cases"][tag] = {"rows": len(Xp), "fu": a.fu, "f_pad": a.f_pad,
+                             "B": a.bounds.shape[1],
+                             "C": a.cat_lut.shape[1], "hard_values": hard,
+                             "staged_bounds": a.bounds.shape[1] * 8
+                             <= 48 * 1024, "bitwise": True}
+        if tag == "higgs_255":
+            ctx["bin_case"] = (x, a)
+    ctx["err_bin_predict"] = 0.0
+    # timing at the predict shape (100,000 x 28 at 255 bins)
+    x, a = ctx["bin_case"]
+    flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
+    reps = 20
+    call = (lambda: bin_predict(x, a))
+    n = x.shape[0]
+    v = x.index_select(1, a.meta[:a.fu, M_COL].long()).T.contiguous()
+    bounds = a.bounds[:a.fu].contiguous()
+    host_x = x.cpu().numpy()
+    timing = dict(
+        ms=cuda_ms(call, reps, flush),
+        kernel_ms=cuda_ms(staged(call), reps, flush),
+        device_ms=_device_ms(call, "bin_predict_rows"),
+        plain_ms=cuda_ms(lambda: bin_plain(x, a), reps, flush),
+        library_ms=cuda_ms(lambda: torch.searchsorted(bounds, v,
+                                                      side="left"),
+                           reps, flush),
+        library="torch.searchsorted over the (fu, B) bounds and the (fu, n) "
+                "values, the numerical part alone",
+        upload_ms=cuda_ms(lambda: upload(host_x, dev), 5, flush),
+        rows=n, **_bound(_bin_bytes(a, n), 0))
+    bin_predict.launches = n0 + len(BIN_SHAPES) * 2
+    ctx["timing_bin_predict"] = timing
+    out["timing"] = timing
+    out["nvidia_smi"] = ctx.get("smi")
     emit(out)
 
 
@@ -2625,7 +2774,8 @@ def phase_predict(ctx) -> None:
     import copy
 
     import lightgbm_tpu_torch as lt
-    from lightgbm_tpu_torch.binner import BinnerArrays
+    from lightgbm_tpu_torch.binner import BinnerArrays, bin_predict
+    from lightgbm_tpu_torch.dataset import upload
     from lightgbm_tpu_torch.predictor import DevicePredictor
 
     bst = _wave_booster(ctx)
@@ -2635,18 +2785,34 @@ def phase_predict(ctx) -> None:
     for t in gbdt.models:
         host += t.predict(Xv)
     dp = DevicePredictor(gbdt, data)
+    # the main path: the raw rows uploaded, binned by the bin_predict
+    # kernel, traversed; bin_host never called
+    host_calls = BinnerArrays.host_calls
+    bin_predict.launches = 0
     raw = dp.predict_raw(Xv)
+    launches = {"bin_predict": bin_predict.launches}
+    ctx["launches_predict"] = launches
+    check(launches["bin_predict"] == 1,
+          f"predict launched bin_predict {launches['bin_predict']} times")
     diff = float(np.abs(raw - host).max())
     check(diff <= 1e-9, f"DevicePredictor vs host trees: {diff}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dp.predict_raw(Xv)                   # warm: host binning, upload, walk
+    dp.predict_raw(Xv)                   # warm: upload, bin, walk, read
     predict_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    bins = BinnerArrays.for_data(data).bin_host(Xv)
-    bin_host_s = time.perf_counter() - t0
-    bins = torch.from_numpy(bins).to(dev)
+    check(BinnerArrays.host_calls == host_calls,
+          "the device predict path called bin_host")
+    arrs = BinnerArrays.for_data(data)
     flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
+    upload_ms = cuda_ms(lambda: upload(Xv, dev), 5, flush)
+    x = upload(Xv, dev)
+    bin_ms = cuda_ms(lambda: arrs.bin_device(x, dev), 5, flush)
+    bins = arrs.bin_device(x, dev)
+    check(torch.equal(bins.cpu(), torch.from_numpy(arrs.bin_host(Xv))),
+          "device codes differ from bin_host's")
+    t0 = time.perf_counter()
+    arrs.bin_host(Xv)
+    bin_host_s = time.perf_counter() - t0
     traverse_ms = cuda_ms(lambda: dp.predict_binned(bins), 5, flush)
     # prediction early stop, checked after every tree, with a margin that
     # freezes about half the rows after the first
@@ -2675,15 +2841,190 @@ def phase_predict(ctx) -> None:
     check(ldiff <= 1e-9, f"text-loaded booster vs trained: {ldiff}")
     emit({"phase": "predict", "rows": len(Xv), "trees": dp.T,
           "depth": dp.depth, "vs_host_max_diff": diff,
-          "predict_raw_s": predict_s, "bin_host_s": bin_host_s,
-          "rows_per_s_with_host_binning": len(Xv) / predict_s,
-          "traverse_ms": traverse_ms,
+          "kernel_launches": launches, "bin_host_calls": 0,
+          "predict_raw_s": predict_s,
+          "rows_per_s_with_device_binning": len(Xv) / predict_s,
+          "upload_ms": upload_ms, "bin_kernel_ms": bin_ms,
+          "bin_host_s": bin_host_s, "traverse_ms": traverse_ms,
           "rows_per_s_device_traversal": len(Xv) / traverse_ms * 1e3,
           "early_stop": {"margin": es["pred_early_stop_margin"],
                          "frozen_rows": int(frozen.sum()),
                          "card_vs_cpu_max_diff": es_diff,
                          "same_frozen_rows": True},
-          "text_loaded_vs_trained_max_diff": ldiff})
+          "text_loaded_vs_trained_max_diff": ldiff,
+          "nvidia_smi": ctx.get("smi")})
+
+
+def _csv_part(args) -> str:
+    """Rows of a (label, features) block as CSV lines in ``path``, every
+    float in its ``repr`` (the shortest string that parses back to the same
+    double)."""
+    path, block = args
+    with open(path, "w") as fh:
+        fh.write("\n".join(",".join(map(repr, r)) for r in block.tolist())
+                 + "\n")
+    return path
+
+
+def write_csvs(files, workers: int = 8) -> float:
+    """Each ``(path, X, y)`` of ``files`` as CSV, the label then the
+    features of every row in ``repr`` floats, formatted by one pool of
+    ``workers`` spawned processes (29M floats take about 30 s in one;
+    forked ones would inherit this process's CUDA tensors, and freeing one
+    there aborts them); returns the seconds."""
+    import multiprocessing as mp
+    import os
+
+    t0 = time.perf_counter()
+    parts = {path: [(f"{path}.part{i}", b) for i, b in enumerate(
+        np.array_split(np.column_stack([y, X]), workers))]
+        for path, X, y in files}
+    with mp.get_context("spawn").Pool(workers) as pool:
+        pool.map_async(_csv_part, [p for ps in parts.values() for p in ps]
+                       ).get(timeout=600)
+    for path, ps in parts.items():
+        with open(path, "wb") as out:
+            for name, _ in ps:
+                with open(name, "rb") as fh:
+                    out.write(fh.read())
+                os.remove(name)
+    return time.perf_counter() - t0
+
+
+@contextmanager
+def timed_calls(spans: dict):
+    """Add the seconds of every text parse (``io.parser.load_data_file``)
+    to ``spans["parse"]`` and of every dataset binning
+    (``_ConstructedDataset.from_matrix`` / ``from_reference``) to
+    ``spans["bin"]`` while the block runs."""
+    from lightgbm_tpu_torch.dataset import _ConstructedDataset
+    from lightgbm_tpu_torch.io import parser
+
+    def timer(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spans[key] += time.perf_counter() - t0
+        return run
+
+    load = parser.load_data_file
+    methods = {name: _ConstructedDataset.__dict__[name]
+               for name in ("from_matrix", "from_reference")}
+    parser.load_data_file = timer(load, "parse")
+    for name, cm in methods.items():
+        setattr(_ConstructedDataset, name,
+                classmethod(timer(cm.__func__, "bin")))
+    try:
+        yield
+    finally:
+        parser.load_data_file = load
+        for name, cm in methods.items():
+            setattr(_ConstructedDataset, name, cm)
+
+
+def phase_cli(ctx) -> None:
+    """The port's CLI and its inputs at the bench width: the 1,000,000
+    training and 100,000 held-out rows written as CSV; 5 iterations of the
+    default config through ``cli.main`` (the wave learner's kernels);
+    ``task=predict`` on the held-out file against ``Booster.predict``;
+    ``task=convert_model``; a binary cache and ``two_round`` streaming of
+    20,000 held-out rows against their in-memory dataset; ``pred_contrib``
+    on 100 rows.  Prints the write, parse, bin and train seconds."""
+    import os
+    import tempfile
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import cli
+
+    X, logit = higgs_latent(ROWS + VALID_ROWS)
+    y = (logit > 0).astype(np.float64)
+    Xv = X[ROWS:]
+    out = {"phase": "cli"}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["write_s"] = write_csvs([
+            (f"{tmp}/train.csv", X[:ROWS], y[:ROWS]),
+            (f"{tmp}/valid.csv", Xv, y[ROWS:]),
+            (f"{tmp}/small.csv", Xv[:20_000], y[ROWS:ROWS + 20_000])])
+        out["train_csv_mb"] = os.path.getsize(f"{tmp}/train.csv") / 1e6
+        conf = dict(WAVE_PARAMS, task="train", data="train.csv",
+                    valid="valid.csv", num_iterations=5,
+                    output_model="model.txt")
+        with open(f"{tmp}/train.conf", "w") as fh:
+            fh.write("".join(f"{k} = {v}\n" for k, v in conf.items()))
+        spans = {"parse": 0.0, "bin": 0.0}
+        counters = wave_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        os.chdir(tmp)
+        try:
+            with timed_calls(spans):
+                t0 = time.perf_counter()
+                check(cli.main(["config=train.conf"]) == 0, "cli train")
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        check(all(launches.values()), f"kernels not launched: {launches}")
+        out.update(cli_train_s=total, parse_s=spans["parse"],
+                   bin_s=spans["bin"],
+                   train_s=total - spans["parse"] - spans["bin"],
+                   kernel_launches=launches)
+        bst = lt.Booster(model_file=f"{tmp}/model.txt",
+                         params=dict(WAVE_PARAMS))
+        check(bst.num_trees() == 5, f"{bst.num_trees()} trees")
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            check(cli.main(["task=predict", "data=valid.csv",
+                            "input_model=model.txt",
+                            "output_result=pred.txt"]) == 0, "cli predict")
+            out["cli_predict_s"] = time.perf_counter() - t0
+            check(cli.main(["convert_model", "input_model=model.txt",
+                            "convert_model=model.cpp"]) == 0,
+                  "cli convert_model")
+        finally:
+            os.chdir(cwd)
+        got = np.loadtxt(f"{tmp}/pred.txt")
+        # the CLI writes each value with "%g", as the JAX package's does
+        want = np.array([float(f"{v:g}") for v in bst.predict(Xv)])
+        pdiff = float(np.abs(got - want).max())
+        check(got.shape == (VALID_ROWS,) and pdiff <= 1e-9,
+              f"task=predict vs Booster.predict: {pdiff}")
+        with open(f"{tmp}/model.cpp") as fh:
+            src = fh.read()
+        check(src.count("double PredictTree") == 5, "convert_model source")
+        out.update(predict_max_diff=pdiff, cpp_bytes=len(src))
+        # the binary cache and two_round streaming, on the first 20,000
+        # held-out rows (host FindBin takes about a second per 100,000
+        # distinct values of a feature)
+        p = dict(WAVE_PARAMS)
+        mem = lt.Dataset(f"{tmp}/small.csv", params=p).construct()
+        mem.save_binary(f"{tmp}/small.bin")
+        cached = lt.Dataset(f"{tmp}/small.bin", params=p).construct()
+        check(np.array_equal(cached.constructed.bins, mem.constructed.bins),
+              "binary cache codes")
+        trees = [lt.train(p, ds, 1, verbose_eval=False).model_to_string()
+                 for ds in (mem, cached)]
+        check(trees[0] == trees[1], "the cache trained another first tree")
+        streamed = lt.Dataset(f"{tmp}/small.csv", params=dict(
+            p, two_round=True, stream_chunk_rows=4096)).construct()
+        check(np.array_equal(streamed.constructed.bins, mem.constructed.bins)
+              and np.array_equal(streamed.get_label(), mem.get_label()),
+              "two_round codes differ from the in-memory dataset's")
+        out["binary_cache_mb"] = os.path.getsize(f"{tmp}/small.bin") / 1e6
+    t0 = time.perf_counter()
+    contrib = bst.predict(Xv[:100], pred_contrib=True)
+    out["pred_contrib_s"] = time.perf_counter() - t0
+    cdiff = float(np.abs(contrib.sum(axis=1) - bst.predict(
+        Xv[:100], raw_score=True)).max())
+    check(contrib.shape == (100, FEATURES + 1) and cdiff <= 1e-9,
+          f"pred_contrib rows vs the raw score: {cdiff}")
+    out.update(pred_contrib_sum_max_diff=cdiff, nvidia_smi=ctx.get("smi"))
+    emit(out)
 
 
 def phase_small(ctx) -> None:
@@ -4453,6 +4794,7 @@ def kernels_line(ctx) -> dict:
     bounds from the timing phase."""
     t = dict(ctx["timing_others"])
     t["hist_packed"] = ctx["timing"]["full"]
+    t["bin_predict"] = ctx["timing_bin_predict"]
     compare = {
         "hist_packed": "dyadic inputs bitwise; two launches bitwise; random "
                        "float32 within rtol=1e-5, atol=1e-5*sum|w|",
@@ -4488,7 +4830,15 @@ def kernels_line(ctx) -> dict:
                      "256, 1,023 and 2,047, seven regimes), to the plain "
                      "version on the card on dyadic inputs; two launches "
                      "bitwise; with bounds and penalty at B = 256 bitwise "
-                     "to the CPU plain version"}
+                     "to the CPU plain version",
+        "bin_predict": "codes bitwise equal to the plain version on the "
+                       "card and to bin_host at 100,000 rows: 28 features "
+                       "at 255 and 1,023 bins, the Expo-shaped categorical "
+                       "rows, bounds rows past 6,144 searched in global "
+                       "memory "
+                       "(NaN, +-inf, -0.0, every bound and its ulp "
+                       "neighbours, unseen, negative and fractional "
+                       "categories); two launches bitwise"}
     err = {"hist_packed": ctx.get("max_abs_err"),
            "hist_segments": ctx.get("err_segments"),
            "partition": ctx.get("err_partition"),
@@ -4497,7 +4847,8 @@ def kernels_line(ctx) -> dict:
            "fused_scan": ctx.get("err_fused"),
            "hist_full": ctx.get("err_hist_full"),
            "replay": ctx.get("err_replay"),
-           "split_cat": ctx.get("err_split_cat")}
+           "split_cat": ctx.get("err_split_cat"),
+           "bin_predict": ctx.get("err_bin_predict")}
     quant = ctx.get("launches_quant", {})
     out = []
     for name in KERNEL_SOURCES:
@@ -4506,14 +4857,16 @@ def kernels_line(ctx) -> dict:
         # each kernel's launches on the path that runs it: the default
         # (float32) wave learner for the first four, the quantized wave
         # learner with the opening for the next two, the masked learner
-        # (max_bin=1023) for hist_full, the categorical cell for split_cat
+        # (max_bin=1023) for hist_full, the categorical cell for split_cat,
+        # Booster.predict's device path for bin_predict
         path, launches = next(
             (p, c[name]) for p, c in (("wave_train", ctx["launches_wave"]),
                                       ("masked_train",
                                        ctx["launches_masked"]),
                                       ("quant_train", quant),
                                       ("categorical_train",
-                                       ctx["launches_cat"]))
+                                       ctx["launches_cat"]),
+                                      ("predict", ctx["launches_predict"]))
             if name in c)
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
@@ -4544,6 +4897,11 @@ def kernels_line(ctx) -> dict:
         if name == "split_cat":
             out[-1]["B2047"] = row["B2047"]
             out[-1]["ported_from"] = "an XLA lax.scan, not a pallas_call"
+        if name == "bin_predict":
+            out[-1]["device_ms"] = row["device_ms"]
+            out[-1]["upload_ms"] = row["upload_ms"]
+            out[-1]["ported_from"] = "a jitted XLA function, not a " \
+                "pallas_call"
         if name in ("split_scan", "split_cat"):
             # the constrained launch (bounds, signs, penalty) at K = 128
             out[-1]["constrained"] = row["constrained"]
@@ -4582,7 +4940,8 @@ def main() -> int:
             seconds[name] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
     if all(p in phases for p in ("wave_train", "quant_train", "masked_train",
-                                 "categorical_train", "timing")):
+                                 "categorical_train", "bin_predict",
+                                 "predict", "timing")):
         emit(kernels_line(ctx))
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

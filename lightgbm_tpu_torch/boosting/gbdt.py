@@ -383,6 +383,9 @@ class GBDT:
         self.feature_infos = feature_infos(data.bin_mappers,
                                            data.used_feature_map,
                                            data.num_total_features)
+        # a DataFrame's category lists, stored in the model text
+        self.pandas_categorical = getattr(train_data, "pandas_categorical",
+                                          None)
         self.class_need_train = [
             objective.class_need_train(k) if objective is not None else True
             for k in range(self.num_tree_per_iteration)]

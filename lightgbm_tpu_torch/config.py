@@ -872,6 +872,7 @@ BREADTH = "objective, metric and feature breadth"
 PARALLEL = "multi-GPU and multi-host"
 SURFACE = "predict and the user surface"
 OBSERVE = "reliability and training observability"
+SERVING = "serving and lifecycle"
 
 
 def check_supported(cfg: Config) -> None:
@@ -884,8 +885,6 @@ def check_supported(cfg: Config) -> None:
     if cfg.tpu_learner not in ("auto", "wave", "compact", "masked"):
         raise ValueError(f"tpu_learner must be one of auto, wave, compact, "
                          f"masked; got {cfg.tpu_learner!r}")
-    if cfg.two_round or cfg.data or cfg.valid or cfg.input_model:
-        raise not_ported("text-file inputs", SURFACE)
     if cfg.telemetry or cfg.trace_out or cfg.profile_trace_dir \
             or cfg.telemetry_out or cfg.snapshot_freq > 0 or cfg.resume \
             or cfg.fault_spec:

@@ -1,8 +1,8 @@
 """Binned training dataset: host binning, device-resident bin codes.
 
-Port of ``lightgbm_tpu/dataset.py`` for in-memory numpy input.  Binning is
-the same host numpy code (``binning.py``, ``efb.py``), so bin mappers and the
-binned matrix are bit-identical to the JAX package's.  The layout is kept:
+Port of ``lightgbm_tpu/dataset.py``.  Binning is the same host numpy code
+(``binning.py``, ``efb.py``), so bin mappers and the binned matrix are
+bit-identical to the JAX package's.  The layout is kept:
 
   * ``bins`` is ONE dense ``(features_padded, rows_padded)`` uint8/uint16
     numpy array; features pad to ``FEATURE_TILE`` (8) so the packed-word
@@ -12,14 +12,18 @@ binned matrix are bit-identical to the JAX package's.  The layout is kept:
     ``device_bins()``).  The card has few kernels for uint16, so consumers
     widen uint16 codes through ``ops/histogram.py:read_codes``.
 
-Query groups (``group=``, per-query sizes) are stored as boundaries, as in
-the JAX package.  Categorical features (``categorical_feature``: a list of
+Inputs: numpy, scipy sparse, pandas DataFrames (``category`` columns coded
+through category lists recorded on the training set and reapplied to its
+validation sets and, through the model text, at predict time), text files
+(CSV, TSV, LibSVM with ``.weight`` / ``.query`` sidecars:
+``io/parser.py``), the binary cache ``save_binary`` writes (the JAX
+package's ``.npz`` layout, so either package loads the other's), and with
+``two_round=true`` a text file streamed in two passes
+(``_ConstructedDataset.from_stream``, one machine) without its float64
+matrix.  Query groups (``group=``, per-query sizes) are stored as
+boundaries.  Categorical features (``categorical_feature``: a list of
 indices or names, ``"0,2"`` or ``"name:c1,c2"``) get the count-sorted
-categorical bin mapper and stay out of EFB bundles.  Text files, binary
-caches, streaming loads and training on pandas ``category`` columns are not
-ported in this slice; they raise ``NotImplementedError``.  ``recode_pandas``
-codes a predict-time DataFrame's ``category`` columns through a model's
-stored category lists, as the JAX package does.
+categorical bin mapper and stay out of EFB bundles.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper, kZeroThreshold
-from .config import SURFACE, Config, not_ported
+from .config import PARALLEL, Config, not_ported
 
 _ArrayLike = Union[np.ndarray, Sequence[float], None]
 
@@ -156,40 +160,105 @@ class Dataset:
         self.categorical_feature = categorical_feature
         self.free_raw_data = free_raw_data
         self._constructed: Optional[_ConstructedDataset] = None
+        self.used_indices: Optional[np.ndarray] = None
+        # the category lists of a DataFrame's ``category`` columns, recorded
+        # by ``_data_from_pandas`` (`basic.py:262-304`) and stored in the
+        # model, so validation and predict frames use the same codes
+        self.pandas_categorical: Optional[List[list]] = None
+        self._pandas_cat_cols: List[int] = []
 
     def construct(self) -> "Dataset":
         if self._constructed is None:
             cfg = Config.from_params(self.params)
-            data = self._load_raw(self._raw_data)
-            if self.reference is not None:
-                ref = self.reference.construct()._constructed
-                self._constructed = _ConstructedDataset.from_reference(
-                    data, ref, cfg)
+            raw = self._raw_data
+            if isinstance(raw, str) and _ConstructedDataset.is_binary_file(
+                    raw):
+                self._constructed = _ConstructedDataset.load_binary(raw, cfg)
+            elif isinstance(raw, str) and cfg.two_round \
+                    and self.reference is None:
+                if cfg.num_machines > 1 or cfg.elastic:
+                    raise not_ported("two_round loading across machines",
+                                     PARALLEL)
+                from .io.parser import scan_data_file
+                info = scan_data_file(raw, self.params)
+                shape = type("_Shape", (), {
+                    "shape": (info.num_rows, info.num_features)})
+                self._constructed = _ConstructedDataset.from_stream(
+                    raw, self.params, cfg,
+                    categorical=self._resolve_categorical(shape),
+                    feature_names=self._resolve_feature_names(shape),
+                    info=info)
             else:
-                self._constructed = _ConstructedDataset.from_matrix(
-                    data, cfg, categorical=self._resolve_categorical(data),
-                    feature_names=self._resolve_feature_names(data))
+                if self.reference is not None:
+                    # first: a DataFrame is coded with its category lists
+                    self.reference.construct()
+                data = self._load_raw(raw)
+                if self.reference is not None:
+                    self._constructed = _ConstructedDataset.from_reference(
+                        data, self.reference._constructed, cfg)
+                else:
+                    self._constructed = _ConstructedDataset.from_matrix(
+                        data, cfg,
+                        categorical=self._resolve_categorical(data),
+                        feature_names=self._resolve_feature_names(data))
+                if self.free_raw_data:
+                    self._raw_data = None
+            # the caller's fields override what a file or a cache carries
             md = self._constructed.metadata
             if self._label is not None:
                 md.set_label(self._label)
-            md.set_weights(self._weight)
-            md.set_group(self._group)
-            md.set_init_score(self._init_score)
-            if self.free_raw_data:
-                self._raw_data = None
+            if self._weight is not None:
+                md.set_weights(self._weight)
+            if self._group is not None:
+                md.set_group(self._group)
+            if self._init_score is not None:
+                md.set_init_score(self._init_score)
         return self
 
     def _load_raw(self, data) -> np.ndarray:
         if isinstance(data, str):
-            raise not_ported("text-file and binary-cache inputs", SURFACE)
+            from .io.parser import load_data_file
+            mat, label, weight, group = load_data_file(data, self.params)
+            if self._label is None and label is not None:
+                self._label = label
+            if self._weight is None and weight is not None:
+                self._weight = weight
+            if self._group is None and group is not None:
+                self._group = group
+            return mat
         if hasattr(data, "toarray"):  # scipy sparse
             return np.asarray(data.toarray(), dtype=np.float64)
         if hasattr(data, "dtypes") and hasattr(data, "columns") \
                 and not isinstance(data, np.ndarray):  # pandas DataFrame
-            if any(str(t) == "category" for t in data.dtypes):
-                raise not_ported("pandas categorical columns", SURFACE)
+            return self._data_from_pandas(data)
+        if hasattr(data, "values") and not isinstance(data, np.ndarray):
             return np.asarray(data.values, dtype=np.float64)
         return np.asarray(data, dtype=np.float64)
+
+    def _data_from_pandas(self, df) -> np.ndarray:
+        """DataFrame -> float64 matrix (`basic.py:262-304`
+        ``_data_from_pandas``, JAX ``dataset.py:278-304``): ``category``
+        columns become their codes (unseen -> NaN) under the category lists
+        recorded here on a training set or taken from the reference on a
+        validation set."""
+        cat_cols = [j for j in range(df.shape[1])
+                    if str(df.dtypes.iloc[j]) == "category"]
+        if not cat_cols:
+            return np.asarray(df.values, dtype=np.float64)
+        stored = None
+        if self.reference is not None:
+            stored = self.reference.pandas_categorical
+        if stored is None:
+            stored = [df.iloc[:, j].cat.categories.tolist()
+                      for j in cat_cols]
+        if len(stored) != len(cat_cols):
+            raise ValueError(
+                "train and valid dataset categorical_feature do not match "
+                f"({len(stored)} recorded category columns vs "
+                f"{len(cat_cols)} in this DataFrame)")
+        self.pandas_categorical = stored
+        self._pandas_cat_cols = list(cat_cols)
+        return recode_pandas(df, cat_cols, stored)
 
     def _resolve_feature_names(self, data) -> List[str]:
         if isinstance(self.feature_name, (list, tuple)):
@@ -201,10 +270,13 @@ class Dataset:
 
     def _resolve_categorical(self, data) -> List[int]:
         """The categorical columns, sorted (JAX ``dataset.py:314-337``):
-        ``categorical_feature`` as indices or names, else the config's
-        ``categorical_feature`` (``"0,1,2"`` or ``"name:c1,c2"``)."""
+        ``categorical_feature`` as indices or names, else a DataFrame's
+        ``category`` columns, else the config's ``categorical_feature``
+        (``"0,1,2"`` or ``"name:c1,c2"``)."""
         cf = self.categorical_feature
         if cf == "auto" or cf is None or cf == "":
+            if self._pandas_cat_cols:
+                return sorted(self._pandas_cat_cols)
             cf = Config.from_params(self.params).categorical_feature
             if not cf:
                 return []
@@ -290,6 +362,12 @@ class Dataset:
     def constructed(self) -> "_ConstructedDataset":
         return self.construct()._constructed
 
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned dataset as a binary cache (`basic.py:1078`);
+        ``Dataset(filename)`` loads it without binning again."""
+        self.construct()._constructed.save_binary(filename)
+        return self
+
     @classmethod
     def _from_constructed(cls, constructed: "_ConstructedDataset",
                           params: Optional[Dict] = None) -> "Dataset":
@@ -322,6 +400,42 @@ class Dataset:
         out.used_indices = idx
         out.reference = self
         return out
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append ``other``'s features to this dataset in place
+        (`basic.py:1121`, JAX ``dataset.py:442``): its used features after
+        this one's, its raw columns after this one's.  The bundles are found
+        again over the joined codes."""
+        a = self.construct()._constructed
+        b = other.construct()._constructed
+        if a.num_data != b.num_data:
+            raise ValueError("add_features_from: datasets have different "
+                             f"row counts ({a.num_data} vs {b.num_data})")
+        fa = a.num_total_features
+        n_pad = max(a.num_data_padded, b.num_data_padded)
+        fu = a.num_used_features + b.num_used_features
+        fu_pad = _round_up(max(fu, 1), _ConstructedDataset.FEATURE_TILE)
+        dtype = np.uint8 if max(a.max_num_bin, b.max_num_bin) <= 256 \
+            else np.uint16
+        bins = np.zeros((fu_pad, n_pad), dtype=dtype)
+        bins[:a.num_used_features, :a.num_data] = \
+            a.bins[:a.num_used_features, :a.num_data]
+        bins[a.num_used_features:fu, :b.num_data] = \
+            b.bins[:b.num_used_features, :b.num_data]
+        a.bins = bins
+        a.num_data_padded = n_pad
+        a.bin_mappers = list(a.bin_mappers) + list(b.bin_mappers)
+        a.used_feature_map = np.concatenate(
+            [a.used_feature_map, b.used_feature_map + fa]).astype(np.int32)
+        a.num_total_features = fa + b.num_total_features
+        a.feature_names = list(a.feature_names) + list(b.feature_names)
+        a.max_num_bin = max(a.max_num_bin, b.max_num_bin)
+        a._device_bins = {}
+        a._feature_meta = None
+        a._binner_arrays = None
+        a.bundle = None
+        a._maybe_bundle(a.config)
+        return self
 
 
 class _ConstructedDataset:
@@ -400,6 +514,86 @@ class _ConstructedDataset:
         self.used_feature_map = np.asarray(keep, dtype=np.int32)
 
     @classmethod
+    def from_stream(cls, path: str, params: Optional[Dict], cfg: Config,
+                    categorical: Sequence[int] = (),
+                    feature_names: Optional[List[str]] = None,
+                    info=None) -> "_ConstructedDataset":
+        """The reference's ``two_round`` loading (`dataset_loader.cpp:133`,
+        JAX ``dataset.py:564-704``) on one machine: pass 0 counts the rows
+        (``scan_data_file``); pass 1 streams chunks keeping only the rows
+        ``_sample_indices`` draws, then FindBin on them (mappers equal to
+        ``from_matrix``'s); pass 2 streams again and bins each chunk into
+        ``bins``.  Host memory holds a chunk, the sample and the codes, never
+        the float64 matrix; codes and mappers equal ``from_matrix``'s on the
+        same file."""
+        from .io.parser import _load_sidecar, iter_data_chunks, \
+            scan_data_file
+
+        params = dict(params or {})
+        if info is None:
+            info = scan_data_file(path, params)
+        n, f = info.num_rows, info.num_features
+        self = cls()
+        self.num_total_features = f
+        self.feature_names = list(feature_names) if feature_names \
+            else [f"Column_{i}" for i in range(f)]
+        self.config = cfg
+        chunk_rows = max(int(cfg.stream_chunk_rows), 1)
+
+        sample_idx = self._sample_indices(n, cfg)
+        parts: List[np.ndarray] = []
+        for start, mat, _ in iter_data_chunks(path, params, chunk_rows,
+                                              info=info):
+            if sample_idx is None:
+                parts.append(mat)
+            else:
+                lo = np.searchsorted(sample_idx, start)
+                hi = np.searchsorted(sample_idx, start + len(mat))
+                if hi > lo:
+                    parts.append(mat[sample_idx[lo:hi] - start])
+        sample = np.concatenate(parts, axis=0) if parts \
+            else np.zeros((0, f), dtype=np.float64)
+        parts = []
+        self._find_mappers(sample, cfg, categorical)
+
+        weight = _load_sidecar(path + ".weight")
+        group = _load_sidecar(path + ".query")
+        if group is not None and int(np.sum(group)) != n:
+            raise ValueError(f"query file rows ({int(np.sum(group))}) "
+                             f"!= data rows ({n})")
+        self.num_data = n
+        block = max(int(cfg.tpu_row_block), 128)
+        self.num_data_padded = _round_up(max(n, 1), block)
+        self.max_num_bin = max((m.num_bin for m in self.bin_mappers),
+                               default=1)
+        dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
+        fu_pad = _round_up(max(len(self.bin_mappers), 1), self.FEATURE_TILE)
+        self.bins = np.zeros((fu_pad, self.num_data_padded), dtype=dtype)
+        labels = np.zeros(n, dtype=np.float64)
+        dst = 0
+        for start, mat, lab in iter_data_chunks(path, params, chunk_rows,
+                                                info=info):
+            rows = len(mat)
+            for k, m in enumerate(self.bin_mappers):
+                j = int(self.used_feature_map[k])
+                self.bins[k, dst:dst + rows] = \
+                    m.values_to_bins(mat[:, j]).astype(dtype)
+            labels[dst:dst + rows] = lab
+            dst += rows
+        if dst != n:
+            raise ValueError(f"stream produced {dst} rows, expected {n}: "
+                             f"the file changed during the load?")
+        self.metadata = Metadata(n)
+        self.metadata.set_label(labels)
+        if weight is not None:
+            self.metadata.set_weights(weight)
+        if group is not None:
+            self.metadata.set_group(group)
+        self.bundle = None
+        self._maybe_bundle(cfg)
+        return self
+
+    @classmethod
     def from_reference(cls, mat: np.ndarray, ref: "_ConstructedDataset",
                        cfg: Config) -> "_ConstructedDataset":
         """Validation data binned with the training set's mappers."""
@@ -447,6 +641,86 @@ class _ConstructedDataset:
             groups = find_bundles(self, cfg)
             if any(len(g) > 1 for g in groups):
                 self.bundle = apply_bundles(self, groups)
+
+    # -- the binary cache: the JAX package's .npz layout (`dataset.h:394`
+    #    SaveBinaryFile, `dataset_loader.cpp:266` LoadFromBinFile) ---------
+
+    BINARY_VERSION = 1
+
+    def save_binary(self, filename: str) -> None:
+        """The codes, mappers and metadata as a compressed ``.npz`` (the
+        JAX package's fields, so its ``load_binary`` reads it); written to a
+        temporary name and renamed, so an interrupted save leaves no
+        truncated cache."""
+        import json
+        import os
+
+        md = self.metadata
+        tmp = filename + ".tmp"
+        with open(tmp, "wb") as fh:  # np.savez appends .npz to names
+            np.savez_compressed(
+                fh,
+                lgbt_binary_version=np.int64(self.BINARY_VERSION),
+                bins=self.bins,
+                used_feature_map=self.used_feature_map,
+                num_data=np.int64(self.num_data),
+                num_total_features=np.int64(self.num_total_features),
+                max_num_bin=np.int64(self.max_num_bin),
+                feature_names=np.asarray(self.feature_names, dtype=object),
+                mappers=np.asarray(
+                    json.dumps([m.to_dict() for m in self.bin_mappers]),
+                    dtype=object),
+                label=md.label,
+                weights=(md.weights if md.weights is not None
+                         else np.zeros(0, np.float32)),
+                query_boundaries=(md.query_boundaries
+                                  if md.query_boundaries is not None
+                                  else np.zeros(0, np.int32)),
+                init_score=(md.init_score if md.init_score is not None
+                            else np.zeros(0, np.float64)))
+        os.replace(tmp, filename)
+
+    @classmethod
+    def load_binary(cls, filename: str, cfg: Config) -> "_ConstructedDataset":
+        """A cache ``save_binary`` wrote, in either package.  As in the JAX
+        package, no EFB bundle is looked for."""
+        import json
+
+        z = np.load(filename, allow_pickle=True)
+        if int(z["lgbt_binary_version"]) > cls.BINARY_VERSION:
+            raise ValueError("binary dataset written by a newer version")
+        self = cls()
+        self.config = cfg
+        self.bins = z["bins"]
+        self.used_feature_map = z["used_feature_map"]
+        self.num_data = int(z["num_data"])
+        self.num_data_padded = self.bins.shape[1]
+        self.num_total_features = int(z["num_total_features"])
+        self.max_num_bin = int(z["max_num_bin"])
+        self.feature_names = [str(s) for s in z["feature_names"]]
+        self.bin_mappers = [BinMapper.from_dict(d)
+                            for d in json.loads(str(z["mappers"]))]
+        self.metadata = Metadata(self.num_data)
+        self.metadata.label = z["label"]
+        if len(z["weights"]):
+            self.metadata.weights = z["weights"]
+        if len(z["query_boundaries"]):
+            self.metadata.query_boundaries = z["query_boundaries"]
+        if len(z["init_score"]):
+            self.metadata.init_score = z["init_score"]
+        return self
+
+    @staticmethod
+    def is_binary_file(path: str) -> bool:
+        """True for a zip archive holding ``lgbt_binary_version``."""
+        try:
+            with open(path, "rb") as fh:
+                if fh.read(2) != b"PK":
+                    return False
+            with np.load(path, allow_pickle=True) as z:
+                return "lgbt_binary_version" in z
+        except Exception:
+            return False
 
     def device_bins(self, device):
         """Binned matrix as a uint8 (uint16 past 256 bins) tensor on

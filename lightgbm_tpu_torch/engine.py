@@ -1,15 +1,17 @@
 """Training engine: ``train``, ``cv`` and the ``Booster`` facade.
 
-Port of the training half of ``lightgbm_tpu/engine.py``: ``train`` with
-validation sets (query groups included), custom objectives (``fobj``) and
-metrics (``feval``), continued training (``init_model``), early stopping,
-learning-rate schedules and callbacks; ``cv`` with stratified folds and
-early stopping on the folds' mean in lockstep; and ``Booster`` training,
-prediction ((n,) or (n, K) for K classes), model text, ``dump_model``,
-``rollback_one_iter``, ``refit`` and pickling, for every objective of the
-JAX package's table and every boosting variant (``boosting/__init__.py``).
-The device comes from ``device_type`` (``config.resolve_device``): the
-CUDA card unless the params ask for the CPU.
+Port of ``lightgbm_tpu/engine.py``: ``train`` with validation sets (query
+groups included), custom objectives (``fobj``) and metrics (``feval``),
+continued training (``init_model``), early stopping, learning-rate schedules
+and callbacks; ``cv`` with stratified folds and early stopping on the folds'
+mean in lockstep; and ``Booster`` training, prediction ((n,) or (n, K) for
+K classes, leaf indices, TreeSHAP contributions through ``contrib.py``),
+model text, ``dump_model``, ``rollback_one_iter``, ``refit`` and
+``refit_file`` and pickling, for every objective of the JAX package's table
+and every boosting variant (``boosting/__init__.py``).  Serving
+(``to_server``, ``serve``) is not ported and raises.  The device comes from
+``device_type`` (``config.resolve_device``): the CUDA card unless the params
+ask for the CPU.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 from . import callback as callback_mod
 from .boosting import create_boosting
 from .boosting.gbdt import GBDT, rebind_tree_to_dataset
-from .config import OBSERVE, Config, check_supported, not_ported, \
+from .config import OBSERVE, SERVING, Config, check_supported, not_ported, \
     resolve_device
 from .dataset import Dataset, recode_pandas
 from .metrics import create_metric
@@ -156,19 +158,26 @@ class Booster:
     # -- prediction / persistence -------------------------------------------
 
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
-                pred_leaf: bool = False) -> np.ndarray:
-        """Raw scores, probabilities or leaf indices.  Large batches (rows x
-        trees >= 200,000) and ``pred_early_stop`` traverse every tree on the
-        booster's device (``predictor.DevicePredictor``), smaller ones walk
-        the host trees, as ``GBDT.predict_raw`` routes.  A DataFrame's
-        ``category`` columns are coded through the model's stored category
-        lists."""
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                **kwargs) -> np.ndarray:
+        """Raw scores, probabilities, leaf indices or (``pred_contrib``)
+        TreeSHAP contributions on the host (``contrib.py``: (n, F + 1), the
+        expected value last; (n, K * (F + 1)) for K classes).  Large batches
+        (rows x trees >= 200,000) and ``pred_early_stop`` bin and traverse
+        every tree on the booster's device (``predictor.DevicePredictor``),
+        smaller ones walk the host trees, as ``GBDT.predict_raw`` routes.  A
+        DataFrame's ``category`` columns are coded through the model's
+        stored category lists.  Other keyword arguments are accepted and
+        unused, as in the JAX package."""
         if hasattr(data, "dtypes") and hasattr(data, "columns") \
                 and not isinstance(data, np.ndarray):
             data = self._predict_data_from_pandas(data)
         elif hasattr(data, "values") and not isinstance(data, np.ndarray):
             data = data.values
         data = np.asarray(data, dtype=np.float64)
+        if pred_contrib:
+            from .contrib import predict_contrib
+            return predict_contrib(self.gbdt, data, num_iteration)
         return self.gbdt.predict(data, num_iteration, raw_score, pred_leaf)
 
     def _predict_data_from_pandas(self, df) -> np.ndarray:
@@ -233,9 +242,27 @@ class Booster:
         new_booster.gbdt.refit_leaf_preds(leaf_preds, decay_rate)
         return new_booster
 
+    def refit_file(self, data_path: str, decay_rate: float = 0.9
+                   ) -> "Booster":
+        """CLI ``task=refit``: refit the leaf values in place on a text data
+        file's rows (JAX ``engine.py:302-308``)."""
+        from .io.parser import load_data_file
+
+        mat, label, _, _ = load_data_file(data_path, self.params)
+        self.gbdt = self.refit(mat, label, decay_rate).gbdt
+        return self
+
     def feature_importance(self, importance_type: str = "split",
                            iteration: int = -1) -> np.ndarray:
         return self.gbdt.feature_importance(importance_type, iteration)
+
+    def to_server(self, replicas: int = 0, **kwargs):
+        """Not ported: the JAX package's prediction server."""
+        raise not_ported("Booster.to_server (prediction serving)", SERVING)
+
+    def serve(self, **kwargs):
+        """Not ported: the JAX package's prediction server."""
+        raise not_ported("Booster.serve (prediction serving)", SERVING)
 
     def feature_name(self) -> List[str]:
         return list(self.gbdt.feature_names)

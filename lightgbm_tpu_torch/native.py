@@ -10,6 +10,11 @@ launch builds its library, and ``build_all`` builds several in parallel (one
 inside ``staging()`` each launch is also kept as a ``Replay``, which calls
 the C entry point again on the same buffers with no torch work around it
 (``chip_smoke.py`` times a kernel alone that way).
+
+Host libraries (``csrc/<name>.cpp``: the text parser) are C++ for the CPU,
+not kernels: ``load_host`` compiles one with ``g++`` (or ``$CXX``) into
+``_build/lib<name>-<hash>.so`` at first use, on any machine with a C++
+compiler and without ``nvcc``, and raises if it cannot.
 """
 
 from __future__ import annotations
@@ -40,14 +45,16 @@ EXTRA_FLAGS: Dict[str, List[str]] = {"split_scan": ["-fmad=false"],
 #: every kernel source of the port
 KERNELS = ("hist_packed", "hist_segments", "partition", "split_scan",
            "hist_multislot", "fused_scan", "hist_full", "replay",
-           "split_cat")
+           "split_cat", "bin_predict")
 #: the kernel each wrapper launches, by source, as a profiler names it
 KERNEL_SYMBOLS = {"hist_packed": "hist_packed_chunks",
                   "hist_segments": "hist_segments_tiles",
                   "partition": "partition_rows", "split_scan": "split_scan",
                   "hist_multislot": "hist_multislot_chunks",
                   "fused_scan": "fused_child_scan", "replay": "replay_pass",
-                  "split_cat": "split_cat"}
+                  "split_cat": "split_cat", "bin_predict": "bin_predict_rows"}
+#: the host libraries' compiler flags (``load_host``)
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 #: seconds each library took to build in this process (0.0 = reused)
 BUILD_SECONDS: Dict[str, float] = {}
@@ -175,3 +182,50 @@ def staging():
         yield _STAGED
     finally:
         _STAGED = prev
+
+
+def find_cxx() -> str:
+    """``$CXX``, else ``g++``, else ``c++`` from PATH."""
+    found = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if not found:
+        raise RuntimeError("no C++ compiler found ($CXX, g++, c++): the "
+                           "port's host library cannot be built")
+    return found
+
+
+def host_library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha256(src + " ".join(HOST_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library for ``csrc/<name>.cpp``, built with the C++
+    compiler on first use; raises ``RuntimeError`` with the compiler's
+    output if the build fails."""
+    key = f"host:{name}"
+    lib = _LOADED.get(key)
+    if lib is None:
+        out = host_library_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so.tmp",
+                                       dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [find_cxx(), *HOST_FLAGS, "-o", tmp,
+                   str(CSRC_DIR / f"{name}.cpp")]
+            try:
+                res = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:
+                Path(tmp).unlink(missing_ok=True)
+                raise RuntimeError(f"cannot run the C++ compiler to build "
+                                   f"csrc/{name}.cpp: {e}") from None
+            if res.returncode != 0:
+                Path(tmp).unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"the C++ compiler failed to build csrc/{name}.cpp "
+                    f"(exit {res.returncode}):\n{res.stdout}{res.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _LOADED[key] = lib
+    return lib

@@ -1,15 +1,16 @@
 """Device batch predictor: every tree traversed on the device in bin space.
 
 Port of ``lightgbm_tpu/predictor.py``, the analogue of ``Predictor``
-(`src/application/predictor.hpp:25-230`): the input matrix is binned once
-with the model's own mappers (``binner.py``), and the trees traverse the
-bin codes on the booster's device, every decision an integer compare or a
-bitset probe.  The JAX package scans the trees one by one (``lax.scan``);
-eager torch would pay launches per tree and level there, so the port
-traverses a group of trees at once: a (trees, rows) node tensor stepped
-``depth`` times with batched gathers over the packed node arrays, rows
-chunked so that trees x rows stays within ``_BLOCK_ELEMS``.  Leaf values and
-sums are float64 (the JAX package's x64 semantics, which its tests run
+(`src/application/predictor.hpp:25-230`): the raw input matrix is uploaded
+and binned once on the booster's device with the model's own mappers
+(``binner.py:BinnerArrays.bin_device``, the ``bin_predict`` kernel on the
+card), and the trees traverse the bin codes there, every decision an
+integer compare or a bitset probe.  The JAX package scans the trees one by
+one (``lax.scan``); eager torch would pay launches per tree and level
+there, so the port traverses a group of trees at once: a (trees, rows)
+node tensor stepped ``depth`` times with batched gathers over the packed
+node arrays, rows chunked so that trees x rows stays within
+``_BLOCK_ELEMS``.  Leaf values and sums are float64 (the JAX package's x64 semantics, which its tests run
 under, and the host path's), summed in tree order.
 
 Prediction early stop (`src/boosting/prediction_early_stop.cpp`) is a
@@ -193,11 +194,12 @@ class DevicePredictor:
         return score
 
     def predict_raw(self, X: np.ndarray) -> np.ndarray:
-        """(n,) or (n, K) float64 raw scores; X binned on the host with the
-        model's own mappers (``binner.py``), the traversal on the device."""
-        bins = BinnerArrays.for_data(self.data).bin_host(X)
-        score = self.predict_binned(torch.from_numpy(bins).to(self.device))
-        score = score.cpu().numpy()
+        """(n,) or (n, K) float64 raw scores: the raw float64 matrix
+        uploaded to the device, binned there with the model's own mappers
+        (``BinnerArrays.bin_device``: the ``bin_predict`` kernel on a CUDA
+        device, its plain version on the CPU) and traversed there."""
+        bins = BinnerArrays.for_data(self.data).bin_device(X, self.device)
+        score = self.predict_binned(bins).cpu().numpy()
         return score[0] if self.K == 1 else score.T
 
 

@@ -221,9 +221,17 @@ def test_valid_device_traversal_equals_host_predict(cats):
 
 
 def test_pandas_category_column_still_raises():
+    """A DataFrame's ``category`` columns train (their category lists
+    recorded on the training set, the columns categorical); a validation
+    frame whose count of ``category`` columns differs still raises, as in
+    the JAX package."""
     pd = pytest.importorskip("pandas")
     X, y = _make_data()
     df = pd.DataFrame({"c0": pd.Categorical(X[:, 0].astype(int)),
                        "num": X[:, 1], "c2": X[:, 2]})
-    with pytest.raises(NotImplementedError, match="pandas categorical"):
-        lt.Dataset(df, label=y, params={"device_type": "cpu"}).construct()
+    ds = lt.Dataset(df, label=y, params={"device_type": "cpu"}).construct()
+    assert ds.pandas_categorical == [sorted(set(X[:, 0].astype(int)))]
+    assert ds.constructed.bin_mappers[0].bin_type == 1
+    bad = df.assign(c2=pd.Categorical(X[:, 2].astype(int)))
+    with pytest.raises(ValueError, match="categorical_feature do not match"):
+        ds.create_valid(bad, label=y).construct()

@@ -224,23 +224,38 @@ def test_segments_kernel_relaunch_bitwise_on_random(cuda_device):
     assert bool(((a - p).abs() <= 1e-5 * p.abs() + 1e-5 * mass).all())
 
 
-def _device_ops(fn):
-    """The device operations (kernels, copies, fills) ``fn`` issues, from
-    the profiler.  The window opens with a spin kernel, left out of the
-    list: on the H100 the profiler has missed the first records of a
-    window (a window of one call has recorded nothing, one of three calls
-    two)."""
-    from torch.profiler import ProfilerActivity, profile
+#: cuGraphNodeGetType's kinds (CUgraphNodeType)
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+               5: "empty", 6: "wait_event", 7: "event_record",
+               8: "ext_semas_signal", 9: "ext_semas_wait", 10: "mem_alloc",
+               11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1_000_000)
-        torch.cuda.synchronize()
+
+def _device_ops(fn):
+    """The device operations ``fn`` issues (kernels, copies, fills), by
+    kind: the nodes of a CUDA graph capturing one run of ``fn``, read with
+    the driver's ``cuGraphGetNodes``.  The capture records every operation
+    the call queues and nothing else, whatever ran before it in the
+    process; the profiler's records, which these tests counted before,
+    came back short in runs of the whole file (ROADMAP Queue C item 7)."""
+    import ctypes
+
+    drv = ctypes.CDLL("libcuda.so.1")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
         fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "spin_kernel" not in e.name]
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert drv.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert drv.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0
+        kinds.append(_NODE_KINDS.get(kind.value, str(kind.value)))
+    return kinds
 
 
 @pytest.mark.parametrize("k", [1, 2, 128])
@@ -282,8 +297,10 @@ def test_scan_kernel_one_launch_bitwise_to_cpu(cuda_device, k):
         assert bool(((a == r) | (torch.isnan(a) & torch.isnan(r))).all()), \
             fld
     assert bool(torch.isinf(got.gain[~dev[-1]]).all())
+    n0 = find_best_splits_batched.launches
     ops = _device_ops(lambda: find_best_splits_batched(*dev, **kw))
-    assert len(ops) == 1 and "split_scan" in ops[0], ops
+    assert ops == ["kernel"], ops
+    assert find_best_splits_batched.launches == n0 + 1
 
 
 def test_partition_kernel_is_the_plain_permutation(cuda_device):
@@ -552,9 +569,11 @@ def test_fused_kernel_one_launch_bitwise_to_cpu(cuda_device, k):
             fld
     assert torch.equal(pk.cpu(), pool_cpu)
     assert bool(torch.isfinite(got.gain).any())
+    n0 = fused_child_scans.launches
     ops = _device_ops(lambda: [fused_child_scans(dev[0], pk, *dev[2:], **kw)
                                for _ in range(3)])
-    assert len(ops) == 3 and all("fused" in op for op in ops), ops
+    assert ops == ["kernel"] * 3, ops
+    assert fused_child_scans.launches == n0 + 3
 
 
 def _full_inputs(dev, dtype, f, n, b, seed, dyadic=True, code_max=None):
@@ -1111,9 +1130,11 @@ def test_scan_kernel_constrained_bitwise_to_cpu(cuda_device, k):
         assert cs.same(getattr(got, fld).cpu(), getattr(ref, fld)), fld
         assert cs.same(getattr(free, fld).cpu(), getattr(ref_free, fld)), fld
     assert not torch.equal(got.gain.cpu(), free.gain.cpu())
+    n0 = find_best_splits_batched.con_launches
     ops = _device_ops(lambda: find_best_splits_batched(
         *dev, *con[:3], penalty=con[3], **kw))
-    assert len(ops) == 1 and "split_scan" in ops[0], ops
+    assert ops == ["kernel"], ops
+    assert find_best_splits_batched.con_launches == n0 + 1
 
 
 @pytest.mark.parametrize("dyadic", [True, False])
@@ -1205,3 +1226,49 @@ def test_goss_selection_on_card_bitwise_to_cpu(cuda_device, kind, k):
     assert torch.equal(card[0].cpu(), cpu[0])
     assert torch.equal(card[1].cpu(), cpu[1])
     assert int(cpu[0].sum()) > top_k
+
+
+@pytest.mark.parametrize("tag,max_bin", [
+    ("higgs_255", 255), ("expo_categorical", 255), ("higgs_1023", 1023),
+    ("global_bounds_10000", 10000)])
+def test_bin_predict_kernel_bitwise_to_plain(cuda_device, tag, max_bin):
+    """The predict binner at chip_smoke.py's shapes (100,000 rows; NaN,
+    +-inf, -0.0, every bound and its ulp neighbours; unseen, negative and
+    fractional categories; a bounds row staged in shared memory and one
+    searched in global memory): the kernel bitwise equal to the plain
+    version on the card and to ``bin_host``, one kernel per call, and the
+    predictor's path through it."""
+    import chip_smoke as cs
+    from lightgbm_tpu_torch.binner import (BinnerArrays, bin_plain,
+                                           bin_predict)
+    from lightgbm_tpu_torch.dataset import upload
+
+    data, Xp, _ = cs.bin_predict_case(tag, max_bin)
+    arrs = BinnerArrays.for_data(data)
+    a = arrs.device_arrays(cuda_device)
+    x = upload(Xp, cuda_device)
+    n0 = bin_predict.launches
+    got = bin_predict(x, a)
+    assert bin_predict.launches == n0 + 1
+    assert torch.equal(got, bin_plain(x, a))
+    assert torch.equal(got.cpu(), torch.from_numpy(arrs.bin_host(Xp)))
+    # a few rows: one partial tile, and a matrix passed as numpy
+    assert torch.equal(arrs.bin_device(Xp[:37], cuda_device),
+                       bin_plain(x[:37].contiguous(), a))
+    assert _device_ops(lambda: bin_predict(x, a)) == ["kernel"]
+
+
+def test_bin_predict_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda_device):
+    import chip_smoke as cs
+    from lightgbm_tpu_torch.binner import BinnerArrays, bin_predict
+
+    data, Xp, _ = cs.bin_predict_case("expo_categorical", 255, rows=1000)
+    a = BinnerArrays.for_data(data).device_arrays(cuda_device)
+    x = torch.from_numpy(Xp).to(cuda_device)
+    with pytest.raises(ValueError, match="float64"):
+        bin_predict(x.float(), a)
+    with pytest.raises(ValueError, match="columns"):
+        bin_predict(x[:, :3].contiguous(), a)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bin_predict(x.cpu(), a)

@@ -43,14 +43,24 @@ def _problem(n=600, f=5, seed=0):
 
 
 def test_import_and_dataset_leave_jax_out():
+    """Every module of the port imported, a dataset built, and the CLI's
+    ``__main__`` run as ``python -m`` runs it: no JAX module loaded."""
     code = (
-        "import json, sys\n"
+        "import json, pkgutil, runpy, sys\n"
         "import numpy as np\n"
         "import lightgbm_tpu_torch as lt\n"
+        "for m in pkgutil.walk_packages(lt.__path__, 'lightgbm_tpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        __import__(m.name)\n"
         "X = np.random.RandomState(0).randn(300, 4)\n"
         "ds = lt.Dataset(X, label=(X[:, 0] > 0).astype(float),\n"
         "                params={'device_type': 'cpu'}).construct()\n"
         "ds.constructed.device_bins('cpu')\n"
+        "sys.argv = ['lightgbm_tpu_torch', 'task=train', 'device_type=cpu']\n"
+        "try:\n"
+        "    runpy.run_module('lightgbm_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 1, e.code   # no data: the CLI quits\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "      if m.split('.')[0] in ('jax', 'jaxlib', 'lightgbm_tpu'))))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -106,7 +116,7 @@ def test_device_rule_cpu_and_alias():
     {"resume": True},
     {"tree_learner": "data_feature"},
     {"num_hosts": 2},
-    {"two_round": True},
+    {"elastic": True},
     {"snapshot_freq": 1},
     {"tree_learner": "data"},
     {"tpu_learner": "masked", "tree_learner": "voting"},
@@ -124,11 +134,25 @@ def test_unported_settings_raise(extra):
         lt.train(params, lt.Dataset(X, label=y), 1, verbose_eval=False)
 
 
-def test_text_file_input_raises(tmp_path):
+def test_text_file_input_raises(tmp_path, monkeypatch):
+    """A dense text file is parsed by the port's host library; where that
+    cannot be built the load raises, naming the build, and never parses in
+    Python.  With the library it loads."""
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.io import parser
+
     path = tmp_path / "train.csv"
     path.write_text("1,0.5,0.25\n0,0.1,0.2\n")
-    with pytest.raises(NotImplementedError, match="text-file"):
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(parser, "_LIB", None)
+    monkeypatch.setattr(native, "_LOADED", {})
+    monkeypatch.setenv("CXX", "false")
+    with pytest.raises(RuntimeError, match="csrc/parse.cpp"):
         lt.Dataset(str(path), params={"device_type": "cpu"}).construct()
+    monkeypatch.undo()
+    ds = lt.Dataset(str(path), params={"device_type": "cpu"}).construct()
+    np.testing.assert_array_equal(ds.get_label(), [1.0, 0.0])
+    assert ds.num_feature() == 2
 
 
 @pytest.mark.parametrize("mode", ["auto", "wave", "compact"])
