@@ -88,11 +88,14 @@ line and each raising (exit code 1) on any failure:
              10,000: 28 features at 255 and 1,023 bins (a NaN-typed
              feature; NaN, +-inf, -0.0, 1e30, every bound and its ulp
              neighbours), the Expo-shaped categorical rows (unseen,
-             negative, fractional categories, NaN) and 4 features with
-             over 6,144 bounds (the row searched in global memory): codes
-             bitwise, two launches bitwise; at the first shape the wrapper,
-             the kernel alone, its device time, the plain version,
-             torch.searchsorted and the host-to-card upload of the rows
+             negative, fractional categories, NaN), 4 features with 9,999
+             bounds (the row searched in global memory), the whole Higgs
+             set (11,000,000 rows) and MS LTR's 137 features (two feature
+             groups): codes bitwise, two launches bitwise; each shape's
+             plan (groups, grid, shared memory, bytes moved against the
+             bound's), the wrapper, the kernel alone, the plain version
+             and torch.searchsorted; at the first shape the kernel's
+             device time and the host-to-card upload of the rows
   tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
              rows, grown by the compact learner through the kernel and
              through the plain histogram: records bitwise equal
@@ -1498,24 +1501,33 @@ def phase_split_cat(ctx) -> None:
 
 
 #: bin_predict's shapes: the bench's held-out matrix at 255 and 1,023 bins,
-#: the Expo-shaped categorical rows, and a width past the staged bounds row
-#: (B > 6,144: the search in global memory)
+#: the Expo-shaped categorical rows, a bounds row too wide to stage (9,999
+#: bounds: the search in global memory), the reference's whole Higgs set
+#: scored at once, and MS LTR's width (more than one feature group)
 BIN_SHAPES = (("higgs_255", 255), ("expo_categorical", 255),
-              ("higgs_1023", 1023), ("global_bounds_10000", 10000))
+              ("higgs_1023", 1023), ("global_bounds_10000", 10000),
+              ("higgs_11m", 255), ("ms_ltr_137", 255))
 #: training rows the mappers of a bin_predict case are fitted on
 BIN_FIT_ROWS = 10_000
+#: predict rows of a bin_predict case
+BIN_ROWS = {"higgs_11m": 11_000_000}
 
 
-def bin_predict_case(tag: str, max_bin: int, rows: int = VALID_ROWS):
+def bin_predict_case(tag: str, max_bin: int, rows: int = None):
     """Mappers fitted on 10,000 training rows at ``max_bin`` (host FindBin
     costs about a second per 100,000 distinct values of a feature) and a
-    raw predict matrix of ``rows`` rows holding the hard values: NaN (column
-    2 trains with NaN, so it has a NaN bin), +-inf, -0.0, 1e30, every bin
-    bound and its neighbours one ulp away; for the Expo rows unseen (300 to
-    400), negative and fractional categories and NaN."""
+    raw predict matrix of ``rows`` rows (``BIN_ROWS``, else 100,000)
+    holding the hard values: NaN (column 2 trains with NaN, so it has a NaN
+    bin), +-inf, -0.0, 1e30, every bin bound and its neighbours one ulp
+    away; for the Expo rows unseen (300 to 400), negative and fractional
+    categories and NaN.  ``higgs_11m`` draws its 11,000,000 predict rows
+    with numpy's faster ``default_rng``; ``ms_ltr_137`` takes the first rows of
+    ``ms_ltr_like``'s matrix, and ``ms_ltr_137_cat`` makes every tenth of
+    its columns categorical (integer codes 0 to 59)."""
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.dataset import _ConstructedDataset
 
+    rows = rows or BIN_ROWS.get(tag, VALID_ROWS)
     n = BIN_FIT_ROWS + rows
     # no EFB: its exclusivity scan is set-up time, and predict binning
     # reads the mappers only
@@ -1527,9 +1539,21 @@ def bin_predict_case(tag: str, max_bin: int, rows: int = VALID_ROWS):
     elif tag == "global_bounds_10000":
         X = np.round(higgs_like(n, seed=13)[0][:, :4], 4)
         params["min_data_in_bin"] = 1
+    elif tag == "higgs_11m":
+        X = np.concatenate([
+            higgs_like(BIN_FIT_ROWS, seed=13)[0],
+            np.random.default_rng(13).standard_normal((rows, FEATURES))])
+    elif tag.startswith("ms_ltr_137"):
+        # ms_ltr_like's draws, row by row: its first n rows
+        X = np.random.RandomState(13).randn(n, RANK_FEATURES).astype(
+            np.float32).astype(np.float64)
+        if tag == "ms_ltr_137_cat":
+            cat = list(range(0, RANK_FEATURES, 10))
+            X[:, cat] = np.floor((X[:, cat] + 3.0) * 10.0).clip(0, 59)
     else:
         X, _ = higgs_like(n, seed=13)
-    train, Xp = X[:BIN_FIT_ROWS].copy(), X[BIN_FIT_ROWS:].copy()
+    train, Xp = X[:BIN_FIT_ROWS].copy(), X[BIN_FIT_ROWS:]
+    del X
     train[::11, 2] = np.nan
     data = _ConstructedDataset.from_matrix(train, Config.from_params(params),
                                            categorical=cat)
@@ -1546,7 +1570,10 @@ def bin_predict_case(tag: str, max_bin: int, rows: int = VALID_ROWS):
             vals = np.concatenate([[np.nan, np.inf, -np.inf, -0.0, 0.0,
                                     1e30, -1e30], b, np.nextafter(b, np.inf),
                                    np.nextafter(b, -np.inf)])
-        idx = rng.choice(rows, len(vals), replace=False)
+        # distinct rows (a permutation of 11M rows takes seconds a column)
+        idx = np.unique(rng.randint(0, rows, 4 * len(vals)))[:len(vals)] \
+            if rows > 1_000_000 else rng.choice(rows, len(vals),
+                                                replace=False)
         Xp[idx, j] = vals
         r += len(vals)
     return data, Xp, r
@@ -1554,67 +1581,118 @@ def bin_predict_case(tag: str, max_bin: int, rows: int = VALID_ROWS):
 
 def _bin_bytes(a, n: int) -> float:
     """What one binning call must move: each used column read once, the
-    tables once, every code written once."""
-    tables = sum(t.numel() * t.element_size()
-                 for t in (a.meta, a.bounds, a.cat_lut))
+    tables (metadata, the bounds rows at their own width, without the
+    kernel's +inf padding, category tables) once, every code written
+    once."""
+    tables = a.meta.numel() * 4 + a.meta.shape[0] * a.num_bounds * 8 \
+        + a.cat_lut.numel() * 4
     return n * a.fu * 8 + tables + a.f_pad * n * 4
 
 
+def _time_bin_predict(x, a, flush, reps: int = 20,
+                      device: bool = False) -> dict:
+    """One bin_predict shape timed: the wrapper, the kernel alone (its
+    staged replay), the plain version and torch.searchsorted on the
+    numerical part, against the bound; with ``device`` the kernel's
+    device time too (one profiler window, as before: the later phases'
+    profiled trees have lost records in a long process;
+    profiling/profile_bin_predict.py records every shape's device time in
+    a process of its own)."""
+    from lightgbm_tpu_torch.binner import M_COL, bin_plain, bin_predict
+
+    n = x.shape[0]
+    v = x.index_select(1, a.meta[:a.fu, M_COL].long()).T.contiguous()
+    bounds = a.bounds[:a.fu].contiguous()
+    call = (lambda: bin_predict(x, a))
+    out = dict(
+        ms=cuda_ms(call, reps, flush),
+        kernel_ms=cuda_ms(staged(call), reps, flush),
+        device_ms=_device_ms(call, "bin_predict_rows") if device else None,
+        plain_ms=cuda_ms(lambda: bin_plain(x, a), min(reps, 5), flush),
+        library_ms=cuda_ms(lambda: torch.searchsorted(bounds, v,
+                                                      side="left"),
+                           reps, flush),
+        rows=n, **_bound(_bin_bytes(a, n), 0))
+    del v
+    return out
+
+
+def _bin_host_chunks(arrs, X, chunk: int = 500_000):
+    """``bin_host`` of ``X`` over row chunks in threads (numpy's searches
+    let go of the interpreter lock): the same codes in a fraction of the
+    time at 11,000,000 rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if len(X) <= chunk:
+        return arrs.bin_host(X)
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(arrs.bin_host, (X[r:r + chunk] for r in
+                                              range(0, len(X), chunk))))
+    return np.concatenate(parts, axis=1)
+
+
 def phase_bin_predict(ctx) -> None:
-    from lightgbm_tpu_torch.binner import (M_COL, BinnerArrays, bin_plain,
-                                           bin_predict)
+    from lightgbm_tpu_torch.binner import (BinnerArrays, bin_plain,
+                                           bin_predict, plan_for)
     from lightgbm_tpu_torch.dataset import upload
 
     dev = torch.device("cuda", 0)
     n0 = bin_predict.launches
-    out = {"phase": "bin_predict", "cases": {}}
+    flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = {"phase": "bin_predict", "cases": {},
+           "nvidia_smi": ctx.get("smi")}
     for tag, max_bin in BIN_SHAPES:
+        t0 = time.perf_counter()
         data, Xp, hard = bin_predict_case(tag, max_bin)
         arrs = BinnerArrays.for_data(data)
         a = arrs.device_arrays(dev)
-        x = upload(Xp, dev)
+        # a pageable copy: upload() would leave its pinned block (2.5 GB
+        # at 11,000,000 rows) cached in the process for the later phases
+        x = torch.from_numpy(Xp).to(dev)
         got = bin_predict(x, a)
         again = bin_predict(x, a)
         plain = bin_plain(x, a)
-        host = torch.from_numpy(arrs.bin_host(Xp))
         torch.cuda.synchronize()
         check(torch.equal(got, plain), f"{tag}: kernel != plain on the card")
-        check(torch.equal(got.cpu(), host), f"{tag}: kernel != bin_host")
         check(torch.equal(got, again), f"{tag}: two launches differ")
-        out["cases"][tag] = {"rows": len(Xp), "fu": a.fu, "f_pad": a.f_pad,
-                             "B": a.bounds.shape[1],
-                             "C": a.cat_lut.shape[1], "hard_values": hard,
-                             "staged_bounds": a.bounds.shape[1] * 8
-                             <= 48 * 1024, "bitwise": True}
+        del plain, again
+        check(np.array_equal(got.cpu().numpy(), _bin_host_chunks(arrs, Xp)),
+              f"{tag}: kernel != bin_host")
+        del got
+        plan = plan_for(x, a)
+        case = {"rows": len(Xp), "fu": a.fu, "f_pad": a.f_pad,
+                "B": arrs.bounds.shape[1], "W": a.bounds.shape[1],
+                "C": a.cat_lut.shape[1], "hard_values": hard,
+                "bitwise": True,
+                "plan": {k: getattr(plan, k) for k in (
+                    "rows", "staged", "group", "groups", "tile_rows",
+                    "tiles", "stages", "stripes", "grid", "smem",
+                    "moved_bytes", "bound_bytes")}}
+        case["timing"] = _time_bin_predict(x, a, flush,
+                                           device=tag == "higgs_255")
         if tag == "higgs_255":
-            ctx["bin_case"] = (x, a)
+            host_x = x.cpu().numpy()
+            case["timing"]["upload_ms"] = cuda_ms(
+                lambda: upload(host_x, dev), 5, flush)
+            ctx["timing_bin_predict"] = dict(
+                case["timing"],
+                library="torch.searchsorted over the (fu, W) bounds and "
+                        "the (fu, n) values, the numerical part alone",
+                shapes={})
+        case["phase_s"] = time.perf_counter() - t0
+        out["cases"][tag] = case
+        emit({"phase": "bin_predict", "case": tag, **case})
+        del x, Xp, data, arrs, a
+        torch.cuda.empty_cache()
     ctx["err_bin_predict"] = 0.0
-    # timing at the predict shape (100,000 x 28 at 255 bins)
-    x, a = ctx["bin_case"]
-    flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
-    reps = 20
-    call = (lambda: bin_predict(x, a))
-    n = x.shape[0]
-    v = x.index_select(1, a.meta[:a.fu, M_COL].long()).T.contiguous()
-    bounds = a.bounds[:a.fu].contiguous()
-    host_x = x.cpu().numpy()
-    timing = dict(
-        ms=cuda_ms(call, reps, flush),
-        kernel_ms=cuda_ms(staged(call), reps, flush),
-        device_ms=_device_ms(call, "bin_predict_rows"),
-        plain_ms=cuda_ms(lambda: bin_plain(x, a), reps, flush),
-        library_ms=cuda_ms(lambda: torch.searchsorted(bounds, v,
-                                                      side="left"),
-                           reps, flush),
-        library="torch.searchsorted over the (fu, B) bounds and the (fu, n) "
-                "values, the numerical part alone",
-        upload_ms=cuda_ms(lambda: upload(host_x, dev), 5, flush),
-        rows=n, **_bound(_bin_bytes(a, n), 0))
+    ctx["timing_bin_predict"]["shapes"] = {
+        tag: {k: c["timing"][k] for k in ("ms", "kernel_ms", "device_ms",
+                                          "plain_ms", "library_ms",
+                                          "bound_ms")}
+        for tag, c in out["cases"].items()}
     bin_predict.launches = n0 + len(BIN_SHAPES) * 2
-    ctx["timing_bin_predict"] = timing
-    out["timing"] = timing
-    out["nvidia_smi"] = ctx.get("smi")
-    emit(out)
+    emit({"phase": "bin_predict", "shapes": list(out["cases"]),
+          "nvidia_smi": ctx.get("smi")})
 
 
 def _dataset(ctx):
@@ -2143,29 +2221,52 @@ def replay_shapes(replays) -> dict:
                for tag, i in pick.items()}}
 
 
+#: spin kernels (a million cycles each) that open profiled_tree's window
+OPEN_SPINS = 16
+
+
 def profiled_tree(learner, grads, bag, names) -> dict:
     """Grow one more tree with ``learner`` (past its first, so its passes
     replay CUDA graphs) under torch.profiler, and check that the device ran
     each kernel of ``names`` as often as the learner's counts say it was
     launched in that tree: the launches a graph replay is credited with,
-    read back from the device's own records.  The window opens and closes
-    with a spin kernel (the profiler has missed a window's first records on
-    the H100)."""
+    read back from the device's own records.  On the H100 the profiler
+    drops the kernels that start in a window's first 0.5 to 2.5 ms: an
+    opening spin kernel in every window, however long it spins, and in
+    some full runs also the tree's root histogram after a spin of a
+    million cycles (PERF.md, section 6).  So the window opens with
+    ``OPEN_SPINS`` spins of a million cycles (and closes with one) and
+    reads the tree only where the last opening spins were kept, which
+    shows that the drop ended before the tree began; else the window is
+    taken again with twice the spins, up to three times."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
     from lightgbm_tpu_torch import native
 
-    calls0 = dict(learner.kernel_calls)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1_000_000)
-        learner.grow(*grads, bag)
-        torch.cuda._sleep(1_000_000)
+    windows, spins = [], OPEN_SPINS
+    for _ in range(3):
+        calls0 = dict(learner.kernel_calls)
         torch.cuda.synchronize()
-    ran = [e.name for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(spins):
+                torch.cuda._sleep(1_000_000)
+            learner.grow(*grads, bag)
+            torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+        ran = [e.name for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        kept = next((i for i, k in enumerate(ran) if "spin" not in k),
+                    len(ran))
+        windows.append({"opening_spins": spins, "kept": kept,
+                        "records": len(ran)})
+        if kept:
+            ran = ran[kept:]
+            break
+        spins *= 2
     sym = native.KERNEL_SYMBOLS
     device = {n: sum(1 for k in ran if re.search(
         rf"(^|::){sym[n]}(<[^>]*>)?\(", k)) for n in names}
@@ -2173,12 +2274,20 @@ def profiled_tree(learner, grads, bag, names) -> dict:
     stats = learner.tree_stats[-1]
     check(stats["graph_launches"] == stats["passes"] > 0,
           f"the profiled tree did not replay its passes as graphs: {stats}")
+    other = Counter(k[:80] for k in ran if not any(re.search(
+        rf"(^|::){sym[n]}(<[^>]*>)?\(", k) for n in names))
+    # where a record went: a kernel's name in a form the pattern misses,
+    # or the window's head lost past its opening spins (the first records)
+    near = [k[:120] for k in other if any(sym[n] in k for n in names)]
     check(device == counted and all(counted.values()),
           f"kernels the device ran in a graphed tree {device} != the "
-          f"launches the learner counted {counted}")
+          f"launches the learner counted {counted} ({len(ran)} records; "
+          f"windows {windows}; the first {[k[:60] for k in ran[:4]]}; "
+          f"named like a checked kernel {near}; the others "
+          f"{other.most_common(6)})")
     return {"device_kernels": device, "counted_launches": counted,
             "graph_launches": stats["graph_launches"],
-            "kernel_records": len(ran)}
+            "kernel_records": len(ran), "windows": windows}
 
 
 def wave_counters() -> dict:
@@ -4834,8 +4943,9 @@ def kernels_line(ctx) -> dict:
         "bin_predict": "codes bitwise equal to the plain version on the "
                        "card and to bin_host at 100,000 rows: 28 features "
                        "at 255 and 1,023 bins, the Expo-shaped categorical "
-                       "rows, bounds rows past 6,144 searched in global "
-                       "memory "
+                       "rows, a 9,999-bound row searched in global memory, "
+                       "137 features in two groups; and at 11,000,000 "
+                       "rows x 28 features "
                        "(NaN, +-inf, -0.0, every bound and its ulp "
                        "neighbours, unseen, negative and fractional "
                        "categories); two launches bitwise"}

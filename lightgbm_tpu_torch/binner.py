@@ -28,9 +28,11 @@ maps to the NaN bin (numerical, missing type NaN), to ``OOV_BIN``
 
 Two binners share the arrays.  ``bin_host`` (numpy) bins on the host.
 ``bin_device`` bins a raw matrix on a torch device over the arrays uploaded
-once per device (``device_arrays``): on a CUDA tensor ``bin_predict``
-launches the hand-written Hopper kernel ``csrc/bin_predict.cu`` (design and
-bound in its header), on a CPU tensor it runs ``bin_plain``, a batched
+once per device (``device_arrays``, which pads each bounds row with ``+inf``
+to a power of two and adds its Eytzinger layout, the kernel's search tree):
+on a CUDA tensor ``bin_predict`` launches the hand-written Hopper kernel
+``csrc/bin_predict.cu`` (design and bound in its header) as ``bin_plan``
+lays it out, on a CPU tensor it runs ``bin_plain``, a batched
 ``torch.searchsorted`` and a gather.  All three give the same codes, bit for
 bit.  A categorical value is truncated toward zero (``-0.5`` is category 0)
 and kept only inside ``[0, cat_max]``: the rule of the host binner's int64
@@ -44,7 +46,8 @@ agree (``tests/test_torch_binner.py`` holds all four on such values).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Sequence
+from functools import lru_cache
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,15 +64,44 @@ M_COL, M_MISSING, M_NAN_BIN, M_IS_CAT, M_CAT_MAX = range(5)
 
 class DeviceArrays(NamedTuple):
     """The binning arrays on one device: ``meta`` (fu, 5) int32 (see
-    ``M_*``), ``bounds`` (fu, B) float64, ``cat_lut`` (fu, C) int32, the
-    used and padded feature counts and the least column count of a raw
-    matrix."""
+    ``M_*``), ``bounds`` (fu, W) float64 sorted rows padded with ``+inf``
+    to ``W = tree_width(B)``, ``tree`` (fu, W) the same rows in Eytzinger
+    order (``eytzinger``), ``cat_lut`` (fu, C) int32, the used and padded
+    feature counts, the least column count of a raw matrix, the used
+    columns in feature order and ``B``, the bounds a row before the
+    padding."""
     meta: torch.Tensor
     bounds: torch.Tensor
+    tree: torch.Tensor
     cat_lut: torch.Tensor
     fu: int
     f_pad: int
     min_cols: int
+    cols: Tuple[int, ...]
+    num_bounds: int
+
+
+def tree_width(b: int) -> int:
+    """The row width ``W`` of the kernel's search tree for ``b`` bounds: the
+    least power of two with ``W - 1 >= b`` (a perfect tree of ``W - 1``
+    nodes; node 0 is unused)."""
+    return 1 << max(int(b), 1).bit_length()
+
+
+def eytzinger(rows: np.ndarray) -> np.ndarray:
+    """The (R, W) rows (``W`` a power of two) in Eytzinger order: node ``i``
+    in ``[2^l, 2^(l+1))``, the ``(i - 2^l)``-th node of level ``l`` of the
+    perfect search tree over the first ``W - 1`` entries, holds entry
+    ``(2 (i - 2^l) + 1) 2^(L-1-l) - 1``; node 0 holds entry ``W - 1``
+    (unused).  Over sorted rows the descent ``i = 2i + (t[i] < v)``, ``L``
+    times from ``i = 1``, ends at ``2^L`` plus the count of entries below
+    ``v``."""
+    w = rows.shape[1]
+    depth = w.bit_length() - 1
+    node = np.arange(1, w)
+    level = np.floor(np.log2(node)).astype(np.int64)
+    idx = (2 * (node - (1 << level)) + 1) * (1 << (depth - 1 - level)) - 1
+    return np.ascontiguousarray(rows[:, np.concatenate([[w - 1], idx])])
 
 
 class BinnerArrays:
@@ -175,7 +207,9 @@ class BinnerArrays:
         return out
 
     def device_arrays(self, device) -> DeviceArrays:
-        """The arrays on ``device``, uploaded once per device and cached."""
+        """The arrays on ``device``, uploaded once per device and cached;
+        the bounds rows padded with ``+inf`` to ``tree_width(B)``, and the
+        same rows in Eytzinger order, the kernel's search trees."""
         key = str(torch.device(device))
         arrs = self._dev.get(key)
         if arrs is None:
@@ -187,10 +221,14 @@ class BinnerArrays:
             meta[:, M_NAN_BIN] = self.nan_bin
             meta[:, M_IS_CAT] = self.is_cat
             meta[:, M_CAT_MAX] = self.cat_max
+            b = self.bounds.shape[1]
+            bounds = np.full((rows, tree_width(b)), np.inf)
+            bounds[:, :b] = self.bounds
+            cols = tuple(int(c) for c in self.used_feature_map[:fu])
             arrs = DeviceArrays(
                 *(torch.from_numpy(a).to(device) for a in (
-                    meta, self.bounds, self.cat_lut)), fu, self.f_pad,
-                int(meta[:fu, M_COL].max()) + 1 if fu else 0)
+                    meta, bounds, eytzinger(bounds), self.cat_lut)),
+                fu, self.f_pad, max(cols) + 1 if fu else 0, cols, b)
             self._dev[key] = arrs
         return arrs
 
@@ -229,36 +267,232 @@ def bin_plain(x: torch.Tensor, a: DeviceArrays) -> torch.Tensor:
     return out
 
 
+#: dynamic shared memory a block may take: the H100's 232,448 bytes less
+#: the kernel's static mbarriers (2 x 8 x 8 bytes)
+SMEM_LIMIT = 232_448 - 128
+#: a bounds row is staged in shared memory up to this size (W <= 8,192:
+#: every max_bin up to 8,191); a wider row would leave a group one or two
+#: features, each tile read once for them, and is searched in global memory
+STAGE_ROW_BYTES = 65_536
+#: the size of one row tile aimed at (whole tasks of CHUNK rows), the most
+#: rows of a tile, the row-tile buffers (a third took 1% less at 11,000,000
+#: rows)
+TILE_BYTES = 65_536
+MAX_TILE_ROWS = 1024
+STAGES = 2
+#: row tiles a block must walk for whole rows to be staged: a block's
+#: first copy is a wait the ring does not hide (at 100,000 x 28, three
+#: tiles a block, the strided reads took 9% less; at 1,023 bins, six tiles
+#: a block of two groups, the row tiles 17% less; at 11,000,000 rows 13%)
+ROW_TILES = 4
+#: rows of one task of the kernel: one feature over 32 lanes x the 4 rows
+#: a lane bins at once (csrc/bin_predict.cu's kU); a multiple of 128 rows
+#: keeps a tile's start on the matrix's 16-byte alignment
+CHUNK = 128
+#: shared-memory bytes of one feature's metadata row
+META_BYTES = 5 * 4
+
+
+class BinPlan(NamedTuple):
+    """How ``csrc/bin_predict.cu`` bins an (n, ldx) matrix (``bin_plan``):
+    read whole row tiles (``rows``) or the used columns strided; bounds rows
+    staged in shared memory (``staged``) or searched in global memory;
+    ``group`` used features per group (the last group also writes the
+    padding features), ``groups`` of them; ``tiles`` row tiles of
+    ``tile_rows`` rows, ``stages`` tile buffers of ``stage_doubles``
+    doubles; ``stripes`` blocks per group, ``grid`` blocks; ``smem``
+    dynamic shared-memory bytes a block; ``moved_bytes`` what the
+    blocks ask of the L2 and device memory (row tiles once per group, each
+    block's staged bounds, the codes) against ``bound_bytes``, what the
+    function must move (``chip_smoke.py:_bin_bytes``)."""
+    fu: int
+    f_pad: int
+    n: int
+    rows: bool
+    staged: bool
+    group: int
+    groups: int
+    tile_rows: int
+    tiles: int
+    stages: int
+    stage_doubles: int
+    stripes: int
+    grid: int
+    smem: int
+    moved_bytes: int
+    bound_bytes: int
+
+    def features(self, g: int) -> range:
+        """The features group ``g`` writes."""
+        k0 = g * self.group
+        k1 = self.f_pad if g == self.groups - 1 \
+            else min(self.fu, k0 + self.group)
+        return range(k0, k1)
+
+    def stripe_tiles(self, s: int) -> range:
+        """The row tiles the blocks of stripe ``s`` walk."""
+        return range(s, self.tiles, self.stripes)
+
+    def tile(self, t: int) -> Tuple[int, int]:
+        """The rows ``[r0, r1)`` of tile ``t``."""
+        r0 = t * self.tile_rows
+        return r0, min(self.n, r0 + self.tile_rows)
+
+
+@lru_cache(maxsize=256)
+def _sector_bytes(cols: Tuple[int, ...], ldx: int) -> float:
+    """Mean bytes of the 32-byte sectors a row's used columns lie in, over
+    the offsets modulo 32 bytes that the row starts take (8-byte aligned)."""
+    c = np.asarray(cols, dtype=np.int64)
+    offs = {(r * ldx) % 4 for r in range(4)}
+    return 32.0 * sum(len(np.unique((c + o) // 4)) for o in offs) / len(offs)
+
+
+@lru_cache(maxsize=1024)
+def bin_plan(fu: int, b: int, ldx: int, n: int, *, f_pad: int, ncat: int,
+             cols: Optional[Tuple[int, ...]] = None, aligned: bool = True,
+             sms: int = 132) -> BinPlan:
+    """The layout of one ``bin_predict`` launch over ``fu`` used features
+    (of ``f_pad``) with ``b`` bounds a row (search rows of ``tree_width(b)``)
+    and category tables of ``ncat`` entries, on an (n, ldx) matrix whose used
+    columns are ``cols`` (default ``0 .. fu - 1``) and which starts on a
+    16-byte boundary where ``aligned``, on a card of ``sms`` SMs.  The only
+    place these numbers are decided.
+
+    * Whole rows are read when the matrix is ``aligned`` (the bulk copies
+      need it), their bytes do not exceed the sectors that hold the used
+      columns (``_sector_bytes``), two tile buffers of a task's ``CHUNK``
+      rows fit beside a bounds row, and a block walks ``ROW_TILES`` tiles or
+      more; otherwise the used columns are read strided.
+    * A bounds row is staged when its search row's bytes are at most
+      ``STAGE_ROW_BYTES``.  A group is the most used features whose staged
+      rows and metadata fit beside two tile buffers; a request of fewer
+      tiles than the card has blocks spreads its features over more groups.
+      The tile ring then takes ``STAGES`` buffers, fewer where a stripe
+      walks fewer tiles.
+    * ``stripes`` blocks per group, at most one per tile."""
+    if n < 0 or ldx < 1 or fu < 0 or f_pad < max(fu, 1) or b < 0:
+        raise ValueError(f"bad shape: n={n}, ldx={ldx}, fu={fu}, "
+                         f"f_pad={f_pad}, b={b}")
+    cols = tuple(range(fu)) if cols is None else tuple(cols)
+    nb = tree_width(b)
+    staged = nb * 8 <= STAGE_ROW_BYTES
+    per_feature = (nb * 8 if staged else 0) + META_BYTES
+    row_bytes = ldx * 8
+    room = SMEM_LIMIT - 15          # smem is rounded up to 16 bytes
+    blocks = sms                    # one block an SM
+    fu_g = max(fu, 1)
+
+    def layout(rows: bool):
+        """(tile rows, buffer doubles, tiles, groups, group, stripes) of a
+        read mode, or None where two buffers of a task's rows leave no
+        room: the fewest groups beside two such buffers, then the tiles
+        sized to what the group leaves, in whole tasks."""
+        least = 2 * (CHUNK * ldx + 1) * 8 if rows else 0
+        if least + per_feature > room:
+            return None
+        gmax = max(1, (room - least) // per_feature)
+        groups = -(-fu_g // gmax)
+        group = -(-fu_g // groups)
+        stage_doubles = 0
+        if rows:
+            fit = (room - group * per_feature) // (2 * row_bytes) - 1
+            tr = min(MAX_TILE_ROWS, -(-max(n, 1) // CHUNK) * CHUNK,
+                     max(CHUNK, min(fit, TILE_BYTES // row_bytes)
+                         // CHUNK * CHUNK))
+            stage_doubles = (tr * ldx + 1) // 2 * 2
+        else:                       # a task's rows: the blocks balance
+            tr = CHUNK
+        tiles = -(-n // tr)
+        if 0 < tiles < blocks:
+            groups = max(groups, min(fu_g, blocks // tiles))
+        group = -(-fu_g // groups)
+        groups = -(-fu_g // group)
+        stripes = max(1, min(tiles, blocks // groups))
+        return tr, stage_doubles, tiles, groups, group, stripes
+
+    # no used feature: nothing to read; whole rows where they cost no more
+    # than the used columns' sectors and a block walks enough tiles to
+    # amortize the wait for its first copy
+    lay = layout(True) if fu > 0 and aligned \
+        and row_bytes <= _sector_bytes(cols, ldx) else None
+    rows = lay is not None and lay[2] >= ROW_TILES * lay[5]
+    if not rows:
+        lay = layout(False)
+    tr, stage_doubles, tiles, groups, group, stripes = lay
+    stages = min(STAGES, (room - group * per_feature) // (stage_doubles * 8),
+                 -(-tiles // stripes)) if rows else 0
+    grid = groups * stripes if tiles else 0
+    smem = -(-(stages * stage_doubles * 8 + group * per_feature) // 16) * 16
+
+    # what the blocks ask for: each group reads its input once (whole rows,
+    # or its own columns' sectors), each block its staged rows and metadata
+    reads = 0.0
+    for g in range(groups):
+        ks = range(g * group, min(fu, (g + 1) * group))
+        if rows:
+            reads += n * row_bytes
+        elif len(ks):
+            reads += n * _sector_bytes(cols[ks.start:ks.stop], ldx)
+        reads += stripes * len(ks) * per_feature
+    if not staged:
+        reads += fu * nb * 8
+    moved = reads + fu * ncat * 4 + f_pad * n * 4
+    # the bound reads the tables at their own width, without the padding
+    bound = n * fu * 8 + fu_g * (META_BYTES + b * 8 + ncat * 4) \
+        + f_pad * n * 4
+    return BinPlan(fu, f_pad, n, rows, staged, group, groups, tr, tiles,
+                   stages, stage_doubles, stripes, grid, smem, int(moved),
+                   int(bound))
+
+
 _LIB = None
+_SMS: Dict[int, int] = {}
 
 
 def _lib():
     global _LIB
     if _LIB is None:
         lib = native.load("bin_predict")
-        lib.lgbt_bin_predict.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.lgbt_bin_predict.argtypes = [P, L, L, I, I, P, P, I, P, L, P, I,
+                                         I, I, I, I, I, I, L, L, P]
         lib.lgbt_bin_predict.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def plan_for(x: torch.Tensor, a: DeviceArrays) -> BinPlan:
+    """``bin_plan`` for the matrix ``x`` over the arrays ``a`` on ``x``'s
+    card."""
+    dev = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return bin_plan(a.fu, a.num_bounds, x.shape[1], x.shape[0],
+                    f_pad=a.f_pad, ncat=a.cat_lut.shape[1], cols=a.cols,
+                    aligned=x.data_ptr() % 16 == 0, sms=_SMS[dev])
 
 
 def bin_predict(x: torch.Tensor, a: DeviceArrays) -> torch.Tensor:
     """(f_pad, n) int32 predict codes of the (n, F_total) float64 raw
     matrix ``x`` over the device arrays ``a`` (on ``x``'s device).  A CPU
     tensor takes ``bin_plain``; a CUDA tensor launches
-    ``csrc/bin_predict.cu`` (counted in ``bin_predict.launches``) or
-    raises."""
+    ``csrc/bin_predict.cu`` as ``plan_for(x, a)`` lays it out, counted in
+    ``bin_predict.launches``, or raises."""
     if x.device.type == "cpu" and a.meta.device.type == "cpu":
         return bin_plain(x, a)
     dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in a[:3]):
+    if dev.type != "cuda" or any(t.device != dev for t in a[:4]):
         raise ValueError("x and the binning arrays must lie on one CUDA "
                          "device")
     if x.dim() != 2 or x.dtype != torch.float64 or not x.is_contiguous():
         raise ValueError("x must be a contiguous 2-D float64 tensor")
+    if not all(t.is_contiguous() for t in a[:4]):
+        raise ValueError("the binning arrays must be contiguous")
+    if x.data_ptr() % 8:
+        raise ValueError("x must be 8-byte aligned: the kernel reads whole "
+                         "doubles")
     n, ldx = x.shape
     if n >= 2 ** 31 or a.f_pad < 1:
         raise ValueError(f"need n < 2^31 and f_pad >= 1, got n={n}, "
@@ -269,10 +503,13 @@ def bin_predict(x: torch.Tensor, a: DeviceArrays) -> torch.Tensor:
     out = torch.empty((a.f_pad, n), dtype=torch.int32, device=dev)
     if n == 0:
         return out
+    p = plan_for(x, a)
     stream = torch.cuda.current_stream(dev).cuda_stream
     native.launch("bin_predict", _lib().lgbt_bin_predict, x, ldx, n, a.fu,
-                  a.f_pad, a.meta, a.bounds, a.bounds.shape[1], a.cat_lut,
-                  a.cat_lut.shape[1], out, stream)
+                  a.f_pad, a.meta, a.tree, a.bounds.shape[1], a.cat_lut,
+                  a.cat_lut.shape[1], out, int(p.rows), int(p.staged),
+                  p.group, p.groups, p.stripes, p.tile_rows, p.stages,
+                  p.stage_doubles, p.smem, stream)
     bin_predict.launches += 1
     return out
 

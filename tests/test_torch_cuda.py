@@ -1228,34 +1228,115 @@ def test_goss_selection_on_card_bitwise_to_cpu(cuda_device, kind, k):
     assert int(cpu[0].sum()) > top_k
 
 
+def _bin_check(arrs, a, x, xs):
+    """The kernel's codes of the card matrix ``x`` (host copy ``xs``):
+    bitwise equal to the plain version on the card and to ``bin_host``,
+    one launch counted, one kernel node per call."""
+    from lightgbm_tpu_torch.binner import bin_plain, bin_predict
+
+    n0 = bin_predict.launches
+    got = bin_predict(x, a)
+    assert bin_predict.launches == n0 + 1
+    assert torch.equal(got, bin_plain(x, a))
+    assert torch.equal(got.cpu(), torch.from_numpy(arrs.bin_host(xs)))
+    assert _device_ops(lambda: bin_predict(x, a)) == ["kernel"]
+    return got
+
+
 @pytest.mark.parametrize("tag,max_bin", [
     ("higgs_255", 255), ("expo_categorical", 255), ("higgs_1023", 1023),
-    ("global_bounds_10000", 10000)])
+    ("global_bounds_10000", 10000), ("higgs_11m", 255), ("ms_ltr_137", 255)])
 def test_bin_predict_kernel_bitwise_to_plain(cuda_device, tag, max_bin):
-    """The predict binner at chip_smoke.py's shapes (100,000 rows; NaN,
-    +-inf, -0.0, every bound and its ulp neighbours; unseen, negative and
-    fractional categories; a bounds row staged in shared memory and one
-    searched in global memory): the kernel bitwise equal to the plain
-    version on the card and to ``bin_host``, one kernel per call, and the
-    predictor's path through it."""
+    """The predict binner at chip_smoke.py's shapes (100,000 rows, and
+    11,000,000 for the whole Higgs set; NaN, +-inf, -0.0, every bound and
+    its ulp neighbours; unseen, negative and fractional categories; a
+    bounds row searched in global memory; two feature groups at 137
+    features): the kernel bitwise equal to the plain version on the card
+    and to ``bin_host``, one kernel per call, and the predictor's path
+    through it; then 1 row, 37 rows and a tile and one row."""
     import chip_smoke as cs
-    from lightgbm_tpu_torch.binner import (BinnerArrays, bin_plain,
-                                           bin_predict)
+    from lightgbm_tpu_torch.binner import BinnerArrays, bin_plain, plan_for
     from lightgbm_tpu_torch.dataset import upload
 
     data, Xp, _ = cs.bin_predict_case(tag, max_bin)
     arrs = BinnerArrays.for_data(data)
     a = arrs.device_arrays(cuda_device)
     x = upload(Xp, cuda_device)
-    n0 = bin_predict.launches
-    got = bin_predict(x, a)
-    assert bin_predict.launches == n0 + 1
-    assert torch.equal(got, bin_plain(x, a))
-    assert torch.equal(got.cpu(), torch.from_numpy(arrs.bin_host(Xp)))
+    _bin_check(arrs, a, x, Xp)
+    if tag == "ms_ltr_137":
+        assert plan_for(x, a).groups == 2
+    if tag == "global_bounds_10000":
+        assert not plan_for(x, a).staged
     # a few rows: one partial tile, and a matrix passed as numpy
     assert torch.equal(arrs.bin_device(Xp[:37], cuda_device),
                        bin_plain(x[:37].contiguous(), a))
-    assert _device_ops(lambda: bin_predict(x, a)) == ["kernel"]
+    tile = plan_for(x, a).tile_rows
+    for n in (1, tile + 1):
+        _bin_check(arrs, a, x[:n].contiguous(), Xp[:n])
+
+
+def test_bin_predict_reads_a_wider_matrix(cuda_device):
+    """A matrix with more columns than the model reads, the unused columns
+    between the used ones: 28 of 41 columns (whole rows read; 400,001
+    rows, so the last tile is one row of 41 doubles, whose odd last double
+    the bulk copy cannot take), and 4 of 201 (the used columns read
+    strided); each also from row 1 (8 bytes past a 16-byte boundary: read
+    strided) and, for 41 columns, from row 2 (aligned: whole rows again,
+    an odd last tile of 127 rows)."""
+    from lightgbm_tpu_torch.binner import BinnerArrays, plan_for
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import _ConstructedDataset, upload
+
+    rng = np.random.RandomState(21)
+    # whole rows need four row tiles a block (binner.py:ROW_TILES)
+    for ldx, used, n, want_rows in (
+            (41, [c for c in range(41) if c % 10 not in (3, 7, 9)][:28],
+             400_001, True),
+            (201, [3, 53, 103, 153], 50_001, False)):
+        train = np.zeros((5000, ldx))
+        train[:, used] = rng.randn(5000, len(used))
+        train[::13, used[1]] = np.nan
+        data = _ConstructedDataset.from_matrix(
+            train, Config.from_params({"max_bin": 255, "verbosity": -1,
+                                       "enable_bundle": False}))
+        assert list(data.used_feature_map) == used
+        arrs = BinnerArrays.for_data(data)
+        a = arrs.device_arrays(cuda_device)
+        Xp = rng.randn(n, ldx) * 3.0
+        Xp[::17, used[0]] = np.nan
+        Xp[::19, used[2]] = np.inf
+        x = upload(Xp, cuda_device)
+        p = plan_for(x, a)
+        assert p.rows == want_rows
+        _bin_check(arrs, a, x, Xp)
+        assert x[1:].data_ptr() % 16 == 8 and not plan_for(x[1:], a).rows
+        _bin_check(arrs, a, x[1:], Xp[1:])
+        if want_rows:
+            assert x[2:].data_ptr() % 16 == 0 and plan_for(x[2:], a).rows
+            _bin_check(arrs, a, x[2:], Xp[2:])
+
+
+def test_bin_predict_categorical_mix_at_137_features(cuda_device):
+    """MS LTR's width with every tenth feature categorical (two feature
+    groups, category tables probed beside searched rows), also from an odd
+    row offset of the 137-column matrix (8 bytes past a 16-byte boundary),
+    at 1 row and a tile and one row."""
+    import chip_smoke as cs
+    from lightgbm_tpu_torch.binner import BinnerArrays, plan_for
+    from lightgbm_tpu_torch.dataset import upload
+
+    data, Xp, _ = cs.bin_predict_case("ms_ltr_137_cat", 255)
+    arrs = BinnerArrays.for_data(data)
+    assert arrs.is_cat.sum() == 14
+    a = arrs.device_arrays(cuda_device)
+    x = upload(Xp, cuda_device)
+    assert plan_for(x, a).groups == 2
+    _bin_check(arrs, a, x, Xp)
+    assert x[1:].data_ptr() % 16 == 8
+    _bin_check(arrs, a, x[1:], Xp[1:])
+    tile = plan_for(x, a).tile_rows
+    for n in (1, tile + 1):
+        _bin_check(arrs, a, x[:n].contiguous(), Xp[:n])
 
 
 def test_bin_predict_wrapper_rejects_what_the_kernel_does_not_take(
