@@ -191,6 +191,27 @@ line and each raising (exit code 1) on any failure:
              the same call on the CPU; the model saved to text and reloaded
              (a bin schema rebuilt from the text) within 1e-9; rows per second
              with device binning, the upload, binning and traversal times
+  serve      the prediction server on the card for the wave_train model
+             (Booster.serve: 32- to 1,024-row buckets, one CUDA graph of
+             bin_predict + the traversal captured per bucket at warmup,
+             deadline 2 ms, tracing on): 8 client threads for 10 s, requests
+             of 1 to 1,024 held-out rows (one in ten with NaN values and a
+             NaN row), a second model (3 trees, num_leaves=63) swapped in
+             over the wire halfway; every response within rtol = atol =
+             1e-6 of the host trees and of Booster.predict(raw_score=True)
+             of the model that served it; no fallback, error or shed; 6
+             compile-cache misses per model version, 6 graphs throughout,
+             graph replays equal to the batches, no eager batch;
+             bin_predict launches equal to the warmup's eager runs plus the
+             replays; the report valid, the metrics page rendered; each
+             bucket's replay bitwise equal to bin_predict + the traversal
+             run eagerly on the card and to bin_plain + the traversal,
+             for both models; qps, rows/s, client and server latency
+             percentiles (the clients are threads of this process, beside
+             the server's), stage means, occupancy, each bucket's replay
+             and eager ms (the wave model), and bin_predict at 32, 37 and
+             1,024 rows over the wave model's arrays (wrapper, alone,
+             device, plain, torch.searchsorted, bound)
   cli        the bench's 1M training and 100,000 held-out rows written as
              CSV (repr floats, eight spawned writers), 5 iterations of the
              default config through lightgbm_tpu_torch.cli.main (the wave
@@ -326,7 +347,7 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "wave_tree", "masked_tree", "opening_tree", "categorical_tree",
           "train", "wave_train", "wave_pipelined", "quant_train",
           "constrained_train", "masked_train", "forced_train", "predict",
-          "cli", "small", "multiclass_train",
+          "serve", "cli", "small", "multiclass_train",
           "objectives_train", "rank_train", "categorical_train",
           "categorical_2047", "wave_4095", "goss_train", "dart_train",
           "rf_train", "surface", "timing")
@@ -2223,6 +2244,8 @@ def replay_shapes(replays) -> dict:
 
 #: spin kernels (a million cycles each) that open profiled_tree's window
 OPEN_SPINS = 16
+#: the windows profiled_tree may take, each opening with twice the spins
+PROFILE_WINDOWS = 5
 
 
 def profiled_tree(learner, grads, bag, names) -> dict:
@@ -2238,7 +2261,8 @@ def profiled_tree(learner, grads, bag, names) -> dict:
     ``OPEN_SPINS`` spins of a million cycles (and closes with one) and
     reads the tree only where the last opening spins were kept, which
     shows that the drop ended before the tree began; else the window is
-    taken again with twice the spins, up to three times."""
+    taken again with twice the spins, up to ``PROFILE_WINDOWS`` windows
+    (16 to 256 spins: full runs have dropped all of 32)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -2246,7 +2270,7 @@ def profiled_tree(learner, grads, bag, names) -> dict:
     from lightgbm_tpu_torch import native
 
     windows, spins = [], OPEN_SPINS
-    for _ in range(3):
+    for _ in range(PROFILE_WINDOWS):
         calls0 = dict(learner.kernel_calls)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2962,6 +2986,217 @@ def phase_predict(ctx) -> None:
                          "same_frozen_rows": True},
           "text_loaded_vs_trained_max_diff": ldiff,
           "nvidia_smi": ctx.get("smi")})
+
+
+#: the serve phase's row ladder, clients and traffic seconds
+SERVE_MIN, SERVE_MAX, SERVE_CLIENTS, SERVE_SECONDS = 32, 1024, 8, 10.0
+
+
+def _serve_traffic(port: int, Xv, seconds: float, swap_text: str, seed: int):
+    """``SERVE_CLIENTS`` client threads sending predicts of 1 to
+    ``SERVE_MAX`` held-out rows (one request in ten with 20% of its values
+    NaN and its first row all NaN) for ``seconds``; halfway through, one
+    more client swaps ``swap_text`` in over the wire.  Returns every
+    request's (sent, answered, rows, scores), the swap's (start, end) and
+    the errors."""
+    import threading
+
+    from lightgbm_tpu_torch.serving import ServingClient
+
+    records, errors, lock = [], [], threading.Lock()
+    t_end = time.perf_counter() + seconds
+
+    def client(i: int) -> None:
+        rng = np.random.RandomState(seed + i)
+        try:
+            with ServingClient("127.0.0.1", port, timeout=60) as c:
+                while time.perf_counter() < t_end:
+                    X = Xv[rng.randint(0, len(Xv), rng.randint(1, SERVE_MAX
+                                                               + 1))]
+                    if rng.rand() < 0.1:
+                        X = X.copy()
+                        X[rng.rand(*X.shape) < 0.2] = np.nan
+                        X[0] = np.nan
+                    t0 = time.perf_counter()
+                    got = c.predict(X, raw_score=True)
+                    with lock:
+                        records.append((t0, time.perf_counter(), X, got))
+        except Exception as e:             # reported, then raised below
+            with lock:
+                errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(seconds / 2)
+    with ServingClient("127.0.0.1", port, timeout=120) as c:
+        s0 = time.perf_counter()
+        version = c.swap(swap_text)
+        swap = (s0, time.perf_counter(), version)
+    for t in threads:
+        t.join(seconds + 120)
+        check(not t.is_alive(), "a serve client did not finish")
+    return records, swap, errors
+
+
+def phase_serve(ctx) -> None:
+    """The prediction server on the card: warm one CUDA graph per bucket,
+    serve client threads, swap a second model in mid-traffic, check every
+    response against the host trees and every replay against the eager
+    path."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.binner import bin_plain, bin_predict
+    from lightgbm_tpu_torch.observability import validate_report
+    from lightgbm_tpu_torch.serving import ServingClient
+    from lightgbm_tpu_torch.serving.batcher import bucket_ladder
+
+    bst = _wave_booster(ctx)
+    ds, _ = _dataset(ctx)
+    Xv = ctx["Xv"]
+    dev = torch.device("cuda", 0)
+    bst2 = lt.train(dict(WAVE_PARAMS, num_leaves=63), ds, 3,
+                    verbose_eval=False)
+    buckets = bucket_ladder(SERVE_MIN, SERVE_MAX)
+    # the main path: counts zeroed, the server started (warmup: one eager
+    # run and one capture per bucket), traffic, the swap's warmup
+    bin_predict.launches = 0
+    t0 = time.perf_counter()
+    server = bst.serve(port=0, max_batch_rows=SERVE_MAX,
+                       min_bucket=SERVE_MIN, deadline_ms=2.0, trace=True)
+    start_s = time.perf_counter() - t0
+    try:
+        m1 = server.registry.get()
+        check(m1.device == dev and m1.jit_entries() == len(buckets)
+              and m1.replays == len(buckets) + 1 and m1.eager_batches == 0,
+              f"warmup: {m1.jit_entries()} graphs, {m1.replays} replays")
+        t0 = time.perf_counter()
+        records, swap, errors = _serve_traffic(
+            server.port, Xv, SERVE_SECONDS, bst2.model_to_string(), 16)
+        traffic_s = time.perf_counter() - t0
+        check(not errors, f"serve clients failed: {errors[:3]}")
+        with ServingClient("127.0.0.1", server.port) as c:
+            rep = c.stats()
+            text = c.metrics()
+            health = c.health()
+        m2 = server.registry.get()
+        entries = server.registry.jit_entries()
+    finally:
+        server.stop()
+    launches = {"bin_predict": bin_predict.launches}
+    ctx["launches_serve"] = launches
+    srv = rep["serving"]
+    check(swap[2] == 2 and m2 is not m1 and m2.version == 2,
+          f"swap: version {swap[2]}")
+    check(srv["fallback_batches"] == 0 and srv["errors"] == 0
+          and srv["shed"] == 0, f"fallbacks {srv['fallback_batches']}, "
+          f"errors {srv['errors']}, sheds {srv['shed']}")
+    check(srv["compile_cache"]["misses"] == 2 * len(buckets),
+          f"compile-cache misses {srv['compile_cache']} for 2 versions of "
+          f"{len(buckets)} buckets")
+    check(entries == m1.jit_entries() == m2.jit_entries() == len(buckets)
+          and srv["compile_cache"]["jit_entries"] == len(buckets),
+          f"graphs after the traffic: {entries}")
+    replays = m1.replays + m2.replays - 2 * (len(buckets) + 1)
+    check(replays == srv["batches"] and m1.eager_batches == 0
+          and m2.eager_batches == 0,
+          f"{replays} graph replays for {srv['batches']} batches")
+    check(launches["bin_predict"] == 2 * len(buckets) + m1.replays
+          + m2.replays, f"bin_predict launches {launches}")
+    check(validate_report(rep) == [], f"report: {validate_report(rep)[:3]}")
+    check("lgbt_serving_requests_total" in text
+          and "lgbt_serving_request_latency_seconds_bucket" in text,
+          "the metrics page did not render")
+    check(health["ready"] and not health["shedding"], f"health {health}")
+    check(srv["requests"] == len(records), f"{srv['requests']} requests "
+          f"served, {len(records)} answered")
+    # every response against the host trees and Booster.predict of the
+    # model that served it (either one for a request during the swap)
+    before = [r for r in records if r[1] < swap[0]]
+    after = [r for r in records if r[0] > swap[1]]
+    during = [r for r in records if r[1] >= swap[0] and r[0] <= swap[1]]
+    worst = 0.0
+    for group, models in ((before, [(m1, bst)]), (after, [(m2, bst2)]),
+                          (during, [(m1, bst), (m2, bst2)])):
+        if not group:
+            continue
+        X = np.concatenate([r[2] for r in group])
+        got = np.concatenate([r[3] for r in group])
+        refs = [(m.host_raw(X), b.predict(X, raw_score=True))
+                for m, b in models]
+        ofs = 0
+        for r in group:
+            n = len(r[2])
+            g = got[ofs:ofs + n]
+            fits = [np.allclose(g, h[ofs:ofs + n], rtol=1e-6, atol=1e-6)
+                    and np.allclose(g, p[ofs:ofs + n], rtol=1e-6, atol=1e-6)
+                    for h, p in refs]
+            diff = min(float(np.abs(g - h[ofs:ofs + n]).max())
+                       for h, _ in refs)
+            check(any(fits), f"a response of {n} rows differs from the "
+                  f"host trees of the model that served it by {diff}")
+            worst = max(worst, diff)
+            ofs += n
+    check(before and after, f"{len(before)} requests before the swap, "
+          f"{len(after)} after")
+    # each bucket's replay of both models bitwise against the eager path on
+    # the card and against bin_plain + the traversal; the bench model's
+    # replay and eager ms
+    flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rng = np.random.RandomState(3)
+    per_bucket = {}
+    for b in buckets:
+        Xpad = Xv[rng.randint(0, len(Xv), b)]
+        Xpad[rng.rand(*Xpad.shape) < 0.05] = np.nan
+        for m in (m1, m2):
+            got = m.predict_padded(np.ascontiguousarray(Xpad), b)
+            x = torch.from_numpy(Xpad).to(dev)
+            eager = m.predictor.predict_binned(bin_predict(x, m.dev_arrays))
+            plain = m.predictor.predict_binned(bin_plain(x, m.dev_arrays))
+            check(np.array_equal(got, eager[0].cpu().numpy())
+                  and np.array_equal(got, plain[0].cpu().numpy()),
+                  f"bucket {b}, version {m.version}: the graph replay "
+                  f"differs from the eager path")
+        g = m1._graphs[b]
+        per_bucket[str(b)] = {
+            "replay_ms": cuda_ms(g.graph.replay, 20, flush),
+            "eager_ms": cuda_ms(lambda: m1._run(g.x), 20, flush),
+            "batches": srv["buckets"].get(str(b), 0)}
+    # bin_predict at the serve path's small shapes over the bench model's
+    # arrays (255 bins), the predict shape's 37-row cut among them
+    a = m1.dev_arrays
+    bins = {}
+    for n in (SERVE_MIN, 37, SERVE_MAX):
+        x = torch.from_numpy(np.ascontiguousarray(Xv[:n])).to(dev)
+        bins[str(n)] = dict(_time_bin_predict(x, a, flush), device_ms=(
+            _device_ms(lambda: bin_predict(x, a), "bin_predict_rows",
+                       spins=OPEN_SPINS, reps=50)))
+    ctx["timing_serve_bin"] = bins
+    lat = np.array([r[1] - r[0] for r in records]) * 1e3
+    rows = sum(len(r[2]) for r in records)
+    stage = {k: v["total_ms"] / max(v["count"], 1)
+             for k, v in srv["stage_ms"].items()}
+    emit({"phase": "serve", "nvidia_smi": ctx.get("smi"),
+          "buckets": buckets, "clients": SERVE_CLIENTS,
+          "start_s": start_s, "traffic_s": traffic_s,
+          "requests": len(records), "rows": rows,
+          "qps": len(records) / traffic_s, "rows_per_s": rows / traffic_s,
+          "client_latency_ms": {f"p{q}": float(np.percentile(lat, q))
+                                for q in (50, 95, 99)},
+          "server_latency_ms": srv["latency_ms"],
+          "stage_mean_ms": stage, "batches": srv["batches"],
+          "batch_occupancy": srv["batch_occupancy"],
+          "bucket_batches": srv["buckets"],
+          "swap": {"version": swap[2], "s": swap[1] - swap[0],
+                   "requests_before": len(before),
+                   "requests_during": len(during),
+                   "requests_after": len(after)},
+          "vs_host_max_diff": worst, "graphs": entries,
+          "graph_replays": replays, "kernel_launches": launches,
+          "fallback_batches": 0, "errors": 0, "shed": 0,
+          "per_bucket": per_bucket,
+          "bin_predict": bins,
+          "provenance": rep["provenance"]})
 
 
 def _csv_part(args) -> str:
@@ -4687,13 +4922,14 @@ def _events_ms(fn) -> float:
     return e0.elapsed_time(e1)
 
 
-def _device_ms(fn, symbol: str) -> float:
+def _device_ms(fn, symbol: str, spins: int = 1, reps: int = 1) -> float:
     """Mean device time in ms of the kernels named ``symbol`` that ``fn``
-    launches, from torch.profiler's kernel records: no host launch time in
-    it, which a kernel of a few microseconds timed by events carries.  A
-    spin kernel opens the window (the profiler has missed a window's first
-    record on the H100); a window with no record is taken again, twice,
-    then None.  ``fn`` must be safe to call again."""
+    launches (called ``reps`` times), from torch.profiler's kernel
+    records: no host launch time in it, which a kernel of a few
+    microseconds timed by events carries.  ``spins`` spin kernels of a
+    million cycles open the window (the profiler drops the kernels of a
+    window's first milliseconds on the H100); a window with no record is
+    taken again, twice, then None.  ``fn`` must be safe to call again."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -4701,8 +4937,10 @@ def _device_ms(fn, symbol: str) -> float:
     for _ in range(3):          # a window the profiler kept no record of
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1_000_000)
-            fn()
+            for _ in range(spins):
+                torch.cuda._sleep(1_000_000)
+            for _ in range(reps):
+                fn()
             torch.cuda.synchronize()
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
@@ -4988,6 +5226,8 @@ def kernels_line(ctx) -> dict:
                         "launches_rank", {}).get(name),
                     "launches_categorical_train": ctx.get(
                         "launches_cat", {}).get(name),
+                    "launches_serve": ctx.get("launches_serve",
+                                              {}).get(name),
                     "launches_constrained_train": {
                         run: c.get(name) for run, c in
                         ctx.get("launches_con", {}).items()},
@@ -5008,6 +5248,7 @@ def kernels_line(ctx) -> dict:
             out[-1]["B2047"] = row["B2047"]
             out[-1]["ported_from"] = "an XLA lax.scan, not a pallas_call"
         if name == "bin_predict":
+            out[-1]["shapes_serve"] = ctx.get("timing_serve_bin")
             out[-1]["device_ms"] = row["device_ms"]
             out[-1]["upload_ms"] = row["upload_ms"]
             out[-1]["ported_from"] = "a jitted XLA function, not a " \
@@ -5051,7 +5292,7 @@ def main() -> int:
     emit({"phase_seconds": seconds})
     if all(p in phases for p in ("wave_train", "quant_train", "masked_train",
                                  "categorical_train", "bin_predict",
-                                 "predict", "timing")):
+                                 "predict", "serve", "timing")):
         emit(kernels_line(ctx))
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,11 +16,15 @@ over the file.  The tasks:
                             (`gbdt.cpp` RefitTree)
   * ``task=convert_model``  model text -> C++ if-else source
                             (`gbdt_model_text.cpp` SaveModelToIfElse)
+  * ``task=serve``          the prediction server over ``input_model``
+                            (``serving/``; ``telemetry_out``,
+                            ``trace_out``, ``stats_out``, ``fault_spec``)
 
 Like every entry point of the port, the CLI runs on the CUDA card unless
-``device_type=cpu``.  ``task=serve`` and the telemetry, trace, snapshot,
-resume and fault-injection keys are not ported: they raise
-``NotImplementedError`` naming their ROADMAP.md Queue A item.
+``device_type=cpu``.  The serving fleet (``serve_replicas != 0``) and, on
+the other tasks, the telemetry, trace, snapshot, resume and
+fault-injection keys are not ported: they raise ``NotImplementedError``
+naming their ROADMAP.md Queue A item.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .config import (OBSERVE, SERVING, Config, not_ported,
+from .config import (OBSERVE, Config, check_serving_supported, not_ported,
                      parse_config_file, resolve_aliases)
 
 
@@ -152,7 +156,55 @@ def run_convert_model(params: Dict[str, str], cfg: Config) -> None:
 
 
 def run_serve(params: Dict[str, str], cfg: Config) -> None:
-    raise not_ported("task=serve (the prediction server)", SERVING)
+    """``task=serve``: the micro-batched prediction server over a saved
+    model (``serving/``), on the card unless ``device_type=cpu``.  Blocks
+    until a client sends ``shutdown`` or the process receives SIGINT;
+    ``telemetry_out`` writes the serving report on exit, ``stats_out`` /
+    ``stats_interval`` write periodic atomic schema-validated snapshots of
+    it, ``trace_out`` the request spans as Chrome trace-event JSON, and
+    ``fault_spec`` arms fault points (JAX ``cli.py:182-290``, without the
+    fleet, which is not ported)."""
+    from .engine import Booster
+
+    if not cfg.input_model:
+        raise ValueError("task=serve requires input_model")
+    if cfg.fault_spec:
+        from .reliability import faults
+        faults.arm(cfg.fault_spec)
+    booster = Booster(model_file=cfg.input_model, params=dict(params))
+    server = booster.serve(
+        host=cfg.serve_host, port=cfg.serve_port,
+        max_batch_rows=cfg.serve_max_batch_rows,
+        deadline_ms=cfg.serve_deadline_ms,
+        min_bucket=cfg.serve_min_bucket, warmup=cfg.serve_warmup,
+        max_inflight=cfg.serve_max_inflight,
+        telemetry_out=cfg.telemetry_out,
+        trace_out=cfg.trace_out, trace_capacity=cfg.trace_capacity,
+        stats_out=cfg.serve_stats_out,
+        stats_interval_s=cfg.serve_stats_interval,
+        record_rows=cfg.lifecycle_record_rows,
+        slo_p99_ms=cfg.serve_slo_p99_ms,
+        slo_target=cfg.serve_slo_target)
+    _log(f"Serving {cfg.input_model} at {server.host}:{server.port} "
+         f"(buckets {server.buckets}, deadline "
+         f"{cfg.serve_deadline_ms} ms)")
+    if cfg.serve_stats_out:
+        _log(f"Stats snapshots every {cfg.serve_stats_interval:g}s to "
+             f"{cfg.serve_stats_out}")
+    if cfg.lifecycle_record_rows > 0:
+        _log(f"Recording the newest {cfg.lifecycle_record_rows} request "
+             f"rows")
+    try:
+        server.wait()
+    except KeyboardInterrupt:
+        _log("Interrupted, shutting down")
+    finally:
+        server.stop()
+    if cfg.telemetry_out:
+        _log(f"Serving telemetry report written to {cfg.telemetry_out}")
+    if cfg.trace_out:
+        _log(f"Serving trace written to {cfg.trace_out}")
+    _log("Finished serving")
 
 
 _TASKS = {"train": run_train, "refit_tree": run_refit, "refit": run_refit,
@@ -165,12 +217,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     params = _load_params(argv)
     cfg = Config.from_params(params)
-    if cfg.telemetry or cfg.telemetry_out or cfg.trace_out \
-            or cfg.profile_trace_dir or cfg.snapshot_freq > 0 or cfg.resume \
-            or cfg.fault_spec:
-        raise not_ported("telemetry, tracing, snapshots, resume and fault "
-                         "injection", OBSERVE)
     task = _TASKS.get(cfg.task)
+    if task is run_serve:
+        check_serving_supported(cfg)
+    elif cfg.telemetry or cfg.telemetry_out or cfg.trace_out \
+            or cfg.profile_trace_dir or cfg.snapshot_freq > 0 or cfg.resume \
+            or cfg.fault_spec or cfg.serve_stats_out:
+        raise not_ported("telemetry, tracing, snapshots, resume and fault "
+                         "injection in training", OBSERVE)
     if task is None:
         print(f"[lightgbm_tpu_torch] [Fatal] Unknown task: {cfg.task}",
               file=sys.stderr)

@@ -875,9 +875,22 @@ OBSERVE = "reliability and training observability"
 SERVING = "serving and lifecycle"
 
 
+def check_serving_supported(cfg: Config) -> None:
+    """Raise ``NotImplementedError`` for every setting of a prediction
+    server (``task=serve``, ``Booster.serve``) the port does not run.  A
+    server reads the ``serve_*`` keys and takes ``telemetry_out``,
+    ``trace_out``, ``trace_capacity``, ``stats_out`` and ``fault_spec``,
+    which training refuses (``check_supported``)."""
+    if cfg.serve_replicas != 0:
+        raise not_ported(f"serve_replicas={cfg.serve_replicas} (the "
+                         f"serving fleet)", SERVING)
+    if cfg.autopilot:
+        raise not_ported("autopilot (the serving lifecycle)", SERVING)
+
+
 def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for every setting this slice does not
-    run, so none of them is silently ignored."""
+    """Raise ``NotImplementedError`` for every training setting this slice
+    does not run, so none of them is silently ignored."""
     if cfg.tree_learner != "serial" or cfg.num_machines > 1 \
             or cfg.num_hosts > 1 or cfg.elastic:
         raise not_ported(f"tree_learner={cfg.tree_learner} and multi-host "
@@ -887,6 +900,6 @@ def check_supported(cfg: Config) -> None:
                          f"masked; got {cfg.tpu_learner!r}")
     if cfg.telemetry or cfg.trace_out or cfg.profile_trace_dir \
             or cfg.telemetry_out or cfg.snapshot_freq > 0 or cfg.resume \
-            or cfg.fault_spec:
+            or cfg.fault_spec or cfg.serve_stats_out:
         raise not_ported("telemetry, tracing, snapshots, resume and fault "
-                         "injection", OBSERVE)
+                         "injection in training", OBSERVE)

@@ -8,8 +8,8 @@ mean in lockstep; and ``Booster`` training, prediction ((n,) or (n, K) for
 K classes, leaf indices, TreeSHAP contributions through ``contrib.py``),
 model text, ``dump_model``, ``rollback_one_iter``, ``refit`` and
 ``refit_file`` and pickling, for every objective of the JAX package's table
-and every boosting variant (``boosting/__init__.py``).  Serving
-(``to_server``, ``serve``) is not ported and raises.  The device comes from
+and every boosting variant (``boosting/__init__.py``), and the prediction
+server (``to_server``, ``serve``: ``serving/``).  The device comes from
 ``device_type`` (``config.resolve_device``): the CUDA card unless the params
 ask for the CPU.
 """
@@ -25,8 +25,8 @@ import numpy as np
 from . import callback as callback_mod
 from .boosting import create_boosting
 from .boosting.gbdt import GBDT, rebind_tree_to_dataset
-from .config import OBSERVE, SERVING, Config, check_supported, not_ported, \
-    resolve_device
+from .config import (OBSERVE, SERVING, Config, check_serving_supported,
+                     check_supported, not_ported, resolve_device)
 from .dataset import Dataset, recode_pandas
 from .metrics import create_metric
 from .objectives import create_objective
@@ -257,12 +257,38 @@ class Booster:
         return self.gbdt.feature_importance(importance_type, iteration)
 
     def to_server(self, replicas: int = 0, **kwargs):
-        """Not ported: the JAX package's prediction server."""
-        raise not_ported("Booster.to_server (prediction serving)", SERVING)
+        """An UNSTARTED ``serving.PredictionServer`` with this booster
+        registered as the ``default`` model, serving on the booster's
+        device (JAX ``engine.py:321-339``).  Keyword args are forwarded
+        (host/port/max_batch_rows/deadline_ms/min_bucket/warmup/
+        max_inflight/telemetry_out, trace/trace_out/trace_capacity/
+        stats_out/stats_interval_s, record_rows, slo_p99_ms/slo_target).
+        The booster's params may carry ``telemetry_out``, ``trace_out``,
+        ``trace_capacity``, ``stats_out`` and ``fault_spec`` (armed here),
+        as ``task=serve``'s do; keyword args win.  ``replicas`` other than
+        0 asks for the serving fleet, which is not ported."""
+        if replicas:
+            raise not_ported(f"to_server(replicas={replicas}) (the serving "
+                             f"fleet)", SERVING)
+        cfg = self.cfg
+        check_serving_supported(cfg)
+        for key, value in (("telemetry_out", cfg.telemetry_out),
+                           ("trace_out", cfg.trace_out),
+                           ("stats_out", cfg.serve_stats_out)):
+            if value:
+                kwargs.setdefault(key, value)
+        kwargs.setdefault("trace_capacity", cfg.trace_capacity)
+        if cfg.fault_spec:
+            from .reliability import faults
+            faults.arm(cfg.fault_spec)
+        from .serving import PredictionServer
+
+        return PredictionServer(booster=self, **kwargs)
 
     def serve(self, **kwargs):
-        """Not ported: the JAX package's prediction server."""
-        raise not_ported("Booster.serve (prediction serving)", SERVING)
+        """Start serving this booster over a socket; returns the running
+        server (``.host``/``.port``/``.stop()``)."""
+        return self.to_server(**kwargs).start()
 
     def feature_name(self) -> List[str]:
         return list(self.gbdt.feature_names)

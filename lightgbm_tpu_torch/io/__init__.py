@@ -1,1 +1,2 @@
-"""Text data loading for the port (``parser.py``)."""
+"""Text data loading (``parser.py``) and the serving RPC's framing
+(``net.py``)."""

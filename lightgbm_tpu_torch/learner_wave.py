@@ -135,6 +135,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import native
 from .binning import MISSING_NAN, MISSING_ZERO
 from .config import Config
 from .dataset import _ConstructedDataset, _round_up
@@ -186,14 +187,6 @@ PLAIN_KERNELS = WaveKernels(build_histogram_packed_plain,
                             fused_child_scans_plain,
                             replay_pass_plain,
                             categorical_candidates_plain)
-
-#: the kernel wrappers whose launch counts a graph replay adds to
-_COUNTED = tuple((fn, attr) for fn in (
-    build_histogram_packed, build_histogram_segments, apply_partition,
-    find_best_splits_batched, build_histogram_multislot, fused_child_scans,
-    replay_pass, categorical_candidates)
-    for attr in ("launches", "quant_launches", "con_launches")
-    if hasattr(fn, attr))
 
 # rows of the per-member parameter table the decide pass gathers from
 (P_WIDX, P_SHIFT, P_MT, P_DB, P_NB, P_BOFF, P_BND, P_THR, P_DLEFT, P_LSLOT,
@@ -938,8 +931,7 @@ class WaveTreeLearner(CompactTreeLearner):
         self.graph_launches += 1
         for name, d in calls.items():
             self.kernel_calls[name] += d
-        for (fn_, attr), d in zip(_COUNTED, launches):
-            setattr(fn_, attr, getattr(fn_, attr) + d)
+        native.credit(launches)
 
     def _capture(self, fn: Callable[[], None]) -> tuple:
         """Capture ``fn`` as a CUDA graph in the learner's memory pool (the
@@ -948,22 +940,16 @@ class WaveTreeLearner(CompactTreeLearner):
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         calls0 = dict(self.kernel_calls)
-        launches0 = [getattr(f, a) for f, a in _COUNTED]
         graph = torch.cuda.CUDAGraph()
         try:
             # relaxed: a library call that queries the device while the
             # pass is recorded (torch.histc sizes its kernel from the free
             # memory) is allowed; a read of the capturing stream still fails
-            with torch.cuda.graph(graph, pool=self._graph_pool,
-                                  capture_error_mode="relaxed"):
-                fn()
+            _, launches = native.capture(graph, fn, self._graph_pool,
+                                         "relaxed")
         finally:
             calls = {k: self.kernel_calls[k] - v for k, v in calls0.items()}
-            launches = [getattr(f, a) - v
-                        for (f, a), v in zip(_COUNTED, launches0)]
             self.kernel_calls.update(calls0)
-            for (f, a), v in zip(_COUNTED, launches0):
-                setattr(f, a, v)
         self.graph_captures += 1
         return graph, calls, launches
 

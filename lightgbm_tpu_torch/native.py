@@ -11,6 +11,11 @@ inside ``staging()`` each launch is also kept as a ``Replay``, which calls
 the C entry point again on the same buffers with no torch work around it
 (``chip_smoke.py`` times a kernel alone that way).
 
+Every wrapper counts its launches through ``count``.  A CUDA graph captured
+with ``capture`` runs nothing: the launches its capture makes go to the
+capture's own tally, which ``credit`` adds to the wrappers' counters once
+per replay.
+
 Host libraries (``csrc/<name>.cpp``: the text parser) are C++ for the CPU,
 not kernels: ``load_host`` compiles one with ``g++`` (or ``$CXX``) into
 ``_build/lib<name>-<hash>.so`` at first use, on any machine with a C++
@@ -25,6 +30,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -171,6 +177,49 @@ def launch(what: str, fn, *args) -> None:
     if _STAGED is not None:
         _STAGED.append(Replay(what, fn, raw, tuple(
             a for a in args if isinstance(a, torch.Tensor))))
+
+
+#: guards the wrappers' launch counters: a server's batch thread credits its
+#: graphs' replays while other threads launch
+_COUNT_LOCK = threading.Lock()
+#: ``.tally`` is the launch tally of the capture this thread is making
+_CAPTURING = threading.local()
+
+
+def count(fn, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` launches of the wrapper ``fn`` to ``fn.<attr>``, or to the
+    tally of the graph this thread is capturing (``capture``)."""
+    if not n:
+        return
+    tally = getattr(_CAPTURING, "tally", None)
+    if tally is not None:
+        tally[fn, attr] = tally.get((fn, attr), 0) + n
+        return
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
+def capture(graph: "torch.cuda.CUDAGraph", fn, pool, mode: str):
+    """Capture ``fn()`` into ``graph`` in the memory pool ``pool`` with
+    ``capture_error_mode=mode``; returns ``fn``'s result and the wrapper
+    launches one replay makes, ``{(wrapper, counter): n}``.  A pass that
+    cannot be captured raises."""
+    prev = getattr(_CAPTURING, "tally", None)
+    _CAPTURING.tally = tally = {}
+    try:
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
+            out = fn()
+    finally:
+        _CAPTURING.tally = prev
+    return out, tally
+
+
+def credit(tally: Dict) -> None:
+    """Add one replay's launches (a ``capture`` tally) to the wrappers'
+    counters."""
+    with _COUNT_LOCK:
+        for (fn, attr), n in tally.items():
+            setattr(fn, attr, getattr(fn, attr) + n)
 
 
 @contextmanager

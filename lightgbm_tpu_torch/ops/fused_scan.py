@@ -181,7 +181,7 @@ def fused_child_scans(h_small: torch.Tensor, pool: torch.Tensor,
                   int(max_delta_step > 0.0), float(min_data_in_leaf),
                   float(min_sum_hessian_in_leaf), float(min_gain_to_split),
                   planes, dleft, stream)
-    fused_child_scans.launches += 1
+    native.count(fused_child_scans)
     if fused_child_scans.shapes is not None \
             and not torch.cuda.is_current_stream_capturing():
         fused_child_scans.shapes.append(k)

@@ -148,7 +148,7 @@ def build_histogram_full(bins: torch.Tensor, w: torch.Tensor, *,
                   bins.element_size(), w, w.stride(0), f, n, num_bins,
                   plan.tile, plan.nchunks, plan.chunk, act, act + 4 * act_n,
                   act + 4 * (act_n + part_n), out, stream)
-    build_histogram_full.launches += 1
+    native.count(build_histogram_full)
     return out
 
 

@@ -176,8 +176,8 @@ def build_histogram_multislot(words: torch.Tensor, w: torch.Tensor,
                   slot, n, fw, n_slots, num_bins, int(quant), plan.lanes,
                   plan.nchunks, plan.chunk, partial, partial + 4 * part_n,
                   out, stream)
-    build_histogram_multislot.launches += 1
-    build_histogram_multislot.quant_launches += int(quant)
+    native.count(build_histogram_multislot)
+    native.count(build_histogram_multislot, "quant_launches", int(quant))
     if build_histogram_multislot.shapes is not None \
             and not torch.cuda.is_current_stream_capturing():
         build_histogram_multislot.shapes.append((n_slots, slot))

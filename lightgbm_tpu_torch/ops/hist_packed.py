@@ -206,8 +206,8 @@ def build_histogram_packed(words: torch.Tensor, w: torch.Tensor, *,
                   words.stride(0), w, w.stride(0), fw, s, num_bins,
                   int(quant), plan.lanes, plan.nchunks, plan.chunk,
                   partial, partial + 4 * part_n, out, stream)
-    build_histogram_packed.launches += 1
-    build_histogram_packed.quant_launches += int(quant)
+    native.count(build_histogram_packed)
+    native.count(build_histogram_packed, "quant_launches", int(quant))
     return out
 
 

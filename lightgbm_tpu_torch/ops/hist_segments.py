@@ -185,8 +185,8 @@ def build_histogram_segments(words: torch.Tensor, w: torch.Tensor,
     native.launch("hist_segments", _lib().lgbt_hist_segments, words, w, lid,
                   n, fw, s64, c64, l64, k, num_bins, int(quant), grid,
                   partial, seg, out, stream)
-    build_histogram_segments.launches += 1
-    build_histogram_segments.quant_launches += int(quant)
+    native.count(build_histogram_segments)
+    native.count(build_histogram_segments, "quant_launches", int(quant))
     if build_histogram_segments.shapes is not None \
             and not torch.cuda.is_current_stream_capturing():
         build_histogram_segments.shapes.append((cnt, rows_bound))

@@ -116,7 +116,7 @@ def apply_partition(bins: torch.Tensor, w: torch.Tensor, rid: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     native.launch("partition", _lib().lgbt_partition, bins, fw, w, rid, lid,
                   dest, n, bo, wo, ro, lo, stream)
-    apply_partition.launches += 1
+    native.count(apply_partition)
     return bo, wo, ro, lo
 
 

@@ -227,7 +227,7 @@ def replay_pass(gain: torch.Tensor, split: torch.Tensor,
                   mvalid, budget, stall_batch, extras_cap, int(vec_cap),
                   int(pad_slot), plan.cap, int(plan.list_smem),
                   int(plan.tab_smem), plan.smem, scratch, stream)
-    replay_pass.launches += 1
+    native.count(replay_pass)
 
 
 replay_pass.launches = 0

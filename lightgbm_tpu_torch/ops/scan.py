@@ -156,8 +156,8 @@ def find_best_splits_batched(hist: torch.Tensor, sum_gradients: torch.Tensor,
                   int(max_delta_step > 0.0), float(min_data_in_leaf),
                   float(min_sum_hessian_in_leaf), float(min_gain_to_split),
                   *bounds, mono, pen, planes, dleft, stream)
-    find_best_splits_batched.launches += 1
-    find_best_splits_batched.con_launches += int(con)
+    native.count(find_best_splits_batched)
+    native.count(find_best_splits_batched, "con_launches", int(con))
     if find_best_splits_batched.shapes is not None \
             and not torch.cuda.is_current_stream_capturing():
         find_best_splits_batched.shapes.append(k)

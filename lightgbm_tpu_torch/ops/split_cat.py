@@ -437,9 +437,9 @@ def categorical_candidates(cands: SplitCandidates, bits: torch.Tensor,
                   int(max_cat_to_onehot), float(min_data_per_group),
                   *con, pen, *fields, bits, plan.threads, plan.cap,
                   plan.tcap, plan.smem, stream)
-    categorical_candidates.launches += 1
-    categorical_candidates.con_launches += int(
-        min_constraint is not None or pen is not None)
+    native.count(categorical_candidates)
+    native.count(categorical_candidates, "con_launches", int(
+        min_constraint is not None or pen is not None))
     if categorical_candidates.shapes is not None \
             and not torch.cuda.is_current_stream_capturing():
         categorical_candidates.shapes.append(k)

@@ -5,8 +5,8 @@ validation file) trains through both CLIs in this process: the model files
 must be equal, and ``task=predict`` outputs of the two agree within 1e-6;
 ``task=refit`` and ``task=convert_model`` write equal files.  The conf runs
 the masked learner, whose JAX programs compile in a few seconds.  The
-argument parser takes what the JAX package's takes.  ``task=serve`` and the
-telemetry keys raise their named errors.  One subprocess runs
+argument parser takes what the JAX package's takes.  The serving fleet and
+the telemetry keys of the training tasks raise their named errors.  One subprocess runs
 ``python -m lightgbm_tpu_torch`` on the CPU and loads no JAX module.
 """
 
@@ -134,9 +134,12 @@ def test_argument_parsing_equals_jax(workdir, argv):
 
 
 def test_serve_and_telemetry_raise_named_errors(workdir):
+    """``task=serve`` runs (``tests/test_torch_serving.py``); the fleet it
+    would serve through with ``serve_replicas`` does not, nor do the
+    telemetry keys on the other tasks."""
     with pytest.raises(NotImplementedError, match="serving and lifecycle"):
         cli.main(["task=serve", "input_model=" + str(workdir / "port.txt"),
-                  "device_type=cpu"])
+                  "serve_replicas=2", "device_type=cpu"])
     with pytest.raises(NotImplementedError,
                        match="reliability and training observability"):
         cli.main(["config=" + str(workdir / "train.conf"),

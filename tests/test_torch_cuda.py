@@ -1353,3 +1353,165 @@ def test_bin_predict_wrapper_rejects_what_the_kernel_does_not_take(
         bin_predict(x[:, :3].contiguous(), a)
     with pytest.raises(ValueError, match="one CUDA device"):
         bin_predict(x.cpu(), a)
+
+
+# -- the prediction server's device path (serving/registry.py) ---------------
+
+SERVE_BUCKETS = [32, 64, 128, 256, 512, 1024]
+_SERVE = {}
+
+
+def _serve_rows(rng, n):
+    """Rows of a 5-feature problem whose column 1 is categorical, with NaN,
+    unseen, negative and fractional categories and +-inf."""
+    X = np.column_stack([rng.randn(n), rng.randint(-3, 25, n).astype(float),
+                         rng.randn(n) * 10, rng.randn(n),
+                         np.where(rng.rand(n) < 0.4, 0.0, rng.randn(n))])
+    X[::11, 0] = np.nan
+    X[::5, 1] = np.nan
+    X[3, 1] = 7.9
+    X[7, 2], X[9, 3] = np.inf, -np.inf
+    return X
+
+
+def _served(dev):
+    """A booster trained on the card (8 trees, 31 leaves) and a registry
+    holding it warmed over the 32 to 1,024-row ladder."""
+    from lightgbm_tpu_torch.serving import ModelRegistry
+
+    if "reg" not in _SERVE:
+        rng = np.random.RandomState(5)
+        X = _serve_rows(rng, 5000)
+        X[X[:, 1] < 0, 1] = 0.0
+        X[X[:, 1] > 11, 1] = 11.0
+        y = (np.nan_to_num(X[:, 0]) + (X[:, 1] % 3 == 1) > 0.5).astype(float)
+        bst = lt.train({"objective": "binary", "num_leaves": 31,
+                        "verbosity": -1, "min_data_in_leaf": 5},
+                       lt.Dataset(X, label=y, categorical_feature=[1]), 8,
+                       verbose_eval=False)
+        assert bst.gbdt.device == dev
+        reg = ModelRegistry(warm_buckets=SERVE_BUCKETS)
+        reg.load(booster=bst)
+        _SERVE.update(bst=bst, reg=reg, X=_serve_rows(rng, 1024))
+    return _SERVE["bst"], _SERVE["reg"], _SERVE["X"]
+
+
+@pytest.mark.parametrize("bucket", SERVE_BUCKETS)
+def test_serving_graph_replay_bitwise_to_eager(cuda_device, bucket):
+    """A bucket's graph replay equals bin_predict + the traversal run
+    eagerly on the card, and bin_plain + the traversal, bit for bit; one
+    bin_predict launch credited per replay; the host trees within 1e-9."""
+    from lightgbm_tpu_torch.binner import bin_plain, bin_predict
+
+    bst, reg, X = _served(cuda_device)
+    model = reg.get()
+    assert model.jit_entries() == len(SERVE_BUCKETS)
+    Xpad = np.ascontiguousarray(X[:bucket])
+    launches, replays = bin_predict.launches, model.replays
+    got = model.predict_padded(Xpad, bucket)
+    assert bin_predict.launches == launches + 1
+    assert model.replays == replays + 1 and model.eager_batches == 0
+    x = torch.from_numpy(Xpad).to(cuda_device)
+    eager = model.predictor.predict_binned(bin_predict(x, model.dev_arrays))
+    plain = model.predictor.predict_binned(bin_plain(x, model.dev_arrays))
+    assert np.array_equal(got, eager[0].cpu().numpy())
+    assert np.array_equal(got, plain[0].cpu().numpy())
+    np.testing.assert_allclose(got, model.host_raw(Xpad), rtol=1e-9,
+                               atol=1e-9)
+    m = bucket // 2 + 1
+    assert np.array_equal(model.predict_padded(Xpad, m), got[:m])
+
+
+def test_serving_requests_capture_no_graph_after_warmup(cuda_device):
+    """20 requests of mixed sizes inside the ladder through a live server:
+    the graph count and the compile-cache misses stay as warmup left them,
+    every batch a replay (none eager, none on the host)."""
+    from lightgbm_tpu_torch.serving import ServingClient
+
+    bst, _, X = _served(cuda_device)
+    server = bst.serve(port=0, max_batch_rows=1024, min_bucket=32,
+                       deadline_ms=1.0)
+    try:
+        model = server.registry.get()
+        before = (server.registry.jit_entries(), model.replays)
+        with ServingClient(server.host, server.port) as c:
+            rng = np.random.RandomState(0)
+            for n in rng.randint(1, 1025, 20):
+                got = c.predict(X[:n], raw_score=True)
+                np.testing.assert_allclose(got, model.host_raw(X[:n]),
+                                           rtol=1e-9, atol=1e-9)
+            srv = c.stats()["serving"]
+    finally:
+        server.stop()
+    assert before == (len(SERVE_BUCKETS), len(SERVE_BUCKETS) + 1)
+    assert server.registry.jit_entries() == len(SERVE_BUCKETS)
+    assert srv["compile_cache"]["misses"] == len(SERVE_BUCKETS)
+    assert srv["fallback_batches"] == 0 and srv["errors"] == 0
+    assert model.eager_batches == 0
+    assert model.replays - before[1] == srv["batches"] >= 1
+
+
+def test_serving_failed_bin_predict_build_refuses_the_swap(cuda_device,
+                                                           monkeypatch):
+    """A bin_predict library that cannot be built at prepare raises there:
+    the live version keeps serving and nothing was swapped."""
+    from lightgbm_tpu_torch import binner, native
+    from lightgbm_tpu_torch.serving import ModelRegistry
+
+    bst, _, X = _served(cuda_device)
+    reg = ModelRegistry(warm_buckets=[32, 64])
+    reg.load(booster=bst)
+    live = reg.get()
+
+    def refuse(names):
+        raise RuntimeError("nvcc refused bin_predict.cu (forced)")
+
+    monkeypatch.setattr(binner, "_LIB", None)
+    monkeypatch.delitem(native._LOADED, "bin_predict")
+    monkeypatch.setattr(native, "build_all", refuse)
+    with pytest.raises(RuntimeError, match="forced"):
+        reg.load(model_str=bst.model_to_string())
+    assert reg.get() is live and reg.versions() == {"default": 1}
+    monkeypatch.undo()
+    Xpad = np.ascontiguousarray(X[:32])
+    np.testing.assert_allclose(live.predict_padded(Xpad, 32),
+                               live.host_raw(Xpad), rtol=1e-9, atol=1e-9)
+
+
+def test_serving_device_error_fails_the_batch_and_health(cuda_device,
+                                                         monkeypatch):
+    """A real device error of a CUDA model fails the batch's requests, is
+    not re-scored on the host and makes ``health`` not ready; the injected
+    ``serve.predict.fail`` still degrades to the host, counted."""
+    from lightgbm_tpu_torch.reliability import faults
+    from lightgbm_tpu_torch.serving import ServingClient, registry
+
+    bst, _, X = _served(cuda_device)
+    server = bst.serve(port=0, max_batch_rows=64, min_bucket=32,
+                       warmup=False)
+    try:
+        model = server.registry.get()
+        with ServingClient(server.host, server.port, retries=0) as c:
+            faults.arm("serve.predict.fail:count=1")
+            np.testing.assert_allclose(
+                c.predict(X[:16], raw_score=True), model.host_raw(X[:16]),
+                rtol=1e-9, atol=1e-9)
+            faults.disarm()
+            assert c.health()["ready"]
+
+            def launch_fails(x, a):
+                raise RuntimeError("bin_predict kernel launch failed: "
+                                   "CUDA error 700 (forced)")
+
+            monkeypatch.setattr(registry, "bin_predict", launch_fails)
+            with pytest.raises(RuntimeError, match="forced"):
+                c.predict(X[:16], raw_score=True)
+            health = c.health()
+            srv = c.stats()["serving"]
+    finally:
+        faults.disarm()
+        server.stop()
+    assert not health["ready"]
+    assert "forced" in health["device_errors"]["default"]
+    assert srv["fallback_batches"] == 1 and srv["fallback_rows"] == 16
+    assert srv["errors"] >= 1
