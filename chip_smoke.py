@@ -22,7 +22,13 @@ line and each raising (exit code 1) on any failure:
              each bin's own sum of |w|, bitwise across two launches
   partition  partition kernel vs its plain version at the same width, 64
              windows with random split flags: bitwise on every lane,
-             NaN and negative-zero weight bits included
+             NaN and negative-zero weight bits included; the windowed
+             partition kernel (the compact learner's split) vs its plain
+             version at windows of 1,024 rows, 2,048 (the default sort
+             cutoff), all 1,000,000 rows and 250,001 rows from row 333,333,
+             in sort and in mask mode, for a NaN-typed numerical, a bundled
+             (EFB) and a categorical feature: every lane and the result
+             bitwise, a do = 0 split a no-op
   scan       split-scan kernel vs its plain version at K=128, F=28, B=255:
              every field exact on dyadic histograms; on random float32 every
              field bitwise equal to the plain version run on the CPU (whose
@@ -97,8 +103,10 @@ line and each raising (exit code 1) on any failure:
              and torch.searchsorted; at the first shape the kernel's
              device time and the host-to-card upload of the rows
   tree       one 255-leaf tree from dyadic gradients on 1M x 28 Higgs-shaped
-             rows, grown by the compact learner through the kernel and
-             through the plain histogram: records bitwise equal
+             rows, grown by the compact learner's device step through its
+             kernels (eagerly, then as the learner's second tree through the
+             captured step graph) and through every plain version: records,
+             counts, leaf ids and outputs bitwise equal
   wave_tree  the same tree grown by the wave learner through its kernels
              (the learner's second tree: its split passes replayed as CUDA
              graphs), by the wave learner through every plain version, and
@@ -120,12 +128,16 @@ line and each raising (exit code 1) on any failure:
              bitsets, leaf ids and leaf outputs bitwise equal
   train      lightgbm_tpu_torch.train with tpu_learner=compact at the bench
              width (1M x 28, 255 leaves, 255 bins, 5 iterations, 100,000
-             held-out rows): launch count equal to the sum over trees of
-             (1 + splits), device residency, training logloss falling every
-             iteration, held-out AUC, seconds per iteration, host syncs per
-             tree, peak device memory, Booster.predict agreeing with the
-             device-side held-out scores; the window of every hist_packed
-             launch and their distribution
+             held-out rows): 1 host sync per tree, 254 steps per tree, the
+             first tree eager and every later tree's steps graph replays,
+             launches per 5 trees: hist_packed 5 (the roots), hist_segments
+             (K = 1) and partition_window 5 x 254; device residency,
+             training logloss falling every iteration, held-out AUC,
+             seconds per iteration, peak device memory, Booster.predict
+             agreeing with the device-side held-out scores; one more tree
+             grown eagerly on the run's last gradients records every
+             windowed partition's window (sort or mask mode) and every K = 1
+             launch's rows, and their distribution
   wave_train the same with the default tpu_learner (auto -> the wave
              learner): launches per kernel (replay included; a graph replay
              counts the launches captured in it) equal to the calls the
@@ -182,7 +194,20 @@ line and each raising (exit code 1) on any failure:
              to a temporary directory: 3 iterations with the default
              learner (moved to the compact learner) at 255 bins and 3 with
              max_bin=1023 (the masked learner): every tree's first three
-             splits the forced ones, in BFS order
+             splits the forced ones, in BFS order; the compact half as
+             train's checks with 3 + 254 steps a tree
+  observe_train training observability and crash-safe resume: the wave
+             cell (1M x 28, 255 leaves, held-out set) for 4 iterations with
+             telemetry, trace_out, telemetry_sync_every=2 and
+             profile_trace_dir: the report valid against schema.json, 4
+             iterations, the sampled legs' coverage within 0.1 of 1, every
+             kernel the run launched found in the torch.profiler trace and
+             attributed to a leg (hist, scan, partition, replay), the phase
+             spans in the trace, the device counters; then for the wave and
+             the compact learner a bagged pipelined run (bagging 0.8,
+             feature_fraction 0.9) killed by train.crash:nth=3 with
+             snapshot_freq=2 and resumed: the model text equal to the
+             uninterrupted run's
   predict    DevicePredictor on the card for the wave_train model on the
              held-out rows, the raw rows uploaded and binned by the
              bin_predict kernel (one launch, bin_host never called, codes
@@ -299,14 +324,18 @@ line and each raising (exit code 1) on any failure:
              the bound; each kernel alone (``kernel_ms``: its C entry point
              called again on the buffers one wrapper call staged, no torch
              work around it); hist_segments and split_scan also at the
-             median and largest launch shape wave_train recorded; hist_full
+             median and largest launch shape wave_train recorded, and
+             hist_segments at train's median and largest K = 1 launch;
+             the windowed partition at all 1,000,000 rows (sort mode, with
+             its plain version) and at train's median and largest window in
+             the mode it ran, each with its bound (no PyTorch call computes
+             it); hist_full
              also with every weight zero, 5% of the rows weighted and the
              weighted share of masked_train's median and largest launch (a
              seeded random mask), each with its bound (the weight rows, the
              code sectors that hold a weighted row, the output) beside the
              all-rows bound; hist_packed at the full window and 65,536 rows
-             with random and with zero weights, and at train's median and
-             largest window; hist_multislot and fused_scan at the median and
+             with random and with zero weights; hist_multislot and fused_scan at the median and
              largest launch quant_train recorded (hist_multislot also at its
              median K = 1 launch, the recorded share of rows in a slot
              reproduced by seeded random slots over rows whose padding
@@ -346,7 +375,8 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "tree",
           "wave_tree", "masked_tree", "opening_tree", "categorical_tree",
           "train", "wave_train", "wave_pipelined", "quant_train",
-          "constrained_train", "masked_train", "forced_train", "predict",
+          "constrained_train", "masked_train", "forced_train",
+          "observe_train", "predict",
           "serve", "cli", "small", "multiclass_train",
           "objectives_train", "rank_train", "categorical_train",
           "categorical_2047", "wave_4095", "goss_train", "dart_train",
@@ -385,6 +415,11 @@ KERNEL_SOURCES = {
                       "lightgbm_tpu/ops/hist_pallas.py:452"),
     "partition": ("lightgbm_tpu_torch/csrc/partition.cu",
                   "lightgbm_tpu/ops/partition_pallas.py:377"),
+    # the compact learner's window split: the port of an XLA lax.sort (the
+    # partition_pallas kernel computes the wave's permutation), not of a
+    # pallas_call
+    "partition_window": ("lightgbm_tpu_torch/csrc/partition.cu",
+                         "lightgbm_tpu/learner_compact.py:265"),
     "split_scan": ("lightgbm_tpu_torch/csrc/split_scan.cu",
                    "lightgbm_tpu/ops/scan_pallas.py:185"),
     "hist_multislot": ("lightgbm_tpu_torch/csrc/hist_multislot.cu",
@@ -704,7 +739,96 @@ def phase_partition(ctx) -> None:
           "rows_moved": moved, "lanes_bitwise": list(names),
           "nan_weights": int(torch.isnan(w).sum()),
           "negative_zero_weights": int((w.view(torch.int32)
-                                        == -2 ** 31).sum())})
+                                        == -2 ** 31).sum()),
+          "windowed": windowed_partition_checks()})
+    ctx["err_partition_window"] = 0.0
+
+
+#: the windowed partition's checks: (start, count) at the compact learner's
+#: smallest window (1,024 rows), its sort cutoff (2,048: the default
+#: tpu_sort_cutoff), all 1,000,000 rows and a window at a non-zero start
+WINDOW_CASES = ((0, 1024), (4096, 2048), (0, ROWS), (333_333, 250_001))
+#: decode-table rows of the windowed checks' splits (ops/partition.py FT_*):
+#: a NaN-missing numerical feature in word 3 byte 2, a bundled (EFB) one in
+#: word 5 byte 1, a categorical one in word 6 byte 3
+WINDOW_FEATURES = ((3, 16, 2, 0, 200, 0, 0), (5, 8, 0, 7, 40, 30, 1),
+                   (6, 24, 0, 0, 256, 0, 0))
+
+
+def window_inputs(seed: int, start: int, count: int, leaf: int):
+    """Full-width random lanes (NaN and negative-zero weights, a 0/1 bag
+    lane) whose window rows are mostly leaf ``leaf`` (the rest of other
+    leaves, as a frozen window holds), a categorical bitset and the
+    decode table."""
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(seed)
+    n = N_FULL
+    bins = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1, size=(FW, n),
+                                        dtype=np.int64).astype(np.int32))
+    w = rng.randn(3, n).astype(np.float32)
+    w[0, rng.rand(n) < 0.01] = np.nan
+    w[1, rng.rand(n) < 0.01] = -0.0
+    w[2] = (rng.rand(n) < 0.8).astype(np.float32)
+    lid = rng.randint(0, 300, n).astype(np.int32)
+    inside = rng.rand(count) < 0.9
+    lid[start:start + count][inside] = leaf
+    bits = rng.randint(-2 ** 31, 2 ** 31 - 1, size=8, dtype=np.int64) \
+        .astype(np.int32)
+    t = [torch.from_numpy(a) for a in (bins.numpy(), w, np.arange(
+        n, dtype=np.int64), lid, np.asarray(WINDOW_FEATURES, np.int64),
+        bits)]
+    return [a.to(dev).contiguous() for a in t]
+
+
+def windowed_partition_checks() -> dict:
+    """The windowed partition kernel against its plain version at
+    ``WINDOW_CASES``: in sort mode and in mask mode, for each decode-table
+    feature, every lane and the result bitwise; a split with do = 0
+    changes no lane."""
+    from lightgbm_tpu_torch.ops.partition import (partition_window,
+                                                  partition_window_plain)
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for case, (start, count) in enumerate(WINDOW_CASES):
+        leaf, new = 17, 254
+        base = window_inputs(20 + case, start, count, leaf)
+        ftab, bits = base[4], base[5]
+        runs = []
+        for feat, (thr, flags) in enumerate(((99, 1), (12, 0), (0, 2))):
+            for mask_max, do in ((0, 1), (1 << 30, 1), (0, 0)):
+                split = torch.tensor([leaf, new, feat, thr, flags, do,
+                                      start, count], dtype=torch.int64,
+                                     device=dev)
+                k = [t.clone() for t in base[:4]]
+                p = [t.clone() for t in base[:4]]
+                ko = partition_window(*k, split, ftab, bits,
+                                      mask_max=mask_max)
+                po = partition_window_plain(*p, split, ftab, bits,
+                                            mask_max=mask_max)
+                tag = (f"window {start}+{count}, feature {feat}, "
+                       f"mask_max {mask_max}, do {do}")
+                check(torch.equal(ko, po), f"partition_window {tag}: result "
+                      f"{ko.tolist()} != plain {po.tolist()}")
+                for name, a, b in zip(("bins", "w_bits", "rid", "lid"),
+                                      (k[0], k[1].view(torch.int32), k[2],
+                                       k[3]),
+                                      (p[0], p[1].view(torch.int32), p[2],
+                                       p[3])):
+                    check(torch.equal(a, b), f"partition_window {tag}: lane "
+                          f"{name} differs from the plain version")
+                if not do:
+                    bits_of = (lambda t: t.view(torch.int32)
+                               if t.dtype == torch.float32 else t)
+                    check(all(torch.equal(bits_of(a), bits_of(b)) for a, b
+                              in zip(k[:4], base[:4])),
+                          f"partition_window {tag}: a do = 0 split moved "
+                          f"rows")
+                runs.append({"feature": feat, "mask_max": mask_max,
+                             "do": do, "result": ko.tolist()})
+        out[f"{start}+{count}"] = runs
+    torch.cuda.synchronize()
+    return {"cases": out, "bitwise": True}
 
 
 def scan_inputs(seed: int, dyadic: bool, k: int = SCAN_K, f: int = FEATURES,
@@ -1738,9 +1862,8 @@ def _dataset(ctx):
 
 def phase_tree(ctx) -> None:
     from lightgbm_tpu_torch.config import Config
-    from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
-    from lightgbm_tpu_torch.ops.hist_packed import (
-        build_histogram_packed, build_histogram_packed_plain)
+    from lightgbm_tpu_torch.learner_compact import (PLAIN_COMPACT,
+                                                    CompactTreeLearner)
 
     dev = torch.device("cuda", 0)
     ds, _ = _dataset(ctx)
@@ -1749,22 +1872,32 @@ def phase_tree(ctx) -> None:
     g, h, bag = dyadic_weights(np.random.RandomState(1),
                                data.num_data_padded, data.num_data, dev)
     res = {}
-    for tag, fn in (("kernel", build_histogram_packed),
-                    ("plain", build_histogram_packed_plain)):
-        learner = CompactTreeLearner(cfg, data, dev, histogram=fn)
+    kernel = CompactTreeLearner(cfg, data, dev)
+    for tag, learner in (("kernel", kernel), ("graphed", kernel),
+                         ("plain", CompactTreeLearner(
+                             cfg, data, dev, kernels=PLAIN_COMPACT))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res[tag] = learner.grow(g, h, bag)
         torch.cuda.synchronize()
         res[tag + "_s"] = time.perf_counter() - t0
-    (rk, ik, lk, _), (rp, ip, lp, _) = res["kernel"], res["plain"]
+    rk, ik, lk, ok = res["kernel"]
     splits = int((rk[:, 0] > 0.5).sum())
     check(splits > 0, "the dyadic tree did not split")
-    check(np.array_equal(rk, rp) and np.array_equal(ik, ip),
-          "tree records differ between kernel and plain histograms")
-    check(torch.equal(lk, lp), "leaf partitions differ")
+    for tag in ("graphed", "plain"):
+        r, i, lf, o = res[tag]
+        check(np.array_equal(rk, r) and np.array_equal(ik, i),
+              f"tree records differ between the kernels and {tag}")
+        check(torch.equal(lk, lf) and torch.equal(ok, o),
+              f"leaf partitions or outputs differ ({tag})")
+    stats = kernel.tree_stats
+    check(stats[1]["graph_launches"] == cfg.num_leaves - 1
+          and stats[0]["graph_launches"] == 0,
+          f"the second tree did not replay its steps as graphs: {stats}")
     emit({"phase": "tree", "splits": splits, "records_bitwise": True,
-          "grow_s_kernel": res["kernel_s"], "grow_s_plain": res["plain_s"],
+          "graphed_tree_bitwise": True, "tree_stats": stats,
+          "grow_s_kernel": res["kernel_s"],
+          "grow_s_graphed": res["graphed_s"], "grow_s_plain": res["plain_s"],
           "bin_s": ctx["bin_s"]})
 
 
@@ -2119,36 +2252,99 @@ def size_shapes(sizes, key: str, extra=None) -> dict:
                for tag, i in pick.items()}}
 
 
-def phase_train(ctx) -> None:
-    import lightgbm_tpu_torch.learner_compact as lc
-    from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+def compact_counters() -> dict:
+    """The compact learner's kernel wrappers, by kernel name."""
     from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.partition import partition_window
 
-    # every hist_packed launch's window length (a host number: no device
-    # work is added to the run)
-    windows = []
-    with recording(lc, "build_histogram_packed",
-                   lambda words, w, **kw: windows.append(
-                       int(words.shape[1]))):
-        bst, learner, grads, out = _train_run(
-            ctx, TRAIN_PARAMS, "train",
-            {"hist_packed": build_histogram_packed})
-    windows = windows[:out["kernel_launches"]["hist_packed"]]
+    return {"hist_packed": build_histogram_packed,
+            "hist_segments": build_histogram_segments,
+            "partition_window": partition_window}
+
+
+def compact_step_checks(tag, learner, trees: int, steps: int,
+                        launches) -> dict:
+    """The compact learner's device step on a run of ``trees`` trees of
+    ``steps`` steps each: one host read per tree, the first tree eager and
+    every later tree's steps graph replays, and the launch identity (a
+    root histogram per tree; a K = 1 segment histogram and a windowed
+    partition per step)."""
+    stats = learner.tree_stats[-trees:]
+    check(learner.host_syncs == trees, f"{tag}: {learner.host_syncs} host "
+          f"syncs for {trees} trees, want 1 per tree")
+    check(all(s["steps"] == steps for s in stats),
+          f"{tag}: steps per tree {[s['steps'] for s in stats]} != {steps}")
+    check(stats[0]["graph_launches"] == 0
+          and all(s["graph_launches"] == steps for s in stats[1:]),
+          f"{tag}: not every step of trees 2.. a graph replay: {stats}")
+    want = {"hist_packed": trees, "hist_segments": trees * steps,
+            "partition_window": trees * steps}
+    check(launches == want, f"{tag}: launches {launches} != {want}")
+    return {"host_syncs_per_tree": learner.host_syncs / trees,
+            "steps_per_tree": steps,
+            "graph_launches_per_tree": [s["graph_launches"] for s in stats],
+            "graph_captures": learner.graph_captures,
+            "launches_expected": want}
+
+
+def compact_shapes(learner, grads, bag) -> dict:
+    """One more tree grown eagerly on ``grads`` by a learner of the same
+    config whose kernels record every windowed partition's split and every
+    K = 1 segment launch's count: the windows of the steps that split and
+    their distribution (the parent's window: sort mode above the learner's
+    mask limit) and the child histograms' counts."""
+    from lightgbm_tpu_torch.learner_compact import (CompactKernels,
+                                                    CompactTreeLearner)
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.partition import partition_window
+
+    splits, cnts = [], []
+
+    def seg(words, w, lid, start, cnt, leaf, **kw):
+        cnts.append(cnt.clone())
+        return build_histogram_segments(words, w, lid, start, cnt, leaf,
+                                        **kw)
+
+    def part(*args, **kw):
+        splits.append(args[4].clone())
+        return partition_window(*args, **kw)
+
+    eager = CompactTreeLearner(learner.cfg, learner.data, learner.device,
+                               kernels=CompactKernels(segments=seg,
+                                                      partition=part))
+    eager.grow(*grads, bag)
+    sp = torch.stack(splits).tolist()
+    windows = [r[7] for r in sp if r[5]]
+    counts = [int(c) for c in torch.cat(cnts).tolist() if c > 0]
+    mask_max = learner._mask_max
+    return {"partition_window": size_shapes(
+                windows, "rows",
+                lambda i: {"sort_mode": windows[i] > mask_max}),
+            "hist_segments": size_shapes(counts, "rows"),
+            "mask_max": mask_max,
+            "sort_mode_windows": sum(c > mask_max for c in windows)}
+
+
+def phase_train(ctx) -> None:
+    from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+
+    bst, learner, grads, out = _train_run(ctx, TRAIN_PARAMS, "train",
+                                          compact_counters())
     check(type(learner) is CompactTreeLearner, "compact was not selected")
-    launches = out["kernel_launches"]["hist_packed"]
-    want = sum(1 + t.num_leaves - 1 for t in bst.gbdt.models)
-    check(launches == want, f"kernel launches {launches} != sum over trees "
-          f"of (1 + splits) = {want}")
+    trees = len(bst.gbdt.models)
+    out.update(compact_step_checks("train", learner, trees,
+                                   learner.num_leaves - 1,
+                                   out["kernel_launches"]))
     st = learner._init_root(*grads, bst.gbdt._bag_mask,
                             learner._all_features)
     check(st.w_p.is_cuda and st.hist_pool.is_cuda and st.bins_p.is_cuda,
           "weights or histogram pool are not on the card")
-    check(len(windows) == launches, "a hist_packed window was not recorded")
-    ctx["shapes_train"] = size_shapes(windows, "rows")
-    out["shapes"] = {"hist_packed": ctx["shapes_train"]}
-    ctx["launches_compact"] = launches
+    ctx["shapes_train"] = out["shapes"] = compact_shapes(
+        learner, grads, bst.gbdt._bag_mask)
+    ctx["launches_train"] = out["kernel_launches"]
+    ctx["launches_compact"] = out["kernel_launches"]["hist_packed"]
     ctx["auc_compact"] = out["heldout_auc"]
-    out["launches_expected"] = want
     emit(out)
 
 
@@ -2761,7 +2957,6 @@ def phase_forced_train(ctx) -> None:
     from lightgbm_tpu_torch.learner import MaskedTreeLearner
     from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
     from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
-    from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
 
     _dataset(ctx)
     out = {"phase": "forced_train"}
@@ -2770,7 +2965,7 @@ def phase_forced_train(ctx) -> None:
         want = forced_json(ctx, path)
         for tag, params, cls, counters, data in (
                 ("compact", WAVE_PARAMS, CompactTreeLearner,
-                 {"hist_packed": build_histogram_packed}, None),
+                 compact_counters(), None),
                 ("masked", MASKED_PARAMS, MaskedTreeLearner,
                  {"hist_full": build_histogram_full},
                  _dataset_masked(ctx))):
@@ -2801,8 +2996,132 @@ def phase_forced_train(ctx) -> None:
                       f"{tag}: a tree's first splits {got} are not the "
                       f"forced {want}")
             run["first_splits_per_tree"] = firsts
+            if tag == "compact":
+                # the forced steps come before the num_leaves - 1 others
+                ctx["launches_forced_compact"] = run["kernel_launches"]
+                run.update(compact_step_checks(
+                    "forced_train/compact", learner, 3,
+                    len(want) + learner.num_leaves - 1,
+                    run["kernel_launches"]))
             out[tag] = run
     out["forced"] = want
+    emit(out)
+
+
+OBSERVE_ITERS = 4
+
+
+def phase_observe_train(ctx) -> None:
+    """Training observability and crash-safe resume on the card: the wave
+    cell (held-out set) for OBSERVE_ITERS iterations with telemetry,
+    trace_out, telemetry_sync_every=2 and profile_trace_dir (the report
+    schema-valid, the sampled legs covering the synced iteration within
+    0.1, every kernel the run launched in the profile and attributed to a
+    leg, the wave learner's counters); then, per learner (wave, compact),
+    a bagged pipelined run killed by train.crash:nth=3 with
+    snapshot_freq=2 and resumed: model text equal to the uninterrupted
+    run's."""
+    import os
+    import tempfile
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.native import KERNEL_SYMBOLS
+    from lightgbm_tpu_torch.observability import load_schema, validate_report
+    from lightgbm_tpu_torch.reliability import faults
+    from lightgbm_tpu_torch.reliability.resume import list_snapshots
+
+    ds, dv = _dataset(ctx)
+    out = {"phase": "observe_train"}
+    with tempfile.TemporaryDirectory() as tmp:
+        params = dict(WAVE_PARAMS, telemetry=True, telemetry_sync_every=2,
+                      trace_out=f"{tmp}/trace.json",
+                      telemetry_out=f"{tmp}/report.json",
+                      profile_trace_dir=f"{tmp}/prof")
+        counters = wave_counters()
+        for fn in counters.values():             # counts of the main path
+            fn.launches = 0
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, OBSERVE_ITERS, valid_sets=[dv],
+                       valid_names=["heldout"], verbose_eval=False)
+        train_s = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        with open(f"{tmp}/report.json") as fh:
+            rep = json.load(fh)
+        errs = validate_report(rep, load_schema())
+        check(not errs, f"observe_train: the report breaks the schema: "
+              f"{errs[:5]}")
+        check(rep["iterations"]["count"] == OBSERVE_ITERS,
+              f"observe_train: {rep['iterations']['count']} iterations")
+        table = rep["distributed"]["attribution"]
+        check(abs(1.0 - table["coverage"]) <= 0.1,
+              f"observe_train: attribution coverage {table['coverage']}")
+        prof = rep["distributed"]["profile"]
+        check(prof is not None and prof["device_events"],
+              "observe_train: the profile holds no device event")
+        seen = prof["kernels"]
+        for name, n in launches.items():
+            legs = seen.get(name)
+            check(n == 0 or (legs and "other" not in legs),
+                  f"observe_train: kernel {name} ({KERNEL_SYMBOLS[name]}, "
+                  f"{n} launches) is not attributed to a leg: {legs}")
+        with open(f"{tmp}/trace.json") as fh:
+            spans = {e["name"] for e in json.load(fh)["traceEvents"]
+                     if e.get("ph") == "B"}
+        check({"iteration", "gradients", "tree_train"} <= spans,
+              f"observe_train: the trace lacks phase spans: {spans}")
+        c = rep["counters"]
+        check(c["trees_measured"] == OBSERVE_ITERS
+              and c["total_splits"] >= c["pops"] > 0,
+              f"observe_train: device counters {c}")
+        out["telemetry"] = {
+            "train_s": train_s, "kernel_launches": launches,
+            "iterations": rep["iterations"], "counters": c,
+            "attribution": table,
+            "profile": {k: prof[k] for k in ("events", "total_ms",
+                                              "legs_ms", "kernels")},
+            "phases_ms": {k: v["total_ms"] for k, v in rep["phases"].items()},
+            "trace_spans": sorted(spans)}
+        # crash-safe resume: a bagged run killed after iteration 3 with a
+        # snapshot every 2, resumed, against the uninterrupted run (the
+        # pipelined loop: no held-out set)
+        for learner in ("wave", "compact"):
+            p = dict(WAVE_PARAMS, tpu_learner=learner, bagging_fraction=0.8,
+                     bagging_freq=1, feature_fraction=0.9)
+            model = f"{tmp}/{learner}.txt"
+            t0 = time.perf_counter()
+            full = lt.train(dict(p), ds, OBSERVE_ITERS,
+                            verbose_eval=False).model_to_string()
+            t1 = time.perf_counter()
+            crashed = False
+            try:
+                lt.train(dict(p, output_model=model, snapshot_freq=2,
+                              fault_spec="train.crash:nth=3"), ds,
+                         OBSERVE_ITERS, verbose_eval=False)
+            except faults.InjectedFault:
+                crashed = True
+            finally:
+                faults.reset()
+            check(crashed, f"observe_train/{learner}: train.crash did not "
+                  f"fire")
+            snaps = [it for it, _ in list_snapshots(model)]
+            check(snaps == [2], f"observe_train/{learner}: snapshots {snaps}")
+            t2 = time.perf_counter()
+            res = lt.train(dict(p, output_model=model, snapshot_freq=2,
+                                resume=True), ds, OBSERVE_ITERS,
+                           verbose_eval=False)
+            t3 = time.perf_counter()
+            check(type(res.gbdt.learner).__name__.lower().startswith(learner)
+                  and res.gbdt._can_pipeline(),
+                  f"observe_train/{learner}: {type(res.gbdt.learner)}")
+            check(res.model_to_string() == full,
+                  f"observe_train/{learner}: the resumed model text differs "
+                  f"from the uninterrupted run's")
+            out[f"resume_{learner}"] = {
+                "snapshots": snaps, "resumed_text_equal": True,
+                "trees": res.num_trees(), "uninterrupted_s": t1 - t0,
+                "resumed_s": t3 - t2,
+                "state_bytes": os.path.getsize(f"{model}.snapshot_iter_2"
+                                               ".state.pkl")}
     emit(out)
 
 
@@ -4455,7 +4774,7 @@ def _time_segments_call(flush, words, w, lid, start, cnt, leaf, bound,
                 **_bound(nbytes, matching * 4 * FW * 3))
 
 
-def _time_segments(flush, shapes=None) -> dict:
+def _time_segments(flush, shapes=None, compact=None) -> dict:
     from lightgbm_tpu_torch.ops.hist_packed import unpack_bin_words
     from lightgbm_tpu_torch.ops.hist_segments import (
         build_histogram_segments_plain)
@@ -4495,6 +4814,14 @@ def _time_segments(flush, shapes=None) -> dict:
             args = shape_segments_inputs(rec["cnt"], 11)
             res["shapes_wave_train"][tag] = _time_segments_call(
                 flush, *args, rec["rows_bound"])
+    # the compact path's K = 1 launches (its smaller child), the grid sized
+    # by the padded row count
+    if compact:
+        res["shapes_train"] = {
+            tag: dict(_time_segments_call(
+                flush, *shape_segments_inputs([compact[tag]["rows"]], 12),
+                N_FULL), recorded=compact[tag])
+            for tag in ("median", "largest")}
     return res
 
 
@@ -4523,6 +4850,52 @@ def _time_partition(flush) -> dict:
     nbytes = n * (FW + 3 + 2 + 1) * 4 * 2 + n * 4
     return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=lib_ms, **_bound(nbytes, 0))
+
+
+def _time_partition_window(flush, shapes=None) -> dict:
+    """The windowed partition at the largest window (all 1,000,000 rows,
+    sort mode) with its plain version, and at the compact path's median
+    and largest recorded window in the mode it ran, each at start 777: the
+    wrapper, the three kernels alone, the bound (sort mode: the window's
+    lanes read and written once; mask mode: the feature word, the bag lane
+    and the leaf ids read, the leaf ids written)."""
+    from lightgbm_tpu_torch.ops.partition import (partition_window,
+                                                  partition_window_plain)
+
+    dev = torch.device("cuda", 0)
+    reps = 20
+    cases = {"full": {"rows": ROWS, "sort_mode": True}}
+    for tag in ("median", "largest"):
+        if shapes:
+            cases[tag] = shapes[tag]
+    out = {}
+    for tag, rec in cases.items():
+        c, sort = int(rec["rows"]), bool(rec["sort_mode"])
+        start = 777 if c + 777 <= N_FULL else 0
+        base = window_inputs(40, start, c, 17)
+        lanes = [t.clone() for t in base[:4]]
+        split = torch.tensor([17, 254, 0, 99, 1, 1, start, c],
+                             dtype=torch.int64, device=dev)
+        mask_max = 0 if sort else c
+        scratch = tuple(torch.empty_like(t) for t in lanes)
+        # every launch repartitions the window it partitioned before: the
+        # same bytes move each time
+        call = (lambda: partition_window(*lanes, split, base[4], None,
+                                         mask_max=mask_max, scratch=scratch))
+        nbytes = 2 * c * (4 * FW + 24) if sort else 16 * c
+        row = dict(rows=c, start=start, sort_mode=sort,
+                   ms=cuda_ms(call, reps, flush),
+                   kernel_ms=cuda_ms(staged(call), reps, flush),
+                   library_ms=None, **_bound(nbytes, 0))
+        if tag == "full":
+            row["plain_ms"] = cuda_ms(lambda: partition_window_plain(
+                *lanes, split, base[4], None, mask_max=mask_max), 3, flush)
+        else:
+            row["recorded"] = rec
+        out[tag] = row
+    res = dict(out.pop("full"))
+    res["shapes_train"] = out
+    return res
 
 
 def _time_scan_call(flush, k: int, reps: int = 20,
@@ -4863,10 +5236,10 @@ def _time_packed_call(flush, words, w, reps: int = 20) -> dict:
                 **_bound(nbytes, 4 * FW * s * 3))
 
 
-def _time_packed(flush, shapes=None) -> dict:
-    """hist_packed at the full window and at 65,536 rows (with the plain
-    version and the library call), with zero weights at both, and at the
-    compact learner's median and largest recorded window."""
+def _time_packed(flush) -> dict:
+    """hist_packed at the full window (the root's, the compact path's only
+    launch) and at 65,536 rows (with the plain version and the library
+    call), with zero weights at both."""
     from lightgbm_tpu_torch.ops.hist_packed import (
         build_histogram_packed_plain, pack_bin_words, unpack_bin_words)
 
@@ -4898,15 +5271,6 @@ def _time_packed(flush, shapes=None) -> dict:
         r["zero_weights"] = _time_packed_call(flush, wv,
                                               torch.zeros_like(ww))
         rows[tag] = r
-    if shapes:
-        # the learner's windows start anywhere: an unaligned view
-        rows["full"]["shapes_train"] = {
-            tag: dict(_time_packed_call(
-                flush, words[:, 777:777 + shapes[tag]["rows"]],
-                w[:, 777:777 + shapes[tag]["rows"]]),
-                recorded=shapes[tag])
-            for tag in ("median", "largest")
-            if shapes[tag]["rows"] + 777 <= N_FULL}
     return rows
 
 
@@ -5100,23 +5464,28 @@ def phase_timing(ctx) -> None:
         build_histogram_multislot
     from lightgbm_tpu_torch.ops.hist_packed import build_histogram_packed
     from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
-    from lightgbm_tpu_torch.ops.partition import apply_partition
+    from lightgbm_tpu_torch.ops.partition import (apply_partition,
+                                                  partition_window)
     from lightgbm_tpu_torch.ops.scan import find_best_splits_batched
     from lightgbm_tpu_torch.ops.split_cat import categorical_candidates
 
     dev = torch.device("cuda", 0)
     flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
     wrappers = (build_histogram_packed, build_histogram_segments,
-                apply_partition, find_best_splits_batched,
+                apply_partition, partition_window, find_best_splits_batched,
                 build_histogram_multislot, fused_child_scans,
                 build_histogram_full, categorical_candidates)
     launches_before = [fn.launches for fn in wrappers]
-    rows = _time_packed(flush, ctx.get("shapes_train"))
+    rows = _time_packed(flush)
     shapes = ctx.get("shapes_wave", {})
     quant = ctx.get("shapes_quant", {})
-    others = {"hist_segments": _time_segments(flush,
-                                              shapes.get("hist_segments")),
+    compact = ctx.get("shapes_train", {})
+    others = {"hist_segments": _time_segments(
+                  flush, shapes.get("hist_segments"),
+                  compact.get("hist_segments")),
               "partition": _time_partition(flush),
+              "partition_window": _time_partition_window(
+                  flush, compact.get("partition_window")),
               "split_scan": _time_scan(flush, shapes.get("split_scan")),
               "hist_multislot": _time_multislot(
                   flush, quant.get("hist_multislot")),
@@ -5149,6 +5518,12 @@ def kernels_line(ctx) -> dict:
                          "random float32 within rtol=1e-5, atol=1e-5 "
                          "times each bin's sum of |w|",
         "partition": "every lane bitwise (NaN, -0.0 weight bits included)",
+        "partition_window": "every lane and the result bitwise equal to "
+                            "the plain version on the card at windows of "
+                            "1,024 and 2,048 rows, all 1,000,000 rows and "
+                            "a non-zero start; sort and mask mode; a NaN "
+                            "numerical, a bundled and a categorical "
+                            "feature; a do = 0 split a no-op",
         "split_scan": "dyadic: every field exact; random float32: bitwise "
                       "equal to the CPU plain version; vs the card plain "
                       "version gain within 1e-3 of the pre-shift gain, "
@@ -5190,6 +5565,7 @@ def kernels_line(ctx) -> dict:
     err = {"hist_packed": ctx.get("max_abs_err"),
            "hist_segments": ctx.get("err_segments"),
            "partition": ctx.get("err_partition"),
+           "partition_window": ctx.get("err_partition_window"),
            "split_scan": ctx.get("err_scan"),
            "hist_multislot": ctx.get("err_multislot"),
            "fused_scan": ctx.get("err_fused"),
@@ -5214,7 +5590,8 @@ def kernels_line(ctx) -> dict:
                                       ("quant_train", quant),
                                       ("categorical_train",
                                        ctx["launches_cat"]),
-                                      ("predict", ctx["launches_predict"]))
+                                      ("predict", ctx["launches_predict"]),
+                                      ("train", ctx["launches_train"]))
             if name in c)
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches,
@@ -5256,12 +5633,19 @@ def kernels_line(ctx) -> dict:
         if name in ("split_scan", "split_cat"):
             # the constrained launch (bounds, signs, penalty) at K = 128
             out[-1]["constrained"] = row["constrained"]
+        if name == "partition_window":
+            out[-1]["ported_from"] = "an XLA lax.sort of the compact " \
+                "learner's window, not a pallas_call"
+            out[-1]["launches_forced_train"] = ctx.get(
+                "launches_forced_compact", {}).get(name)
         for key in ("shapes_wave_train", "shapes_masked_train",
                     "shapes_train", "shapes_quant_train",
                     "shapes_categorical_train"):
             if key in row:
                 out[-1][key] = row[key]
     out[0]["launches_compact_train"] = ctx.get("launches_compact")
+    out[1]["launches_compact_train"] = ctx["launches_train"].get(
+        "hist_segments")
     return {"kernels": out}
 
 
@@ -5290,9 +5674,10 @@ def main() -> int:
             globals()[f"phase_{name}"](ctx)
             seconds[name] = time.perf_counter() - t0
     emit({"phase_seconds": seconds})
-    if all(p in phases for p in ("wave_train", "quant_train", "masked_train",
-                                 "categorical_train", "bin_predict",
-                                 "predict", "serve", "timing")):
+    if all(p in phases for p in ("train", "wave_train", "quant_train",
+                                 "masked_train", "categorical_train",
+                                 "bin_predict", "predict", "serve",
+                                 "timing")):
         emit(kernels_line(ctx))
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

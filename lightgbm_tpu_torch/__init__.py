@@ -11,7 +11,7 @@ torch and numpy, never JAX and nothing of ``lightgbm_tpu``.
 """
 
 from .callback import (early_stopping, print_evaluation, record_evaluation,
-                       reset_parameter)
+                       record_telemetry, reset_parameter)
 from .config import Config
 from .dataset import Dataset
 from .engine import Booster, CVBooster, cv, train
@@ -23,6 +23,6 @@ __version__ = "0.1.0"
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "cv",
            "early_stopping", "print_evaluation", "record_evaluation",
-           "reset_parameter", "train", "LGBMModel", "LGBMRegressor",
+           "record_telemetry", "reset_parameter", "train", "LGBMModel", "LGBMRegressor",
            "LGBMClassifier", "LGBMRanker", "plot_importance", "plot_metric",
            "plot_tree", "create_tree_digraph"]

@@ -77,10 +77,10 @@ class DART(GBDT):
                 tree.apply_shrinkage(-1.0)
                 self._add_tree_score_train(tree, cid)
 
-    def train_one_iter(self, gradients=None, hessians=None) -> bool:
+    def _train_one_iter(self, gradients=None, hessians=None) -> bool:
         self._model_version += 1   # drops and normalisation edit trees
         self._dropping_trees()
-        ret = super().train_one_iter(gradients, hessians)
+        ret = super()._train_one_iter(gradients, hessians)
         if ret:
             # a failed iteration undoes its drop
             self._negate_dropped()

@@ -30,8 +30,19 @@ are assembled lazily, ``tpu_pipeline_flush_depth`` iterations behind
 (``_flush_pending``, also whenever ``models`` is read), with the deferred
 stop check and the rollback of post-stop trees out of the training score.
 The JAX package's fused path (one XLA program per iteration) is the same
-sequence in eager torch and is this path.  The compact learner has no
-``train_async`` and keeps the synchronous loop.
+sequence in eager torch and is this path.  Every learner of the port has
+``train_async``.
+
+Telemetry (``telemetry=true``, JAX `gbdt.py:259-263, 333-400, 512-632`):
+``train_one_iter`` times the ``iteration`` phase (the report's
+``iterations`` ring) and, inside it, ``gradients``, ``bagging``,
+``tree_train`` (synchronous loop), ``tree_dispatch`` (pipelined),
+``score_update`` and ``pipeline_flush`` (with a ``tree_assemble`` span per
+queued tree when a tracer is attached); ``telemetry_sync_every=N``
+brackets every Nth iteration with device syncs
+(``observability/attribution.py``); the learners' per-tree counters feed
+the report's device counters (``get_telemetry``).  With telemetry off the
+timers are inert and the device work is unchanged.
 
 The hooks the variants (``goss.py``, ``dart.py``, ``rf.py``) and the engine
 stand on, as the JAX ``GBDT`` has them: ``train_one_iter`` takes external
@@ -48,8 +59,9 @@ traverses the training rows' codes on the device (DART's drops,
 from __future__ import annotations
 
 import math
+import time
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,6 +73,7 @@ from ..learner import TreeLearner
 from ..learner_compact import create_tree_learner
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction, create_objective
+from ..observability import SampledSync, Telemetry, force_sync
 from ..ops.histogram import read_codes
 from ..ops.split import calculate_leaf_output
 from ..tree import Tree
@@ -259,6 +272,12 @@ class GBDT:
         self._device_predictor = None    # (key, DevicePredictor) cache
         self._pred_schema = None         # 1-tuple cache (loaded boosters)
         self.device_predictions = 0      # predict_raw calls on the device
+        self.telemetry = Telemetry(bool(cfg.telemetry), device)
+        #: the sampled-sync bracket: inert unless telemetry and
+        #: telemetry_sync_every > 0
+        self._sync_sampler = SampledSync(self.telemetry,
+                                         int(cfg.telemetry_sync_every))
+        self._tel_trees = 0     # learner tree_stats entries fed to telemetry
 
     # -- pipelined tree materialization (`gbdt.py:300-424`) ------------------
 
@@ -286,6 +305,8 @@ class GBDT:
             pend, self._pending = pend[:-keep], pend[-keep:]
         else:
             self._pending = []
+        tel = self.telemetry
+        t_flush = time.perf_counter()
         first = len(self._models)
         for entry in pend:
             first = min(first, self._assemble_entry(entry))
@@ -315,6 +336,11 @@ class GBDT:
                 warnings.warn("Stopped training because there are no more "
                               "leaves that meet the split requirements")
                 break
+        if tel.enabled:
+            tel.add_phase_time("pipeline_flush",
+                               time.perf_counter() - t_flush, t0=t_flush)
+            tel.inc("pipeline_flushes")
+            tel.inc("trees_assembled", len(pend))
 
     def _assemble_entry(self, entry) -> int:
         """Build one queued pipelined tree into ``self._models`` (waiting
@@ -323,9 +349,16 @@ class GBDT:
         if event is not None:
             event.synchronize()
         self.pipeline_waits += 1
+        # a span only when telemetry is on: an attached recorder on a
+        # telemetry-off booster records nothing
+        tr = self.telemetry.tracer if self.telemetry.enabled else None
+        t0 = time.perf_counter()
         rec_f, rec_i = self.learner.host_records(
             host.numpy(), dict(host_stats, host_syncs=0))
         tree = self.learner.assemble_host(rec_f, rec_i)
+        if tr is not None:
+            tr.add_complete("tree_assemble", t0, time.perf_counter() - t0,
+                            cat="train", args={"model_index": int(idx)})
         if tree.num_leaves > 1:
             # the rate its score update used (the JAX package takes the
             # rate at flush time, so a schedule's queued trees get the
@@ -421,13 +454,15 @@ class GBDT:
         cfg = self.cfg
         if cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0 \
                 and iter_ % cfg.bagging_freq == 0:
-            n = self.num_data
-            bag_cnt = int(cfg.bagging_fraction * n)
-            idx = self._bag_rng.choice(n, bag_cnt, replace=False)
-            mask = np.zeros(self.train_data.num_data_padded, dtype=np.float32)
-            mask[idx] = 1.0
-            self._np_bag_mask = mask
-            self._bag_mask = upload(mask, self.device)
+            with self.telemetry.phase("bagging"):
+                n = self.num_data
+                bag_cnt = int(cfg.bagging_fraction * n)
+                idx = self._bag_rng.choice(n, bag_cnt, replace=False)
+                mask = np.zeros(self.train_data.num_data_padded,
+                                dtype=np.float32)
+                mask[idx] = 1.0
+                self._np_bag_mask = mask
+                self._bag_mask = upload(mask, self.device)
 
     def _np_bag(self) -> np.ndarray:
         """The host copy of the bag mask, read from the device only when a
@@ -512,14 +547,43 @@ class GBDT:
         """Returns True when training cannot continue (no splittable leaves;
         in the pipelined loop found up to ``tpu_pipeline_flush_depth``
         iterations late, the later ones rolled back).  ``gradients`` and
-        ``hessians`` (a custom objective's) replace the objective's."""
+        ``hessians`` (a custom objective's) replace the objective's.  With
+        telemetry the iteration is timed, and every
+        ``telemetry_sync_every``-th one is bracketed: the queue drained
+        first, each leg synced, the whole iteration synced."""
+        tel = self.telemetry
+        if not tel.enabled:
+            return self._train_one_iter(gradients, hessians)
+        ss = self._sync_sampler
+        if ss.sampled(self.iter_):
+            ss.drain(self.train_score.score)
+            ss.active = True
+            t0 = time.perf_counter()
+            try:
+                with tel.phase("iteration"):
+                    ret = self._train_one_iter(gradients, hessians)
+                    force_sync(self.train_score.score)
+            finally:
+                ss.active = False
+            tel.add_phase_time("sync.iteration", time.perf_counter() - t0,
+                               t0=t0)
+            return ret
+        with tel.phase("iteration"):
+            return self._train_one_iter(gradients, hessians)
+
+    def _train_one_iter(self, gradients=None, hessians=None) -> bool:
+        """One boosting iteration (the variants override this)."""
         if self._stopped:
             return True
         k_trees = self.num_tree_per_iteration
         if gradients is None or hessians is None:
             init_scores = [self._boost_from_average(k)
                            for k in range(k_trees)]
-            grads = self._gradients()
+            t0 = time.perf_counter()
+            with self.telemetry.phase("gradients"):
+                grads = self._gradients()
+            self._sync_sampler.leg("gradients", t0,
+                                   [a for pair in grads for a in pair])
         else:
             init_scores = [0.0] * k_trees
             grads = self._pad_external_gradients(gradients, hessians)
@@ -533,33 +597,27 @@ class GBDT:
         by GBDT, GOSS and DART."""
         renew = self.objective is not None \
             and self.objective.needs_renew_tree_output
+        tel, ss = self.telemetry, self._sync_sampler
         should_continue = False
         for k, (grad, hess) in enumerate(grads):
             new_tree = Tree(2)
             if self.class_need_train[k] \
                     and self.train_data.num_used_features > 0:
-                new_tree, leaf_id, leaf_out = self.learner.train(
-                    grad, hess, self._bag_mask, self._feature_sample())
+                t0 = time.perf_counter()
+                with tel.phase("tree_train"):
+                    new_tree, leaf_id, leaf_out = self.learner.train(
+                        grad, hess, self._bag_mask, self._feature_sample())
+                ss.leg("tree_train", t0, (leaf_id, leaf_out))
             if new_tree.num_leaves > 1:
                 should_continue = True
-                if renew:
-                    self._renew_tree_output(new_tree, leaf_id, k)
-                new_tree.apply_shrinkage(self.shrinkage_rate)
-                if renew:
-                    # the renewed host leaf values, as float32
-                    lv = upload(new_tree.leaf_value[:new_tree.num_leaves]
-                                .astype(np.float32), self.device)
-                else:
-                    # the host tree's leaf values are float32(f32 output *
-                    # rate in float64); the same numbers are formed on the
-                    # device
-                    lv = (torch.nan_to_num(leaf_out.to(torch.float32),
-                                           nan=0.0)
-                          .to(torch.float64) * self.shrinkage_rate) \
-                        .to(torch.float32)
-                self.train_score.add_by_leaf_id(lv, leaf_id, k)
-                for vs in self.valid_scores:
-                    vs.add_by_tree(new_tree, k)
+                # score_update covers the whole post-tree leg (renewal,
+                # training and validation scores), as in the JAX package
+                t0 = time.perf_counter()
+                with tel.phase("score_update"):
+                    self._update_scores(new_tree, leaf_id, leaf_out, k,
+                                        renew)
+                ss.leg("score_update", t0, [self.train_score.score]
+                       + [vs.score for vs in self.valid_scores])
                 if abs(init_scores[k]) > kEpsilon:
                     new_tree.leaf_value[:new_tree.num_leaves] += init_scores[k]
                     new_tree.shrinkage = 1.0
@@ -586,6 +644,27 @@ class GBDT:
         self.iter_ += 1
         return False
 
+    def _update_scores(self, new_tree: Tree, leaf_id: torch.Tensor,
+                       leaf_out: torch.Tensor, k: int, renew: bool) -> None:
+        """The synchronous loop's post-tree leg: the leaf renewal, the
+        shrinkage, the training score by leaf id, the validation scores by
+        traversal."""
+        if renew:
+            self._renew_tree_output(new_tree, leaf_id, k)
+        new_tree.apply_shrinkage(self.shrinkage_rate)
+        if renew:
+            # the renewed host leaf values, as float32
+            lv = upload(new_tree.leaf_value[:new_tree.num_leaves]
+                        .astype(np.float32), self.device)
+        else:
+            # the host tree's leaf values are float32(f32 output * rate in
+            # float64); the same numbers are formed on the device
+            lv = (torch.nan_to_num(leaf_out.to(torch.float32), nan=0.0)
+                  .to(torch.float64) * self.shrinkage_rate).to(torch.float32)
+        self.train_score.add_by_leaf_id(lv, leaf_id, k)
+        for vs in self.valid_scores:
+            vs.add_by_tree(new_tree, k)
+
     def _train_trees_pipelined(self, grads: List[tuple], init_scores
                                ) -> bool:
         """One iteration with no blocking host read
@@ -599,25 +678,33 @@ class GBDT:
         k_trees = self.num_tree_per_iteration
         cuda = self.device.type == "cuda"
         lr = float(np.float32(self.shrinkage_rate))
+        tel, ss = self.telemetry, self._sync_sampler
         for k, (grad, hess) in enumerate(grads):
-            tree = self.learner.train_async(grad, hess, self._bag_mask,
-                                            self._feature_sample())
-            # score + float32(lr) * leaf_out with one rounding, the fused
-            # multiply-add XLA makes of ``_score_add_leaf``: the product of
-            # two float32 numbers is exact in float64
-            lo = tree.leaf_out.to(torch.float32).index_select(
-                0, tree.leaf_id).to(torch.float64)
-            score = self.train_score.score[k]
-            score.copy_((score.to(torch.float64) + lr * lo)
-                        .to(torch.float32))
-            event = None
-            host = tree.records
-            if cuda:
-                host = torch.empty(host.shape, dtype=host.dtype,
-                                   pin_memory=True)
-                host.copy_(tree.records, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
+            t0 = time.perf_counter()
+            with tel.phase("tree_dispatch"):
+                tree = self.learner.train_async(grad, hess, self._bag_mask,
+                                                self._feature_sample())
+            ss.leg("tree_build", t0, (tree.records, tree.leaf_id,
+                                      tree.leaf_out))
+            t0 = time.perf_counter()
+            with tel.phase("score_update"):
+                # score + float32(lr) * leaf_out with one rounding, the
+                # fused multiply-add XLA makes of ``_score_add_leaf``: the
+                # product of two float32 numbers is exact in float64
+                lo = tree.leaf_out.to(torch.float32).index_select(
+                    0, tree.leaf_id).to(torch.float64)
+                score = self.train_score.score[k]
+                score.copy_((score.to(torch.float64) + lr * lo)
+                            .to(torch.float32))
+                event = None
+                host = tree.records
+                if cuda:
+                    host = torch.empty(host.shape, dtype=host.dtype,
+                                       pin_memory=True)
+                    host.copy_(tree.records, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+            ss.leg("score_update", t0, (score,))
             self._pending.append((len(self._models), host, event,
                                   tree.host_stats, init_scores[k],
                                   self.shrinkage_rate))
@@ -629,6 +716,35 @@ class GBDT:
         elif len(self._pending) >= 16 * k_trees:
             self._flush_pending()
         return self._stopped
+
+    # -- telemetry (observability/) ------------------------------------------
+
+    def get_telemetry(self, light: bool = False) -> Dict[str, Any]:
+        """The JSON telemetry report (``observability/schema.json``).  The
+        default flushes the pipelined queue first, so the report covers
+        every tree dispatched; ``light=True`` reads only what is decoded
+        already and never waits on the device
+        (``callback.record_telemetry``)."""
+        if not light:
+            self._flush_pending()
+        tel = self.telemetry
+        learner = self.learner
+        stats = getattr(learner, "_tree_stats", None)
+        if stats is not None:
+            for d in stats[self._tel_trees:]:
+                tel.device_telem(d)
+            self._tel_trees = len(stats)
+        if tel.enabled:
+            tel.set_provenance(
+                tree_learner=str(self.cfg.tree_learner),
+                learner=type(learner).__name__ if learner is not None
+                else None)
+            if self._sync_sampler.every > 0:
+                tel.set_distributed(sync_every=self._sync_sampler.every)
+        gauges = {}
+        if learner is not None:
+            gauges["learner"] = type(learner).__name__
+        return tel.report(extra_gauges=gauges)
 
     def _boost_from_average(self, class_id: int) -> float:
         """`gbdt.cpp:309-331`."""

@@ -65,7 +65,7 @@ class RF(GBDT):
         for vs in self.valid_scores:
             vs.score[class_id] *= f
 
-    def train_one_iter(self, gradients=None, hessians=None) -> bool:
+    def _train_one_iter(self, gradients=None, hessians=None) -> bool:
         self._bagging(self.iter_)
         renew = self.objective is not None \
             and self.objective.needs_renew_tree_output

@@ -21,10 +21,13 @@ over the file.  The tasks:
                             ``trace_out``, ``stats_out``, ``fault_spec``)
 
 Like every entry point of the port, the CLI runs on the CUDA card unless
-``device_type=cpu``.  The serving fleet (``serve_replicas != 0``) and, on
-the other tasks, the telemetry, trace, snapshot, resume and
-fault-injection keys are not ported: they raise ``NotImplementedError``
-naming their ROADMAP.md Queue A item.
+``device_type=cpu``.  ``task=train`` takes the training telemetry, trace,
+profiler, snapshot and fault-injection keys (``--telemetry-out`` and
+``--trace-out`` imply ``telemetry``) and ``--resume``, which continues a
+killed run from its newest valid snapshot
+(``<output_model>.snapshot_iter_<k>``, written every ``snapshot_freq``
+iterations).  The serving fleet (``serve_replicas != 0``) is not ported: it
+raises ``NotImplementedError`` naming its ROADMAP.md Queue A item.
 """
 
 from __future__ import annotations
@@ -35,8 +38,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .config import (OBSERVE, Config, check_serving_supported, not_ported,
-                     parse_config_file, resolve_aliases)
+from .config import (Config, check_serving_supported, parse_config_file,
+                     resolve_aliases)
 
 
 def _load_params(argv: List[str]) -> Dict[str, str]:
@@ -80,6 +83,20 @@ def run_train(params: Dict[str, str], cfg: Config) -> None:
     from . import engine
     from .dataset import Dataset
 
+    # --telemetry-out / --trace-out imply telemetry: asking for the report
+    # (or for spans, which ride the phase timers) is opting in
+    if (cfg.telemetry_out or cfg.trace_out) and not cfg.telemetry:
+        cfg.telemetry = True
+        params = dict(params, telemetry="true")
+    if cfg.resume:
+        # engine.train makes the same choice; this is the operator's line
+        from .reliability.resume import find_resume_snapshot
+        found = find_resume_snapshot(cfg.output_model, cfg)
+        if found is not None:
+            _log(f"Resuming from snapshot {found[1]} (iteration "
+                 f"{found[0]})")
+        else:
+            _log("--resume: no valid snapshot found, training from scratch")
     t0 = time.time()
     train_set = Dataset(cfg.data, params=dict(params))
     valid_sets = [Dataset(v, reference=train_set, params=dict(params))
@@ -95,6 +112,11 @@ def run_train(params: Dict[str, str], cfg: Config) -> None:
     booster.save_model(cfg.output_model)
     if cfg.convert_model_language == "cpp":
         _save_if_else(booster, cfg.convert_model)
+    if cfg.telemetry and cfg.telemetry_out:
+        _log(f"Telemetry report written to {cfg.telemetry_out}")
+    if cfg.trace_out:
+        _log(f"Trace written to {cfg.trace_out} (open in Perfetto / "
+             f"chrome://tracing)")
     _log(f"Finished training in {time.time() - t0:.6f} seconds")
 
 
@@ -220,11 +242,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     task = _TASKS.get(cfg.task)
     if task is run_serve:
         check_serving_supported(cfg)
-    elif cfg.telemetry or cfg.telemetry_out or cfg.trace_out \
-            or cfg.profile_trace_dir or cfg.snapshot_freq > 0 or cfg.resume \
-            or cfg.fault_spec or cfg.serve_stats_out:
-        raise not_ported("telemetry, tracing, snapshots, resume and fault "
-                         "injection in training", OBSERVE)
     if task is None:
         print(f"[lightgbm_tpu_torch] [Fatal] Unknown task: {cfg.task}",
               file=sys.stderr)

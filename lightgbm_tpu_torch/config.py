@@ -879,8 +879,7 @@ def check_serving_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every setting of a prediction
     server (``task=serve``, ``Booster.serve``) the port does not run.  A
     server reads the ``serve_*`` keys and takes ``telemetry_out``,
-    ``trace_out``, ``trace_capacity``, ``stats_out`` and ``fault_spec``,
-    which training refuses (``check_supported``)."""
+    ``trace_out``, ``trace_capacity``, ``stats_out`` and ``fault_spec``."""
     if cfg.serve_replicas != 0:
         raise not_ported(f"serve_replicas={cfg.serve_replicas} (the "
                          f"serving fleet)", SERVING)
@@ -890,7 +889,10 @@ def check_serving_supported(cfg: Config) -> None:
 
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every training setting this slice
-    does not run, so none of them is silently ignored."""
+    does not run, so none of them is silently ignored.  The telemetry,
+    trace, profiler, snapshot, resume and fault-injection keys train
+    (``engine.train``); a fault point of an unported module raises when
+    its spec is armed (``reliability/faults.py``)."""
     if cfg.tree_learner != "serial" or cfg.num_machines > 1 \
             or cfg.num_hosts > 1 or cfg.elastic:
         raise not_ported(f"tree_learner={cfg.tree_learner} and multi-host "
@@ -898,8 +900,3 @@ def check_supported(cfg: Config) -> None:
     if cfg.tpu_learner not in ("auto", "wave", "compact", "masked"):
         raise ValueError(f"tpu_learner must be one of auto, wave, compact, "
                          f"masked; got {cfg.tpu_learner!r}")
-    if cfg.telemetry or cfg.trace_out or cfg.profile_trace_dir \
-            or cfg.telemetry_out or cfg.snapshot_freq > 0 or cfg.resume \
-            or cfg.fault_spec or cfg.serve_stats_out:
-        raise not_ported("telemetry, tracing, snapshots, resume and fault "
-                         "injection in training", OBSERVE)

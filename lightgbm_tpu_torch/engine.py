@@ -9,15 +9,25 @@ K classes, leaf indices, TreeSHAP contributions through ``contrib.py``),
 model text, ``dump_model``, ``rollback_one_iter``, ``refit`` and
 ``refit_file`` and pickling, for every objective of the JAX package's table
 and every boosting variant (``boosting/__init__.py``), and the prediction
-server (``to_server``, ``serve``: ``serving/``).  The device comes from
-``device_type`` (``config.resolve_device``): the CUDA card unless the params
-ask for the CPU.
+server (``to_server``, ``serve``: ``serving/``).  ``train`` also carries
+the JAX package's training reliability and observability
+(`engine.py:393-464, 510-538, 572`): crash-safe snapshots
+(``snapshot_freq``) and ``resume`` (``reliability/resume.py``), the
+``train.crash`` fault point, the telemetry report (``telemetry``,
+``telemetry_out``, ``telemetry_prom_out``, ``Booster.get_telemetry``),
+phase spans (``trace_out``) and a ``torch.profiler`` trace parsed into
+legs (``profile_trace_dir``).  The device comes from ``device_type``
+(``config.resolve_device``): the CUDA card unless the params ask for the
+CPU.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
+import os
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -25,7 +35,7 @@ import numpy as np
 from . import callback as callback_mod
 from .boosting import create_boosting
 from .boosting.gbdt import GBDT, rebind_tree_to_dataset
-from .config import (OBSERVE, SERVING, Config, check_serving_supported,
+from .config import (SERVING, Config, check_serving_supported,
                      check_supported, not_ported, resolve_device)
 from .dataset import Dataset, recode_pandas
 from .metrics import create_metric
@@ -48,13 +58,17 @@ class Booster:
         self._train_set = train_set
         if train_set is not None:
             check_supported(self.cfg)
+            t0 = time.perf_counter()
             train_set.construct()
+            bin_s = time.perf_counter() - t0
             objective = create_objective(self.cfg, self.device)
             self.gbdt = create_boosting(self.cfg, self.device)
             train_metrics = []
             if self.cfg.is_provide_training_metric:
                 train_metrics = self._make_metrics(train_set)
             self.gbdt.init(train_set, objective, train_metrics)
+            # binning ran before the GBDT and its telemetry existed
+            self.gbdt.telemetry.add_phase_time("binning", bin_s)
         elif model_file is not None:
             with open(model_file) as fh:
                 self._load_from_string(fh.read())
@@ -256,6 +270,12 @@ class Booster:
                            iteration: int = -1) -> np.ndarray:
         return self.gbdt.feature_importance(importance_type, iteration)
 
+    def get_telemetry(self, light: bool = False) -> Dict:
+        """The training telemetry report (``telemetry=true``;
+        ``observability/schema.json``); ``light`` never waits on the
+        device (``GBDT.get_telemetry``)."""
+        return self.gbdt.get_telemetry(light=light)
+
     def to_server(self, replicas: int = 0, **kwargs):
         """An UNSTARTED ``serving.PredictionServer`` with this booster
         registered as the ``default`` model, serving on the booster's
@@ -328,25 +348,63 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
     ``objective=none`` on its gradients; ``init_model`` (a model file or a
     ``Booster``) continues its trees on ``train_set``;
     ``keep_training_booster`` is accepted and changes nothing, as in the
-    JAX package.  ``resume`` (crash-safe snapshots) is not ported."""
-    if resume:
-        raise not_ported("resume", OBSERVE)
+    JAX package.
+
+    ``snapshot_freq > 0`` checkpoints the model every K iterations to
+    ``<output_model>.snapshot_iter_<k>`` with its sidecars, and ``resume``
+    (or the config's ``resume``) continues a killed run from the newest
+    valid snapshot, training only the remaining iterations, so the model
+    text equals an uninterrupted run's of the same loop.  A snapshot newer
+    than an ``init_model`` wins (it holds the incumbent's trees), and the
+    run still targets the incumbent's iterations + ``num_boost_round``.
+    ``trace_out`` implies ``telemetry``; ``profile_trace_dir`` runs the
+    loop under ``torch.profiler``, writes its Chrome trace there and
+    raises if none was written."""
+    from .reliability import faults
+    from .reliability.metrics import rel_inc
+    from .reliability.resume import (find_resume_snapshot,
+                                     load_snapshot_state,
+                                     restore_training_state, save_snapshot)
+
     params = dict(params or {})
+    cfg = Config.from_params(params)
+    if cfg.trace_out and not cfg.telemetry:
+        # spans ride the phase timers: asking for a trace opts in
+        params["telemetry"] = True
     if "num_iterations" not in params and num_boost_round is not None:
         params["num_iterations"] = num_boost_round
-    num_boost_round = Config.from_params(params).num_iterations
+    cfg = Config.from_params(params)
+    num_boost_round = cfg.num_iterations
     if fobj is not None:
         params["objective"] = "none"
+    if cfg.fault_spec:
+        faults.arm(cfg.fault_spec)
     init_booster: Optional[Booster] = None
+    resume_base_iter = 0
     if init_model is not None:
         init_booster = init_model if isinstance(init_model, Booster) else \
             Booster(model_file=init_model, params=params)
+        resume_base_iter = init_booster.current_iteration
+    resumed_iter: Optional[int] = None
+    snapshot: Optional[str] = None
+    if resume if resume is not None else cfg.resume:
+        found = find_resume_snapshot(cfg.output_model, cfg)
+        if found is not None and found[0] > resume_base_iter:
+            resumed_iter, snapshot = found
+            init_booster = Booster(model_file=snapshot, params=params)
+            rel_inc("resume_runs")
     train_set.params = {**params, **(train_set.params or {})}
     if feature_name != "auto":
         train_set.set_feature_name(feature_name)
     if categorical_feature != "auto":
         train_set.set_categorical_feature(categorical_feature)
     booster = Booster(params=params, train_set=train_set)
+    gbdt = booster.gbdt
+    tracer = None
+    if cfg.trace_out:
+        from .observability import TraceRecorder
+        tracer = gbdt.telemetry.tracer = TraceRecorder(
+            True, capacity=cfg.trace_capacity)
     if init_booster is not None:
         _continue_training(booster, init_booster)
 
@@ -356,6 +414,12 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
         name = (valid_names[i] if valid_names and i < len(valid_names)
                 else f"valid_{i}")
         booster.add_valid(vs, name)
+    if snapshot is not None:
+        # exact continuation: the live scores and random streams (the
+        # traversal replay above adds in another order)
+        state = load_snapshot_state(snapshot)
+        if state is not None:
+            restore_training_state(gbdt, state)
 
     callbacks = list(callbacks or [])
     if verbose_eval is True:
@@ -379,36 +443,77 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
 
     results: List[Tuple] = []
     init_iter = booster.current_iteration
-    end_iter = init_iter + num_boost_round
-    gbdt = booster.gbdt
-    provide_train = Config.from_params(params).is_provide_training_metric
-    for i in range(init_iter, end_iter):
-        env = callback_mod.CallbackEnv(
-            model=booster, params=params, iteration=i,
-            begin_iteration=init_iter, end_iteration=end_iter,
-            evaluation_result_list=None)
-        for cb in before:
-            cb(env)
-        finished = booster.update(fobj=fobj)
-        results = []
-        if gbdt.valid_metrics or gbdt.training_metrics or feval:
-            if gbdt.training_metrics or (feval and provide_train):
-                results.extend(booster.eval_train(feval))
-            results.extend(booster.eval_valid(feval))
-        env = env._replace(evaluation_result_list=results)
-        try:
-            for cb in after:
+    # a resumed run trains to the original target; init_model keeps the
+    # reference's "num_boost_round more"
+    end_iter = init_iter + num_boost_round if resumed_iter is None \
+        else max(resume_base_iter + num_boost_round, init_iter)
+    provide_train = cfg.is_provide_training_metric
+    profiler = None
+    if cfg.profile_trace_dir:
+        import torch
+
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if booster.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+    with profiler or contextlib.nullcontext():
+        for i in range(init_iter, end_iter):
+            env = callback_mod.CallbackEnv(
+                model=booster, params=params, iteration=i,
+                begin_iteration=init_iter, end_iteration=end_iter,
+                evaluation_result_list=None)
+            for cb in before:
                 cb(env)
-        except callback_mod.EarlyStopException as es:
-            booster.best_iteration = es.best_iteration + 1
-            for name, mname, val, _ in es.best_score:
-                booster.best_score.setdefault(name, {})[mname] = val
-            break
-        if finished:
-            break
+            finished = booster.update(fobj=fobj)
+            if cfg.snapshot_freq > 0 and cfg.output_model \
+                    and (i + 1) % cfg.snapshot_freq == 0:
+                save_snapshot(gbdt, cfg.output_model, i + 1, cfg)
+            # `train.crash[:nth=K]` kills the run after its K-th completed
+            # iteration, the snapshot (if due) written (`engine.py:532-538`)
+            if faults.fire("train.crash") is not None:
+                raise faults.InjectedFault(
+                    f"injected fault train.crash at iteration {i + 1}")
+            results = []
+            if gbdt.valid_metrics or gbdt.training_metrics or feval:
+                if gbdt.training_metrics or (feval and provide_train):
+                    results.extend(booster.eval_train(feval))
+                results.extend(booster.eval_valid(feval))
+            env = env._replace(evaluation_result_list=results)
+            try:
+                for cb in after:
+                    cb(env)
+            except callback_mod.EarlyStopException as es:
+                booster.best_iteration = es.best_iteration + 1
+                for name, mname, val, _ in es.best_score:
+                    booster.best_score.setdefault(name, {})[mname] = val
+                break
+            if finished:
+                break
     if booster.best_iteration <= 0:
         for name, mname, val, _ in results:
             booster.best_score.setdefault(name, {})[mname] = val
+    if profiler is not None:
+        from .observability.attribution import TRACE_NAME, attribute_profile
+        os.makedirs(cfg.profile_trace_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(cfg.profile_trace_dir,
+                                                  TRACE_NAME))
+        prof = attribute_profile(cfg.profile_trace_dir)
+        if prof is None:
+            raise RuntimeError(f"profile_trace_dir={cfg.profile_trace_dir}:"
+                               f" the profiler wrote no trace with events")
+        gbdt.telemetry.set_distributed(profile=prof)
+    if cfg.telemetry and cfg.telemetry_out:
+        from .observability import write_report
+        write_report(booster.get_telemetry(), cfg.telemetry_out)
+    if cfg.telemetry and cfg.telemetry_prom_out:
+        from .observability import training_prometheus
+        tmp = cfg.telemetry_prom_out + ".tmp"
+        with open(tmp, "w") as fh:
+            fh.write(training_prometheus(booster.get_telemetry()))
+        os.replace(tmp, cfg.telemetry_prom_out)
+    if tracer is not None:
+        gbdt._flush_pending()                # the queued trees' spans
+        tracer.save(cfg.trace_out)
     return booster
 
 

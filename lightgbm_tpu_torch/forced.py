@@ -14,9 +14,9 @@ is static:
     ``Tree::Split`` numbering), so ``L_child`` is known at parse time;
   * only the VALIDITY of each split (gain-vs-no-split at the forced
     threshold) is data-dependent — an invalid split aborts the remaining
-    queue (`serial_tree_learner.cpp:612-616`), which the learners carry as
-    an ``aborted`` flag (a device tensor in the masked learner, a host
-    bool in the compact learner, which reads each split's validity).
+    queue (`serial_tree_learner.cpp:612-616`), which the masked and the
+    compact learners carry as an ``aborted`` device flag (no read of a
+    split's validity to the host).
 """
 
 from __future__ import annotations

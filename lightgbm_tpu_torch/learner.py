@@ -37,11 +37,10 @@ per-feature tensors mapped through ``used_feature_map``; every learner
 passes its leaves' value bounds (``LF_MIN_C`` / ``LF_MAX_C``) to the split
 search and propagates them on a split (``_child_constraints``, `:320-331`).
 Forced splits (``forced.py``) run before best-gain growth: in the masked
-learner as extra ``do``-gated steps of the same fixed-shape loop (the JAX
-fused tree's forced phase, `:512-575`), records written at the cursor
-``num_leaves - 1`` so that an aborted forced queue leaves no gap; in the
-compact learner in its host loop (``learner_compact.py``).  The GSPMD
-parallel modes are not ported.
+and the compact learners as extra ``do``-gated steps of the same
+fixed-shape loop (the JAX fused tree's forced phase, `:512-575`), records
+written at the cursor ``num_leaves - 1`` so that an aborted forced queue
+leaves no gap.  The GSPMD parallel modes are not ported.
 """
 
 from __future__ import annotations

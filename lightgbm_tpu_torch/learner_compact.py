@@ -4,7 +4,7 @@ Port of ``lightgbm_tpu/learner_compact.py:CompactTPUTreeLearner``.  The row
 payloads (packed bin words, weight channels, row ids, leaf ids) are kept
 permuted so that the rows of leaf ``l`` live at ``[start[l], start[l] +
 size[l])``; a split partitions only its parent's window and the smaller
-child's histogram is built through ``ops/hist_packed.py``, the sibling's by
+child's histogram is built over that child's rows, the sibling's by
 subtraction from the parent (`serial_tree_learner.cpp:371-385`).  Split
 semantics are the JAX package's: both call ``find_best_splits`` and, for
 categorical features, the categorical search (``ops/split_cat.py``, the
@@ -12,61 +12,89 @@ categorical features, the categorical search (``ops/split_cat.py``, the
 its window by the bin bitset kept per leaf (`learner_compact.py:281-316`).
 A split propagates monotone value bounds to its children
 (`learner_compact.py:563-569`), and the forced splits (``forced.py``) run
-before best-gain growth on every tree (`:618-720`), one host read each,
-the first invalid one ending the queue.
+before best-gain growth on every tree (`:672-690`), an invalid one ending
+the queue.
 
-What changes in eager torch:
+The tree is grown as the JAX ``_train_tree_compact`` grows it, on the
+device: the root histogram through ``ops/hist_packed.py``, then a fixed
+number of split steps of one shape each (the JAX ``while_loop``'s body,
+`:694-725`), with no host read between them.  What changes in eager torch:
 
-  * The tree is a Python loop over split steps, not a jitted ``while_loop``
-    with ``lax.switch`` over power-of-two window buckets (the buckets exist
-    only because XLA needs static shapes).  Each step slices its windows
-    directly, rounded up to the histogram kernel's 1024-row quantum.
-  * Each step reads ONE small packed tensor to the host: the best leaf, its
-    window start and size, its best split (feature, threshold, flags) and
-    whether its gain is positive (``do``, which is also the loop condition).
-    That is one host sync per split; ``host_syncs`` counts them.  Because the
-    smaller child's window position is only known on the device after the
-    partition, its histogram runs over the parent's window with the weights
-    masked to the smaller child's leaf id, so no second sync is needed.
-  * The partition keeps both JAX modes as semantics.  Windows whose size
-    bucket is above ``tpu_sort_cutoff`` are physically compacted by a stable
-    cumsum partition and one gather per lane (the one-bit-key ``lax.sort``);
-    smaller windows are frozen and only the leaf-id lane is rewritten (mask
-    mode), children sharing the parent's window.
-  * ``gpu_use_dp`` keeps the plain float64 histogram, as the JAX package keeps
-    dp off its Pallas kernel.  Otherwise the histogram is the ``histogram``
-    argument, by default the kernel wrapper ``build_histogram_packed``; the
-    tests and the chip check pass ``build_histogram_packed_plain`` to grow
-    the same tree through the plain version.
+  * A step does not read its leaf to the host.  The best leaf, its window
+    start and size, its split (feature, threshold, flags) and whether its
+    gain is positive (``do``) stay device tensors; every state write is
+    gated by ``do``, so a step that does nothing leaves the state bitwise
+    unchanged.  ``grow`` runs exactly ``num_leaves - 1`` steps (after the
+    forced phase, each forced split a ``do``-gated step with a running
+    ``aborted``, as `:672-690`) and reads the records once per tree
+    (``host_syncs``); records go to the cursor ``num_leaves - 1``.
+  * The partition is ``ops/partition.py:partition_window`` (the
+    ``csrc/partition.cu`` windowed kernel on the card): it reads the window
+    and the split from device memory.  Windows whose size bucket is above
+    ``tpu_sort_cutoff`` are stably partitioned in place (the one-bit-key
+    ``lax.sort``); smaller ones are frozen and only the leaf ids change
+    (mask mode), the children sharing the parent's window.  The JAX
+    package's power-of-two window buckets (``lax.switch``) exist for XLA's
+    static shapes and are kept only as that rule.
+  * The smaller child's histogram is one K = 1 launch of
+    ``ops/hist_segments.py`` (the window and leaf read from device memory,
+    the grid sized by the padded row count); ``gpu_use_dp`` keeps a plain
+    float64 histogram of the child's rows, as the JAX package keeps dp off
+    its Pallas kernel.
+  * On a CUDA card with the default kernels and float32 histograms the
+    step is captured once per learner as a CUDA graph (the forced steps
+    one graph each) over state allocated once per learner, and replayed
+    from the second tree on (``graph_launches``; the wave learner's
+    ``_queue`` and ``_capture``, which live here).  ``train_async`` returns
+    the packed records unread (``learner.AsyncTree``), so the pipelined
+    boosting loop admits this learner.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .binning import MISSING_NAN, MISSING_ZERO
+from . import native
 from .config import PARALLEL, Config, not_ported
 from .dataset import _ConstructedDataset, _round_up
 from .learner import (CF_GAIN, CF_LCNT, CF_LOUT, CF_LSG, CF_LSH, CF_RCNT,
                       CF_ROUT, CF_RSG, CF_RSH, CI_FEAT, CI_FLAGS, LF_CNT,
                       LF_DEPTH, LF_MAX_C, LF_MIN_C, LF_OUT, LF_SUM_G,
                       LF_SUM_H, NUM_CF, NUM_CI, NUM_LF, NUM_REC_FIELDS,
-                      REC_IS_CAT, HistogramFn, TreeLearner)
+                      AsyncTree, TreeLearner)
 from .ops.hist_packed import (ROW_QUANTUM, build_histogram_packed,
                               build_histogram_packed_plain, pack_bin_words)
-from .tree import Tree
+from .ops.hist_segments import (build_histogram_segments,
+                                build_histogram_segments_plain)
+from .ops.partition import (O_BAG, O_LBAG, O_LS, O_LW, O_RS, O_RW,
+                            partition_window, partition_window_plain)
 
-# record fields known on the host (REC_VALID .. REC_DEFAULT_LEFT)
-NUM_HOST_REC = 5
+
+@dataclass(frozen=True)
+class CompactKernels:
+    """The kernel functions the compact learner's tree calls: the root
+    histogram, the smaller child's (K = 1 segment) histogram and the
+    windowed partition.  The defaults are the wrappers (kernel on a CUDA
+    tensor, plain version on a CPU tensor); ``PLAIN_COMPACT`` grows the
+    same tree through the plain versions on any device."""
+    packed: Callable = build_histogram_packed
+    segments: Callable = build_histogram_segments
+    partition: Callable = partition_window
+
+
+PLAIN_COMPACT = CompactKernels(build_histogram_packed_plain,
+                               build_histogram_segments_plain,
+                               partition_window_plain)
 
 
 @dataclass
 class CompactState:
-    """One tree's device state; the tensors are updated in place."""
+    """The learner's device state, allocated once per learner and reset per
+    tree (a CUDA graph replays on fixed addresses); updated in place."""
     bins_p: torch.Tensor     # (Fw, N) int32 packed bins, permuted by leaf
     w_p: torch.Tensor        # (3, N) f32 (g*bag, h*bag, bag), permuted
     rid_p: torch.Tensor      # (N,) int64 original row id at each position
@@ -79,6 +107,10 @@ class CompactState:
     rec_f: torch.Tensor      # (L-1, NUM_REC_FIELDS) f32 per-split records
     rec_i: torch.Tensor      # (L-1, rec_i_cols) int64 exact bagged
                              # left/right counts (and bitset words)
+    num_leaves: torch.Tensor  # () int64 leaves so far
+    aborted: torch.Tensor    # () bool an invalid forced split was met
+    fmask: torch.Tensor      # (F,) bool this tree's feature mask
+    scratch: tuple           # the windowed partition's scratch lanes
     cand_b: Optional[torch.Tensor] = None  # (L, W) int32 bitsets (cat data)
 
 
@@ -88,10 +120,14 @@ class CompactTreeLearner(TreeLearner):
 
     def __init__(self, cfg: Config, data: _ConstructedDataset,
                  device: torch.device,
-                 histogram: Optional[HistogramFn] = None):
+                 kernels: CompactKernels = CompactKernels()):
         super().__init__(cfg, data, device)
+        #: the kernel functions (the wave learner sets its ``WaveKernels``,
+        #: whose ``packed`` the root histogram takes as well)
+        self.kernels = kernels
         self.n_pad = int(data.num_data_padded)
         self._bundle = data.bundle
+        f = self.num_features
         if self._bundle is not None:
             bu = self._bundle
             f_pad = _round_up(bu.num_groups, data.FEATURE_TILE)
@@ -104,14 +140,27 @@ class CompactTreeLearner(TreeLearner):
             self._ub_idx = torch.from_numpy(idx.astype(np.int64)).to(device)
             self._ub_valid = torch.from_numpy(valid).to(device)
             self._ub_fix = torch.from_numpy(fix).to(device)
+            col = np.asarray(bu.f_gcol, np.int64)
+            goff = np.asarray(bu.f_off, np.int64)
+            bnd = np.asarray(bu.f_bundled, np.int64)
         else:
             f_pad = data.bins.shape[0]       # padded to a multiple of 8
             self._hist_cols = self.num_features
             self._hist_nbins = self.num_bins_padded
+            col = np.arange(f, dtype=np.int64)
+            goff = np.zeros(f, np.int64)
+            bnd = np.zeros(f, np.int64)
         if self._hist_nbins > 256:
             raise ValueError(f"{self._hist_nbins}-bin data: bin codes past a "
                              f"byte do not pack; the masked learner takes it")
         self.fw = f_pad // 4
+        #: the decode table of the windowed partition (``ops/partition.py``
+        #: ``FT_*``): each feature's word row and byte shift, missing type,
+        #: default bin, bin count, bundle offset and bundled flag
+        self._ftab = torch.from_numpy(np.stack([
+            col // 4, (col % 4) * 8, self.np_missing.astype(np.int64),
+            self.np_default_bin.astype(np.int64),
+            self.np_num_bin.astype(np.int64), goff, bnd], 1)).to(device)
         # window size buckets of the JAX learner, smallest..largest (= N):
         # a window is physically compacted when its bucket is above
         # tpu_sort_cutoff, and frozen (mask mode) otherwise
@@ -129,7 +178,10 @@ class CompactTreeLearner(TreeLearner):
                              f"['bf16x2', 'bf16x3', 'highest'], got "
                              f"{cfg.tpu_hist_precision}")
         self._sort_cutoff = int(cfg.tpu_sort_cutoff)
-        self.histogram = histogram or build_histogram_packed
+        #: the largest window split in mask mode: a window of c rows is
+        #: partitioned exactly when its bucket is above the cutoff
+        self._mask_max = max([s for s in sizes if s <= self._sort_cutoff],
+                             default=0)
         if device.type == "cuda" and self.n_pad % ROW_QUANTUM:
             raise ValueError(f"on the CUDA card the padded row count must be "
                              f"a multiple of {ROW_QUANTUM}; set "
@@ -143,6 +195,34 @@ class CompactTreeLearner(TreeLearner):
         self.host_syncs = 0          # blocking device->host reads so far
         self._all_features = torch.ones(self.num_features, dtype=torch.bool,
                                         device=device)
+        self.kernel_calls.update(hist_packed=0, hist_segments=0,
+                                 partition_window=0)
+        self._st: Optional[CompactState] = None
+        # CUDA graphs of the split steps (the wave learner: of its passes)
+        self.use_graphs = device.type == "cuda" and not self.hist_dp \
+            and kernels == CompactKernels()
+        self._graphs: Dict[tuple, tuple] = {}
+        self._graph_pool = None
+        self._live = False           # this tree replays captured graphs
+        self._trees = 0
+        self.graph_launches = 0
+        self.graph_captures = 0
+        self.passes = 0              # steps (passes) queued, over all trees
+        self._tree_stats: List[Dict[str, int]] = []
+        #: called before ``tree_stats`` is read: the pipelined boosting
+        #: loop sets it to its flush, which decodes the queued trees
+        self.on_stats_read: Optional[Callable[[], None]] = None
+
+    @property
+    def tree_stats(self) -> List[Dict[str, int]]:
+        """Per tree: the learner's device counters (the compact learner's:
+        the splits its records hold, as ``total_splits``, ``grow_splits``
+        and ``pops``; the wave learner's ``DEVICE_STATS`` but the error
+        flags) and the host's: blocking reads, steps or passes queued,
+        graph launches and captures."""
+        if self.on_stats_read is not None:
+            self.on_stats_read()
+        return self._tree_stats
 
     # -- packed bins ---------------------------------------------------------
 
@@ -158,35 +238,37 @@ class CompactTreeLearner(TreeLearner):
             self._bins_packed = pack_bin_words(src)
         return self._bins_packed
 
-    def _bucket(self, cnt: int) -> int:
-        """Smallest window bucket >= cnt."""
-        for s in self._win_sizes:
-            if s >= cnt:
-                return s
-        return self._win_sizes[-1]
+    # -- histograms ----------------------------------------------------------
 
-    # -- windowed histogram --------------------------------------------------
-
-    def _window_hist(self, st: CompactState, start: int, cnt: int,
-                     leaf) -> torch.Tensor:
-        """Histogram of the rows of ``leaf`` (a device scalar; None = every
-        row) inside the window ``[start, start + cnt)``, over that window
-        rounded up to the kernel's row quantum."""
-        n = self.n_pad
-        size = min(_round_up(max(cnt, 1), ROW_QUANTUM), n)
-        sa = min(start, n - size)
-        words = st.bins_p[:, sa:sa + size]
-        w = st.w_p[:, sa:sa + size]
-        if leaf is not None:
-            w = w * (st.lid_p[sa:sa + size] == leaf)
+    def _root_hist(self, st) -> torch.Tensor:
+        """Histogram of every row (the root's; the wave learner's too)."""
         if self.hist_dp:
-            h = build_histogram_packed_plain(words, w,
+            h = build_histogram_packed_plain(st.bins_p, st.w_p,
                                              num_bins=self._hist_nbins,
                                              dp=True)
             return h[:self._hist_cols]
-        h = self.histogram(words, w, num_bins=self._hist_nbins,
-                           quant=self._quant)
+        h = self.kernels.packed(st.bins_p, st.w_p, num_bins=self._hist_nbins,
+                                quant=self._quant)
         return self._quant_count(h[:self._hist_cols])
+
+    def _child_hist(self, st: CompactState, start: torch.Tensor,
+                    cnt: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+        """Histogram of the rows of ``leaf`` in ``[start, start + cnt)``,
+        all (1,) device tensors: one K = 1 segment launch, or in dp a plain
+        float64 pass over every row with the others' weights masked off (no
+        window read to the host)."""
+        if self.hist_dp:
+            pos = torch.arange(self.n_pad, device=self.device)
+            m = (pos >= start) & (pos < start + cnt) & (st.lid_p == leaf)
+            h = build_histogram_packed_plain(st.bins_p, st.w_p * m,
+                                             num_bins=self._hist_nbins,
+                                             dp=True)
+            return h[:self._hist_cols]
+        self.kernel_calls["hist_segments"] += 1
+        h = self.kernels.segments(st.bins_p, st.w_p, st.lid_p, start, cnt,
+                                  leaf, num_bins=self._hist_nbins,
+                                  rows_bound=self.n_pad)
+        return h[0, :self._hist_cols]
 
     def _quant_count(self, h: torch.Tensor) -> torch.Tensor:
         """In quant mode the count channel holds the hessian lane's sums:
@@ -226,254 +308,304 @@ class CompactTreeLearner(TreeLearner):
 
     # -- root ----------------------------------------------------------------
 
-    def _init_root(self, grad, hess, bag, feature_mask) -> CompactState:
+    def _alloc_state(self) -> CompactState:
         n, L, acc, dev = self.n_pad, self.num_leaves, self._acc, self.device
-        w = torch.stack([grad * bag, hess * bag, bag]).to(torch.float32)
-        st = CompactState(
-            bins_p=self.bins_packed().clone(), w_p=w,
-            rid_p=torch.arange(n, device=dev),
-            lid_p=torch.zeros(n, dtype=torch.int32, device=dev),
-            leaf_i=torch.zeros((L, 2), dtype=torch.int64, device=dev),
+        bins = self.bins_packed()
+        i64 = dict(dtype=torch.int64, device=dev)
+        return CompactState(
+            bins_p=torch.empty_like(bins),
+            w_p=torch.empty((3, n), dtype=torch.float32, device=dev),
+            rid_p=torch.empty(n, **i64),
+            lid_p=torch.empty(n, dtype=torch.int32, device=dev),
+            leaf_i=torch.zeros((L, 2), **i64),
             leaf_f=torch.zeros((L, NUM_LF), dtype=acc, device=dev),
             hist_pool=torch.zeros((L, self._hist_cols, self._hist_nbins, 3),
                                   dtype=acc, device=dev),
             cand_f=torch.zeros((L, NUM_CF), dtype=acc, device=dev),
-            cand_i=torch.zeros((L, NUM_CI), dtype=torch.int64, device=dev),
+            cand_i=torch.zeros((L, NUM_CI), **i64),
             rec_f=torch.zeros((L - 1, NUM_REC_FIELDS), dtype=torch.float32,
                               device=dev),
-            rec_i=torch.zeros((L - 1, self.rec_i_cols), dtype=torch.int64,
-                              device=dev))
-        root_hist = self._window_hist(st, 0, n, None)
+            rec_i=torch.zeros((L - 1, self.rec_i_cols), **i64),
+            num_leaves=torch.zeros((), **i64),
+            aborted=torch.zeros((), dtype=torch.bool, device=dev),
+            fmask=torch.zeros(self.num_features, dtype=torch.bool,
+                              device=dev),
+            scratch=(torch.empty_like(bins),
+                     torch.empty((3, n), dtype=torch.float32, device=dev),
+                     torch.empty(n, **i64),
+                     torch.empty(n, dtype=torch.int32, device=dev)),
+            cand_b=torch.zeros((L, self.cat_W), dtype=torch.int32,
+                               device=dev) if self.has_categorical else None)
+
+    def _init_root(self, grad, hess, bag, feature_mask) -> CompactState:
+        """Reset the learner's state for a new tree (allocated on the first)
+        and fill in the root: its rows, histogram and best split."""
+        n, acc = self.n_pad, self._acc
+        if self._st is None:
+            self._st = self._alloc_state()
+        st = self._st
+        st.bins_p.copy_(self.bins_packed())
+        st.w_p.copy_(torch.stack([grad * bag, hess * bag, bag]))
+        torch.arange(n, out=st.rid_p)
+        st.fmask.copy_(feature_mask)
+        for t in (st.lid_p, st.leaf_i, st.leaf_f, st.hist_pool, st.cand_f,
+                  st.cand_i, st.rec_f, st.rec_i, st.aborted):
+            t.zero_()
+        st.num_leaves.fill_(1)
+        self.kernel_calls["hist_packed"] += int(not self.hist_dp)
+        root_hist = self._root_hist(st)
         sum_g = (grad * bag).to(acc).sum()
         sum_h = (hess * bag).to(acc).sum()
         cnt = bag.to(acc).sum()
         md = int(self.cfg.max_depth)
         depth_ok = True if md <= 0 else md > 0
         cf, ci, cb = self._cand_rows(root_hist[None], sum_g[None],
-                                     sum_h[None], cnt[None], feature_mask,
+                                     sum_h[None], cnt[None], st.fmask,
                                      depth_ok)
         if cb is not None:
-            st.cand_b = torch.zeros((L, self.cat_W), dtype=torch.int32,
-                                    device=dev)
+            st.cand_b.zero_()
             st.cand_b[0] = cb[0]
-        st.leaf_i[0, 1] = n
-        st.leaf_f[:, LF_MIN_C] = float("-inf")
-        st.leaf_f[:, LF_MAX_C] = float("inf")
+        # (fill_ on views: a Python scalar stored into a CUDA tensor by
+        # indexing goes through a blocking copy)
+        st.leaf_i[:1, 1].fill_(n)
+        st.leaf_f[:, LF_MIN_C].fill_(float("-inf"))
+        st.leaf_f[:, LF_MAX_C].fill_(float("inf"))
         st.leaf_f[0, :LF_OUT] = torch.stack([sum_g, sum_h, cnt])
         st.hist_pool[0] = root_hist
-        st.cand_f[:, CF_GAIN] = float("-inf")
+        st.cand_f[:, CF_GAIN].fill_(float("-inf"))
         st.cand_f[0] = cf[0]
         st.cand_i[0] = ci[0]
         return st
 
     # -- one split -----------------------------------------------------------
 
-    def _split_step(self, st: CompactState, feature_mask, leaf: int,
-                    s: int, c: int, feat: int, thr: int, flags: int,
-                    new_leaf: int, forced=None) -> None:
-        """Split ``leaf`` at its best candidate, or at the forced split's
-        rows ``forced=(crow_f, crow_i, crow_b)`` (``_forced_rows``)."""
-        dev = self.device
-        dleft = bool(flags & 1)
+    def _split_step(self, st: CompactState, forced=None) -> None:
+        """One no-op-able split (JAX ``_split_step_compact``): the best leaf
+        splits when its gain is positive and a leaf is to spare (``do``),
+        or, with ``forced=(i, cf, ci, cb, do)``, the leaf of forced split
+        ``i`` at ``_forced_rows``' candidate where ``do``.  Every write is
+        gated by ``do``; the record goes to the cursor ``num_leaves - 1``.
+        No value is read to the host: rows are picked with
+        ``index_select`` on device indices."""
+        L, dev = self.num_leaves, self.device
         if forced is None:
-            crow_f = st.cand_f[leaf].clone()
-            crow_i = st.cand_i[leaf]      # read before the row is rewritten
-            crow_b = None if st.cand_b is None else st.cand_b[leaf].clone()
+            best = torch.argmax(st.cand_f[:, CF_GAIN]).view(1)
+            cf = st.cand_f.index_select(0, best)[0]
+            ci = st.cand_i.index_select(0, best)[0]
+            cb = None if st.cand_b is None \
+                else st.cand_b.index_select(0, best)[0]
+            do = (cf[CF_GAIN] > 0.0) & (st.num_leaves < L)
         else:
-            crow_f, crow_i, crow_b = forced
-        lrow_f = st.leaf_f[leaf].clone()
+            i, cf, ci, cb, do = forced
+            best = torch.full((1,), self._forced[i].leaf, dtype=torch.int64,
+                              device=dev)
+        lrow = st.leaf_f.index_select(0, best)[0]
+        # a full tree's no-op steps stay inside the tables
+        new = torch.clamp(st.num_leaves, max=L - 1).view(1)
+        pair = torch.cat([best, new])
 
-        # ---- partition the parent's window (DataPartition::Split): the
-        # decision on the split feature (NumericalDecisionInner,
-        # `tree.h:233-249`) from its byte lane
-        col = int(self._bundle.f_gcol[feat]) if self._bundle is not None \
-            else feat
-        word = st.bins_p[col // 4, s:s + c]
-        frow = (word >> (8 * (col % 4))) & 0xFF
-        if self._bundle is not None and self._bundle.f_bundled[feat]:
-            # bundle code -> this feature's bin (out-of-range codes mean
-            # another member was active: this feature sits at its default)
-            d = int(self.np_default_bin[feat])
-            r = frow - int(self._bundle.f_off[feat])
-            in_r = (r >= 0) & (r < int(self.np_num_bin[feat]) - 1)
-            frow = torch.where(in_r, r + (r >= d).to(r.dtype), d)
-        mt = int(self.np_missing[feat])
-        if flags & 2:
-            # CategoricalDecisionInner (`tree.h:270-277`): the bin's bit of
-            # the leaf's bitset; no missing rule
-            word = crow_b.index_select(0, (frow >> 5).to(torch.int64))
-            go_left = ((word >> (frow & 31)) & 1) == 1
-        else:
-            go_left = frow <= thr
-            if mt == MISSING_ZERO:
-                go_left = torch.where(
-                    frow == int(self.np_default_bin[feat]), dleft, go_left)
-            elif mt == MISSING_NAN:
-                go_left = torch.where(
-                    frow == int(self.np_num_bin[feat]) - 1, dleft, go_left)
-        bag = st.w_p[2, s:s + c] > 0.5
-        sort_mode = self._bucket(c) > self._sort_cutoff
-        if sort_mode:
-            # stable partition: left rows first, then right, each in order
-            cl = torch.cumsum(go_left, 0)
-            lc_w = cl[-1]
-            pos = torch.arange(c, device=dev)
-            dest = torch.where(go_left, cl - 1, lc_w + pos - cl)
-            perm = torch.empty_like(dest).scatter_(0, dest, pos)
-            st.bins_p[:, s:s + c] = st.bins_p[:, s:s + c].index_select(1, perm)
-            st.w_p[:, s:s + c] = st.w_p[:, s:s + c].index_select(1, perm)
-            st.rid_p[s:s + c] = st.rid_p[s:s + c].index_select(0, perm)
-            st.lid_p[s:s + c] = torch.where(pos >= lc_w, new_leaf, leaf)
-            lc_bag = (go_left & bag).sum()
-            c_bag = bag.sum()
-        else:
-            lid_w = st.lid_p[s:s + c]
-            in_seg = lid_w == leaf
-            st.lid_p[s:s + c] = torch.where(in_seg & ~go_left, new_leaf,
-                                            lid_w)
-            lc_bag = (in_seg & go_left & bag).sum()
-            c_bag = (in_seg & bag).sum()
+        # ---- partition the parent's window (DataPartition::Split), the
+        # window and the split read from device memory
+        split = torch.cat([best, new, ci, do.view(1).to(torch.int64),
+                           st.leaf_i.index_select(0, best)[0]])
+        self.kernel_calls["partition_window"] += 1
+        win = self.kernels.partition(
+            st.bins_p, st.w_p, st.rid_p, st.lid_p, split, self._ftab, cb,
+            mask_max=self._mask_max, scratch=st.scratch)
+        lc_bag, c_bag = win[O_LBAG], win[O_BAG]
 
         # ---- smaller-child histogram + sibling subtraction; the smaller
         # child is chosen by BAGGED counts like the reference
         left_smaller = lc_bag <= (c_bag - lc_bag)
-        small_leaf = torch.where(left_smaller, leaf, new_leaf)
-        hist_small = self._window_hist(st, s, c, small_leaf)
-        hist_large = st.hist_pool[leaf] - hist_small
+        small = torch.where(left_smaller, best, new)
+        start = torch.where(left_smaller, win[O_LS:O_LS + 1],
+                            win[O_RS:O_RS + 1])
+        cnt = torch.where(left_smaller, win[O_LW:O_LW + 1],
+                          win[O_RW:O_RW + 1])
+        hist_small = self._child_hist(st, start, cnt, small)
+        hist_large = st.hist_pool.index_select(0, best)[0] - hist_small
         hist_left = torch.where(left_smaller, hist_small, hist_large)
         hist_right = torch.where(left_smaller, hist_large, hist_small)
-        st.hist_pool[leaf] = hist_left
-        st.hist_pool[new_leaf] = hist_right
+        hists = torch.stack([hist_left, hist_right])
+        st.hist_pool.index_copy_(0, pair, torch.where(
+            do, hists, st.hist_pool.index_select(0, pair)))
 
         # ---- children bookkeeping.  A forced split mirrors the reference:
         # the children's sums from GatherInfoForThreshold, their counts from
         # the partition (`leaf_splits.hpp:40-52`)
         if forced is not None:
-            crow_f = crow_f.clone()
-            crow_f[CF_LCNT] = lc_bag
-            crow_f[CF_RCNT] = c_bag - lc_bag
-        child_depth = lrow_f[LF_DEPTH] + 1.0
-        lout, rout = crow_f[CF_LOUT], crow_f[CF_ROUT]
-        pmin, pmax = lrow_f[LF_MIN_C], lrow_f[LF_MAX_C]
+            cf = torch.cat([cf[:CF_LCNT], lc_bag.to(cf.dtype).view(1),
+                            cf[CF_RSG:CF_RCNT],
+                            (c_bag - lc_bag).to(cf.dtype).view(1),
+                            cf[CF_LOUT:]])
+        child_depth = lrow[LF_DEPTH:LF_DEPTH + 1] + 1.0
+        pmin, pmax = lrow[LF_MIN_C:LF_MIN_C + 1], lrow[LF_MAX_C:]
         lmin = rmin = pmin
         lmax = rmax = pmax
         mins = maxs = None
         if self.has_monotone:
-            lmin, lmax, rmin, rmax = (x[0] for x in self._child_constraints(
-                crow_i[CI_FEAT:CI_FEAT + 1], crow_i[CI_FLAGS:], lout.view(1),
-                rout.view(1), pmin.view(1), pmax.view(1)))
-            mins, maxs = torch.stack([lmin, rmin]), torch.stack([lmax, rmax])
-        st.leaf_f[leaf] = torch.stack([crow_f[CF_LSG], crow_f[CF_LSH],
-                                       crow_f[CF_LCNT], lout, child_depth,
-                                       lmin, lmax])
-        st.leaf_f[new_leaf] = torch.stack([crow_f[CF_RSG], crow_f[CF_RSH],
-                                           crow_f[CF_RCNT], rout, child_depth,
-                                           rmin, rmax])
-        if sort_mode:
-            st.leaf_i[leaf, 0] = s
-            st.leaf_i[leaf, 1] = lc_w
-            st.leaf_i[new_leaf, 0] = lc_w + s
-            st.leaf_i[new_leaf, 1] = c - lc_w
-        else:
-            st.leaf_i[new_leaf, 0] = s
-            st.leaf_i[new_leaf, 1] = c
+            lmin, lmax, rmin, rmax = self._child_constraints(
+                ci[CI_FEAT:CI_FEAT + 1], ci[CI_FLAGS:],
+                cf[CF_LOUT:CF_LOUT + 1], cf[CF_ROUT:CF_ROUT + 1], pmin, pmax)
+            mins, maxs = torch.cat([lmin, rmin]), torch.cat([lmax, rmax])
+        rows = torch.stack([
+            torch.cat([cf[CF_LSG:CF_LCNT + 1], cf[CF_LOUT:CF_LOUT + 1],
+                       child_depth, lmin, lmax]),
+            torch.cat([cf[CF_RSG:CF_RCNT + 1], cf[CF_ROUT:CF_ROUT + 1],
+                       child_depth, rmin, rmax])])
+        st.leaf_f.index_copy_(0, pair, torch.where(
+            do, rows, st.leaf_f.index_select(0, pair)))
+        st.leaf_i.index_copy_(0, pair, torch.where(
+            do, win[O_LS:O_RW + 1].view(2, 2),
+            st.leaf_i.index_select(0, pair)))
 
         # ---- children's best splits, both in one batched scan
         md = int(self.cfg.max_depth)
-        depth_ok = True if md <= 0 else child_depth < md
-        cf, ci, cb = self._cand_rows(
-            torch.stack([hist_left, hist_right]),
-            torch.stack([crow_f[CF_LSG], crow_f[CF_RSG]]),
-            torch.stack([crow_f[CF_LSH], crow_f[CF_RSH]]),
-            torch.stack([crow_f[CF_LCNT], crow_f[CF_RCNT]]),
-            feature_mask, depth_ok, mins, maxs)
-        st.cand_f[leaf] = cf[0]
-        st.cand_f[new_leaf] = cf[1]
-        st.cand_i[leaf] = ci[0]
-        st.cand_i[new_leaf] = ci[1]
-        if cb is not None:
-            st.cand_b[leaf] = cb[0]
-            st.cand_b[new_leaf] = cb[1]
+        depth_ok = True if md <= 0 else child_depth[0] < md
+        cf2, ci2, cb2 = self._cand_rows(
+            hists, torch.stack([cf[CF_LSG], cf[CF_RSG]]),
+            torch.stack([cf[CF_LSH], cf[CF_RSH]]),
+            torch.stack([cf[CF_LCNT], cf[CF_RCNT]]), st.fmask, depth_ok,
+            mins, maxs)
+        st.cand_f.index_copy_(0, pair, torch.where(
+            do, cf2, st.cand_f.index_select(0, pair)))
+        st.cand_i.index_copy_(0, pair, torch.where(
+            do, ci2, st.cand_i.index_select(0, pair)))
 
-        # ---- record for host tree assembly (the host-known fields
-        # REC_VALID..REC_DEFAULT_LEFT are filled in on the host)
-        step = new_leaf - 1
-        st.rec_f[step, NUM_HOST_REC:NUM_REC_FIELDS - 1] = torch.stack([
-            crow_f[CF_GAIN], lout, rout, crow_f[CF_LCNT], crow_f[CF_RCNT],
-            lrow_f[LF_OUT], lrow_f[LF_CNT], crow_f[CF_LSH], crow_f[CF_RSH],
-            crow_f[CF_LSG], crow_f[CF_RSG]]).to(torch.float32)
+        # ---- record for host tree assembly (JAX `:482-500`) at the
+        # cursor; the bitset words widened to int64 with the counts
+        flags = ci[CI_FLAGS:]
+        head = torch.cat([do.view(1).to(torch.int64), best, ci[:CI_FLAGS],
+                          flags & 1])
+        body = torch.stack([
+            cf[CF_GAIN], cf[CF_LOUT], cf[CF_ROUT], cf[CF_LCNT], cf[CF_RCNT],
+            lrow[LF_OUT], lrow[LF_CNT], cf[CF_LSH], cf[CF_RSH], cf[CF_LSG],
+            cf[CF_RSG]])
+        rec = torch.cat([head.to(torch.float32), body.to(torch.float32),
+                         (flags >> 1).to(torch.float32)])
         counts = torch.stack([lc_bag, c_bag - lc_bag])
-        if crow_b is not None:
-            counts = torch.cat([counts, crow_b.to(torch.int64) & 0xFFFFFFFF])
-        st.rec_i[step] = counts
+        if cb is not None:
+            st.cand_b.index_copy_(0, pair, torch.where(
+                do, cb2, st.cand_b.index_select(0, pair)))
+            counts = torch.cat([counts, cb.to(torch.int64) & 0xFFFFFFFF])
+        cur = torch.clamp(st.num_leaves - 1, max=L - 2).view(1)
+        st.rec_f.index_copy_(0, cur, torch.where(
+            do, rec, st.rec_f.index_select(0, cur)[0])[None])
+        st.rec_i.index_copy_(0, cur, torch.where(
+            do, counts, st.rec_i.index_select(0, cur)[0])[None])
+        st.num_leaves += do.to(torch.int64)
+
+    def _forced_step(self, st: CompactState, i: int) -> None:
+        """Forced split ``i`` (JAX `:672-690`) as a ``do``-gated step: done
+        where it is valid and no earlier one aborted; an invalid one sets
+        ``st.aborted`` (`serial_tree_learner.cpp:612-616`)."""
+        leaf = self._forced[i].leaf
+        lrow = st.leaf_f[leaf]
+        hist = st.hist_pool[leaf][None]
+        if self._bundle is not None:
+            hist = self._unbundle_hist(hist, lrow[LF_SUM_G][None],
+                                       lrow[LF_SUM_H][None],
+                                       lrow[LF_CNT][None])
+        cf, ci, cb, valid = self._forced_rows(i, hist[0], lrow)
+        self._split_step(st, forced=(i, cf, ci, cb, valid & ~st.aborted))
+        st.aborted |= ~valid
+
+    # -- queueing the steps (the wave learner's passes too) ------------------
+
+    def _queue(self, key: tuple, fn: Callable[[], None]) -> None:
+        """Queue one step (pass): run ``fn`` eagerly, or replay its CUDA
+        graph (captured on its first use in a tree that replays graphs)."""
+        self.passes += 1
+        if not self._live:
+            fn()
+            return
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(fn)
+        graph, calls, launches = entry
+        graph.replay()
+        self.graph_launches += 1
+        for name, d in calls.items():
+            self.kernel_calls[name] += d
+        native.credit(launches)
+
+    def _capture(self, fn: Callable[[], None]) -> tuple:
+        """Capture ``fn`` as a CUDA graph in the learner's memory pool (the
+        capture runs nothing); returns it with the kernel calls and wrapper
+        launches one replay makes.  A pass that cannot be captured raises."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        calls0 = dict(self.kernel_calls)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # relaxed: a library call that queries the device while the
+            # pass is recorded (torch.histc sizes its kernel from the free
+            # memory) is allowed; a read of the capturing stream still fails
+            _, launches = native.capture(graph, fn, self._graph_pool,
+                                         "relaxed")
+        finally:
+            calls = {k: self.kernel_calls[k] - v for k, v in calls0.items()}
+            self.kernel_calls.update(calls0)
+        self.graph_captures += 1
+        return graph, calls, launches
 
     # -- whole tree ----------------------------------------------------------
+
+    def train_async(self, grad: torch.Tensor, hess: torch.Tensor,
+                    bag: torch.Tensor,
+                    feature_mask: Optional[torch.Tensor] = None
+                    ) -> AsyncTree:
+        """Grow one tree in the forced phase plus exactly ``num_leaves - 1``
+        steps with no host read: the records and their exact integer columns
+        packed as (L-1) rows of ``NUM_REC_FIELDS + rec_i_cols`` float64, the
+        leaf id per original row (N,) int64 and the leaf outputs (L,) acc,
+        all on the device."""
+        if feature_mask is None:
+            feature_mask = self._all_features
+        before = (self.passes, self.graph_launches, self.graph_captures)
+        self._live = self.use_graphs and self._trees > 0
+        st = self._init_root(grad, hess, bag, feature_mask)
+        for i in range(len(self._forced or ())):
+            self._queue(("forced", i), lambda i=i: self._forced_step(st, i))
+        for _ in range(self.num_leaves - 1):
+            self._queue(("step",), lambda: self._split_step(st))
+        leaf_id = torch.empty_like(st.rid_p).index_copy_(
+            0, st.rid_p, st.lid_p.to(torch.int64))
+        packed = torch.cat([st.rec_f.to(torch.float64),
+                            st.rec_i.to(torch.float64)], dim=1).reshape(-1)
+        self._trees += 1
+        after = (self.passes, self.graph_launches, self.graph_captures)
+        host = dict(zip(("steps", "graph_launches", "graph_captures"),
+                        (a - b for a, b in zip(after, before))))
+        return AsyncTree(packed, leaf_id, st.leaf_f[:, LF_OUT].clone(), host)
+
+    def host_records(self, flat: np.ndarray, host_stats: Dict[str, int]):
+        """(records (L-1, 17) float32, exact integer columns (L-1,
+        rec_i_cols) int64: the bagged counts, then any bitset words) from a
+        tree's packed records read to the host; the tree's counters go to
+        ``tree_stats``."""
+        out = flat.reshape(self.num_leaves - 1,
+                           NUM_REC_FIELDS + self.rec_i_cols)
+        rec_f = out[:, :NUM_REC_FIELDS].astype(np.float32)
+        # every split it takes is grown and kept
+        n = int((rec_f[:, 0] > 0.5).sum())
+        self._tree_stats.append(dict(host_stats, total_splits=n,
+                                     grow_splits=n, pops=n))
+        return rec_f, out[:, NUM_REC_FIELDS:].astype(np.int64)
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
              feature_mask: Optional[torch.Tensor] = None):
         """Grow one tree; returns (records (L-1, 17) f32 numpy, exact
         integer columns (L-1, rec_i_cols) int64 numpy: the bagged counts and
         any bitset words, leaf id per original row (N,) int64 tensor, leaf
-        outputs (L,) acc tensor)."""
-        if feature_mask is None:
-            feature_mask = self._all_features
-        st = self._init_root(grad, hess, bag, feature_mask)
-        host_rec: List[Tuple[int, int, int, int, int]] = []
-        num_leaves = 1
-        for i, fs in enumerate(self._forced or ()):
-            # the forced splits in BFS order (JAX `learner_compact.py:
-            # 686-703`): one read of the split's validity and its leaf's
-            # window; the first invalid one ends the queue
-            if num_leaves >= self.num_leaves:
-                break
-            hist = st.hist_pool[fs.leaf][None]
-            lrow = st.leaf_f[fs.leaf]
-            if self._bundle is not None:
-                hist = self._unbundle_hist(hist, lrow[LF_SUM_G][None],
-                                           lrow[LF_SUM_H][None],
-                                           lrow[LF_CNT][None])
-            cf, ci, cb, valid = self._forced_rows(i, hist[0], lrow)
-            head = torch.cat([valid.view(1).to(torch.int64),
-                              st.leaf_i[fs.leaf]]).tolist()
-            self.host_syncs += 1
-            if not head[0]:
-                break
-            flags = 2 if fs.is_cat else 1
-            self._split_step(st, feature_mask, fs.leaf, head[1], head[2],
-                             fs.feature_inner, fs.threshold_bin, flags,
-                             num_leaves, forced=(cf, ci, cb))
-            host_rec.append((fs.leaf, fs.feature_inner, fs.threshold_bin,
-                             flags & 1, flags >> 1))
-            num_leaves += 1
-        while num_leaves < self.num_leaves:
-            # (index_select, not tensor indexing: a 0-d index tensor would
-            # be read to the host)
-            best = torch.argmax(st.cand_f[:, CF_GAIN]).view(1)
-            head = torch.cat([
-                best, st.leaf_i.index_select(0, best)[0],
-                st.cand_i.index_select(0, best)[0],
-                (st.cand_f.index_select(0, best)[0, CF_GAIN] > 0.0).view(1)])
-            leaf, s, c, feat, thr, flags, do = head.tolist()
-            self.host_syncs += 1
-            if not do:
-                break
-            self._split_step(st, feature_mask, leaf, s, c, feat, thr, flags,
-                             num_leaves)
-            host_rec.append((leaf, feat, thr, flags & 1, flags >> 1))
-            num_leaves += 1
-        leaf_id = torch.empty_like(st.rid_p)
-        leaf_id[st.rid_p] = st.lid_p.to(torch.int64)
-        out = torch.cat([st.rec_f.to(torch.float64),
-                         st.rec_i.to(torch.float64)], dim=1).cpu().numpy()
+        outputs (L,) acc tensor).  The records are the one host read of the
+        tree."""
+        tree = self.train_async(grad, hess, bag, feature_mask)
+        flat = tree.records.cpu().numpy()
         self.host_syncs += 1
-        rec_f = out[:, :NUM_REC_FIELDS].astype(np.float32)
-        rec_i = out[:, NUM_REC_FIELDS:].astype(np.int64)
-        if host_rec:
-            hr = np.asarray(host_rec, dtype=np.float32)
-            rec_f[:len(host_rec), 0] = 1.0
-            rec_f[:len(host_rec), 1:NUM_HOST_REC] = hr[:, :-1]
-            rec_f[:len(host_rec), REC_IS_CAT] = hr[:, -1]
-        return rec_f, rec_i, leaf_id, st.leaf_f[:, LF_OUT]
+        rec_f, rec_i = self.host_records(flat, dict(tree.host_stats,
+                                                    host_syncs=1))
+        return rec_f, rec_i, tree.leaf_id, tree.leaf_out
 
     def train(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,
               feature_mask: Optional[torch.Tensor] = None):

@@ -1,9 +1,9 @@
 """Frontier-wave tree learner: batched speculative leaf-wise growth.
 
 Port of ``lightgbm_tpu/learner_wave.py:WaveTPUTreeLearner``.  The sequential
-compact learner splits one leaf per step and reads one small tensor to the
-host per split; this learner grows a 255-leaf tree in about a dozen waves
-while keeping exact best-first (leaf-wise) semantics:
+compact learner splits one leaf per step, 254 steps for a 255-leaf tree;
+this learner grows such a tree in about a dozen waves while keeping exact
+best-first (leaf-wise) semantics:
 
   1. **Grow.**  Each wave splits the top-W positive-gain frontier leaves at
      once: one decide pass over the rows, one stable partition of every
@@ -123,19 +123,19 @@ ported, not the TPU mechanism):
     constrained tree runs the quant segment histogram and the constrained
     ``split_scan``.
 
-Telemetry counters, which no learner of the port carries yet, raise at the
-entry point (``config.check_supported``).
+With ``telemetry`` on, the boosting loop maps these per-tree counters
+(``DEVICE_STATS``, read with the records) onto the report's device counter
+names (``observability/telemetry.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from . import native
 from .binning import MISSING_NAN, MISSING_ZERO
 from .config import Config
 from .dataset import _ConstructedDataset, _round_up
@@ -198,6 +198,9 @@ ST_WAVES, ST_OPEN, ST_OVERFLOW = range(3)
 NUM_ST = 3
 #: the counters after the records in ``AsyncTree.records``: the three above,
 #: then the replay's passes, stall events, stall splits and error flag
+#: with telemetry on, two more: the split count after growth and after the
+#: replay's corrections (``observability/telemetry.py``)
+TELEMETRY_STATS = ("grow_splits", "total_splits")
 DEVICE_STATS = ("waves", "open_levels", "slot_overflow", "replay_passes",
                 "stall_events", "stall_splits", "replay_error")
 
@@ -333,7 +336,7 @@ class WaveTreeLearner(CompactTreeLearner):
     def __init__(self, cfg: Config, data: _ConstructedDataset,
                  device: torch.device,
                  kernels: WaveKernels = WaveKernels()):
-        super().__init__(cfg, data, device, histogram=kernels.packed)
+        super().__init__(cfg, data, device)
         self.kernels = kernels
         self.split_cat = kernels.cat
         self._init_wave_dims(cfg)
@@ -378,30 +381,15 @@ class WaveTreeLearner(CompactTreeLearner):
         self._use_fused = self._quant and self._bundle is None \
             and not self.has_categorical and not self.has_monotone \
             and not self.has_penalty
-        self._tree_stats: List[Dict[str, int]] = []
-        #: called before ``tree_stats`` is read: the pipelined boosting
-        #: loop sets it to its flush, which decodes the queued trees
-        self.on_stats_read: Optional[Callable[[], None]] = None
         self.use_graphs = device.type == "cuda" and not self.hist_dp \
             and kernels == WaveKernels()
         self._st: Optional[WaveState] = None
         self._ring = _FlagRing(device)
-        self._graphs: Dict[tuple, tuple] = {}
-        self._graph_pool = None
-        self._live = False           # this tree replays captured graphs
-        self._trees = 0
-        self.graph_launches = 0
-        self.graph_captures = 0
-        self.passes = 0
-
-    @property
-    def tree_stats(self) -> List[Dict[str, int]]:
-        """Per tree: the device counters (``DEVICE_STATS`` but the error
-        flags) and the host's: blocking reads, lagged flag waits, split
-        passes queued, graph launches and captures."""
-        if self.on_stats_read is not None:
-            self.on_stats_read()
-        return self._tree_stats
+        #: telemetry's split counts ride the records (``TELEMETRY_STATS``);
+        #: without telemetry the device work is unchanged
+        self._telem = bool(cfg.telemetry)
+        self._grow_n = torch.zeros(1, dtype=torch.int64, device=device) \
+            if self._telem else None
 
     def _init_wave_dims(self, cfg: Config) -> None:
         """Slot and pool sizing, as ``learner_wave.py:_init_wave_dims``:
@@ -556,10 +544,10 @@ class WaveTreeLearner(CompactTreeLearner):
         st.refidx[:1].fill_(0)
         st.avail[:1].fill_(1)
         st.members.fill_(M)
-        if not self.hist_dp:
-            self.kernel_calls["hist_packed"] += 1
-            self.kernel_calls["hist_packed_quant"] += int(self._quant)
-        root_hist = self._window_hist(st, 0, n, None)
+        self.kernel_calls["hist_packed"] += int(not self.hist_dp)
+        self.kernel_calls["hist_packed_quant"] += int(
+            self._quant and not self.hist_dp)
+        root_hist = self._root_hist(st)
         if self._quant:
             # root totals from the dequantized lanes, the count on the
             # count channel's scale
@@ -916,43 +904,6 @@ class WaveTreeLearner(CompactTreeLearner):
 
     # -- queueing the passes -------------------------------------------------
 
-    def _queue(self, key: tuple, fn: Callable[[], None]) -> None:
-        """Queue one split pass: run ``fn`` eagerly, or replay its CUDA
-        graph (captured on its first use in a tree that replays graphs)."""
-        self.passes += 1
-        if not self._live:
-            fn()
-            return
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._graphs[key] = self._capture(fn)
-        graph, calls, launches = entry
-        graph.replay()
-        self.graph_launches += 1
-        for name, d in calls.items():
-            self.kernel_calls[name] += d
-        native.credit(launches)
-
-    def _capture(self, fn: Callable[[], None]) -> tuple:
-        """Capture ``fn`` as a CUDA graph in the learner's memory pool (the
-        capture runs nothing); returns it with the kernel calls and wrapper
-        launches one replay makes.  A pass that cannot be captured raises."""
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        calls0 = dict(self.kernel_calls)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            # relaxed: a library call that queries the device while the
-            # pass is recorded (torch.histc sizes its kernel from the free
-            # memory) is allowed; a read of the capturing stream still fails
-            _, launches = native.capture(graph, fn, self._graph_pool,
-                                         "relaxed")
-        finally:
-            calls = {k: self.kernel_calls[k] - v for k, v in calls0.items()}
-            self.kernel_calls.update(calls0)
-        self.graph_captures += 1
-        return graph, calls, launches
-
     def _drive(self, run: Callable[[int], None], limit: int,
                flag: Callable[[], torch.Tensor], go_on: int,
                what: str) -> None:
@@ -993,6 +944,8 @@ class WaveTreeLearner(CompactTreeLearner):
 
         self._drive(wave, self.grow_budget + 2, lambda: st.flag, 1,
                     "growth")
+        if self._telem:
+            self._grow_n.copy_(st.num_splits.view(1))
         kb1 = self._stall_batch == 1
 
         def stall(_):
@@ -1065,10 +1018,12 @@ class WaveTreeLearner(CompactTreeLearner):
             rec_i = torch.cat([rec_i, st.cand_b.index_select(0, nd)
                                .to(torch.int64) & 0xFFFFFFFF], 1)
         f64 = torch.float64
+        tail = [st.counters, st.rctl[CTL_PASSES:]]
+        if self._telem:
+            tail += [self._grow_n, st.num_splits.view(1)]
         packed = torch.cat([rec_f.reshape(-1).to(f64),
-                            rec_i.reshape(-1).to(f64),
-                            st.counters.to(f64),
-                            st.rctl[CTL_PASSES:].to(f64)])
+                            rec_i.reshape(-1).to(f64)]
+                           + [t.to(f64) for t in tail])
         return packed, leaf_id, leaf_out
 
     def train_async(self, grad: torch.Tensor, hess: torch.Tensor,
@@ -1102,12 +1057,14 @@ class WaveTreeLearner(CompactTreeLearner):
         b, nf, ni = self.budget, NUM_REC_FIELDS, self.rec_i_cols
         rec_f = flat[:b * nf].reshape(b, nf).astype(np.float32)
         rec_i = flat[b * nf:b * (nf + ni)].reshape(b, ni).astype(np.int64)
-        dev = dict(zip(DEVICE_STATS,
+        names = DEVICE_STATS + (TELEMETRY_STATS if self._telem else ())
+        dev = dict(zip(names,
                        flat[b * (nf + ni):].astype(np.int64).tolist()))
         over, err = dev.pop("slot_overflow"), dev.pop("replay_error")
         if over or err:
             raise RuntimeError("wave learner slot reserve exhausted")
-        self._tree_stats.append(dict(dev, **host_stats))
+        self._tree_stats.append(dict(
+            dev, pops=int((rec_f[:, 0] > 0.5).sum()), **host_stats))
         return rec_f, rec_i
 
     def grow(self, grad: torch.Tensor, hess: torch.Tensor, bag: torch.Tensor,

@@ -1,27 +1,36 @@
-"""Serving observability: telemetry report, request tracing, metrics.
+"""Observability of training and serving: telemetry, tracing, metrics.
 
-Port of the serving half of ``lightgbm_tpu/observability/``:
+Port of ``lightgbm_tpu/observability/``:
 
-  * ``Telemetry`` (`telemetry.py`) — host phase timers, counters and
-    gauges building the JSON report, with its ``provenance`` block;
+  * ``Telemetry`` (`telemetry.py`) — host phase timers, counters, gauges,
+    the iteration ring and the per-tree device counter lane, building the
+    JSON report with its ``provenance`` block;
+  * ``attribution`` — the sampled-sync timer (``telemetry_sync_every``)
+    and the ``torch.profiler`` trace parse (``profile_trace_dir``);
   * ``report`` — ``schema.json`` (byte for byte the JAX package's) and a
     dependency-free validator and atomic writer;
-  * ``TraceRecorder`` (`trace.py`) — request-scoped spans exported as
-    Chrome trace-event JSON (open in Perfetto);
+  * ``TraceRecorder`` (`trace.py`) — request- and phase-scoped spans
+    exported as Chrome trace-event JSON (open in Perfetto);
   * ``LatencyHistogram`` / Prometheus export (`metrics_export.py`) —
-    exact p50/p95/p99 over a bounded window and the text page behind the
-    server's ``metrics`` op.
+    exact p50/p95/p99 over a bounded window, the text page behind the
+    server's ``metrics`` op and ``training_prometheus``.
 
-The training side (attribution, collectives, the pod trace) and the drift
-monitor are not ported: ROADMAP.md Queue A, "reliability and training
-observability" and "serving and lifecycle".
+The collective ledger and the pod trace measure the sharded learners'
+process groups and come with them (ROADMAP.md Queue A, "multi-GPU and
+multi-host"); the drift monitor comes with the serving lifecycle
+("serving and lifecycle").
 """
 
-from .metrics_export import LatencyHistogram, prometheus_text
+from .attribution import (SampledSync, attribute_profile, attribution_table,
+                          force_sync, parse_profiler_trace)
+from .metrics_export import (LatencyHistogram, prometheus_text,
+                             training_prometheus)
 from .report import load_schema, validate_report, write_report
-from .telemetry import Telemetry, provenance_section
+from .telemetry import TEL_NAMES, Telemetry, provenance_section
 from .trace import TraceRecorder, new_trace_id
 
-__all__ = ["Telemetry", "load_schema", "validate_report",
+__all__ = ["Telemetry", "TEL_NAMES", "load_schema", "validate_report",
            "write_report", "TraceRecorder", "new_trace_id",
-           "LatencyHistogram", "prometheus_text", "provenance_section"]
+           "LatencyHistogram", "prometheus_text", "training_prometheus",
+           "provenance_section", "SampledSync", "attribution_table",
+           "force_sync", "parse_profiler_trace", "attribute_profile"]

@@ -10,7 +10,8 @@ Port of ``lightgbm_tpu/observability/metrics_export.py``:
   * ``prometheus_text`` / ``prometheus_snapshot`` — the text exposition
     format (``# TYPE``, ``_bucket{le=...}``, ``_sum``/``_count``) over the
     serving counters, stage timers, reliability counters, per-tenant
-    series and latency histograms: the server's ``metrics`` op.
+    series and latency histograms: the server's ``metrics`` op;
+    ``training_prometheus`` renders a training report the same way.
 
 The JAX package's drift monitor and fleet replicas are not ported (ROADMAP.md
 Queue A, "serving and lifecycle"); a ``drift`` report section passed as a
@@ -263,3 +264,40 @@ def prometheus_snapshot(stats, registry=None, admission=None,
     if extra:
         text += "\n".join(extra) + "\n"
     return text
+
+
+def training_prometheus(report: Dict[str, Any]) -> str:
+    """A training telemetry report (``Booster.get_telemetry``) as
+    ``lgbt_training_*`` text exposition: phase totals, iteration timings,
+    device counters, numeric gauges, memory watermarks and the
+    sampled-sync legs with their coverage."""
+    counters: Dict[str, float] = {
+        "training_iterations_total": report["iterations"]["count"],
+    }
+    for name, v in (report.get("counters") or {}).items():
+        counters[f"training_{sanitize_metric_name(name)}_total"] = v
+    gauges: Dict[str, float] = {
+        "training_iteration_mean_ms": report["iterations"]["mean_ms"],
+        "training_iteration_last_ms": report["iterations"]["last_ms"],
+    }
+    for phase, st in (report.get("phases") or {}).items():
+        g = sanitize_metric_name(phase)
+        gauges[f"training_phase_{g}_total_seconds"] = st["total_ms"] / 1e3
+        counters[f"training_phase_{g}_count_total"] = st["count"]
+    for name, v in (report.get("gauges") or {}).items():
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            gauges[f"training_{sanitize_metric_name(name)}"] = v
+    dist = report.get("distributed") or {}
+    mem = dist.get("memory") or {}
+    for d in mem.get("devices") or ():
+        dev = sanitize_metric_name(d["device"])
+        gauges[f"training_hbm_peak_bytes:{dev}"] = d["peak_bytes_in_use"]
+    if mem.get("host_heap"):
+        gauges["training_host_heap_peak_bytes"] = \
+            mem["host_heap"]["peak_bytes"]
+    table = dist.get("attribution") or {}
+    for leg, ms in (table.get("legs_ms") or {}).items():
+        gauges[f"training_leg_ms:{sanitize_metric_name(leg)}"] = ms
+    if table.get("coverage") is not None:
+        gauges["training_attribution_coverage"] = table["coverage"]
+    return prometheus_text(counters, gauges)

@@ -1,13 +1,31 @@
 """Host-side telemetry accumulator and the report's provenance block.
 
 Port of ``lightgbm_tpu/observability/telemetry.py``: the ``Telemetry``
-accumulator (host wall-clock phase timers, counters, gauges) and the JSON
-report it builds, which validates against ``schema.json``.  The serving
-layer times its stages through it (``serving/batcher.py:ServingStats``).
-Training keeps refusing ``telemetry=true`` until ROADMAP.md Queue A,
-"reliability and training observability", wires it into the boosting loop
-with the learner's device counters and the per-iteration timings; until
-then a report's required ``iterations`` block counts none.
+accumulator (host wall-clock phase timers, counters, gauges, the iteration
+ring behind the report's ``iterations`` block, the per-tree device counter
+lane) and the JSON report it builds, which validates against
+``schema.json``.  The serving layer times its stages through it
+(``serving/batcher.py:ServingStats``); training (``telemetry=true``) times
+the boosting loop's phases (``boosting/gbdt.py``) and feeds the learners'
+per-tree counters.
+
+The device counter lane.  The JAX wave learner carries a counter vector
+through its tree program (``TEL_*``); the port's learners count on the
+device per tree and read the counts with the records, so ``device_telem``
+takes each tree's decoded ``tree_stats`` entry and ``device_counters``
+maps them onto the report's names.  From the wave learner: ``waves`` (its
+device count of waves and opening levels that split), ``stall_splits``,
+``stall_events``, and, with telemetry on, ``grow_splits`` and
+``total_splits`` (the split count after growth and after the replay's
+corrections, read with the records only then, so a run without telemetry
+does the parent's device work); ``pops`` is the valid records and
+``stall_extras`` is ``stall_splits - stall_events``, as the JAX package
+derives the events.  The compact learner reports the splits it took
+(``total_splits``, ``grow_splits`` and ``pops`` alike).  ``wave_sorts``,
+``wave_members``, ``frozen_members`` and ``stall_sort_mode`` have no
+counterpart in the port's flow (every growth wave partitions, and no
+learner counts its members on the device), so they are absent from the
+report rather than 0; so is every name a learner does not report.
 
 Where the JAX module asks ``jax.devices()``, this one asks ``torch.cuda``:
 ``provenance_section`` reports the serving device's platform (``gpu`` on a
@@ -21,6 +39,16 @@ import contextlib
 import time
 import tracemalloc
 from typing import Any, Dict, List, Optional
+
+#: the JAX package's per-tree device counter names (``TEL_NAMES``)
+TEL_NAMES = ("waves", "wave_sorts", "wave_members", "frozen_members",
+             "grow_splits", "stall_splits", "stall_extras",
+             "stall_sort_mode", "pops", "total_splits")
+#: the ``tree_stats`` entries summed into the device counters: the names
+#: above the port's learners report, and the wave learner's own
+_DEVICE_KEYS = ("waves", "grow_splits", "stall_splits", "pops",
+                "total_splits", "stall_events", "replay_passes",
+                "open_levels")
 
 #: the version of ``schema.json`` (the JAX package's history of it is in
 #: ``lightgbm_tpu/observability/telemetry.py``): v11 = required provenance
@@ -96,6 +124,13 @@ class Telemetry:
         self._gauges: Dict[str, Any] = {}
         self._phase_heap: Dict[str, int] = {}      # name -> peak bytes
         self._heap_stack: List[int] = []
+        self._iter_wall: List[float] = []          # bounded ring, seconds
+        self._iter_total = 0.0
+        self._iter_count = 0
+        self._device_totals: Dict[str, int] = {}
+        self._device_trees = 0
+        self._provenance_extra: Dict[str, Any] = {}
+        self._distributed: Dict[str, Any] = {}
 
     # -- phases --------------------------------------------------------------
 
@@ -120,6 +155,12 @@ class Telemetry:
         tr = self.tracer
         if tr is not None and t0 is not None:
             tr.add_complete(name, t0, seconds, cat="phase")
+        if name == "iteration":
+            self._iter_total += seconds
+            self._iter_count += 1
+            self._iter_wall.append(seconds)
+            if len(self._iter_wall) > 512:
+                del self._iter_wall[:256]
 
     # -- host-heap watermarks (per phase) ------------------------------------
     # tracemalloc's peak is global-since-start; per-phase window peaks use
@@ -153,20 +194,78 @@ class Telemetry:
         if self.enabled:
             self._gauges[name] = v
 
+    # -- provenance / distributed extras -------------------------------------
+
+    def set_provenance(self, **kw: Any) -> None:
+        """Merge facts the loop knows (tree_learner, learner) into the
+        report's ``provenance`` block."""
+        if self.enabled:
+            self._provenance_extra.update(kw)
+
+    def set_distributed(self, **kw: Any) -> None:
+        """Merge facts into the report's ``distributed`` section (the
+        sampling period, the profiler parse)."""
+        if self.enabled:
+            self._distributed.update(kw)
+
+    # -- device counter lane -------------------------------------------------
+
+    def device_telem(self, stats: Optional[Dict[str, int]]) -> None:
+        """Add one tree's decoded counters (a learner's ``tree_stats``
+        entry, host integers read with the records)."""
+        if not self.enabled or stats is None:
+            return
+        for k in _DEVICE_KEYS:
+            if k in stats:
+                self._device_totals[k] = \
+                    self._device_totals.get(k, 0) + int(stats[k])
+        self._device_trees += 1
+
+    def device_counters(self) -> Dict[str, int]:
+        """The device counters the learners reported (see the module
+        docstring: absent names have no counterpart), ``trees_measured``
+        and the derived ``stall_extras`` and ``sim_passes``."""
+        out = dict(self._device_totals)
+        out["trees_measured"] = self._device_trees
+        if "stall_splits" in out and "stall_events" in out:
+            # every correction event splits one stalled top; the rest of
+            # its splits are speculative extras
+            out["stall_extras"] = out["stall_splits"] - out["stall_events"]
+            out["sim_passes"] = out["stall_events"] + self._device_trees
+        return out
+
     # -- report --------------------------------------------------------------
 
-    def report(self) -> Dict[str, Any]:
+    def report(self, extra_gauges: Optional[Dict] = None) -> Dict[str, Any]:
         counters = dict(self._counters)
+        counters.update(self.device_counters())
         gauges = dict(self._gauges)
+        if extra_gauges:
+            gauges.update(extra_gauges)
         phases = {
             name: {"total_ms": st[0] * 1e3, "count": st[1],
                    "max_ms": st[2] * 1e3}
             for name, st in self._phases.items()}
-        # no boosting iteration is timed here yet (training telemetry)
-        it = {"count": 0, "total_ms": 0.0, "mean_ms": 0.0, "last_ms": 0.0}
+        it = {
+            "count": self._iter_count,
+            "total_ms": self._iter_total * 1e3,
+            "mean_ms": (self._iter_total / self._iter_count * 1e3
+                        if self._iter_count else 0.0),
+            "last_ms": (self._iter_wall[-1] * 1e3
+                        if self._iter_wall else 0.0),
+        }
+        dist: Dict[str, Any] = dict(self._distributed)
+        from .attribution import attribution_table
+        table = attribution_table(phases)
+        if table is not None:
+            dist["attribution"] = table
         mem = memory_watermarks()
         if self._phase_heap:
             mem["phase_heap_peak_bytes"] = dict(self._phase_heap)
+        dist["memory"] = mem
+        prov = provenance_section(self.device)
+        prov.update({k: v for k, v in self._provenance_extra.items()
+                     if v is not None})
         # failure accounting travels with every report (process-wide)
         from ..reliability.metrics import reliability_section
         return {"schema_version": SCHEMA_VERSION, "enabled": self.enabled,
@@ -176,9 +275,10 @@ class Telemetry:
                 "collectives": {"sites": [],
                                 "per_tree_estimate": {"count": None,
                                                       "bytes": None},
-                                "saved_by_stall_batching": 0},
-                "provenance": provenance_section(self.device),
-                "distributed": {"memory": mem},
+                                "saved_by_stall_batching": counters.get(
+                                    "stall_extras", 0)},
+                "provenance": prov,
+                "distributed": dist,
                 "reliability": reliability_section()}
 
 

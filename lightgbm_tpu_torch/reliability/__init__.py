@@ -1,19 +1,18 @@
-"""Reliability for the port's serving path.
+"""Reliability for the port's training and serving paths.
 
-Port of the serving half of ``lightgbm_tpu/reliability/``:
+Port of ``lightgbm_tpu/reliability/``:
 
   * ``faults``  — deterministic named injection points armed via
     ``LGBT_FAULTS`` / ``fault_spec``, so chaos tests drive the real
-    serving failure paths (never mocks);
+    failure paths (never mocks): the serving ones and ``train.crash``;
+  * ``resume``  — crash-safe training snapshots (``snapshot_freq``) and
+    their validation, retention and bit-identical resume (``resume``);
   * ``degrade`` — the serving layer's bounded admission and load shedding
     (`serving/server.py`);
   * ``metrics`` — the process-wide counter table every shed, fallback,
     rollback and injected fault reports into, surfaced as the
     ``reliability`` section of the telemetry report
     (`observability/schema.json`).
-
-Crash-safe training resume (the JAX ``resume``) is not ported: ROADMAP.md
-Queue A, "reliability and training observability".
 """
 
 from . import faults

@@ -3,7 +3,8 @@
 Port of ``lightgbm_tpu/reliability/faults.py``: the spec grammar, the
 ``LGBT_FAULTS`` environment variable / ``fault_spec`` key and ``fire`` are
 the JAX package's.  Chaos tests drive the REAL failure paths (the serving
-layer's host fallback, the framing's length guard), not mocks of them.
+layer's host fallback, the framing's length guard, a training run killed
+after an iteration), not mocks of them.
 Injection points cost one ``is None`` check when disarmed.
 
 Spec grammar (semicolon-separated clauses)::
@@ -13,12 +14,15 @@ Spec grammar (semicolon-separated clauses)::
     serve.predict.fail:count=-1       # every device predict raises
     serve.predict.delay:seconds=0.2   # device predict stalls (overload tests)
     net.recv.corrupt_len              # recv sees a garbage length prefix
+    train.crash:nth=3                 # engine.train dies after iteration 3
 
-Those three points are the ones the port fires.  The JAX package's others
-(``train.crash``, ``net.send.*``, ``net.crash``, ``serving.replica_fault``)
-belong to modules the port does not carry yet: a spec that arms one raises
-``NotImplementedError`` naming its ROADMAP.md Queue A item
-(``config.not_ported``), so an injection never silently no-ops there.
+Those four points are the ones the port fires (``train.crash`` in
+``engine.train``, after the iteration's snapshot, if one is due).  The
+JAX package's others (``net.send.*``, ``net.crash``,
+``serving.replica_fault``) belong to modules the port does not carry yet:
+a spec that arms one raises ``NotImplementedError`` naming its ROADMAP.md
+Queue A item (``config.not_ported``), so an injection never silently
+no-ops there.
 
 Clause keys understood everywhere: ``rank`` (only fire for that rank;
 default any), ``nth`` (first firing hit, 1-based, counted per clause over
@@ -37,16 +41,16 @@ import os
 import threading
 from typing import Dict, List, Optional
 
-from ..config import OBSERVE, PARALLEL, SERVING, not_ported
+from ..config import PARALLEL, SERVING, not_ported
 from .metrics import rel_inc
 
 ENV_VAR = "LGBT_FAULTS"
 
 #: the JAX package's injection points whose code the port does not carry
 #: yet, with the Queue A item that brings each
-NOT_PORTED = {"train.crash": OBSERVE, "net.send.drop": PARALLEL,
-              "net.send.delay": PARALLEL, "net.send.truncate": PARALLEL,
-              "net.crash": PARALLEL, "serving.replica_fault": SERVING}
+NOT_PORTED = {"net.send.drop": PARALLEL, "net.send.delay": PARALLEL,
+              "net.send.truncate": PARALLEL, "net.crash": PARALLEL,
+              "serving.replica_fault": SERVING}
 
 
 class InjectedFault(RuntimeError):

@@ -3,7 +3,8 @@
     python3 profiling/profile_torch_iteration.py
         [--learner wave|compact|masked] [--max-bin 255] [--quant]
         [--open-levels N] [--categorical] [--rows 1000000] [--valid-rows 0]
-        [--warmup 2] [--iters 1] [--out reports/profile_torch_iteration.json]
+        [--warmup 2] [--timed 0] [--iters 1] [--root DIR]
+        [--out reports/profile_torch_iteration.json]
 
 Trains the bench workload (bench.py's Higgs-shaped data, 28 features, 255
 leaves, 255 bins unless ``--max-bin`` says otherwise, binary) with
@@ -20,8 +21,12 @@ validation set, which keeps the synchronous boosting loop, as chip_smoke.py's
 wave_train runs it; without one the loop pipelines): ``--warmup``
 iterations (past ``tpu_pipeline_flush_depth``, 8, every profiled iteration
 of the pipelined loop also builds the host tree 8 iterations back), then
+``--timed`` iterations each timed alone on the host clock ended by
+``torch.cuda.synchronize()`` (``s_per_iter_unprofiled``), then
 ``--iters`` iterations under ``torch.profiler`` (CPU and CUDA
-activities).  Writes one JSON file with the card's name and power limit
+activities).  ``--root DIR`` imports ``lightgbm_tpu_torch`` from another
+checkout (a parent's ``git archive``), so two versions run in turns on one
+card in one call.  Writes one JSON file with the card's name and power limit
 (nvidia-smi), the wall time, the device busy time over the profiled
 iterations (sum of CUDA kernel and memcpy times), the device idle share, the
 number of CUDA kernel and memcpy events per split and per iteration
@@ -50,6 +55,10 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if "--root" in sys.argv:
+    # the package under test from another checkout; expo_data stays ours
+    sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--root")
+                                                + 1]))
 
 import lightgbm_tpu_torch as lt  # noqa: E402
 from expo_data import EXPO_CATEGORICAL, expo_like  # noqa: E402
@@ -76,6 +85,10 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=2,
                     help="iterations before the profiled ones")
     ap.add_argument("--iters", type=int, default=1)
+    ap.add_argument("--timed", type=int, default=0,
+                    help="iterations timed without the profiler")
+    ap.add_argument("--root", default="",
+                    help="the checkout lightgbm_tpu_torch is imported from")
     ap.add_argument("--quant", action="store_true",
                     help="tpu_quantized_grad=on")
     ap.add_argument("--open-levels", type=int, default=0,
@@ -110,6 +123,12 @@ def main() -> int:
     for _ in range(args.warmup):
         bst.update()
     torch.cuda.synchronize()
+    timed = []
+    for _ in range(args.timed):
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
     learner = bst.gbdt.learner
     syncs0 = learner.host_syncs
     waits0 = bst.gbdt.pipeline_waits
@@ -138,9 +157,12 @@ def main() -> int:
     graph_calls = sum(e.name in ("cudaGraphLaunch", "cuGraphLaunch")
                       for e in launch_calls)
     busy_us = sum(float(e.time_range.elapsed_us()) for e in kernels)
+    # the windowed partition's three kernels beside each source's kernel
+    symbols = dict(KERNEL_SYMBOLS,
+                   partition_window="partition_window_(count|scatter|copy)")
     kernel_ms = {n: sum(float(e.time_range.elapsed_us()) for e in kernels
                         if re.search(rf"(^|::){sym}(<[^>]*>)?\(", e.name))
-                 / 1e3 / args.iters for n, sym in KERNEL_SYMBOLS.items()}
+                 / 1e3 / args.iters for n, sym in symbols.items()}
     by_host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:20]
     by_dev = sorted(events, key=dev_us, reverse=True)[:20]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -154,6 +176,9 @@ def main() -> int:
         "learner_class": type(learner).__name__, "rows": args.rows,
         "iters": args.iters, "splits": splits, "wall_s": wall,
         "s_per_iter": wall / args.iters,
+        "root": os.path.dirname(os.path.dirname(os.path.abspath(
+            lt.__file__))),
+        "s_per_iter_unprofiled": timed,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "cuda_events": len(kernels),
@@ -183,8 +208,8 @@ def main() -> int:
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps({k: out[k] for k in (
-        "nvidia_smi", "learner", "learner_class", "max_bin", "quant",
-        "open_levels", "categorical", "rows",
+        "nvidia_smi", "root", "learner", "learner_class", "max_bin", "quant",
+        "open_levels", "categorical", "rows", "s_per_iter_unprofiled",
         "s_per_iter", "device_busy_s",
         "device_idle_share", "cuda_events_per_iter", "cuda_events_per_split",
         "host_launch_calls_per_iter", "graph_launch_calls_per_iter",

@@ -6,10 +6,12 @@ must be equal, and ``task=predict`` outputs of the two agree within 1e-6;
 ``task=refit`` and ``task=convert_model`` write equal files.  The conf runs
 the masked learner, whose JAX programs compile in a few seconds.  The
 argument parser takes what the JAX package's takes.  The serving fleet and
-the telemetry keys of the training tasks raise their named errors.  One subprocess runs
+the multi-GPU keys raise their named errors; the training telemetry and
+resume keys train.  One subprocess runs
 ``python -m lightgbm_tpu_torch`` on the CPU and loads no JAX module.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -135,15 +137,32 @@ def test_argument_parsing_equals_jax(workdir, argv):
 
 def test_serve_and_telemetry_raise_named_errors(workdir):
     """``task=serve`` runs (``tests/test_torch_serving.py``); the fleet it
-    would serve through with ``serve_replicas`` does not, nor do the
-    telemetry keys on the other tasks."""
+    would serve through with ``serve_replicas`` raises its Queue A title.
+    The telemetry keys train: ``--telemetry-out`` (implying telemetry)
+    writes the report, ``--resume`` continues from the newest snapshot;
+    a multi-GPU key raises its title."""
+    from lightgbm_tpu_torch.observability import validate_report
+
     with pytest.raises(NotImplementedError, match="serving and lifecycle"):
         cli.main(["task=serve", "input_model=" + str(workdir / "port.txt"),
                   "serve_replicas=2", "device_type=cpu"])
-    with pytest.raises(NotImplementedError,
-                       match="reliability and training observability"):
-        cli.main(["config=" + str(workdir / "train.conf"),
-                  "--telemetry-out", "t.json", "device_type=cpu"])
+    old = os.getcwd()
+    os.chdir(workdir)
+    try:
+        args = ["config=train.conf", "device_type=cpu", "snapshot_freq=2",
+                "output_model=tel.txt"]
+        assert cli.main(args + ["--telemetry-out", "t.json"]) == 0
+        rep = json.loads((workdir / "t.json").read_text())
+        assert validate_report(rep) == [] and rep["enabled"]
+        assert rep["iterations"]["count"] == 6
+        assert cli.main(args + ["--resume"]) == 0
+        assert (workdir / "tel.txt").read_text() \
+            == (workdir / "port.txt").read_text()
+        with pytest.raises(NotImplementedError,
+                           match="multi-GPU and multi-host"):
+            cli.main(args + ["tree_learner=data"])
+    finally:
+        os.chdir(old)
 
 
 def test_module_entry_point_loads_no_jax(workdir):

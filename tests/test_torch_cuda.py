@@ -330,6 +330,97 @@ def test_partition_kernel_is_the_plain_permutation(cuda_device):
         apply_partition(bins, w, rid, lid, dest.to(torch.int64))
 
 
+@pytest.mark.parametrize("start,count", [(0, 1024), (4096, 2048),
+                                         (0, 1_000_000), (333_333, 250_001)])
+def test_partition_window_kernel_equals_plain(cuda_device, start, count):
+    """The windowed partition kernel against its plain version at a
+    1,024-row window, one at the default sort cutoff (2,048), all
+    1,000,000 rows and a non-zero start: sort and mask mode, a NaN-typed
+    numerical, a bundled and a categorical feature; every lane (weights as
+    bits) and the result bitwise; a do = 0 split changes nothing."""
+    from lightgbm_tpu_torch.ops.partition import (partition_window,
+                                                  partition_window_plain)
+
+    rng = np.random.RandomState(start + count)
+    n, dev = 1_000_448, cuda_device
+    lanes = [torch.from_numpy(a).to(dev) for a in (
+        rng.randint(-2**31, 2**31 - 1, (8, n)).astype(np.int32),
+        np.stack([rng.randn(n), rng.randn(n),
+                  rng.rand(n) < 0.8]).astype(np.float32),
+        np.arange(n, dtype=np.int64),
+        np.where(rng.rand(n) < 0.9, 17, rng.randint(0, 300, n))
+        .astype(np.int32))]
+    lanes[1][0, :9] = float("nan")
+    lanes[1][1, 9:19] = -0.0
+    ftab = torch.tensor([[3, 16, 2, 0, 200, 0, 0], [5, 8, 0, 7, 40, 30, 1],
+                         [6, 24, 0, 0, 256, 0, 0]], device=dev)
+    bits = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, 8)
+                            .astype(np.int32)).to(dev)
+
+    def bitwise(ts):
+        return [t.view(torch.int32) if t.dtype == torch.float32 else t
+                for t in ts]
+
+    for feat, (thr, flags) in enumerate(((99, 1), (12, 0), (0, 2))):
+        for mask_max, do in ((0, 1), (1 << 30, 1), (0, 0)):
+            split = torch.tensor([17, 254, feat, thr, flags, do, start,
+                                  count], device=dev)
+            k = [t.clone() for t in lanes]
+            p = [t.clone() for t in lanes]
+            n0 = partition_window.launches
+            ko = partition_window(*k, split, ftab, bits, mask_max=mask_max)
+            po = partition_window_plain(*p, split, ftab, bits,
+                                        mask_max=mask_max)
+            assert partition_window.launches == n0 + 1
+            assert torch.equal(ko, po), (feat, mask_max, do)
+            assert all(torch.equal(a, b) for a, b in
+                       zip(bitwise(k), bitwise(p))), (feat, mask_max, do)
+            if not do:
+                assert all(torch.equal(a, b) for a, b in
+                           zip(bitwise(k), bitwise(lanes)))
+            elif mask_max == 0:
+                assert int(ko[1]) + int(ko[3]) == count
+
+
+def test_compact_graphed_tree_equals_eager_tree(cuda_device):
+    """The compact learner's second tree replays its step as a CUDA graph;
+    on the same gradients it equals a fresh learner's first tree, grown by
+    the eager device step, record for record, with the same kernel calls
+    and launches, and makes no blocking read but the records'."""
+    from lightgbm_tpu_torch.learner_compact import CompactTreeLearner
+    from lightgbm_tpu_torch.ops.hist_segments import build_histogram_segments
+    from lightgbm_tpu_torch.ops.partition import partition_window
+
+    cfg, data, g, h, bag = _wave_problem(cuda_device, {})
+    graphed = CompactTreeLearner(cfg, data, cuda_device)
+    assert graphed.use_graphs
+    graphed.grow(g, h, bag)
+    out = {}
+    for name, ln in (("graphed", graphed),
+                     ("eager", CompactTreeLearner(cfg, data, cuda_device))):
+        calls = dict(ln.kernel_calls)
+        n0 = (build_histogram_segments.launches, partition_window.launches)
+        res = ln.grow(g * 0.5, h, bag)
+        n1 = (build_histogram_segments.launches, partition_window.launches)
+        out[name] = (res, {k: v - calls[k]
+                           for k, v in ln.kernel_calls.items()},
+                     (n1[0] - n0[0], n1[1] - n0[1]), ln.tree_stats[-1])
+    (ra, ca, la, sa), (rb, cb, lb, sb) = out["graphed"], out["eager"]
+    assert np.array_equal(ra[0], rb[0]) and np.array_equal(ra[1], rb[1])
+    assert torch.equal(ra[2], rb[2]) and torch.equal(ra[3], rb[3])
+    assert int((ra[0][:, 0] > 0.5).sum()) > 30
+    assert ca == cb and la == lb == (cfg.num_leaves - 1,) * 2
+    assert sa["graph_launches"] == sa["steps"] == cfg.num_leaves - 1
+    assert sb["graph_launches"] == 0 and sa["host_syncs"] == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tree = graphed.train_async(g, h, bag)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tree.host_stats["graph_launches"] == cfg.num_leaves - 1
+
+
 def test_partition_kernel_fails_loudly_on_out_of_range_dest(cuda_device):
     """A dest outside [0, N) traps the kernel (the plain version's
     index_copy_ raises); a trap spoils the CUDA context, so it runs in a

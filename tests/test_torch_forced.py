@@ -11,7 +11,7 @@ port's step loop carries): the valid records, the counts, the leaf ids and
 the leaf outputs exactly equal, the forced splits first.  A forced split
 that cannot beat no split aborts the rest of the queue and the tree equals
 the unforced one.  End to end, ``lt.train`` moves the default wave learner
-to the compact one and writes the JAX package's trees.
+to the compact one, pipelines it and writes the JAX package's trees.
 """
 
 import json
@@ -141,8 +141,10 @@ def test_dp_forced_tree_equals_jax(tmp_path, kind):
     np.testing.assert_array_equal(rf[:3, 1:3], [[0, 1], [0, 3], [1, 4]])
     assert rf[2, -1] == 1.0                          # categorical
     if kind == "compact":
-        # one read per split and one for the records
-        assert port.host_syncs == nv + 1
+        # the device step: the records are the tree's one host read, the
+        # three forced steps before the num_leaves - 1 others
+        assert port.host_syncs == 1
+        assert port.tree_stats[-1]["steps"] == 3 + port.num_leaves - 1
 
 
 @pytest.mark.parametrize("kind", ["compact", "masked"])
@@ -180,6 +182,8 @@ def test_end_to_end_equals_jax(tmp_path, capsys):
                   lt.Dataset(X, label=yr, categorical_feature=[4]), 3)
     assert "forcedsplits_filename set" in capsys.readouterr().out
     assert type(bt.gbdt.learner) is CompactTreeLearner
+    # train_async: the forced trees pipeline, as in the JAX package
+    assert bt.gbdt._can_pipeline() and bt.gbdt.learner.host_syncs == 0
     bj = lj.train(params, lj.Dataset(X, label=yr, categorical_feature=[4]),
                   3)
     assert bt.model_to_string() == bj.model_to_string()

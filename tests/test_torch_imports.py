@@ -112,21 +112,25 @@ def test_device_rule_cpu_and_alias():
 
 @pytest.mark.parametrize("extra", [
     {"tree_learner": "feature"},
-    {"trace_out": "t.json"},
-    {"resume": True},
+    {"trace_out": "t.json", "tree_learner": "data"},
+    {"resume": True, "num_machines": 2},
     {"tree_learner": "data_feature"},
     {"num_hosts": 2},
     {"elastic": True},
-    {"snapshot_freq": 1},
+    {"snapshot_freq": 1, "fault_spec": "net.crash:rank=1"},
     {"tree_learner": "data"},
     {"tpu_learner": "masked", "tree_learner": "voting"},
     {"num_machines": 2},
-    {"telemetry_out": "t.jsonl"},
-    {"fault_spec": "grad_nan:nth=1"},
-    {"profile_trace_dir": "prof"},
-    {"telemetry": True},
+    {"telemetry_out": "t.jsonl", "fault_spec": "net.send.drop"},
+    {"fault_spec": "serving.replica_fault:rank=1"},
+    {"profile_trace_dir": "prof", "num_hosts": 2},
+    {"telemetry": True, "elastic": True},
 ])
 def test_unported_settings_raise(extra):
+    """The multi-GPU keys and the fault points of unported modules raise
+    (the training telemetry, trace, snapshot and resume keys they are
+    paired with train: ``tests/test_torch_telemetry.py``,
+    ``test_torch_resume.py``)."""
     X, y = _problem()
     params = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
               "num_leaves": 4, **extra}

@@ -107,8 +107,8 @@ def test_dp_records_exactly_equal(extra):
     np.testing.assert_array_equal(rf, np.asarray(rec_f))
     np.testing.assert_array_equal(ri, np.asarray(rec_i))
     np.testing.assert_array_equal(leaf_t.numpy(), np.asarray(leaf_j))
-    # one host read per split step that ran, plus the records
-    assert learner.host_syncs == splits + (splits < 14) + 1
+    # the device step: one host read per tree, the records
+    assert learner.host_syncs == 1
 
 
 def test_dp_records_exactly_equal_with_efb_bundles():
@@ -150,17 +150,127 @@ def test_vectorized_assembly_equals_replay():
 
 
 def test_histogram_argument_grows_the_same_tree():
-    """The explicit ``histogram`` argument (the plain version here) grows
-    the tree the default wrapper grows; on CPU tensors both run the plain
-    version, on the card the default launches the kernel."""
+    """The ``kernels`` argument (every plain version here) grows the tree
+    the default wrappers grow; on CPU tensors both run the plain versions,
+    on the card the default launches the kernels."""
+    from lightgbm_tpu_torch.learner_compact import PLAIN_COMPACT, CompactKernels
+
     X, y = _problem(4)
     params = dict(BASE, device_type="cpu")
     dt = lt.Dataset(X, label=y, params=params).construct().constructed
     g, h, b = (torch.from_numpy(a) for a in _grads(4, y, dt.num_data_padded))
     cfg = TConfig.from_params(params)
     r1 = CompactTreeLearner(cfg, dt, CPU).grow(g, h, b)
-    r2 = CompactTreeLearner(cfg, dt, CPU,
-                            histogram=build_histogram_packed_plain).grow(g, h,
-                                                                         b)
-    np.testing.assert_array_equal(r1[0], r2[0])
-    assert torch.equal(r1[2], r2[2])
+    for kernels in (PLAIN_COMPACT,
+                    CompactKernels(packed=build_histogram_packed_plain)):
+        r2 = CompactTreeLearner(cfg, dt, CPU, kernels=kernels).grow(g, h, b)
+        np.testing.assert_array_equal(r1[0], r2[0])
+        assert torch.equal(r1[2], r2[2])
+
+
+def test_pipelined_compact_model_text_equals_jax():
+    """The compact learner's ``train_async``: without a validation set both
+    packages pipeline it (the pipelined rule: trees grown with no host
+    read, the score updated on the device, host trees built behind), and
+    in dp the model text is equal."""
+    X, y = _problem(5)
+    yr = (y + X[:, 0]).astype(np.float32)
+    params = {"objective": "regression", "num_leaves": 15, "max_bin": 63,
+              "learning_rate": 0.3, "min_data_in_leaf": 20, "verbosity": -1,
+              "metric": "none", "gpu_use_dp": True, "tpu_learner": "compact"}
+    bj = lj.train(params, lj.Dataset(X, label=yr, params=params), 5,
+                  verbose_eval=False)
+    pt = dict(params, device_type="cpu")
+    bt = lt.train(pt, lt.Dataset(X, label=yr, params=pt), 5,
+                  verbose_eval=False)
+    assert type(bt.gbdt.learner) is CompactTreeLearner
+    assert bt.gbdt._can_pipeline() and bt.gbdt.learner.host_syncs == 0
+    assert bt.model_to_string() == bj.model_to_string()
+    assert bt.gbdt.pipeline_waits == 5
+    assert [s["total_splits"] for s in bt.gbdt.learner.tree_stats] \
+        == [t.num_leaves - 1 for t in bt.gbdt.models]
+
+
+def _slice_reference(bins, w, rid, lid, split, tab, bits):
+    """The window split as slice code over numpy arrays: the decision, then
+    a stable sort by side (sort mode) or the leaf-id rewrite (mask
+    mode)."""
+    leaf, new, _, thr, flags, do, s, c = split
+    word = bins[tab[0], s:s + c].astype(np.int64)
+    code = (word >> tab[1]) & 0xFF
+    if tab[6]:
+        r = code - tab[5]
+        code = np.where((r >= 0) & (r < tab[4] - 1), r + (r >= tab[3]),
+                        tab[3])
+    if flags & 2:
+        go = ((bits.astype(np.int64)[np.minimum(code >> 5, len(bits) - 1)]
+               >> (code & 31)) & 1) == 1
+    else:
+        miss = ((tab[2] == 1) & (code == tab[3])) \
+            | ((tab[2] == 2) & (code == tab[4] - 1))
+        go = np.where(miss, bool(flags & 1), code <= thr)
+    return go
+
+
+@pytest.mark.parametrize("mask_max", [0, 1 << 20])
+@pytest.mark.parametrize("feat,thr,flags", [(0, 99, 1), (1, 12, 0),
+                                            (2, 0, 2)])
+def test_plain_window_partition_equals_slice_code(mask_max, feat, thr,
+                                                  flags):
+    """``partition_window_plain`` (the learner's window split on a CPU
+    tensor) against slice code over numpy on dyadic lanes: a NaN-typed
+    numerical, a bundled (EFB) and a categorical feature, sort mode
+    (``mask_max`` 0) and mask mode; rows outside the window untouched; a
+    ``do = 0`` split a no-op."""
+    from lightgbm_tpu_torch.ops.partition import partition_window_plain
+
+    rng = np.random.RandomState(feat * 7 + mask_max % 5)
+    n = 6000
+    bins = rng.randint(-2**31, 2**31 - 1, (3, n)).astype(np.int32)
+    w = np.stack([rng.randint(-64, 65, n) / 64.0, rng.randint(0, 65, n)
+                  / 64.0, rng.rand(n) < 0.8]).astype(np.float32)
+    lid = np.where(rng.rand(n) < 0.85, 2, rng.randint(0, 6, n)) \
+        .astype(np.int32)
+    tabs = np.array([[1, 16, 2, 0, 200, 0, 0], [2, 8, 0, 7, 40, 30, 1],
+                     [0, 24, 0, 0, 256, 0, 0]], np.int64)
+    bits = rng.randint(-2**31, 2**31 - 1, 8).astype(np.int32)
+    for s, c in ((0, 1024), (777, 4000)):
+        split = [2, 9, feat, thr, flags, 1, s, c]
+        lanes = [torch.from_numpy(a.copy()) for a in
+                 (bins, w, np.arange(n), lid)]
+        res = partition_window_plain(
+            *lanes, torch.tensor(split), torch.from_numpy(tabs),
+            torch.from_numpy(bits), mask_max=mask_max).tolist()
+        go = _slice_reference(bins, w, None, lid, split, tabs[feat], bits)
+        bag = w[2, s:s + c] > 0.5
+        if c > mask_max:
+            order = np.concatenate([np.flatnonzero(go),
+                                    np.flatnonzero(~go)]) + s
+            nl = int(go.sum())
+            assert res == [s, nl, s + nl, c - nl, int((go & bag).sum()),
+                           int(bag.sum())]
+            np.testing.assert_array_equal(lanes[0][:, s:s + c],
+                                          bins[:, order])
+            np.testing.assert_array_equal(lanes[1][:, s:s + c], w[:, order])
+            np.testing.assert_array_equal(lanes[2][s:s + c], order)
+            np.testing.assert_array_equal(
+                lanes[3][s:s + c], np.where(np.arange(c) < nl, 2, 9))
+        else:
+            seg = lid[s:s + c] == 2
+            assert res == [s, c, s, c, int((seg & go & bag).sum()),
+                           int((seg & bag).sum())]
+            np.testing.assert_array_equal(
+                lanes[3][s:s + c], np.where(seg & ~go, 9, lid[s:s + c]))
+            np.testing.assert_array_equal(lanes[0], bins)
+        np.testing.assert_array_equal(lanes[3][:s], lid[:s])
+        np.testing.assert_array_equal(lanes[0][:, s + c:], bins[:, s + c:])
+        # a split that is not done changes no lane
+        noop = [torch.from_numpy(a.copy()) for a in
+                (bins, w, np.arange(n), lid)]
+        out = partition_window_plain(
+            *noop, torch.tensor(split[:5] + [0] + split[6:]),
+            torch.from_numpy(tabs), torch.from_numpy(bits),
+            mask_max=mask_max)
+        assert out.tolist() == [s, 0, s, 0, 0, 0]
+        assert all(np.array_equal(a.numpy(), b) for a, b in
+                   zip(noop, (bins, w, np.arange(n), lid)))

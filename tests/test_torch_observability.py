@@ -118,7 +118,6 @@ def test_bad_fault_spec_raises_as_jax(spec):
 
 
 @pytest.mark.parametrize("point,title", [
-    ("train.crash:nth=3", "reliability and training observability"),
     ("net.send.drop:rank=1", "multi-GPU and multi-host"),
     ("net.send.delay:rank=2:seconds=3", "multi-GPU and multi-host"),
     ("net.send.truncate:rank=1", "multi-GPU and multi-host"),
@@ -151,13 +150,40 @@ def _model_text():
                                     {"fault_spec": "serve.predict.fail"},
                                     {"trace_out": "t.json"},
                                     {"stats_out": "s.json"}])
-def test_training_keeps_refusing_observability(rng, params):
+def test_training_keeps_refusing_observability(rng, params, tmp_path,
+                                               monkeypatch):
+    """Training takes the observability keys now: each of them trains,
+    beside a multi-GPU key the refusal still names by its Queue A title."""
+    monkeypatch.chdir(tmp_path)
     X = rng.randn(200, 3)
     y = (X[:, 0] > 0).astype(float)
     p = {"objective": "binary", "verbosity": -1, **CPU, **params}
-    with pytest.raises(NotImplementedError,
-                       match="reliability and training observability"):
-        lt.train(p, lt.Dataset(X, label=y), 1, verbose_eval=False)
+    try:
+        assert lt.train(p, lt.Dataset(X, label=y), 2,
+                        verbose_eval=False).num_trees() == 2
+    finally:
+        faults.reset()
+    with pytest.raises(NotImplementedError, match="multi-GPU and multi-host"):
+        lt.train(dict(p, tree_learner="data"), lt.Dataset(X, label=y), 1,
+                 verbose_eval=False)
+
+
+def test_train_crash_point_arms_and_fires(rng, monkeypatch):
+    """``train.crash`` is a point of the port: it arms like the JAX
+    package's and kills ``train`` after its nth iteration."""
+    mine = faults.parse_spec("train.crash:nth=3")
+    theirs = jfaults.parse_spec("train.crash:nth=3")
+    assert [(c.point, c.nth) for c in mine] == \
+        [(c.point, c.nth) for c in theirs] == [("train.crash", 3)]
+    X = rng.randn(200, 3)
+    y = (X[:, 0] > 0).astype(float)
+    p = {"objective": "binary", "verbosity": -1, **CPU,
+         "fault_spec": "train.crash:nth=2"}
+    try:
+        with pytest.raises(faults.InjectedFault, match="at iteration 2"):
+            lt.train(p, lt.Dataset(X, label=y), 4, verbose_eval=False)
+    finally:
+        faults.reset()
 
 
 @pytest.mark.serving

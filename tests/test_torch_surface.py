@@ -348,11 +348,22 @@ def test_dataset_accessors_and_subset():
     assert ds2.constructed.bin_mappers[1].bin_type == 1
 
 
-def test_resume_stays_refused():
+def test_resume_stays_refused(tmp_path):
+    """``resume`` is ported (``tests/test_torch_resume.py``): with no
+    snapshot beside ``output_model`` both packages train from scratch to
+    the same trees.  The multi-GPU keys beside it stay refused by their
+    Queue A title."""
     X, y = _data(n=200)
+    params = dict(PARAMS, output_model=str(tmp_path / "model.txt"))
+    bt = lt.train(_p(lt, params), lt.Dataset(X, label=y), 2, resume=True,
+                  verbose_eval=False)
+    bj = lj.train(_p(lj, params), lj.Dataset(X, label=y), 2, resume=True,
+                  verbose_eval=False)
+    assert bt.num_trees() == 2
+    assert_same_trees(bt, bj)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        lt.train(_p(lt, PARAMS), lt.Dataset(X, label=y), 1, resume=True,
-                 verbose_eval=False)
+        lt.train(_p(lt, dict(params, tree_learner="data")),
+                 lt.Dataset(X, label=y), 1, resume=True, verbose_eval=False)
 
 
 # ---------------------------------------------------------------------------
