@@ -358,6 +358,7 @@ package beside it, the script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
@@ -380,7 +381,7 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "serve", "cli", "small", "multiclass_train",
           "objectives_train", "rank_train", "categorical_train",
           "categorical_2047", "wave_4095", "goss_train", "dart_train",
-          "rf_train", "surface", "timing")
+          "rf_train", "surface", "sharded_train", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -5455,6 +5456,292 @@ def _time_replay(shapes=None, reps: int = 20) -> dict:
     check(r["pops"] == b, f"the M = {m} pass made {r['pops']} pops")
     res["num_leaves_4095"] = r
     return res
+
+
+#: the sharded_train phase: (tag, world, tree_learner, extra params, the
+#: params of ``_shard_params``, the serial run its model is held against).
+#: Every mode trains SHARD_ITERS iterations of the bench rows on ranks that
+#: share the one card over gloo: the wave-based modes with quantized
+#: gradients and the opening (their histograms are exact integer sums, so
+#: a model is independent of how the ranks split the sums and can equal
+#: the serial one's exactly; float32 sums are held bitwise on dyadic
+#: gradients); data, voting with every feature elected and feature also
+#: at the default float32 params, the path ``tree_learner=data`` gives a
+#: user; the masked fall-back in float32 at 1,023 bins
+SHARD_ITERS = 3
+SHARD_RUNS = (
+    ("data", 2, "data", {}, "wave", "serial"),
+    ("voting_all", 2, "voting", {"top_k": FEATURES}, "wave", "serial"),
+    ("voting", 2, "voting", {}, "wave", None),
+    ("feature", 2, "feature", {}, "wave", "serial"),
+    ("data_f32", 2, "data", {}, "wave_f32", "serial_f32"),
+    ("voting_all_f32", 2, "voting", {"top_k": FEATURES}, "wave_f32",
+     "serial_f32"),
+    ("feature_f32", 2, "feature", {}, "wave_f32", "serial_f32"),
+    ("masked", 2, "data", {}, "masked", "serial_masked"),
+    ("data_feature", 4, "data_feature", {"parallel_mesh": "2x2"}, "wave",
+     "serial"),
+)
+#: the serial references: (name, params); each trains on its params' rows
+SHARD_REFS = (("serial", "wave"), ("serial_f32", "wave_f32"),
+              ("serial_masked", "masked"))
+SHARD_PRED_ROWS = 10_000
+#: the kernels each wave-based mode's learner launches on every rank
+SHARD_KERNELS = ("hist_packed", "hist_segments", "partition", "split_scan",
+                 "replay", "hist_multislot", "fused_scan")
+
+
+def _shard_structure(text: str) -> list:
+    keep = ("split_feature=", "threshold=", "left_child=", "right_child=",
+            "num_leaves=", "decision_type=")
+    return [ln for ln in text.splitlines() if ln.startswith(keep)]
+
+
+def _shard_params() -> dict:
+    """The phase's params: the quant+opening cell's, the wave cell's
+    (float32) and the masked cell's (float32); telemetry on for the
+    collective ledger."""
+    quant = {k: v for k, v in QUANT_PARAMS.items() if k != "metric"}
+    f32 = {k: v for k, v in WAVE_PARAMS.items() if k != "metric"}
+    return {"wave": dict(quant, telemetry=True),
+            "wave_f32": dict(f32, telemetry=True),
+            "masked": dict(WAVE_PARAMS, max_bin=MASKED_BINS, telemetry=True,
+                           metric="binary_logloss")}
+
+
+def _shard_rows(params_key: str) -> str:
+    """The binned rows a params key trains on."""
+    return "masked" if params_key == "masked" else "wave"
+
+
+def _shard_counters() -> dict:
+    from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
+    from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
+    from lightgbm_tpu_torch.ops.hist_multislot import \
+        build_histogram_multislot
+    out = dict(wave_counters())
+    out.update(hist_multislot=build_histogram_multislot,
+               fused_scan=fused_child_scans, hist_full=build_histogram_full)
+    return out
+
+
+_SHARD_CACHE: dict = {}
+
+
+def _shard_train(params: dict, ds, iters: int) -> tuple:
+    """``iters`` iterations of ``params`` on ``ds`` on this process's card,
+    as a user calls them; the booster, the seconds of each iteration and
+    the launches of each kernel (their counts set to 0 just before)."""
+    import lightgbm_tpu_torch as lt
+    t_iter, marks = [], {}
+
+    def before(env):
+        torch.cuda.synchronize()
+        marks["t0"] = time.perf_counter()
+    before.before_iteration = True
+
+    def after(env):
+        torch.cuda.synchronize()
+        t_iter.append(time.perf_counter() - marks["t0"])
+
+    counters = _shard_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    bst = lt.train(params, ds, iters, verbose_eval=False,
+                   callbacks=[before, after])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    return bst, t_iter, launches
+
+
+def _shard_dyadic(learner, data, cfg, dev, rows=None) -> tuple:
+    """One float32 tree of a learner of ``learner``'s class (the trained
+    one's mesh and data, quantization off) from the dyadic gradients of
+    seed 1, placed as ``rows`` places them: (records, exact counts)."""
+    g, h, b = dyadic_weights(np.random.RandomState(1), data.num_data_padded,
+                             data.num_data, dev)
+    if rows is not None:
+        g, h, b = (rows.place("rows", a) for a in (g, h, b))
+    from lightgbm_tpu_torch.parallel.learners import ShardedMaskedLearner
+    cfg = copy.copy(cfg)
+    cfg.tpu_quantized_grad = "off"
+    if isinstance(learner, ShardedMaskedLearner):
+        args = (cfg, data, learner.mesh, dev, learner.mode)
+    elif hasattr(learner, "mesh"):
+        args = (cfg, data, learner.mesh, dev)
+    else:
+        args = (cfg, data, dev)
+    rec_f, rec_i, _, _ = type(learner)(*args).grow(g, h, b)
+    return rec_f, rec_i
+
+
+def _shard_rank(runs: list, paths: dict, Xp) -> list:
+    """One rank of the sharded_train phase: each run's dataset loaded from
+    the binary cache every rank reads, the run trained on the card, then
+    one float32 tree of its learner's class from dyadic gradients."""
+    import lightgbm_tpu_torch as lt
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch.parallel.sharding import rules_for_mode
+    out = []
+    for tag, params, key, iters in runs:
+        t0 = time.perf_counter()
+        if key not in _SHARD_CACHE:
+            ds = lt.Dataset(paths[key], params=params)
+            ds.construct()
+            _SHARD_CACHE[key] = ds
+        ds = _SHARD_CACHE[key]
+        load_s = time.perf_counter() - t0
+        bst, t_iter, launches = _shard_train(params, ds, iters)
+        gbdt = bst.gbdt
+        learner, mesh = gbdt.learner, gbdt._mesh
+        trees = len(gbdt.models)
+        rep = bst.get_telemetry()
+        stats = getattr(learner, "tree_stats", [])
+        res = {
+            "tag": tag, "rank": dist.get_rank(),
+            "learner": type(learner).__name__,
+            "device": str(learner.device),
+            "backend": mesh.backend,
+            "transport": mesh.transport(learner.device),
+            "load_s": load_s,
+            "s_per_iter": t_iter,
+            "host_syncs_per_tree": learner.host_syncs / trees,
+            "graph_launches_per_tree": [s.get("graph_launches", 0)
+                                        for s in stats],
+            "kernel_launches": launches,
+            "collective_calls_per_tree": mesh.calls / trees,
+            "collective_bytes_per_tree": mesh.bytes / trees,
+            "collective_s_per_tree": mesh.seconds / trees,
+            "ledger_per_tree": rep["collectives"]["per_tree_estimate"],
+            "ledger_sites": len(rep["collectives"]["sites"]),
+            "text": bst.model_to_string(),
+            "pred": bst.predict(Xp),
+            "raw": bst.predict(Xp, raw_score=True)}
+        res["dyadic_records"] = _shard_dyadic(
+            learner, learner.data, learner.cfg, learner.device,
+            rules_for_mode(gbdt._parallel_mode, mesh))
+        out.append(res)
+    return out
+
+
+def phase_sharded_train(ctx) -> None:
+    import tempfile
+
+    from lightgbm_tpu_torch.parallel.launch import RankPool
+
+    dev = torch.device("cuda", 0)
+    params = _shard_params()
+    data = {"wave": _dataset(ctx)[0], "masked": _dataset_masked(ctx)[0]}
+    Xp = ctx["Xv"][:SHARD_PRED_ROWS]
+    # the serial references on this card: the models, and one float32 tree
+    # of the serial learner from the dyadic gradients every rank grows too
+    refs = {}
+    for name, key in SHARD_REFS:
+        t0 = time.perf_counter()
+        ds = data[_shard_rows(key)]
+        bst, t_iter, _ = _shard_train(params[key], ds, SHARD_ITERS)
+        refs[name] = {"text": bst.model_to_string(),
+                      "pred": bst.predict(Xp),
+                      "raw": bst.predict(Xp, raw_score=True),
+                      "records": _shard_dyadic(bst.gbdt.learner,
+                                               ds.constructed,
+                                               bst.gbdt.learner.cfg, dev),
+                      "learner": type(bst.gbdt.learner).__name__,
+                      "s_per_iter": t_iter, "s": time.perf_counter() - t0}
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # every rank reads the same input: the binned rows, cached once
+        t0 = time.perf_counter()
+        paths = {}
+        for key, ds in data.items():
+            paths[key] = f"{tmp}/{key}.bin"
+            ds.save_binary(paths[key])
+        save_s = time.perf_counter() - t0
+        for world in (2, 4):
+            runs = [(tag, dict(params[key], tree_learner=mode, **extra),
+                     _shard_rows(key), SHARD_ITERS)
+                    for tag, w, mode, extra, key, _ in SHARD_RUNS
+                    if w == world]
+            t0 = time.perf_counter()
+            # gloo: the ranks share this one card, which NCCL refuses
+            with RankPool(world, "gloo", timeout_s=300) as pool:
+                start_s = time.perf_counter() - t0
+                per_rank = pool.run(_shard_rank, runs, paths, Xp,
+                                    timeout_s=900)
+            for i, (tag, *_rest) in enumerate(runs):
+                results[tag] = [r[i] for r in per_rank]
+                results[tag][0]["pool_start_s"] = start_s
+                results[tag][0]["pool_wall_s"] = time.perf_counter() - t0
+    out = {"phase": "sharded_train", "iterations": SHARD_ITERS,
+           "serial": {k: {f: v[f] for f in ("learner", "s_per_iter", "s")}
+                      for k, v in refs.items()},
+           "binary_cache_save_s": save_s, "modes": {}}
+    try:
+        _shard_checks(results, refs, out)
+    finally:
+        emit(out)
+
+
+def _shard_checks(results: dict, refs: dict, out: dict) -> None:
+    """Hold every mode's ranks against each other and the serial runs;
+    each mode's line goes into ``out`` before it is checked."""
+    for tag, world, mode, extra, pkey, ref in SHARD_RUNS:
+        ranks = results[tag]
+        text = ranks[0]["text"]
+        mode_out = out["modes"][tag] = {
+            "world": world, "tree_learner": mode, "params": pkey,
+            "extra": extra, "learner": ranks[0]["learner"],
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("text", "pred", "raw", "dyadic_records")}
+                      for r in ranks]}
+        check(len(ranks) == world, f"{tag}: {len(ranks)} ranks")
+        check(all(r["text"] == text for r in ranks),
+              f"sharded_train {tag}: the ranks' models differ")
+        mode_out["ranks_agree"] = True
+        # voting scans its elected features outside the fused kernel (as
+        # the JAX voting learners do); float32 runs no opening and no
+        # quantized scan
+        kernels = ("hist_full",) if pkey == "masked" else tuple(
+            k for k in SHARD_KERNELS
+            if not (mode == "voting" and k == "fused_scan")
+            and not (pkey == "wave_f32"
+                     and k in ("hist_multislot", "fused_scan")))
+        for r in ranks:
+            check(r["device"].startswith("cuda"),
+                  f"{tag}: rank {r['rank']} trained on {r['device']}")
+            for k in kernels:
+                check(r["kernel_launches"][k] > 0,
+                      f"{tag}: rank {r['rank']} never launched {k}")
+            check(r["collective_calls_per_tree"] > 0,
+                  f"{tag}: rank {r['rank']} issued no collective")
+        if ref is not None:
+            want = refs[ref]
+            # Booster.predict's probabilities; the raw scores' difference
+            # reported beside them
+            diff = float(np.abs(ranks[0]["pred"] - want["pred"]).max())
+            mode_out["pred_max_diff_vs_serial"] = diff
+            mode_out["raw_max_diff_vs_serial"] = float(
+                np.abs(ranks[0]["raw"] - want["raw"]).max())
+            check(_shard_structure(text) == _shard_structure(want["text"]),
+                  f"sharded_train {tag}: the model's structure differs from "
+                  f"the serial model's")
+            check(diff < 1e-5, f"sharded_train {tag}: predictions differ "
+                  f"from the serial model's by {diff}")
+            rf, ri = want["records"]
+            for r in ranks:
+                check(np.array_equal(r["dyadic_records"][0], rf)
+                      and np.array_equal(r["dyadic_records"][1], ri),
+                      f"sharded_train {tag}: rank {r['rank']}'s dyadic tree "
+                      f"records differ from the serial learner's")
+            mode_out.update(structure_equal_serial=True,
+                            dyadic_records_bitwise=True)
+        if tag.startswith("voting_all"):
+            data_tag = tag.replace("voting_all", "data")
+            check(_shard_structure(text)
+                  == _shard_structure(results[data_tag][0]["text"]),
+                  f"{tag}: voting with every feature elected differs from "
+                  f"{data_tag}")
+            mode_out["equals_data"] = True
 
 
 def phase_timing(ctx) -> None:

@@ -71,6 +71,7 @@ from ..config import Config
 from ..dataset import Dataset, _ConstructedDataset, upload
 from ..learner import TreeLearner
 from ..learner_compact import create_tree_learner
+from ..parallel.sharding import PARALLEL_MODES
 from ..metrics import Metric
 from ..objectives import ObjectiveFunction, create_objective
 from ..observability import SampledSync, Telemetry, force_sync
@@ -278,6 +279,11 @@ class GBDT:
         self._sync_sampler = SampledSync(self.telemetry,
                                          int(cfg.telemetry_sync_every))
         self._tel_trees = 0     # learner tree_stats entries fed to telemetry
+        # parallel tree learning (``parallel/``): the mesh, the mode, and
+        # the placement of the row-aligned arrays (None: every row here)
+        self._mesh = None
+        self._parallel_mode = None
+        self._rows = None
 
     # -- pipelined tree materialization (`gbdt.py:300-424`) ------------------
 
@@ -327,9 +333,9 @@ class GBDT:
                     t = self._models[di]
                     if t is not None and t.num_leaves > 1:
                         t.apply_shrinkage(-1.0)
-                        self.train_score.score[di % k] += \
+                        self.train_score.score[di % k] += self._local(
                             traverse_tree_binned(self.train_data, t,
-                                                 self.device)
+                                                 self.device))
                 del self._models[drop_from:]
                 self.iter_ = it
                 self._stopped = True
@@ -430,6 +436,38 @@ class GBDT:
         self._valid_rows = self._bag_mask
         self._full_fmask = torch.ones(data.num_used_features,
                                       dtype=torch.bool, device=self.device)
+        if self.cfg.tree_learner in PARALLEL_MODES:
+            self._start_parallel()
+
+    def _start_parallel(self) -> None:
+        """Shard over the process group's ranks (JAX `gbdt.py:470-483`);
+        in a world of one rank the serial learner trains, with a line that
+        says so."""
+        from ..parallel.sharding import (init_from_env, mesh_for_config,
+                                         world_size)
+        init_from_env(self.cfg, self.device)
+        if world_size() > 1:
+            from ..parallel.learners import apply_parallel_sharding
+            apply_parallel_sharding(self, mesh_for_config(self.cfg),
+                                    self.cfg.tree_learner)
+        elif int(getattr(self.cfg, "verbosity", 1)) >= 1:
+            print(f"[lightgbm_tpu_torch] tree_learner="
+                  f"{self.cfg.tree_learner}: no process group of more than "
+                  f"one rank, training serially (start one process per card, "
+                  f"e.g. torchrun --nproc-per-node N)")
+
+    # -- row placement under a parallel mode --------------------------------
+
+    def _local(self, arr: torch.Tensor, name: str = "rows") -> torch.Tensor:
+        """This rank's rows of a whole row-aligned array."""
+        return arr if self._rows is None else self._rows.place(name, arr)
+
+    def _global(self, arr: torch.Tensor, name: str = "rows") -> torch.Tensor:
+        """The whole row-aligned array from every rank's rows."""
+        if self._rows is None:
+            return arr
+        return self._rows.gather(name, arr,
+                                 self.train_data.num_data_padded)
 
     def add_valid_data(self, valid_data: Dataset, name: str,
                        metrics: Sequence[Metric]) -> None:
@@ -462,14 +500,14 @@ class GBDT:
                                 dtype=np.float32)
                 mask[idx] = 1.0
                 self._np_bag_mask = mask
-                self._bag_mask = upload(mask, self.device)
+                self._bag_mask = self._local(upload(mask, self.device))
 
     def _np_bag(self) -> np.ndarray:
         """The host copy of the bag mask, read from the device only when a
         renewal needs it (GOSS leaves it on the device)."""
         if self._np_bag_mask is None:
             self.host_syncs += 1
-            self._np_bag_mask = self._bag_mask.cpu().numpy()
+            self._np_bag_mask = self._global(self._bag_mask).cpu().numpy()
         return self._np_bag_mask
 
     def _sample(self, grads: List[tuple]) -> List[tuple]:
@@ -510,6 +548,13 @@ class GBDT:
         (``get_gradients_all``, as `gbdt.py:569-570`), every other objective
         class by class."""
         score = self.train_score.score
+        if self._rows is not None and not self.objective.row_local:
+            # a query's documents may lie on several ranks: the whole
+            # score in, this rank's rows of the gradients out
+            score = self._global(score, "score")
+            return [(self._local(g), self._local(h)) for g, h in
+                    (self.objective.get_gradients(score[k], k)
+                     for k in range(self.num_tree_per_iteration))]
         if self.objective.name == "multiclass":
             g, h = self.objective.get_gradients_all(score)
             return list(zip(g, h))
@@ -522,8 +567,9 @@ class GBDT:
         before shrinkage: class ``class_id``'s training score before this
         tree's update and the tree's leaf ids come to the host in one
         blocking read (counted in ``host_syncs`` and ``renew_reads``)."""
-        both = torch.stack([self.train_score.score[class_id]
-                            .to(torch.float64), leaf_id.to(torch.float64)])
+        both = torch.stack([self._global(self.train_score.score[class_id])
+                            .to(torch.float64),
+                            self._global(leaf_id).to(torch.float64)])
         both = both.cpu().numpy()
         self.host_syncs += 1
         self.renew_reads += 1
@@ -541,7 +587,8 @@ class GBDT:
             a = np.asarray(a, dtype=np.float32).reshape(k, -1)
             both[i, :, :a.shape[1]] = a
         both = upload(both, self.device)
-        return list(zip(both[0], both[1]))
+        return [(self._local(g), self._local(h))
+                for g, h in zip(both[0], both[1])]
 
     def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """Returns True when training cannot continue (no splittable leaves;
@@ -741,10 +788,18 @@ class GBDT:
                 else None)
             if self._sync_sampler.every > 0:
                 tel.set_distributed(sync_every=self._sync_sampler.every)
+            if self._mesh is not None:
+                tel.set_provenance(mesh_shape=str(dict(zip(
+                    self._mesh.axis_names, self._mesh.shape))))
         gauges = {}
         if learner is not None:
             gauges["learner"] = type(learner).__name__
-        return tel.report(extra_gauges=gauges)
+        mesh = self._mesh
+        return tel.report(
+            extra_gauges=gauges,
+            ledger=None if mesh is None else getattr(learner, "_ledger",
+                                                     None),
+            transport=None if mesh is None else mesh.transport(self.device))
 
     def _boost_from_average(self, class_id: int) -> float:
         """`gbdt.cpp:309-331`."""
@@ -822,8 +877,14 @@ class GBDT:
         return ret
 
     def metric_score(self, updater: ScoreUpdater) -> np.ndarray:
-        """Host copy of a score updater's scores (one blocking read)."""
+        """Host copy of a score updater's scores (one blocking read); the
+        training score gathered from every rank's rows under a parallel
+        mode, so every rank evaluates the whole training set."""
         self.host_syncs += 1
+        if updater is self.train_score and self._rows is not None:
+            s = self._global(updater.score, "score")[:, :self.num_data] \
+                .cpu().numpy()
+            return s.T if updater.num_class > 1 else s[0]
         return updater.np_score()
 
     # -- prediction ----------------------------------------------------------
@@ -912,8 +973,8 @@ class GBDT:
         device traversal of the training rows' codes (a constant for a
         one-leaf tree)."""
         if tree.num_leaves > 1:
-            self.train_score.score[class_id] += traverse_tree_binned(
-                self.train_data, tree, self.device)
+            self.train_score.score[class_id] += self._local(
+                traverse_tree_binned(self.train_data, tree, self.device))
         else:
             self.train_score.add_constant(float(tree.leaf_value[0]),
                                           class_id)
@@ -963,7 +1024,7 @@ class GBDT:
                 tree = models[mi]
                 nl = tree.num_leaves
                 lp = lp_all[mi]
-                g, h = grads[tid]
+                g, h = (self._global(a) for a in grads[tid])
                 sums = torch.zeros((2, nl), dtype=torch.float64,
                                    device=self.device)
                 sums.index_add_(1, lp, torch.stack([g[:n], h[:n]])
@@ -979,7 +1040,10 @@ class GBDT:
                                         * new_out * tree.shrinkage)
                 lv = upload(tree.leaf_value[:nl].astype(np.float32),
                             self.device)
-                self.train_score.score[tid, :n] += lv.index_select(0, lp)
+                add = torch.zeros(self.train_data.num_data_padded,
+                                  dtype=lv.dtype, device=self.device)
+                add[:n] = lv.index_select(0, lp)
+                self.train_score.score[tid] += self._local(add)
 
     def dump_model(self, start_iteration: int = 0, num_iteration: int = -1
                    ) -> Dict:

@@ -87,11 +87,14 @@ class GOSS(GBDT):
         n = self.num_data
         top_k = max(1, int(n * cfg.top_rate))
         other_k = max(1, int(n * cfg.other_rate))
-        g = torch.stack([a for a, _ in grads])
-        h = torch.stack([b for _, b in grads])
-        bag, amp = goss_select(g, h, self._valid_rows,
+        # the selection is global: every rank selects from the whole
+        # row axis and keeps its rows of the bag and the amplification
+        g = self._global(torch.stack([a for a, _ in grads]), "score")
+        h = self._global(torch.stack([b for _, b in grads]), "score")
+        bag, amp = goss_select(g, h, self._global(self._valid_rows),
                                self._goss_uniform(self.iter_), top_k,
                                other_k)
-        self._bag_mask = bag
         self.last_draw = (self.iter_, top_k, bag.to(torch.int64).sum())
+        bag, amp = self._local(bag), self._local(amp)
+        self._bag_mask = bag
         return [(a * amp, b * amp) for a, b in grads]

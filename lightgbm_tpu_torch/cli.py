@@ -109,6 +109,10 @@ def run_train(params: Dict[str, str], cfg: Config) -> None:
         early_stopping_rounds=(cfg.early_stopping_round
                                if cfg.early_stopping_round > 0 else None),
         verbose_eval=max(cfg.metric_freq, 1))
+    from .parallel.sharding import is_primary
+    if not is_primary():
+        # every rank holds the same trees; rank 0 writes them
+        return
     booster.save_model(cfg.output_model)
     if cfg.convert_model_language == "cpp":
         _save_if_else(booster, cfg.convert_model)

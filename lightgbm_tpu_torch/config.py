@@ -24,6 +24,7 @@ Semantics preserved:
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -857,7 +858,9 @@ def resolve_device(cfg: Config):
             f"device_type={cfg.device_type!r} runs on the CUDA card, but "
             f"torch.cuda.is_available() is False; pass device_type=cpu to "
             f"run on the CPU")
-    return torch.device("cuda", 0)
+    # a launcher's local rank picks its card (``torchrun``); else card 0
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    return torch.device("cuda", local % torch.cuda.device_count())
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -893,10 +896,13 @@ def check_supported(cfg: Config) -> None:
     trace, profiler, snapshot, resume and fault-injection keys train
     (``engine.train``); a fault point of an unported module raises when
     its spec is armed (``reliability/faults.py``)."""
-    if cfg.tree_learner != "serial" or cfg.num_machines > 1 \
-            or cfg.num_hosts > 1 or cfg.elastic:
-        raise not_ported(f"tree_learner={cfg.tree_learner} and multi-host "
-                         f"training", PARALLEL)
+    if cfg.num_machines > 1 or cfg.num_hosts > 1 or cfg.elastic:
+        raise not_ported("multi-host and elastic training", PARALLEL)
+    if cfg.tree_learner not in ("serial", "data", "feature", "voting",
+                                "data_feature"):
+        raise ValueError(f"tree_learner must be one of serial, data, "
+                         f"feature, voting, data_feature; got "
+                         f"{cfg.tree_learner!r}")
     if cfg.tpu_learner not in ("auto", "wave", "compact", "masked"):
         raise ValueError(f"tpu_learner must be one of auto, wave, compact, "
                          f"masked; got {cfg.tpu_learner!r}")

@@ -40,7 +40,9 @@ Forced splits (``forced.py``) run before best-gain growth: in the masked
 and the compact learners as extra ``do``-gated steps of the same
 fixed-shape loop (the JAX fused tree's forced phase, `:512-575`), records
 written at the cursor ``num_leaves - 1`` so that an aborted forced queue
-leaves no gap.  The GSPMD parallel modes are not ported.
+leaves no gap.  Under a parallel mode the masked learner trains in
+``parallel/learners.py:ShardedMaskedLearner`` (the JAX package drapes
+GSPMD over it): the exchange seams here are identities when serial.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import torch
 from .binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
 from .config import Config
 from .dataset import _ConstructedDataset
+from .observability.collectives import CollectiveLedger
 from .ops.histogram import build_histogram, read_codes
 from .ops.split import (K_EPSILON, find_best_splits, fix_histogram,
                         forced_split_info)
@@ -189,6 +192,40 @@ class TreeLearner:
             if self.has_penalty else None
         #: the static BFS forced-split list (``set_forced_splits``)
         self._forced = None
+        #: the collective call sites of a sharded learner (``parallel/``),
+        #: kept with telemetry on; (phase, cadence) of the seam running
+        self._ledger = CollectiveLedger(enabled=bool(cfg.telemetry))
+        self._coll_ctx = ("tree", "tree")
+
+    # -- exchange seams: identities here, collectives in ``parallel/`` -------
+
+    def _rec_coll(self, op: str, payload) -> None:
+        """Record a collective's site in the ledger (the sharded seams call
+        it next to each collective they issue)."""
+        if self._ledger.enabled:
+            phase, cadence = self._coll_ctx
+            self._ledger.record(op, payload, phase, cadence)
+
+    def _global_scalar(self, v):
+        """Sum over the row shards (a sharded learner's psum)."""
+        return v
+
+    def _global_max(self, v):
+        """Elementwise maximum over the row shards."""
+        return v
+
+    def _sync_counts(self, lc_bag, c_bag):
+        """A split's bagged counts from the local rows' counts."""
+        return lc_bag, c_bag
+
+    def _reduce_hist(self, local_hist):
+        """A histogram of the local rows -> the one the scan reads (a
+        sharded learner's reduce-scatter over the features)."""
+        return local_hist
+
+    def _reduce_hist_batch(self, local_hists):
+        """(K, F, B, 3) member histograms exchanged in one collective."""
+        return local_hists
 
     def _fix_histogram(self, hist, sum_g, sum_h, cnt):
         """``Dataset::FixHistogram`` (`src/io/dataset.cpp:923-941`) of a
@@ -513,10 +550,16 @@ class MaskedTreeLearner(TreeLearner):
         self._all_features = torch.ones(self.num_features, dtype=torch.bool,
                                         device=device)
 
+    def _hist_codes(self) -> torch.Tensor:
+        """The code rows a histogram reads (a feature-sharded learner's
+        slice of them)."""
+        return self.bins
+
     def _hist(self, w: torch.Tensor) -> torch.Tensor:
         self.kernel_calls["hist_full"] += int(not self.hist_dp)
-        return self.histogram(self.bins, w, num_bins=self.num_bins_padded,
-                              dp=self.hist_dp)
+        return self._reduce_hist(self.histogram(
+            self._hist_codes(), w, num_bins=self.num_bins_padded,
+            dp=self.hist_dp))
 
     def _cands(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok,
                min_c=None, max_c=None):
@@ -528,10 +571,11 @@ class MaskedTreeLearner(TreeLearner):
         n, L, acc, dev = self.bins.shape[1], self.num_leaves, self._acc, \
             self.device
         w = torch.stack([grad * bag, hess * bag, bag]).to(torch.float32)
+        self._coll_ctx = ("root", "tree")
         root_hist = self._hist(w)
-        sum_g = (grad * bag).to(acc).sum()
-        sum_h = (hess * bag).to(acc).sum()
-        cnt = bag.to(acc).sum()
+        sum_g = self._global_scalar((grad * bag).to(acc).sum())
+        sum_h = self._global_scalar((hess * bag).to(acc).sum())
+        cnt = self._global_scalar(bag.to(acc).sum())
         cf, ci, cb = self._cands(root_hist[None], sum_g[None], sum_h[None],
                                  cnt[None], feature_mask, True)
         st = MaskedState(
@@ -573,6 +617,7 @@ class MaskedTreeLearner(TreeLearner):
         `learner_compact.py:444-451`).  No value is read to the host: rows
         are picked with ``index_select`` on device indices."""
         L = self.num_leaves
+        self._coll_ctx = ("split_step", "split")
         if forced is None:
             best = torch.argmax(st.cand_f[:, CF_GAIN]).view(1)    # (1,)
             cf = st.cand_f.index_select(0, best)[0]
@@ -617,8 +662,8 @@ class MaskedTreeLearner(TreeLearner):
                                  new.to(torch.int32), st.leaf_id)
         # exact integer bagged counts (a float32 count channel loses
         # integer exactness past 2^24 rows)
-        lc_bag = (at_leaf & go_left & st.bag_b).sum()
-        c_bag = (at_leaf & st.bag_b).sum()
+        lc_bag, c_bag = self._sync_counts((at_leaf & go_left & st.bag_b).sum(),
+                                          (at_leaf & st.bag_b).sum())
 
         # ---- smaller-child histogram over every row, the other rows'
         # weights masked to zero, and sibling subtraction

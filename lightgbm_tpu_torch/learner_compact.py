@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from . import native
-from .config import PARALLEL, Config, not_ported
+from .config import Config
 from .dataset import _ConstructedDataset, _round_up
 from .learner import (CF_GAIN, CF_LCNT, CF_LOUT, CF_LSG, CF_LSH, CF_RCNT,
                       CF_ROUT, CF_RSG, CF_RSH, CI_FEAT, CI_FLAGS, LF_CNT,
@@ -118,6 +118,9 @@ class CompactTreeLearner(TreeLearner):
     """Leaf-wise learner with leaf-contiguous row compaction (see the module
     docstring)."""
 
+    #: the sharded learners keep every feature in its own column (no EFB)
+    _supports_bundle = True
+
     def __init__(self, cfg: Config, data: _ConstructedDataset,
                  device: torch.device,
                  kernels: CompactKernels = CompactKernels()):
@@ -125,8 +128,11 @@ class CompactTreeLearner(TreeLearner):
         #: the kernel functions (the wave learner sets its ``WaveKernels``,
         #: whose ``packed`` the root histogram takes as well)
         self.kernels = kernels
-        self.n_pad = int(data.num_data_padded)
-        self._bundle = data.bundle
+        #: rows of the whole dataset, and the rows this learner holds (a
+        #: row shard's under ``parallel/``); the lanes have ``n_pad`` rows
+        self.n_global = int(data.num_data_padded)
+        self.n_pad = self._local_rows()
+        self._bundle = data.bundle if self._supports_bundle else None
         f = self.num_features
         if self._bundle is not None:
             bu = self._bundle
@@ -157,6 +163,8 @@ class CompactTreeLearner(TreeLearner):
         #: the decode table of the windowed partition (``ops/partition.py``
         #: ``FT_*``): each feature's word row and byte shift, missing type,
         #: default bin, bin count, bundle offset and bundled flag
+        #: columns of a histogram pool row (a sharded learner's slice)
+        self._pool_cols = self._hist_cols
         self._ftab = torch.from_numpy(np.stack([
             col // 4, (col % 4) * 8, self.np_missing.astype(np.int64),
             self.np_default_bin.astype(np.int64),
@@ -224,6 +232,20 @@ class CompactTreeLearner(TreeLearner):
             self.on_stats_read()
         return self._tree_stats
 
+    def _local_rows(self) -> int:
+        """Rows of this learner's lanes."""
+        return self.n_global
+
+    def _dataset_rows(self) -> int:
+        """Padded rows of the whole dataset (a sharded learner's lanes hold
+        a block of them; gates and grids sized by the dataset read this)."""
+        return self.n_pad
+
+    def _hist_bins(self, bins: torch.Tensor) -> torch.Tensor:
+        """The packed word rows a histogram reads (a feature-sharded
+        learner's word slice)."""
+        return bins
+
     # -- packed bins ---------------------------------------------------------
 
     def bins_packed(self) -> torch.Tensor:
@@ -242,14 +264,15 @@ class CompactTreeLearner(TreeLearner):
 
     def _root_hist(self, st) -> torch.Tensor:
         """Histogram of every row (the root's; the wave learner's too)."""
+        bins = self._hist_bins(st.bins_p)
         if self.hist_dp:
-            h = build_histogram_packed_plain(st.bins_p, st.w_p,
+            h = build_histogram_packed_plain(bins, st.w_p,
                                              num_bins=self._hist_nbins,
                                              dp=True)
-            return h[:self._hist_cols]
-        h = self.kernels.packed(st.bins_p, st.w_p, num_bins=self._hist_nbins,
+            return self._reduce_hist(h[:self._hist_cols])
+        h = self.kernels.packed(bins, st.w_p, num_bins=self._hist_nbins,
                                 quant=self._quant)
-        return self._quant_count(h[:self._hist_cols])
+        return self._reduce_hist(self._quant_count(h[:self._hist_cols]))
 
     def _child_hist(self, st: CompactState, start: torch.Tensor,
                     cnt: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -257,18 +280,19 @@ class CompactTreeLearner(TreeLearner):
         all (1,) device tensors: one K = 1 segment launch, or in dp a plain
         float64 pass over every row with the others' weights masked off (no
         window read to the host)."""
+        bins = self._hist_bins(st.bins_p)
         if self.hist_dp:
             pos = torch.arange(self.n_pad, device=self.device)
             m = (pos >= start) & (pos < start + cnt) & (st.lid_p == leaf)
-            h = build_histogram_packed_plain(st.bins_p, st.w_p * m,
+            h = build_histogram_packed_plain(bins, st.w_p * m,
                                              num_bins=self._hist_nbins,
                                              dp=True)
-            return h[:self._hist_cols]
+            return self._reduce_hist(h[:self._hist_cols])
         self.kernel_calls["hist_segments"] += 1
-        h = self.kernels.segments(st.bins_p, st.w_p, st.lid_p, start, cnt,
+        h = self.kernels.segments(bins, st.w_p, st.lid_p, start, cnt,
                                   leaf, num_bins=self._hist_nbins,
                                   rows_bound=self.n_pad)
-        return h[0, :self._hist_cols]
+        return self._reduce_hist(h[0, :self._hist_cols])
 
     def _quant_count(self, h: torch.Tensor) -> torch.Tensor:
         """In quant mode the count channel holds the hessian lane's sums:
@@ -319,7 +343,7 @@ class CompactTreeLearner(TreeLearner):
             lid_p=torch.empty(n, dtype=torch.int32, device=dev),
             leaf_i=torch.zeros((L, 2), **i64),
             leaf_f=torch.zeros((L, NUM_LF), dtype=acc, device=dev),
-            hist_pool=torch.zeros((L, self._hist_cols, self._hist_nbins, 3),
+            hist_pool=torch.zeros((L, self._pool_cols, self._hist_nbins, 3),
                                   dtype=acc, device=dev),
             cand_f=torch.zeros((L, NUM_CF), dtype=acc, device=dev),
             cand_i=torch.zeros((L, NUM_CI), **i64),
@@ -352,11 +376,12 @@ class CompactTreeLearner(TreeLearner):
                   st.cand_i, st.rec_f, st.rec_i, st.aborted):
             t.zero_()
         st.num_leaves.fill_(1)
+        self._coll_ctx = ("root", "tree")
         self.kernel_calls["hist_packed"] += int(not self.hist_dp)
         root_hist = self._root_hist(st)
-        sum_g = (grad * bag).to(acc).sum()
-        sum_h = (hess * bag).to(acc).sum()
-        cnt = bag.to(acc).sum()
+        sum_g = self._global_scalar((grad * bag).to(acc).sum())
+        sum_h = self._global_scalar((hess * bag).to(acc).sum())
+        cnt = self._global_scalar(bag.to(acc).sum())
         md = int(self.cfg.max_depth)
         depth_ok = True if md <= 0 else md > 0
         cf, ci, cb = self._cand_rows(root_hist[None], sum_g[None],
@@ -388,6 +413,7 @@ class CompactTreeLearner(TreeLearner):
         No value is read to the host: rows are picked with
         ``index_select`` on device indices."""
         L, dev = self.num_leaves, self.device
+        self._coll_ctx = ("split_step", "split")
         if forced is None:
             best = torch.argmax(st.cand_f[:, CF_GAIN]).view(1)
             cf = st.cand_f.index_select(0, best)[0]
@@ -412,7 +438,7 @@ class CompactTreeLearner(TreeLearner):
         win = self.kernels.partition(
             st.bins_p, st.w_p, st.rid_p, st.lid_p, split, self._ftab, cb,
             mask_max=self._mask_max, scratch=st.scratch)
-        lc_bag, c_bag = win[O_LBAG], win[O_BAG]
+        lc_bag, c_bag = self._sync_counts(win[O_LBAG], win[O_BAG])
 
         # ---- smaller-child histogram + sibling subtraction; the smaller
         # child is chosen by BAGGED counts like the reference
@@ -623,14 +649,14 @@ def create_tree_learner(cfg: Config, data: _ConstructedDataset,
     package's messages: ``auto`` and ``wave`` pick the frontier-wave learner
     where it is eligible, ``compact`` the compact learner; data past 256 bins
     (codes that do not pack four to a word) and ``masked`` go to the masked
-    learner.  Only the serial tree learner is ported."""
+    learner.  A parallel ``tree_learner`` gets its serial learner here (the
+    wave learner is serial-only, as in the JAX package), which the GBDT
+    swaps for the sharded one over a process group (``parallel/``)."""
     import warnings
 
     from .learner import MaskedTreeLearner
     from .learner_wave import WaveTreeLearner, wave_ineligible_reason
 
-    if cfg.tree_learner != "serial":
-        raise not_ported(f"tree_learner={cfg.tree_learner}", PARALLEL)
     mode = cfg.tpu_learner
     if mode not in ("auto", "wave", "compact", "masked"):
         raise ValueError(f"tpu_learner must be one of auto, wave, compact, "

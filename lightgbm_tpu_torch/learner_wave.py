@@ -130,6 +130,7 @@ names (``observability/telemetry.py``).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -411,12 +412,13 @@ class WaveTreeLearner(CompactTreeLearner):
         # config is eligible and otherwise trains unquantized, keeping the
         # reason; "auto" stays off (the JAX package's gate)
         qg = str(getattr(cfg, "tpu_quantized_grad", "auto"))
-        reason = quant_ineligible_reason(self.n_pad, self.hist_dp)
+        reason = quant_ineligible_reason(self._dataset_rows(), self.hist_dp)
         self._quant = qg == "on" and reason is None
         if qg != "on" and reason is None:
             reason = f"tpu_quantized_grad={qg} (quantization is opt-in)"
         self._quant_reason = None if self._quant else reason
         self._q_scales = None      # (sg, sh) of the current tree
+        self._q_mbar = None        # mean hessian mass per bagged row
         self._q_raw = None         # (gb, hb) float32, kept for the renewal
         self._corr = d.corr
         self.M, self.H = d.M, d.H
@@ -475,7 +477,7 @@ class WaveTreeLearner(CompactTreeLearner):
             hslot=torch.zeros(M + 1, **i64),
             split_m=torch.zeros(M + 1, dtype=torch.bool, device=dev),
             cnt_i=torch.zeros((M + 1, 2), **i64),
-            hist_pool=torch.zeros((H + 1, self._hist_cols,
+            hist_pool=torch.zeros((H + 1, self._pool_cols,
                                    self._hist_nbins, 3), dtype=acc,
                                   device=dev),
             num_nodes=torch.zeros((), **i64),
@@ -500,22 +502,25 @@ class WaveTreeLearner(CompactTreeLearner):
             self._st = self._alloc_state()
         st = self._st
         st.par = 0
+        self._coll_ctx = ("root", "tree")
         if self._quant:
             # per-tree quantization (``learner_wave.py:429-463``): the lanes
             # carry the dequantized gq*sg, hq*sh; the count channel carries
             # the hessian mass over the mean mass per bagged row, m
             gb = (grad * bag).to(torch.float32)
             hb = (hess * bag).to(torch.float32)
-            gd, hd, sg, sh = quantize_gradients(gb, hb, bag, 0,
-                                                gb.abs().max(), hb.max())
+            mx = self._global_max(torch.stack([gb.abs().max(), hb.max()]))
+            gd, hd, sg, sh = quantize_gradients(
+                gb, hb, bag, self._global_row_offset(), mx[0], mx[1])
             self._q_scales = (sg, sh)
             self._q_raw = (gb, hb)
             w = torch.stack([gd, hd, bag.to(torch.float32)])
-            q_tot = torch.stack([gd.to(acc).sum(), hd.to(acc).sum(),
-                                 bag.to(acc).sum()])
+            q_tot = self._global_scalar(torch.stack([
+                gd.to(acc).sum(), hd.to(acc).sum(), bag.to(acc).sum()]))
             inv_sh = 1.0 / sh
             mbar = torch.clamp(q_tot[1] * inv_sh, min=1.0) \
                 / torch.clamp(q_tot[2], min=1.0)
+            self._q_mbar = mbar
             q_cnt = inv_sh / mbar
             resc = torch.stack([torch.ones_like(q_cnt),
                                 torch.ones_like(q_cnt), q_cnt])
@@ -554,9 +559,9 @@ class WaveTreeLearner(CompactTreeLearner):
             sum_g, sum_h = q_tot[0], q_tot[1]
             cnt = (sum_h * q_cnt).to(acc)
         else:
-            sum_g = (grad * bag).to(acc).sum()
-            sum_h = (hess * bag).to(acc).sum()
-            cnt = bag.to(acc).sum()
+            sum_g = self._global_scalar((grad * bag).to(acc).sum())
+            sum_h = self._global_scalar((hess * bag).to(acc).sum())
+            cnt = self._global_scalar(bag.to(acc).sum())
         cf, ci, cb = self._cand_rows(root_hist[None], sum_g[None],
                                      sum_h[None], cnt[None], st.fmask, True)
         st.node_i[:1, 1].fill_(n)
@@ -586,13 +591,12 @@ class WaveTreeLearner(CompactTreeLearner):
         for outsiders; go_left; the table's columns gathered per row)."""
         bins_p, lid_p = lanes[0], lanes[3]
         k = wi.shape[0]
-        n = self.n_pad
         member_of = torch.full((self.M + 1,), k, dtype=torch.int32,
                                device=self.device)
         member_of[wi] = torch.arange(k, dtype=torch.int32, device=self.device)
         mi = member_of.index_select(0, lid_p)
         row = params.index_select(1, mi)                       # (NUM_P, N)
-        word = bins_p.gather(0, row[P_WIDX].to(torch.int64).view(1, n))[0]
+        word = self._row_words(bins_p, row[P_WIDX])
         code = (word >> row[P_SHIFT]) & 0xFF
         if self._bundle is not None:
             r = code - row[P_BOFF]
@@ -616,11 +620,45 @@ class WaveTreeLearner(CompactTreeLearner):
                                   ((word >> (frow & 31)) & 1) == 1, go_left)
         return mi, go_left & (mi < k), row
 
+    def _row_words(self, bins_p: torch.Tensor, widx: torch.Tensor
+                   ) -> torch.Tensor:
+        """Each row's packed word at word row ``widx`` (the decide pass's
+        read; a 2-D learner's words live on one feature column)."""
+        return bins_p.gather(0, widx.to(torch.int64).view(1, -1))[0]
+
+    def _sync_counts3(self, counts: torch.Tensor) -> torch.Tensor:
+        """(2, K) [left bagged, bagged] counts of a wave's members from the
+        local rows' (one collective for the wave)."""
+        return counts
+
+    def _replicated_spans(self, spans: torch.Tensor) -> torch.Tensor:
+        """Window widths the replay's batched-stall gate reads; a row
+        shard's windows are its own, so a sharded learner takes their
+        maximum over the shards (JAX ``learner_wave.py:1338``)."""
+        return spans
+
+    def _global_row_offset(self) -> int:
+        """The first local row's global index (stochastic rounding keys on
+        the global row)."""
+        return 0
+
+    def _scan_scope(self, feature_mask=None):
+        """The feature metadata a split scan reads for the duration of the
+        block, and the feature mask it takes (a sharded learner's slices
+        of both; None: the tree's own)."""
+        return contextlib.nullcontext()
+
+    def _merge_cands(self, cf, ci, cb):
+        """Per-leaf best rows of this learner's features -> the global ones
+        (a sharded learner's all-gather and argmax)."""
+        return cf, ci, cb
+
     def _member_hists(self, bins, w, lid, start, cnt, leaf):
         """Histograms of K members' rows in one call (plain float64 in dp;
         the count channel rescaled in quant mode).  The kernel's grid is
         sized from ``n_pad``, a bound on ``sum(cnt)`` known with no read
         (``ops/hist_segments.py:segment_grid``)."""
+        bins = self._hist_bins(bins)
         if self.hist_dp:
             h = build_histogram_segments_plain(
                 bins, w, lid, start, cnt, leaf, num_bins=self._hist_nbins,
@@ -643,6 +681,7 @@ class WaveTreeLearner(CompactTreeLearner):
         slot_of[sm_slot] = torch.arange(k, dtype=torch.int32,
                                         device=self.device)
         slot = slot_of.index_select(0, lid)
+        bins = self._hist_bins(bins)
         if self.hist_dp:
             h = build_histogram_multislot_plain(
                 bins, w, slot, num_bins=self._hist_nbins, n_slots=k, dp=True)
@@ -726,9 +765,15 @@ class WaveTreeLearner(CompactTreeLearner):
         code = (mi * 4 + bag * 2 + go_left).to(torch.float64) + 0.5
         cnt = torch.histc(code, bins=4 * (k + 1), min=0, max=4 * (k + 1)) \
             .to(torch.int64).view(k + 1, 2, 2)[:k]
+        lc_w = cnt[:, 0, 1] + cnt[:, 1, 1]
         lc_bag = cnt[:, 1, 1]
-        lc_w = cnt[:, 0, 1] + lc_bag
         c_bag = cnt[:, 1, 0] + lc_bag
+        # the bagged counts of the whole dataset (left rows are window
+        # geometry, the shard's own)
+        if rule in (SORT_NONE, SORT_STALL):
+            lc_bag, c_bag = self._sync_counts(lc_bag, c_bag)
+        else:
+            lc_bag, c_bag = self._sync_counts3(torch.stack([lc_bag, c_bag]))
         lid_new = torch.where(mi < k, torch.where(go_left, row[P_LSLOT],
                                                   row[P_RSLOT]), cur[3])
 
@@ -779,6 +824,7 @@ class WaveTreeLearner(CompactTreeLearner):
             sm_cnt = torch.where(valid, sm_cnt, 0)
             h_small = self._member_hists(bins, w, lid, sm_start, sm_cnt,
                                          sm_slot)
+        h_small = self._reduce_hist_batch(h_small)
         ph = st.hslot.index_select(0, wi)
         rh = torch.where(valid, torch.clamp(1 + ns + pos, max=H - 1), H)
 
@@ -808,11 +854,14 @@ class WaveTreeLearner(CompactTreeLearner):
             kw = {k_: v for k_, v in self._split_kwargs.items()
                   if k_ != "skip_missing_scan"}
             self.kernel_calls["fused_scan"] += 1
-            cands = self.kernels.fused(
-                h_small, st.hist_pool, ph, rh, left_small, *sums2,
-                self.f_num_bin, self.f_missing, self.f_default_bin,
-                st.fmask, **kw)
-            cf2, ci2, cb2 = self._pack_cands(_FeatCand(*cands), depth_ok)
+            with self._scan_scope() as fmask:
+                cands = self.kernels.fused(
+                    h_small, st.hist_pool, ph, rh, left_small, *sums2,
+                    self.f_num_bin, self.f_missing, self.f_default_bin,
+                    st.fmask if fmask is None else fmask, **kw)
+                cf2, ci2, cb2 = self._pack_cands(_FeatCand(*cands),
+                                                 depth_ok)
+            cf2, ci2, cb2 = self._merge_cands(cf2, ci2, cb2)
         else:
             h_large = st.hist_pool.index_select(0, ph) - h_small
             lsm = left_small.view(k, 1, 1, 1)
@@ -855,6 +904,7 @@ class WaveTreeLearner(CompactTreeLearner):
         on, the JAX ``gcond``) or one opening level: the top-``width``
         frontier leaves by (gain desc, slot asc), valid where the gain is
         positive and the growth budget lasts."""
+        self._coll_ctx = ("grow_wave", "wave")
         gv, order = torch.sort(self._pool_gains(st), descending=True,
                                stable=True)
         valid = (gv[:width] > 0.0) \
@@ -887,10 +937,12 @@ class WaveTreeLearner(CompactTreeLearner):
     def _replay_pass(self, st: WaveState) -> None:
         """One pass of the exact greedy replay (``ops/replay.py``)."""
         M = self.M
+        self._coll_ctx = ("stall_correction", "stall_event")
+        spans = self._replicated_spans(st.node_i[:M, 1])
         self.kernel_calls["replay"] += 1
         self.kernels.replay(
             st.cand_f[:M, CF_GAIN], st.split_m[:M], st.child0[:M],
-            st.node_i[:M, 1], st.avail, st.refidx, st.poprec, st.rctl,
+            spans, st.avail, st.refidx, st.poprec, st.rctl,
             st.members, st.mvalid, budget=self.budget,
             stall_batch=self._stall_batch, extras_cap=self._extras_cap,
             vec_cap=self._vec_cap, pad_slot=M)
@@ -899,6 +951,7 @@ class WaveTreeLearner(CompactTreeLearner):
         """The stall correction the last replay pass asked for (its members
         and valid mask on the device; all invalid after the replay ended)."""
         kb1 = self._stall_batch == 1
+        self._coll_ctx = ("stall_correction", "stall_event")
         self._split_members(st, st.members, st.mvalid,
                             SORT_STALL if kb1 else SORT_NONE, partition=kb1)
 
@@ -1090,13 +1143,14 @@ class WaveTreeLearner(CompactTreeLearner):
         gb, hb = self._q_raw
         sg, sh = self._q_scales
         self._q_raw = None
-        kb = max(30 - int(self.n_pad - 1).bit_length(), 1)
+        kb = max(30 - int(self._dataset_rows() - 1).bit_length(), 1)
         qg = sg * (2.0 ** (3 - kb))       # sg * GMAX <= sg * 2**3
         qh = sh * (2.0 ** (4 - kb))       # sh * HMAX <= sh * 2**4
         L = self.num_leaves
         lgh = torch.zeros((2, L), dtype=torch.int64, device=self.device)
         lgh[0].index_add_(0, leaf_id, torch.round(gb / qg).to(torch.int64))
         lgh[1].index_add_(0, leaf_id, torch.round(hb / qh).to(torch.int64))
+        lgh = self._global_scalar(lgh)
         lg = lgh[0].to(torch.float32) * qg
         lh = lgh[1].to(torch.float32) * qh
         has_h = lh > 0.0

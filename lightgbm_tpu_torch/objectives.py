@@ -32,6 +32,12 @@ class ObjectiveFunction:
     is_constant_hessian = False
     num_model_per_iteration = 1
     need_group = False
+    #: a row's gradients read only that row's labels (not its query's), so
+    #: a row shard computes its own (``parallel/``)
+    row_local = True
+    #: the row-aligned label arrays a row shard keeps its rows of
+    ROW_ARRAYS = ("label", "weights", "trans_label", "label_sign", "label_w",
+                  "label_weight", "label_onehot")
 
     def __init__(self, cfg: Config, device: torch.device):
         self.cfg = cfg
@@ -55,6 +61,19 @@ class ObjectiveFunction:
         self._np_label = metadata.label
         self._np_weights = metadata.weights
         self.metadata = metadata
+
+    def place_rows(self, rules) -> None:
+        """Keep this rank's rows of the label arrays (``rules_for_mode``'s
+        placement); an objective that is not ``row_local`` keeps them
+        whole and is handed the whole score."""
+        if not self.row_local:
+            return
+        for name in self.ROW_ARRAYS:
+            arr = getattr(self, name, None)
+            if isinstance(arr, torch.Tensor) and arr.dim() >= 1:
+                setattr(self, name, rules.place(name, arr).contiguous())
+        for sub in getattr(self, "binaries", ()):
+            sub.place_rows(rules)
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)

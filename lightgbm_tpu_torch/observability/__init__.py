@@ -15,14 +15,17 @@ Port of ``lightgbm_tpu/observability/``:
     exact p50/p95/p99 over a bounded window, the text page behind the
     server's ``metrics`` op and ``training_prometheus``.
 
-The collective ledger and the pod trace measure the sharded learners'
-process groups and come with them (ROADMAP.md Queue A, "multi-GPU and
-multi-host"); the drift monitor comes with the serving lifecycle
-("serving and lifecycle").
+  * ``CollectiveLedger`` (`collectives.py`) — the sharded learners'
+    collective sites and traffic, the report's ``collectives`` section.
+
+The pod trace measures a multi-host pod's ranks and comes with it
+(ROADMAP.md Queue A, "multi-GPU and multi-host"); the drift monitor comes
+with the serving lifecycle ("serving and lifecycle").
 """
 
 from .attribution import (SampledSync, attribute_profile, attribution_table,
                           force_sync, parse_profiler_trace)
+from .collectives import CollectiveLedger
 from .metrics_export import (LatencyHistogram, prometheus_text,
                              training_prometheus)
 from .report import load_schema, validate_report, write_report
@@ -33,4 +36,5 @@ __all__ = ["Telemetry", "TEL_NAMES", "load_schema", "validate_report",
            "write_report", "TraceRecorder", "new_trace_id",
            "LatencyHistogram", "prometheus_text", "training_prometheus",
            "provenance_section", "SampledSync", "attribution_table",
-           "force_sync", "parse_profiler_trace", "attribute_profile"]
+           "force_sync", "parse_profiler_trace", "attribute_profile",
+           "CollectiveLedger"]

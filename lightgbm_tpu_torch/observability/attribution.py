@@ -22,8 +22,9 @@ mechanisms say where device time goes:
     ``other``.
 
 The JAX package's exchange-window probe times the sharded learners'
-collective seam; it comes with the multi-GPU learners (ROADMAP.md Queue A,
-"multi-GPU and multi-host").
+collective seam; it is not ported (ROADMAP.md Queue A, "multi-GPU and
+multi-host", item 7b): the port's mesh counts the host seconds of every
+collective instead (``parallel/sharding.py:Mesh.seconds``).
 """
 
 from __future__ import annotations

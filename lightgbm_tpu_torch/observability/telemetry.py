@@ -236,7 +236,12 @@ class Telemetry:
 
     # -- report --------------------------------------------------------------
 
-    def report(self, extra_gauges: Optional[Dict] = None) -> Dict[str, Any]:
+    def report(self, extra_gauges: Optional[Dict] = None,
+               ledger=None, transport: Optional[str] = None
+               ) -> Dict[str, Any]:
+        """The JSON report; ``ledger`` is the sharded learner's
+        ``CollectiveLedger`` and ``transport`` how its collectives travel
+        (``Mesh.transport``; None: no collective ran)."""
         counters = dict(self._counters)
         counters.update(self.device_counters())
         gauges = dict(self._gauges)
@@ -271,15 +276,31 @@ class Telemetry:
         return {"schema_version": SCHEMA_VERSION, "enabled": self.enabled,
                 "phases": phases, "iterations": it, "counters": counters,
                 "gauges": gauges,
-                # no collective runs in a one-card process: no sites
-                "collectives": {"sites": [],
-                                "per_tree_estimate": {"count": None,
-                                                      "bytes": None},
-                                "saved_by_stall_batching": counters.get(
-                                    "stall_extras", 0)},
+                "collectives": self._collectives(ledger, counters,
+                                                 transport),
                 "provenance": prov,
                 "distributed": dist,
                 "reliability": reliability_section()}
+
+
+    @staticmethod
+    def _collectives(ledger, counters: Dict[str, int],
+                     transport: Optional[str] = None) -> Dict[str, Any]:
+        """The sites the sharded learner's seams recorded and the
+        collectives and bytes it issued per tree: counted, where the JAX
+        package multiplies traced sites by decoded counters.  A serial run
+        has no sites."""
+        sites = list(ledger.sites()) if ledger is not None else []
+        trees = counters.get("trees_measured", 0)
+        per_tree = {"count": None, "bytes": None}
+        if sites and trees:
+            per_tree = {"count": ledger.calls / trees,
+                        "bytes": ledger.bytes / trees}
+        out = {"sites": sites, "per_tree_estimate": per_tree,
+               "saved_by_stall_batching": counters.get("stall_extras", 0)}
+        if transport is not None:
+            out["transport"] = transport
+        return out
 
 
 class _PhaseCtx:

@@ -19,8 +19,14 @@ uint32 arithmetic with wraparound on every device, so the hash runs in
 int64 and keeps the low 32 bits after every multiply and xor; the multiply
 is split in 16-bit halves so that no int64 product overflows.
 
-The JAX module's packed int32 accumulators and its int16 histogram-exchange
-tier serve only the sharded learners and are not ported here.
+The packed int32 accumulators (``pack_gh``: both lanes of a row in one
+word, ``gq * 2**16 + hq``) and the int16 histogram-exchange tier of the
+sharded learners (``exchange_tier``, ``pack_hist_int16``) are the JAX
+module's (`:161-254`).  Neither gloo nor NCCL reduces int16, so the
+sharded learners send a histogram's integer units as one packed word per
+bin (``pack_hist_words``): the gradient and hessian units, the count
+channel rebuilt from the hessian units on arrival; the no-carry window of
+the packed word is exactly the int16 tier's bound.
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ GMAX = 7
 HMAX = 15
 #: float32 sums of the integer hessian mass are exact below 2**24 quanta
 F32_EXACT_ROWS = (1 << 24) // HMAX
+#: the most rows of one bin whose packed words sum with no carry between
+#: the lanes: sum(hq) < 2**16 and |sum(gq)| < 2**15
+PACKED_SAFE_ROWS = min((1 << 16) // HMAX - 1, (1 << 15) // GMAX - 1)
 
 _M32 = 0xFFFFFFFF
 _G_SALT = 0x51ED2701
@@ -124,3 +133,104 @@ def quant_ineligible_reason(n_pad: int, hist_dp: bool) -> Optional[str]:
                 "leave the f32-exact integer window during histogram "
                 "accumulation")
     return None
+
+
+# -- packed int32 accumulation (`:161-220`) ------------------------------------
+
+def pack_gh(gq: torch.Tensor, hq: torch.Tensor) -> torch.Tensor:
+    """gq * 2**16 + hq as carry-free int32 arithmetic; gq in [-GMAX, GMAX],
+    hq in [0, HMAX] (or sums of such within ``PACKED_SAFE_ROWS`` rows)."""
+    return gq.to(torch.int32) * (1 << 16) + hq.to(torch.int32)
+
+
+def unpack_gh(word: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode a sum of packed words: hq = word & 0xFFFF (the low half never
+    borrows while sum(hq) < 2**16), gq = (word - hq) >> 16."""
+    word = word.to(torch.int32)
+    hq = word & 0xFFFF
+    return (word - hq) >> 16, hq
+
+
+def hist_accumulate_packed(bins: torch.Tensor, packed: torch.Tensor, *,
+                           num_bins: int) -> torch.Tensor:
+    """One integer histogram pass over both lanes: out[f, b] = sum over rows
+    r with bins[f, r] == b of packed[r].  Exact within the no-carry window
+    (``PACKED_SAFE_ROWS`` rows per bin).  bins (F, N) codes, packed (N,)
+    int32; returns (F, num_bins) int32."""
+    f, n = bins.shape
+    flat = (torch.arange(f, dtype=torch.int64, device=bins.device)[:, None]
+            * num_bins + bins.to(torch.int64)).reshape(-1)
+    vals = packed.to(torch.int32).expand(f, n).reshape(-1)
+    out = torch.zeros(f * num_bins, dtype=torch.int32, device=bins.device)
+    return out.index_add_(0, flat, vals).view(f, num_bins)
+
+
+def hist_accumulate_packed_chunked(bins: torch.Tensor, gq: torch.Tensor,
+                                   hq: torch.Tensor, *, num_bins: int,
+                                   chunk: int = 4096
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Any-N exact packed accumulation: per chunk of at most
+    ``PACKED_SAFE_ROWS`` rows pack, accumulate and unpack, summing the
+    decoded lanes.  Returns ((F, num_bins) sum(gq), sum(hq)) int32."""
+    if chunk > PACKED_SAFE_ROWS:
+        raise ValueError(f"chunk {chunk} > PACKED_SAFE_ROWS "
+                         f"{PACKED_SAFE_ROWS}")
+    f, n = bins.shape
+    sum_g = torch.zeros((f, num_bins), dtype=torch.int32, device=bins.device)
+    sum_h = torch.zeros_like(sum_g)
+    packed = pack_gh(gq, hq)
+    for s in range(0, n, chunk):
+        g, h = unpack_gh(hist_accumulate_packed(
+            bins[:, s:s + chunk], packed[s:s + chunk], num_bins=num_bins))
+        sum_g += g
+        sum_h += h
+    return sum_g, sum_h
+
+
+# -- the histogram-exchange tier of the sharded learners (`:224-254`) ---------
+
+def exchange_tier(n_global: int) -> str:
+    """'int16' when every reduced channel provably fits int16 (sum(hq) <=
+    HMAX * N is the binding bound), else 'f32'."""
+    return "int16" if HMAX * n_global <= 32767 else "f32"
+
+
+def pack_hist_int16(hist: torch.Tensor, inv_sg, inv_sh,
+                    cnt_to_int=1.0) -> torch.Tensor:
+    """(..., 3) quantized-unit histogram -> (..., 3) int16 integer units:
+    the channels divided by (sg, sh, 1 / cnt_to_int), rounded to nearest
+    (``cnt_to_int`` is the mean hessian mass per row, m)."""
+    mul = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                       device=hist.device)
+                       for v in (inv_sg, inv_sh, cnt_to_int)])
+    return torch.round(hist * mul).to(torch.int16)
+
+
+def unpack_hist_int16(h16: torch.Tensor, sg, sh, int_to_cnt=1.0
+                      ) -> torch.Tensor:
+    """Inverse of ``pack_hist_int16`` after the integer reduction;
+    ``int_to_cnt`` is the float32 reciprocal 1 / m the serial count rescale
+    uses, so the count channel is bitwise the serial one."""
+    mul = torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                       device=h16.device)
+                       for v in (sg, sh, int_to_cnt)])
+    return h16.to(torch.float32) * mul
+
+
+def pack_hist_words(hist: torch.Tensor, inv_sg, inv_sh) -> torch.Tensor:
+    """(..., 3) quantized-unit histogram -> (...) int32 words
+    ``pack_gh(gq, hq)`` of its gradient and hessian units: the int16 tier's
+    units, two to a word (a sum of words over ranks stays carry-free under
+    ``exchange_tier``'s bound)."""
+    h16 = pack_hist_int16(hist, inv_sg, inv_sh)
+    return pack_gh(h16[..., 0], h16[..., 1])
+
+
+def unpack_hist_words(words: torch.Tensor, sg, sh, int_to_cnt
+                      ) -> torch.Tensor:
+    """Inverse of ``pack_hist_words`` after the reduction: the (..., 3)
+    channels of ``unpack_hist_int16``, the count from the hessian units
+    (the count channel's integer is the hessian lane's)."""
+    gq, hq = unpack_gh(words)
+    return unpack_hist_int16(torch.stack([gq, hq, hq], -1), sg, sh,
+                             int_to_cnt)

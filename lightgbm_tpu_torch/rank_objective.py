@@ -41,6 +41,8 @@ def max_dcg_at_k(k: int, labels: np.ndarray, label_gain: np.ndarray) -> float:
 class LambdarankNDCG(ObjectiveFunction):
     name = "lambdarank"
     need_group = True
+    #: a document's gradient reads its whole query
+    row_local = False
 
     def __init__(self, cfg: Config, device: torch.device):
         super().__init__(cfg, device)

@@ -129,20 +129,28 @@ def write_snapshot_meta(path: str, iteration: int, cfg) -> None:
     _atomic_write(path + META_SUFFIX, json.dumps(meta).encode())
 
 
-def write_snapshot_state(path: str, gbdt) -> None:
-    """The exact-continuation sidecar: the score tensors as numpy arrays of
-    their own dtype and the random streams' states.  The model text alone
-    resumes too, but replaying scores by traversal adds in another order
-    and moves a float32 score by an ulp; the live scores make the resumed
-    model text equal an uninterrupted run's."""
-    state: Dict[str, Any] = {
+def snapshot_state(gbdt) -> Dict[str, Any]:
+    """The exact-continuation sidecar's content: the score tensors as numpy
+    arrays of their own dtype (the training score gathered from every
+    rank's rows under a parallel mode: a collective every rank makes) and
+    the random streams' states."""
+    return {
         "iter": int(gbdt.iter_),
-        "score": gbdt.train_score.score.cpu().numpy(),
+        "score": gbdt._global(gbdt.train_score.score, "score").cpu().numpy(),
         "valid_scores": [vs.score.cpu().numpy()
                          for vs in gbdt.valid_scores],
         "rngs": {a: getattr(gbdt, a).get_state() for a in RNG_ATTRS
                  if getattr(gbdt, a, None) is not None},
     }
+
+
+def write_snapshot_state(path: str, gbdt, state=None) -> None:
+    """The exact-continuation sidecar (``snapshot_state``).  The model text
+    alone resumes too, but replaying scores by traversal adds in another
+    order and moves a float32 score by an ulp; the live scores make the
+    resumed model text equal an uninterrupted run's."""
+    if state is None:
+        state = snapshot_state(gbdt)
     _atomic_write(path + STATE_SUFFIX,
                   pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL))
 
@@ -161,13 +169,15 @@ def restore_training_state(gbdt, state: Dict[str, Any]) -> bool:
     shape differs (a resume against other data)."""
     cur = gbdt.train_score.score
     score = state.get("score")
-    if score is not None and tuple(score.shape) != tuple(cur.shape):
+    # the whole score under a parallel mode, of which a rank keeps its rows
+    shape = (cur.shape[0], gbdt.train_data.num_data_padded)
+    if score is not None and tuple(score.shape) != shape:
         warnings.warn(f"snapshot score state shape {score.shape} != "
                       f"{tuple(cur.shape)}; resuming from the replayed "
                       f"score instead")
         return False
     if score is not None:
-        cur.copy_(torch.from_numpy(score))
+        cur.copy_(gbdt._local(torch.from_numpy(score), "score"))
     valid = state.get("valid_scores") or []
     if len(valid) == len(gbdt.valid_scores) and all(
             tuple(v.shape) == tuple(vs.score.shape)
@@ -272,11 +282,16 @@ def save_snapshot(gbdt, output_model: str, iteration: int, cfg) -> str:
     """Flush the pipelined loop's queued trees (else the text would miss
     trees the score holds), then write the snapshot, its sidecars and the
     retention in one call."""
+    from ..parallel.sharding import is_primary
     gbdt._flush_pending()
     path = snapshot_path(output_model, iteration)
+    state = snapshot_state(gbdt)
+    if not is_primary():
+        # every rank gathers the score; rank 0 writes
+        return path
     gbdt.save_model_to_file(path)
     write_snapshot_meta(path, iteration, cfg)
-    write_snapshot_state(path, gbdt)
+    write_snapshot_state(path, gbdt, state)
     rel_inc("snapshots_written")
     prune_snapshots(output_model, int(getattr(cfg, "snapshot_keep", 0)))
     return path

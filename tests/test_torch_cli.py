@@ -160,7 +160,7 @@ def test_serve_and_telemetry_raise_named_errors(workdir):
             == (workdir / "port.txt").read_text()
         with pytest.raises(NotImplementedError,
                            match="multi-GPU and multi-host"):
-            cli.main(args + ["tree_learner=data"])
+            cli.main(args + ["num_machines=2"])
     finally:
         os.chdir(old)
 

@@ -1606,3 +1606,44 @@ def test_serving_device_error_fails_the_batch_and_health(cuda_device,
     assert "forced" in health["device_errors"]["default"]
     assert srv["fallback_batches"] == 1 and srv["fallback_rows"] == 16
     assert srv["errors"] >= 1
+
+
+def test_two_rank_data_parallel_tree_on_card(cuda_device):
+    """Two gloo ranks share the card (NCCL refuses two ranks on one
+    device), their collectives staged through the host: one data-parallel
+    wave tree from dyadic gradients (sums exact in any order), its records
+    and counts on both ranks bitwise the serial wave learner's on the
+    card, every wave kernel launched on both ranks."""
+    import os
+    import sys
+
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learner_wave import WaveTreeLearner
+    from lightgbm_tpu_torch.parallel.launch import RankPool
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_parallel_tasks as tasks
+
+    rng = np.random.RandomState(8)
+    n, f = 8192, 12
+    X = rng.randn(n, f)
+    y = (X[:, 0] + 0.5 * X[:, 1] + 0.3 * rng.randn(n) > 0).astype(float)
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "min_data_in_leaf": 20, "enable_bundle": False}
+    data = tasks._dataset(params, X, y)
+    n_pad = data.num_data_padded
+    g = (rng.randint(-16, 17, n_pad) / 16.0).astype(np.float32)
+    h = (rng.randint(1, 17, n_pad) / 16.0).astype(np.float32)
+    b = np.zeros(n_pad, np.float32)
+    b[:n] = rng.rand(n) < 0.9
+    serial = WaveTreeLearner(Config.from_params(params), data, cuda_device)
+    rf, ri, lid, _ = serial.grow(*(torch.from_numpy(a).to(cuda_device)
+                                   for a in (g, h, b)))
+    with RankPool(2, "gloo") as pool:
+        outs = pool.run(tasks.learner_records, "ShardedWaveLearner", params,
+                        X, y, g, h, b, (2,), None, "cuda")
+    for o in outs:
+        assert o["device"].startswith("cuda")
+        np.testing.assert_array_equal(o["rec_f"], rf)
+        np.testing.assert_array_equal(o["rec_i"], ri)
+        np.testing.assert_array_equal(o["leaf_id"], lid.cpu().numpy())
+        assert all(v > 0 for v in o["launches"].values()), o["launches"]

@@ -113,13 +113,39 @@ def test_device_rule_cpu_and_alias():
 @pytest.mark.parametrize("extra", [
     {"tree_learner": "feature"},
     {"trace_out": "t.json", "tree_learner": "data"},
-    {"resume": True, "num_machines": 2},
     {"tree_learner": "data_feature"},
+    {"tree_learner": "data"},
+    {"tpu_learner": "masked", "tree_learner": "voting"},
+])
+def test_parallel_settings_train_serially_in_world_of_one(extra, tmp_path,
+                                                          monkeypatch,
+                                                          capsys):
+    """Without a process group of more than one rank a parallel
+    ``tree_learner`` trains the serial model and says so, as the JAX
+    package shards only over more than one device (the multi-rank runs:
+    ``tests/test_torch_parallel.py``)."""
+    monkeypatch.chdir(tmp_path)
+    X, y = _problem()
+    base = {"objective": "binary", "device_type": "cpu", "num_leaves": 4,
+            "verbosity": 1, "tpu_learner": extra.get("tpu_learner", "auto")}
+
+    def text(params):
+        bst = lt.train(params, lt.Dataset(X, label=y), 2, verbose_eval=False)
+        return [ln for ln in bst.model_to_string().splitlines()
+                if not ln.startswith(("[tree_learner", "[trace_out"))]
+
+    serial = text(dict(base, tree_learner="serial"))
+    capsys.readouterr()
+    assert text(dict(base, **extra)) == serial
+    assert "training serially (start one process per card" \
+        in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [
+    {"resume": True, "num_machines": 2},
     {"num_hosts": 2},
     {"elastic": True},
     {"snapshot_freq": 1, "fault_spec": "net.crash:rank=1"},
-    {"tree_learner": "data"},
-    {"tpu_learner": "masked", "tree_learner": "voting"},
     {"num_machines": 2},
     {"telemetry_out": "t.jsonl", "fault_spec": "net.send.drop"},
     {"fault_spec": "serving.replica_fault:rank=1"},
@@ -127,9 +153,9 @@ def test_device_rule_cpu_and_alias():
     {"telemetry": True, "elastic": True},
 ])
 def test_unported_settings_raise(extra):
-    """The multi-GPU keys and the fault points of unported modules raise
-    (the training telemetry, trace, snapshot and resume keys they are
-    paired with train: ``tests/test_torch_telemetry.py``,
+    """The multi-host and elastic keys and the fault points of unported
+    modules raise (the training telemetry, trace, snapshot and resume keys
+    they are paired with train: ``tests/test_torch_telemetry.py``,
     ``test_torch_resume.py``)."""
     X, y = _problem()
     params = {"objective": "binary", "verbosity": -1, "device_type": "cpu",

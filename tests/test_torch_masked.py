@@ -187,13 +187,25 @@ def test_factory_routes_and_says_what_jax_says(mode, max_bin, capsys):
 
 
 def test_parallel_tree_learner_still_raises():
+    """Several hosts still raise; ``tree_learner=data`` past 256 bins gets
+    the masked learner from the factory and, in a world of one rank,
+    trains the serial model (under a process group the masked learner
+    trains sharded: ``tests/test_torch_parallel.py``)."""
     X, y = _problem(2)
     params = dict(BASE, max_bin=511, tree_learner="data", device_type="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        lt.train(params, lt.Dataset(X, label=y), 1, verbose_eval=False)
+        lt.train(dict(params, num_machines=2), lt.Dataset(X, label=y), 1,
+                 verbose_eval=False)
     dt = lt.Dataset(X, label=y, params=params).construct().constructed
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        create_tree_learner(TConfig.from_params(params), dt, CPU)
+    assert type(create_tree_learner(TConfig.from_params(params), dt,
+                                    CPU)) is MaskedTreeLearner
+    serial = dict(params, tree_learner="serial")
+    texts = [[ln for ln in lt.train(p, lt.Dataset(X, label=y), 2,
+                                    verbose_eval=False)
+              .model_to_string().splitlines()
+              if not ln.startswith("[tree_learner")]
+             for p in (params, serial)]
+    assert texts[0] == texts[1]
 
 
 def test_compact_learner_refuses_codes_past_a_byte():

@@ -164,7 +164,7 @@ def test_training_keeps_refusing_observability(rng, params, tmp_path,
     finally:
         faults.reset()
     with pytest.raises(NotImplementedError, match="multi-GPU and multi-host"):
-        lt.train(dict(p, tree_learner="data"), lt.Dataset(X, label=y), 1,
+        lt.train(dict(p, num_machines=2), lt.Dataset(X, label=y), 1,
                  verbose_eval=False)
 
 

@@ -362,7 +362,7 @@ def test_resume_stays_refused(tmp_path):
     assert bt.num_trees() == 2
     assert_same_trees(bt, bj)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        lt.train(_p(lt, dict(params, tree_learner="data")),
+        lt.train(_p(lt, dict(params, num_machines=2)),
                  lt.Dataset(X, label=y), 1, resume=True, verbose_eval=False)
 
 
