@@ -237,6 +237,28 @@ line and each raising (exit code 1) on any failure:
              and eager ms (the wave model), and bin_predict at 32, 37 and
              1,024 rows over the wave model's arrays (wrapper, alone,
              device, plain, torch.searchsorted, bound)
+  fleet      the serving fleet on the card for the wave_train model
+             (FleetServer, 2 replicas on cuda:0, each with one CUDA graph
+             of bin_predict + the traversal per 32- to 1,024-row bucket):
+             8 client threads (4 binary, 4 pickle framing) sending 1 to
+             1,024 held-out rows rounded to float32 (one in ten with NaN)
+             and a GET /metrics scrape; serving.replica_fault on replica 1
+             (its batches re-scored on the host, the replica ejected,
+             replica 0 taking the traffic, re-admitted after 2 s); a 3-tree
+             63-leaf model rolled out with promote_rolling under traffic
+             and rolled back; one Autopilot cycle on traffic with feature 0
+             moved by 6 standard deviations: a 3-round refit on the card
+             from the 1M training rows (the wave kernels launched, its split
+             passes captured while the replicas replay), shadowed and
+             rolled out to both replicas; every response within rtol =
+             atol = 1e-6 of the host trees of a version live while it was
+             in flight; no error or shed, health ready; each replica's
+             graphs and no eager batch; bin_predict and the five wave
+             kernels launched; the refit model's bucket replays bitwise
+             against bin_predict run eagerly and bin_plain; qps, latency
+             percentiles, per-replica dispatch and ejections, graph
+             replays, the refit's binning and seconds per iteration, the
+             promotion's and the phase's seconds
   cli        the bench's 1M training and 100,000 held-out rows written as
              CSV (repr floats, eight spawned writers), 5 iterations of the
              default config through lightgbm_tpu_torch.cli.main (the wave
@@ -378,7 +400,7 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "train", "wave_train", "wave_pipelined", "quant_train",
           "constrained_train", "masked_train", "forced_train",
           "observe_train", "predict",
-          "serve", "cli", "small", "multiclass_train",
+          "serve", "fleet", "cli", "small", "multiclass_train",
           "objectives_train", "rank_train", "categorical_train",
           "categorical_2047", "wave_4095", "goss_train", "dart_train",
           "rf_train", "surface", "sharded_train", "timing")
@@ -3519,6 +3541,407 @@ def phase_serve(ctx) -> None:
           "provenance": rep["provenance"]})
 
 
+#: the fleet phase: replicas on the one card, client threads (half binary,
+#: half pickle), the replica fault's cooldown, the recorder window, the
+#: autopilot refit's rounds and the refit's train rows
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_RECOVERY_S = 2, 8, 2.0
+FLEET_RECORD_ROWS, FLEET_REFIT_ROUNDS = 4096, 3
+#: requests of the steady window (no fault, roll or refit), the one to set
+#: beside phase serve's single server
+FLEET_STEADY_REQUESTS = 3000
+
+
+class _FleetTraffic:
+    """``FLEET_CLIENTS`` client threads, half over the binary framing and
+    half over the pickle framing, sending predicts of 1 to ``SERVE_MAX``
+    held-out rows (rounded to float32, which the binary frames carry; one
+    request in ten with 20% of its values NaN) until stopped; with
+    ``shift`` set, feature 0 is moved by that much.  Every request's
+    (sent, answered, rows, scores) is kept."""
+
+    def __init__(self, port: int, Xv, seed: int):
+        import threading
+
+        self.port, self.Xv, self.seed = port, Xv, seed
+        self.shift = 0.0
+        self.records, self.errors = [], []
+        self.lock = threading.Lock()
+        self.stop = threading.Event()
+        self.threads = [threading.Thread(target=self._client, args=(i,))
+                        for i in range(FLEET_CLIENTS)]
+        for t in self.threads:
+            t.start()
+
+    def _client(self, i: int) -> None:
+        from lightgbm_tpu_torch.serving import ServingClient
+
+        rng = np.random.RandomState(self.seed + i)
+        proto = "binary" if i % 2 else "pickle"
+        try:
+            with ServingClient("127.0.0.1", self.port, timeout=120,
+                               protocol=proto, retries=0) as c:
+                while not self.stop.is_set():
+                    X = self.Xv[rng.randint(0, len(self.Xv),
+                                            rng.randint(1, SERVE_MAX + 1))]
+                    X = X.astype(np.float32).astype(np.float64)
+                    if rng.rand() < 0.1:
+                        X[rng.rand(*X.shape) < 0.2] = np.nan
+                    X[:, 0] += self.shift
+                    t0 = time.perf_counter()
+                    got = c.predict(X, raw_score=True)
+                    with self.lock:
+                        self.records.append((t0, time.perf_counter(), X,
+                                             got))
+        except Exception as e:             # reported, then raised
+            with self.lock:
+                self.errors.append(f"client {i} ({proto}): "
+                                   f"{type(e).__name__}: {e}")
+
+    def count(self) -> int:
+        with self.lock:
+            return len(self.records)
+
+    def wait(self, n: int, timeout: float = 120.0) -> None:
+        """Until ``n`` more requests have been answered."""
+        want, t_end = self.count() + n, time.perf_counter() + timeout
+        while self.count() < want and not self.errors:
+            check(time.perf_counter() < t_end, "fleet traffic stalled")
+            time.sleep(0.01)
+        check(not self.errors, f"fleet clients failed: {self.errors[:3]}")
+
+    def join(self) -> None:
+        self.stop.set()
+        for t in self.threads:
+            t.join(180)
+            check(not t.is_alive(), "a fleet client did not finish")
+        check(not self.errors, f"fleet clients failed: {self.errors[:3]}")
+
+
+def _scrape(port: int) -> str:
+    """One plain-HTTP ``GET /metrics`` on the gateway's port."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s:
+        s.sendall(b"GET /metrics HTTP/1.0\r\nHost: chip\r\n\r\n")
+        buf = b""
+        while True:
+            d = s.recv(1 << 16)
+            if not d:
+                break
+            buf += d
+    head, _, body = buf.partition(b"\r\n\r\n")
+    check(head.startswith(b"HTTP/1.0 200"), f"scrape: {head[:60]!r}")
+    return body.decode()
+
+
+def _shadow_numbers(report) -> dict:
+    """A shadow report's rows, verdict, mean divergence and p50 latency
+    ratio (candidate over incumbent)."""
+    gates = report.get("gates", {})
+    return {"rows": report.get("rows"), "passed": report.get("passed"),
+            "divergence_mean": gates.get("divergence", {}).get("mean"),
+            "latency_ratio": gates.get("latency", {}).get("ratio")}
+
+
+def phase_fleet(ctx) -> None:
+    """The serving fleet on the card: a ``FleetServer`` of two replicas on
+    cuda:0 (one CUDA graph of bin_predict + the traversal per bucket and
+    replica), client threads over the binary and the pickle framing and an
+    HTTP scrape; ``serving.replica_fault`` ejecting replica 1 and its
+    recovery; a rolling promotion of a second model under traffic and the
+    fleet's rollback; one autopilot cycle on traffic with feature 0 moved
+    by 6 standard deviations: a refit of ``FLEET_REFIT_ROUNDS`` rounds on
+    the card through the wave learner's kernels (its split passes captured
+    while the replicas replay), shadowed and rolled out to both replicas.
+    Every response against the host trees of the versions live while it
+    was in flight; every kernel of the path launched; each replica's
+    bucket replays bitwise against bin_predict eagerly and bin_plain."""
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.binner import bin_plain, bin_predict
+    from lightgbm_tpu_torch.lifecycle import (Autopilot, LifecycleController,
+                                              RefitBudget)
+    from lightgbm_tpu_torch.observability import validate_report
+    from lightgbm_tpu_torch.reliability import faults
+    from lightgbm_tpu_torch.serving import FleetServer, ServingClient
+    from lightgbm_tpu_torch.serving.batcher import bucket_ladder
+
+    t_phase = time.perf_counter()
+    bst = _wave_booster(ctx)
+    ds, _ = _dataset(ctx)
+    Xv = ctx["Xv"]
+    dev = torch.device("cuda", 0)
+    bst2 = lt.train(dict(WAVE_PARAMS, num_leaves=63), ds, 3,
+                    verbose_eval=False)
+    buckets = bucket_ladder(SERVE_MIN, SERVE_MAX)
+    counters = dict(wave_counters(), bin_predict=bin_predict)
+    # set-up: the 1M-row dataset and the served model (shared with phase
+    # serve in a full run, built here when the phase runs alone) and the
+    # second model
+    out = {"phase": "fleet", "nvidia_smi": ctx.get("smi"),
+           "replicas": FLEET_REPLICAS, "clients": FLEET_CLIENTS,
+           "buckets": buckets, "setup_s": time.perf_counter() - t_phase}
+    # the main path: counts zeroed, the fleet started (each replica's
+    # warmup: one eager run and one capture per bucket), traffic, the
+    # fault, the roll, the rollback, the autopilot's refit and roll
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    srv = FleetServer(booster=bst, replicas=FLEET_REPLICAS, port=0,
+                      max_batch_rows=SERVE_MAX, min_bucket=SERVE_MIN,
+                      deadline_ms=2.0, recovery_s=FLEET_RECOVERY_S,
+                      record_rows=FLEET_RECORD_ROWS, drift_min_rows=256)
+    srv.start()
+    out["start_s"] = time.perf_counter() - t0
+    reps = srv.replicas.replicas
+    traffic = None
+    timeline = []              # (t, the versions live from t on)
+    try:
+        m1 = [r.registry.get() for r in reps]
+        check(all(r.device == dev for r in reps)
+              and m1[0] is not m1[1], "replicas not on cuda:0")
+        check(all(m.jit_entries() == len(buckets)
+                  and m.replays == len(buckets) + 1 and m.eager_batches == 0
+                  for m in m1),
+              f"warmup: graphs {[m.jit_entries() for m in m1]}, replays "
+              f"{[m.replays for m in m1]}, eager "
+              f"{[m.eager_batches for m in m1]}")
+        timeline.append((0.0, [m1[0]]))
+        traffic = _FleetTraffic(srv.port, Xv, 40)
+        t_traffic = time.perf_counter()
+        traffic.wait(FLEET_STEADY_REQUESTS)
+        page = _scrape(srv.port)
+        check("lgbt_serving_replica_healthy:1 1" in page
+              and "lgbt_serving_tenant_requests_total" in page,
+              "the /metrics page lacks the replica or tenant series")
+        snap = srv.replicas.section()
+        check(all(s["dispatched"] > 0 for s in snap),
+              f"dispatch {[s['dispatched'] for s in snap]}")
+        # replica 1 faulted: its batches re-score on the host, it ejects,
+        # replica 0 takes the traffic, and the cooldown re-admits it
+        faults.arm("serving.replica_fault:rank=1:count=-1")
+        t_fault = time.perf_counter()
+        while srv.replicas.section()[1]["ejections"] < 1:
+            check(time.perf_counter() - t_fault < 60, "replica 1 never "
+                  "ejected")
+            time.sleep(0.005)
+        t_eject = time.perf_counter()
+        d0 = [s["dispatched"] for s in srv.replicas.section()]
+        traffic.wait(100)
+        d1 = [s["dispatched"] for s in srv.replicas.section()]
+        faults.disarm()
+        out_fault = {"ejected_after_s": t_eject - t_fault,
+                     "dispatched_while_ejected": [b - a for a, b in
+                                                  zip(d0, d1)]}
+        # a dispatch that raced the ejection may still land on replica 1
+        check(d1[1] - d0[1] <= FLEET_CLIENTS and d1[0] - d0[0] >= 50,
+              f"while replica 1 was out: {out_fault}")
+        while not reps[1].healthy():
+            check(time.perf_counter() - t_eject < FLEET_RECOVERY_S + 30,
+                  "replica 1 never re-admitted")
+            time.sleep(0.01)
+        out_fault["recovered_after_s"] = time.perf_counter() - t_eject
+        traffic.wait(200)
+        d2 = [s["dispatched"] for s in srv.replicas.section()]
+        check(d2[1] > d1[1], "replica 1 took no traffic after recovery")
+        out_fault["ejections"] = [s["ejections"] for s in
+                                  srv.replicas.section()]
+        out["replica_fault"] = out_fault
+        # a rolling promotion of a second model under traffic at the
+        # gateway's gates, then the fleet's rollback
+        traffic.wait(100)
+        t0 = time.perf_counter()
+        roll = srv.promote_rolling(model_str=bst2.model_to_string())
+        t1 = time.perf_counter()
+        check(roll["committed"], f"promotion: {roll}")
+        m2 = [r.registry.get() for r in reps]
+        timeline.append((t0, [m1[0], m2[0]]))
+        timeline.append((t1, [m2[0]]))
+        traffic.wait(200)
+        t2 = time.perf_counter()
+        back = srv.rollback_fleet()
+        t3 = time.perf_counter()
+        check(all(r.registry.get() is m for r, m in zip(reps, m1)),
+              f"rollback: {back}")
+        timeline.append((t2, [m1[0], m2[0]]))
+        timeline.append((t3, [m1[0]]))
+        out["promotion"] = {"s": t1 - t0, "rollback_s": t3 - t2,
+                            "shadow": _shadow_numbers(roll["shadow"]),
+                            "gates": roll["gates"],
+                            "versions": roll["versions"]}
+        # one autopilot cycle: a clean baseline, then feature 0 moved by
+        # 6 standard deviations until the recorder holds only moved rows
+        traffic.wait(200)
+        check(srv.capture_drift_baseline(), "no drift baseline captured")
+        traffic.shift = 6.0 * float(np.nanstd(Xv[:, 0]))
+        rows0 = srv.recorder.total_rows
+        while srv.recorder.total_rows < rows0 + 2 * FLEET_RECORD_ROWS:
+            traffic.wait(20)
+        ctl = LifecycleController(srv)
+        spans = {"parse": 0.0, "bin": 0.0}
+        refit = ctl.refit
+        refit_s = []
+
+        def timed_refit(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return refit(*a, **kw)
+            finally:
+                refit_s.append(time.perf_counter() - t)
+
+        ctl.refit = timed_refit
+
+        def train_source():
+            X, logit = higgs_latent(ROWS + VALID_ROWS)
+            return X[:ROWS], (logit[:ROWS] > 0).astype(np.float64)
+
+        ap = Autopilot(srv, ctl, train_source, consecutive_checks=1,
+                       num_boost_round=FLEET_REFIT_ROUNDS,
+                       params=dict(WAVE_PARAMS),
+                       budget=RefitBudget(min_spacing_s=0.0))
+        t4 = time.perf_counter()
+        with timed_calls(spans):
+            decision = ap.tick()
+        t5 = time.perf_counter()
+        check(decision is not None and decision["decision"] == "promoted",
+              f"autopilot: {decision}, {ap.section()['decisions'][-3:]}")
+        m3 = [r.registry.get() for r in reps]
+        check(all(m.version == 2 and m.jit_entries() == len(buckets)
+                  for m in m3), "the refit did not roll out to both "
+              "replicas")
+        # the refit's and the roll's captures ran on the card's capture
+        # stream, which is no serving model's stream
+        cap = native.capture_stream(dev).cuda_stream
+        check(all(m._stream.cuda_stream != cap for m in m1 + m2 + m3),
+              "a serving model's stream is the capture stream")
+        timeline.append((t4, [m1[0], m3[0]]))
+        timeline.append((t5, [m3[0]]))
+        traffic.wait(200)
+        traffic.join()
+        t_end = time.perf_counter()
+        with ServingClient("127.0.0.1", srv.port, timeout=120) as c:
+            rep = c.stats()
+            health = c.health()
+            op_page = c.metrics()
+        sec = ap.section()
+        refit_train_s = refit_s[0] - spans["bin"]
+        out["autopilot"] = {
+            "decisions": [d["decision"] for d in sec["decisions"]],
+            "drift_max_psi": next(d.get("max_psi") for d in
+                                  sec["decisions"]
+                                  if d["decision"] == "triggered"),
+            "cycle_s": t5 - t4, "refit_s": refit_s[0],
+            "refit_bin_s": spans["bin"],
+            "refit_train_s": refit_train_s,
+            "refit_s_per_iteration": refit_train_s / FLEET_REFIT_ROUNDS,
+            "gates": {"divergence_max": ctl.divergence_max,
+                      "latency_max_ratio": ctl.latency_max_ratio},
+            "shadow": _shadow_numbers(ctl.section()["shadow"]),
+            "trees": m3[0].booster.num_trees()}
+    finally:
+        faults.reset()
+        if traffic is not None:
+            traffic.stop.set()
+            for t in traffic.threads:
+                t.join(180)
+        srv.stop()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ctx["launches_fleet"] = launches
+    check(all(launches.values()), f"kernels not launched: {launches}")
+    srv_sec = rep["serving"]
+    check(validate_report(rep) == [], f"report: {validate_report(rep)[:3]}")
+    check(health["ready"] and health["replicas_healthy"] == 2
+          and health["device_errors"] == {}, f"health {health}")
+    check(srv_sec["errors"] == 0 and srv_sec["shed"] == 0,
+          f"errors {srv_sec['errors']}, sheds {srv_sec['shed']}")
+    check("lgbt_serving_replica_dispatched_total:1" in op_page
+          and "lgbt_serving_drift_drifted" in op_page,
+          "the metrics op lacks the replica or drift series")
+    check(rep["autopilot"]["promoted"] == 1, "autopilot section")
+    # every response against the host trees of a version live while it
+    # was in flight (replica fault batches were re-scored on the host)
+    recs = traffic.records
+    check(srv_sec["requests"] >= len(recs), f"{srv_sec['requests']} "
+          f"requests served, {len(recs)} answered")
+    groups = {}
+    for r in recs:
+        first = max(i for i, (t, _) in enumerate(timeline) if t <= r[0])
+        models = {id(m): m for t, ms in timeline[first:] if t <= r[1]
+                  for m in ms}
+        groups.setdefault(tuple(sorted(models)), (list(models.values()),
+                                                  []))[1].append(r)
+    worst = 0.0
+    for models, group in groups.values():
+        X = np.concatenate([r[2] for r in group])
+        got = np.concatenate([r[3] for r in group])
+        refs = [m.host_raw(X) for m in models]
+        ofs = 0
+        for r in group:
+            n = len(r[2])
+            g = got[ofs:ofs + n]
+            diffs = [float(np.abs(g - h[ofs:ofs + n]).max()) for h in refs]
+            fits = [np.allclose(g, h[ofs:ofs + n], rtol=1e-6, atol=1e-6)
+                    for h in refs]
+            check(any(fits), f"a response of {n} rows differs from the "
+                  f"host trees of every live version by {min(diffs)}")
+            worst = max(worst, min(diffs))
+            ofs += n
+    # each replica's bucket replays of the refit model bitwise against
+    # bin_predict run eagerly and bin_plain, with the traversal
+    rng = np.random.RandomState(4)
+    for b in buckets[::2] + [buckets[-1]]:
+        Xpad = Xv[rng.randint(0, len(Xv), b)]
+        Xpad[rng.rand(*Xpad.shape) < 0.05] = np.nan
+        for m in m3:
+            got = m.predict_padded(np.ascontiguousarray(Xpad), b)
+            x = torch.from_numpy(Xpad).to(dev)
+            eager = m.predictor.predict_binned(bin_predict(x, m.dev_arrays))
+            plain = m.predictor.predict_binned(bin_plain(x, m.dev_arrays))
+            check(np.array_equal(got, eager[0].cpu().numpy())
+                  and np.array_equal(got, plain[0].cpu().numpy()),
+                  f"bucket {b}: a replica's replay differs from the eager "
+                  f"path")
+    lat = np.array([r[1] - r[0] for r in recs]) * 1e3
+    rows = sum(len(r[2]) for r in recs)
+    traffic_s = t_end - t_traffic
+    # each stage's window: requests answered in it, their rate and the
+    # clients' latency percentiles
+    windows = {}
+    for name, a, b in (("steady", t_traffic, t_fault),
+                       ("fault", t_fault, t0), ("roll", t0, t3),
+                       ("refit", t4, t5), ("after", t5, t_end)):
+        w = np.array([r[1] - r[0] for r in recs if a <= r[1] < b]) * 1e3
+        windows[name] = {"s": b - a, "requests": int(len(w)),
+                         "qps": len(w) / (b - a),
+                         "client_p50_ms": float(np.percentile(w, 50))
+                         if len(w) else None,
+                         "client_p99_ms": float(np.percentile(w, 99))
+                         if len(w) else None}
+    replicas = rep["serving"]["replicas"]
+    out.update({
+        "traffic_s": traffic_s, "requests": len(recs), "rows": rows,
+        "qps": len(recs) / traffic_s, "rows_per_s": rows / traffic_s,
+        "windows": windows,
+        "client_latency_ms": {f"p{q}": float(np.percentile(lat, q))
+                              for q in (50, 95, 99)},
+        "server_latency_ms": srv_sec["latency_ms"],
+        "stage_mean_ms": {k: v["total_ms"] / max(v["count"], 1)
+                          for k, v in srv_sec["stage_ms"].items()},
+        "batches": srv_sec["batches"],
+        "batch_occupancy": srv_sec["batch_occupancy"],
+        "fallback_batches": srv_sec["fallback_batches"],
+        "per_replica": [{k: r[k] for k in ("index", "dispatched",
+                                          "completed", "ejections",
+                                          "device_failures")}
+                        | {"p99_ms": r["latency_ms"]["p99"]}
+                        for r in replicas],
+        "graph_replays": [m.replays for m in m1 + m2 + m3],
+        "eager_batches": [m.eager_batches for m in m1 + m2 + m3],
+        "vs_host_max_diff": worst, "kernel_launches": launches,
+        "phase_s": time.perf_counter() - t_phase})
+    emit(out)
+
+
 def _csv_part(args) -> str:
     """Rows of a (label, features) block as CSV lines in ``path``, every
     float in its ``repr`` (the shortest string that parses back to the same
@@ -5892,6 +6315,8 @@ def kernels_line(ctx) -> dict:
                         "launches_cat", {}).get(name),
                     "launches_serve": ctx.get("launches_serve",
                                               {}).get(name),
+                    "launches_fleet": ctx.get("launches_fleet",
+                                              {}).get(name),
                     "launches_constrained_train": {
                         run: c.get(name) for run, c in
                         ctx.get("launches_con", {}).items()},
@@ -5964,7 +6389,7 @@ def main() -> int:
     if all(p in phases for p in ("train", "wave_train", "quant_train",
                                  "masked_train", "categorical_train",
                                  "bin_predict", "predict", "serve",
-                                 "timing")):
+                                 "fleet", "timing")):
         emit(kernels_line(ctx))
     print(ctx["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,8 +26,9 @@ profiler, snapshot and fault-injection keys (``--telemetry-out`` and
 ``--trace-out`` imply ``telemetry``) and ``--resume``, which continues a
 killed run from its newest valid snapshot
 (``<output_model>.snapshot_iter_<k>``, written every ``snapshot_freq``
-iterations).  The serving fleet (``serve_replicas != 0``) is not ported: it
-raises ``NotImplementedError`` naming its ROADMAP.md Queue A item.
+iterations).  ``task=serve`` with ``serve_replicas != 0`` serves through the
+fleet gateway (``serving/fleet/``), and ``autopilot=true`` arms the
+drift-triggered refit loop over it (``lifecycle/autopilot.py``).
 """
 
 from __future__ import annotations
@@ -38,8 +39,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .config import (Config, check_serving_supported, parse_config_file,
-                     resolve_aliases)
+from .config import Config, parse_config_file, resolve_aliases
 
 
 def _load_params(argv: List[str]) -> Dict[str, str]:
@@ -188,8 +188,11 @@ def run_serve(params: Dict[str, str], cfg: Config) -> None:
     ``telemetry_out`` writes the serving report on exit, ``stats_out`` /
     ``stats_interval`` write periodic atomic schema-validated snapshots of
     it, ``trace_out`` the request spans as Chrome trace-event JSON, and
-    ``fault_spec`` arms fault points (JAX ``cli.py:182-290``, without the
-    fleet, which is not ported)."""
+    ``fault_spec`` arms fault points (JAX ``cli.py:182-290``).  A non-zero
+    ``serve_replicas`` serves through the fleet gateway (``-1``: one
+    replica per card) with drift monitoring over the recorder window;
+    ``autopilot=true`` (with ``lifecycle_record_rows > 0`` and ``data=``,
+    the train source refits continue from) starts the autopilot."""
     from .engine import Booster
 
     if not cfg.input_model:
@@ -198,7 +201,23 @@ def run_serve(params: Dict[str, str], cfg: Config) -> None:
         from .reliability import faults
         faults.arm(cfg.fault_spec)
     booster = Booster(model_file=cfg.input_model, params=dict(params))
+    fleet_kwargs = {}
+    if cfg.serve_replicas:
+        # any non-zero replica count serves through the async gateway
+        # (serving/fleet/); -1 = one replica per card.  Drift monitoring
+        # rides the fleet's recorder window
+        fleet_kwargs["recovery_s"] = cfg.serve_recovery_s
+        fleet_kwargs["drift_psi_threshold"] = cfg.drift_psi_threshold
+        fleet_kwargs["drift_ks_threshold"] = cfg.drift_ks_threshold
+        fleet_kwargs["tenant_max_inflight"] = cfg.serve_tenant_max_inflight
+        baseline_path = cfg.drift_baseline_path
+        if not baseline_path and cfg.lifecycle_record_rows > 0:
+            # default: baselines live beside the served model artifact
+            baseline_path = cfg.input_model + ".drift_baselines.json"
+        if baseline_path and baseline_path != "off":
+            fleet_kwargs["drift_baseline_path"] = baseline_path
     server = booster.serve(
+        replicas=cfg.serve_replicas,
         host=cfg.serve_host, port=cfg.serve_port,
         max_batch_rows=cfg.serve_max_batch_rows,
         deadline_ms=cfg.serve_deadline_ms,
@@ -210,16 +229,24 @@ def run_serve(params: Dict[str, str], cfg: Config) -> None:
         stats_interval_s=cfg.serve_stats_interval,
         record_rows=cfg.lifecycle_record_rows,
         slo_p99_ms=cfg.serve_slo_p99_ms,
-        slo_target=cfg.serve_slo_target)
-    _log(f"Serving {cfg.input_model} at {server.host}:{server.port} "
-         f"(buckets {server.buckets}, deadline "
-         f"{cfg.serve_deadline_ms} ms)")
+        slo_target=cfg.serve_slo_target, **fleet_kwargs)
+    if cfg.serve_replicas:
+        _log(f"Serving {cfg.input_model} at {server.host}:{server.port} "
+             f"with {len(server.replicas)} replica(s) "
+             f"(binary+pickle protocols, buckets {server.buckets}, "
+             f"deadline {cfg.serve_deadline_ms} ms)")
+    else:
+        _log(f"Serving {cfg.input_model} at {server.host}:{server.port} "
+             f"(buckets {server.buckets}, deadline "
+             f"{cfg.serve_deadline_ms} ms)")
     if cfg.serve_stats_out:
         _log(f"Stats snapshots every {cfg.serve_stats_interval:g}s to "
              f"{cfg.serve_stats_out}")
     if cfg.lifecycle_record_rows > 0:
         _log(f"Recording the newest {cfg.lifecycle_record_rows} request "
-             f"rows")
+             f"rows for lifecycle shadow validation")
+    if cfg.autopilot:
+        _start_autopilot(server, params, cfg)
     try:
         server.wait()
     except KeyboardInterrupt:
@@ -233,6 +260,41 @@ def run_serve(params: Dict[str, str], cfg: Config) -> None:
     _log("Finished serving")
 
 
+def _start_autopilot(server, params: Dict[str, str], cfg: Config) -> None:
+    """Bind a ``LifecycleController`` and start the ``Autopilot`` on a
+    fleet server, refitting from the ``data`` file (JAX
+    ``cli.py:244-272``)."""
+    if not cfg.serve_replicas:
+        server.stop()
+        raise ValueError("autopilot=true requires fleet serving "
+                         "(serve_replicas != 0)")
+    if cfg.lifecycle_record_rows <= 0:
+        server.stop()
+        raise ValueError("autopilot=true requires lifecycle_record_rows > 0 "
+                         "(the drift and shadow window)")
+    if not cfg.data:
+        server.stop()
+        raise ValueError("autopilot=true requires data= (the original "
+                         "train source refits continue from)")
+    from .io.parser import load_data_file
+    from .lifecycle import Autopilot, LifecycleController
+
+    def train_source(path=cfg.data, p=dict(params)):
+        mat, label, _, _ = load_data_file(path, p)
+        if label is None:
+            raise ValueError(f"autopilot train source {path!r} carries no "
+                             f"label column")
+        return mat, label
+
+    controller = LifecycleController.from_config(server, cfg)
+    Autopilot.from_config(server, controller, train_source, cfg,
+                          params=dict(params)).start()
+    _log(f"Autopilot armed: check every {cfg.autopilot_interval_s:g}s, "
+         f"refit after {cfg.autopilot_consecutive_checks} consecutive "
+         f"drifted windows, <= {cfg.autopilot_max_refits} refits per "
+         f"{cfg.autopilot_window_s:g}s window")
+
+
 _TASKS = {"train": run_train, "refit_tree": run_refit, "refit": run_refit,
           "predict": run_predict, "prediction": run_predict,
           "test": run_predict, "convert_model": run_convert_model,
@@ -244,8 +306,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     params = _load_params(argv)
     cfg = Config.from_params(params)
     task = _TASKS.get(cfg.task)
-    if task is run_serve:
-        check_serving_supported(cfg)
     if task is None:
         print(f"[lightgbm_tpu_torch] [Fatal] Unknown task: {cfg.task}",
               file=sys.stderr)

@@ -878,18 +878,6 @@ OBSERVE = "reliability and training observability"
 SERVING = "serving and lifecycle"
 
 
-def check_serving_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for every setting of a prediction
-    server (``task=serve``, ``Booster.serve``) the port does not run.  A
-    server reads the ``serve_*`` keys and takes ``telemetry_out``,
-    ``trace_out``, ``trace_capacity``, ``stats_out`` and ``fault_spec``."""
-    if cfg.serve_replicas != 0:
-        raise not_ported(f"serve_replicas={cfg.serve_replicas} (the "
-                         f"serving fleet)", SERVING)
-    if cfg.autopilot:
-        raise not_ported("autopilot (the serving lifecycle)", SERVING)
-
-
 def check_supported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for every training setting this slice
     does not run, so none of them is silently ignored.  The telemetry,

@@ -35,8 +35,7 @@ import numpy as np
 from . import callback as callback_mod
 from .boosting import create_boosting
 from .boosting.gbdt import GBDT, rebind_tree_to_dataset
-from .config import (SERVING, Config, check_serving_supported,
-                     check_supported, not_ported, resolve_device)
+from .config import Config, check_supported, resolve_device
 from .dataset import Dataset, recode_pandas
 from .metrics import create_metric
 from .objectives import create_objective
@@ -277,21 +276,22 @@ class Booster:
         return self.gbdt.get_telemetry(light=light)
 
     def to_server(self, replicas: int = 0, **kwargs):
-        """An UNSTARTED ``serving.PredictionServer`` with this booster
-        registered as the ``default`` model, serving on the booster's
-        device (JAX ``engine.py:321-339``).  Keyword args are forwarded
+        """An UNSTARTED server with this booster registered as the
+        ``default`` model (JAX ``engine.py:321-339``).  ``replicas=0`` (the
+        default) builds the threaded ``serving.PredictionServer`` on the
+        booster's device; any other value builds the async
+        ``serving.FleetServer`` (``-1`` = one replica per card, N > 0 =
+        exactly N, round-robin over the cards; a CPU booster's replicas
+        serve on the CPU).  Keyword args are forwarded
         (host/port/max_batch_rows/deadline_ms/min_bucket/warmup/
         max_inflight/telemetry_out, trace/trace_out/trace_capacity/
-        stats_out/stats_interval_s, record_rows, slo_p99_ms/slo_target).
-        The booster's params may carry ``telemetry_out``, ``trace_out``,
-        ``trace_capacity``, ``stats_out`` and ``fault_spec`` (armed here),
-        as ``task=serve``'s do; keyword args win.  ``replicas`` other than
-        0 asks for the serving fleet, which is not ported."""
-        if replicas:
-            raise not_ported(f"to_server(replicas={replicas}) (the serving "
-                             f"fleet)", SERVING)
+        stats_out/stats_interval_s, record_rows, slo_p99_ms/slo_target;
+        for the fleet also recovery_s, tenant_max_inflight and the
+        drift_* keys).  The booster's params may carry
+        ``telemetry_out``, ``trace_out``, ``trace_capacity``,
+        ``stats_out`` and ``fault_spec`` (armed here), as ``task=serve``'s
+        do; keyword args win."""
         cfg = self.cfg
-        check_serving_supported(cfg)
         for key, value in (("telemetry_out", cfg.telemetry_out),
                            ("trace_out", cfg.trace_out),
                            ("stats_out", cfg.serve_stats_out)):
@@ -301,6 +301,11 @@ class Booster:
         if cfg.fault_spec:
             from .reliability import faults
             faults.arm(cfg.fault_spec)
+        if replicas:
+            from .serving import FleetServer
+
+            return FleetServer(booster=self,
+                               replicas=max(int(replicas), 0), **kwargs)
         from .serving import PredictionServer
 
         return PredictionServer(booster=self, **kwargs)

@@ -568,7 +568,7 @@ class CompactTreeLearner(TreeLearner):
             # pass is recorded (torch.histc sizes its kernel from the free
             # memory) is allowed; a read of the capturing stream still fails
             _, launches = native.capture(graph, fn, self._graph_pool,
-                                         "relaxed")
+                                         "relaxed", self.device)
         finally:
             calls = {k: self.kernel_calls[k] - v for k, v in calls0.items()}
             self.kernel_calls.update(calls0)

@@ -4,9 +4,9 @@ Port of ``lightgbm_tpu/lifecycle/recorder.py``.  The prediction server
 copies each admitted request's feature rows into a fixed-size ring
 (`serving/server.py` ``predict`` op, ``record_rows``), so memory stays
 bounded however long the server runs and the newest ``capacity`` rows are
-always available for replay.  The JAX package's shadow validation and drift
-monitor, which read the ring, are not ported yet (ROADMAP.md Queue A,
-"serving and lifecycle").
+always available for replay: the shadow validation
+(`lifecycle/shadow.py`) and the drift monitor (`observability/drift.py`)
+read it.
 
 Disabled (capacity 0, the default) the recorder is a single attribute
 check on the request path; recording is one bounded ``ndarray`` copy

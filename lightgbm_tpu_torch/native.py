@@ -14,7 +14,13 @@ the C entry point again on the same buffers with no torch work around it
 Every wrapper counts its launches through ``count``.  A CUDA graph captured
 with ``capture`` runs nothing: the launches its capture makes go to the
 capture's own tally, which ``credit`` adds to the wrappers' counters once
-per replay.
+per replay.  ``capture`` is safe beside other threads' device work on the
+same card (a server's replicas replaying and capturing while a refit
+trains): it records on the card's capture stream, which no serving model
+ever holds (``capture_stream``), takes no device-wide synchronisation or
+cache release (``torch.cuda.graph``'s entry takes both, and shares one
+capture stream between threads), and captures one graph at a time in the
+process.
 
 Host libraries (``csrc/<name>.cpp``: the text parser) are C++ for the CPU,
 not kernels: ``load_host`` compiles one with ``g++`` (or ``$CXX``) into
@@ -184,6 +190,17 @@ def launch(what: str, fn, *args) -> None:
 _COUNT_LOCK = threading.Lock()
 #: ``.tally`` is the launch tally of the capture this thread is making
 _CAPTURING = threading.local()
+#: one capture at a time in the process: two captures on one card would
+#: otherwise interleave their private memory pools' bookkeeping
+_CAPTURE_LOCK = threading.RLock()
+#: the capture stream of each card, one for the process (captures are
+#: serialised by ``_CAPTURE_LOCK``), drawn from PyTorch's high-priority
+#: stream pool.  The serving models' streams come from the default-priority
+#: pool, which hands out its 32 streams per card round-robin: a capture
+#: stream taken from that pool would in time be the very stream a live
+#: replica replays and synchronises on, and the replica's work would be
+#: recorded into the capture or its synchronisation would fail.
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 
 
 def count(fn, attr: str = "launches", n: int = 1) -> None:
@@ -199,16 +216,43 @@ def count(fn, attr: str = "launches", n: int = 1) -> None:
         setattr(fn, attr, getattr(fn, attr) + n)
 
 
-def capture(graph: "torch.cuda.CUDAGraph", fn, pool, mode: str):
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The capture stream of the card ``device`` (``_CAPTURE_STREAMS``);
+    no stream of the default-priority pool is ever it."""
+    with _CAPTURE_LOCK:
+        s = _CAPTURE_STREAMS.get(device.index)
+        if s is None:
+            s = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(
+                device, priority=-1)
+    return s
+
+
+def capture(graph: "torch.cuda.CUDAGraph", fn, pool, mode: str,
+            device: Optional[torch.device] = None):
     """Capture ``fn()`` into ``graph`` in the memory pool ``pool`` with
-    ``capture_error_mode=mode``; returns ``fn``'s result and the wrapper
-    launches one replay makes, ``{(wrapper, counter): n}``.  A pass that
-    cannot be captured raises."""
+    ``capture_error_mode=mode`` on ``device`` (default: the current card);
+    returns ``fn``'s result and the wrapper launches one replay makes,
+    ``{(wrapper, counter): n}``.  The capture stream waits for the calling
+    stream's work first, and the calling stream for the capture's after,
+    so no device-wide synchronisation is needed.  A pass that cannot be
+    captured raises."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     prev = getattr(_CAPTURING, "tally", None)
     _CAPTURING.tally = tally = {}
     try:
-        with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
-            out = fn()
+        with _CAPTURE_LOCK, torch.cuda.device(dev):
+            caller = torch.cuda.current_stream(dev)
+            side = capture_stream(dev)
+            side.wait_stream(caller)
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool, capture_error_mode=mode)
+                try:
+                    out = fn()
+                finally:
+                    graph.capture_end()
+            caller.wait_stream(side)
     finally:
         _CAPTURING.tally = prev
     return out, tally

@@ -18,14 +18,17 @@ Port of ``lightgbm_tpu/observability/``:
   * ``CollectiveLedger`` (`collectives.py`) — the sharded learners'
     collective sites and traffic, the report's ``collectives`` section.
 
+  * ``DriftMonitor`` (`drift.py`) — per-feature and score PSI/KS of the
+    served traffic against the promote-time baseline (host numpy).
+
 The pod trace measures a multi-host pod's ranks and comes with it
-(ROADMAP.md Queue A, "multi-GPU and multi-host"); the drift monitor comes
-with the serving lifecycle ("serving and lifecycle").
+(ROADMAP.md Queue A, "multi-GPU and multi-host").
 """
 
 from .attribution import (SampledSync, attribute_profile, attribution_table,
                           force_sync, parse_profiler_trace)
 from .collectives import CollectiveLedger
+from .drift import DriftMonitor, ks_2samp, ks_from_counts, psi_from_counts
 from .metrics_export import (LatencyHistogram, prometheus_text,
                              training_prometheus)
 from .report import load_schema, validate_report, write_report
@@ -37,4 +40,5 @@ __all__ = ["Telemetry", "TEL_NAMES", "load_schema", "validate_report",
            "LatencyHistogram", "prometheus_text", "training_prometheus",
            "provenance_section", "SampledSync", "attribution_table",
            "force_sync", "parse_profiler_trace", "attribute_profile",
-           "CollectiveLedger"]
+           "CollectiveLedger", "DriftMonitor", "psi_from_counts",
+           "ks_from_counts", "ks_2samp"]

@@ -13,9 +13,9 @@ Port of ``lightgbm_tpu/observability/metrics_export.py``:
     series and latency histograms: the server's ``metrics`` op;
     ``training_prometheus`` renders a training report the same way.
 
-The JAX package's drift monitor and fleet replicas are not ported (ROADMAP.md
-Queue A, "serving and lifecycle"); a ``drift`` report section passed as a
-dict still renders as ``lgbt_serving_drift_*`` gauges.
+The fleet gateway's page adds per-replica gauges (``replicas``) and the
+drift gauges of its ``DriftMonitor`` (`drift.py`); a ``drift`` report
+section passed as a dict renders the same ``lgbt_serving_drift_*`` gauges.
 
 Monotonic clocks only; host-side only; every structure is thread-safe and
 lock-leaf (nothing here acquires another subsystem's lock).
@@ -211,13 +211,15 @@ def drift_prometheus_lines(gauges: Dict[str, float],
 
 
 def prometheus_snapshot(stats, registry=None, admission=None,
-                        tenants=None, drift=None) -> str:
+                        replicas=None, tenants=None, drift=None) -> str:
     """The server ``metrics`` op payload: every serving counter, stage
     timer total, reliability counter, model version and the request
-    latency histogram, as one Prometheus text page.  ``tenants`` (a
+    latency histogram, as one Prometheus text page.  ``replicas`` (a
+    ``ReplicaSet.section()`` list) adds per-replica fleet gauges: health,
+    in-flight, dispatched, ejections, p99; ``tenants`` (a
     ``ServingStats.tenants_section()`` list) adds the per-model-name SLO
-    series and ``drift`` (a dict of ``lgbt_serving_drift_*`` gauge
-    values) the drift gauges."""
+    series and ``drift`` (a ``DriftMonitor`` or a ``drift`` report
+    section) the ``lgbt_serving_drift_*`` gauges."""
     from ..reliability.metrics import rel_counters
 
     section = stats.serving_section(
@@ -253,6 +255,17 @@ def prometheus_snapshot(stats, registry=None, admission=None,
     if registry is not None:
         for name, ver in (registry.versions() or {}).items():
             gauges[f"serving_model_version:{sanitize_metric_name(name)}"] = ver
+    for snap in replicas or ():
+        i = snap["index"]
+        gauges[f"serving_replica_healthy:{i}"] = \
+            1.0 if snap["healthy"] else 0.0
+        gauges[f"serving_replica_inflight:{i}"] = snap["in_flight"]
+        counters[f"serving_replica_dispatched_total:{i}"] = \
+            snap["dispatched"]
+        counters[f"serving_replica_ejections_total:{i}"] = \
+            snap["ejections"]
+        gauges[f"serving_replica_latency_p99_ms:{i}"] = \
+            snap["latency_ms"]["p99"]
     text = prometheus_text(
         counters, gauges,
         histograms={"serving_request_latency_seconds": stats.request_hist})
@@ -260,7 +273,12 @@ def prometheus_snapshot(stats, registry=None, admission=None,
     if tenants:
         extra.extend(tenant_prometheus_lines(tenants))
     if drift:
-        extra.extend(drift_prometheus_lines(drift))
+        from .drift import DriftMonitor
+        if isinstance(drift, DriftMonitor):
+            extra.extend(drift_prometheus_lines(
+                drift.gauges(), drift.section()))
+        else:
+            extra.extend(drift_prometheus_lines(drift))
     if extra:
         text += "\n".join(extra) + "\n"
     return text

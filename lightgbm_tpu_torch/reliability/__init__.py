@@ -8,7 +8,8 @@ Port of ``lightgbm_tpu/reliability/``:
   * ``resume``  — crash-safe training snapshots (``snapshot_freq``) and
     their validation, retention and bit-identical resume (``resume``);
   * ``degrade`` — the serving layer's bounded admission and load shedding
-    (`serving/server.py`);
+    (`serving/server.py`) and the fleet gateway's per-tenant caps
+    (`serving/fleet/gateway.py`);
   * ``metrics`` — the process-wide counter table every shed, fallback,
     rollback and injected fault reports into, surfaced as the
     ``reliability`` section of the telemetry report
@@ -16,10 +17,10 @@ Port of ``lightgbm_tpu/reliability/``:
 """
 
 from . import faults
-from .degrade import AdmissionController
+from .degrade import AdmissionController, TenantAdmission
 from .metrics import (rel_counters, rel_get, rel_inc, rel_reset,
                       reliability_section)
 
-__all__ = ["faults", "AdmissionController",
+__all__ = ["faults", "AdmissionController", "TenantAdmission",
            "rel_inc", "rel_get", "rel_counters", "rel_reset",
            "reliability_section"]

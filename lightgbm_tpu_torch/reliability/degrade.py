@@ -15,9 +15,10 @@ The controller also feeds the health probe: ``snapshot()`` reports
 inflight/capacity/shedding so ``{"op": "health"}`` stays accurate while
 the server is saturated (it IS alive and ready — just shedding).
 
-The JAX package's per-tenant caps (``TenantAdmission``) serve its fleet
-gateway and come with the serving fleet (ROADMAP.md Queue A, "serving and
-lifecycle").
+``TenantAdmission`` (JAX ``degrade.py:78-111``) puts one such bound per
+tenant (model name) in front of the fleet gateway's device queue
+(`serving/fleet/gateway.py`), so one hot tenant sheds while the others keep
+admitting.
 """
 
 from __future__ import annotations
@@ -72,3 +73,39 @@ class AdmissionController:
                     "shedding": self._inflight >= self.capacity,
                     "shed_total": self._shed,
                     "admitted_total": self._admitted}
+
+
+class TenantAdmission:
+    """Per-tenant admission caps in front of the device queue.
+
+    Lazily creates one ``AdmissionController`` per tenant under a leaf
+    lock; acquire/release never hold the map lock across the tenant
+    controller's own lock (both are leaves, taken one at a time)."""
+
+    def __init__(self, capacity_per_tenant: int):
+        self.capacity = max(int(capacity_per_tenant), 1)
+        self._lock = threading.Lock()
+        self._tenants: Dict[str, AdmissionController] = {}
+
+    def controller(self, name: str) -> AdmissionController:
+        with self._lock:
+            ctl = self._tenants.get(name)
+            if ctl is None:
+                ctl = AdmissionController(self.capacity)
+                self._tenants[name] = ctl
+            return ctl
+
+    def try_acquire(self, name: str) -> bool:
+        return self.controller(name).try_acquire()
+
+    def release(self, name: str) -> None:
+        self.controller(name).release()
+
+    def inflight(self, name: str) -> int:
+        return self.controller(name).inflight
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            tenants = dict(self._tenants)
+        return {"tenant_capacity": self.capacity,
+                "tenants": {n: c.snapshot() for n, c in tenants.items()}}

@@ -15,12 +15,14 @@ Spec grammar (semicolon-separated clauses)::
     serve.predict.delay:seconds=0.2   # device predict stalls (overload tests)
     net.recv.corrupt_len              # recv sees a garbage length prefix
     train.crash:nth=3                 # engine.train dies after iteration 3
+    serving.replica_fault:rank=1      # fleet replica 1's batch fails over
+                                      # to the host and the replica ejects
 
-Those four points are the ones the port fires (``train.crash`` in
-``engine.train``, after the iteration's snapshot, if one is due).  The
-JAX package's others (``net.send.*``, ``net.crash``,
-``serving.replica_fault``) belong to modules the port does not carry yet:
-a spec that arms one raises ``NotImplementedError`` naming its ROADMAP.md
+Those five points are the ones the port fires (``train.crash`` in
+``engine.train``, after the iteration's snapshot, if one is due;
+``serving.replica_fault`` in `serving/fleet/replicas.py`, matched by
+replica index).  The JAX package's others (``net.send.*``, ``net.crash``)
+belong to modules the port does not carry yet: a spec that arms one raises ``NotImplementedError`` naming its ROADMAP.md
 Queue A item (``config.not_ported``), so an injection never silently
 no-ops there.
 
@@ -41,7 +43,7 @@ import os
 import threading
 from typing import Dict, List, Optional
 
-from ..config import PARALLEL, SERVING, not_ported
+from ..config import PARALLEL, not_ported
 from .metrics import rel_inc
 
 ENV_VAR = "LGBT_FAULTS"
@@ -49,8 +51,7 @@ ENV_VAR = "LGBT_FAULTS"
 #: the JAX package's injection points whose code the port does not carry
 #: yet, with the Queue A item that brings each
 NOT_PORTED = {"net.send.drop": PARALLEL, "net.send.delay": PARALLEL,
-              "net.send.truncate": PARALLEL, "net.crash": PARALLEL,
-              "serving.replica_fault": SERVING}
+              "net.send.truncate": PARALLEL, "net.crash": PARALLEL}
 
 
 class InjectedFault(RuntimeError):

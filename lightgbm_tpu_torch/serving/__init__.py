@@ -1,6 +1,6 @@
 """The prediction server, on the H100 by default.
 
-Port of ``lightgbm_tpu/serving/`` (the single-server part):
+Port of ``lightgbm_tpu/serving/``:
 
   * ``binner`` — the predict binner stays ``lightgbm_tpu_torch/binner.py``
     (``BinnerArrays``, the ``bin_predict`` kernel); ``OOV_BIN`` and
@@ -14,9 +14,11 @@ Port of ``lightgbm_tpu/serving/`` (the single-server part):
   * ``server`` — a threaded socket server + client over the
     length-prefixed pickle framing of ``io/net.py``, exposed as
     ``python -m lightgbm_tpu_torch serve`` and ``Booster.serve()``;
-  * ``fleet`` — the binary wire protocol's codecs, which the client's
-    protocol negotiation speaks.  The fleet itself is not ported
-    (ROADMAP.md Queue A, "serving and lifecycle").
+  * ``fleet`` — ``FleetServer``, the async gateway (binary frames, the
+    pickle framing and ``GET /metrics`` on one port) over a
+    ``ReplicaSet``, one registry and batcher stack per replica, several
+    replicas per card, with ejection, recovery and shadow-gated rolling
+    promotion; ``Booster.serve(replicas=N)`` and ``serve_replicas=N``.
 
 Serving telemetry (QPS, stage latency, batch occupancy, compile-cache hits)
 reports through ``observability/`` under the ``serving`` section of
@@ -30,13 +32,14 @@ _LAZY = {
     "ModelRegistry": "registry", "ServingModel": "registry",
     "PredictionServer": "server", "ServingClient": "server",
     "ServerOverloaded": "server", "ServerUnavailable": "server",
-    "WireError": "fleet",
+    "WireError": "fleet", "FleetServer": "fleet", "Replica": "fleet",
+    "ReplicaSet": "fleet",
 }
 
 __all__ = ["OOV_BIN", "BinnerArrays", "MicroBatcher", "ServingStats",
            "ModelRegistry", "ServingModel", "PredictionServer",
            "ServingClient", "ServerOverloaded", "ServerUnavailable",
-           "WireError"]
+           "WireError", "FleetServer", "Replica", "ReplicaSet"]
 
 
 def __getattr__(name):

@@ -63,7 +63,7 @@ class TenantStats:
     counters only and nothing is called while holding it."""
 
     __slots__ = ("name", "hist", "_lock", "requests", "errors", "shed",
-                 "within_slo")
+                 "tenant_shed", "within_slo")
 
     def __init__(self, name: str):
         self.name = name
@@ -72,6 +72,7 @@ class TenantStats:
         self.requests = 0
         self.errors = 0
         self.shed = 0
+        self.tenant_shed = 0    # shed by THIS tenant's own cap
         self.within_slo = 0
 
     def record(self, ms: float, slo_p99_ms: float,
@@ -88,6 +89,20 @@ class TenantStats:
         with self._lock:
             self.shed += 1
 
+    def record_cap_shed(self) -> None:
+        """A shed caused by this tenant's own admission cap (the global
+        gate still had headroom): the fleet gateway's
+        ``TenantAdmission``."""
+        with self._lock:
+            self.tenant_shed += 1
+
+    def record_error(self) -> None:
+        """An error without a latency sample: the control-plane path
+        (failed swap, unknown op), so the tenant's error rate sees every
+        failure, not just predict errors."""
+        with self._lock:
+            self.errors += 1
+
     def section(self, slo_p99_ms: float, slo_target: float
                 ) -> Dict[str, Any]:
         # histogram snapshot first: its lock stays leaf beside ours
@@ -95,15 +110,17 @@ class TenantStats:
         with self._lock:
             requests, errors = self.requests, self.errors
             shed, within = self.shed, self.within_slo
-        attainment = within / requests if requests else 1.0
+            tenant_shed = self.tenant_shed
+        # a request this tenant's own cap refused was offered work that
+        # never met the SLO: tenant-local sheds burn the error budget
+        offered = requests + tenant_shed
+        attainment = within / offered if offered else 1.0
         budget = max(1.0 - float(slo_target), 1e-9)
         return {"model": self.name,
                 "requests": requests,
                 "errors": errors,
                 "shed": shed,
-                # sheds by a tenant's own cap: the fleet's per-tenant
-                # admission, not this server's
-                "tenant_shed": 0,
+                "tenant_shed": tenant_shed,
                 "latency_ms": latency,
                 "slo": {"p99_target_ms": float(slo_p99_ms),
                         "target": float(slo_target),
@@ -117,8 +134,8 @@ class ServingStats:
     Stage timers reuse ``Telemetry`` phases (named ``serve_<stage>``), so
     they show up both in the standard ``phases`` section and, summarized,
     under ``serving.stage_ms``.  Per-model-name ``TenantStats`` hang off
-    the same object (the server records into them at dispatch
-    completion), surfacing as the ``serving.tenants[]`` section and the
+    the same object (the threaded server and the fleet gateway record into
+    them at dispatch completion), surfacing as the ``serving.tenants[]`` section and the
     ``lgbt_serving_tenant_*`` Prometheus series.
     """
 
@@ -198,8 +215,9 @@ class ServingStats:
             self.shed += 1
 
     def record_error(self) -> None:
-        """An admitted predict request that answered with an error
-        frame."""
+        """An admitted predict request that answered with an error frame:
+        the signal the lifecycle rollback watchdog rates promotions by
+        (`lifecycle/controller.py`)."""
         with self._lock:
             self.errors += 1
         rel_inc("serve.request_errors")
@@ -221,6 +239,17 @@ class ServingStats:
 
     def record_tenant_shed(self, name: str) -> None:
         self.tenant(name).record_shed()
+
+    def record_tenant_cap_shed(self, name: str) -> None:
+        """A shed by the tenant's own admission cap, not the global one
+        (`reliability.degrade.TenantAdmission`)."""
+        self.tenant(name).record_cap_shed()
+
+    def record_tenant_error(self, name: str) -> None:
+        """Control-plane failure attributed to a tenant (no latency
+        sample): failed swaps and malformed ops burn the same error
+        budget the rollback watchdog reads."""
+        self.tenant(name).record_error()
 
     def tenants_section(self) -> List[Dict[str, Any]]:
         """``serving.tenants[]``: one section per model name, sorted."""
@@ -283,9 +312,11 @@ class ServingStats:
 
 
 class _Request:
-    __slots__ = ("X", "n", "done", "result", "error", "t_enq", "trace_id")
+    __slots__ = ("X", "n", "done", "result", "error", "t_enq", "trace_id",
+                 "callback")
 
-    def __init__(self, X: np.ndarray, trace_id: Optional[str] = None):
+    def __init__(self, X: np.ndarray, trace_id: Optional[str] = None,
+                 callback: Optional[Callable[["_Request"], None]] = None):
         self.X = X
         self.n = X.shape[0]
         self.done = threading.Event()
@@ -295,6 +326,7 @@ class _Request:
         # the queue-wait span aligns with the stage spans
         self.t_enq = time.perf_counter()
         self.trace_id = trace_id
+        self.callback = callback
 
 
 class MicroBatcher:
@@ -369,6 +401,28 @@ class MicroBatcher:
         if req.error is not None:
             raise req.error
         return req.result
+
+    def submit_async(self, X: np.ndarray, callback: Callable[[_Request], None],
+                     trace_id: Optional[str] = None) -> _Request:
+        """Non-blocking predict: enqueue and return at once; the batch
+        worker calls ``callback(request)`` once ``result`` or ``error`` is
+        set.  The fleet gateway's event loop rides this seam and must never
+        block on device work (`serving/fleet/gateway.py`), so callbacks run
+        on the batch worker thread and must not block themselves.  Rows
+        past ``max_rows`` raise here: the dispatcher chunks them
+        (`serving/fleet/replicas.py`)."""
+        X = np.ascontiguousarray(np.atleast_2d(np.asarray(X, np.float64)))
+        if X.shape[1] != self.num_features:
+            raise ValueError(f"request has {X.shape[1]} features, model "
+                             f"expects {self.num_features}")
+        if X.shape[0] > self.max_rows:
+            raise ValueError(f"async request of {X.shape[0]} rows exceeds "
+                             f"the {self.max_rows}-row batch budget; chunk "
+                             f"at the dispatch layer")
+        self.stats.record_request(X.shape[0])
+        req = _Request(X, trace_id=trace_id, callback=callback)
+        self._q.put(req)
+        return req
 
     # -- worker side ---------------------------------------------------------
 
@@ -447,8 +501,21 @@ class MicroBatcher:
                 r.result = scores[ofs:ofs + r.n]
                 ofs += r.n
                 r.done.set()
+                if r.callback is not None:
+                    self._fire_callback(r)
             self.stats.record_batch(bucket, m)
         except BaseException as e:
             for r in reqs:
                 r.error = e
                 r.done.set()
+                if r.callback is not None:
+                    self._fire_callback(r)
+
+    @staticmethod
+    def _fire_callback(r: _Request) -> None:
+        # a broken callback must not take down the batch worker (or the
+        # other riders' callbacks)
+        try:
+            r.callback(r)
+        except Exception:
+            pass

@@ -6,8 +6,7 @@ port's ``ServingClient`` opens with a binary ``OP_PING`` (protocol
 negotiation); a pickle server (the threaded ``PredictionServer`` of either
 package) reads the header as a giant length prefix, names the mismatch and
 closes, and the client falls back to pickle framing.  The fleet gateway
-that answers in kind is not ported yet (ROADMAP.md Queue A, "serving and
-lifecycle").
+(`gateway.py`) answers in kind.
 
 Frame header (32 bytes, little-endian)::
 

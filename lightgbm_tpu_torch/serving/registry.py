@@ -99,6 +99,10 @@ class ServingModel:
         self._graphs: Dict[int, BucketGraph] = {}
         self._pool = None
         self._stream = torch.cuda.Stream(self.device) if self.cuda else None
+        # the bucket graphs' static buffers admit one batch at a time: the
+        # batch worker's, and a shadow replay's of the live incumbent
+        # (`lifecycle/shadow.py`) from the promoting thread
+        self._lock = threading.Lock()
         #: graph replays and eager device batches so far
         self.replays = 0
         self.eager_batches = 0
@@ -127,49 +131,54 @@ class ServingModel:
         (``warmup=False``, or outside the ladder) runs eagerly: ``bin`` the
         upload and ``bin_predict``, ``traverse`` the traversal and the read
         of its scores.  On the CPU ``bin`` is ``bin_plain``, ``traverse``
-        the traversal."""
+        the traversal.  One batch of a model runs at a time (the model's
+        lock): a shadow replay of the live model waits for the batch worker's
+        and the reverse."""
         f = faults.fire("serve.predict.delay")
         if f is not None:
             time.sleep(float(f.get("seconds", 0.1)))
         if faults.fire("serve.predict.fail") is not None:
             raise faults.InjectedFault("injected fault serve.predict.fail "
                                        "(device predict path)")
-        bucket = Xpad.shape[0]
-        self.stats.record_compile_cache(hit=bucket in self._warmed)
-        self._warmed.add(bucket)
-        g = self._graphs.get(bucket)
-        if g is not None:
-            with torch.cuda.stream(self._stream):
-                with self.stats.stage("bin"):
-                    g.staging.numpy()[:] = Xpad
-                    g.x.copy_(g.staging, non_blocking=True)
-                    g.graph.replay()
-                    self.replays += 1
-                    native.credit(g.launches)
-                with self.stats.stage("traverse"):
-                    g.host.copy_(g.score, non_blocking=True)
-                    self._stream.synchronize()
-                with self.stats.stage("unpad"):
-                    s = g.host.numpy()[:, :m].copy()
-        elif self.cuda:
-            from ..dataset import upload
+        with self._lock:
+            bucket = Xpad.shape[0]
+            self.stats.record_compile_cache(hit=bucket in self._warmed)
+            self._warmed.add(bucket)
+            g = self._graphs.get(bucket)
+            if g is not None:
+                with torch.cuda.stream(self._stream):
+                    with self.stats.stage("bin"):
+                        g.staging.numpy()[:] = Xpad
+                        g.x.copy_(g.staging, non_blocking=True)
+                        g.graph.replay()
+                        self.replays += 1
+                        native.credit(g.launches)
+                    with self.stats.stage("traverse"):
+                        g.host.copy_(g.score, non_blocking=True)
+                        self._stream.synchronize()
+                    with self.stats.stage("unpad"):
+                        s = g.host.numpy()[:, :m].copy()
+            elif self.cuda:
+                from ..dataset import upload
 
-            self.eager_batches += 1
-            with torch.cuda.stream(self._stream):
+                self.eager_batches += 1
+                with torch.cuda.stream(self._stream):
+                    with self.stats.stage("bin"):
+                        bins = bin_predict(upload(Xpad, self.device),
+                                           self.dev_arrays)
+                    with self.stats.stage("traverse"):
+                        score = self.predictor.predict_binned(
+                            bins)[:, :m].cpu()
+                    with self.stats.stage("unpad"):
+                        s = score.numpy()
+            else:
                 with self.stats.stage("bin"):
-                    bins = bin_predict(upload(Xpad, self.device),
+                    bins = bin_predict(torch.from_numpy(Xpad),
                                        self.dev_arrays)
                 with self.stats.stage("traverse"):
-                    score = self.predictor.predict_binned(bins)[:, :m].cpu()
+                    score = self.predictor.predict_binned(bins)
                 with self.stats.stage("unpad"):
-                    s = score.numpy()
-        else:
-            with self.stats.stage("bin"):
-                bins = bin_predict(torch.from_numpy(Xpad), self.dev_arrays)
-            with self.stats.stage("traverse"):
-                score = self.predictor.predict_binned(bins)
-            with self.stats.stage("unpad"):
-                s = score[:, :m].numpy()
+                    s = score[:, :m].numpy()
         return s[0] if self.K == 1 else s.T
 
     def convert_output(self, raw: np.ndarray,
@@ -187,6 +196,7 @@ class ServingModel:
         shared-memory limit.  A pass that cannot be captured raises."""
         x = torch.zeros((bucket, self.num_features), dtype=torch.float64,
                         device=self.device)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
             self._run(x)
         self._stream.synchronize()
@@ -194,7 +204,8 @@ class ServingModel:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         score, launches = native.capture(graph, lambda: self._run(x),
-                                         self._pool, "thread_local")
+                                         self._pool, "thread_local",
+                                         self.device)
         return BucketGraph(
             graph, x, torch.zeros_like(x, device="cpu").pin_memory(), score,
             torch.zeros_like(score, device="cpu").pin_memory(), launches)
@@ -251,15 +262,17 @@ class ModelRegistry:
 
     def __init__(self, stats: Optional[ServingStats] = None,
                  warm_buckets: Sequence[int] = (), warmup: bool = True,
-                 verify_rows: int = 64, verify_tol: float = 1e-5):
+                 verify_rows: int = 64, verify_tol: float = 1e-5,
+                 device=None):
         self.stats = stats or ServingStats()
         self.warm_buckets = [int(b) for b in warm_buckets]
         self.warmup = bool(warmup)
         self.verify_rows = int(verify_rows)
         self.verify_tol = float(verify_tol)
-        #: every model of this registry serves on this device: the device
-        #: of the first booster loaded
-        self.device = None
+        #: every model of this registry serves on this device: ``device``
+        #: (a fleet replica's card), else the device of the first booster
+        #: loaded
+        self.device = torch.device(device) if device is not None else None
         self._lock = threading.Lock()
         self._models: Dict[str, ServingModel] = {}
         # the version each commit displaced, retained per name so

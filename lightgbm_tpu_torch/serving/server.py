@@ -134,9 +134,12 @@ class PredictionServer:
         self.stats_out = stats_out
         self.stats_interval_s = float(stats_interval_s)
         self._stats_thread: Optional[threading.Thread] = None
-        # bounded traffic ring (lifecycle/recorder.py); capacity 0 (the
-        # default) keeps the request path a single attribute check
+        # bounded traffic ring for the lifecycle shadow loop; capacity 0
+        # (the default) keeps the request path a single attribute check
         self.recorder = TrafficRecorder(record_rows)
+        # set by LifecycleController when one is bound to this server;
+        # report() then carries the "lifecycle" section
+        self.lifecycle = None
         self.buckets = bucket_ladder(min_bucket, max_batch_rows)
         self.registry = registry or ModelRegistry(
             stats=self.stats, warm_buckets=self.buckets, warmup=warmup)
@@ -184,6 +187,8 @@ class PredictionServer:
         if self._stop.is_set():
             return
         self._stop.set()
+        if self.lifecycle is not None:
+            self.lifecycle.stop()
         if self._srv is not None:
             try:
                 self._srv.close()
@@ -222,8 +227,11 @@ class PredictionServer:
 
     def report(self) -> Dict[str, Any]:
         self.stats.tel.device = self.registry.device
-        return self.stats.report(models=self.registry.versions(),
-                                 jit_entries=self.registry.jit_entries())
+        rep = self.stats.report(models=self.registry.versions(),
+                                jit_entries=self.registry.jit_entries())
+        if self.lifecycle is not None:
+            rep["lifecycle"] = self.lifecycle.section()
+        return rep
 
     def trace(self) -> Optional[Dict[str, Any]]:
         """The captured Chrome trace-event JSON object (``None`` when
@@ -368,8 +376,8 @@ class PredictionServer:
             try:
                 model = self.registry.get(name)
                 X = np.atleast_2d(np.asarray(msg["data"], dtype=np.float64))
-                # traffic capture (record_rows): the rows the server
-                # actually answered
+                # lifecycle traffic capture: the shadow loop replays
+                # candidates against what the server actually answered
                 self.recorder.record(X)
                 span = self.tracer.span(
                     "serve.request", cat="serving", trace_id=trace_id,
@@ -385,7 +393,9 @@ class PredictionServer:
                     resp["trace_id"] = trace_id
                 return resp
             except Exception:
-                # an admitted request answering with an error frame
+                # an admitted request answering with an error frame: the
+                # rate the lifecycle rollback watchdog judges a fresh
+                # promotion by
                 failed = True
                 self.stats.record_error()
                 raise

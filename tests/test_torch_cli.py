@@ -5,9 +5,10 @@ validation file) trains through both CLIs in this process: the model files
 must be equal, and ``task=predict`` outputs of the two agree within 1e-6;
 ``task=refit`` and ``task=convert_model`` write equal files.  The conf runs
 the masked learner, whose JAX programs compile in a few seconds.  The
-argument parser takes what the JAX package's takes.  The serving fleet and
-the multi-GPU keys raise their named errors; the training telemetry and
-resume keys train.  One subprocess runs
+argument parser takes what the JAX package's takes.  ``task=serve`` with
+``serve_replicas=2`` serves through the fleet gateway, ``autopilot=true``
+without its inputs raises, and the multi-GPU keys raise their named
+errors; the training telemetry and resume keys train.  One subprocess runs
 ``python -m lightgbm_tpu_torch`` on the CPU and loads no JAX module.
 """
 
@@ -136,16 +137,47 @@ def test_argument_parsing_equals_jax(workdir, argv):
 
 
 def test_serve_and_telemetry_raise_named_errors(workdir):
-    """``task=serve`` runs (``tests/test_torch_serving.py``); the fleet it
-    would serve through with ``serve_replicas`` raises its Queue A title.
+    """``task=serve serve_replicas=2`` serves through the fleet gateway (two
+    CPU replicas answer Booster.predict's scores, then shut down), and
+    ``autopilot=true`` without the train source raises naming ``data=``.
     The telemetry keys train: ``--telemetry-out`` (implying telemetry)
     writes the report, ``--resume`` continues from the newest snapshot;
     a multi-GPU key raises its title."""
-    from lightgbm_tpu_torch.observability import validate_report
+    import socket
+    import threading
 
-    with pytest.raises(NotImplementedError, match="serving and lifecycle"):
-        cli.main(["task=serve", "input_model=" + str(workdir / "port.txt"),
-                  "serve_replicas=2", "device_type=cpu"])
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.observability import validate_report
+    from lightgbm_tpu_torch.serving import ServingClient
+
+    model = str(workdir / "port.txt")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    done = []
+    served = threading.Thread(target=lambda: done.append(cli.main(
+        ["task=serve", "input_model=" + model, "serve_replicas=2",
+         f"serve_port={port}", "serve_min_bucket=64",
+         "serve_max_batch_rows=64", "device_type=cpu"])))
+    served.start()
+    try:
+        X = np.random.RandomState(1).randn(20, 5)
+        with ServingClient("127.0.0.1", port, timeout=60, retries=40,
+                           backoff_s=0.25) as c:
+            assert c.health()["replicas"] == 2
+            np.testing.assert_allclose(
+                np.asarray(c.predict(X)),
+                lt.Booster(model_file=model,
+                           params={"device_type": "cpu"}).predict(X),
+                rtol=1e-9, atol=1e-9)
+            c.shutdown()
+    finally:
+        served.join(120)
+    assert done == [0]
+    with pytest.raises(ValueError, match="data="):
+        cli.main(["task=serve", "input_model=" + model, "serve_replicas=2",
+                  "serve_port=0", "lifecycle_record_rows=64",
+                  "autopilot=true", "device_type=cpu"])
     old = os.getcwd()
     os.chdir(workdir)
     try:

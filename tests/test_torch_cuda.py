@@ -10,6 +10,8 @@ JAX installed:
 (``--noconftest`` skips the suite's conftest, which imports JAX.)
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -1606,6 +1608,178 @@ def test_serving_device_error_fails_the_batch_and_health(cuda_device,
     assert "forced" in health["device_errors"]["default"]
     assert srv["fallback_batches"] == 1 and srv["fallback_rows"] == 16
     assert srv["errors"] >= 1
+
+
+# -- the serving fleet (serving/fleet/) ---------------------------------------
+
+def _fleet_on_card(dev, **kw):
+    """The served booster behind a two-replica fleet on the one card (both
+    replicas on ``cuda:0``, each with its own stream and bucket graphs)."""
+    bst, _, X = _served(dev)
+    srv = bst.serve(replicas=2, port=0, max_batch_rows=1024, min_bucket=32,
+                    deadline_ms=1.0, **kw)
+    return bst, srv, X
+
+
+def test_fleet_two_replicas_on_one_card_answer_the_host_trees(cuda_device):
+    """Two replicas on cuda:0 warm one graph per bucket each and run
+    nothing eagerly; requests sent to each replica replay its graphs and
+    answer the host trees within 1e-9."""
+    from lightgbm_tpu_torch.serving import ServingClient
+
+    bst, srv, X = _fleet_on_card(cuda_device)
+    try:
+        models = [r.registry.get() for r in srv.replicas.replicas]
+        assert [r.device for r in srv.replicas.replicas] == [cuda_device] * 2
+        assert models[0] is not models[1]
+        for m in models:
+            assert m.device == cuda_device and m.cuda
+            assert m.jit_entries() == len(SERVE_BUCKETS)
+            assert m.replays == len(SERVE_BUCKETS) + 1
+        r0 = srv.replicas.replicas[0]
+        X2 = np.vstack([X, X])
+        with ServingClient(srv.host, srv.port) as c:
+            for busy in (False, True):
+                with r0._lock:
+                    r0._inflight = 1000 if busy else 0  # steer to replica 1
+                for n in (1, 37, 1024, 1500):      # 1,500: two batches
+                    np.testing.assert_allclose(
+                        c.predict(X2[:n], raw_score=True),
+                        models[0].host_raw(X2[:n]), rtol=1e-9, atol=1e-9)
+            with r0._lock:
+                r0._inflight = 0
+            srv_stats = c.stats()["serving"]
+        for m in models:
+            assert m.replays > len(SERVE_BUCKETS) + 1
+            assert m.eager_batches == 0
+        assert srv_stats["fallback_batches"] == 0
+        assert srv_stats["errors"] == 0
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("spare_models", [0, 40])
+def test_fleet_prepare_all_captures_while_a_replica_replays(cuda_device,
+                                                             spare_models):
+    """``prepare_all``, called from a thread of its own as a wire ``swap``
+    is, captures a candidate's bucket graphs on both replicas while requests
+    keep replaying replica 1's live graphs from another thread; every answer
+    is the host trees of the version that served it, and after the rolling
+    commit both replicas serve the candidate.  With 40 more serving models
+    built first, PyTorch's pool of 32 default-priority streams per card has
+    wrapped, and still no serving model's stream is the capture stream."""
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.serving.registry import ServingModel
+
+    bst, srv, X = _fleet_on_card(cuda_device)
+    r0, r1 = srv.replicas.replicas
+    spare = [ServingModel(bst, device=cuda_device)
+             for _ in range(spare_models)]
+    serving = {m._stream.cuda_stream for m in
+               spare + [r0.registry.get(), r1.registry.get()]}
+    assert native.capture_stream(cuda_device).cuda_stream not in serving
+    cand = lt.train({"objective": "binary", "num_leaves": 15,
+                     "verbosity": -1},
+                    lt.Dataset(np.nan_to_num(X[:, :5]),
+                               label=(X[:, 0] > 0).astype(float)), 3,
+                    verbose_eval=False)
+    stop, errors, answers = threading.Event(), [], []
+    started = threading.Event()
+
+    def traffic():
+        rng = np.random.RandomState(1)
+        while not stop.is_set():
+            n = int(rng.randint(1, 1025))
+            done = threading.Event()
+            out = {}
+
+            def cb(h, out=out, done=done):
+                out["r"], out["e"] = h.result, h.error
+                done.set()
+            r1.submit_async(X[:n], "default", cb)
+            if not done.wait(60):
+                errors.append("timeout")
+                return
+            if out["e"] is not None:
+                errors.append(repr(out["e"]))
+                return
+            answers.append((n, out["r"]))
+            started.set()
+
+    t = threading.Thread(target=traffic)
+    try:
+        live = r1.registry.get()
+        t.start()
+        assert started.wait(60)
+        before = live.replays
+        swap = {}
+        th = threading.Thread(target=lambda: swap.update(
+            prepared=srv.replicas.prepare_all(
+                model_str=cand.model_to_string())))
+        th.start()
+        th.join(300)
+        assert not th.is_alive()
+        prepared = swap["prepared"]
+        during = live.replays - before
+        stop.set()
+        t.join(60)
+        assert not t.is_alive() and errors == []
+        assert during > 0, "no replay ran while the candidate captured"
+        for p in prepared:
+            assert p.jit_entries() == len(SERVE_BUCKETS)
+        for n, got in answers:
+            np.testing.assert_allclose(got, live.host_raw(X[:n]),
+                                       rtol=1e-9, atol=1e-9)
+        assert srv.replicas.commit_rolling(prepared) == {0: 2, 1: 2}
+        for r in (r0, r1):
+            m = r.registry.get()
+            Xpad = np.ascontiguousarray(X[:64])
+            np.testing.assert_allclose(m.predict_padded(Xpad, 64),
+                                       m.host_raw(Xpad), rtol=1e-9,
+                                       atol=1e-9)
+    finally:
+        stop.set()
+        t.join(60)
+        srv.stop()
+
+
+def test_fleet_device_error_ejects_and_fails_the_batch(cuda_device,
+                                                       monkeypatch):
+    """A real device error on a replica fails its batch (no host re-score),
+    ejects the replica and makes ``health`` name it, not ready; the injected
+    ``serving.replica_fault`` re-scores on the host instead."""
+    from lightgbm_tpu_torch.reliability import faults
+    from lightgbm_tpu_torch.serving import ServingClient
+
+    bst, srv, X = _fleet_on_card(cuda_device, recovery_s=3600.0)
+    try:
+        r0, r1 = srv.replicas.replicas
+        with ServingClient(srv.host, srv.port, retries=0) as c:
+            faults.arm("serving.replica_fault:rank=0:count=1")
+            np.testing.assert_allclose(
+                c.predict(X[:16], raw_score=True),
+                r0.registry.get().host_raw(X[:16]), rtol=1e-9, atol=1e-9)
+            faults.disarm()
+            assert srv.replicas.section()[0]["ejections"] == 1
+            assert c.health()["ready"]
+            model = r1.registry.get()
+
+            def launch_fails(Xpad, m):
+                raise RuntimeError("CUDA error 700 (forced)")
+
+            monkeypatch.setattr(model, "predict_padded", launch_fails)
+            with pytest.raises(RuntimeError, match="forced"):
+                c.predict(X[:16], raw_score=True)
+            health = c.health()
+        snap = srv.replicas.section()
+        assert snap[1]["ejections"] == 1 and snap[1]["device_failures"] == 1
+        assert not health["ready"]
+        assert "forced" in health["device_errors"]["1"]["default"]
+        assert "restart" in health["device_errors_note"]
+        assert srv.stats.fallback_batches == 1
+    finally:
+        faults.reset()
+        srv.stop()
 
 
 def test_two_rank_data_parallel_tree_on_card(cuda_device):

@@ -148,7 +148,7 @@ def test_parallel_settings_train_serially_in_world_of_one(extra, tmp_path,
     {"snapshot_freq": 1, "fault_spec": "net.crash:rank=1"},
     {"num_machines": 2},
     {"telemetry_out": "t.jsonl", "fault_spec": "net.send.drop"},
-    {"fault_spec": "serving.replica_fault:rank=1"},
+    {"fault_spec": "net.send.truncate:rank=1"},
     {"profile_trace_dir": "prof", "num_hosts": 2},
     {"telemetry": True, "elastic": True},
 ])
@@ -162,6 +162,20 @@ def test_unported_settings_raise(extra):
               "num_leaves": 4, **extra}
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
         lt.train(params, lt.Dataset(X, label=y), 1, verbose_eval=False)
+
+
+def test_serving_fault_point_arms_in_training():
+    """``serving.replica_fault`` is a ported point (the fleet's replicas
+    fire it): a training run that arms it trains, as in the JAX package."""
+    X, y = _problem()
+    params = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
+              "num_leaves": 4, "fault_spec": "serving.replica_fault:rank=1"}
+    try:
+        assert lt.train(params, lt.Dataset(X, label=y), 1,
+                        verbose_eval=False).num_trees() == 1
+    finally:
+        from lightgbm_tpu_torch.reliability import faults
+        faults.reset()
 
 
 def test_text_file_input_raises(tmp_path, monkeypatch):

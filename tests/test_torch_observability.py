@@ -121,8 +121,7 @@ def test_bad_fault_spec_raises_as_jax(spec):
     ("net.send.drop:rank=1", "multi-GPU and multi-host"),
     ("net.send.delay:rank=2:seconds=3", "multi-GPU and multi-host"),
     ("net.send.truncate:rank=1", "multi-GPU and multi-host"),
-    ("net.crash:rank=1:nth=2", "multi-GPU and multi-host"),
-    ("serving.replica_fault:rank=1", "serving and lifecycle")])
+    ("net.crash:rank=1:nth=2", "multi-GPU and multi-host")])
 def test_unported_fault_points_raise_their_titles(point, title, monkeypatch):
     with pytest.raises(NotImplementedError, match=f"Queue A: {title}"):
         faults.arm("serve.predict.fail;" + point)
@@ -133,6 +132,46 @@ def test_unported_fault_points_raise_their_titles(point, title, monkeypatch):
     faults.reset()
     with pytest.raises(NotImplementedError, match=title):
         faults.load()
+
+
+@pytest.mark.chaos
+def test_replica_fault_point_arms_and_fires(monkeypatch):
+    """``serving.replica_fault`` arms from ``fault_spec``, ``faults.arm``
+    and ``LGBT_FAULTS`` like the JAX point, and a two-replica fleet fires
+    it on the replica its ``rank`` names: that batch re-scores on the host
+    and the replica ejects."""
+    point = "serving.replica_fault:rank=1:count=-1"
+    assert [(c.point, c.rank, c.count) for c in faults.parse_spec(point)] \
+        == [(c.point, c.rank, c.count) for c in jfaults.parse_spec(point)]
+    monkeypatch.setenv(faults.ENV_VAR, point)
+    faults.reset()
+    assert [c.point for c in faults.load()] == ["serving.replica_fault"]
+    monkeypatch.delenv(faults.ENV_VAR)
+    faults.reset()
+    srv = lt.Booster(model_str=_MODEL_TEXT[0],
+                     params=dict(CPU, fault_spec=point)).to_server(
+                         replicas=2, port=0, max_batch_rows=64,
+                         min_bucket=64, recovery_s=3600.0).start()
+    try:
+        model = srv.replicas.get()
+        X = np.random.RandomState(0).randn(8, model.num_features)
+        want = model.host_raw(X)
+        r0, r1 = srv.replicas.replicas
+        with r0._lock:
+            r0._inflight = 1           # the next dispatch goes to replica 1
+        with ServingClient(srv.host, srv.port) as c:
+            np.testing.assert_allclose(c.predict(X, raw_score=True), want,
+                                       rtol=1e-6, atol=1e-6)
+        with r0._lock:
+            r0._inflight = 0
+        snap = srv.replicas.section()
+        assert snap[1]["ejections"] == 1 and not snap[1]["healthy"]
+        assert snap[0]["ejections"] == 0 and snap[0]["healthy"]
+        assert rel_get("fault.serving.replica_fault") == 1
+        assert srv.stats.fallback_batches == 1
+    finally:
+        faults.reset()
+        srv.stop()
 
 
 _MODEL_TEXT = []

@@ -436,13 +436,30 @@ def test_server_hot_swap_over_the_wire(rng):
         server.stop()
 
 
-def test_fleet_and_replicas_stay_refused(rng):
+@pytest.mark.serving
+def test_fleet_and_replicas_serve(rng):
+    """``to_server(replicas=2)`` builds the fleet gateway (a CPU booster's
+    two replicas on the CPU) and it answers; ``serve_replicas`` in the
+    booster's params leaves ``serve()`` the threaded server, as in the JAX
+    package (the CLI reads the key)."""
+    from lightgbm_tpu_torch.serving import FleetServer
+
     bst = _train(rng, trees=2)
-    with pytest.raises(NotImplementedError, match="serving and lifecycle"):
-        bst.to_server(replicas=2)
-    with pytest.raises(NotImplementedError, match="serving and lifecycle"):
-        lt.Booster(model_str=bst.model_to_string(),
-                   params=dict(CPU, serve_replicas=-1)).serve(port=0)
+    Xt = _fuzz_matrix(rng, 20)
+    fleet = bst.to_server(replicas=2, port=0, **ONE_BUCKET)
+    assert isinstance(fleet, FleetServer) and len(fleet.replicas) == 2
+    with fleet, ServingClient("127.0.0.1", fleet.port) as c:
+        assert c.protocol == "binary"
+        np.testing.assert_allclose(np.asarray(c.predict(Xt, raw_score=True)),
+                                   _host_raw(bst.gbdt, Xt), rtol=1e-6,
+                                   atol=1e-6)
+    srv = lt.Booster(model_str=bst.model_to_string(),
+                     params=dict(CPU, serve_replicas=-1)).serve(
+                         port=0, **ONE_BUCKET)
+    try:
+        assert isinstance(srv, PredictionServer)
+    finally:
+        srv.stop()
 
 
 # -- CLI end to end -----------------------------------------------------------
