@@ -339,6 +339,18 @@ line and each raising (exit code 1) on any failure:
              capturing, replaying) at 1,000,000 rows with 4,095 leaves
              and at Higgs's 11,000,000 rows (the bench rows repeated
              through Dataset.subset) with 31 and 255 leaves
+  multihost_train pods of emulated hosts on the card, every rank a
+             process (``--rank-job``): 2 hosts x 2 ranks (LGBT_*,
+             LOCAL_WORLD_SIZE=2) train sharded_train's quant data mode 3
+             iterations on the bench rows (texts equal, equal to a 4-rank
+             RankPool's and in structure to serial's, launches equal to
+             the pool's, gloo on one card; heartbeat ms, exchange_probe_ms,
+             the merged pod trace); a 2-host two_round load of 200,000
+             bench rows as CSV (mappers and codes equal one host's); 3
+             hosts heartbeating with net.crash on rank 1 (named within the
+             deadline); elastic.run_host on 3 hosts over the CSV, host 1
+             killed at its 5th collective (every round done, the
+             survivors' models equal, held-out AUC within 2e-3 of serial)
   timing     each of nine kernels' (bin_predict's in its own phase), its
              plain version's and (where one PyTorch call computes the same
              function) the library call's
@@ -403,7 +415,8 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "serve", "fleet", "cli", "small", "multiclass_train",
           "objectives_train", "rank_train", "categorical_train",
           "categorical_2047", "wave_4095", "goss_train", "dart_train",
-          "rf_train", "surface", "sharded_train", "timing")
+          "rf_train", "surface", "sharded_train", "multihost_train",
+          "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -6167,6 +6180,410 @@ def _shard_checks(results: dict, refs: dict, out: dict) -> None:
             mode_out["equals_data"] = True
 
 
+# -- multihost_train: pods of emulated hosts on the one card -----------------
+
+#: the pod leg's iterations and the elastic leg's (the JAX drills' six)
+POD_ITERS, ELASTIC_ITERS = 3, 6
+#: the loader and elastic legs' CSV: the first rows of the bench data
+POD_CSV_ROWS = 200_000
+#: the CSV legs' FindBin sample (the default 200,000 would be every row;
+#: host FindBin over it takes 20 s a load)
+POD_CSV_SAMPLE = 50_000
+#: the chaos and elastic legs' collective deadline (seconds)
+POD_DEADLINE_S = 5.0
+
+
+def _rank_auc(y, s) -> float:
+    """Tie-averaged rank AUC of scores ``s`` for 0/1 labels ``y``."""
+    y, s = np.asarray(y) > 0, np.asarray(s, dtype=np.float64)
+    order = np.argsort(s, kind="mergesort")
+    _, inv, counts = np.unique(s[order], return_inverse=True,
+                               return_counts=True)
+    ends = np.cumsum(counts)
+    ranks = np.empty(len(s))
+    ranks[order] = ((ends - counts + 1 + ends) / 2.0)[inv]
+    n1 = int(y.sum())
+    n0 = len(y) - n1
+    return float((ranks[y].sum() - n1 * (n1 + 1) / 2.0) / (n1 * n0))
+
+
+def _pod_params() -> dict:
+    """The pod leg's params: ``sharded_train``'s ``data`` mode (the
+    quant+opening cell, whose integer sums leave the model the serial
+    one's exactly) with telemetry sampling every other iteration (the
+    exchange probe)."""
+    return dict(_shard_params()["wave"], tree_learner="data",
+                telemetry_sync_every=2)
+
+
+def _pod_train_rank(spec: dict) -> dict:
+    """A pod or pool rank: the cached bench rows trained ``POD_ITERS``
+    iterations with the kernel counts set to 0 just before (``_shard_train``);
+    the model, predictions, launches and the report's pod figures."""
+    import lightgbm_tpu_torch as lt
+    import torch.distributed as dist
+    params = dict(_pod_params(), **spec.get("extra", {}))
+    ds = lt.Dataset(spec["cache"], params=params)
+    ds.construct()
+    bst, t_iter, launches = _shard_train(params, ds, POD_ITERS)
+    rep = bst.get_telemetry()
+    hb = rep["phases"].get("heartbeat", {"total_ms": 0.0, "count": 0})
+    Xp = np.load(spec["xp"])
+    return {"rank": dist.get_rank(), "backend": dist.get_backend(),
+            "device": str(bst.gbdt.learner.device),
+            "learner": type(bst.gbdt.learner).__name__,
+            "launches": launches, "s_per_iter": t_iter,
+            "heartbeat_ms_per_iter": (hb["total_ms"] / hb["count"]
+                                      if hb["count"] else None),
+            "heartbeats": hb["count"],
+            "exchange_probe_ms": rep["gauges"].get("exchange_probe_ms"),
+            "text": bst.model_to_string(),
+            "pred": bst.predict(Xp).tolist()}
+
+
+def _rank_job(spec: dict) -> dict:
+    """One process of the multihost_train phase (``--rank-job``)."""
+    from lightgbm_tpu_torch.parallel import multihost
+    job = spec["job"]
+    if job == "pod":
+        return _pod_train_rank(spec)
+    if job == "loader":
+        from lightgbm_tpu_torch.config import Config
+        from lightgbm_tpu_torch.dataset import _ConstructedDataset
+        cfg = Config.from_params(spec["params"])
+        assert multihost.initialize_from_config(cfg)
+        net = multihost.DistributedNet(cfg, namespace="loader")
+        t0 = time.perf_counter()
+        ds = _ConstructedDataset.from_stream(spec["csv"], spec["params"],
+                                             cfg, net=net)
+        secs = time.perf_counter() - t0
+        ref = np.load(spec["ref_codes"], mmap_mode="r")
+        nu = len(ds.bin_mappers)
+        codes_equal = bool(np.array_equal(
+            ds.bins[:nu, :ds.num_data], ref[:nu][:, ds.global_rows]))
+        net.close()
+        return {"rank": net.rank, "rows": int(ds.num_data),
+                "rows_global": int(ds.num_data_global), "load_s": secs,
+                "mappers": json.dumps([m.to_dict() for m in ds.bin_mappers]),
+                "used": ds.used_feature_map.tolist(),
+                "codes_equal": codes_equal}
+    if job == "chaos":
+        from lightgbm_tpu_torch.config import Config
+        from lightgbm_tpu_torch.reliability.metrics import rel_counters
+        cfg = Config.from_params(spec["params"])
+        assert multihost.initialize_from_config(cfg)
+        net = multihost.DistributedNet(cfg, namespace="chaos")
+        out = {"rank": net.rank, "error": None}
+        t0 = time.perf_counter()
+        try:
+            for i in range(6):
+                t0 = time.perf_counter()
+                net.heartbeat(i)
+        except ConnectionError as e:
+            out.update(error=str(e), elapsed_s=time.perf_counter() - t0,
+                       dead_ranks=list(getattr(e, "dead_ranks", ())))
+        out["counters"] = rel_counters()
+        return out
+    if job == "elastic":
+        from lightgbm_tpu_torch.elastic import run_host
+        res = run_host(spec["params"], spec["csv"], ELASTIC_ITERS,
+                       host_id=spec["host"], num_hosts=spec["hosts"],
+                       workdir=spec["workdir"],
+                       worker_env=spec.get("env") or {},
+                       worker_timeout_s=300)
+        with open(res.model_path) as fh:
+            model = fh.read()
+        return {"host": spec["host"], "model": model,
+                "history": res.history, "recoveries": res.recoveries,
+                "recovery_wall_s": res.recovery_wall_s,
+                "iterations": res.result.get("iterations"),
+                "cuda_initialized": torch.cuda.is_initialized()}
+    raise ValueError(f"unknown rank job {job!r}")
+
+
+def _run_ranks(specs, envs, timeout_s: float) -> dict:
+    """``chip_smoke.py --rank-job`` once per spec, all started together
+    with the extra environment ``envs[i]``; {index: (exit code, result or
+    None, output tail)}.  Each runs in a session of its own, killed whole
+    at the end (an elastic agent's workers with it)."""
+    import os
+    import signal
+    procs = []
+    try:
+        for spec, extra in zip(specs, envs):
+            env = dict(os.environ)
+            for k in ("LGBT_COORDINATOR", "LGBT_NUM_HOSTS",
+                      "LGBT_PROCESS_ID", "LOCAL_WORLD_SIZE", "LOCAL_RANK",
+                      "WORLD_SIZE", "RANK", "LGBT_FAULTS"):
+                env.pop(k, None)
+            env.update(extra)
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, "--rank-job", json.dumps(spec)],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, start_new_session=True))
+        deadline = time.monotonic() + timeout_s
+        tails = [p.communicate(timeout=max(deadline - time.monotonic(),
+                                           1.0))[0] for p in procs]
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    out = {}
+    for i, (spec, p, tail) in enumerate(zip(specs, procs, tails)):
+        res = None
+        if os.path.exists(spec["out"]):
+            with open(spec["out"]) as fh:
+                res = json.load(fh)
+        out[i] = (p.returncode, res, tail[-3000:])
+    return out
+
+
+def _pod_env(port: int, host: int, hosts: int, local: int = 0,
+             locals_: int = 1) -> dict:
+    return {"LGBT_COORDINATOR": f"127.0.0.1:{port}",
+            "LGBT_NUM_HOSTS": str(hosts), "LGBT_PROCESS_ID": str(host),
+            "LOCAL_WORLD_SIZE": str(locals_), "LOCAL_RANK": str(local)}
+
+
+def phase_multihost_train(ctx) -> None:
+    """Pods of emulated hosts on the one card (``parallel/multihost.py``,
+    ``io/distributed.py``, ``elastic/``), every rank a process:
+
+      (i)   2 hosts x 2 ranks (LGBT_*, LOCAL_WORLD_SIZE=2) train
+            tree_learner=data (sharded_train's quant+opening data mode) 3
+            iterations on the 1M bench rows from one binary cache: the
+            ranks' texts equal, held against the serial model, each
+            rank's launches of every wave kernel equal to a 4-rank
+            RankPool run's; the backend (gloo: one card),
+            heartbeat ms, exchange_probe_ms, s per iteration and the
+            merged pod trace's events;
+      (ii)  a two_round load of a 200,000-row bench CSV by 2 hosts over
+            DistributedNet (FindBin split by feature range): the mappers
+            and the owned rows' codes equal single-host's;
+      (iii) 3 hosts heartbeat with net.crash:rank=1:nth=3: rank 1 exits 17,
+            every survivor names it within the deadline;
+      (iv)  elastic.run_host on 3 emulated hosts over the CSV, 6 iterations,
+            host 1's worker killed at its 5th collective: the survivors
+            finish every round with equal models, AUC within 2e-3 of a
+            serial model on the same rows; the recovery's wall seconds.
+    """
+    import tempfile
+
+    out = {"phase": "multihost_train", "pod_iterations": POD_ITERS,
+           "elastic_iterations": ELASTIC_ITERS}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _multihost_legs(ctx, tmp, out)
+    finally:
+        emit(out)
+
+
+def _multihost_legs(ctx, tmp: str, out: dict) -> None:
+    import os
+
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import _ConstructedDataset
+    from lightgbm_tpu_torch.observability import podtrace
+    from lightgbm_tpu_torch.parallel.launch import RankPool, free_port
+    t_phase = time.perf_counter()
+    ds, _ = _dataset(ctx)
+    params = _pod_params()
+    Xp = ctx["Xv"][:SHARD_PRED_ROWS]
+    xp = os.path.join(tmp, "xp.npy")
+    np.save(xp, Xp)
+    cache = os.path.join(tmp, "bench.bin")
+    ds.save_binary(cache)
+    # the serial reference on this card
+    bst, t_ser, _ = _shard_train(dict(params, tree_learner="serial"), ds,
+                                 POD_ITERS)
+    serial = {"text": bst.model_to_string(), "pred": bst.predict(Xp)}
+    out["serial_s_per_iter"] = t_ser
+
+    # -- (ii) and (iii) inputs: the bench CSV and the single-host codes
+    X, logit = higgs_latent(ROWS + VALID_ROWS)
+    y = (logit > 0).astype(np.float64)
+    csv = os.path.join(tmp, "bench200k.csv")
+    t0 = time.perf_counter()
+    np.savetxt(csv, np.column_stack([y[:POD_CSV_ROWS], X[:POD_CSV_ROWS]]),
+               delimiter=",", fmt="%.17g")
+    out["csv_write_s"] = time.perf_counter() - t0
+    lparams = {"max_bin": 255, "verbosity": -1,
+               "bin_construct_sample_cnt": POD_CSV_SAMPLE}
+    t0 = time.perf_counter()
+    single = _ConstructedDataset.from_stream(csv, lparams,
+                                             Config.from_params(lparams))
+    out["loader_single_host_s"] = time.perf_counter() - t0
+    ref_codes = os.path.join(tmp, "codes.npy")
+    np.save(ref_codes, single.bins[:, :single.num_data])
+
+    # -- (i) the 2 x 2 pod, with (ii) and (iii) beside it on other ports
+    port = free_port()
+    pod_specs, pod_envs = [], []
+    for h in range(2):
+        for l in range(2):
+            r = 2 * h + l
+            pod_specs.append({
+                "job": "pod", "cache": cache, "xp": xp,
+                "out": os.path.join(tmp, f"pod{r}.json"),
+                "extra": {"trace_out": os.path.join(tmp, "pod_trace.json")}})
+            pod_envs.append(_pod_env(port, h, 2, l, 2))
+    lport, cport = free_port(), free_port()
+    side_specs, side_envs = [], []
+    for h in range(2):
+        side_specs.append({
+            "job": "loader", "csv": csv, "ref_codes": ref_codes,
+            "params": dict(lparams, coordinator_address=f"127.0.0.1:{lport}",
+                           num_hosts=2, process_id=h, device_type="cpu"),
+            "out": os.path.join(tmp, f"loader{h}.json")})
+        side_envs.append({})
+    chaos_outs = [os.path.join(tmp, f"chaos{h}.json") for h in range(3)]
+    for h in range(3):
+        side_specs.append({
+            "job": "chaos",
+            "params": {"coordinator_address": f"127.0.0.1:{cport}",
+                       "num_hosts": 3, "process_id": h,
+                       "net_collective_deadline_s": POD_DEADLINE_S,
+                       "device_type": "cpu"},
+            "out": chaos_outs[h],
+            "peer_outs": chaos_outs if h == 0 else []})
+        side_envs.append({"LGBT_FAULTS": "net.crash:rank=1:nth=3"})
+    t0 = time.perf_counter()
+    pod = _run_ranks(pod_specs + side_specs, pod_envs + side_envs, 400)
+    out["pod_wall_s"] = time.perf_counter() - t0
+    ranks = [pod[i] for i in range(4)]
+    for r, (rc, res, tail) in enumerate(ranks):
+        check(rc == 0 and res is not None,
+              f"multihost_train pod rank {r} failed (rc={rc}):\n{tail}")
+    ranks = [res for _, res, _ in ranks]
+    with RankPool(4, "gloo", timeout_s=300) as pool:
+        t0 = time.perf_counter()
+        pool_out = pool.run(_pod_train_rank, {"cache": cache, "xp": xp},
+                            timeout_s=600)
+        out["pool_wall_s"] = time.perf_counter() - t0
+    pod_out = out["pod"] = {
+        "ranks": [{k: v for k, v in r.items() if k not in ("text", "pred")}
+                  for r in ranks],
+        "pool_launches": [r["launches"] for r in pool_out],
+        "pool_s_per_iter": [r["s_per_iter"] for r in pool_out]}
+    text = ranks[0]["text"]
+    check(all(r["text"] == text for r in ranks),
+          "multihost_train pod: the ranks' models differ")
+    check(all(r["text"] == text for r in pool_out),
+          "multihost_train pod: the model differs from the 4-rank pool's")
+    check(all(r["backend"] == "gloo" and r["device"].startswith("cuda")
+              for r in ranks),
+          f"multihost_train pod: backends/devices "
+          f"{[(r['backend'], r['device']) for r in ranks]}")
+    check(all(r["heartbeats"] == POD_ITERS for r in ranks),
+          "multihost_train pod: heartbeats != iterations")
+    for r, p in zip(ranks, pool_out):
+        for k in SHARD_KERNELS:
+            check(r["launches"][k] > 0,
+                  f"multihost_train pod rank {r['rank']} never launched {k}")
+            check(r["launches"][k] == p["launches"][k],
+                  f"multihost_train pod rank {r['rank']}: {k} launches "
+                  f"{r['launches'][k]} != the pool's {p['launches'][k]}")
+    diff = float(np.abs(np.asarray(ranks[0]["pred"]) - serial["pred"]).max())
+    pod_out["pred_max_diff_vs_serial"] = diff
+    check(_shard_structure(text) == _shard_structure(serial["text"]),
+          "multihost_train pod: the model's structure differs from the "
+          "serial model's")
+    check(diff < 1e-5, f"multihost_train pod: predictions differ from the "
+          f"serial model's by {diff}")
+    paths = [os.path.join(tmp, f"pod_trace.json.rank{r}") for r in range(4)]
+    merged = podtrace.merge_pod_trace(paths)
+    pod_out["merged_trace_events"] = len(merged["traceEvents"])
+    check(pod_out["merged_trace_events"] > 0 and all(
+        any(ev.get("pid") == r and ev.get("name") == "heartbeat"
+            for ev in merged["traceEvents"]) for r in range(4)),
+          "multihost_train pod: the merged trace lacks a rank's heartbeats")
+
+    # -- (ii) the loader
+    loader = [pod[4 + h] for h in range(2)]
+    for h, (rc, res, tail) in enumerate(loader):
+        check(rc == 0 and res is not None,
+              f"multihost_train loader host {h} failed (rc={rc}):\n{tail}")
+    want = json.dumps([m.to_dict() for m in single.bin_mappers])
+    out["loader"] = {"rows": [res["rows"] for _, res, _ in loader],
+                     "load_s": [res["load_s"] for _, res, _ in loader]}
+    for _, res, _ in loader:
+        check(res["mappers"] == want
+              and res["used"] == single.used_feature_map.tolist(),
+              "multihost_train loader: mappers differ from single-host")
+        check(res["codes_equal"] and res["rows_global"] == POD_CSV_ROWS,
+              "multihost_train loader: owned rows' codes differ")
+    check(sum(out["loader"]["rows"]) == POD_CSV_ROWS,
+          "multihost_train loader: rows lost or doubled")
+
+    # -- (iii) chaos
+    chaos = [pod[6 + h] for h in range(3)]
+    check(chaos[1][0] == 17, f"multihost_train chaos: rank 1 exited "
+          f"{chaos[1][0]}, not 17:\n{chaos[1][2]}")
+    out["chaos"] = {"deadline_s": POD_DEADLINE_S}
+    for h in (0, 2):
+        rc, res, tail = chaos[h]
+        check(rc == 0 and res is not None and res["error"],
+              f"multihost_train chaos survivor {h} (rc={rc}):\n{tail}")
+        check("rank(s) 1" in res["error"] and "never posted" in res["error"]
+              and res["dead_ranks"] == [1],
+              f"multihost_train chaos: {res['error']}")
+        check(res["elapsed_s"] < POD_DEADLINE_S + 5,
+              f"multihost_train chaos: named after {res['elapsed_s']} s")
+        out["chaos"][f"survivor{h}_s"] = res["elapsed_s"]
+
+    # -- (iv) elastic
+    eport = free_port()
+    eparams = dict(WAVE_PARAMS, tree_learner="data", metric="none",
+                   bin_construct_sample_cnt=POD_CSV_SAMPLE,
+                   coordinator_address=f"127.0.0.1:{eport}",
+                   net_collective_deadline_s=POD_DEADLINE_S)
+    especs = [{"job": "elastic", "csv": csv, "host": h, "hosts": 3,
+               "params": eparams, "workdir": os.path.join(tmp, "elastic"),
+               "env": ({"LGBT_FAULTS": "net.crash:rank=1:nth=5"}
+                       if h == 1 else {}),
+               "out": os.path.join(tmp, f"elastic{h}.json")}
+              for h in range(3)]
+    t0 = time.perf_counter()
+    el = _run_ranks(especs, [{}] * 3, 400)
+    out["elastic"] = {"wall_s": time.perf_counter() - t0}
+    check(el[1][0] != 0, "multihost_train elastic: host 1's agent finished")
+    models = []
+    for h in (0, 2):
+        rc, res, tail = el[h]
+        check(rc == 0 and res is not None,
+              f"multihost_train elastic host {h} failed (rc={rc}):\n{tail}")
+        check(res["iterations"] == ELASTIC_ITERS
+              and [e["members"] for e in res["history"]]
+              == [[0, 1, 2], [0, 2]] and res["recoveries"] == 1,
+              f"multihost_train elastic host {h}: {res['history']}, "
+              f"{res['iterations']} iterations")
+        check(res["cuda_initialized"] is False,
+              "multihost_train elastic: a controller initialized CUDA")
+        out["elastic"][f"host{h}_recovery_wall_s"] = res["recovery_wall_s"]
+        models.append(res["model"])
+    check(models[0] == models[1], "multihost_train elastic: the survivors' "
+          "models differ")
+    # the serial model on the same rows: the single-host load above has
+    # the workers' bin config
+    sparams = dict(WAVE_PARAMS, metric="none",
+                   bin_construct_sample_cnt=POD_CSV_SAMPLE)
+    sbst = lt.train(sparams, lt.Dataset._from_constructed(single, sparams),
+                    ELASTIC_ITERS, verbose_eval=False)
+    ebst = lt.Booster(model_str=models[0])
+    yv = ctx["yv"]
+    auc_s = _rank_auc(yv, sbst.predict(ctx["Xv"]))
+    auc_e = _rank_auc(yv, ebst.predict(ctx["Xv"]))
+    out["elastic"].update(heldout_auc=auc_e, serial_heldout_auc=auc_s,
+                          trees=ebst.num_trees())
+    check(ebst.num_trees() == ELASTIC_ITERS and abs(auc_e - auc_s) < 2e-3,
+          f"multihost_train elastic: AUC {auc_e} vs serial {auc_s}")
+    out["phase_s"] = time.perf_counter() - t_phase
+
+
 def phase_timing(ctx) -> None:
     from lightgbm_tpu_torch.ops.fused_scan import fused_child_scans
     from lightgbm_tpu_torch.ops.hist_full import build_histogram_full
@@ -6365,12 +6782,33 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--rank-job", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 2
     import lightgbm_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    if args.rank_job:
+        # one process of the multihost_train phase: its result to a file,
+        # then out without a teardown that waits on a peer
+        spec = json.loads(args.rank_job)
+        torch.set_num_threads(1)
+        res = _rank_job(spec)
+        with open(spec["out"], "w") as fh:
+            json.dump(res, fh)
+        import os
+        # the store lives in this process on rank 0: it leaves last, once
+        # the other survivors' results are on disk (bounded)
+        waits = [p for i, p in enumerate(spec.get("peer_outs", ()))
+                 if i not in (res.get("dead_ranks") or ())]
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 15 and not all(
+                os.path.exists(p) for p in waits):
+            time.sleep(0.05)
+        sys.stdout.flush()
+        os._exit(0)
 
     phases = [p for p in args.phases.split(",") if p]
     bad = [p for p in phases if p not in PHASES]

@@ -442,9 +442,10 @@ class GBDT:
     def _start_parallel(self) -> None:
         """Shard over the process group's ranks (JAX `gbdt.py:470-483`);
         in a world of one rank the serial learner trains, with a line that
-        says so."""
-        from ..parallel.sharding import (init_from_env, mesh_for_config,
-                                         world_size)
+        says so.  In a pod the mesh is checked for host alignment
+        (``multihost.mesh_for_config``)."""
+        from ..parallel.multihost import mesh_for_config
+        from ..parallel.sharding import init_from_env, world_size
         init_from_env(self.cfg, self.device)
         if world_size() > 1:
             from ..parallel.learners import apply_parallel_sharding
@@ -614,6 +615,7 @@ class GBDT:
                 ss.active = False
             tel.add_phase_time("sync.iteration", time.perf_counter() - t0,
                                t0=t0)
+            ss.probe_exchange(self.learner)
             return ret
         with tel.phase("iteration"):
             return self._train_one_iter(gradients, hessians)

@@ -871,6 +871,10 @@ def not_ported(what: str, item: str) -> NotImplementedError:
         f"(ROADMAP.md Queue A: {item})")
 
 
+# The Queue A titles of ROADMAP.md.  Every one of these items is ported; the
+# titles stay because the tests hold the refusals of earlier slices, and the
+# titles they name, against ROADMAP.md Queue A, and a refusal of a later
+# slice names its own item (``parallel/multihost.py:ELASTIC_LOCAL``).
 BREADTH = "objective, metric and feature breadth"
 PARALLEL = "multi-GPU and multi-host"
 SURFACE = "predict and the user surface"
@@ -879,13 +883,12 @@ SERVING = "serving and lifecycle"
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for every training setting this slice
-    does not run, so none of them is silently ignored.  The telemetry,
-    trace, profiler, snapshot, resume and fault-injection keys train
-    (``engine.train``); a fault point of an unported module raises when
-    its spec is armed (``reliability/faults.py``)."""
-    if cfg.num_machines > 1 or cfg.num_hosts > 1 or cfg.elastic:
-        raise not_ported("multi-host and elastic training", PARALLEL)
+    """Raise for a training setting the port does not run, so none of them
+    is silently ignored.  The telemetry, trace, profiler, snapshot, resume
+    and fault-injection keys train (``engine.train``), and so do
+    ``num_machines``, ``num_hosts`` and ``elastic`` (a pod joins in
+    ``parallel/multihost.py``, which refuses only ``elastic`` with several
+    ranks a host)."""
     if cfg.tree_learner not in ("serial", "data", "feature", "voting",
                                 "data_feature"):
         raise ValueError(f"tree_learner must be one of serial, data, "

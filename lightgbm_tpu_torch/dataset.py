@@ -19,8 +19,11 @@ validation sets and, through the model text, at predict time), text files
 ``io/parser.py``), the binary cache ``save_binary`` writes (the JAX
 package's ``.npz`` layout, so either package loads the other's), and with
 ``two_round=true`` a text file streamed in two passes
-(``_ConstructedDataset.from_stream``, one machine) without its float64
-matrix.  Query groups (``group=``, per-query sizes) are stored as
+(``_ConstructedDataset.from_stream``) without its float64
+matrix; a stream keeps the rows its rank owns (``rank`` /
+``num_machines`` / ``pre_partition``), and under ``elastic=true`` in a pod
+it is re-dealt over the current membership (``elastic/redeal.py``).  Query
+groups (``group=``, per-query sizes) are stored as
 boundaries.  Categorical features (``categorical_feature``: a list of
 indices or names, ``"0,2"`` or ``"name:c1,c2"``) get the count-sorted
 categorical bin mapper and stay out of EFB bundles.
@@ -33,7 +36,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper, kZeroThreshold
-from .config import PARALLEL, Config, not_ported
+from .config import Config
 
 _ArrayLike = Union[np.ndarray, Sequence[float], None]
 
@@ -171,23 +174,42 @@ class Dataset:
         if self._constructed is None:
             cfg = Config.from_params(self.params)
             raw = self._raw_data
+            if cfg.elastic and not (
+                    isinstance(raw, str) and cfg.two_round
+                    and self.reference is None
+                    and not _ConstructedDataset.is_binary_file(raw)):
+                import warnings
+                warnings.warn(
+                    "elastic=true but this Dataset is not a two_round "
+                    "file source: in-memory (and binary/reference) "
+                    "Datasets CANNOT re-deal rows after a membership "
+                    "shrink — whatever rows this process holds is all "
+                    "it will ever have. Only from_stream sources "
+                    "(two_round=true with a file path) survive elastic "
+                    "recovery; this run will NOT be elastic-safe.",
+                    RuntimeWarning, stacklevel=2)
             if isinstance(raw, str) and _ConstructedDataset.is_binary_file(
                     raw):
                 self._constructed = _ConstructedDataset.load_binary(raw, cfg)
             elif isinstance(raw, str) and cfg.two_round \
                     and self.reference is None:
-                if cfg.num_machines > 1 or cfg.elastic:
-                    raise not_ported("two_round loading across machines",
-                                     PARALLEL)
                 from .io.parser import scan_data_file
+                from .parallel import multihost
                 info = scan_data_file(raw, self.params)
                 shape = type("_Shape", (), {
                     "shape": (info.num_rows, info.num_features)})
-                self._constructed = _ConstructedDataset.from_stream(
-                    raw, self.params, cfg,
-                    categorical=self._resolve_categorical(shape),
-                    feature_names=self._resolve_feature_names(shape),
-                    info=info)
+                kw = dict(categorical=self._resolve_categorical(shape),
+                          feature_names=self._resolve_feature_names(shape),
+                          info=info)
+                if cfg.elastic and multihost.is_initialized():
+                    # the elastic re-deal: rank and machines come from the
+                    # current membership epoch's world, not the config
+                    from .elastic.redeal import construct_elastic
+                    self._constructed = construct_elastic(
+                        raw, self.params, cfg, **kw)
+                else:
+                    self._constructed = _ConstructedDataset.from_stream(
+                        raw, self.params, cfg, **kw)
             else:
                 if self.reference is not None:
                     # first: a DataFrame is coded with its category lists
@@ -517,19 +539,31 @@ class _ConstructedDataset:
     def from_stream(cls, path: str, params: Optional[Dict], cfg: Config,
                     categorical: Sequence[int] = (),
                     feature_names: Optional[List[str]] = None,
-                    info=None) -> "_ConstructedDataset":
+                    rank: int = 0, num_machines: int = 1,
+                    pre_partition: bool = False, info=None,
+                    net=None) -> "_ConstructedDataset":
         """The reference's ``two_round`` loading (`dataset_loader.cpp:133`,
-        JAX ``dataset.py:564-704``) on one machine: pass 0 counts the rows
+        JAX ``dataset.py:564-704``): pass 0 counts the rows
         (``scan_data_file``); pass 1 streams chunks keeping only the rows
         ``_sample_indices`` draws, then FindBin on them (mappers equal to
-        ``from_matrix``'s); pass 2 streams again and bins each chunk into
-        ``bins``.  Host memory holds a chunk, the sample and the codes, never
-        the float64 matrix; codes and mappers equal ``from_matrix``'s on the
-        same file."""
+        ``from_matrix``'s); pass 2 streams again, keeps the rows this rank
+        owns (``global_row % num_machines == rank``, whole query groups with
+        a ``.query`` sidecar, every row with ``pre_partition`` or one
+        machine) and bins them into ``bins``.  Host memory holds a chunk,
+        the sample and the owned codes, never the float64 matrix.
+
+        With a ``net`` (``io/distributed.py``'s seam; ``rank`` and
+        ``num_machines`` are then the net's) FindBin is distributed: each
+        rank bins its contiguous feature range of the sample
+        (``_feature_ranges``) and the serialized mappers are allgathered,
+        so every rank holds the single-host table.  Across machines EFB is
+        off (``_maybe_bundle``'s reference-linked rule)."""
         from .io.parser import _load_sidecar, iter_data_chunks, \
             scan_data_file
 
         params = dict(params or {})
+        if net is not None:
+            rank, num_machines = int(net.rank), int(net.num_machines)
         if info is None:
             info = scan_data_file(path, params)
         n, f = info.num_rows, info.num_features
@@ -554,44 +588,94 @@ class _ConstructedDataset:
         sample = np.concatenate(parts, axis=0) if parts \
             else np.zeros((0, f), dtype=np.float64)
         parts = []
-        self._find_mappers(sample, cfg, categorical)
+        if net is not None and num_machines > 1:
+            self._find_mappers_distributed(sample, cfg, categorical, net)
+        else:
+            self._find_mappers(sample, cfg, categorical)
 
         weight = _load_sidecar(path + ".weight")
         group = _load_sidecar(path + ".query")
         if group is not None and int(np.sum(group)) != n:
             raise ValueError(f"query file rows ({int(np.sum(group))}) "
                              f"!= data rows ({n})")
-        self.num_data = n
+        qgroup = None
+        if num_machines > 1 and not pre_partition:
+            if group is not None:
+                from .io.distributed import partition_queries
+                owned, qgroup = partition_queries(group, rank, num_machines)
+            else:
+                owned = np.arange(rank, n, num_machines, dtype=np.int64)
+        else:
+            owned = np.arange(n, dtype=np.int64)
+        n_local = len(owned)
+        self.num_data = n_local
         block = max(int(cfg.tpu_row_block), 128)
-        self.num_data_padded = _round_up(max(n, 1), block)
+        self.num_data_padded = _round_up(max(n_local, 1), block)
         self.max_num_bin = max((m.num_bin for m in self.bin_mappers),
                                default=1)
         dtype = np.uint8 if self.max_num_bin <= 256 else np.uint16
         fu_pad = _round_up(max(len(self.bin_mappers), 1), self.FEATURE_TILE)
         self.bins = np.zeros((fu_pad, self.num_data_padded), dtype=dtype)
-        labels = np.zeros(n, dtype=np.float64)
+        labels = np.zeros(n_local, dtype=np.float64)
         dst = 0
         for start, mat, lab in iter_data_chunks(path, params, chunk_rows,
                                                 info=info):
-            rows = len(mat)
+            lo = np.searchsorted(owned, start)
+            hi = np.searchsorted(owned, start + len(mat))
+            if hi <= lo:
+                continue
+            rows = owned[lo:hi] - start
+            sub = mat[rows]
             for k, m in enumerate(self.bin_mappers):
                 j = int(self.used_feature_map[k])
-                self.bins[k, dst:dst + rows] = \
-                    m.values_to_bins(mat[:, j]).astype(dtype)
-            labels[dst:dst + rows] = lab
-            dst += rows
-        if dst != n:
-            raise ValueError(f"stream produced {dst} rows, expected {n}: "
-                             f"the file changed during the load?")
-        self.metadata = Metadata(n)
+                self.bins[k, dst:dst + len(rows)] = \
+                    m.values_to_bins(sub[:, j]).astype(dtype)
+            labels[dst:dst + len(rows)] = lab[rows]
+            dst += len(rows)
+        if dst != n_local:
+            raise ValueError(f"stream produced {dst} owned rows, expected "
+                             f"{n_local}: the file changed during the load?")
+        self.metadata = Metadata(n_local)
         self.metadata.set_label(labels)
         if weight is not None:
-            self.metadata.set_weights(weight)
-        if group is not None:
+            self.metadata.set_weights(weight[owned])
+        if qgroup is not None:
+            self.metadata.set_group(qgroup)
+        elif group is not None:
             self.metadata.set_group(group)
         self.bundle = None
-        self._maybe_bundle(cfg)
+        self._maybe_bundle(cfg, is_reference_linked=num_machines > 1)
+        if num_machines > 1:
+            self.global_rows = owned
+            self.row_offset = 0
+            self.num_data_global = n
         return self
+
+    def _find_mappers_distributed(self, sample: np.ndarray, cfg: Config,
+                                  categorical: Sequence[int], net) -> None:
+        """``_find_mappers`` split over ``net``'s ranks: each finds the bins
+        of its feature range (`dataset_loader.cpp:879-891`) over the whole
+        sample, and the serialized mappers are allgathered
+        (`dataset_loader.cpp:917-950`)."""
+        import json
+
+        from .io.distributed import _feature_ranges, _gather
+        full = self.num_total_features
+        start, length = _feature_ranges(full, int(net.num_machines))
+        lo = start[net.rank]
+        hi = lo + length[net.rank]
+        self.num_total_features = hi - lo
+        self._find_mappers(sample[:, lo:hi],
+                           cfg, [c - lo for c in categorical
+                                 if lo <= c < hi])
+        mine = {int(j) + lo: m.to_dict()
+                for j, m in zip(self.used_feature_map, self.bin_mappers)}
+        self.num_total_features = full
+        parts = _gather(net, json.dumps(mine), "bin-mapper")
+        table = {int(j): d for p in parts for j, d in json.loads(p).items()}
+        keep = sorted(table)
+        self.bin_mappers = [BinMapper.from_dict(table[j]) for j in keep]
+        self.used_feature_map = np.asarray(keep, dtype=np.int32)
 
     @classmethod
     def from_reference(cls, mat: np.ndarray, ref: "_ConstructedDataset",

@@ -16,7 +16,11 @@ the JAX package's training reliability and observability
 ``train.crash`` fault point, the telemetry report (``telemetry``,
 ``telemetry_out``, ``telemetry_prom_out``, ``Booster.get_telemetry``),
 phase spans (``trace_out``) and a ``torch.profiler`` trace parsed into
-legs (``profile_trace_dir``).  The device comes from ``device_type``
+legs (``profile_trace_dir``); and multi-host pods (`engine.py:41-175,
+565-612`): the pod joined before the dataset is built
+(``parallel/multihost.py``), a heartbeat before every iteration that
+names a dead rank, the rank-skew gauges it carries, and at the end the
+clock handshake and the per-rank trace (``observability/podtrace.py``).  The device comes from ``device_type``
 (``config.resolve_device``): the CUDA card unless the params ask for the
 CPU.
 """
@@ -55,8 +59,17 @@ class Booster:
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._train_set = train_set
+        # a pod's heartbeat net (``parallel/multihost.py``) and the last
+        # step's host seconds, which ride the heartbeat
+        self._mh_net = None
+        self._last_step_s: Optional[float] = None
         if train_set is not None:
             check_supported(self.cfg)
+            # join the pod before the dataset is built: the elastic loader
+            # exchanges its shards over the pod's store
+            from .parallel import multihost
+            if multihost.initialize_from_config(self.cfg, self.device):
+                self._mh_net = multihost.net_for_run(self.cfg)
             t0 = time.perf_counter()
             train_set.construct()
             bin_s = time.perf_counter() - t0
@@ -66,8 +79,16 @@ class Booster:
             if self.cfg.is_provide_training_metric:
                 train_metrics = self._make_metrics(train_set)
             self.gbdt.init(train_set, objective, train_metrics)
+            tel = self.gbdt.telemetry
             # binning ran before the GBDT and its telemetry existed
-            self.gbdt.telemetry.add_phase_time("binning", bin_s)
+            tel.add_phase_time("binning", bin_s)
+            if self._mh_net is not None:
+                tel.set_distributed(
+                    process_count=int(self._mh_net.num_machines),
+                    process_index=int(self._mh_net.rank))
+                if self.cfg.elastic:
+                    tel.set_elastic(epoch=int(self.cfg.elastic_epoch),
+                                    members=int(self._mh_net.num_machines))
         elif model_file is not None:
             with open(model_file) as fh:
                 self._load_from_string(fh.read())
@@ -116,10 +137,73 @@ class Booster:
         training should stop.  ``fobj(preds, train_set)`` returns the
         gradients and hessians of a custom objective at the current raw
         scores (one host read)."""
+        tel = self.gbdt.telemetry
+        if self._mh_net is not None:
+            self._heartbeat(tel)
+        t0 = time.perf_counter()
         if fobj is None:
-            return self.gbdt.train_one_iter()
-        grad, hess = fobj(self._curr_preds(), self._train_set)
-        return self.gbdt.train_one_iter(grad, hess)
+            ret = self.gbdt.train_one_iter()
+        else:
+            grad, hess = fobj(self._curr_preds(), self._train_set)
+            ret = self.gbdt.train_one_iter(grad, hess)
+        self._last_step_s = time.perf_counter() - t0
+        return ret
+
+    def _heartbeat(self, tel) -> None:
+        """The pod's liveness agreement before an iteration (JAX
+        `engine.py:103-130`), on either loop (both step through
+        ``update``): a host that died since the last iteration surfaces
+        here as a ``RankDeathError`` naming the dead rank, with the
+        iteration and the membership epoch, within the collective
+        deadline, instead of a hang in the next collective.  With
+        telemetry the last step's host seconds ride the same allgather."""
+        from .parallel.multihost import RankDeathError
+        payload = self._last_step_s if tel.enabled else None
+        with tel.phase("heartbeat"):
+            try:
+                peers = self._mh_net.heartbeat(self.gbdt.iter_,
+                                               payload=payload)
+            except RankDeathError as e:
+                raise RankDeathError(
+                    f"training aborted before iteration "
+                    f"{self.gbdt.iter_ + 1} (membership epoch {e.epoch}): "
+                    f"{e}", dead_ranks=e.dead_ranks, epoch=e.epoch) from None
+        if tel.enabled:
+            self._note_rank_skew(peers)
+
+    def _note_rank_skew(self, peers) -> None:
+        """The rank-skew gauges from the heartbeat's gathered step times
+        (JAX `engine.py:144-175`); past ``telemetry_skew_warn_ratio`` a
+        warning naming the slowest rank."""
+        import warnings
+        tel = self.gbdt.telemetry
+        times: Dict[int, Optional[float]] = {}
+        for p in peers or ():
+            if isinstance(p, tuple) and len(p) >= 4 and p[0] == "hb":
+                times[int(p[1])] = None if p[3] is None else float(p[3])
+        vals = sorted(v for v in times.values() if v is not None)
+        if not vals:
+            return
+        tel.set_distributed(rank_step_s={str(r): v for r, v
+                                         in sorted(times.items())})
+        if len(vals) < 2:
+            return
+        m = len(vals)
+        med = vals[m // 2] if m % 2 else \
+            0.5 * (vals[m // 2 - 1] + vals[m // 2])
+        slow_s, slow_rank = max(
+            (v, r) for r, v in times.items() if v is not None)
+        ratio = (slow_s / med) if med > 0 else 0.0
+        warn_ratio = float(getattr(self.cfg, "telemetry_skew_warn_ratio",
+                                   0.0))
+        tel.set_distributed(skew_ratio=ratio, slowest_rank=int(slow_rank),
+                            skew_warn_ratio=warn_ratio)
+        if warn_ratio > 0 and ratio > warn_ratio:
+            tel.inc("straggler_warnings")
+            warnings.warn(
+                f"straggler: rank {slow_rank} last step "
+                f"{slow_s * 1e3:.1f} ms is {ratio:.2f}x the pod median "
+                f"({med * 1e3:.1f} ms)")
 
     def _curr_preds(self) -> np.ndarray:
         return self.gbdt.metric_score(self.gbdt.train_score)
@@ -507,6 +591,17 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
             raise RuntimeError(f"profile_trace_dir={cfg.profile_trace_dir}:"
                                f" the profiler wrote no trace with events")
         gbdt.telemetry.set_distributed(profile=prof)
+    clock = None
+    if booster._mh_net is not None and cfg.telemetry \
+            and (cfg.telemetry_out or cfg.trace_out):
+        # one clock handshake serves the report's distributed.clock and the
+        # per-rank trace's metadata (JAX `engine.py:576-611`)
+        from .observability import podtrace
+        clock = podtrace.estimate_clock_offset(booster._mh_net)
+        gbdt.telemetry.set_distributed(clock={
+            "offset_us": clock["offset_s"] * 1e6,
+            "rtt_us": clock["rtt_s"] * 1e6,
+            "rounds": clock["rounds"], "method": clock["method"]})
     if cfg.telemetry and cfg.telemetry_out:
         from .observability import write_report
         write_report(booster.get_telemetry(), cfg.telemetry_out)
@@ -518,7 +613,13 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
         os.replace(tmp, cfg.telemetry_prom_out)
     if tracer is not None:
         gbdt._flush_pending()                # the queued trees' spans
-        tracer.save(cfg.trace_out)
+        # ``<trace_out>.rank<r>`` in a pod, the handshake in its otherData
+        # for ``podtrace.merge_pod_trace``
+        from .observability import podtrace
+        podtrace.export_rank_trace(tracer, cfg.trace_out,
+                                   net=booster._mh_net, clock=clock)
+    if booster._mh_net is not None:
+        booster._mh_net.close()
     return booster
 
 

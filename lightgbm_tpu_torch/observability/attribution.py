@@ -21,10 +21,13 @@ mechanisms say where device time goes:
     partition's kernels), every other kernel (PyTorch's own) to
     ``other``.
 
-The JAX package's exchange-window probe times the sharded learners'
-collective seam; it is not ported (ROADMAP.md Queue A, "multi-GPU and
-multi-host", item 7b): the port's mesh counts the host seconds of every
-collective instead (``parallel/sharding.py:Mesh.seconds``).
+  * **Exchange-window probe** (``SampledSync.probe_exchange``, on the
+    sampled iterations of a sharded run): the learner's representative
+    collective (``exchange_probe``: the data axis's histogram
+    reduce-scatter, feature parallel's winner all-gather) timed alone,
+    best of three after a warm-up, as ``sync.exchange_probe`` and the
+    ``exchange_probe_ms`` gauge.  The mesh also counts the host seconds of
+    every collective the run issues (``parallel/sharding.py:Mesh.seconds``).
 """
 
 from __future__ import annotations
@@ -40,9 +43,9 @@ from typing import Any, Dict, List, Optional
 #: legs the profiler parse speaks in
 LEGS = ("hist", "scan", "partition", "replay", "flush")
 
-#: sync.* phases that are not iteration legs: the iteration wall itself and
-#: the pre-iteration queue drain
-_NON_LEG_SYNC = ("sync.iteration", "sync.drain")
+#: sync.* phases that are not iteration legs: the iteration wall itself, the
+#: pre-iteration queue drain and the exchange probe
+_NON_LEG_SYNC = ("sync.iteration", "sync.drain", "sync.exchange_probe")
 
 #: per-iteration host phases folded into the table so the leg sum tracks
 #: the whole iteration wall (their global means estimate their share of a
@@ -91,6 +94,28 @@ class SampledSync:
         force_sync(*tensors)
         self.tel.add_phase_time(f"sync.{name}",
                                 time.perf_counter() - t0, t0=t0)
+
+    def probe_exchange(self, learner) -> None:
+        """Time the learner's exchange probe (JAX `attribution.py:162-185`):
+        best of three synced calls after one warm-up, recorded as
+        ``sync.exchange_probe`` and the ``exchange_probe_ms`` gauge.  Every
+        rank samples the same iterations, so the probe's collective is
+        entered pod-wide together.  No-op for a learner without an
+        exchange seam (the serial ones)."""
+        probe = getattr(learner, "exchange_probe", None)
+        if probe is None:
+            return
+        fn, args = probe()
+        t0 = time.perf_counter()
+        force_sync(fn(*args))
+        best = float("inf")
+        for _ in range(3):
+            t = time.perf_counter()
+            force_sync(fn(*args))
+            best = min(best, time.perf_counter() - t)
+        self.tel.add_phase_time("sync.exchange_probe",
+                                time.perf_counter() - t0, t0=t0)
+        self.tel.gauge("exchange_probe_ms", best * 1e3)
 
     def drain(self, *tensors: Any) -> None:
         """The queue drain before a bracketed iteration, so it measures only

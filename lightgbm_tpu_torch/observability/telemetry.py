@@ -64,10 +64,14 @@ def provenance_section(device=None) -> Dict[str, Any]:
     otherwise, and ``emulated`` is true unless it is a CUDA device, so a
     CPU number can never pass for a card's.  The schema requires
     ``jax_version``; the port writes ``"none"``.  It has no cost ledger
-    (``cost_ledger_sha256`` null)."""
+    (``cost_ledger_sha256`` null).  ``num_hosts`` and ``process_index``
+    are the pod's hosts and this host's index (``multihost.host_layout``).
+    """
     import torch
 
+    from ..parallel.multihost import host_layout
     cuda = device is not None and torch.device(device).type == "cuda"
+    num_hosts, host_index, _ = host_layout()
     return {
         "platform": "gpu" if cuda else "cpu",
         "device_kind": torch.cuda.get_device_name(torch.device(device))
@@ -75,7 +79,8 @@ def provenance_section(device=None) -> Dict[str, Any]:
         "jax_version": "none",
         "torch_version": str(torch.__version__),
         "num_devices": int(torch.cuda.device_count()) if cuda else 1,
-        "num_hosts": 1, "process_index": 0, "emulated": not cuda,
+        "num_hosts": int(num_hosts), "process_index": int(host_index),
+        "emulated": not cuda,
         "mesh_shape": None, "cost_ledger_sha256": None,
     }
 
@@ -131,6 +136,7 @@ class Telemetry:
         self._device_trees = 0
         self._provenance_extra: Dict[str, Any] = {}
         self._distributed: Dict[str, Any] = {}
+        self._elastic: Dict[str, Any] = {}
 
     # -- phases --------------------------------------------------------------
 
@@ -204,9 +210,16 @@ class Telemetry:
 
     def set_distributed(self, **kw: Any) -> None:
         """Merge facts into the report's ``distributed`` section (the
-        sampling period, the profiler parse)."""
+        sampling period, the profiler parse, a pod's process count and
+        index, rank step times, skew and clock handshake)."""
         if self.enabled:
             self._distributed.update(kw)
+
+    def set_elastic(self, **kw: Any) -> None:
+        """Merge elastic-pod facts (membership epoch, member count, the
+        recoveries) into the report's optional ``elastic`` section."""
+        if self.enabled:
+            self._elastic.update(kw)
 
     # -- device counter lane -------------------------------------------------
 
@@ -273,14 +286,17 @@ class Telemetry:
                      if v is not None})
         # failure accounting travels with every report (process-wide)
         from ..reliability.metrics import reliability_section
-        return {"schema_version": SCHEMA_VERSION, "enabled": self.enabled,
-                "phases": phases, "iterations": it, "counters": counters,
-                "gauges": gauges,
-                "collectives": self._collectives(ledger, counters,
-                                                 transport),
-                "provenance": prov,
-                "distributed": dist,
-                "reliability": reliability_section()}
+        rep = {"schema_version": SCHEMA_VERSION, "enabled": self.enabled,
+               "phases": phases, "iterations": it, "counters": counters,
+               "gauges": gauges,
+               "collectives": self._collectives(ledger, counters,
+                                                transport),
+               "provenance": prov,
+               "distributed": dist,
+               "reliability": reliability_section()}
+        if self._elastic:
+            rep["elastic"] = dict(self._elastic)
+        return rep
 
 
     @staticmethod

@@ -60,6 +60,20 @@ class TraceRecorder:
         # perf_counter matches the clock Telemetry._PhaseCtx stamps t0
         # with, so stage spans and explicit spans share one timeline.
         self._epoch = time.perf_counter()
+        # export metadata (rank, clock offsets) merged into ``otherData``,
+        # where the pod-trace merge reads it
+        self._metadata: Dict[str, Any] = {}
+
+    @property
+    def epoch(self) -> float:
+        """The ``perf_counter`` stamp every exported ts is relative to."""
+        return self._epoch
+
+    def set_metadata(self, **kw: Any) -> None:
+        """Attach export metadata (it lands in ``otherData``): a pod rank's
+        rank, process count and clock handshake ride here, so
+        ``podtrace.merge_pod_trace`` puts every rank on one timeline."""
+        self._metadata.update(kw)
 
     # -- thread-local trace-id binding ---------------------------------------
 
@@ -177,6 +191,7 @@ class TraceRecorder:
         other: Dict[str, Any] = {"dropped_spans": dropped,
                                  "clock": "perf_counter",
                                  "spans_recorded": self._total}
+        other.update(self._metadata)
         return {"traceEvents": meta + [e for _, e in events],
                 "displayTimeUnit": "ms",
                 "otherData": other}

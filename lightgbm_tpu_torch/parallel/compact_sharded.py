@@ -269,6 +269,28 @@ class ShardedSeams:
             return unpack_hist_words(words, sg, sh, 1.0 / self._q_mbar)
         return self._coll("psum_scatter", h, self.axis, dim=dim)
 
+    # -- the exchange-window probe ------------------------------------------
+
+    def _unledgered(self, op: str, axis, **kw):
+        """A mesh collective ``fn(x)`` that stays out of the mesh's counters
+        and the ledger: the probe measures the seam, it is not the run's."""
+        def fn(x):
+            saved = (self.mesh.calls, self.mesh.bytes, self.mesh.seconds)
+            try:
+                return getattr(self.mesh, op)(x, axis, **kw)
+            finally:
+                self.mesh.calls, self.mesh.bytes, self.mesh.seconds = saved
+        return fn
+
+    def exchange_probe(self):
+        """(fn, args): the seam's representative collective for
+        ``SampledSync.probe_exchange`` (JAX ``compact_sharded.py:544``),
+        the root histogram's reduce-scatter over the data axis on a zero
+        (F, B, 3) buffer."""
+        h = torch.zeros((self._local_cols, self.num_bins_padded, 3),
+                        dtype=self._acc, device=self.device)
+        return self._unledgered("psum_scatter", self.axis, dim=0), (h,)
+
     # -- the global best split ----------------------------------------------
 
     def _cand_rows(self, hist, sum_g, sum_h, cnt, feature_mask, depth_ok,

@@ -43,6 +43,14 @@ class FeatureSeams(ShardedSeams):
         self._local_cols = self.fs
         self.f_off = self.mesh.axis_index(self.axis) * self.fs
 
+    def exchange_probe(self):
+        """(fn, args): feature parallel's only per-split wire traffic, the
+        all-gather of the best-split rows (JAX ``feature_sharded.py:163``),
+        on one zero row."""
+        from ..learner import NUM_CF
+        row = torch.zeros((1, NUM_CF), dtype=self._acc, device=self.device)
+        return self._unledgered("all_gather", self.axis), (row,)
+
     def _code_rows(self) -> np.ndarray:
         codes = self.data.bins
         if codes.shape[0] < self.f_pad:

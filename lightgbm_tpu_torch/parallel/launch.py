@@ -6,15 +6,18 @@ group from the environment ``torchrun`` sets).  ``RankPool`` is the
 in-process one the tests and ``chip_smoke.py`` use: N processes started
 with ``spawn`` (never ``fork``: a parent with JAX or CUDA loaded cannot be
 forked safely), each joined to a ``torch.distributed`` group over
-``tcp://localhost:<free port>`` with a timeout, each running the tasks the
-parent sends it in turn.  A task is a module-level function and its
-arguments; ``run`` returns every rank's return value.
+a ``TCPStore`` on ``localhost:<free port>`` (rank 0 hosts it) with a
+timeout, each running the tasks the parent sends it in turn.  A task is a
+module-level function and its arguments; ``run`` returns every rank's
+return value.
 
 No rank failure is swallowed: a rank that raises sends its traceback and
 exits non-zero, and a rank that dies is seen by its exit code; either way
 ``run`` kills every rank and raises ``RankFailure`` naming the rank, and
 the pool is closed.  The group's timeout bounds how long the surviving
-ranks wait in a collective for a dead peer.
+ranks wait in a collective for a dead peer.  Without a ``backend`` the
+ranks choose one from their cards (``sharding.default_backend``: NCCL when
+each has a card of its own).
 """
 
 from __future__ import annotations
@@ -39,16 +42,35 @@ def free_port() -> int:
         return int(s.getsockname()[1])
 
 
-def init_group(rank: int, world: int, port: int, backend: str,
-               timeout_s: float) -> None:
-    """Join rank ``rank`` of a ``world``-rank group at localhost:``port``."""
+def init_group(rank: int, world: int, port: int, backend: Optional[str],
+               timeout_s: float, device=None) -> str:
+    """Join rank ``rank`` of a ``world``-rank group at localhost:``port``
+    (rank 0 hosts the store); ``backend`` None lets the world choose from
+    the ranks' cards (``sharding.init_group``, ``device`` this rank's).
+    Returns the backend."""
     import torch.distributed as dist
-    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world,
-                            timeout=timedelta(seconds=timeout_s))
+
+    from .sharding import init_group as init_on_store
+    timeout = timedelta(seconds=timeout_s)
+    store = dist.TCPStore("localhost", port, world, rank == 0,
+                          timeout=timeout, wait_for_workers=False)
+    if backend is None:
+        return init_on_store(store, rank, world, device or "cpu", timeout)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world, timeout=timeout)
+    return backend
 
 
-def _worker(rank: int, world: int, port: int, backend: str,
+def _rank_device(rank: int):
+    """The card a pool rank trains on (``config.resolve_device``'s rule for
+    local rank ``rank``), or the CPU without one."""
+    import torch
+    if not torch.cuda.is_available():
+        return torch.device("cpu")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def _worker(rank: int, world: int, port: int, backend: Optional[str],
             timeout_s: float, threads: int, tasks, results) -> None:
     import torch
     import torch.distributed as dist
@@ -61,8 +83,9 @@ def _worker(rank: int, world: int, port: int, backend: str,
     try:
         if backend == "nccl":
             torch.cuda.set_device(rank % torch.cuda.device_count())
-        init_group(rank, world, port, backend, timeout_s)
-        results.put((rank, "ready", None))
+        chosen = init_group(rank, world, port, backend, timeout_s,
+                            _rank_device(rank))
+        results.put((rank, "ready", chosen))
         while True:
             task = tasks.get()
             if task is None:
@@ -85,26 +108,24 @@ class RankPool:
     def __init__(self, world: int, backend: Optional[str] = None,
                  timeout_s: float = 60.0, threads: int = 1,
                  start_timeout_s: float = 120.0):
-        import torch
         import torch.multiprocessing as mp
 
-        from .sharding import default_backend
         self.world = int(world)
-        self.backend = backend or default_backend(
-            self.world, torch.cuda.is_available())
         ctx = mp.get_context("spawn")
         self._results = ctx.Queue()
         self._tasks = [ctx.Queue() for _ in range(self.world)]
         port = free_port()
         self._procs = [ctx.Process(
-            target=_worker, args=(r, self.world, port, self.backend,
+            target=_worker, args=(r, self.world, port, backend,
                                   float(timeout_s), int(threads),
                                   self._tasks[r], self._results),
             daemon=True) for r in range(self.world)]
         for p in self._procs:
             p.start()
         self.closed = False
-        self._collect(start_timeout_s)
+        #: the group's backend: ``backend``, or the one the ranks' cards
+        #: chose (``sharding.default_backend``)
+        self.backend = self._collect(start_timeout_s)[0]
 
     def _fail(self, msg: str) -> None:
         self.close(kill=True)

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import re
 import time
+from datetime import timedelta
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -61,33 +62,68 @@ def is_primary() -> bool:
     return _world()[0] == 0
 
 
-def default_backend(local_ranks: int, cuda: bool) -> str:
-    """NCCL when the ranks train on cards and each of this host's
-    ``local_ranks`` ranks has a card of its own; gloo otherwise (the CPU,
-    or several ranks on one card, which NCCL refuses)."""
-    if cuda and torch.cuda.is_available() \
-            and torch.cuda.device_count() >= local_ranks:
+def card_id(device) -> Optional[str]:
+    """The identity of the card ``device`` names (its UUID), or None for a
+    CPU device: two ranks whose ids are equal share one card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return str(torch.cuda.get_device_properties(index).uuid)
+
+
+def default_backend(cards: Sequence[Optional[str]]) -> str:
+    """The backend of a world whose ranks train on ``cards`` (one entry a
+    rank, ``card_id``'s): NCCL only when every rank has a card and no two
+    share one; gloo otherwise (the CPU, or several ranks on one card, which
+    NCCL refuses)."""
+    cards = list(cards)
+    if cards and all(cards) and len(set(cards)) == len(cards):
         return "nccl"
     return "gloo"
 
 
+def init_group(store, rank: int, world: int, device,
+               timeout: timedelta) -> str:
+    """Join rank ``rank`` of a ``world``-rank process group on ``store``:
+    every rank posts its card (``card_id``) to the store first, and all of
+    them take ``default_backend`` of the posted cards, so the choice is the
+    world's, the same on every rank.  Returns the backend."""
+    from torch.distributed import PrefixStore
+    cards = PrefixStore("lgbt-cards", store)
+    cards.set(f"r{rank}", card_id(device) or "")
+    keys = [f"r{r}" for r in range(world)]
+    cards.wait(keys, timeout)
+    backend = default_backend(
+        [cards.get(k).decode() or None for k in keys])
+    if backend == "nccl":
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(backend, store=PrefixStore("lgbt-pg", store),
+                            rank=rank, world_size=world, timeout=timeout)
+    return backend
+
+
+def group_timeout(cfg) -> timedelta:
+    """The process group's (and a pod store's) timeout: ``time_out``
+    minutes."""
+    return timedelta(minutes=max(int(getattr(cfg, "time_out", 120) or 120),
+                                 1))
+
+
 def init_from_env(cfg, device) -> None:
     """Join the process group a launcher describes in the environment
-    (``torchrun`` sets ``WORLD_SIZE``, ``RANK``, ``LOCAL_WORLD_SIZE``,
-    ``MASTER_ADDR`` and ``MASTER_PORT``), unless one is initialized or the
-    world is one rank: ``default_backend``'s choice, with ``time_out``
-    minutes as the collectives' timeout."""
+    (``torchrun`` sets ``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``), unless one is initialized or the world is one rank:
+    the ``env://`` rendezvous's store, ``init_group`` on it, with
+    ``time_out`` minutes as the collectives' timeout."""
     import os
-    from datetime import timedelta
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world <= 1 or (dist.is_available() and dist.is_initialized()):
         return
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    backend = default_backend(local, torch.device(device).type == "cuda")
-    dist.init_process_group(
-        backend, init_method="env://",
-        timeout=timedelta(minutes=max(int(getattr(cfg, "time_out", 120)),
-                                      1)))
+    timeout = group_timeout(cfg)
+    store, rank, world = next(dist.rendezvous("env://", timeout=timeout))
+    init_group(store, rank, world, device, timeout)
 
 
 class Mesh:

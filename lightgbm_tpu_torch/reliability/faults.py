@@ -17,14 +17,21 @@ Spec grammar (semicolon-separated clauses)::
     train.crash:nth=3                 # engine.train dies after iteration 3
     serving.replica_fault:rank=1      # fleet replica 1's batch fails over
                                       # to the host and the replica ejects
+    net.send.drop:rank=1              # SocketNet rank 1's send closes
+    net.send.delay:rank=2:seconds=3   # ... stalls before sending
+    net.send.truncate:rank=1          # ... sends half a frame and closes
+    net.crash:rank=1:nth=3            # rank 1 exits (17) at its 3rd
+                                      # collective (DistributedNet, SocketNet)
 
-Those five points are the ones the port fires (``train.crash`` in
+The port fires every point of the JAX package: ``train.crash`` in
 ``engine.train``, after the iteration's snapshot, if one is due;
 ``serving.replica_fault`` in `serving/fleet/replicas.py`, matched by
-replica index).  The JAX package's others (``net.send.*``, ``net.crash``)
-belong to modules the port does not carry yet: a spec that arms one raises ``NotImplementedError`` naming its ROADMAP.md
-Queue A item (``config.not_ported``), so an injection never silently
-no-ops there.
+replica index; the ``net.send.*`` points in ``io/net.py:_send_msg`` and
+``net.crash`` at the entry of ``SocketNet.allgather`` and
+``parallel/multihost.py:DistributedNet.allgather``, matched by the net's
+rank.  ``NOT_PORTED`` is empty; a spec naming one of its points would
+raise ``NotImplementedError`` naming its ROADMAP.md Queue A item
+(``config.not_ported``), so an injection never silently no-ops.
 
 Clause keys understood everywhere: ``rank`` (only fire for that rank;
 default any), ``nth`` (first firing hit, 1-based, counted per clause over
@@ -43,15 +50,14 @@ import os
 import threading
 from typing import Dict, List, Optional
 
-from ..config import PARALLEL, not_ported
+from ..config import not_ported
 from .metrics import rel_inc
 
 ENV_VAR = "LGBT_FAULTS"
 
 #: the JAX package's injection points whose code the port does not carry
-#: yet, with the Queue A item that brings each
-NOT_PORTED = {"net.send.drop": PARALLEL, "net.send.delay": PARALLEL,
-              "net.send.truncate": PARALLEL, "net.crash": PARALLEL}
+#: yet, with the Queue A item that would bring each: none
+NOT_PORTED: Dict[str, str] = {}
 
 
 class InjectedFault(RuntimeError):

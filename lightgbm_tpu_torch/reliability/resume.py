@@ -94,7 +94,7 @@ def config_fingerprint(cfg) -> str:
 
 def topology_fingerprint(cfg) -> str:
     """Hash of the world-shape subset of a ``Config``; a mismatch refuses
-    the snapshot (the port trains on one card)."""
+    the snapshot, but for an elastic resume."""
     d = {k: getattr(cfg, k, None) for k in sorted(_TOPOLOGY_KEYS)}
     return _hash(d)
 
@@ -192,10 +192,15 @@ def restore_training_state(gbdt, state: Dict[str, Any]) -> bool:
 
 
 def _validate(path: str, fingerprint: Optional[str] = None,
-              topology: Optional[str] = None) -> Tuple[bool, str, str]:
+              topology: Optional[str] = None,
+              allow_topology_change: bool = False
+              ) -> Tuple[bool, str, str]:
     """(ok, kind, reason); ``kind`` is the rejection class the reliability
     counters key on (``unreadable``, ``truncated``, ``sidecar_unreadable``,
-    ``fingerprint_mismatch``, ``topology_mismatch``)."""
+    ``fingerprint_mismatch``, ``topology_mismatch``).  With
+    ``allow_topology_change`` (an elastic resume) a world-shape mismatch is
+    accepted as ``kind == "topology_changed"``, for the caller to warn and
+    count."""
     try:
         with open(path) as fh:
             text = fh.read()
@@ -223,9 +228,15 @@ def _validate(path: str, fingerprint: Optional[str] = None,
         got_topo = meta.get("topology_fingerprint")
         if topology is not None and got_topo is not None \
                 and got_topo != topology:
-            return False, "topology_mismatch", \
-                (f"world-shape fingerprint mismatch (snapshot {got_topo}, "
-                 f"current {topology})")
+            if not allow_topology_change:
+                return False, "topology_mismatch", \
+                    (f"world-shape fingerprint mismatch (snapshot "
+                     f"{got_topo}, current {topology}) — this is not an "
+                     f"elastic run; refusing to resume a model trained "
+                     f"under a different topology")
+            return True, "topology_changed", \
+                (f"topology changed (snapshot {got_topo}, current "
+                 f"{topology}) — accepted for elastic resume")
     return True, "ok", "ok"
 
 
@@ -243,14 +254,21 @@ def find_resume_snapshot(output_model: str,
     """The newest valid snapshot of ``output_model`` as (iteration, path),
     or None.  Invalid ones are skipped newest first with a warning naming
     the reason, each rejection counted in the reliability counters
-    (``snapshots_rejected.<kind>``)."""
+    (``snapshots_rejected.<kind>``).  An ``elastic`` config accepts a
+    snapshot of another world shape (JAX `resume.py:188-270`), with a
+    warning and ``snapshots_resumed_after_shrink``."""
     if not output_model:
         return None
     fp = config_fingerprint(cfg) if cfg is not None else None
     topo = topology_fingerprint(cfg) if cfg is not None else None
+    elastic = bool(getattr(cfg, "elastic", False))
     for iteration, path in reversed(list_snapshots(output_model)):
-        ok, kind, reason = _validate(path, fp, topology=topo)
+        ok, kind, reason = _validate(path, fp, topology=topo,
+                                     allow_topology_change=elastic)
         if ok:
+            if kind == "topology_changed":
+                warnings.warn(f"elastic resume from {path}: {reason}")
+                rel_inc("snapshots_resumed_after_shrink")
             return iteration, path
         warnings.warn(f"skipping snapshot {path}: {reason}")
         rel_inc("snapshots_rejected")
@@ -282,12 +300,16 @@ def save_snapshot(gbdt, output_model: str, iteration: int, cfg) -> str:
     """Flush the pipelined loop's queued trees (else the text would miss
     trees the score holds), then write the snapshot, its sidecars and the
     retention in one call."""
+    from ..parallel import multihost
     from ..parallel.sharding import is_primary
     gbdt._flush_pending()
     path = snapshot_path(output_model, iteration)
     state = snapshot_state(gbdt)
-    if not is_primary():
-        # every rank gathers the score; rank 0 writes
+    # every rank gathers the score; rank 0 writes, and in a pod the first
+    # rank of every host, so each host resumes from its own disk
+    writer = multihost.host_rank() == 0 if multihost.is_initialized() \
+        else is_primary()
+    if not writer:
         return path
     gbdt.save_model_to_file(path)
     write_snapshot_meta(path, iteration, cfg)

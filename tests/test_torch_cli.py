@@ -7,8 +7,8 @@ must be equal, and ``task=predict`` outputs of the two agree within 1e-6;
 the masked learner, whose JAX programs compile in a few seconds.  The
 argument parser takes what the JAX package's takes.  ``task=serve`` with
 ``serve_replicas=2`` serves through the fleet gateway, ``autopilot=true``
-without its inputs raises, and the multi-GPU keys raise their named
-errors; the training telemetry and resume keys train.  One subprocess runs
+without its inputs raises; the training telemetry and resume keys train,
+and so does ``num_machines=2``, to the JAX CLI's model.  One subprocess runs
 ``python -m lightgbm_tpu_torch`` on the CPU and loads no JAX module.
 """
 
@@ -142,7 +142,7 @@ def test_serve_and_telemetry_raise_named_errors(workdir):
     ``autopilot=true`` without the train source raises naming ``data=``.
     The telemetry keys train: ``--telemetry-out`` (implying telemetry)
     writes the report, ``--resume`` continues from the newest snapshot;
-    a multi-GPU key raises its title."""
+    ``num_machines=2`` trains the model both CLIs train without it."""
     import socket
     import threading
 
@@ -190,9 +190,17 @@ def test_serve_and_telemetry_raise_named_errors(workdir):
         assert cli.main(args + ["--resume"]) == 0
         assert (workdir / "tel.txt").read_text() \
             == (workdir / "port.txt").read_text()
-        with pytest.raises(NotImplementedError,
-                           match="multi-GPU and multi-host"):
-            cli.main(args + ["num_machines=2"])
+        # num_machines only deals the rows of a stream across machines
+        # (``io/distributed.py``): an in-memory CLI run trains the same
+        # model with it, as the JAX CLI does
+        plain = ["config=train.conf", "device_type=cpu",
+                 "output_model=nm2.txt", "num_machines=2"]
+        assert cli.main(plain) == 0
+        assert jcli.main(["config=train.conf", "output_model=jnm2.txt",
+                          "num_machines=2"]) == 0
+        assert (workdir / "nm2.txt").read_text() \
+            == (workdir / "jnm2.txt").read_text() \
+            == (workdir / "port.txt").read_text()
     finally:
         os.chdir(old)
 

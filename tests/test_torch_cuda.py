@@ -1821,3 +1821,27 @@ def test_two_rank_data_parallel_tree_on_card(cuda_device):
         np.testing.assert_array_equal(o["rec_i"], ri)
         np.testing.assert_array_equal(o["leaf_id"], lid.cpu().numpy())
         assert all(v > 0 for v in o["launches"].values()), o["launches"]
+
+
+def test_two_ranks_on_one_card_choose_gloo(cuda_device):
+    """The backend is the world's choice from every rank's card UUID
+    (``sharding.default_backend``): two ranks on the one card share a UUID,
+    so a pool that leaves the backend open takes gloo (NCCL refuses two
+    ranks on one device); one rank with a card of its own would take
+    NCCL."""
+    import os
+    import sys
+
+    from lightgbm_tpu_torch.parallel.launch import RankPool
+    from lightgbm_tpu_torch.parallel.sharding import card_id, default_backend
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_parallel_tasks as tasks
+
+    uuid = card_id(cuda_device)
+    assert uuid and default_backend([uuid]) == "nccl"
+    assert default_backend([uuid, uuid]) == "gloo"
+    if torch.cuda.device_count() > 1:
+        pytest.skip("two ranks get two cards here")
+    with RankPool(2) as pool:
+        assert pool.backend == "gloo"
+        assert [r[2] for r in pool.run(tasks.rank_info)] == ["gloo", "gloo"]

@@ -11,6 +11,7 @@ import os
 import re
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -152,16 +153,45 @@ def test_parallel_settings_train_serially_in_world_of_one(extra, tmp_path,
     {"profile_trace_dir": "prof", "num_hosts": 2},
     {"telemetry": True, "elastic": True},
 ])
-def test_unported_settings_raise(extra):
-    """The multi-host and elastic keys and the fault points of unported
-    modules raise (the training telemetry, trace, snapshot and resume keys
-    they are paired with train: ``tests/test_torch_telemetry.py``,
-    ``test_torch_resume.py``)."""
+def test_unported_settings_raise(extra, tmp_path, monkeypatch):
+    """The multi-host and elastic keys and the ``net.*`` fault points are
+    ported: each of these calls does what the JAX package's same call
+    does.  ``num_hosts`` without a coordinator is an under-specified pod
+    (``ValueError``); ``elastic`` on an in-memory Dataset warns that it
+    cannot re-deal and trains; ``num_machines`` and the ``net.*`` points
+    (which fire only in a net's collectives) train."""
+    import lightgbm_tpu as lj
+    from lightgbm_tpu.reliability import faults as jfaults
+
+    from lightgbm_tpu_torch.reliability import faults
+    monkeypatch.chdir(tmp_path)
+    for k in ("LGBT_COORDINATOR", "LGBT_NUM_HOSTS", "LGBT_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
     X, y = _problem()
-    params = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
-              "num_leaves": 4, **extra}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        lt.train(params, lt.Dataset(X, label=y), 1, verbose_eval=False)
+    params = {"objective": "binary", "verbosity": -1, "num_leaves": 4,
+              "output_model": "m.txt", **extra}
+
+    def outcome(pkg, p):
+        try:
+            with warnings.catch_warnings(record=True) as got:
+                warnings.simplefilter("always")
+                bst = pkg.train(p, pkg.Dataset(X, label=y, params=p), 1,
+                                verbose_eval=False)
+            return "trained", bst.num_trees(), [
+                str(w.message)[:40] for w in got
+                if w.category is RuntimeWarning]
+        except Exception as e:      # noqa: BLE001 — compared below
+            return type(e).__name__, str(e)[:40], []
+        finally:
+            faults.reset()
+            jfaults.reset()
+
+    if "profile_trace_dir" in extra:
+        (tmp_path / "prof").mkdir()
+    mine = outcome(lt, dict(params, device_type="cpu"))
+    theirs = outcome(lj, params)
+    assert mine == theirs
+    assert mine[0] == ("ValueError" if "num_hosts" in extra else "trained")
 
 
 def test_serving_fault_point_arms_in_training():

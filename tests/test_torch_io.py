@@ -170,10 +170,18 @@ def test_two_round_equals_in_memory_and_jax(tmp_path):
 
 
 def test_two_round_across_machines_stays_refused(tmp_path):
+    """``num_machines`` does not refuse a ``two_round`` load any more: the
+    Dataset takes every row with it, as the JAX package's does (a rank's
+    share is ``from_stream(rank=, num_machines=)``'s or the elastic
+    re-deal's: ``tests/test_torch_distributed_bin.py``)."""
     path = _stream_file(tmp_path, n=200)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        lt.Dataset(path, params=dict(CPU, header=True, two_round=True,
-                                     num_machines=2)).construct()
+    p = dict(header=True, two_round=True, num_machines=2)
+    mine = lt.Dataset(path, params=dict(CPU, **p)).construct().constructed
+    theirs = lj.Dataset(path, params=p).construct().constructed
+    assert mine.num_data == theirs.num_data == 200
+    np.testing.assert_array_equal(mine.bins, theirs.bins)
+    assert str([m.to_dict() for m in mine.bin_mappers]) \
+        == str([m.to_dict() for m in theirs.bin_mappers])
 
 
 def test_binary_cache_loads_in_both_directions(tmp_path):

@@ -187,15 +187,19 @@ def test_factory_routes_and_says_what_jax_says(mode, max_bin, capsys):
 
 
 def test_parallel_tree_learner_still_raises():
-    """Several hosts still raise; ``tree_learner=data`` past 256 bins gets
-    the masked learner from the factory and, in a world of one rank,
-    trains the serial model (under a process group the masked learner
-    trains sharded: ``tests/test_torch_parallel.py``)."""
+    """``num_machines`` trains as in the JAX package (it deals only a
+    stream's rows); ``tree_learner=data`` past 256 bins gets the masked
+    learner from the factory and, in a world of one rank, trains the serial
+    model (under a process group the masked learner trains sharded:
+    ``tests/test_torch_parallel.py``)."""
     X, y = _problem(2)
     params = dict(BASE, max_bin=511, tree_learner="data", device_type="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        lt.train(dict(params, num_machines=2), lt.Dataset(X, label=y), 1,
-                 verbose_eval=False)
+    two = dict(params, num_machines=2)
+    jtwo = {k: v for k, v in two.items() if k != "device_type"}
+    assert lt.train(two, lt.Dataset(X, label=y), 1,
+                    verbose_eval=False).num_trees() \
+        == lj.train(jtwo, lj.Dataset(X, label=y), 1,
+                    verbose_eval=False).num_trees() == 1
     dt = lt.Dataset(X, label=y, params=params).construct().constructed
     assert type(create_tree_learner(TConfig.from_params(params), dt,
                                     CPU)) is MaskedTreeLearner

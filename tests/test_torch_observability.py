@@ -11,7 +11,10 @@ op, ``stats_out`` snapshots), on the CPU (``device_type=cpu``).
 """
 
 import json
+import os
 import socket
+import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -24,6 +27,7 @@ from lightgbm_tpu.observability import LatencyHistogram as JHistogram
 from lightgbm_tpu.observability import validate_report as jvalidate
 from lightgbm_tpu.observability.metrics_export import \
     prometheus_text as jprometheus_text
+import lightgbm_tpu as lj
 from lightgbm_tpu.reliability import faults as jfaults
 
 import lightgbm_tpu_torch as lt
@@ -117,21 +121,95 @@ def test_bad_fault_spec_raises_as_jax(spec):
         faults.parse_spec(spec)
 
 
-@pytest.mark.parametrize("point,title", [
-    ("net.send.drop:rank=1", "multi-GPU and multi-host"),
-    ("net.send.delay:rank=2:seconds=3", "multi-GPU and multi-host"),
-    ("net.send.truncate:rank=1", "multi-GPU and multi-host"),
-    ("net.crash:rank=1:nth=2", "multi-GPU and multi-host")])
-def test_unported_fault_points_raise_their_titles(point, title, monkeypatch):
-    with pytest.raises(NotImplementedError, match=f"Queue A: {title}"):
-        faults.arm("serve.predict.fail;" + point)
-    with pytest.raises(NotImplementedError, match=title):
-        lt.Booster(model_str=_MODEL_TEXT[0],
-                   params=dict(CPU, fault_spec=point)).to_server(port=0)
+def _socket_ranks(n, body, deadline=5.0):
+    """``body(net, rank)`` on ``n`` threaded ``SocketNet`` ranks; each
+    rank's exception (or None) and the seconds the whole took."""
+    from lightgbm_tpu_torch.io.net import SocketNet
+    from lightgbm_tpu_torch.parallel.launch import free_port
+    port, errs = free_port(), [None] * n
+
+    def run(r):
+        try:
+            with SocketNet(r, n, ("127.0.0.1", port), timeout=15,
+                           collective_deadline=deadline) as net:
+                body(net, r)
+        except BaseException as e:  # noqa: BLE001 — asserted by the caller
+            errs[r] = e
+
+    t0 = time.monotonic()
+    ts = [threading.Thread(target=run, args=(r,), daemon=True)
+          for r in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=30)
+    return errs, time.monotonic() - t0
+
+
+_CRASH = """
+import threading, torch.distributed as dist
+from datetime import timedelta
+from lightgbm_tpu_torch.parallel import multihost
+from lightgbm_tpu_torch.reliability import faults
+faults.load()
+store = dist.TCPStore("127.0.0.1", 0, 1, True, timeout=timedelta(seconds=20))
+nets = []
+for r in range(2):
+    # two ranks of one pod in two threads: a store client and a namespace
+    # counter each, as two processes would have
+    multihost._ns_counts.clear()
+    nets.append(multihost.DistributedNet(
+        rank=r, num_machines=2, deadline_s=20, store=store.clone()))
+def run(net):
+    net.allgather(net.rank)
+    print("gathered", net.rank, flush=True)
+    net.allgather(net.rank)
+ts = [threading.Thread(target=run, args=(n,)) for n in nets]
+[t.start() for t in ts]
+[t.join() for t in ts]
+print("never")
+"""
+
+
+@pytest.mark.parametrize("point,site", [
+    ("net.send.drop:rank=1", "hello"),
+    ("net.send.delay:rank=2:seconds=3", "hello"),
+    ("net.send.truncate:rank=1", "hello"),
+    ("net.crash:rank=1:nth=2", "allgather")])
+def test_unported_fault_points_raise_their_titles(point, site, monkeypatch):
+    """The ``net.*`` points of the JAX package are ported: each arms from
+    ``faults.arm`` and ``LGBT_FAULTS`` as the JAX clause does, and fires at
+    its site.  ``net.send.*`` fire in ``SocketNet``'s sends (the first is
+    rank 1's hello: a drop or a truncation fails it with the injected
+    fault, and rank 0's handshake with a ``ConnectionError``; a delay
+    holds rank 2 three seconds and the collective completes);
+    ``net.crash`` exits a ``DistributedNet`` rank with code 17 at its
+    second collective."""
+    def fields(clauses):
+        return [(c.point, c.rank, c.nth, c.count, c.args) for c in clauses]
+    assert fields(faults.parse_spec(point)) \
+        == fields(jfaults.parse_spec(point))
     monkeypatch.setenv(faults.ENV_VAR, point)
     faults.reset()
-    with pytest.raises(NotImplementedError, match=title):
-        faults.load()
+    assert fields(faults.load()) == fields(jfaults.parse_spec(point))
+    name = point.split(":")[0]
+    if name == "net.crash":
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        out = subprocess.run([sys.executable, "-c", _CRASH], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 17, out.stderr
+        assert "gathered 1" in out.stdout and "never" not in out.stdout
+        return
+    errs, secs = _socket_ranks(3 if name == "net.send.delay" else 2,
+                               lambda net, r: net.allgather(r))
+    assert rel_get(f"fault.{name}") == 1
+    if name == "net.send.delay":
+        assert errs == [None, None, None] and secs >= 3.0
+        return
+    assert isinstance(errs[1], faults.InjectedFault)
+    assert f"injected fault {name} on rank 1" in str(errs[1])
+    assert isinstance(errs[0], ConnectionError) \
+        and "handshake failed" in str(errs[0])
 
 
 @pytest.mark.chaos
@@ -191,8 +269,9 @@ def _model_text():
                                     {"stats_out": "s.json"}])
 def test_training_keeps_refusing_observability(rng, params, tmp_path,
                                                monkeypatch):
-    """Training takes the observability keys now: each of them trains,
-    beside a multi-GPU key the refusal still names by its Queue A title."""
+    """Training takes the observability keys now: each of them trains, and
+    so does each beside ``num_machines=2``, as the JAX package's same call
+    does (it deals only a stream's rows)."""
     monkeypatch.chdir(tmp_path)
     X = rng.randn(200, 3)
     y = (X[:, 0] > 0).astype(float)
@@ -202,9 +281,23 @@ def test_training_keeps_refusing_observability(rng, params, tmp_path,
                         verbose_eval=False).num_trees() == 2
     finally:
         faults.reset()
-    with pytest.raises(NotImplementedError, match="multi-GPU and multi-host"):
-        lt.train(dict(p, num_machines=2), lt.Dataset(X, label=y), 1,
-                 verbose_eval=False)
+    jp = {k: v for k, v in p.items() if k != "device_type"}
+
+    def trees(bst):
+        return [ln for ln in bst.model_to_string().splitlines()
+                if ln.startswith(("split_feature=", "threshold="))]
+    try:
+        one = lt.train(p, lt.Dataset(X, label=y), 1, verbose_eval=False)
+        mine = lt.train(dict(p, num_machines=2), lt.Dataset(X, label=y), 1,
+                        verbose_eval=False)
+        jone = lj.train(jp, lj.Dataset(X, label=y), 1, verbose_eval=False)
+        theirs = lj.train(dict(jp, num_machines=2), lj.Dataset(X, label=y),
+                          1, verbose_eval=False)
+    finally:
+        faults.reset()
+        jfaults.reset()
+    assert mine.num_trees() == theirs.num_trees() == 1
+    assert trees(mine) == trees(one) and trees(theirs) == trees(jone)
 
 
 def test_train_crash_point_arms_and_fires(rng, monkeypatch):

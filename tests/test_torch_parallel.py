@@ -514,16 +514,19 @@ def test_spawned_ranks_pick_their_own_card(pool2):
 
 
 def test_default_backend(monkeypatch):
-    """NCCL only when the ranks train on cards and each local rank has a
-    card of its own; gloo otherwise."""
-    from lightgbm_tpu_torch.parallel.sharding import default_backend
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert default_backend(2, True) == "nccl"
-    assert default_backend(4, True) == "gloo"
-    assert default_backend(2, False) == "gloo"
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert default_backend(1, True) == "gloo"
+    """The world's backend from every rank's card: NCCL only when each rank
+    has a card and no two share one; gloo otherwise (the CPU, two ranks on
+    one card).  A pool without a backend lets its ranks choose."""
+    from lightgbm_tpu_torch.parallel.sharding import card_id, default_backend
+    assert default_backend(["GPU-a", "GPU-b"]) == "nccl"
+    assert default_backend(["GPU-a", "GPU-a"]) == "gloo"
+    assert default_backend(["GPU-a", None]) == "gloo"
+    assert default_backend([None, None]) == "gloo"
+    assert default_backend([]) == "gloo"
+    assert card_id("cpu") is None
+    with RankPool(2) as pool:
+        assert pool.backend == "gloo"
+        assert [r[2] for r in pool.run(tasks.rank_info)] == ["gloo", "gloo"]
 
 
 def test_failing_task_names_the_rank():

@@ -351,8 +351,8 @@ def test_dataset_accessors_and_subset():
 def test_resume_stays_refused(tmp_path):
     """``resume`` is ported (``tests/test_torch_resume.py``): with no
     snapshot beside ``output_model`` both packages train from scratch to
-    the same trees.  The multi-GPU keys beside it stay refused by their
-    Queue A title."""
+    the same trees.  ``num_machines`` beside it trains too, to the same
+    trees as the JAX package's same call (it deals only a stream's rows)."""
     X, y = _data(n=200)
     params = dict(PARAMS, output_model=str(tmp_path / "model.txt"))
     bt = lt.train(_p(lt, params), lt.Dataset(X, label=y), 2, resume=True,
@@ -361,9 +361,14 @@ def test_resume_stays_refused(tmp_path):
                   verbose_eval=False)
     assert bt.num_trees() == 2
     assert_same_trees(bt, bj)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        lt.train(_p(lt, dict(params, num_machines=2)),
-                 lt.Dataset(X, label=y), 1, resume=True, verbose_eval=False)
+    two = dict(params, num_machines=2,
+               output_model=str(tmp_path / "two.txt"))
+    bt2 = lt.train(_p(lt, two), lt.Dataset(X, label=y), 1, resume=True,
+                   verbose_eval=False)
+    bj2 = lj.train(_p(lj, two), lj.Dataset(X, label=y), 1, resume=True,
+                   verbose_eval=False)
+    assert bt2.num_trees() == 1
+    assert_same_trees(bt2, bj2)
 
 
 # ---------------------------------------------------------------------------
