@@ -293,8 +293,10 @@ line and each raising (exit code 1) on any failure:
              read; 1 for the others), the held-out metric, seconds per
              iteration, the card's gradients within 1e-6 (relative) of the
              CPU objective's on the same scores
-  rank_train lambdarank at MS LTR's width (2,270,296 rows, 137 features:
-             the reference's docs/Experiments.rst), synthetic from a seed,
+  rank_train lambdarank at MS LTR's width (137 features: the reference's
+             docs/Experiments.rst; 567,574 rows, a quarter of its 2,270,296
+             training rows, and a FindBin sample of 50,000, for the time
+             limit), synthetic from a seed,
              queries of 120 documents, relevance 0-4 from a latent score;
              num_leaves=255, eval_at=1,3,5,10, 5 iterations, 1,000 held-out
              queries: the wave kernels launched, host syncs per tree (1),
@@ -351,6 +353,15 @@ line and each raising (exit code 1) on any failure:
              deadline); elastic.run_host on 3 hosts over the CSV, host 1
              killed at its 5th collective (every round done, the
              survivors' models equal, held-out AUC within 2e-3 of serial)
+  analysis   the analysis gate's recompile sentinel (``python -m
+             lightgbm_tpu_torch.analysis``'s ``recompile`` pass) on the
+             card: tiny wave, quantized and compact boosters warmed two
+             iterations, a serving model warmed at buckets 32 and 64, the
+             capture counters armed, two more iterations each and requests
+             of 1, b/2 and b rows in each bucket; fails unless the pass ran
+             (not skipped), the wave, quant, compact and serving counters
+             were registered and had captured during warm-up, and not one
+             graph was captured after arming (before and after printed)
   timing     each of nine kernels' (bin_predict's in its own phase), its
              plain version's and (where one PyTorch call computes the same
              function) the library call's
@@ -416,7 +427,7 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "objectives_train", "rank_train", "categorical_train",
           "categorical_2047", "wave_4095", "goss_train", "dart_train",
           "rf_train", "surface", "sharded_train", "multihost_train",
-          "timing")
+          "analysis", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -4161,13 +4172,17 @@ OBJECTIVE_CASES = (("regression", {"reg_sqrt": True}), ("regression_l1", {}),
                    ("tweedie", {}), ("multiclassova", {"num_class": 3}),
                    ("cross_entropy", {}), ("cross_entropy_lambda", {}))
 RENEWING = ("regression_l1", "quantile", "mape")
-#: MS LTR's width (the reference's docs/Experiments.rst): training rows,
-#: features; synthetic queries of 120 documents, 1,000 held out
+#: MS LTR's width (the reference's docs/Experiments.rst): features, queries
+#: of 120 synthetic documents, 1,000 held out; its depth cut to a quarter
+#: of its 2,270,296 training rows, and host FindBin to a 50,000-row sample
+#: (the default 200,000 took about 108 s of the phase's binning, 126 s of
+#: its 142 s, with every phase at 1,116 s of the 1,200 s limit on one card)
 RANK_ROWS, RANK_FEATURES, RANK_QUERY, RANK_VALID_QUERIES = \
-    2_270_296, 137, 120, 1_000
+    2_270_296 // 4, 137, 120, 1_000
 RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255, "max_bin": 255,
                "learning_rate": 0.1, "min_data_in_leaf": 20,
-               "verbosity": -1, "metric": "ndcg", "eval_at": [1, 3, 5, 10]}
+               "verbosity": -1, "metric": "ndcg", "eval_at": [1, 3, 5, 10],
+               "bin_construct_sample_cnt": 50_000}
 
 
 @contextmanager
@@ -6582,6 +6597,31 @@ def _multihost_legs(ctx, tmp: str, out: dict) -> None:
     check(ebst.num_trees() == ELASTIC_ITERS and abs(auc_e - auc_s) < 2e-3,
           f"multihost_train elastic: AUC {auc_e} vs serial {auc_s}")
     out["phase_s"] = time.perf_counter() - t_phase
+
+
+def phase_analysis(ctx) -> None:
+    """The recompile sentinel of the analysis gate on the card (see the
+    module docstring): zero CUDA graph captures after warm-up."""
+    from lightgbm_tpu_torch.analysis import recompile
+
+    t0 = time.perf_counter()
+    findings, detail, skip = recompile.run("cuda")
+    secs = time.perf_counter() - t0
+    armed = detail.get("armed", {})
+    emit({"phase": "analysis", "seconds": secs, "skip": skip,
+          "counters": {k: v for k, v in detail.items() if k != "armed"},
+          "findings": [str(f) for f in findings]})
+    check(skip is None, f"the recompile sentinel skipped on the card: {skip}")
+    need = ("train_step_wave", "quant_train_step_wave", "train_step_compact",
+            "serving_graphs")
+    check(all(armed.get(k, 0) > 0 for k in need),
+          f"counters {need} registered and captured during warm-up: "
+          f"{armed}")
+    check(armed["serving_graphs"] == 2, f"two bucket graphs: {armed}")
+    check(not findings, "captures after arm(): "
+          + "; ".join(str(f) for f in findings))
+    check(all(v["before"] == v["after"] for k, v in detail.items()
+              if k != "armed"), f"counters moved: {detail}")
 
 
 def phase_timing(ctx) -> None:

@@ -794,8 +794,15 @@ class GBDT:
                 tel.set_provenance(mesh_shape=str(dict(zip(
                     self._mesh.axis_names, self._mesh.shape))))
         gauges = {}
+        if learner is not None and hasattr(learner, "memory_gauges"):
+            gauges["wave_working_set"] = learner.memory_gauges()
         if learner is not None:
             gauges["learner"] = type(learner).__name__
+            # the batched-extras reserve: counters["stall_extras"] is its
+            # use against this per-tree cap (JAX `gbdt.py:974-985`)
+            if hasattr(learner, "_extras_cap"):
+                gauges["stall_extras_cap"] = int(learner._extras_cap)
+                gauges["stall_vec_cap"] = int(learner._vec_cap)
         mesh = self._mesh
         return tel.report(
             extra_gauges=gauges,

@@ -31,6 +31,7 @@ categorical bin mapper and stay out of EFB bundles.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -574,8 +575,15 @@ class _ConstructedDataset:
         self.config = cfg
         chunk_rows = max(int(cfg.stream_chunk_rows), 1)
 
+        # each chunk of both passes is a span on the run's recorder
+        # (``engine.train`` registers it before the dataset is read; None
+        # when tracing is off: nothing is recorded)
+        from .observability.trace import get_global_tracer
+        tracer = get_global_tracer()
+
         sample_idx = self._sample_indices(n, cfg)
         parts: List[np.ndarray] = []
+        t0 = time.perf_counter() if tracer is not None else 0.0
         for start, mat, _ in iter_data_chunks(path, params, chunk_rows,
                                               info=info):
             if sample_idx is None:
@@ -585,6 +593,12 @@ class _ConstructedDataset:
                 hi = np.searchsorted(sample_idx, start + len(mat))
                 if hi > lo:
                     parts.append(mat[sample_idx[lo:hi] - start])
+            if tracer is not None:
+                tracer.add_complete(
+                    "ingest.sample_chunk", t0, time.perf_counter() - t0,
+                    cat="ingest",
+                    args={"start": int(start), "rows": int(len(mat))})
+                t0 = time.perf_counter()
         sample = np.concatenate(parts, axis=0) if parts \
             else np.zeros((0, f), dtype=np.float64)
         parts = []
@@ -618,6 +632,7 @@ class _ConstructedDataset:
         self.bins = np.zeros((fu_pad, self.num_data_padded), dtype=dtype)
         labels = np.zeros(n_local, dtype=np.float64)
         dst = 0
+        t0 = time.perf_counter() if tracer is not None else 0.0
         for start, mat, lab in iter_data_chunks(path, params, chunk_rows,
                                                 info=info):
             lo = np.searchsorted(owned, start)
@@ -632,6 +647,12 @@ class _ConstructedDataset:
                     m.values_to_bins(sub[:, j]).astype(dtype)
             labels[dst:dst + len(rows)] = lab[rows]
             dst += len(rows)
+            if tracer is not None:
+                tracer.add_complete(
+                    "ingest.bin_chunk", t0, time.perf_counter() - t0,
+                    cat="ingest",
+                    args={"start": int(start), "owned": int(len(rows))})
+                t0 = time.perf_counter()
         if dst != n_local:
             raise ValueError(f"stream produced {dst} owned rows, expected "
                              f"{n_local}: the file changed during the load?")

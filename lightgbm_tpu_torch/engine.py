@@ -487,13 +487,19 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
         train_set.set_feature_name(feature_name)
     if categorical_feature != "auto":
         train_set.set_categorical_feature(categorical_feature)
-    booster = Booster(params=params, train_set=train_set)
-    gbdt = booster.gbdt
+    # the span recorder exists, and is registered process-wide, before the
+    # Booster is built: a streamed dataset is read while the Booster is
+    # built, before its Telemetry exists, and its ``ingest.*`` spans reach
+    # the run's trace through the registration (JAX `engine.py:440-451`)
     tracer = None
     if cfg.trace_out:
-        from .observability import TraceRecorder
-        tracer = gbdt.telemetry.tracer = TraceRecorder(
-            True, capacity=cfg.trace_capacity)
+        from .observability import TraceRecorder, set_global_tracer
+        tracer = TraceRecorder(True, capacity=cfg.trace_capacity)
+        set_global_tracer(tracer)
+    booster = Booster(params=params, train_set=train_set)
+    gbdt = booster.gbdt
+    if tracer is not None:
+        gbdt.telemetry.tracer = tracer
     if init_booster is not None:
         _continue_training(booster, init_booster)
 
@@ -615,9 +621,10 @@ def train(params: Dict, train_set: Dataset, num_boost_round: int = 100,
         gbdt._flush_pending()                # the queued trees' spans
         # ``<trace_out>.rank<r>`` in a pod, the handshake in its otherData
         # for ``podtrace.merge_pod_trace``
-        from .observability import podtrace
+        from .observability import podtrace, set_global_tracer
         podtrace.export_rank_trace(tracer, cfg.trace_out,
                                    net=booster._mh_net, clock=clock)
+        set_global_tracer(None)
     if booster._mh_net is not None:
         booster._mh_net.close()
     return booster

@@ -392,6 +392,16 @@ class WaveTreeLearner(CompactTreeLearner):
         self._grow_n = torch.zeros(1, dtype=torch.int64, device=device) \
             if self._telem else None
 
+    def memory_gauges(self) -> dict:
+        """The working-set byte breakdown for the telemetry report's
+        ``gauges.wave_working_set``: ``wave_transient_bytes``, the formula
+        the eligibility gate uses, over this learner's own dimensions (its
+        rows, which a sharded learner's shard holds, its packed columns,
+        histogram bins and columns)."""
+        return wave_transient_bytes(self.cfg, self.n_pad, self.fw * 4,
+                                    self._hist_nbins, self.has_categorical,
+                                    self._hist_cols)
+
     def _init_wave_dims(self, cfg: Config) -> None:
         """Slot and pool sizing, as ``learner_wave.py:_init_wave_dims``:
         growth performs at most ``grow_budget`` splits and the replay

@@ -201,6 +201,9 @@ _CAPTURE_LOCK = threading.RLock()
 #: replica replays and synchronises on, and the replica's work would be
 #: recorded into the capture or its synchronisation would fail.
 _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+#: CUDA graphs captured in this process so far (``capture``); the analysis
+#: gate's recompile sentinel fingerprints it
+captures = 0
 
 
 def count(fn, attr: str = "launches", n: int = 1) -> None:
@@ -236,6 +239,7 @@ def capture(graph: "torch.cuda.CUDAGraph", fn, pool, mode: str,
     stream's work first, and the calling stream for the capture's after,
     so no device-wide synchronisation is needed.  A pass that cannot be
     captured raises."""
+    global captures
     dev = torch.device("cuda") if device is None else torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -253,6 +257,7 @@ def capture(graph: "torch.cuda.CUDAGraph", fn, pool, mode: str,
                 finally:
                     graph.capture_end()
             caller.wait_stream(side)
+            captures += 1
     finally:
         _CAPTURING.tally = prev
     return out, tally

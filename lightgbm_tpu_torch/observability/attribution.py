@@ -38,7 +38,7 @@ import json
 import os
 import re
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 #: legs the profiler parse speaks in
 LEGS = ("hist", "scan", "partition", "replay", "flush")
@@ -69,6 +69,33 @@ def force_sync(*tensors: Any) -> None:
             if isinstance(t, torch.Tensor) and t.is_cuda}
     for d in devs:
         torch.cuda.synchronize(d)
+
+
+def timeit(fn: Callable, *args: Any, iters: int = 5, warmup: int = 2,
+           sync: Optional[Callable[[Any], None]] = None) -> float:
+    """Best-of-``iters`` seconds for one synced call of ``fn(*args)``
+    (JAX ``attribution.py:96``), after ``warmup`` untimed calls.  The
+    default sync is ``force_sync`` over the result's tensors
+    (``torch.cuda.synchronize`` on each card they lie on; a CPU result is
+    ready when the call returns); ``sync`` overrides it."""
+    do_sync = sync if sync is not None else \
+        (lambda out: force_sync(*_leaves(out)))
+    for _ in range(max(warmup, 0)):
+        do_sync(fn(*args))
+    best = float("inf")
+    for _ in range(max(iters, 1)):
+        t0 = time.perf_counter()
+        do_sync(fn(*args))
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _leaves(out: Any) -> List[Any]:
+    if out is None:
+        return []
+    if isinstance(out, (tuple, list)):
+        return list(out)
+    return [out]
 
 
 class SampledSync:

@@ -46,6 +46,27 @@ def new_trace_id() -> str:
     return os.urandom(8).hex()
 
 
+# -- process-global recorder registry ----------------------------------------
+# A dataset is built (and a streamed one read chunk by chunk) before the
+# training GBDT, and so its Telemetry, exists; the streaming loader's spans
+# reach the run's recorder through this registration point (JAX
+# ``trace.py:63-80``).  ``engine.train`` registers its recorder before it
+# builds the Booster and clears it on return.
+
+_global_tracer: Optional["TraceRecorder"] = None
+
+
+def set_global_tracer(tracer: Optional["TraceRecorder"]) -> None:
+    """Register (or clear, with ``None``) the process-wide recorder."""
+    global _global_tracer
+    _global_tracer = tracer
+
+
+def get_global_tracer() -> Optional["TraceRecorder"]:
+    """The registered recorder, or None — callers must null-check."""
+    return _global_tracer
+
+
 class TraceRecorder:
     """Thread-safe ring buffer of completed spans + Chrome JSON export."""
 

@@ -15,7 +15,10 @@ grid with named axes:
     the feature coordinate;
   * ``psum`` / ``pmax`` / ``psum_scatter`` / ``all_gather`` are the
     counterparts of ``lax.psum``, ``lax.pmax``, ``lax.psum_scatter(tiled)``
-    and ``lax.all_gather``; every call is counted in ``calls`` / ``bytes``;
+    and ``lax.all_gather``; every call is counted in ``calls`` / ``bytes``,
+    and, when a list is set on ``log`` (off by default), recorded in order
+    as (op, axis, dtype, payload bytes, calling site): the record the
+    analysis gate's ``programs`` pass pins;
   * ``PlacementRules`` / ``rules_for_mode`` keep the JAX package's regex
     tables; ``place`` returns this rank's block of a global array.
 
@@ -29,7 +32,9 @@ int32 words (``ops/quant.py:pack_hist_words``).
 
 from __future__ import annotations
 
+import os
 import re
+import sys
 import time
 from datetime import timedelta
 from typing import List, Optional, Sequence, Tuple
@@ -150,6 +155,9 @@ class Mesh:
         self.calls = 0
         self.bytes = 0
         self.seconds = 0.0
+        #: the ordered collective record: None (the default) records
+        #: nothing; a list gets one ``log_entry`` per collective issued
+        self.log: Optional[list] = None
         self._groups = {}
         grid = np.arange(self.size).reshape(self.shape)
         for i, name in enumerate(self.axis_names):
@@ -202,16 +210,19 @@ class Mesh:
         x = x.contiguous()
         return (x.clone() if fresh else x), None
 
-    def _count(self, x: torch.Tensor) -> float:
+    def _count(self, x: torch.Tensor, op: str, axis) -> float:
         self.calls += 1
         self.bytes += int(x.numel()) * int(x.element_size())
+        if self.log is not None:
+            self.log.append(log_entry(op, axis, x))
         return time.perf_counter()
 
     def _reduce(self, x: torch.Tensor, axis, op) -> torch.Tensor:
         g = self._group(axis)
         if g is None:
             return x
-        t0 = self._count(x)
+        t0 = self._count(x, "pmax" if op == dist.ReduceOp.MAX else "psum",
+                         axis)
         y, home = self._stage(x, fresh=True)
         dist.all_reduce(y, op=op, group=g)
         y = y if home is None else y.to(home)
@@ -236,7 +247,7 @@ class Mesh:
         g = self._group(axis)
         if g is None:
             return x
-        t0 = self._count(x)
+        t0 = self._count(x, "psum_scatter", axis)
         d = self.axis_size(axis)
         if x.shape[dim] % d:
             raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
@@ -258,7 +269,7 @@ class Mesh:
         g = self._group(axis)
         if g is None:
             return x[None]
-        t0 = self._count(x)
+        t0 = self._count(x, "all_gather", axis)
         d = self.axis_size(axis)
         y, home = self._stage(x)
         out = torch.empty((d,) + tuple(y.shape), dtype=y.dtype,
@@ -267,6 +278,34 @@ class Mesh:
         out = out if home is None else out.to(home)
         self.seconds += time.perf_counter() - t0
         return out
+
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _frame_site(f) -> str:
+    return "%s:%d" % (os.path.relpath(f.f_code.co_filename, _PKG_DIR)
+                      .replace(os.sep, "/"), f.f_lineno)
+
+
+def log_entry(op: str, axis: Optional[str], x: torch.Tensor) -> dict:
+    """One collective of ``Mesh.log``: its op, axis (``*`` for the whole
+    mesh), operand dtype and payload bytes, and the site that issued it:
+    the first two frames outside this file and the learners' one-line
+    forwarder ``_coll`` (``path:line<-path:line``, paths in the package),
+    so a helper issued from two places counts as two sites."""
+    f = sys._getframe(1)
+    while f is not None and (f.f_code.co_filename == __file__
+                             or f.f_code.co_name == "_coll"):
+        f = f.f_back
+    site = []
+    while f is not None and len(site) < 2:
+        site.append(_frame_site(f))
+        f = f.f_back
+    return {"op": op, "axis": axis or "*",
+            "dtype": str(x.dtype).replace("torch.", ""),
+            "bytes": int(x.numel()) * int(x.element_size()),
+            "site": "<-".join(site)}
 
 
 # -- mesh construction --------------------------------------------------------

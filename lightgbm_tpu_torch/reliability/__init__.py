@@ -20,7 +20,12 @@ from . import faults
 from .degrade import AdmissionController, TenantAdmission
 from .metrics import (rel_counters, rel_get, rel_inc, rel_reset,
                       reliability_section)
+from .resume import (config_fingerprint, find_resume_snapshot,
+                     list_snapshots, prune_snapshots, save_snapshot,
+                     validate_snapshot)
 
 __all__ = ["faults", "AdmissionController", "TenantAdmission",
            "rel_inc", "rel_get", "rel_counters", "rel_reset",
-           "reliability_section"]
+           "reliability_section", "config_fingerprint",
+           "find_resume_snapshot", "list_snapshots", "prune_snapshots",
+           "save_snapshot", "validate_snapshot"]

@@ -89,6 +89,37 @@ def test_report_equals_jax(loop):
     assert rt["provenance"]["emulated"] is True
 
 
+@pytest.mark.parametrize("quant", [False, True])
+def test_wave_gauges_equal_jax(quant):
+    """The wave learner's gauges, as the JAX report carries them: the
+    batched-stall caps equal the JAX learner's, and ``wave_working_set`` is
+    the port's own ``wave_transient_bytes`` (no leaf lookup table, so its
+    terms are the port's) over the learner's dimensions.  The compact
+    learner reports no working set, in both packages."""
+    from lightgbm_tpu_torch.learner_wave import wave_transient_bytes
+    X, y = _problem()
+    params = dict(_BASE, telemetry=True)
+    if quant:
+        params["tpu_quantized_grad"] = "on"
+    bst = {lib: _booster(lib, params, X, y, 2) for lib in (lj, lt)}
+    gj, gt = (bst[lib].get_telemetry()["gauges"] for lib in (lj, lt))
+    assert set(gt) == set(gj) == {"learner", "wave_working_set",
+                                  "stall_extras_cap", "stall_vec_cap"}
+    assert gt["stall_extras_cap"] == gj["stall_extras_cap"] > 0
+    assert gt["stall_vec_cap"] == gj["stall_vec_cap"] > 0
+    w = bst[lt].gbdt.learner
+    d = bst[lt].gbdt.train_data
+    assert gt["wave_working_set"] == wave_transient_bytes(
+        w.cfg, d.num_data_padded, d.bins.shape[0], d.max_num_bin,
+        hist_cols=d.num_used_features)
+    assert (gt["wave_working_set"]["quant_state_bytes"] > 0) == quant
+    assert gj["wave_working_set"]["total_bytes"] > 0
+    comp = {lib: _booster(lib, dict(params, tpu_learner="compact"), X, y,
+                          1).get_telemetry()["gauges"] for lib in (lj, lt)}
+    assert "wave_working_set" not in comp[lt]
+    assert set(comp[lt]) == set(comp[lj])
+
+
 def test_compact_learner_reports_its_splits():
     X, y = _problem()
     params = dict(_BASE, telemetry=True, tpu_learner="compact")
