@@ -248,7 +248,8 @@ line and each raising (exit code 1) on any failure:
              63-leaf model rolled out with promote_rolling under traffic
              and rolled back; one Autopilot cycle on traffic with feature 0
              moved by 6 standard deviations: a 3-round refit on the card
-             from the 1M training rows (the wave kernels launched, its split
+             from the 1M training rows (a FindBin sample of 50,000 rows, for
+             the time limit; the wave kernels launched, its split
              passes captured while the replicas replay), shadowed and
              rolled out to both replicas; every response within rtol =
              atol = 1e-6 of the host trees of a version live while it was
@@ -259,9 +260,11 @@ line and each raising (exit code 1) on any failure:
              percentiles, per-replica dispatch and ejections, graph
              replays, the refit's binning and seconds per iteration, the
              promotion's and the phase's seconds
-  cli        the bench's 1M training and 100,000 held-out rows written as
+  cli        the bench's first 100,000 training rows (a tenth, for the
+             time limit) and 100,000 held-out rows written as
              CSV (repr floats, eight spawned writers), 5 iterations of the
-             default config through lightgbm_tpu_torch.cli.main (the wave
+             default config with a FindBin sample of 50,000 rows through
+             lightgbm_tpu_torch.cli.main (the wave
              learner's kernels launched; parse, bin and train seconds),
              task=predict on the held-out file equal to Booster.predict
              written the same way, task=convert_model (five PredictTree
@@ -319,7 +322,7 @@ line and each raising (exit code 1) on any failure:
              same without the held-out set (pipelined): no record read in
              the loop, the first tree's model text equal, AUC within 1e-3,
              the flush's host assembly of the categorical trees timed
-  categorical_2047 categorical data past 1,024 bins: 200,000 Expo-shaped
+  categorical_2047 categorical data past 1,024 bins: 100,000 Expo-shaped
              rows whose Origin column has 2,500 categories, max_bin=2047
              (the masked learner, uint16 codes, B > 1,024), trained 3
              iterations on the card with split_cat launched, its first 256
@@ -347,12 +350,18 @@ line and each raising (exit code 1) on any failure:
              iterations on the bench rows (texts equal, equal to a 4-rank
              RankPool's and in structure to serial's, launches equal to
              the pool's, gloo on one card; heartbeat ms, exchange_probe_ms,
-             the merged pod trace); a 2-host two_round load of 200,000
-             bench rows as CSV (mappers and codes equal one host's); 3
+             the merged pod trace); a 2-host two_round load of 100,000
+             bench rows as CSV (FindBin sample 25,000; mappers and codes
+             equal one host's); 3
              hosts heartbeating with net.crash on rank 1 (named within the
              deadline); elastic.run_host on 3 hosts over the CSV, host 1
-             killed at its 5th collective (every round done, the
-             survivors' models equal, held-out AUC within 2e-3 of serial)
+             killed at its 5th collective (every round
+             done, the survivors' models equal, held-out AUC within 2e-3 of
+             serial); the same on 3 hosts x 2 ranks (LOCAL_WORLD_SIZE=2, a
+             worker a rank), host 1's local rank 1 (global rank 3) killed:
+             host 1 gone whole with no process left, 2 x 2 after the
+             shrink, the same checks; every rank's backend, the rank that
+             named the death, each host's recovery seconds
   analysis   the analysis gate's recompile sentinel (``python -m
              lightgbm_tpu_torch.analysis``'s ``recompile`` pass) on the
              card: tiny wave, quantized and compact boosters warmed two
@@ -430,6 +439,9 @@ PHASES = ("device", "kernel", "segments", "partition", "scan", "multislot",
           "analysis", "timing")
 FW, N_FULL, NUM_BINS = 8, 1_000_448, 255
 ROWS, FEATURES, VALID_ROWS = 1_000_000, 28, 100_000
+#: the FindBin sample of the cli and fleet refit loads, for the time limit
+#: (host FindBin over the default 200,000 rows takes 18-38 s a load)
+FINDBIN_SAMPLE = 50_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM float32, outside the tensor cores
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
@@ -3821,7 +3833,8 @@ def phase_fleet(ctx) -> None:
 
         ap = Autopilot(srv, ctl, train_source, consecutive_checks=1,
                        num_boost_round=FLEET_REFIT_ROUNDS,
-                       params=dict(WAVE_PARAMS),
+                       params=dict(WAVE_PARAMS,
+                                   bin_construct_sample_cnt=FINDBIN_SAMPLE),
                        budget=RefitBudget(min_spacing_s=0.0))
         t4 = time.perf_counter()
         with timed_calls(spans):
@@ -4035,10 +4048,16 @@ def timed_calls(spans: dict):
             setattr(_ConstructedDataset, name, cm)
 
 
+#: the cli phase's training rows (a tenth of the bench's, for the time
+#: limit: its 1M rows made a 554 MB CSV)
+CLI_ROWS = 100_000
+
+
 def phase_cli(ctx) -> None:
-    """The port's CLI and its inputs at the bench width: the 1,000,000
-    training and 100,000 held-out rows written as CSV; 5 iterations of the
-    default config through ``cli.main`` (the wave learner's kernels);
+    """The port's CLI and its inputs at the bench width: the first
+    ``CLI_ROWS`` training and the 100,000 held-out rows written as CSV; 5
+    iterations of the default config with a FindBin sample of
+    ``FINDBIN_SAMPLE`` rows through ``cli.main`` (the wave learner's kernels);
     ``task=predict`` on the held-out file against ``Booster.predict``;
     ``task=convert_model``; a binary cache and ``two_round`` streaming of
     20,000 held-out rows against their in-memory dataset; ``pred_contrib``
@@ -4056,12 +4075,13 @@ def phase_cli(ctx) -> None:
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         out["write_s"] = write_csvs([
-            (f"{tmp}/train.csv", X[:ROWS], y[:ROWS]),
+            (f"{tmp}/train.csv", X[:CLI_ROWS], y[:CLI_ROWS]),
             (f"{tmp}/valid.csv", Xv, y[ROWS:]),
             (f"{tmp}/small.csv", Xv[:20_000], y[ROWS:ROWS + 20_000])])
         out["train_csv_mb"] = os.path.getsize(f"{tmp}/train.csv") / 1e6
         conf = dict(WAVE_PARAMS, task="train", data="train.csv",
                     valid="valid.csv", num_iterations=5,
+                    bin_construct_sample_cnt=FINDBIN_SAMPLE,
                     output_model="model.txt")
         with open(f"{tmp}/train.conf", "w") as fh:
             fh.write("".join(f"{k} = {v}\n" for k, v in conf.items()))
@@ -4729,7 +4749,7 @@ def phase_categorical_2047(ctx) -> None:
     from lightgbm_tpu_torch.ops.split_cat import (
         categorical_candidates, categorical_candidates_plain)
 
-    rows, cats = 200_000, 2500
+    rows, cats = 100_000, 2500
     X, y = expo_like(rows, seed=12)
     rng = np.random.RandomState(12)
     # Origin with 2,500 categories, each shifting the positive rate
@@ -6200,12 +6220,17 @@ def _shard_checks(results: dict, refs: dict, out: dict) -> None:
 #: the pod leg's iterations and the elastic leg's (the JAX drills' six)
 POD_ITERS, ELASTIC_ITERS = 3, 6
 #: the loader and elastic legs' CSV: the first rows of the bench data
-POD_CSV_ROWS = 200_000
+#: (200,000 before the 3 x 2 elastic leg; cut for the time limit)
+POD_CSV_ROWS = 100_000
 #: the CSV legs' FindBin sample (the default 200,000 would be every row;
-#: host FindBin over it takes 20 s a load)
-POD_CSV_SAMPLE = 50_000
-#: the chaos and elastic legs' collective deadline (seconds)
+#: host FindBin over it takes 20 s a load, over 50,000 about 5 s, and each
+#: elastic worker loads once an epoch)
+POD_CSV_SAMPLE = 25_000
+#: the chaos leg's collective deadline (seconds)
 POD_DEADLINE_S = 5.0
+#: the elastic legs' deadline: the two legs run together, nine workers
+#: sharing the card and the host's cores, so a rank may start later
+ELASTIC_DEADLINE_S = 10.0
 
 
 def _rank_auc(y, s) -> float:
@@ -6300,20 +6325,77 @@ def _rank_job(spec: dict) -> dict:
         out["counters"] = rel_counters()
         return out
     if job == "elastic":
-        from lightgbm_tpu_torch.elastic import run_host
+        return _elastic_agent(spec)
+    raise ValueError(f"unknown rank job {job!r}")
+
+
+def _host_workers(hostdir: str) -> list:
+    """Pids of the live elastic workers whose spec lies under ``hostdir``
+    (one host's workers of every epoch), from each process's command
+    line."""
+    import os
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read().decode(errors="replace").split("\0")
+        except OSError:
+            continue
+        if "lightgbm_tpu_torch.elastic.worker" in cmd and any(
+                a.startswith(hostdir + os.sep) for a in cmd):
+            out.append(int(pid))
+    return out
+
+
+def _elastic_agent(spec: dict) -> dict:
+    """One host's elastic agent (``elastic.run_host``) of the
+    multihost_train phase: its model and history, or the host's death;
+    the host's workers still running after it, and each worker's global
+    rank and backend in the last epoch."""
+    import glob
+    import os
+    import re
+
+    from lightgbm_tpu_torch.elastic import ElasticHostDead, run_host
+    out = {"host": spec["host"]}
+    hostdir = os.path.join(os.path.abspath(spec["workdir"]),
+                           f"h{spec['host']}")
+    t0 = time.perf_counter()
+    try:
         res = run_host(spec["params"], spec["csv"], ELASTIC_ITERS,
                        host_id=spec["host"], num_hosts=spec["hosts"],
                        workdir=spec["workdir"],
                        worker_env=spec.get("env") or {},
                        worker_timeout_s=300)
         with open(res.model_path) as fh:
-            model = fh.read()
-        return {"host": spec["host"], "model": model,
-                "history": res.history, "recoveries": res.recoveries,
-                "recovery_wall_s": res.recovery_wall_s,
-                "iterations": res.result.get("iterations"),
-                "cuda_initialized": torch.cuda.is_initialized()}
-    raise ValueError(f"unknown rank job {job!r}")
+            out["model"] = fh.read()
+        out.update(history=res.history, recoveries=res.recoveries,
+                   recovery_wall_s=res.recovery_wall_s,
+                   iterations=res.result.get("iterations"))
+        last = os.path.join(hostdir, f"e{res.history[-1]['epoch']}")
+        ranks = []
+        for path in sorted(glob.glob(os.path.join(last, "result*.json"))):
+            with open(path) as fh:
+                r = json.load(fh)
+            ranks.append({k: r.get(k) for k in ("global_rank", "local_rank",
+                                                "backend")})
+        out["ranks"] = ranks
+        verdict = os.path.join(hostdir, "e0", "verdict.json")
+        if os.path.exists(verdict):
+            with open(verdict) as fh:
+                v = json.load(fh)
+            out["dead_ranks"] = v.get("dead_ranks")
+            # the RankDeathError names the rank that raised it
+            m = re.search(r"on rank (\d+)", v.get("error", ""))
+            out["named_by_rank"] = int(m.group(1)) if m else None
+    except ElasticHostDead as e:
+        out.update(error_kind="host_dead", rc=e.rc, error=str(e)[-2000:])
+    out["wall_s"] = time.perf_counter() - t0
+    out["left_running"] = _host_workers(hostdir)
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    return out
 
 
 def _run_ranks(specs, envs, timeout_s: float) -> dict:
@@ -6375,7 +6457,7 @@ def phase_multihost_train(ctx) -> None:
             RankPool run's; the backend (gloo: one card),
             heartbeat ms, exchange_probe_ms, s per iteration and the
             merged pod trace's events;
-      (ii)  a two_round load of a 200,000-row bench CSV by 2 hosts over
+      (ii)  a two_round load of a 100,000-row bench CSV by 2 hosts over
             DistributedNet (FindBin split by feature range): the mappers
             and the owned rows' codes equal single-host's;
       (iii) 3 hosts heartbeat with net.crash:rank=1:nth=3: rank 1 exits 17,
@@ -6383,7 +6465,14 @@ def phase_multihost_train(ctx) -> None:
       (iv)  elastic.run_host on 3 emulated hosts over the CSV, 6 iterations,
             host 1's worker killed at its 5th collective: the survivors
             finish every round with equal models, AUC within 2e-3 of a
-            serial model on the same rows; the recovery's wall seconds.
+            serial model on the same rows; the recovery's wall seconds;
+      (v)   the same on 3 hosts x 2 ranks (the agents under
+            LOCAL_WORLD_SIZE=2, a worker a rank), net.crash:rank=3:nth=5
+            armed in host 1's agent: its local rank 1 dies, host 1 goes
+            down whole with no worker left, hosts 0 and 2 go on as 2 x 2
+            with the same checks; every final rank's backend (gloo: one
+            card), the rank that named the death, the dead ranks.  (iv)
+            and (v) run together, with a 10 s collective deadline.
     """
     import tempfile
 
@@ -6421,7 +6510,7 @@ def _multihost_legs(ctx, tmp: str, out: dict) -> None:
     # -- (ii) and (iii) inputs: the bench CSV and the single-host codes
     X, logit = higgs_latent(ROWS + VALID_ROWS)
     y = (logit > 0).astype(np.float64)
-    csv = os.path.join(tmp, "bench200k.csv")
+    csv = os.path.join(tmp, "bench.csv")
     t0 = time.perf_counter()
     np.savetxt(csv, np.column_stack([y[:POD_CSV_ROWS], X[:POD_CSV_ROWS]]),
                delimiter=",", fmt="%.17g")
@@ -6550,53 +6639,105 @@ def _multihost_legs(ctx, tmp: str, out: dict) -> None:
               f"multihost_train chaos: named after {res['elapsed_s']} s")
         out["chaos"][f"survivor{h}_s"] = res["elapsed_s"]
 
-    # -- (iv) elastic
-    eport = free_port()
+    # -- (iv) elastic, one rank a host, and (v) 3 hosts x 2 ranks, whose
+    # host 1 loses its local rank 1 (global rank 3); run together
+    eport, vport = free_port(), free_port()
     eparams = dict(WAVE_PARAMS, tree_learner="data", metric="none",
                    bin_construct_sample_cnt=POD_CSV_SAMPLE,
                    coordinator_address=f"127.0.0.1:{eport}",
-                   net_collective_deadline_s=POD_DEADLINE_S)
+                   net_collective_deadline_s=ELASTIC_DEADLINE_S)
     especs = [{"job": "elastic", "csv": csv, "host": h, "hosts": 3,
                "params": eparams, "workdir": os.path.join(tmp, "elastic"),
                "env": ({"LGBT_FAULTS": "net.crash:rank=1:nth=5"}
                        if h == 1 else {}),
                "out": os.path.join(tmp, f"elastic{h}.json")}
               for h in range(3)]
+    vspecs = [{"job": "elastic", "csv": csv, "host": h, "hosts": 3,
+               "params": dict(eparams,
+                              coordinator_address=f"127.0.0.1:{vport}"),
+               "workdir": os.path.join(tmp, "elastic_l2"),
+               "env": ({"LGBT_FAULTS": "net.crash:rank=3:nth=5"}
+                       if h == 1 else {}),
+               "out": os.path.join(tmp, f"elastic_l2_{h}.json")}
+              for h in range(3)]
     t0 = time.perf_counter()
-    el = _run_ranks(especs, [{}] * 3, 400)
-    out["elastic"] = {"wall_s": time.perf_counter() - t0}
-    check(el[1][0] != 0, "multihost_train elastic: host 1's agent finished")
-    models = []
-    for h in (0, 2):
-        rc, res, tail = el[h]
-        check(rc == 0 and res is not None,
-              f"multihost_train elastic host {h} failed (rc={rc}):\n{tail}")
-        check(res["iterations"] == ELASTIC_ITERS
-              and [e["members"] for e in res["history"]]
-              == [[0, 1, 2], [0, 2]] and res["recoveries"] == 1,
-              f"multihost_train elastic host {h}: {res['history']}, "
-              f"{res['iterations']} iterations")
-        check(res["cuda_initialized"] is False,
-              "multihost_train elastic: a controller initialized CUDA")
-        out["elastic"][f"host{h}_recovery_wall_s"] = res["recovery_wall_s"]
-        models.append(res["model"])
-    check(models[0] == models[1], "multihost_train elastic: the survivors' "
-          "models differ")
+    both = _run_ranks(especs + vspecs,
+                      [{}] * 3 + [{"LOCAL_WORLD_SIZE": "2"}] * 3, 400)
+    out["elastic_legs_wall_s"] = time.perf_counter() - t0
+    el = {h: both[h] for h in range(3)}
+    ev = {h: both[3 + h] for h in range(3)}
+
+    def leg(runs, **kw):
+        return dict(kw, rows=POD_CSV_ROWS, deadline_s=ELASTIC_DEADLINE_S,
+                    wall_s=max((res or {}).get("wall_s", 0.0)
+                               for _, res, _ in runs.values()))
+
+    out["elastic"] = leg(el)
+    sec = out["elastic_2_ranks_a_host"] = leg(ev, ranks_per_host=2)
     # the serial model on the same rows: the single-host load above has
     # the workers' bin config
     sparams = dict(WAVE_PARAMS, metric="none",
                    bin_construct_sample_cnt=POD_CSV_SAMPLE)
     sbst = lt.train(sparams, lt.Dataset._from_constructed(single, sparams),
                     ELASTIC_ITERS, verbose_eval=False)
-    ebst = lt.Booster(model_str=models[0])
-    yv = ctx["yv"]
-    auc_s = _rank_auc(yv, sbst.predict(ctx["Xv"]))
-    auc_e = _rank_auc(yv, ebst.predict(ctx["Xv"]))
-    out["elastic"].update(heldout_auc=auc_e, serial_heldout_auc=auc_s,
-                          trees=ebst.num_trees())
-    check(ebst.num_trees() == ELASTIC_ITERS and abs(auc_e - auc_s) < 2e-3,
-          f"multihost_train elastic: AUC {auc_e} vs serial {auc_s}")
+    auc_s = _rank_auc(ctx["yv"], sbst.predict(ctx["Xv"]))
+    _elastic_checks("elastic", el, out["elastic"], auc_s, ctx)
+    _elastic_checks("elastic 3 x 2", ev, sec, auc_s, ctx)
+    for h in (0, 2):
+        res = ev[h][1]
+        sec[f"host{h}_ranks"] = res["ranks"]
+        sec[f"host{h}_named_by_rank"] = res.get("named_by_rank")
+        check(sorted(r["global_rank"] for r in res["ranks"])
+              == ([0, 1] if h == 0 else [2, 3])
+              and all(r["backend"] == "gloo" for r in res["ranks"]),
+              f"multihost_train elastic 3 x 2 host {h}: ranks {res['ranks']}")
+        check(res.get("dead_ranks") is not None
+              and 3 in res["dead_ranks"],
+              f"multihost_train elastic 3 x 2 host {h}: dead ranks "
+              f"{res.get('dead_ranks')}")
     out["phase_s"] = time.perf_counter() - t_phase
+
+
+def _elastic_checks(tag: str, runs: dict, sec: dict, auc_s: float,
+                    ctx) -> None:
+    """An elastic leg of 3 hosts that loses host 1: host 1's agent reports
+    its host dead by its worker's exit 17, with no worker left; hosts 0
+    and 2 finish every round with the history [[0, 1, 2], [0, 2]], one
+    recovery, no worker left, CUDA never initialized in an agent, equal
+    models, held-out AUC within 2e-3 of the serial model's ``auc_s``."""
+    import lightgbm_tpu_torch as lt
+
+    rc1, res1, tail1 = runs[1]
+    check(rc1 == 0 and res1 is not None
+          and res1.get("error_kind") == "host_dead" and res1["rc"] == 17,
+          f"multihost_train {tag}: host 1's agent (rc={rc1}): {res1}\n"
+          f"{tail1}")
+    check(res1["left_running"] == [] and res1["cuda_initialized"] is False,
+          f"multihost_train {tag}: host 1 left {res1['left_running']}")
+    models = []
+    for h in (0, 2):
+        rc, res, tail = runs[h]
+        check(rc == 0 and res is not None and "model" in res,
+              f"multihost_train {tag} host {h} failed (rc={rc}): {res}\n"
+              f"{tail}")
+        check(res["iterations"] == ELASTIC_ITERS
+              and [e["members"] for e in res["history"]]
+              == [[0, 1, 2], [0, 2]] and res["recoveries"] == 1,
+              f"multihost_train {tag} host {h}: {res['history']}, "
+              f"{res['iterations']} iterations")
+        check(res["cuda_initialized"] is False and res["left_running"] == [],
+              f"multihost_train {tag} host {h}: CUDA initialized in the "
+              f"agent or workers left {res['left_running']}")
+        sec[f"host{h}_recovery_wall_s"] = res["recovery_wall_s"]
+        models.append(res["model"])
+    check(models[0] == models[1], f"multihost_train {tag}: the survivors' "
+          "models differ")
+    ebst = lt.Booster(model_str=models[0])
+    auc_e = _rank_auc(ctx["yv"], ebst.predict(ctx["Xv"]))
+    sec.update(heldout_auc=auc_e, serial_heldout_auc=auc_s,
+               trees=ebst.num_trees())
+    check(ebst.num_trees() == ELASTIC_ITERS and abs(auc_e - auc_s) < 2e-3,
+          f"multihost_train {tag}: AUC {auc_e} vs serial {auc_s}")
 
 
 def phase_analysis(ctx) -> None:

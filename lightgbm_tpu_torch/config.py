@@ -368,7 +368,8 @@ class Config:
     elastic: bool = False
     # recovery budget: terminal failure after this many shrinks
     elastic_max_recoveries: int = 3
-    # terminal structured failure when the survivor count drops below this
+    # terminal structured failure when the surviving hosts drop below this
+    # (a count of hosts, as the JAX package counts processes)
     elastic_min_ranks: int = 1
     # membership generation counter (INTERNAL — stamped by the controller
     # into each epoch's worker config; 0 = the original membership)
@@ -873,8 +874,7 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 # The Queue A titles of ROADMAP.md.  Every one of these items is ported; the
 # titles stay because the tests hold the refusals of earlier slices, and the
-# titles they name, against ROADMAP.md Queue A, and a refusal of a later
-# slice names its own item (``parallel/multihost.py:ELASTIC_LOCAL``).
+# titles they name, against ROADMAP.md Queue A.
 BREADTH = "objective, metric and feature breadth"
 PARALLEL = "multi-GPU and multi-host"
 SURFACE = "predict and the user surface"
@@ -887,8 +887,7 @@ def check_supported(cfg: Config) -> None:
     is silently ignored.  The telemetry, trace, profiler, snapshot, resume
     and fault-injection keys train (``engine.train``), and so do
     ``num_machines``, ``num_hosts`` and ``elastic`` (a pod joins in
-    ``parallel/multihost.py``, which refuses only ``elastic`` with several
-    ranks a host)."""
+    ``parallel/multihost.py``)."""
     if cfg.tree_learner not in ("serial", "data", "feature", "voting",
                                 "data_feature"):
         raise ValueError(f"tree_learner must be one of serial, data, "

@@ -9,10 +9,15 @@ lives in epoch k's global rank 0 process and serves until that process
 exits, which is the window the negotiation uses (the window
 ``DistributedNet._missing_report`` already relies on to name dead ranks).
 
+A host runs ``L`` ranks (``LOCAL_WORLD_SIZE``; one a card), and the host is
+the unit of membership, as a JAX host is one process: global rank ``r`` of
+epoch k is on host ``members[r // L]``, so one dead rank takes its host out
+of epoch k+1.  Each host negotiates through its local rank 0.
+
 Protocol (keys under ``elastic/e<k+1>/``):
 
-  1. every survivor posts ``ack/h<host>`` = the dead-rank set it observed,
-     translated to host ids;
+  1. every surviving host posts ``ack/h<host>`` = the dead-rank set it
+     observed, translated to host ids;
   2. the anchor, the lowest-host-id survivor, waits for every proposed
      member's ack under the deadline; a proposed member that never acks is
      declared dead too (a failure during recovery), then the anchor posts
@@ -91,18 +96,21 @@ def _get(store, key: str, deadline_s: float) -> bytes:
 def negotiate_next_epoch(current: MembershipEpoch, my_host: int,
                          dead_ranks: Sequence[int],
                          deadline_s: float = 20.0,
-                         store=None) -> MembershipEpoch:
+                         store=None,
+                         ranks_per_host: int = 1) -> MembershipEpoch:
     """Agree epoch k+1's membership among epoch k's survivors (the protocol
-    in the module docstring).  ``dead_ranks`` are epoch-k ranks from the
-    ``RankDeathError``; returns the canonical next epoch.  Raises
-    ``ConnectionError`` when the control plane is lost (the anchor dead or
-    the store gone)."""
+    in the module docstring).  ``dead_ranks`` are epoch-k global ranks from
+    the ``RankDeathError``, ``ranks_per_host`` the pod's ``L``; returns the
+    canonical next epoch.  Raises ``ConnectionError`` when the control
+    plane is lost (the anchor dead or the store gone)."""
     if store is None:
         store = _store()
     nxt = int(current.epoch) + 1
     prefix = f"elastic/e{nxt}"
-    dead_hosts = sorted({int(current.members[r]) for r in dead_ranks
-                         if 0 <= int(r) < len(current.members)})
+    per = max(int(ranks_per_host), 1)
+    dead_hosts = sorted({int(current.members[int(r) // per])
+                         for r in dead_ranks
+                         if 0 <= int(r) < len(current.members) * per})
     proposed = [h for h in current.members if h not in dead_hosts]
 
     store.set(f"{prefix}/ack/h{int(my_host)}",

@@ -56,9 +56,6 @@ ENV_COORDINATOR = "LGBT_COORDINATOR"
 ENV_NUM_HOSTS = "LGBT_NUM_HOSTS"
 ENV_PROCESS_ID = "LGBT_PROCESS_ID"
 
-#: the Queue A item that brings elastic training with several ranks a host
-ELASTIC_LOCAL = "elastic training with several ranks per host"
-
 _initialized = False
 _store = None
 _layout: Optional[Tuple[int, int, int]] = None
@@ -72,8 +69,9 @@ class RankDeathError(ConnectionError):
     working; the elastic controller (``elastic/``) catches this type to
     tell "a peer died, shrink and continue" from "the store itself is
     unreachable" (a plain ``ConnectionError``: the control plane is gone).
-    ``dead_ranks`` are ranks of the current membership epoch; ``epoch`` is
-    that epoch's generation (0 outside elastic runs)."""
+    ``dead_ranks`` are global ranks of the current membership epoch
+    (``process_id * L + LOCAL_RANK``); ``epoch`` is that epoch's generation
+    (0 outside elastic runs)."""
 
     def __init__(self, message: str, dead_ranks=(), epoch: int = 0):
         super().__init__(message)
@@ -153,10 +151,6 @@ def initialize_from_config(cfg=None, device=None) -> bool:
         return True
     coord, nhosts, pid = spec
     local, lrank = _local()
-    if bool(getattr(cfg, "elastic", False)) and local > 1:
-        from ..config import not_ported
-        raise not_ported(f"elastic=true with LOCAL_WORLD_SIZE={local}",
-                         ELASTIC_LOCAL)
     rank, world = pid * local + lrank, nhosts * local
     host, _, port = coord.rpartition(":")
     timeout = sharding.group_timeout(cfg)

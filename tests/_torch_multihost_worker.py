@@ -15,7 +15,8 @@ the port, never JAX.  The spec (one JSON argument) picks a job:
     clause kills this rank (exit 17) or a peer's death surfaces as the
     named error; survivors report it, its latency and the counters;
   * ``elastic`` — one host's agent: ``elastic.run_host`` through every
-    membership epoch; reports the model, the history and the counters;
+    membership epoch, ``local`` ranks a host; reports the model, the
+    history, the counters and the host's workers still running;
   * ``socket`` — a ``SocketNet`` rank binning its mod-dealt shard of a
     file (``distributed_construct``).
 
@@ -164,13 +165,35 @@ def _job_chaos(spec):
     return out
 
 
+def live_workers(hostdir):
+    """Pids of the live elastic workers whose spec lies under ``hostdir``
+    (one host's workers of every epoch), from each process's command
+    line."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read().decode(errors="replace").split("\0")
+        except OSError:
+            continue
+        if "lightgbm_tpu_torch.elastic.worker" in cmd and any(
+                a.startswith(hostdir + os.sep) for a in cmd):
+            out.append(int(pid))
+    return out
+
+
 def _job_elastic(spec):
-    """One host's agent: ``run_host`` through every epoch; never joins a
-    process group itself."""
+    """One host's agent: ``run_host`` through every epoch, with ``local``
+    ranks a host (``LOCAL_WORLD_SIZE`` in the agent's environment); never
+    joins a process group itself."""
     from lightgbm_tpu_torch.elastic import (ElasticHostDead,
                                             ElasticTerminalError, run_host)
     from lightgbm_tpu_torch.reliability.metrics import rel_counters
 
+    if spec.get("local"):
+        os.environ["LOCAL_WORLD_SIZE"] = str(int(spec["local"]))
     params = pod_params("data", elastic=True, device_type="cpu",
                         elastic_min_ranks=int(spec.get("min_ranks", 1)),
                         elastic_max_recoveries=3,
@@ -210,6 +233,8 @@ def _job_elastic(spec):
     import torch
     out["cuda_initialized"] = torch.cuda.is_initialized()
     out["rel_counters"] = rel_counters()
+    out["left_running"] = live_workers(
+        os.path.join(os.path.abspath(spec["workdir"]), f"h{spec['rank']}"))
     return out
 
 

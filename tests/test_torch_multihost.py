@@ -6,8 +6,8 @@ the LGBT_* environment and ``LOCAL_WORLD_SIZE`` / ``LOCAL_RANK``, joined
 over gloo on 127.0.0.1.  Held here:
 
   * (a) the contract: ``resolve_multihost`` gives the JAX package's tuples
-    and errors, ``host_layout`` and the refusal of elastic with several
-    ranks a host;
+    and errors, ``host_layout``, and the layout of an elastic pod with
+    several ranks a host;
   * (b) 2 hosts x 2 ranks train ``data`` and ``data_feature`` for six
     iterations: every rank's model the same, equal to a 4-rank ``RankPool``
     run and held against JAX ``train`` on a 4-device mesh (structure equal,
@@ -159,18 +159,37 @@ def test_rank_death_error_and_uninitialized_net(no_mh_env):
 
 def test_elastic_with_several_local_ranks_is_refused(no_mh_env,
                                                      monkeypatch):
-    """This slice runs elastic pods one rank a host: more raises, naming
-    its ROADMAP.md Queue A item, before any store is started."""
+    """Elastic pods run several ranks a host now: under ``elastic=true`` and
+    ``LOCAL_WORLD_SIZE=2`` the layout resolves to ``(2, pid, 2)`` and the
+    rank to ``pid * 2 + LOCAL_RANK`` (the store and the group stubbed, so
+    none is started)."""
+    import torch.distributed as dist
+
+    from lightgbm_tpu_torch.parallel import sharding
+    joined = {}
+
+    def fake_store(host, port, world, is_master, **kw):
+        joined["store"] = (host, port, world, is_master)
+        return "store"
+
+    def fake_group(store, rank, world, device, timeout):
+        joined["group"] = (store, rank, world)
+
+    monkeypatch.setattr(dist, "TCPStore", fake_store)
+    monkeypatch.setattr(sharding, "init_group", fake_group)
+    for name, value in (("_initialized", False), ("_store", None),
+                        ("_layout", None)):
+        monkeypatch.setattr(multihost, name, value)
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
-    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "1")
     cfg = Config.from_params({"coordinator_address": "127.0.0.1:1",
-                              "num_hosts": 2, "process_id": 0,
+                              "num_hosts": 2, "process_id": 1,
                               "elastic": True})
-    with pytest.raises(NotImplementedError,
-                       match="Queue A: elastic training with several ranks "
-                             "per host"):
-        multihost.initialize_from_config(cfg)
-    assert not multihost.is_initialized()
+    assert multihost.initialize_from_config(cfg)
+    assert multihost.host_layout() == (2, 1, 2)
+    assert multihost.host_rank() == 1
+    assert joined == {"store": ("127.0.0.1", 1, 4, False),
+                      "group": ("store", 3, 4)}
 
 
 # -- (b) the 2 x 2 pod --------------------------------------------------------
